@@ -1,0 +1,1058 @@
+"""MemorySystem: the orchestrator of the PyTorch/CUDA port, classic path.
+
+Counterpart of ``lazzaro_tpu/core/memory_system.py`` with the configuration
+``serve_fused=False, ingest_fused=False, ingest_dedup_fused=False``: a chat
+turn runs the super-node gate (top-1 over super rows) and the ANN search
+(top-``ann_limit``) through the masked top-k kernel; a conversation end
+extracts facts, probes them for duplicates with one batched top-1 search,
+adds the new ones, links them (same-shard and any-shard scans) and decays,
+prunes and evicts. ``search_memories`` is one kernel launch.
+
+State lives in memory only in this slice: there is no store, no turn or
+fact journal and no snapshot. ``switch_user`` keeps each tenant's host graph
+in memory and leaves its arena rows in place. Unported paths raise
+``NotImplementedError`` naming their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, List, Optional, Set, Tuple
+
+import numpy as np
+
+from lazzaro_tpu_torch.config import MemoryConfig
+from lazzaro_tpu_torch.core.buffer_graph import BufferGraph
+from lazzaro_tpu_torch.core.index import MemoryIndex
+from lazzaro_tpu_torch.core.memory_shard import MemoryShard
+from lazzaro_tpu_torch.core.profile import Profile
+from lazzaro_tpu_torch.core.providers import (HashingEmbedder, HeuristicLLM,
+                                              _extract_json_object, infer_topic)
+from lazzaro_tpu_torch.core.query_cache import QueryCache
+from lazzaro_tpu_torch.models.graph import Edge, Node
+from lazzaro_tpu_torch.utils.batching import IngestCoalescer
+from lazzaro_tpu_torch.utils.telemetry import Telemetry
+
+_logger = logging.getLogger("lazzaro_tpu_torch.memory_system")
+
+_STORE_ITEM = "Queue 1 item 7, persistent store"
+_CHECKPOINT_ITEM = "Queue 1 item 11, MemorySystem remainder and checkpoints"
+
+
+def _ensure_log_handler() -> None:
+    """One bare-message stderr handler on the package logger when neither it
+    nor the root logger is configured, so ``verbose=True`` is visible."""
+    pkg = logging.getLogger("lazzaro_tpu_torch")
+    if pkg.handlers or logging.root.handlers:
+        return
+    handler = logging.StreamHandler()
+    handler.setFormatter(logging.Formatter("%(message)s"))
+    pkg.addHandler(handler)
+    if pkg.level == logging.NOTSET:
+        pkg.setLevel(logging.INFO)
+
+
+class _TenantGraph:
+    """One tenant's host graph, parked while another tenant is active."""
+
+    def __init__(self, shards, super_nodes, edge_shard, node_shard, profile,
+                 decay_pass):
+        self.shards = shards
+        self.super_nodes = super_nodes
+        self.edge_shard = edge_shard
+        self.node_shard = node_shard
+        self.profile = profile
+        self.decay_pass = decay_pass
+
+
+class MemorySystem:
+    # Above this many arena rows the per-conversation full host sync is
+    # skipped (the arena stays authoritative).
+    _SYNC_FULL_MAX = 20_000
+
+    def __init__(
+        self,
+        enable_sharding: Optional[bool] = None,
+        enable_hierarchy: Optional[bool] = None,
+        enable_caching: Optional[bool] = None,
+        enable_async: Optional[bool] = None,
+        max_shard_size: Optional[int] = None,
+        super_node_threshold: Optional[int] = None,
+        auto_consolidate: Optional[bool] = None,
+        consolidate_every: Optional[int] = None,
+        auto_prune: Optional[bool] = None,
+        prune_threshold: Optional[float] = None,
+        max_buffer_size: Optional[int] = None,
+        load_from_disk: Optional[bool] = None,
+        db_dir: Optional[str] = None,
+        user_id: Optional[str] = None,
+        llm_provider=None,
+        embedding_provider=None,
+        store=None,
+        config: Optional[MemoryConfig] = None,
+        verbose: bool = True,
+        mesh=None,
+        device=None,
+    ):
+        """``device`` defaults to ``"cuda"`` and raises ``RuntimeError``
+        without a GPU; ``device="cpu"`` runs every kernel's plain version."""
+        self.config = config or MemoryConfig()
+        cfg = self.config
+
+        def pick(kwarg, field):
+            if kwarg is not None:
+                setattr(cfg, field, kwarg)
+            return getattr(cfg, field)
+
+        self.enable_sharding = pick(enable_sharding, "enable_sharding")
+        self.enable_hierarchy = pick(enable_hierarchy, "enable_hierarchy")
+        self.enable_caching = pick(enable_caching, "enable_caching")
+        self.enable_async = pick(enable_async, "enable_async")
+        self.max_shard_size = pick(max_shard_size, "max_shard_size")
+        self.super_node_threshold = pick(super_node_threshold, "super_node_threshold")
+        self.auto_consolidate = pick(auto_consolidate, "auto_consolidate")
+        self.consolidate_every = pick(consolidate_every, "consolidate_every")
+        self.auto_prune = pick(auto_prune, "auto_prune")
+        self.prune_threshold = pick(prune_threshold, "prune_threshold")
+        self.max_buffer_size = pick(max_buffer_size, "max_buffer_size")
+        db_dir = pick(db_dir, "db_dir")
+        self.user_id = pick(user_id, "user_id")
+        load_from_disk = pick(load_from_disk, "load_from_disk")
+        self.verbose = verbose
+
+        cfg.check_ported()
+        if mesh is not None:
+            raise NotImplementedError(
+                "MemorySystem(mesh=...): not ported to lazzaro_tpu_torch yet "
+                "(ROADMAP Queue 1 item 21, multi-device)")
+        if store is not None:
+            raise NotImplementedError(
+                f"MemorySystem(store=...): not ported yet (ROADMAP {_STORE_ITEM})")
+        if load_from_disk and os.path.isdir(db_dir) and os.listdir(db_dir):
+            raise NotImplementedError(
+                f"load_from_disk=True with data in {db_dir!r}: the port keeps "
+                f"state in memory only (ROADMAP {_STORE_ITEM})")
+
+        self.llm = llm_provider if llm_provider is not None else HeuristicLLM()
+        self.embedder = (embedding_provider if embedding_provider is not None
+                         else HashingEmbedder(dim=cfg.embed_dim))
+        dim = getattr(self.embedder, "dim", None)
+        if not isinstance(dim, int) or dim <= 0:
+            dim = len(self.embedder.embed("dimension probe"))
+        self.embed_dim = dim
+
+        self.shards: Dict[str, MemoryShard] = {}
+        self.super_nodes: Dict[str, Node] = {}
+        # O(1) placement caches: edge_key -> shard_key and node_id ->
+        # shard_key, validated on read and rebuilt on a miss.
+        self._edge_shard: Dict[Tuple[str, str], str] = {}
+        self._node_shard_cache: Dict[str, str] = {}
+        self.buffer = BufferGraph(self.shards, self.super_nodes)
+        self.profile = Profile()
+        self._parked: Dict[str, _TenantGraph] = {}
+        self.telemetry = Telemetry(cfg.serve_telemetry_window,
+                                   enabled=cfg.serve_telemetry)
+        self.index = MemoryIndex(dim, capacity=cfg.initial_capacity,
+                                 edge_capacity=cfg.max_edges,
+                                 dtype=cfg.dtype, device=device)
+        self.device = self.index.device
+        self.query_cache = QueryCache(cfg.cache_size) if self.enable_caching else None
+
+        self.short_term_memory: List[Dict] = []
+        self.conversation_history: List[Dict] = []
+        self.conversation_active = False
+        self.conversation_count = 0
+        self.node_counter = 0
+        self.consolidation_queue: List[Dict] = []
+        self._inflight_batches: List[Dict] = []   # popped, not yet ingested
+        self._deferred_batches: List[Dict] = []   # held back by the flush policy
+        self._ingest_coalescer = IngestCoalescer(cfg.ingest_coalesce_max,
+                                                 cfg.ingest_flush_wait_s)
+        # Deferred boosts of query-cache-hit chat turns:
+        # node_id -> [access_count, neighbor_count, latest_now].
+        self._pending_boosts: Dict[str, List] = {}
+        self._decay_pass = 0
+
+        # Single-writer ingest: one worker thread + one mutation lock.
+        self._mutex = threading.RLock()
+        self.background_executor = (ThreadPoolExecutor(max_workers=1)
+                                    if self.enable_async else None)
+        self.metrics = {"embedding_calls": 0, "llm_calls": 0, "edges_linked": 0}
+
+    # ------------------------------------------------------------------ util
+    def _log(self, msg: str) -> None:
+        if self.verbose:
+            _ensure_log_handler()
+            _logger.info(msg)
+
+    def _status(self, results: List[str], msg: str) -> str:
+        self._log(msg)
+        results.append(msg)
+        return msg
+
+    def _q(self, node_id: str) -> str:
+        """Tenant-qualified index key (node ids like 'node_1' repeat per user)."""
+        return f"{self.user_id}:{node_id}"
+
+    def _generate_node_id(self) -> str:
+        self.node_counter += 1
+        return f"node_{self.node_counter}"
+
+    def _infer_shard_key(self, content: str) -> str:
+        """Keyword topic routing, fallback = current month."""
+        if not self.enable_sharding:
+            return "default"
+        topic = infer_topic(content)
+        if topic != "other":
+            return topic
+        return time.strftime("%Y-%m")
+
+    def _get_or_create_shard(self, shard_key: str) -> MemoryShard:
+        if shard_key not in self.shards:
+            self.shards[shard_key] = MemoryShard(shard_key)
+        return self.shards[shard_key]
+
+    def _get_embedding(self, text: str) -> List[float]:
+        self.metrics["embedding_calls"] += 1
+        if self.query_cache:
+            cached = self.query_cache.get_embedding(text)
+            if cached:
+                return cached
+        embedding = self.embedder.embed(text)
+        if self.query_cache:
+            self.query_cache.set_embedding(text, embedding)
+        return embedding
+
+    def _batch_embed(self, texts: List[str]):
+        if not texts:
+            return []
+        self.metrics["embedding_calls"] += 1
+        return self.embedder.batch_embed(texts)
+
+    def _call_llm(self, messages: List[Dict], response_format: Optional[Dict] = None) -> str:
+        self.metrics["llm_calls"] += 1
+        return self.llm.completion(messages, response_format)
+
+    # -------------------------------------------------------- device <-> host
+    def _index_add_node(self, node: Node) -> None:
+        self.index.add(
+            [self._q(node.id)],
+            np.asarray(node.embedding, np.float32).reshape(1, -1),
+            [node.salience], [node.timestamp], [node.type],
+            [node.shard_key or "default"], self.user_id,
+            [node.is_super_node])
+
+    def _sync_from_arena(self) -> None:
+        """Refresh the mutable numerics of this tenant's host nodes and
+        edges from the arena (one bulk pull)."""
+        cols = self.index.pull_numeric()
+        for qid, row in self.index.id_to_row.items():
+            user, _, nid = qid.partition(":")
+            if user != self.user_id:
+                continue
+            node = self.buffer.get_node(nid)
+            if node is None:
+                continue
+            node.salience = float(cols["salience"][row])
+            node.last_accessed = float(cols["last_accessed"][row])
+            node.access_count = int(cols["access_count"][row])
+        for (qsrc, qtgt), (w, co) in self.index.edge_weights().items():
+            user, _, src = qsrc.partition(":")
+            if user != self.user_id:
+                continue
+            edge = self._find_edge((src, qtgt.partition(":")[2]))
+            if edge is not None:
+                edge.weight = w
+                edge.co_occurrence = co
+
+    def _shard_of_node(self, node_id: str) -> Optional[MemoryShard]:
+        sk = self._node_shard_cache.get(node_id)
+        if sk is not None:
+            shard = self.shards.get(sk)
+            if shard is not None and node_id in shard.nodes:
+                return shard
+            del self._node_shard_cache[node_id]
+        for sk, shard in self.shards.items():
+            if node_id in shard.nodes:
+                self._node_shard_cache[node_id] = sk
+                return shard
+        return None
+
+    def _find_edge(self, key: Tuple[str, str]) -> Optional[Edge]:
+        sk = self._edge_shard.get(key)
+        if sk is not None:
+            shard = self.shards.get(sk)
+            edge = shard.edges.get(key) if shard is not None else None
+            if edge is not None:
+                return edge
+            del self._edge_shard[key]
+        for sk, shard in self.shards.items():
+            edge = shard.edges.get(key)
+            if edge is not None:
+                self._edge_shard[key] = sk
+                return edge
+        return None
+
+    # --------------------------------------------------------- conversations
+    def start_conversation(self) -> str:
+        self.conversation_active = True
+        self.short_term_memory = []
+        self.conversation_history = []
+        return "✓ Conversation started"
+
+    def add_to_short_term(self, content: str, memory_type: str = "semantic",
+                          salience: float = 0.5) -> None:
+        if not self.conversation_active:
+            raise RuntimeError("No active conversation")
+        turn = {"content": content, "type": memory_type,
+                "salience": salience, "timestamp": time.time()}
+        with self._mutex:
+            self.short_term_memory.append(turn)
+
+    def end_conversation(self) -> str:
+        if not self.conversation_active:
+            return "⚠ No active conversation to end."
+        if not self.short_term_memory:
+            self.conversation_active = False
+            return "✓ Conversation ended. No memories to consolidate."
+
+        results = []
+        n_turns = len(self.short_term_memory)
+        with self._mutex:
+            self.consolidation_queue.append({
+                "memories": self.short_term_memory.copy(),
+                "timestamp": time.time(),
+            })
+            self.conversation_active = False
+            self.short_term_memory = []
+        if self.enable_async and self.background_executor:
+            self._log(f"🔄 Queueing consolidation for {n_turns} exchanges...")
+            self.background_executor.submit(self._async_consolidate)
+            self._status(results, "✓ Conversation ended (consolidation queued)")
+        else:
+            self._log(f"🔄 Consolidating {n_turns} exchanges...")
+            self._async_consolidate()
+            nodes, edges = self.buffer.size()
+            self._status(results, f"✓ Consolidation complete. Memory: {nodes} nodes, {edges} edges")
+
+        with self._mutex:
+            # Deferred cache-hit boosts land BEFORE the decay sweep.
+            self._flush_pending_boosts_locked()
+            self.index.decay(self.user_id, self.config.decay_rate,
+                             self.config.salience_floor)
+            self._decay_pass += 1
+            if self.auto_prune:
+                pruned = self._prune_weak_edges(self.prune_threshold)
+                if pruned > 0:
+                    self._status(results, f"✓ Auto-pruned {pruned} weak edges")
+            if len(self.index) <= self._SYNC_FULL_MAX:
+                self._sync_from_arena()
+        self._status(results, "✓ Applied temporal decay")
+
+        self._enforce_buffer_limit()
+        self.conversation_count += 1
+        self.short_term_memory = []
+        self.conversation_history = []
+        return "\n".join(results)
+
+    def _prune_weak_edges(self, threshold: float) -> int:
+        """Device prune + host structural cleanup; returns count removed."""
+        removed = self.index.prune_edges(self.user_id, threshold)
+        count = 0
+        for qsrc, qtgt in removed:
+            key = (qsrc.partition(":")[2], qtgt.partition(":")[2])
+            if self._find_edge(key) is not None:
+                del self.shards[self._edge_shard.pop(key)].edges[key]
+                count += 1
+        if self.query_cache:
+            self.query_cache.invalidate_results(self.user_id)
+        return count
+
+    def chat(self, user_message: str) -> str:
+        if not self.conversation_active:
+            self._log(self.start_conversation())
+
+        start_time = time.time()
+        self.add_to_short_term(user_message, "episodic", salience=0.7)
+        self.conversation_history.append({"role": "user", "content": user_message})
+
+        query_emb = self._get_embedding(user_message)
+        retrieved_ids, boost_mode = self._retrieve_for_chat(query_emb, user_message)
+        self._boost_neighbors(retrieved_ids, mode=boost_mode)
+
+        retrieval_time = (time.time() - start_time) * 1000
+        self.telemetry.record("chat.retrieval_ms", retrieval_time,
+                              labels={"tenant": self.user_id})
+
+        messages = self._assemble_messages(retrieved_ids, mode=boost_mode)
+        response = self._call_llm(messages)
+        self.add_to_short_term(response, "semantic", salience=0.5)
+        self.conversation_history.append({"role": "assistant", "content": response})
+
+        self._log(f"[{Telemetry.tier(retrieval_time)} Retrieval: "
+                  f"{retrieval_time:.0f}ms, Retrieved: {len(retrieved_ids)} nodes]")
+        return response
+
+    def _assemble_messages(self, retrieved_ids: List[str],
+                           mode: str = "classic") -> List[Dict[str, str]]:
+        """``mode`` "classic" pays the access boost here; "deferred"
+        (query-cache hits) queues it for one batched flush."""
+        context_parts = []
+        profile_context = self.profile.get_context()
+        if profile_context and profile_context != "No profile data yet.":
+            context_parts.append(f"User Profile:\n{profile_context}\n")
+
+        if retrieved_ids:
+            memory_texts = []
+            access_ids = []
+            for nid in retrieved_ids:
+                node = self.buffer.get_node(nid)
+                if node:
+                    memory_texts.append(f"- {node.content}")
+                    access_ids.append(nid)
+            if access_ids:
+                with self._mutex:
+                    if mode == "classic":
+                        self.index.update_access(
+                            [self._q(n) for n in access_ids],
+                            boost=self.config.access_salience_boost)
+                    elif mode == "deferred":
+                        now = time.time()
+                        for nid in access_ids:
+                            self._queue_boost(nid, acc=1, now=now)
+                for nid in access_ids:
+                    self.buffer.update_access(nid, self.config.access_salience_boost)
+            if memory_texts:
+                context_parts.append(
+                    "Relevant Information from Past Conversations (Use if relevant to the query):\n"
+                    + "\n".join(memory_texts) + "\n")
+
+        system_prompt = ("You are a helpful assistant with access to the user's profile "
+                         "and past memories. Use the provided context ONLY if it is relevant "
+                         "to the user's current query. Do not force the information if it "
+                         "doesn't fit naturally.")
+        messages = [{"role": "system", "content": system_prompt}]
+        if context_parts:
+            messages.append({"role": "system", "content": "\n".join(context_parts)})
+        messages.extend(self.conversation_history[-self.config.history_window:])
+        return messages
+
+    # ------------------------------------------------------------- retrieval
+    def _retrieve_for_chat(self, query_emb: List[float],
+                           query_text: str) -> Tuple[List[str], str]:
+        """``(ids, boost_mode)``: a query-cache hit costs no search and
+        defers its boosts; otherwise the classic two-search retrieval."""
+        if self.query_cache:
+            cached = self.query_cache.get_results(query_text, tenant=self.user_id)
+            if cached:
+                return cached, "deferred"
+        return self._optimized_retrieval(query_emb, query_text), "classic"
+
+    def _optimized_retrieval(self, query_emb: List[float], query_text: str) -> List[str]:
+        if self.query_cache:
+            cached = self.query_cache.get_results(query_text, tenant=self.user_id)
+            if cached:
+                return cached
+
+        q = np.asarray(query_emb, np.float32)
+        retrieved: List[str] = []
+
+        # 1. Hierarchy fast path: one masked top-1 over super-node rows.
+        if self.enable_hierarchy and self.super_nodes:
+            sids, sscores = self.index.search(q, self.user_id, k=1,
+                                              super_filter=1, exact=True)
+            if sids and sscores[0] > self.config.super_node_gate:
+                best = self.super_nodes.get(sids[0].partition(":")[2])
+                if best is not None:
+                    for child_id in best.child_ids[:self.config.hierarchy_children]:
+                        child = self.buffer.get_node(child_id)
+                        if child and not child.is_super_node:
+                            retrieved.append(child_id)
+                    if len(retrieved) >= self.config.retrieval_cap:
+                        result = retrieved[:self.config.retrieval_cap]
+                        if self.query_cache:
+                            self.query_cache.set_results(
+                                query_text, result, tenant=self.user_id)
+                        return result
+
+        # 2. Arena ANN over the non-super rows.
+        limit = self.config.ann_limit if not retrieved else self.config.retrieval_cap
+        vec_ids, _ = self.index.search(q, self.user_id, k=limit, super_filter=-1)
+        vector_ids = [v.partition(":")[2] for v in vec_ids]
+
+        seen_ids: Set[str] = set(retrieved)
+        seen_content: Set[str] = set()
+        final: List[str] = []
+        for rid in retrieved:
+            node = self.buffer.get_node(rid)
+            if node:
+                seen_content.add(node.content)
+                final.append(rid)
+        for rid in vector_ids:
+            if rid in seen_ids:
+                continue
+            node = self.buffer.get_node(rid)
+            if node and node.content not in seen_content:
+                seen_content.add(node.content)
+                final.append(rid)
+                seen_ids.add(rid)
+
+        final = final[:self.config.retrieval_cap]
+        if self.query_cache:
+            self.query_cache.set_results(query_text, final, tenant=self.user_id)
+        return final
+
+    def _boost_neighbors(self, retrieved_ids: List[str],
+                         mode: str = "classic") -> None:
+        """Associative neighbor boost, paid now ("classic") or queued
+        ("deferred"); host copies update either way."""
+        neighbors: Set[str] = set()
+        for nid in retrieved_ids:
+            neighbors.update(self.buffer.get_neighbors(nid))
+        to_boost = [n for n in neighbors if n not in set(retrieved_ids)]
+        if not to_boost:
+            return
+        now = time.time()
+        with self._mutex:
+            if mode == "classic":
+                self.index.boost([self._q(n) for n in to_boost],
+                                 self.config.neighbor_salience_boost, now)
+            elif mode == "deferred":
+                for n in to_boost:
+                    self._queue_boost(n, nbr=1, now=now)
+        for nid in to_boost:
+            node = self.buffer.get_node(nid)
+            if node:
+                node.last_accessed = now
+                node.salience = min(1.0, node.salience + self.config.neighbor_salience_boost)
+
+    def _queue_boost(self, node_id: str, acc: int = 0, nbr: int = 0,
+                     now: Optional[float] = None) -> None:
+        """Accumulate a deferred boost (callers hold ``self._mutex``)."""
+        ent = self._pending_boosts.get(node_id)
+        if ent is None:
+            ent = self._pending_boosts[node_id] = [0, 0, 0.0]
+        ent[0] += acc
+        ent[1] += nbr
+        ent[2] = max(ent[2], now if now is not None else time.time())
+        if len(self._pending_boosts) >= self.config.serve_boost_flush_max:
+            self._flush_pending_boosts_locked()
+
+    def _flush_pending_boosts(self) -> None:
+        with self._mutex:
+            self._flush_pending_boosts_locked()
+
+    def _flush_pending_boosts_locked(self) -> None:
+        """Apply every queued boost in one scatter, before anything reads
+        arena salience (decay, eviction, consolidation, host sync)."""
+        if not self._pending_boosts:
+            return
+        entries = {self._q(nid): (acc, nbr, ts)
+                   for nid, (acc, nbr, ts) in self._pending_boosts.items()}
+        self._pending_boosts.clear()
+        self.index.apply_boosts(entries, self.config.access_salience_boost,
+                                self.config.neighbor_salience_boost)
+
+    # ---------------------------------------------------------- consolidation
+    _EXTRACTION_PROMPT = """Extract distinct, atomic facts from this conversation.
+Categorization Guidelines:
+1. semantic: Stable facts, preferences, or knowledge (e.g., "User likes Python", "User lives in London").
+2. episodic: Specific events, occurrences, or recent activities (e.g., "User started a new job today", "User fixed a bug in the API").
+3. procedural: Processes, workflows, or instructions (e.g., "User follows the git-flow model", "User prefers TDD for testing").
+
+Format Rules:
+- Formulate facts in the THIRD PERSON.
+- Abstract from conversational filler.
+- If no new facts, return empty list.
+
+Return JSON: {"memories": [{"content": "...", "type": "semantic|episodic|procedural", "salience": 0.0-1.0, "topic": "work|personal|learning|health|other"}]}
+"""
+
+    def _async_consolidate(self) -> None:
+        """The consolidation worker must survive: any failure puts the
+        in-flight turns back on the queue and counts
+        ``reliability.ingest_failures``."""
+        try:
+            self._consolidate_once()
+        except Exception as e:      # noqa: BLE001 — worker must survive
+            _logger.exception("consolidation failed")
+            self._log(f"⚠ Consolidation worker error: {e!r} "
+                      f"(turns requeued for retry)")
+            self.telemetry.bump("reliability.ingest_failures")
+            self._requeue_inflight()
+
+    def _consolidate_once(self) -> None:
+        with self._mutex:
+            if not self.consolidation_queue:
+                return
+            all_memories: List[Dict] = []
+            for batch in self.consolidation_queue:
+                all_memories.extend(batch["memories"])
+            self._inflight_batches.extend(self.consolidation_queue)
+            self.consolidation_queue.clear()
+
+        start_time = time.time()
+        self._log(f"🔄 Processing {len(all_memories)} memories in background...")
+        response = self._call_llm(
+            [{"role": "system", "content": self._EXTRACTION_PROMPT},
+             {"role": "user", "content": json.dumps(all_memories)}],
+            response_format={"type": "json_object"})
+        try:
+            data = json.loads(_extract_json_object(response))
+            if isinstance(data, dict):
+                memories = data.get("memories", [])
+            elif isinstance(data, list):
+                memories = data
+            else:
+                self._log(f"⚠ Unexpected data type: {type(data)}")
+                self._requeue_inflight()
+                return
+        except json.JSONDecodeError as e:
+            self._log(f"⚠ Parse error: {e}")
+            self._requeue_inflight()
+            return
+
+        memories = [m for m in memories if isinstance(m, dict)]
+        self._log(f"✓ Extracted {len(memories)} memory candidates")
+        self._ingest_coalescer.add_conversation(memories)
+        if not self._ingest_coalescer.should_flush():
+            with self._mutex:
+                self._deferred_batches.extend(self._inflight_batches)
+                self._inflight_batches.clear()
+            self._log(f"⏳ Ingest deferred: {len(self._ingest_coalescer)} "
+                      "facts buffered by the flush policy")
+            return
+        coalesce_wait_ms = self._ingest_coalescer.oldest_age_s() * 1e3
+        mega_batches = self._ingest_coalescer.drain()
+        new_nodes: List[Tuple[str, str]] = []
+        done = 0
+        try:
+            for facts, _n_convs in mega_batches:
+                self.telemetry.record("ingest.coalesce_wait_ms", coalesce_wait_ms)
+                new_nodes.extend(self._ingest_facts(facts))
+                done += 1
+        except Exception:
+            # Un-ingested mega-batches go back to the front of the coalescer.
+            self._ingest_coalescer.requeue(mega_batches[done:])
+            with self._mutex:
+                self._deferred_batches.extend(self._inflight_batches)
+                self._inflight_batches.clear()
+            raise
+        self._finish_consolidation(new_nodes, start_time)
+
+    def _ingest_facts(self, memories: List[Dict]) -> List[Tuple[str, str]]:
+        """Stage, dedup and ingest one mega-batch of extracted facts; returns
+        the (node_id, shard_key) pairs created."""
+        contents = [m.get("content", "") for m in memories if m.get("content")]
+        embeddings = self._batch_embed(contents)
+        try:
+            emb_rows = np.asarray(embeddings, np.float32)
+            if emb_rows.ndim != 2:
+                raise ValueError
+        except (ValueError, TypeError):        # ragged/failed rows: per-item
+            emb_rows = None
+
+        with self._mutex:
+            # Stage valid facts, then resolve near-duplicates with one arena
+            # top-1 search for the whole batch (pre-batch graph) and one gram
+            # matrix on the device for duplicates within the batch.
+            staged: List[Tuple[Dict, str, np.ndarray]] = []
+            ei = 0
+            empty = np.empty((0,), np.float32)
+            for mem in memories:
+                content = mem.get("content", "")
+                if not content:
+                    continue
+                if ei < len(embeddings):
+                    new_emb = (emb_rows[ei] if emb_rows is not None
+                               else np.asarray(embeddings[ei], np.float32))
+                else:
+                    new_emb = empty
+                ei += 1
+                if len(content) < 5:
+                    continue
+                staged.append((mem, content, new_emb))
+
+            probe: List[Tuple[Optional[str], float]] = [(None, 0.0)] * len(staged)
+            probeable = [i for i, (_, _, e) in enumerate(staged)
+                         if e.size == self.embed_dim]
+            if probeable:
+                qs = np.stack([staged[i][2] for i in probeable])
+                res = self.index.search_batch(qs, self.user_id, k=1,
+                                              super_filter=-1, exact=True)
+                for i, (ids, scores) in zip(probeable, res):
+                    if ids:
+                        probe[i] = (ids[0].partition(":")[2], scores[0])
+            intra_best_col = intra_best_sim = None
+            if len(probeable) >= 2:
+                intra_best_col, intra_best_sim = self.index.best_earlier_match(
+                    np.stack([staged[i][2] for i in probeable]))
+            pos_in_probeable = {i: j for j, i in enumerate(probeable)}
+
+            new_nodes: List[Tuple[str, str]] = []
+            created: List[Node] = []
+            created_embs: List[np.ndarray] = []
+            merge_ids: List[str] = []
+            merge_sals: List[float] = []
+            fact_target: List[Optional[str]] = []
+            for fi, (mem, content, new_emb) in enumerate(staged):
+                shard_key = mem.get("topic") or self._infer_shard_key(content)
+                if shard_key == "other":
+                    shard_key = self._infer_shard_key(content)
+                shard = self._get_or_create_shard(shard_key)
+
+                target_id, best = probe[fi]
+                if intra_best_sim is not None and fi in pos_in_probeable:
+                    row = pos_in_probeable[fi]
+                    sim = float(intra_best_sim[row])
+                    if sim > best:
+                        t = fact_target[probeable[int(intra_best_col[row])]]
+                        if t is not None:
+                            target_id, best = t, sim
+                existing_node = (self.buffer.get_node(target_id)
+                                 if target_id is not None
+                                 and best > self.config.dedup_similarity
+                                 else None)
+
+                if existing_node is not None:
+                    cand_sal = float(mem.get("salience", 0.5))
+                    existing_node.salience = max(existing_node.salience, cand_sal)
+                    existing_node.last_accessed = time.time()
+                    existing_node.access_count += 1
+                    merge_ids.append(existing_node.id)
+                    merge_sals.append(cand_sal)
+                    fact_target.append(existing_node.id)
+                    self._log(f"   (Merged semantic duplicate into {existing_node.id})")
+                    continue
+
+                node_id = self._generate_node_id()
+                node = Node(
+                    id=node_id,
+                    content=content,
+                    embedding=None,          # the arena owns the vector
+                    type=mem.get("type", "semantic"),
+                    salience=float(mem.get("salience", 0.5)),
+                    shard_key=shard_key,
+                )
+                shard.add_node(node)
+                created.append(node)
+                created_embs.append(new_emb)
+                fact_target.append(node_id)
+                new_nodes.append((node_id, shard_key))
+
+            arena_new = [(n, e) for n, e in zip(created, created_embs)
+                         if e.size == self.embed_dim]
+            if arena_new:
+                self.index.add(
+                    [self._q(n.id) for n, _ in arena_new],
+                    np.stack([e for _, e in arena_new]),
+                    [n.salience for n, _ in arena_new],
+                    [n.timestamp for n, _ in arena_new],
+                    [n.type for n, _ in arena_new],
+                    [n.shard_key or "default" for n, _ in arena_new],
+                    self.user_id,
+                    [n.is_super_node for n, _ in arena_new])
+            if merge_ids:
+                self.index.merge_touch([self._q(i) for i in merge_ids], merge_sals)
+
+            # Both link scans (same-shard + any-shard) in one pass.
+            link_cands = self.index.link_candidates_multi(
+                [self._q(n) for n, _ in new_nodes], self.user_id,
+                k=self.config.cross_link_top_k,
+                shard_modes=(1, 0)) if new_nodes else {1: {}, 0: {}}
+            self._link_within_shards(new_nodes, link_cands[1],
+                                     chain=self._chain_edges(new_nodes))
+            self._link_to_existing_memories(new_nodes, link_cands[0])
+        return new_nodes
+
+    def _finish_consolidation(self, new_nodes: List[Tuple[str, str]],
+                              start_time: float) -> None:
+        self._enforce_buffer_limit()
+        if self.enable_hierarchy:
+            with self._mutex:
+                for shard_key in {sk for _, sk in new_nodes}:
+                    shard = self.shards.get(shard_key)
+                    if shard and len(shard.nodes) > self.super_node_threshold:
+                        self._create_super_nodes_for_shard(shard_key)
+        if self.query_cache:
+            self.query_cache.invalidate_results(self.user_id)
+        elapsed = time.time() - start_time
+        self.telemetry.record("consolidation.run_ms", elapsed * 1e3)
+        self._log(f"✓ Background consolidation complete ({elapsed:.2f}s)")
+        with self._mutex:
+            self._inflight_batches.clear()
+            self._deferred_batches.clear()
+
+    def _requeue_inflight(self) -> None:
+        """A consolidation attempt failed: its batches go back on the queue
+        so the next consolidation retries them."""
+        with self._mutex:
+            self.consolidation_queue = self._inflight_batches + self.consolidation_queue
+            self._inflight_batches = []
+
+    def _register_edges_host(self, edges: List[Edge]) -> None:
+        """Host half of edge insertion: shard placement and Edge objects."""
+        for edge in edges:
+            key = (edge.source, edge.target)
+            sk = self._edge_shard.get(key)
+            shard = self.shards.get(sk) if sk is not None else None
+            if shard is None or key not in shard.edges:
+                shard = self._shard_of_node(edge.source)
+                if shard is None:
+                    shard = self._get_or_create_shard("default")
+            shard.add_edge(edge, reinforce=self.config.edge_reinforce)
+            self._edge_shard[key] = shard.shard_key
+        self.metrics["edges_linked"] += len(edges)
+
+    def _add_edges_batch(self, edges: List[Edge]) -> None:
+        """Host bookkeeping per edge + one device scatter for the batch."""
+        if not edges:
+            return
+        self._register_edges_host(edges)
+        self.index.add_edges(
+            [(self._q(e.source), self._q(e.target), e.weight) for e in edges],
+            self.user_id, reinforce=self.config.edge_reinforce)
+
+    def _chain_edges(self, new_nodes: List[Tuple[str, str]]) -> List[Edge]:
+        """Consecutive same-shard new nodes chain with the chain weight."""
+        by_shard: Dict[str, List[str]] = {}
+        for node_id, shard_key in new_nodes:
+            by_shard.setdefault(shard_key, []).append(node_id)
+        batch: List[Edge] = []
+        for node_ids in by_shard.values():
+            for a, b in zip(node_ids, node_ids[1:]):
+                batch.append(Edge(source=a, target=b,
+                                  weight=self.config.chain_link_weight))
+        return batch
+
+    def _link_within_shards(self, new_nodes: List[Tuple[str, str]],
+                            cands: Dict, chain: List[Edge]) -> None:
+        """Chain edges + top-k same-shard links over the link gate
+        (weight = sim * link_weight_scale)."""
+        batch: List[Edge] = list(chain)
+        for qid, pairs in cands.items():
+            nid = qid.partition(":")[2]
+            for qcand, sim in pairs:
+                if sim > self.config.link_gate:
+                    batch.append(Edge(source=nid,
+                                      target=qcand.partition(":")[2],
+                                      weight=sim * self.config.link_weight_scale))
+        self._add_edges_batch(batch)
+
+    def _link_to_existing_memories(self, new_nodes: List[Tuple[str, str]],
+                                   cands: Dict) -> None:
+        """Top-k cross-links across all shards over the link gate, skipping
+        pairs already linked in either direction."""
+        if not new_nodes:
+            return
+        batch: List[Edge] = []
+        staged: Set[Tuple[str, str]] = set()
+        for qid, pairs in cands.items():
+            nid = qid.partition(":")[2]
+            for qcand, sim in pairs:
+                if sim <= self.config.link_gate:
+                    continue
+                cand = qcand.partition(":")[2]
+                exists = ((nid, cand) in staged or (cand, nid) in staged
+                          or any((nid, cand) in s.edges or (cand, nid) in s.edges
+                                 for s in self.shards.values()))
+                if not exists:
+                    batch.append(Edge(source=nid, target=cand,
+                                      weight=sim * self.config.link_weight_scale))
+                    staged.add((nid, cand))
+        self._add_edges_batch(batch)
+        if batch:
+            self._log(f"✓ Created {len(batch)} cross-conversation links")
+
+    def _create_super_nodes_for_shard(self, shard_key: str) -> None:
+        shard = self.shards[shard_key]
+        if len(shard.nodes) < self.super_node_threshold:
+            return
+        if any(n.shard_key == shard_key for n in self.super_nodes.values()):
+            return
+        nodes = list(shard.nodes.values())
+        super_id = f"super_{shard_key}_{int(time.time())}"
+        samples = [n.content for n in nodes[:3]]
+        aggregated = f"Topic: {shard_key}. Contains memories about: " + "; ".join(samples)
+        # Centroid on the device: normalized mean of the children.
+        avg = self.index.mean_embedding([self._q(n.id) for n in nodes])
+        super_node = Node(
+            id=super_id,
+            content=aggregated,
+            embedding=avg.tolist(),
+            type="semantic",
+            is_super_node=True,
+            child_ids=[n.id for n in nodes],
+            shard_key=shard_key,
+        )
+        for node in nodes:
+            node.parent_id = super_id
+        self.super_nodes[super_id] = super_node
+        self._index_add_node(super_node)
+        self._log(f"  ✓ Created super-node {super_id} with {len(nodes)} children")
+
+    def _enforce_buffer_limit(self) -> None:
+        with self._mutex:
+            nodes, _ = self.buffer.size()
+            if nodes <= self.max_buffer_size:
+                return
+            self._flush_pending_boosts_locked()
+            excess = nodes - self.max_buffer_size
+            removed_ids = []
+            for qid, _imp in self.index.evict_candidates(self.user_id, excess)[:excess]:
+                nid = qid.partition(":")[2]
+                node = self.buffer.get_node(nid)
+                if node is None or node.is_super_node:
+                    continue
+                shard = self.shards.get(node.shard_key)
+                if shard and nid in shard.nodes:
+                    del shard.nodes[nid]
+                    self._node_shard_cache.pop(nid, None)
+                    # cross-links live in the SOURCE node's shard: scan all
+                    for s in self.shards.values():
+                        for key in [k for k in s.edges if k[0] == nid or k[1] == nid]:
+                            del s.edges[key]
+                            self._edge_shard.pop(key, None)
+                    removed_ids.append(nid)
+            if removed_ids:
+                self.index.delete([self._q(n) for n in removed_ids])
+                if self.query_cache:
+                    self.query_cache.invalidate_results(self.user_id)
+                self._log(f"⚠ Buffer limit reached! Archived {len(removed_ids)} old nodes "
+                          f"(limit: {self.max_buffer_size})")
+
+    # ---------------------------------------------------------------- tenants
+    def _drain_background(self) -> None:
+        """Barrier on the single-worker executor, so a queued consolidation
+        lands under the tenant that queued it."""
+        if self.background_executor:
+            self.background_executor.submit(lambda: None).result()
+
+    def switch_user(self, new_user_id: str) -> None:
+        if self.conversation_active:
+            self.end_conversation()
+            self._drain_background()
+        else:
+            self._drain_background()
+            self._flush_pending_boosts()
+        with self._mutex:
+            self._parked[self.user_id] = _TenantGraph(
+                dict(self.shards), dict(self.super_nodes), dict(self._edge_shard),
+                dict(self._node_shard_cache), self.profile, self._decay_pass)
+            self.user_id = new_user_id
+            graph = self._parked.pop(new_user_id, None)
+            # BufferGraph holds these dicts: refill them in place.
+            for live, parked in ((self.shards, "shards"),
+                                 (self.super_nodes, "super_nodes"),
+                                 (self._edge_shard, "edge_shard"),
+                                 (self._node_shard_cache, "node_shard")):
+                live.clear()
+                if graph is not None:
+                    live.update(getattr(graph, parked))
+            self.profile = graph.profile if graph is not None else Profile()
+            self._decay_pass = graph.decay_pass if graph is not None else 0
+            if self.query_cache:
+                self.query_cache.invalidate_results()
+        self._log(f"👤 Switched context to user: {new_user_id}")
+
+    def get_all_users(self) -> List[str]:
+        """Tenants with a graph in this process, current one included."""
+        return sorted(set(self._parked) | {self.user_id})
+
+    # ----------------------------------------------------------------- search
+    def search_memories(self, query: str, limit: int = 5) -> List[Node]:
+        query_emb = self._get_embedding(query)
+        ids, _ = self.index.search(np.asarray(query_emb, np.float32),
+                                   self.user_id, k=limit, super_filter=-1)
+        results = []
+        for qid in ids:
+            node = self.buffer.get_node(qid.partition(":")[2])
+            if node:
+                results.append(node)
+        return results
+
+    def search_memories_batch(self, queries: List[str], limit: int = 5
+                              ) -> List[List[Node]]:
+        """``search_memories`` for many queries: one batched embed and one
+        kernel launch."""
+        if not queries:
+            return []
+        embs = np.asarray(self._batch_embed(list(queries)), np.float32)
+        per_query = self.index.search_batch(embs, self.user_id, k=limit,
+                                            super_filter=-1)
+        results: List[List[Node]] = []
+        for ids, _scores in per_query:
+            nodes = []
+            for qid in ids:
+                node = self.buffer.get_node(qid.partition(":")[2])
+                if node:
+                    nodes.append(node)
+            results.append(nodes)
+        return results
+
+    # ------------------------------------------------------------ unported
+    def run_consolidation(self, *args, **kwargs) -> str:
+        raise NotImplementedError(
+            "run_consolidation is not ported yet (ROADMAP Queue 1 item 8, "
+            "run_consolidation and ops/graphops.py)")
+
+    def save_snapshot(self, snapshot_dir: str) -> str:
+        raise NotImplementedError(f"snapshots are not ported yet (ROADMAP {_CHECKPOINT_ITEM})")
+
+    def load_snapshot(self, snapshot_dir: str) -> str:
+        raise NotImplementedError(f"snapshots are not ported yet (ROADMAP {_CHECKPOINT_ITEM})")
+
+    def save_state(self, filename: str = "memory_state.json") -> str:
+        raise NotImplementedError(f"snapshots are not ported yet (ROADMAP {_CHECKPOINT_ITEM})")
+
+    def load_state(self, filename: str = "memory_state.json") -> str:
+        raise NotImplementedError(f"snapshots are not ported yet (ROADMAP {_CHECKPOINT_ITEM})")
+
+    # ------------------------------------------------------------------ stats
+    def get_stats(self) -> Dict:
+        nodes, edges = self.buffer.size()
+        rt = self.telemetry.timer_values("chat.retrieval_ms")
+        ct = self.telemetry.timer_values("consolidation.run_ms")
+        cache_hit_rate = self.query_cache.get_hit_rate() if self.query_cache else 0.0
+        return {
+            "buffer_nodes": nodes,
+            "buffer_edges": edges,
+            "num_shards": len(self.shards),
+            "num_super_nodes": len(self.super_nodes),
+            "short_term_memories": len(self.short_term_memory),
+            "conversation_active": self.conversation_active,
+            "conversation_count": self.conversation_count,
+            "profile_domains_filled": sum(1 for v in self.profile.data.values() if v),
+            "auto_consolidate": self.auto_consolidate,
+            "vector_store": f"device arena on {self.device} (in memory)",
+            "performance": {
+                "avg_retrieval_ms": f"{float(np.mean(rt)) if rt else 0:.1f}",
+                "p95_retrieval_ms": f"{float(np.percentile(rt, 95)) if rt else 0:.1f}",
+                "avg_consolidation_s": f"{float(np.mean(ct)) / 1e3 if ct else 0:.2f}",
+                "cache_hit_rate": f"{cache_hit_rate:.1%}",
+                "llm_calls": self.metrics["llm_calls"],
+                "embedding_calls": self.metrics["embedding_calls"],
+            },
+            "index": self.index.stats(),
+            "providers": {"llm": type(self.llm).__name__,
+                          "embedder": type(self.embedder).__name__},
+        }
+
+    # ------------------------------------------------------------------ close
+    def close(self) -> None:
+        if getattr(self, "background_executor", None):
+            self.background_executor.shutdown(wait=True)
+        # Facts the flush policy deferred land now rather than never.
+        if getattr(self, "_ingest_coalescer", None) and len(self._ingest_coalescer):
+            start = time.time()
+            drained: List[Tuple[str, str]] = []
+            for facts, _n_convs in self._ingest_coalescer.drain():
+                drained.extend(self._ingest_facts(facts))
+            self._finish_consolidation(drained, start)
+        if getattr(self, "_pending_boosts", None):
+            self._flush_pending_boosts()

@@ -1,0 +1,497 @@
+"""Device-resident memory state: the structure-of-arrays arena, in torch.
+
+Counterpart of the dense single-device subset of ``lazzaro_tpu/core/state.py``.
+Every numeric per-memory field is one tensor with leading dim
+``capacity + 1``; the last row is the sentinel scratch row that absorbs the
+padded entries of every batched write, so scatters run on full index
+vectors with no masking branches. Embeddings are stored L2-normalized, so
+cosine similarity is a dot product.
+
+Ownership: the JAX package donates its state to each mutation and gets a new
+one back; here the mutations update the tensors in place (``index_put_``,
+``scatter_reduce_``) and return the same state object. ``MemoryIndex`` owns
+the live state and serializes writers.
+
+Order of ties: wherever the JAX package calls ``lax.top_k`` this module
+calls :func:`ops.topk.stable_topk` (score descending, ties to the lowest
+row), and the arena scan goes through :func:`ops.masked_topk.masked_topk`,
+the Hopper kernel on a CUDA arena.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, fields
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from lazzaro_tpu_torch.ops.chunking import chunked_map, nt_dot
+from lazzaro_tpu_torch.ops.masked_topk import masked_topk
+from lazzaro_tpu_torch.ops.topk import stable_topk
+
+NEG_INF = -1e30
+
+TYPE_IDS = {"semantic": 0, "episodic": 1, "procedural": 2}
+TYPE_NAMES = {v: k for k, v in TYPE_IDS.items()}
+
+# Arenas at or above one block allocate capacity + 1 in TOPK_BLOCK multiples
+# (MemoryIndex._round_capacity), the JAX package's layout, kept so row numbers
+# (and so tie order) match it. The Hopper kernel itself takes any N.
+TOPK_BLOCK = 4096
+
+
+@dataclass
+class ArenaState:
+    """Node arena; every tensor has leading dim ``capacity + 1``."""
+
+    emb: torch.Tensor            # [cap+1, d] f32 or bf16, L2-normalized rows
+    salience: torch.Tensor       # [cap+1] f32 in [0, 1]
+    timestamp: torch.Tensor      # [cap+1] f32 seconds since the index epoch
+    last_accessed: torch.Tensor  # [cap+1] f32
+    access_count: torch.Tensor   # [cap+1] i32
+    type_id: torch.Tensor        # [cap+1] i32 (TYPE_IDS)
+    shard_id: torch.Tensor       # [cap+1] i32
+    tenant_id: torch.Tensor      # [cap+1] i32
+    alive: torch.Tensor          # [cap+1] bool
+    is_super: torch.Tensor       # [cap+1] bool
+
+    @property
+    def capacity(self) -> int:
+        return self.salience.shape[0] - 1
+
+    @property
+    def dim(self) -> int:
+        return self.emb.shape[1]
+
+
+@dataclass
+class EdgeState:
+    """Edge arena: directed weighted associations between arena rows."""
+
+    src: torch.Tensor            # [E+1] i32 arena row of the source node
+    tgt: torch.Tensor            # [E+1] i32
+    weight: torch.Tensor         # [E+1] f32 in [0, 1]
+    co: torch.Tensor             # [E+1] i32 co-occurrence count
+    last_updated: torch.Tensor   # [E+1] f32
+    alive: torch.Tensor          # [E+1] bool
+    tenant_id: torch.Tensor      # [E+1] i32 tenant of the owning graph
+
+    @property
+    def capacity(self) -> int:
+        return self.src.shape[0] - 1
+
+
+ARENA_FIELDS = tuple(f.name for f in fields(ArenaState))
+EDGE_FIELDS = tuple(f.name for f in fields(EdgeState))
+
+
+def _f32(x, device) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+
+def init_arena(capacity: int, dim: int, dtype=torch.float32,
+               device="cpu") -> ArenaState:
+    n = capacity + 1
+
+    def full(v, dt):
+        return torch.full((n,), v, dtype=dt, device=device)
+
+    return ArenaState(
+        emb=torch.zeros((n, dim), dtype=dtype, device=device),
+        salience=full(0.0, torch.float32),
+        timestamp=full(0.0, torch.float32),
+        last_accessed=full(0.0, torch.float32),
+        access_count=full(0, torch.int32),
+        type_id=full(0, torch.int32),
+        shard_id=full(-1, torch.int32),
+        tenant_id=full(-1, torch.int32),
+        alive=full(False, torch.bool),
+        is_super=full(False, torch.bool),
+    )
+
+
+def init_edges(capacity: int, device="cpu") -> EdgeState:
+    n = capacity + 1
+
+    def full(v, dt):
+        return torch.full((n,), v, dtype=dt, device=device)
+
+    return EdgeState(
+        src=full(-1, torch.int32),
+        tgt=full(-1, torch.int32),
+        weight=full(0.0, torch.float32),
+        co=full(0, torch.int32),
+        last_updated=full(0.0, torch.float32),
+        alive=full(False, torch.bool),
+        tenant_id=full(-1, torch.int32),
+    )
+
+
+def _grow(fresh, state, names):
+    old = state.capacity
+    for name in names:
+        getattr(fresh, name)[:old] = getattr(state, name)[:old]
+    return fresh
+
+
+def grow_arena(state: ArenaState, new_capacity: int) -> ArenaState:
+    """Reallocate at ``new_capacity`` and copy the live rows (rare)."""
+    assert new_capacity > state.capacity
+    fresh = init_arena(new_capacity, state.dim, state.emb.dtype,
+                       state.emb.device)
+    return _grow(fresh, state, ARENA_FIELDS)
+
+
+def grow_edges(state: EdgeState, new_capacity: int) -> EdgeState:
+    assert new_capacity > state.capacity
+    return _grow(init_edges(new_capacity, state.src.device), state,
+                 EDGE_FIELDS)
+
+
+def _tensor(a: np.ndarray, device) -> torch.Tensor:
+    """A copy of a numpy array as a tensor on ``device``, bf16 (ml_dtypes)
+    included without importing it. Copied, since the state is then updated
+    in place."""
+    a = np.array(a, order="C")
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def arena_from_numpy(cols: Dict[str, np.ndarray], device) -> ArenaState:
+    return ArenaState(**{f: _tensor(cols[f], device) for f in ARENA_FIELDS})
+
+
+def edges_from_numpy(cols: Dict[str, np.ndarray], device) -> EdgeState:
+    return EdgeState(**{f: _tensor(cols[f], device) for f in EDGE_FIELDS})
+
+
+def pad_rows(rows: np.ndarray, sentinel: int, min_bucket: int = 8) -> np.ndarray:
+    """Pad an int row-index vector with the sentinel row to a size bucket:
+    powers of two up to 4096, then multiples of 1024 (the JAX package's
+    buckets, kept so both packages write the same scratch positions)."""
+    n = len(rows)
+    if n > 4096:
+        bucket = -(-n // 1024) * 1024
+    else:
+        bucket = max(min_bucket, 1 << (max(1, n - 1)).bit_length())
+    out = np.full((bucket,), sentinel, np.int32)
+    out[:n] = rows
+    return out
+
+
+def normalize(x: torch.Tensor) -> torch.Tensor:
+    xf = x.float()
+    n = torch.linalg.vector_norm(xf, dim=-1, keepdim=True)
+    return (xf / torch.clamp(n, min=1e-9)).to(x.dtype)
+
+
+def _rows(rows, device) -> torch.Tensor:
+    return torch.as_tensor(rows, device=device).long()
+
+
+# ---------------------------------------------------------------------------
+# Arena mutations (in place; each returns the state it was given)
+# ---------------------------------------------------------------------------
+
+
+def _arena_add(state: ArenaState, rows, emb, salience, timestamp, type_id,
+               shard_id, tenant_id, is_super) -> ArenaState:
+    dev = state.emb.device
+    r = _rows(rows, dev)
+    state.emb[r] = normalize(torch.as_tensor(emb, device=dev).float()).to(
+        state.emb.dtype)
+    ts = torch.as_tensor(timestamp, dtype=torch.float32, device=dev)
+    state.salience[r] = torch.as_tensor(salience, dtype=torch.float32, device=dev)
+    state.timestamp[r] = ts
+    state.last_accessed[r] = ts
+    state.access_count[r] = 0
+    state.type_id[r] = torch.as_tensor(type_id, dtype=torch.int32, device=dev)
+    state.shard_id[r] = torch.as_tensor(shard_id, dtype=torch.int32, device=dev)
+    state.tenant_id[r] = torch.as_tensor(tenant_id, dtype=torch.int32, device=dev)
+    state.alive[r] = True
+    state.is_super[r] = torch.as_tensor(is_super, dtype=torch.bool, device=dev)
+    return state
+
+
+def _arena_delete(state: ArenaState, rows) -> ArenaState:
+    r = _rows(rows, state.emb.device)
+    state.alive[r] = False
+    state.tenant_id[r] = -1
+    return state
+
+
+def _arena_update_access(state: ArenaState, rows, now, boost,
+                         cap_salience: float = 1.0) -> ArenaState:
+    """access_count += 1, salience += boost (capped), last_accessed = now."""
+    dev = state.emb.device
+    r = _rows(rows, dev)
+    state.salience.index_put_((r,), _f32(boost, dev).expand(r.shape[0]),
+                              accumulate=True)
+    torch.clamp_(state.salience, max=cap_salience)
+    state.access_count.index_put_(
+        (r,), torch.ones_like(r, dtype=torch.int32), accumulate=True)
+    state.last_accessed[r] = _f32(now, dev)
+    return state
+
+
+def _arena_boost(state: ArenaState, rows, now, boost) -> ArenaState:
+    """Neighbor boost: salience += boost (cap 1.0), last_accessed = now, no
+    access_count bump."""
+    dev = state.emb.device
+    r = _rows(rows, dev)
+    state.salience.index_put_((r,), _f32(boost, dev).expand(r.shape[0]),
+                              accumulate=True)
+    torch.clamp_(state.salience, max=1.0)
+    state.last_accessed[r] = _f32(now, dev)
+    return state
+
+
+def _arena_merge_touch(state: ArenaState, rows, candidate_salience,
+                       now) -> ArenaState:
+    """Dedup merge: salience = max(salience, candidate), access_count += 1,
+    last_accessed = now."""
+    dev = state.emb.device
+    r = _rows(rows, dev)
+    state.salience.scatter_reduce_(
+        0, r, torch.as_tensor(candidate_salience, dtype=torch.float32,
+                              device=dev), reduce="amax")
+    state.access_count.index_put_(
+        (r,), torch.ones_like(r, dtype=torch.int32), accumulate=True)
+    state.last_accessed[r] = _f32(now, dev)
+    return state
+
+
+def _arena_set_salience(state: ArenaState, rows, values) -> ArenaState:
+    dev = state.emb.device
+    state.salience[_rows(rows, dev)] = torch.as_tensor(
+        values, dtype=torch.float32, device=dev)
+    return state
+
+
+def _arena_set_parentage(state: ArenaState, rows, is_super) -> ArenaState:
+    dev = state.emb.device
+    state.is_super[_rows(rows, dev)] = torch.as_tensor(
+        is_super, dtype=torch.bool, device=dev)
+    return state
+
+
+def _arena_apply_boosts(state: ArenaState, rows, acc_cnt, nbr_cnt, now_vals,
+                        acc_boost, nbr_boost) -> ArenaState:
+    """Deferred boost flush: summed (access, neighbor) counts of many
+    cache-hit turns in one scatter; padding rows carry ``-inf`` times."""
+    dev = state.emb.device
+    r = _rows(rows, dev)
+    acc = torch.as_tensor(acc_cnt, dtype=torch.int32, device=dev)
+    nbr = torch.as_tensor(nbr_cnt, dtype=torch.int32, device=dev)
+    add = acc.float() * _f32(acc_boost, dev) + nbr.float() * _f32(nbr_boost, dev)
+    state.salience.index_put_((r,), add, accumulate=True)
+    torch.clamp_(state.salience, max=1.0)
+    state.access_count.index_put_((r,), acc, accumulate=True)
+    state.last_accessed.scatter_reduce_(
+        0, r, torch.as_tensor(now_vals, dtype=torch.float32, device=dev),
+        reduce="amax")
+    return state
+
+
+def _arena_decay(state: ArenaState, tenant, rate, floor) -> ArenaState:
+    """s' = floor + (s - floor)(1 - rate) on the tenant's live rows."""
+    dev = state.emb.device
+    rate, floor = _f32(rate, dev), _f32(floor, dev)
+    s = state.salience
+    decayed = floor + (s - floor) * (1.0 - rate)
+    mask = state.alive & (state.tenant_id == int(tenant))
+    torch.where(mask, decayed, s, out=state.salience)
+    return state
+
+
+# ---------------------------------------------------------------------------
+# Retrieval and scoring
+# ---------------------------------------------------------------------------
+
+
+def arena_mask(state: ArenaState, tenant, super_filter: int = 0) -> torch.Tensor:
+    """alive ∧ tenant ∧ super-node filter (1: only super, -1: no super)."""
+    mask = state.alive & (state.tenant_id == int(tenant))
+    if super_filter == 1:
+        mask = mask & state.is_super
+    elif super_filter == -1:
+        mask = mask & ~state.is_super
+    return mask
+
+
+def arena_search(state: ArenaState, query: torch.Tensor, tenant, k: int,
+                 super_filter: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Masked cosine top-k over the whole arena (``state.py:719`` with
+    ``impl="auto"``): on a CUDA arena always the Hopper kernel, any row
+    count, any batch, any k up to the row count. Returns ``(scores, rows)``
+    shaped like the query's batch dims."""
+    q = normalize(torch.atleast_2d(query).float()).to(state.emb.dtype)
+    top_s, top_r = masked_topk(state.emb, arena_mask(state, tenant, super_filter),
+                               q, k)
+    if query.ndim == 1:
+        return top_s[0], top_r[0]
+    return top_s, top_r
+
+
+def arena_link_candidates_multi(state: ArenaState, new_rows, excl_rows,
+                                tenant, k: int,
+                                shard_modes: Tuple[int, ...] = (1, 0)):
+    """For each new row, the top-k most similar live non-super rows of the
+    tenant (excluding ``excl_rows``) under each shard mode (0 any shard,
+    1 same shard, -1 other shards): one score matrix per query chunk,
+    re-masked per mode. Returns ``(scores, rows)`` pairs flattened in
+    ``shard_modes`` order."""
+    dev = state.emb.device
+    lmask = state.alive & (state.tenant_id == int(tenant)) & ~state.is_super
+    excl = torch.zeros_like(state.alive)
+    excl[_rows(excl_rows, dev)] = True
+    mask = lmask & ~excl
+    emb = state.emb.float()
+    neg = _f32(NEG_INF, dev)
+
+    def chunk(rows_c):
+        scores = nt_dot(emb[rows_c], emb)
+        same = None
+        outs = []
+        for sm in shard_modes:
+            full_mask = mask[None, :]
+            if sm != 0:
+                if same is None:
+                    same = state.shard_id[rows_c][:, None] == state.shard_id[None, :]
+                full_mask = full_mask & (same if sm == 1 else ~same)
+            outs.extend(stable_topk(torch.where(full_mask, scores, neg), k))
+        return tuple(outs)
+
+    return chunked_map(chunk, _rows(new_rows, dev))
+
+
+def best_earlier_match(m: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """For each row of a fact batch ``m [B, d]``, the most similar EARLIER
+    row: ``(cols [B], sims [B])`` by cosine (zero rows count as norm 1), the
+    first column on ties, ``(0, -inf)`` for row 0 (the host gram matrix of
+    ``lazzaro_tpu/core/memory_system.py:1462-1474``, on the device)."""
+    m = m.float()
+    norms = torch.linalg.vector_norm(m, dim=1, keepdim=True)
+    m = m / torch.where(norms == 0, torch.ones_like(norms), norms)
+    gram = torch.matmul(m, m.t())
+    lower = torch.ones_like(gram, dtype=torch.bool).tril(-1)
+    gram = torch.where(lower, gram, _f32(float("-inf"), m.device))
+    cols = torch.argmax(gram, dim=1)
+    return cols, torch.gather(gram, 1, cols[:, None])[:, 0]
+
+
+def arena_importance(state: ArenaState, now, w_sal, w_acc, w_rec) -> torch.Tensor:
+    """importance = salience*w1 + min(1, access/10)*w2 + 1/(1+days_old)*w3,
+    +inf for dead rows."""
+    dev = state.emb.device
+    now, w_sal, w_acc, w_rec = (_f32(v, dev) for v in (now, w_sal, w_acc, w_rec))
+    days_old = torch.clamp(now - state.last_accessed, min=0.0) / 86400.0
+    imp = (state.salience * w_sal
+           + torch.clamp(state.access_count.float() / 10.0, max=1.0) * w_acc
+           + 1.0 / (1.0 + days_old) * w_rec)
+    return torch.where(state.alive, imp, _f32(float("inf"), dev))
+
+
+def arena_evict_candidates(state: ArenaState, tenant, now, w_sal, w_acc, w_rec,
+                           k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(importance, rows) of the k least-important live non-super rows of a
+    tenant, least important first (ties to the lowest row)."""
+    imp = arena_importance(state, now, w_sal, w_acc, w_rec)
+    mask = state.alive & (state.tenant_id == int(tenant)) & ~state.is_super
+    imp = torch.where(mask, imp, _f32(float("inf"), imp.device))
+    neg_scores, rows = stable_topk(-imp, k)
+    return -neg_scores, rows
+
+
+def arena_mean_embedding(state: ArenaState, rows) -> torch.Tensor:
+    """Normalized mean of the given rows' embeddings (super-node centroid);
+    sentinel-padded rows weigh zero."""
+    r = _rows(rows, state.emb.device)
+    valid = (r < state.capacity)[:, None].float()
+    embs = state.emb[r].float() * valid
+    return normalize(embs.sum(0) / torch.clamp(valid.sum(), min=1.0))
+
+
+# ---------------------------------------------------------------------------
+# Edge arena
+# ---------------------------------------------------------------------------
+
+
+def _edges_add(state: EdgeState, slots, src, tgt, weight, co, now, tenant,
+               live) -> EdgeState:
+    """``live`` is False on sentinel-padded positions, so the scratch slot
+    never becomes a live phantom edge."""
+    dev = state.src.device
+    s = _rows(slots, dev)
+    state.src[s] = torch.as_tensor(src, dtype=torch.int32, device=dev)
+    state.tgt[s] = torch.as_tensor(tgt, dtype=torch.int32, device=dev)
+    state.weight[s] = torch.clamp(
+        torch.as_tensor(weight, dtype=torch.float32, device=dev), 0.0, 1.0)
+    state.co[s] = torch.as_tensor(co, dtype=torch.int32, device=dev)
+    state.last_updated[s] = _f32(now, dev)
+    state.alive[s] = torch.as_tensor(live, dtype=torch.bool, device=dev)
+    state.tenant_id[s] = int(tenant)
+    return state
+
+
+def _edges_reinforce(state: EdgeState, slots, bump, now) -> EdgeState:
+    """weight += bump (cap 1.0), co += 1, last_updated = now."""
+    dev = state.src.device
+    s = _rows(slots, dev)
+    state.weight.index_put_((s,), _f32(bump, dev).expand(s.shape[0]),
+                            accumulate=True)
+    torch.clamp_(state.weight, max=1.0)
+    state.co.index_put_((s,), torch.ones_like(s, dtype=torch.int32),
+                        accumulate=True)
+    state.last_updated[s] = _f32(now, dev)
+    return state
+
+
+def _edges_decay(state: EdgeState, tenant, rate) -> EdgeState:
+    """weight *= (1 - rate) on the tenant's live edges."""
+    rate = _f32(rate, state.src.device)
+    mask = state.alive & (state.tenant_id == int(tenant))
+    torch.where(mask, state.weight * (1.0 - rate), state.weight,
+                out=state.weight)
+    return state
+
+
+def _prune_compact(weak: torch.Tensor, prune_cap: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Prefix-sum compaction of a weak-edge mask into ``[prune_cap]`` slot
+    indices (ascending, -1 padded). Returns ``(ok, slots)``; ``ok`` is the
+    mask of edges that fit (all of ``weak`` when the cap covers it)."""
+    pos = torch.cumsum(weak.int(), 0) - 1
+    ok = weak & (pos < prune_cap)
+    buf = torch.full((prune_cap + 1,), -1, dtype=torch.int32, device=weak.device)
+    where = torch.where(ok, torch.clamp(pos, max=prune_cap - 1), prune_cap)
+    buf[where.long()] = torch.arange(weak.shape[0], dtype=torch.int32,
+                                     device=weak.device)
+    return ok, buf[:prune_cap]
+
+
+def _edges_prune(state: EdgeState, tenant, threshold, prune_cap: int
+                 ) -> Tuple[EdgeState, torch.Tensor]:
+    """Kill the tenant's live edges with weight < threshold; returns
+    ``(state, pruned_slots)`` from :func:`_prune_compact`."""
+    weak = (state.alive & (state.tenant_id == int(tenant))
+            & (state.weight < _f32(threshold, state.src.device)))
+    ok, slots = _prune_compact(weak, prune_cap)
+    state.alive &= ~ok
+    return state, slots
+
+
+def _decay_fused(arena: ArenaState, edges: EdgeState, tenant, rate, floor
+                 ) -> Tuple[ArenaState, EdgeState]:
+    """Per-tenant decay of arena salience and edge weights together."""
+    return (_arena_decay(arena, tenant, rate, floor),
+            _edges_decay(edges, tenant, rate))
+
+
+def _edges_delete_for_nodes(state: EdgeState, node_rows) -> EdgeState:
+    """Kill every edge touching one of ``node_rows`` (eviction cleanup)."""
+    r = torch.as_tensor(node_rows, device=state.src.device).int()
+    state.alive &= ~(torch.isin(state.src, r) | torch.isin(state.tgt, r))
+    return state
