@@ -8,16 +8,21 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 Phases, each printing its own lines; any failure exits non-zero:
   1. device   the card's name and power limit (nvidia-smi) and torch's name;
   2. build    every ``lazzaro_tpu_torch/csrc/*.cu`` with nvcc, all at once;
-  3. kernels  each kernel against its plain PyTorch version on the card, at
-              every shape the main path gives it and at edge cases, with
-              times and bounds;
-  4. main     ``MemorySystem`` on a bf16 768-d arena of 1,048,576 rows: fill
-              it through ``end_conversation`` with ``FILL`` facts (8,192 per
-              conversation, two tenants, a near-duplicate every 101 facts),
-              then chat turns, one more conversation end and
-              ``search_memories`` for facts whose answer is known, with the
-              kernel launch counts of that run; afterwards the kernel is
-              held against its plain version on the filled arena;
+  3. kernels  each kernel, in every call form, against its plain PyTorch
+              version on the card, at every shape the main paths give it and
+              at edge cases, with times and bounds;
+  4. main     ``MemorySystem`` on a bf16 768-d arena of 1,048,576 rows. The
+              classic path: fill it through ``end_conversation`` with
+              ``FILL`` facts (8,192 per conversation, two tenants, a
+              near-duplicate every 101 facts), then chat turns, one more
+              conversation end and ``search_memories`` for facts whose answer
+              is known; the masked top-k kernel is then held against its
+              plain version on the filled arena. The fused path on the same
+              system (``serve_fused=True``): chat turns that miss and that
+              hit the super-node gate, ``search_memories`` and 64-query
+              batches, each dispatch one two-tier kernel launch and one
+              device-to-host copy. Each path's kernel launches are counted
+              from 0 over that path alone;
 then the card's name and power limit, one JSON line listing every kernel, and
 as the last line ``{"ok": true, "device": {...}}``. Without a GPU, or outside
 a checkout, it exits non-zero and prints no result.
@@ -177,6 +182,36 @@ def bound(emb, queries, k):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def _check_equal(label, got, want):
+    """Every output tensor equal; returns the largest score error (0.0)."""
+    import torch
+
+    err = 0.0
+    for g, w in zip(got, want):
+        if g.dtype.is_floating_point:
+            err = max(err, float((g - w).abs().max()))
+        if not torch.equal(g, w):
+            bad = int((g != w).sum())
+            raise AssertionError(
+                f"{label}: kernel disagrees with the plain version "
+                f"({bad} entries differ, max |score err| {err})")
+    return err
+
+
+def _case_row(kernel, form, label, n, q, k, fn, plain_fn, lib_fn, b, err,
+              reps, plain_reps):
+    ms = cuda_ms(fn, reps)
+    plain = cuda_ms(plain_fn, plain_reps)
+    lib = cuda_ms(lib_fn, reps)
+    b_ms, b_by = b
+    log(f"[kernels] {kernel} {label}: rows equal, max_abs_err {err}, "
+        f"ms {ms:.4f}, plain_ms {plain:.4f}, library_ms {lib:.4f}, "
+        f"bound_ms {b_ms:.4f} ({b_by})")
+    return {"kernel": kernel, "form": form, "case": label, "n": n, "q": q,
+            "k": k, "ms": ms, "plain_ms": plain, "library_ms": lib,
+            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
+
+
 def phase_kernels(device):
     import torch
 
@@ -184,32 +219,156 @@ def phase_kernels(device):
 
     rows_out = []
     for label, emb, madd, q, k in kernel_cases(device):
-        ks, kr = mt.masked_topk(emb, madd, q, k)
-        ps, pr = mt.masked_topk_reference(emb, madd, q, k)
-        torch.cuda.synchronize()
-        err = float((ks - ps).abs().max())
-        if not torch.equal(kr, pr) or err != 0.0:
-            bad = int((kr != pr).sum())
-            raise AssertionError(
-                f"{label}: kernel disagrees with the plain version "
-                f"({bad} rows differ, max |score err| {err})")
-        reps = 3 if q.shape[0] > 1024 else 20
-        ms = cuda_ms(lambda: mt.masked_topk(emb, madd, q, k), reps)
-        plain = cuda_ms(lambda: mt.masked_topk_reference(emb, madd, q, k),
-                        1 if q.shape[0] > 1024 else 3)
+        err = _check_equal(label, mt.masked_topk(emb, madd, q, k),
+                           mt.masked_topk_reference(emb, madd, q, k))
+        big_q = q.shape[0] > 1024
         # Yardstick only (the port never calls it): one product with the
         # mask folded in, then torch.topk.
         madd_t = madd.to(emb.dtype)
-        lib = cuda_ms(lambda: torch.topk(torch.addmm(madd_t, q, emb.t()), k),
-                      reps)
-        b_ms, b_by = bound(emb, q, k)
-        rows_out.append({"case": label, "n": emb.shape[0], "q": q.shape[0],
-                         "k": k, "ms": ms, "plain_ms": plain,
-                         "library_ms": lib, "bound_ms": b_ms,
-                         "bound_by": b_by, "max_abs_err": err})
-        log(f"[kernels] masked_topk {label}: rows equal, max_abs_err {err}, "
-            f"ms {ms:.4f}, plain_ms {plain:.4f}, library_ms {lib:.4f}, "
-            f"bound_ms {b_ms:.4f} ({b_by})")
+        rows_out.append(_case_row(
+            "masked_topk", "classic", label, emb.shape[0], q.shape[0], k,
+            lambda: mt.masked_topk(emb, madd, q, k),
+            lambda: mt.masked_topk_reference(emb, madd, q, k),
+            lambda: torch.topk(torch.addmm(madd_t, q, emb.t()), k),
+            bound(emb, q, k), err, 3 if big_q else 20, 1 if big_q else 3))
+        if label == "chat_ann_q1_k10_bf16":
+            # The dispatch form (pallas_topk.py:masked_topk_auto) launches
+            # the same kernel on the same inputs.
+            err = _check_equal("auto", mt.masked_topk_auto(emb, madd, q, k),
+                               mt.masked_topk_reference(emb, madd, q, k))
+            rows_out.append(_case_row(
+                "masked_topk", "auto", "auto_q1_k10_bf16", emb.shape[0], 1,
+                k, lambda: mt.masked_topk_auto(emb, madd, q, k),
+                lambda: mt.masked_topk_reference(emb, madd, q, k),
+                lambda: torch.topk(torch.addmm(madd_t, q, emb.t()), k),
+                bound(emb, q, k), err, 20, 3))
+    return rows_out
+
+
+def ragged_cases(device):
+    """The ragged single-mask form (pallas_topk.py:masked_topk_arena_ragged)
+    at a ragged N = 100,003, Q = 3, ceiling K = 10, k_q = {1, 5, 10}."""
+    import torch
+
+    from lazzaro_tpu_torch.ops import masked_topk as mt
+
+    gen = torch.Generator(device=device).manual_seed(2)
+    emb = grid_values(gen, (100_003, DIM), torch.bfloat16, device)
+    alive = torch.rand(emb.shape[0], generator=gen, device=device) < 0.9
+    q = grid_values(gen, (3, DIM), torch.bfloat16, device)
+    k_q = torch.tensor([1, 5, 10], dtype=torch.int32, device=device)
+    k = 10
+    err = _check_equal("ragged", mt.masked_topk_ragged(emb, alive, q, k_q, k),
+                       mt.masked_topk_ragged_reference(emb, alive, q, k_q, k))
+    madd_t = torch.where(alive, 0.0, -1e30).to(emb.dtype)
+    return [_case_row(
+        "masked_topk", "ragged", "ragged_n100003_q3_k10_kq1-5-10_bf16",
+        emb.shape[0], 3, k, lambda: mt.masked_topk_ragged(emb, alive, q, k_q, k),
+        lambda: mt.masked_topk_ragged_reference(emb, alive, q, k_q, k),
+        lambda: torch.topk(torch.addmm(madd_t, q, emb.t()), k),
+        bound(emb, q, k), err, 20, 3)]
+
+
+def fused_bound(emb, q, k):
+    """(bound_ms, bound_by) of the two-tier scan: the arena and its three row
+    columns (alive, tenant, is_super: 6 bytes a row) and the queries with
+    their tenant and k read once, the gate and the [Q, k] lists written
+    once; 2*N*d*Q operations at the arena type's peak."""
+    n, d = emb.shape
+    nq = q.shape[0]
+    item = emb.element_size()
+    moved = n * d * item + 6 * n + nq * (d * item + 8) + nq * (8 + 8 * k)
+    ops = 2.0 * n * d * nq
+    peak = PEAK_OPS["bfloat16" if item == 2 else "float32"]
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S, ops / peak
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def fused_cases(device):
+    """(label, queries, tenant, k_q, k_live) of the two-tier kernel on the
+    1,048,576-row bf16 arena of two tenants with ~1% super rows, plus a
+    tenant (2) without super rows and one (3) with three rows; k = 128."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(1)
+    n = ARENA_ROWS
+    emb = grid_values(gen, (n, DIM), torch.bfloat16, device)
+    alive = torch.rand(n, generator=gen, device=device) < 0.9
+    tenant = (torch.rand(n, generator=gen, device=device) < 0.5).int()
+    sup = torch.rand(n, generator=gen, device=device) < 0.01
+    tenant[n // 2:n // 2 + 1000] = 2
+    sup[n // 2:n // 2 + 1000] = False
+    short = [100, n * 4 // 7, n * 6 // 7]
+    tenant[short] = 3
+    alive[short] = True
+    sup[short] = False
+    alive[-1] = False                              # the sentinel row
+    tenant = torch.where(alive, tenant, -1).int()
+    cols = (emb, alive, tenant, sup)
+
+    def batch(ten, kq):
+        nq = len(ten)
+        return (grid_values(gen, (nq, DIM), torch.bfloat16, device),
+                torch.tensor(ten, dtype=torch.int32, device=device),
+                torch.tensor(kq, dtype=torch.int32, device=device))
+
+    pad = [-1] * 7
+    chat = batch([0] + pad, [10] + [0] * 7)
+    fleet_t = [i % 2 for i in range(64)]
+    fleet_k = [(5, 10, 128)[i % 3] for i in range(64)]
+    # A lone request is a batch of 1 (bucket_size keeps the power-of-two
+    # ladder below serve_pad_granularity): the main path's chat and search
+    # shapes. The Q = 8 cases are one live query among padding.
+    cases = [
+        ("chat_q1_k128_kq10", *batch([0], [10]), 10),
+        ("search_q1_k128_kq5", *batch([1], [5]), 5),
+        ("chat_q8_k128_kq10", *chat, 10),
+        ("chat_q8_k128_kq10_lists128", *chat, None),
+        ("search_q8_k128_kq5", *batch([1] + pad, [5] + [0] * 7), 5),
+        ("batch_q64_k128_kq10", *batch([0] * 64, [10] * 64), 10),
+        ("fleet_q64_k128_kq5-10-128", *batch(fleet_t, fleet_k), 128),
+        ("corners_q8_k128_kq10", *batch([2, 3, 0, 1, 2, 3, -1, -1],
+                                        [10, 10, 10, 10, 5, 128, 0, 0]), 128),
+    ]
+    return cols, cases
+
+
+def phase_fused_kernel(device):
+    import torch
+
+    from lazzaro_tpu_torch.ops import fused_topk as ft
+
+    (emb, alive, tenant, sup), cases = fused_cases(device)
+    k = 128
+    rows_out = []
+    for label, q, q_ten, k_q, k_live in cases:
+        got = ft.fused_topk(emb, alive, tenant, sup, q, q_ten, k_q, k,
+                            k_live=k_live)
+        want = ft.fused_topk_reference(emb, alive, tenant, sup, q, q_ten,
+                                       k_q, k)
+        err = _check_equal(label, got, want)
+        if label.startswith("corners"):
+            # tenant 2 has no super row: gate (-1e30, row 0); tenant 3 has
+            # three rows: its tail is rows 0, 1, ... at -1e30
+            if not (got[1][0] == 0 and got[0][0] == -1e30):
+                raise AssertionError("empty gate is not (-1e30, row 0)")
+            if got[3][1, 3:6].tolist() != [0, 1, 2]:
+                raise AssertionError("short tenant's tail is not rows 0, 1, 2")
+
+        def lib(q=q, q_ten=q_ten):
+            # Yardstick only: one product, the tier masks, two torch.topk.
+            s = torch.matmul(q, emb.t()).float()
+            ok = alive[None, :] & (tenant[None, :] == q_ten[:, None])
+            torch.topk(torch.where(ok & sup[None, :], s, -1e30), 1)
+            return torch.topk(torch.where(ok & ~sup[None, :], s, -1e30), k)
+
+        rows_out.append(_case_row(
+            "fused_topk", "two_tier", label, emb.shape[0], q.shape[0], k,
+            lambda: ft.fused_topk(emb, alive, tenant, sup, q, q_ten, k_q, k,
+                                  k_live=k_live),
+            lambda: ft.fused_topk_reference(emb, alive, tenant, sup, q,
+                                            q_ten, k_q, k),
+            lib, fused_bound(emb, q, k), err, 20, 3))
     return rows_out
 
 
@@ -321,6 +480,9 @@ class CorpusEmbedder:
         return None
 
     def batch_embed(self, texts):
+        memo = [self._memo.get(t) for t in texts]
+        if all(m is not None for m in memo):
+            return np.stack(memo)
         idx = [self._index(t) for t in texts]
         out = np.empty((len(texts), DIM), np.float32)
         facts = [j for j, i in enumerate(idx) if i is not None]
@@ -375,7 +537,11 @@ def phase_main(launches_out: dict):
                       user_id=TENANTS[0], verbose=False, llm_provider=llm,
                       embedding_provider=CorpusEmbedder(corpus))
     try:
-        return _drive(ms, llm, corpus, convs, fill, launches_out, mt, torch)
+        summary, served = _drive(ms, llm, corpus, convs, fill, launches_out,
+                                 mt, torch)
+        summary["fused"] = _drive_fused(ms, corpus, served, launches_out,
+                                        torch)
+        return summary
     finally:
         ms.close()
 
@@ -553,7 +719,222 @@ def _drive(ms, llm, corpus, convs, fill, launches_out, mt, torch):
         raise AssertionError(f"filled arena: kernel disagrees (max err {err})")
     log(f"[main] kernel vs plain on the filled arena: max_abs_err {err}")
     summary["filled_arena_max_abs_err"] = err
-    return summary
+    return summary, {"targets": targets, "new_ids": new_ids, "own": own}
+
+
+def _strict_dispatch(index, torch):
+    """Run every fused dispatch of ``index`` under
+    ``torch.cuda.set_sync_debug_mode("error")``, which raises on any host
+    wait on the device, except inside the one packed readback, which is
+    counted. Returns the list the readbacks are counted in."""
+    serve, readback = index.search_fused_requests, index._readback
+    readbacks = []
+
+    def read_once(packed):
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            readbacks.append(tuple(packed.shape))
+            return readback(packed)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    def strict(*args, **kwargs):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return serve(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    index.search_fused_requests, index._readback = strict, read_once
+    return readbacks
+
+
+def _drive_fused(ms, corpus, served, launches_out, torch):
+    """The fused path on the filled system: ``serve_fused=True``, chat turns
+    that miss and that hit the super-node gate (their ids held against the
+    classic retrieval of the same query), ``search_memories``, a 64-query
+    ``search_memories_batch`` and a 64-request mixed-k, two-tenant fleet."""
+    from lazzaro_tpu_torch.ops import fused_topk as ft
+    from lazzaro_tpu_torch.ops import masked_topk as mt
+    from lazzaro_tpu_torch.serve import RetrievalRequest
+
+    targets, new_ids = served["targets"], served["new_ids"]
+    ms.switch_user(TENANTS[0])
+    rng = np.random.default_rng(11)
+    own = served["own"]
+    misses = []
+    while len(misses) < 16:
+        i = int(rng.choice(own)) * PER_CONV + int(rng.integers(PER_CONV))
+        if not corpus.is_dup(i) and i not in misses and i not in targets:
+            misses.append(i)
+    prompts = [f"{corpus.text(i)}. Anything new about it?" for i in misses]
+    supers = sorted(ms.super_nodes.values(), key=lambda n: n.id)[:4]
+    if not supers:
+        raise AssertionError("tenant alice has no super node to hit")
+    hit_prompts = [f"what do I know about {sn.shard_key}? ({j})"
+                   for j, sn in enumerate(supers)]
+    ms.embedder.warm(prompts + [corpus.text(i) for i in misses])
+    for p, sn in zip(hit_prompts, supers):
+        ms.embedder._memo[p] = np.asarray(sn.embedding, np.float32)
+    everything = prompts + hit_prompts
+    # The classic retrieval of the same queries, for the id check (it is
+    # not part of the fused path and is run before its counts start).
+    ms.config.serve_fused = False
+    expected = {p: ms._retrieve_for_chat(ms._get_embedding(p), p)[0]
+                for p in everything}
+    ms.query_cache.invalidate_results()
+    ms.config.serve_fused = True
+
+    # Set-up: the first dispatch builds the CSR of the filled graph.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warm = ms.warmup_serving((1, 64))
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    csr_s = ms.index.csr_build_s
+    log(f"[fused] warmup {warm_s:.2f} s ({ {str(k): round(v, 1) for k, v in warm.items()} } ms), "
+        f"CSR of {len(ms.index.edge_slots)} edges built in {csr_s:.3f} s")
+
+    readbacks = _strict_dispatch(ms.index, torch)
+    got = {}
+    inner = ms._retrieve_for_chat
+
+    def spy(query_emb, query_text):
+        ids, mode = inner(query_emb, query_text)
+        got[query_text] = (list(ids), mode)
+        return ids, mode
+
+    ms._retrieve_for_chat = spy
+    ft.launches = mt.launches = 0
+    try:
+        ms.start_conversation()
+        chat_ms = {"miss": [], "hit": []}
+        for p in everything:
+            before = (ft.launches, mt.launches, len(readbacks))
+            t1 = time.perf_counter()
+            ms.chat(p)
+            dt = 1e3 * (time.perf_counter() - t1)
+            after = (ft.launches, mt.launches, len(readbacks))
+            if tuple(a - b for a, b in zip(after, before)) != (1, 0, 1):
+                raise AssertionError(
+                    f"fused chat turn made (fused, classic, readbacks) = "
+                    f"{tuple(a - b for a, b in zip(after, before))}, not (1, 0, 1)")
+            ids, mode = got[p]
+            if ids != expected[p]:
+                raise AssertionError(f"fused chat ids {ids} != classic "
+                                     f"{expected[p]} for {p!r}")
+            kind = "hit" if p in hit_prompts else "miss"
+            if mode != ("classic" if kind == "hit" else "device"):
+                raise AssertionError(f"{kind} turn took boost mode {mode}")
+            chat_ms[kind].append(dt)
+        for i, p in zip(misses, prompts):
+            nodes = [ms.buffer.get_node(n) for n in got[p][0]]
+            if not any(n is not None and n.content == corpus.text(i)
+                       for n in nodes):
+                raise AssertionError(f"fused chat turn missed fact {i}")
+
+        search_ms = []
+        for i in misses + new_ids[:8]:
+            before = (ft.launches, len(readbacks))
+            t1 = time.perf_counter()
+            hits = ms.search_memories(corpus.text(i))
+            search_ms.append(1e3 * (time.perf_counter() - t1))
+            if (ft.launches - before[0], len(readbacks) - before[1]) != (1, 1):
+                raise AssertionError("search_memories is not one fused dispatch")
+            if not hits or hits[0].content != corpus.text(i):
+                raise AssertionError(f"fused search_memories missed fact {i}")
+
+        batch_facts = (targets + misses + new_ids)[:64]
+        texts = [corpus.text(i) for i in batch_facts]
+        ms.embedder.warm(texts)
+        def one_launch_p50(fn, what):
+            """p50 ms of 5 calls of ``fn``, each one two-tier launch."""
+            runs = []
+            for _ in range(5):
+                before = ft.launches
+                t1 = time.perf_counter()
+                out = fn()
+                runs.append(1e3 * (time.perf_counter() - t1))
+                if ft.launches - before != 1:
+                    raise AssertionError(f"{what} is not one launch")
+            return p50(runs), out
+
+        # Each 64-query shape through the user entry point and, to split
+        # off the scheduler and the host graph, through the index directly.
+        batch_ms, res = one_launch_p50(
+            lambda: ms.search_memories_batch(texts, limit=10),
+            "search_memories_batch(64)")
+        for text, hits in zip(texts, res):
+            if not hits or hits[0].content != text:
+                raise AssertionError(f"batch search missed {text!r}")
+        batch_reqs = [RetrievalRequest(query=v, tenant=TENANTS[0], k=10)
+                      for v in corpus.vectors(batch_facts)]
+        batch_index_ms, _ = one_launch_p50(
+            lambda: ms._serve_requests(batch_reqs), "the index's batch")
+
+        # A fleet of both tenants with mixed k, as one scheduler group.
+        bob_facts = [PER_CONV + 5 + 7 * j for j in range(32)]
+        fleet = []
+        for j in range(64):
+            tenant = TENANTS[j % 2]
+            fact = batch_facts[j // 2] if tenant == TENANTS[0] else bob_facts[j // 2]
+            fleet.append(RetrievalRequest(
+                query=corpus.vectors([fact])[0], tenant=tenant,
+                k=(5, 10, 128)[j % 3]))
+        sched = ms._ensure_scheduler()
+        fleet_ms, out = one_launch_p50(
+            lambda: [f.result() for f in sched.submit_many(fleet)],
+            "the 64-request fleet")
+        fleet_index_ms, _ = one_launch_p50(
+            lambda: ms._serve_requests(fleet), "the index's fleet")
+        for req, r in zip(fleet, out):
+            if len(r.ids) != req.k or any(
+                    not q.startswith(req.tenant + ":") for q in r.ids):
+                raise AssertionError(f"fleet request of {req.tenant} k={req.k} "
+                                     f"got {len(r.ids)} ids or another tenant's")
+        for j in range(0, 64, 2):
+            node = ms.buffer.get_node(out[j].ids[0].partition(":")[2])
+            if node is None or node.content != corpus.text(batch_facts[j // 2]):
+                raise AssertionError("fleet request missed its own fact")
+        torch.cuda.synchronize()
+    finally:
+        vars(ms).pop("_retrieve_for_chat", None)
+        vars(ms.index).pop("search_fused_requests", None)
+        vars(ms.index).pop("_readback", None)
+        torch.cuda.set_sync_debug_mode(0)
+    launches_out["fused_topk"] = ft.launches
+    launches_out["masked_topk_on_fused_path"] = mt.launches
+    if ft.launches == 0 or mt.launches != 0:
+        raise AssertionError("the fused path did not run on the two-tier kernel alone")
+    # Where a fused dispatch's time goes, from the serving telemetry: queue
+    # wait (submit to the worker's pickup), dispatch (host set-up, launches
+    # and the readback wait), decode (ids from the readback).
+    tel = ms.telemetry
+    spans = {name: p50(tel.timer_values(name)) for name in (
+        "serve.queue_wait_ms", "serve.dispatch_ms", "serve.decode_ms")}
+    log("[fused] p50 spans (ms): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in spans.items()))
+    fused = {
+        "spans_p50_ms": spans,
+        "chat_miss_p50_ms": p50(chat_ms["miss"]),
+        "chat_hit_p50_ms": p50(chat_ms["hit"]),
+        "search_p50_ms": p50(search_ms), "batch64_p50_ms": batch_ms,
+        "batch64_index_p50_ms": batch_index_ms,
+        "fleet64_mixed_k_p50_ms": fleet_ms,
+        "fleet64_mixed_k_index_p50_ms": fleet_index_ms,
+        "launches_per_chat_turn": 1,
+        "readbacks_per_dispatch": 1, "launches": ft.launches,
+        "readbacks": len(readbacks), "csr_build_s": csr_s,
+        "csr_builds": ms.index.csr_builds, "warmup_s": warm_s,
+    }
+    log(f"[fused] chat p50 {fused['chat_miss_p50_ms']:.2f} ms (gate miss), "
+        f"{fused['chat_hit_p50_ms']:.2f} ms (gate hit); search_memories p50 "
+        f"{fused['search_p50_ms']:.2f} ms; search_memories_batch(64) p50 "
+        f"{batch_ms:.2f} ms (index {batch_index_ms:.2f}); mixed-k fleet(64) "
+        f"p50 {fleet_ms:.2f} ms (index {fleet_index_ms:.2f}); "
+        f"{ft.launches} two-tier launches, {len(readbacks)} readbacks, "
+        f"0 classic launches; CSR build {csr_s:.3f} s")
+    return fused
 
 
 def main() -> int:
@@ -579,26 +960,34 @@ def main() -> int:
 
     t_start = time.perf_counter()
     phase_build()
-    cases = phase_kernels(device)
+    cases = phase_kernels(device) + ragged_cases(device)
+    torch.cuda.empty_cache()
+    fused_rows = phase_fused_kernel(device)
     torch.cuda.empty_cache()
     launches: dict = {}
     summary = phase_main(launches)
     log(f"[main] summary {json.dumps(summary)}")
     log(f"[smoke] {time.perf_counter() - t_start:.1f} s after the device phase")
 
-    head = next(c for c in cases if c["case"] == "chat_ann_q1_k10_bf16")
-    kernels = [{
-        "name": "masked_topk", "route": "cuda",
-        "source": "lazzaro_tpu_torch/csrc/masked_topk.cu",
-        "replaces": "lazzaro_tpu/ops/pallas_topk.py:53",
-        "launches": launches["masked_topk"],
-        "max_abs_err": max(max(c["max_abs_err"] for c in cases),
-                           summary["filled_arena_max_abs_err"]),
-        "ms": head["ms"], "plain_ms": head["plain_ms"],
-        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-        "library_ms": head["library_ms"], "shape": head["case"],
-        "cases": cases,
-    }]
+    def entry(name, source, replaces, rows, head_case, extra_err=0.0):
+        head = next(c for c in rows if c["case"] == head_case)
+        return {
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": max([c["max_abs_err"] for c in rows] + [extra_err]),
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"], "shape": head["case"],
+            "forms": sorted({c["form"] for c in rows}), "cases": rows}
+
+    kernels = [
+        entry("masked_topk", "lazzaro_tpu_torch/csrc/masked_topk.cu",
+              "lazzaro_tpu/ops/pallas_topk.py:53", cases,
+              "chat_ann_q1_k10_bf16", summary["filled_arena_max_abs_err"]),
+        entry("fused_topk", "lazzaro_tpu_torch/csrc/fused_topk.cu",
+              "lazzaro_tpu/ops/pallas_topk.py:101", fused_rows,
+              "chat_q1_k128_kq10"),
+    ]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,8 @@
 
 Counterpart of ``lazzaro_tpu/config.py``: the same dataclass with every
 field, so a configuration moves between the two packages unchanged. The port
-runs the classic (non-fused) path; fields whose paths are not ported yet
+runs dense single-chip serving (fused by default) and the classic ingest;
+fields whose paths are not ported yet
 default to the values that path needs (each marked "not ported yet"), and
 :meth:`MemoryConfig.check_ported` raises ``NotImplementedError`` naming the
 ROADMAP item when one of those paths is switched on. When a later slice
@@ -151,7 +152,7 @@ class MemoryConfig:
     # the full serving semantics. With pq_serving on, the coarse stage is
     # the in-dispatch ADC member scan over the m-byte code slab
     # (state.search_fused_pq) — every mode is fused now.
-    serve_fused: bool = False    # not ported yet (JAX default: True)
+    serve_fused: bool = True
     # QueryScheduler flush policy: a pending batch ships when it reaches
     # serve_batch_max requests OR when its oldest request has waited
     # serve_flush_us microseconds — bursty load coalesces, a lone request
@@ -199,6 +200,8 @@ class MemoryConfig:
     # the keys collapse to per-mode entries anyway; the cap evicts stale
     # per-k-bucket kernels left behind by non-ragged traffic instead of
     # letting kernel.cache_entries grow without bound.
+    # (This package runs no jit, so it has nothing to cache: the field is
+    # kept for the JAX field set and read by nothing.)
     serve_kernel_cache_max: int = 8
     # Neighbor-gather width of the fused retrieval kernel: at most this
     # many CSR neighbors per retrieved row receive the neighbor-salience
@@ -252,6 +255,8 @@ class MemoryConfig:
     serve_breaker_threshold: int = 5
     serve_breaker_cooldown_s: float = 5.0
     serve_degrade_cap_take: int = 1
+    # (Read by nothing until IVF serving is ported: the dense path has no
+    # nprobe to clamp.)
     serve_degrade_nprobe: int = 1
     # Admission load-shedding budgets: a submit that would push the
     # pending queue past this many requests (or this many query bytes)
@@ -457,7 +462,6 @@ class MemoryConfig:
 
 # (field, "is switched on", ROADMAP item) for every path the port lacks.
 _UNPORTED = (
-    ("serve_fused", bool, "Queue 1 item 5, fused exact serving"),
     ("ingest_fused", bool, "Queue 1 item 6, fused dedup ingest"),
     ("ingest_dedup_fused", bool, "Queue 1 item 6, fused dedup ingest"),
     ("auto_consolidate", bool,

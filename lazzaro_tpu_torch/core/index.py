@@ -2,9 +2,12 @@
 
 Counterpart of the dense single-device subset of ``lazzaro_tpu/core/index.py``:
 string id <-> row maps, free lists, capacity growth and sentinel padding on
-the host; every numeric column on the device (``core.state``). Search runs
-the masked top-k kernel on a CUDA arena. Mutations update the index's own
-tensors in place under one lock.
+the host; every numeric column on the device (``core.state``). Classic search
+runs the masked top-k kernel on a CUDA arena; fused serving
+(:meth:`MemoryIndex.search_fused_requests`) runs a whole request batch as
+one launch of the two-tier kernel plus plain torch on the device, and reads
+back one packed array. Mutations update the index's own tensors in place
+under one lock.
 """
 
 from __future__ import annotations
@@ -17,9 +20,14 @@ import numpy as np
 import torch
 
 from lazzaro_tpu_torch.core import state as S
-from lazzaro_tpu_torch.utils.batching import (decode_topk, empty_results,
-                                              next_pow2, pad_to_pow2)
+from lazzaro_tpu_torch.serve.scheduler import RetrievalRequest, RetrievalResult
+from lazzaro_tpu_torch.utils.batching import (bucket_size, decode_topk,
+                                              empty_results, next_pow2,
+                                              pad_to_bucket, pad_to_pow2,
+                                              unpack_retrieval)
 from lazzaro_tpu_torch.utils.device import resolve_device
+from lazzaro_tpu_torch.utils.telemetry import (default_registry,
+                                               record_device_counters)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -32,6 +40,91 @@ def torch_dtype(dtype) -> torch.dtype:
     if name not in _DTYPES:
         raise ValueError(f"unsupported arena dtype {dtype!r}")
     return _DTYPES[name]
+
+
+def build_host_csr(edge_keys, id_to_row: Dict[str, int], n: int,
+                   min_pad: int = 0) -> Tuple[np.ndarray, np.ndarray]:
+    """CSR of the edge graph over ``n`` arena rows from host bookkeeping
+    alone (``lazzaro_tpu/core/index.py:build_host_csr``): ``(indptr [n+1]
+    i32, nbr [E_pad] i32)``, both directions of every ``(src_id, tgt_id)``
+    key, neighbors in stable source order, ``nbr`` -1-padded to a power of
+    two never below ``min_pad``."""
+    src_l, dst_l = [], []
+    for qsrc, qtgt in edge_keys:
+        s = id_to_row.get(qsrc)
+        t = id_to_row.get(qtgt)
+        if s is None or t is None:
+            continue
+        src_l.append(s)
+        dst_l.append(t)
+    if src_l:
+        a = np.asarray(src_l, np.int64)
+        b = np.asarray(dst_l, np.int64)
+        src = np.concatenate([a, b])
+        dst = np.concatenate([b, a])
+        order = np.argsort(src, kind="stable")
+        src, dst = src[order], dst[order]
+    else:
+        src = dst = np.zeros((0,), np.int64)
+    indptr = np.zeros((n + 1,), np.int32)
+    indptr[1:] = np.cumsum(np.bincount(src, minlength=n))
+    nbr = np.full((max(8, int(min_pad), next_pow2(len(dst))),), -1, np.int32)
+    nbr[:len(dst)] = dst
+    return indptr, nbr
+
+
+_TORCH_DTYPES = {np.dtype(np.float32): torch.float32,
+                 np.dtype(np.int32): torch.int32, np.dtype(bool): torch.bool}
+
+
+class HostStage:
+    """Host arrays to the device in one copy: :meth:`upload` packs them into
+    one byte buffer, copies it asynchronously and returns a device view of
+    each array (no further copy), so serving never waits on the device here.
+    On a GPU the buffer is pinned and reused across uploads (a fused
+    dispatch's inputs); it is written again only once the copy that last
+    read it has run (a CUDA event, polled, never waited on), and otherwise a
+    fresh pinned buffer takes its place."""
+
+    ALIGN = 16
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self._buf: Optional[torch.Tensor] = None
+        self._done = None
+        self.allocations = 0
+
+    def _host_buffer(self, nbytes: int) -> torch.Tensor:
+        if self.device.type != "cuda":
+            return torch.empty((nbytes,), dtype=torch.uint8)
+        buf = self._buf
+        if (buf is None or buf.numel() < nbytes
+                or (self._done is not None and not self._done.query())):
+            buf = torch.empty((next_pow2(max(nbytes, 4096)),),
+                              dtype=torch.uint8, pin_memory=True)
+            self._buf = buf
+            self.allocations += 1
+        return buf
+
+    def upload(self, arrays: Sequence[np.ndarray]) -> List[torch.Tensor]:
+        arrays = [np.ascontiguousarray(a) for a in arrays]
+        offs, total = [], 0
+        for a in arrays:
+            offs.append(total)
+            total += -(-a.nbytes // self.ALIGN) * self.ALIGN
+        buf = self._host_buffer(total)
+        host = buf[:total].numpy()
+        for a, off in zip(arrays, offs):
+            host[off:off + a.nbytes] = a.reshape(-1).view(np.uint8)
+        if self.device.type == "cuda":
+            dev = buf[:total].to(self.device, non_blocking=True)
+            if self._done is None:
+                self._done = torch.cuda.Event()
+            self._done.record(torch.cuda.current_stream(self.device))
+        else:
+            dev = buf[:total]
+        return [dev[off:off + a.nbytes].view(_TORCH_DTYPES[a.dtype])
+                .view(a.shape) for a, off in zip(arrays, offs)]
 
 
 class _EdgeSlotMap(dict):
@@ -74,8 +167,25 @@ class MemoryIndex:
 
     def __init__(self, dim: int, capacity: int = 1024, edge_capacity: int = 8192,
                  dtype=torch.float32, epoch: Optional[float] = None,
-                 device=None):
+                 device=None, telemetry=None, serve_ragged: bool = True,
+                 serve_k_max: int = 128, serve_pad_granularity: int = 8):
         self.device = resolve_device(device)
+        self.telemetry = telemetry if telemetry is not None \
+            else default_registry()
+        # Ragged serving: per-request k and cap ride as device columns and
+        # the kernel computes to the serve_k_max ceiling; batches pad to
+        # linear serve_pad_granularity buckets.
+        self.serve_ragged = bool(serve_ragged)
+        self.serve_k_max = max(1, int(serve_k_max))
+        self.serve_pad_granularity = max(1, int(serve_pad_granularity))
+        # Device CSR of the edge graph for the fused neighbor gather, rebuilt
+        # from host bookkeeping after an edge or row change (_csr_dirty).
+        self._csr_cache = None             # (rows, indptr_dev, nbr_dev)
+        self._stage = HostStage(self.device)   # a fused dispatch's upload
+        self._csr_dirty = True
+        self._csr_pad_hwm = 0
+        self.csr_builds = 0
+        self.csr_build_s = 0.0
         self.dim = dim
         self.dtype = torch_dtype(dtype)
         self._lock = threading.RLock()
@@ -98,16 +208,18 @@ class MemoryIndex:
 
     @classmethod
     def from_numpy(cls, arena: Dict[str, np.ndarray],
-                   edges: Dict[str, np.ndarray], meta: Dict, device=None
-                   ) -> "MemoryIndex":
+                   edges: Dict[str, np.ndarray], meta: Dict, device=None,
+                   **kwargs) -> "MemoryIndex":
         """Build an index from another index's state as numpy arrays: every
         ``ArenaState``/``EdgeState`` column, and ``meta`` with ``id_to_row``,
         ``tenants``, ``shards``, ``edge_slots``, ``free_rows``,
         ``free_edge_slots`` and optionally ``epoch`` (the JAX index's
-        ``_tenants``, ``_shards``, ``_free_rows``, ... under these names)."""
+        ``_tenants``, ``_shards``, ``_free_rows``, ... under these names).
+        ``kwargs`` go to the constructor (the serving settings)."""
         emb = arena["emb"]
         idx = cls(emb.shape[1], capacity=8, edge_capacity=8,
-                  dtype=emb.dtype.name, epoch=meta.get("epoch"), device=device)
+                  dtype=emb.dtype.name, epoch=meta.get("epoch"), device=device,
+                  **kwargs)
         idx.state = S.arena_from_numpy(arena, idx.device)
         idx.edge_state = S.edges_from_numpy(edges, idx.device)
         idx.id_to_row = {k: int(v) for k, v in meta["id_to_row"].items()}
@@ -244,6 +356,7 @@ class MemoryIndex:
                     if k[0] not in self.id_to_row or k[1] not in self.id_to_row]
             for k in dead:
                 self._free_edge_slots.append(self.edge_slots.pop(k))
+            self._csr_dirty = True
 
     def search(self, query: np.ndarray, tenant: str, k: int = 10,
                super_filter: int = 0, exact: bool = False
@@ -403,6 +516,8 @@ class MemoryIndex:
                 continue
             removed.append(key)
             self._free_edge_slots.append(self.edge_slots.pop(key))
+        if removed:
+            self._csr_dirty = True
         return removed
 
     # ---------------------------------------------------------------- links
@@ -523,6 +638,7 @@ class MemoryIndex:
                 slots = self._alloc_edge_slots(len(new))
                 for (key, _), slot in zip(new, slots):
                     self.edge_slots[key] = slot
+                self._csr_dirty = True
                 padded = S.pad_rows(np.asarray(slots, np.int32),
                                     self.edge_state.capacity)
                 b = len(padded)
@@ -554,3 +670,213 @@ class MemoryIndex:
             _, slots = S._edges_prune(self.edge_state, tid, threshold,
                                       self._prune_cap())
             return self._reclaim_pruned_slots(slots.cpu().numpy())
+
+    # ------------------------------------------------- fused retrieval path
+    def _csr_for(self, st: S.ArenaState) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Device CSR of the edge graph (``indptr [rows+1]``, ``nbr
+        [E_pad]``, i32) for the fused neighbor gather, built from host
+        bookkeeping (no device readback) and uploaded again only after an
+        edge or row change. The dirty flag is cleared before the build, so
+        a writer racing past marks it again. ``csr_builds`` counts the
+        builds, ``csr_build_s`` is the last one's host seconds."""
+        n = st.salience.shape[0]
+        cache = self._csr_cache
+        if cache is not None and not self._csr_dirty and cache[0] == n:
+            return cache[1], cache[2]
+        self._csr_dirty = False
+        t0 = time.perf_counter()
+        indptr, nbr = build_host_csr(list(self.edge_slots.keys()),
+                                     self.id_to_row, n,
+                                     min_pad=self._csr_pad_hwm)
+        self.csr_builds += 1
+        self.csr_build_s = time.perf_counter() - t0
+        self._csr_pad_hwm = nbr.shape[0]
+        dev = HostStage(self.device).upload([indptr, nbr])
+        self._csr_cache = (n, dev[0], dev[1])
+        return dev[0], dev[1]
+
+    def _readback(self, packed: torch.Tensor) -> np.ndarray:
+        """The one device-to-host copy of a fused dispatch."""
+        return packed.cpu().numpy()
+
+    def search_fused_requests(self, reqs, *, cap_take: int, max_nbr: int,
+                              super_gate: float, acc_boost: float,
+                              nbr_boost: float,
+                              now: Optional[float] = None) -> List:
+        """Serve a batch of :class:`RetrievalRequest` with one launch of the
+        two-tier kernel and one packed readback
+        (``lazzaro_tpu/core/index.py:search_fused_requests`` with the memory
+        planner off, which is ``_search_fused_once`` in exact mode): gate,
+        ANN top-k, CSR neighbor gather and, for every request that asked,
+        both boosts applied in place under the state lock. A batch where no
+        request boosts takes the read twin. Every host decision is made
+        from host arrays, so the only wait on the device is the readback."""
+        nq = len(reqs)
+        results = [RetrievalResult() for _ in range(nq)]
+        if nq == 0 or not self.id_to_row:
+            return results
+        cap = self.state.capacity
+        dim = self.dim
+        ragged = self.serve_ragged
+        if ragged:
+            # the static ceiling: every request's own k rides as data
+            k_bucket = int(min(max(self.serve_k_max, cap_take, 1), cap))
+        else:
+            k_eff = max(cap_take, max(min(int(r.k), cap) for r in reqs), 1)
+            k_bucket = min(next_pow2(k_eff), cap)
+        q = np.zeros((nq, dim), np.float32)
+        valid = np.zeros((nq,), bool)
+        tenants = np.full((nq,), -1, np.int32)
+        gate_on = np.zeros((nq,), bool)
+        boost_on = np.zeros((nq,), bool)
+        k_arr = np.zeros((nq,), np.int32)
+        cap_arr = np.zeros((nq,), np.int32)
+        for i, r in enumerate(reqs):
+            v = np.asarray(r.query, np.float32).reshape(-1)
+            tid = self._tenants.get(r.tenant)
+            if v.size != dim or tid is None:
+                continue
+            q[i] = v
+            valid[i] = True
+            tenants[i] = tid
+            gate_on[i] = bool(r.gate_enabled)
+            boost_on[i] = bool(r.boost)
+            if ragged:
+                # k_q >= cap_take, so the boosted prefix is always live
+                k_arr[i] = min(max(int(r.k), cap_take, 1), k_bucket)
+                cap_arr[i] = min(int(r.cap_take or cap_take), cap_take,
+                                 k_bucket)
+        if not valid.any():
+            return results
+        qp = (pad_to_bucket(q, self.serve_pad_granularity) if ragged
+              else pad_to_pow2(q))
+        pad_n = qp.shape[0]
+        tel = self.telemetry
+        tel.bump("serve.live_requests", nq)
+        tel.bump("serve.padded_slots", pad_n)
+        tel.gauge("serve.batch_occupancy", nq / pad_n)
+        tel.record("serve.k_bucket", k_bucket)
+
+        def padb(arr, fill=False, dt=bool):
+            out = np.full((pad_n,), fill, dt)
+            out[:nq] = arr
+            return out
+
+        cap_take_s = min(cap_take, k_bucket)
+        boost = bool(boost_on.any())
+        t0 = time.perf_counter()
+        with torch.profiler.record_function("lz.serve.exact"):
+            with self._lock:
+                st = self.state
+                indptr, nbr = self._csr_for(st)
+                cols = {"q": qp, "valid": padb(valid),
+                        "tenant": padb(tenants, -1, np.int32),
+                        "gate": padb(gate_on)}
+                if ragged:
+                    cols["k_q"] = padb(k_arr, 0, np.int32)
+                if boost:
+                    cols["boost"] = padb(boost_on)
+                    if ragged:
+                        cols["cap_q"] = padb(cap_arr, 0, np.int32)
+                up = dict(zip(cols, self._stage.upload(list(cols.values()))))
+                args = (indptr, nbr, up["q"], up["valid"], up["tenant"],
+                        up["gate"])
+                statics = dict(k=k_bucket, cap_take=cap_take_s,
+                               max_nbr=max_nbr)
+                if ragged:
+                    statics["k_live"] = int(k_arr.max())
+                if boost:
+                    now_rel = ((now if now is not None else time.time())
+                               - self.epoch)
+                    scalars = (now_rel, super_gate, acc_boost, nbr_boost)
+                    if ragged:
+                        _, packed = S.search_fused_ragged(
+                            st, *args, up["boost"], up["k_q"], up["cap_q"],
+                            *scalars, **statics)
+                    else:
+                        _, packed = S.search_fused(st, *args, up["boost"],
+                                                   *scalars, **statics)
+                elif ragged:
+                    packed = S.search_fused_ragged_read(
+                        st, *args, up["k_q"], super_gate, **statics)
+                else:
+                    packed = S.search_fused_read(st, *args, super_gate,
+                                                 **statics)
+            host = self._readback(packed)
+        tel.record("serve.dispatch_ms", (time.perf_counter() - t0) * 1e3,
+                   labels={"mode": "exact"})
+        tel.bump("serve.dispatches", labels={"mode": "exact"})
+        with tel.span("serve.decode_ms"):
+            gate_s, gate_r, ann_s, ann_r, fast, counters = unpack_retrieval(
+                host[:nq], k_bucket)
+            out = self._demux_fused(reqs, results, valid, boost_on, gate_s,
+                                    gate_r, ann_s, ann_r, fast, cap,
+                                    lengths=(counters[:, 0] if ragged
+                                             else None))
+        record_device_counters(tel, counters, fast, gate_on[:nq], valid[:nq],
+                               np.asarray([min(int(r.k), cap) for r in reqs]))
+        return out
+
+    def _demux_fused(self, reqs, results, valid, boost_on, gate_s, gate_r,
+                     ann_s, ann_r, fast, cap, lengths=None):
+        """Per-request decode of the unpacked readback; ``lengths`` (the
+        live-length counter) bounds a ragged request's columns."""
+        for i, r in enumerate(reqs):
+            if not valid[i]:
+                continue
+            res = results[i]
+            ids, scores = decode_topk(ann_s[i:i + 1], ann_r[i:i + 1],
+                                      self.row_to_id, S.NEG_INF,
+                                      limit=min(int(r.k), cap),
+                                      lengths=(None if lengths is None
+                                               else lengths[i:i + 1]))[0]
+            res.ids, res.scores = ids, scores
+            if gate_s[i] > S.NEG_INF / 2:
+                res.gate_id = self.row_to_id.get(int(gate_r[i]))
+                res.gate_score = float(gate_s[i])
+            res.fast = bool(fast[i])
+            res.boosted = bool(boost_on[i] and not fast[i])
+        return results
+
+    def warmup_serving(self, geometries=(8, 64), *, cap_take: int = 5,
+                       max_nbr: int = 32, super_gate: float = 0.4,
+                       acc_boost: float = 0.05, nbr_boost: float = 0.02,
+                       k: Optional[int] = None) -> Dict[tuple, float]:
+        """Build the kernels and launch the serve and read programs once per
+        padded batch size, through the live entry point, with queries of a
+        tenant that owns no row (no hits; every boost lands on the
+        sentinel row). Serving counters are muted meanwhile. Returns
+        ``{("exact", padded_batch): ms}``; a no-op on an empty index."""
+        out: Dict[tuple, float] = {}
+        if not self.id_to_row:
+            return out
+        tel = self.telemetry
+        self._tenants.setdefault("~warmup", -2)   # matches no arena row
+        kk = int(k if k is not None else self.serve_k_max)
+        buckets = sorted({
+            (bucket_size(g, self.serve_pad_granularity)
+             if self.serve_ragged else next_pow2(g))
+            for g in geometries if g > 0})
+        kw = dict(cap_take=cap_take, max_nbr=max_nbr, super_gate=super_gate,
+                  acc_boost=acc_boost, nbr_boost=nbr_boost)
+        zero_q = np.zeros((self.dim,), np.float32)
+        for g in buckets:
+            t0 = time.perf_counter()
+            prev = tel.enabled
+            tel.enabled = False
+            try:
+                self.search_fused_requests(
+                    [RetrievalRequest(query=zero_q, tenant="~warmup", k=kk,
+                                      gate_enabled=True, boost=(i == 0))
+                     for i in range(g)], **kw)
+                self.search_fused_requests(
+                    [RetrievalRequest(query=zero_q, tenant="~warmup", k=kk,
+                                      gate_enabled=True)
+                     for i in range(g)], **kw)
+            finally:
+                tel.enabled = prev
+            ms = (time.perf_counter() - t0) * 1e3
+            tel.record("kernel.warmup_ms", ms,
+                       labels={"mode": "exact", "batch": str(g)})
+            out[("exact", g)] = ms
+        return out

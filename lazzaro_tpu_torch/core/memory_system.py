@@ -1,12 +1,17 @@
-"""MemorySystem: the orchestrator of the PyTorch/CUDA port, classic path.
+"""MemorySystem: the orchestrator of the PyTorch/CUDA port.
 
-Counterpart of ``lazzaro_tpu/core/memory_system.py`` with the configuration
-``serve_fused=False, ingest_fused=False, ingest_dedup_fused=False``: a chat
-turn runs the super-node gate (top-1 over super rows) and the ANN search
-(top-``ann_limit``) through the masked top-k kernel; a conversation end
+Counterpart of ``lazzaro_tpu/core/memory_system.py`` with classic ingest
+(``ingest_fused=False, ingest_dedup_fused=False``). Serving is fused by
+default (``serve_fused=True``): a chat turn or a ``search_memories[_batch]``
+call goes through the ``QueryScheduler`` to
+``MemoryIndex.search_fused_requests``, one launch of the two-tier top-k
+kernel (super-node gate + ANN) with the neighbor and access boosts applied
+on the device, and one packed readback. With ``serve_fused=False`` a chat
+turn runs the gate and the ANN search as two launches of the masked top-k
+kernel and pays the boosts as separate scatters. A conversation end
 extracts facts, probes them for duplicates with one batched top-1 search,
 adds the new ones, links them (same-shard and any-shard scans) and decays,
-prunes and evicts. ``search_memories`` is one kernel launch.
+prunes and evicts.
 
 State lives in memory only in this slice: there is no store, no turn or
 fact journal and no snapshot. ``switch_user`` keeps each tenant's host graph
@@ -35,6 +40,7 @@ from lazzaro_tpu_torch.core.providers import (HashingEmbedder, HeuristicLLM,
                                               _extract_json_object, infer_topic)
 from lazzaro_tpu_torch.core.query_cache import QueryCache
 from lazzaro_tpu_torch.models.graph import Edge, Node
+from lazzaro_tpu_torch.serve.scheduler import QueryScheduler, RetrievalRequest
 from lazzaro_tpu_torch.utils.batching import IngestCoalescer
 from lazzaro_tpu_torch.utils.telemetry import Telemetry
 
@@ -159,8 +165,13 @@ class MemorySystem:
                                    enabled=cfg.serve_telemetry)
         self.index = MemoryIndex(dim, capacity=cfg.initial_capacity,
                                  edge_capacity=cfg.max_edges,
-                                 dtype=cfg.dtype, device=device)
+                                 dtype=cfg.dtype, device=device,
+                                 telemetry=self.telemetry,
+                                 serve_ragged=cfg.serve_ragged,
+                                 serve_k_max=cfg.serve_k_max,
+                                 serve_pad_granularity=cfg.serve_pad_granularity)
         self.device = self.index.device
+        self.query_scheduler: Optional[QueryScheduler] = None
         self.query_cache = QueryCache(cfg.cache_size) if self.enable_caching else None
 
         self.short_term_memory: List[Dict] = []
@@ -400,8 +411,9 @@ class MemorySystem:
 
     def _assemble_messages(self, retrieved_ids: List[str],
                            mode: str = "classic") -> List[Dict[str, str]]:
-        """``mode`` "classic" pays the access boost here; "deferred"
-        (query-cache hits) queues it for one batched flush."""
+        """``mode`` "classic" pays the access boost here, "device" means the
+        fused dispatch already applied it, "deferred" (query-cache hits)
+        queues it for one batched flush."""
         context_parts = []
         profile_context = self.profile.get_context()
         if profile_context and profile_context != "No profile data yet.":
@@ -442,16 +454,128 @@ class MemorySystem:
         messages.extend(self.conversation_history[-self.config.history_window:])
         return messages
 
+    # ----------------------------------------------------------- fused serving
+    def _use_fused_serving(self) -> bool:
+        """The dense exact fused path serves every configuration this
+        package accepts, so ``serve_fused`` alone decides."""
+        return self.config.serve_fused
+
+    def _ensure_scheduler(self) -> QueryScheduler:
+        """Start the cross-request query scheduler on first use: one worker
+        thread per system, launching on the index's device."""
+        sched = self.query_scheduler
+        if sched is not None and not sched.closed:
+            return sched
+        with self._mutex:
+            sched = self.query_scheduler
+            if sched is None or sched.closed:
+                cfg = self.config
+                sched = QueryScheduler(
+                    self._serve_requests,
+                    max_batch=cfg.serve_batch_max,
+                    max_wait_us=cfg.serve_flush_us,
+                    telemetry=self.telemetry,
+                    continuous=cfg.serve_continuous,
+                    tenant_max_inflight=cfg.serve_tenant_max_inflight,
+                    dispatch_timeout_s=cfg.serve_dispatch_timeout_s,
+                    breaker_threshold=cfg.serve_breaker_threshold,
+                    breaker_cooldown_s=cfg.serve_breaker_cooldown_s,
+                    shed_depth=cfg.serve_shed_depth,
+                    shed_bytes=cfg.serve_shed_bytes,
+                    degrade_cap_take=cfg.serve_degrade_cap_take,
+                    device=self.device)
+                self.query_scheduler = sched
+        return sched
+
+    def _serve_requests(self, reqs: List[RetrievalRequest]):
+        """Scheduler executor: one fused dispatch and one packed readback
+        for the whole batch."""
+        return self.index.search_fused_requests(
+            reqs, cap_take=self.config.retrieval_cap,
+            max_nbr=self.config.serve_max_nbr,
+            super_gate=self.config.super_node_gate,
+            acc_boost=self.config.access_salience_boost,
+            nbr_boost=self.config.neighbor_salience_boost)
+
+    def warmup_serving(self, geometries=(8, 64)):
+        """Build the serving kernels and launch them once per query-batch
+        geometry with this system's serving parameters, so the first live
+        request pays no build."""
+        return self.index.warmup_serving(
+            geometries, cap_take=self.config.retrieval_cap,
+            max_nbr=self.config.serve_max_nbr,
+            super_gate=self.config.super_node_gate,
+            acc_boost=self.config.access_salience_boost,
+            nbr_boost=self.config.neighbor_salience_boost,
+            k=self.config.serve_k_max)
+
     # ------------------------------------------------------------- retrieval
     def _retrieve_for_chat(self, query_emb: List[float],
                            query_text: str) -> Tuple[List[str], str]:
         """``(ids, boost_mode)``: a query-cache hit costs no search and
-        defers its boosts; otherwise the classic two-search retrieval."""
+        defers its boosts ("deferred"); fused serving returns "device" when
+        the kernel's dispatch applied both boosts, or "classic" when the
+        super-node gate fired (the host serves the children and pays the
+        classic boosts); otherwise the classic two-search retrieval."""
         if self.query_cache:
             cached = self.query_cache.get_results(query_text, tenant=self.user_id)
             if cached:
                 return cached, "deferred"
-        return self._optimized_retrieval(query_emb, query_text), "classic"
+        if not self._use_fused_serving():
+            return self._optimized_retrieval(query_emb, query_text), "classic"
+        req = RetrievalRequest(
+            query=np.asarray(query_emb, np.float32),
+            tenant=self.user_id, k=self.config.ann_limit,
+            gate_enabled=bool(self.enable_hierarchy and self.super_nodes),
+            boost=True)
+        res = self._ensure_scheduler().submit(req).result()
+        # The host half: the same children expansion and merge as the
+        # classic path, fed from the kernel's (gate, ANN) result.
+        retrieved = (self._children_of(res.gate_id)
+                     if res.fast and res.gate_id is not None else [])
+        if len(retrieved) >= self.config.retrieval_cap:
+            final = self._cache_retrieval(query_text, retrieved)
+        else:
+            final = self._merge_retrieval(query_text, retrieved, res.ids)
+        return final, ("device" if res.boosted else "classic")
+
+    def _children_of(self, super_qid: str) -> List[str]:
+        """Hierarchy fast path: the first ``hierarchy_children`` live
+        children of the super node the gate picked."""
+        best = self.super_nodes.get(super_qid.partition(":")[2])
+        if best is None:
+            return []
+        return [cid for cid in best.child_ids[:self.config.hierarchy_children]
+                if (child := self.buffer.get_node(cid))
+                and not child.is_super_node]
+
+    def _cache_retrieval(self, query_text: str, ids: List[str]) -> List[str]:
+        final = ids[:self.config.retrieval_cap]
+        if self.query_cache:
+            self.query_cache.set_results(query_text, final, tenant=self.user_id)
+        return final
+
+    def _merge_retrieval(self, query_text: str, retrieved: List[str],
+                         vec_qids: List[str]) -> List[str]:
+        """Children first, then the ANN ids, dropping repeated ids and
+        repeated contents, capped at ``retrieval_cap``."""
+        seen_ids: Set[str] = set(retrieved)
+        seen_content: Set[str] = set()
+        final: List[str] = []
+        for rid in retrieved:
+            node = self.buffer.get_node(rid)
+            if node:
+                seen_content.add(node.content)
+                final.append(rid)
+        for rid in (v.partition(":")[2] for v in vec_qids):
+            if rid in seen_ids:
+                continue
+            node = self.buffer.get_node(rid)
+            if node and node.content not in seen_content:
+                seen_content.add(node.content)
+                final.append(rid)
+                seen_ids.add(rid)
+        return self._cache_retrieval(query_text, final)
 
     def _optimized_retrieval(self, query_emb: List[float], query_text: str) -> List[str]:
         if self.query_cache:
@@ -467,50 +591,20 @@ class MemorySystem:
             sids, sscores = self.index.search(q, self.user_id, k=1,
                                               super_filter=1, exact=True)
             if sids and sscores[0] > self.config.super_node_gate:
-                best = self.super_nodes.get(sids[0].partition(":")[2])
-                if best is not None:
-                    for child_id in best.child_ids[:self.config.hierarchy_children]:
-                        child = self.buffer.get_node(child_id)
-                        if child and not child.is_super_node:
-                            retrieved.append(child_id)
-                    if len(retrieved) >= self.config.retrieval_cap:
-                        result = retrieved[:self.config.retrieval_cap]
-                        if self.query_cache:
-                            self.query_cache.set_results(
-                                query_text, result, tenant=self.user_id)
-                        return result
+                retrieved = self._children_of(sids[0])
+                if len(retrieved) >= self.config.retrieval_cap:
+                    return self._cache_retrieval(query_text, retrieved)
 
         # 2. Arena ANN over the non-super rows.
         limit = self.config.ann_limit if not retrieved else self.config.retrieval_cap
         vec_ids, _ = self.index.search(q, self.user_id, k=limit, super_filter=-1)
-        vector_ids = [v.partition(":")[2] for v in vec_ids]
-
-        seen_ids: Set[str] = set(retrieved)
-        seen_content: Set[str] = set()
-        final: List[str] = []
-        for rid in retrieved:
-            node = self.buffer.get_node(rid)
-            if node:
-                seen_content.add(node.content)
-                final.append(rid)
-        for rid in vector_ids:
-            if rid in seen_ids:
-                continue
-            node = self.buffer.get_node(rid)
-            if node and node.content not in seen_content:
-                seen_content.add(node.content)
-                final.append(rid)
-                seen_ids.add(rid)
-
-        final = final[:self.config.retrieval_cap]
-        if self.query_cache:
-            self.query_cache.set_results(query_text, final, tenant=self.user_id)
-        return final
+        return self._merge_retrieval(query_text, retrieved, vec_ids)
 
     def _boost_neighbors(self, retrieved_ids: List[str],
                          mode: str = "classic") -> None:
-        """Associative neighbor boost, paid now ("classic") or queued
-        ("deferred"); host copies update either way."""
+        """Associative neighbor boost, paid now ("classic"), queued
+        ("deferred"), or already applied by the fused dispatch's CSR gather
+        ("device"); host copies update in every mode."""
         neighbors: Set[str] = set()
         for nid in retrieved_ids:
             neighbors.update(self.buffer.get_neighbors(nid))
@@ -967,8 +1061,16 @@ Return JSON: {"memories": [{"content": "...", "type": "semantic|episodic|procedu
     # ----------------------------------------------------------------- search
     def search_memories(self, query: str, limit: int = 5) -> List[Node]:
         query_emb = self._get_embedding(query)
-        ids, _ = self.index.search(np.asarray(query_emb, np.float32),
-                                   self.user_id, k=limit, super_filter=-1)
+        if self._use_fused_serving():
+            # Through the scheduler: a lone call ships at once, concurrent
+            # callers share one dispatch.
+            res = self._ensure_scheduler().submit(RetrievalRequest(
+                query=np.asarray(query_emb, np.float32),
+                tenant=self.user_id, k=limit)).result()
+            ids = res.ids
+        else:
+            ids, _ = self.index.search(np.asarray(query_emb, np.float32),
+                                       self.user_id, k=limit, super_filter=-1)
         results = []
         for qid in ids:
             node = self.buffer.get_node(qid.partition(":")[2])
@@ -979,12 +1081,19 @@ Return JSON: {"memories": [{"content": "...", "type": "semantic|episodic|procedu
     def search_memories_batch(self, queries: List[str], limit: int = 5
                               ) -> List[List[Node]]:
         """``search_memories`` for many queries: one batched embed and one
-        kernel launch."""
+        kernel launch. With fused serving the group rides the scheduler
+        contiguously and shares batches with concurrent chat turns."""
         if not queries:
             return []
         embs = np.asarray(self._batch_embed(list(queries)), np.float32)
-        per_query = self.index.search_batch(embs, self.user_id, k=limit,
-                                            super_filter=-1)
+        if self._use_fused_serving():
+            reqs = [RetrievalRequest(query=embs[i], tenant=self.user_id,
+                                     k=limit) for i in range(len(queries))]
+            futures = self._ensure_scheduler().submit_many(reqs)
+            per_query = [(f.result().ids, f.result().scores) for f in futures]
+        else:
+            per_query = self.index.search_batch(embs, self.user_id, k=limit,
+                                                super_filter=-1)
         results: List[List[Node]] = []
         for ids, _scores in per_query:
             nodes = []
@@ -1039,12 +1148,17 @@ Return JSON: {"memories": [{"content": "...", "type": "semantic|episodic|procedu
                 "embedding_calls": self.metrics["embedding_calls"],
             },
             "index": self.index.stats(),
+            "serving": (self.query_scheduler.stats()
+                        if self.query_scheduler is not None else None),
             "providers": {"llm": type(self.llm).__name__,
                           "embedder": type(self.embedder).__name__},
         }
 
     # ------------------------------------------------------------------ close
     def close(self) -> None:
+        sched = getattr(self, "query_scheduler", None)
+        if sched is not None:
+            sched.close()
         if getattr(self, "background_executor", None):
             self.background_executor.shutdown(wait=True)
         # Facts the flush policy deferred land now rather than never.

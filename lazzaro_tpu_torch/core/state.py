@@ -14,8 +14,9 @@ the live state and serializes writers.
 
 Order of ties: wherever the JAX package calls ``lax.top_k`` this module
 calls :func:`ops.topk.stable_topk` (score descending, ties to the lowest
-row), and the arena scan goes through :func:`ops.masked_topk.masked_topk`,
-the Hopper kernel on a CUDA arena.
+row), and the arena scans go through :func:`ops.masked_topk.masked_topk`
+(classic search) and :func:`ops.fused_topk.fused_topk` (fused serving), the
+Hopper kernels on a CUDA arena.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import numpy as np
 import torch
 
 from lazzaro_tpu_torch.ops.chunking import chunked_map, nt_dot
+from lazzaro_tpu_torch.ops.fused_topk import fused_topk
 from lazzaro_tpu_torch.ops.masked_topk import masked_topk
 from lazzaro_tpu_torch.ops.topk import stable_topk
 
@@ -495,3 +497,222 @@ def _edges_delete_for_nodes(state: EdgeState, node_rows) -> EdgeState:
     r = torch.as_tensor(node_rows, device=state.src.device).int()
     state.alive &= ~(torch.isin(state.src, r) | torch.isin(state.tgt, r))
     return state
+
+
+# ---------------------------------------------------------------------------
+# Fused retrieval: the per-chat-turn serving sequence (super-node gate,
+# main-arena ANN, CSR neighbor gather, neighbor and access boosts) as one
+# run of device work with one packed readback. The arena scan is the
+# two-tier kernel (ops.fused_topk); the rest is plain torch on the device,
+# and no step reads a device value back to the host.
+# ---------------------------------------------------------------------------
+
+def _scalar(x, device) -> torch.Tensor:
+    """A 0-d f32 tensor on ``device``, made by a fill, not a host copy."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.float32)
+    return torch.full((), float(x), dtype=torch.float32, device=device)
+
+
+def _csr_neighbor_rows(state: ArenaState, csr_indptr: torch.Tensor,
+                       csr_nbr: torch.Tensor, acc_rows: torch.Tensor,
+                       tenant_c: torch.Tensor, max_nbr: int) -> torch.Tensor:
+    """CSR neighbor gather of the access-boosted rows, deduplicated per
+    query (``state.py:_csr_neighbor_rows``): a neighbor counts once per
+    query, never when it was itself retrieved, and only when it is a live
+    row of the query's tenant; everything else becomes the sentinel row.
+    ``[Q, cap_take * max_nbr]`` i32. The sentinel row's CSR slice is empty,
+    so masked entries gather nothing."""
+    cap = state.capacity
+    dev = acc_rows.device
+    acc = acc_rows.long()
+    start = csr_indptr[acc]
+    end = csr_indptr[acc + 1]
+    idx = start[:, :, None] + torch.arange(max_nbr, device=dev,
+                                           dtype=start.dtype)[None, None, :]
+    ok = idx < end[:, :, None]
+    gathered = csr_nbr[torch.clamp(idx, max=csr_nbr.shape[0] - 1).long()]
+    nbr = torch.where(ok, gathered, -1)
+    flat = nbr.reshape(nbr.shape[0], -1)
+    m = flat.shape[1]
+    safe = torch.clamp(flat, min=0).long()
+    valid_n = ((flat >= 0) & state.alive[safe]
+               & (state.tenant_id[safe] == tenant_c[:, None]))
+    earlier = torch.ones((m, m), dtype=torch.bool, device=dev).tril(-1)
+    dup = ((flat[:, :, None] == flat[:, None, :]) & earlier[None]).any(-1)
+    in_res = (flat[:, :, None] == acc_rows[:, None, :]).any(-1)
+    return torch.where(valid_n & ~dup & ~in_res, flat, cap).int()
+
+
+def _gate_and_boost_rows(state: ArenaState, csr_indptr, csr_nbr, gate_s,
+                         ann_s, ann_r, valid_c, tenant_c, gate_c, boost_c,
+                         super_gate, cap_take: int, max_nbr: int, cap_c=None):
+    """The tail after the top-k (``state.py:_gate_and_boost_rows``): the
+    gate verdict on the device (where it fires the host serves the super
+    node's children and pays classic boosts, so the device boosts nothing
+    for that query), the access-boost rows (the first ``cap_take`` live ANN
+    rows, or the query's own ``cap_c``) and their CSR neighbors."""
+    cap = state.capacity
+    fast = gate_c & (gate_s > super_gate)
+    do_boost = boost_c & valid_c & ~fast
+    take = (ann_s[:, :cap_take] > NEG_INF / 2) & do_boost[:, None]
+    if cap_c is not None:
+        take = take & (torch.arange(cap_take, device=ann_s.device)[None, :]
+                       < cap_c[:, None])
+    acc_rows = torch.where(take, ann_r[:, :cap_take], cap).int()
+    nbr_rows = _csr_neighbor_rows(state, csr_indptr, csr_nbr, acc_rows,
+                                  tenant_c, max_nbr)
+    return fast, acc_rows, nbr_rows
+
+
+def _search_fused_scan(state: ArenaState, csr_indptr, csr_nbr, q, q_valid,
+                       tenant, gate_on, boost_on, super_gate, k: int,
+                       cap_take: int, max_nbr: int, k_q=None, cap_q=None,
+                       k_live=None, read_only: bool = False):
+    """The compute phase (``state.py:_search_fused_scan``, ``sem=None``):
+    the two-tier top-k kernel with the ragged tail (``k_q``/``cap_q`` make
+    ``k`` and ``cap_take`` static ceilings), then the gate verdict and, for
+    a batch that boosts, the boost rows. ``k_live`` (host int >= max k_q)
+    lets the kernel stop its lists early; the result is the same. The read
+    twin stops after the verdict: its boost rows would all be the
+    sentinel."""
+    qn = normalize(q.float()).to(state.emb.dtype)
+    gate_s, gate_r, ann_s, ann_r = fused_topk(
+        state.emb, state.alive, state.tenant_id, state.is_super, qn, tenant,
+        k_q, k, sentinel=state.capacity, k_live=k_live)
+    if read_only:
+        return gate_s, gate_r, ann_s, ann_r, gate_on & (gate_s > super_gate)
+    fast, acc_rows, nbr_rows = _gate_and_boost_rows(
+        state, csr_indptr, csr_nbr, gate_s, ann_s, ann_r, q_valid, tenant,
+        gate_on, boost_on, super_gate, cap_take, max_nbr, cap_c=cap_q)
+    return gate_s, gate_r, ann_s, ann_r, fast, acc_rows, nbr_rows
+
+
+def _boost_scatter(state: ArenaState, acc_rows: torch.Tensor,
+                   nbr_rows: torch.Tensor, now, acc_boost,
+                   nbr_boost) -> ArenaState:
+    """Scatter phase (``state.py:_boost_scatter``), in place: per-row
+    access and neighbor counts (a row retrieved by two queries of the batch
+    counts twice), salience raised by the count-weighted boosts in the JAX
+    order of operations and capped at 1.0, ``access_count`` raised by the
+    access count, ``last_accessed`` set to ``now`` on every touched row.
+    Masked entries point at the sentinel row, whose counts are zeroed."""
+    n = state.salience.shape[0]
+    dev = state.salience.device
+
+    def counts(rows):
+        flat = rows.reshape(-1).long()
+        cnt = torch.zeros((n,), dtype=torch.int32, device=dev)
+        cnt.index_add_(0, flat, torch.ones_like(flat, dtype=torch.int32))
+        cnt[n - 1:].zero_()        # a fill: no host value to copy over
+        return cnt
+
+    acc_cnt, nbr_cnt = counts(acc_rows), counts(nbr_rows)
+    sal = (state.salience + acc_cnt.float() * acc_boost
+           + nbr_cnt.float() * nbr_boost)
+    touched = (acc_cnt > 0) | (nbr_cnt > 0)
+    torch.where(touched, torch.clamp(sal, max=1.0), state.salience,
+                out=state.salience)
+    state.access_count += acc_cnt
+    torch.where(touched, now, state.last_accessed, out=state.last_accessed)
+    return state
+
+
+def _boost_row_counts(capacity: int, acc_rows: torch.Tensor,
+                      nbr_rows: torch.Tensor):
+    """Per-query counts of rows the boost scatter touches (sentinel entries
+    excluded), ``state.py:_boost_row_counts``."""
+    return (acc_rows != capacity).sum(-1), (nbr_rows != capacity).sum(-1)
+
+
+def _bitcast(a: torch.Tensor) -> torch.Tensor:
+    return a.to(torch.int32).contiguous().view(torch.float32)
+
+
+def _pack_retrieval(gate_s, gate_r, ann_s, ann_r, fast, acc=None,
+                    nbr=None) -> torch.Tensor:
+    """The one ``[Q, 3 + 2k + 5]`` f32 readback array
+    (``state.py:_pack_retrieval``): gate score, gate row, ANN scores, ANN
+    rows, the fast bit, then the five counters of
+    ``utils.batching.RETRIEVAL_COUNTERS`` (dedup and semantic are always 0
+    on the dense path).
+    Int columns are bit-cast, not converted; the host undoes it with
+    ``.view(np.int32)`` (``utils.batching.unpack_retrieval``)."""
+    zeros = torch.zeros(gate_s.shape, dtype=torch.int32, device=gate_s.device)
+    n_live = (ann_s > NEG_INF / 2).sum(-1)
+    acc = zeros if acc is None else acc
+    nbr = zeros if nbr is None else nbr
+    return torch.cat([
+        gate_s[:, None], _bitcast(gate_r)[:, None], ann_s, _bitcast(ann_r),
+        fast.float()[:, None], _bitcast(n_live)[:, None],
+        _bitcast(zeros)[:, None], _bitcast(acc)[:, None],
+        _bitcast(nbr)[:, None], _bitcast(zeros)[:, None]], dim=1)
+
+
+def _sem_finish(state: ArenaState, res, now, acc_boost, nbr_boost):
+    """Serve tail (the ``sem=None`` branch of ``state.py:_sem_finish``):
+    boost-row counters, the in-place boost scatter, the packed readback."""
+    gate_s, gate_r, ann_s, ann_r, fast, acc_rows, nbr_rows = res
+    n_acc, n_nbr = _boost_row_counts(state.capacity, acc_rows, nbr_rows)
+    dev = state.salience.device
+    _boost_scatter(state, acc_rows, nbr_rows, _scalar(now, dev),
+                   _scalar(acc_boost, dev), _scalar(nbr_boost, dev))
+    return state, _pack_retrieval(gate_s, gate_r, ann_s, ann_r, fast,
+                                  acc=n_acc, nbr=n_nbr)
+
+
+def _sem_finish_read(res):
+    """Read tail (the ``sem=None`` branch of ``state.py:_sem_finish_read``):
+    no scatter; the boost counters are 0."""
+    return _pack_retrieval(*res[:5])
+
+
+def search_fused(state: ArenaState, csr_indptr, csr_nbr, q, q_valid, tenant,
+                 gate_on, boost_on, now, super_gate, acc_boost, nbr_boost,
+                 k: int, cap_take: int, max_nbr: int):
+    """One padded cross-tenant query batch: gate + ANN top-``k`` + neighbor
+    gather + both boosts, applied in place. Returns ``(state, packed)``
+    (``state.py:search_fused``; the donated and ``_copy`` twins of the JAX
+    package are one function here)."""
+    sg = _scalar(super_gate, state.emb.device)
+    res = _search_fused_scan(state, csr_indptr, csr_nbr, q, q_valid, tenant,
+                             gate_on, boost_on, sg, k, cap_take, max_nbr)
+    return _sem_finish(state, res, now, acc_boost, nbr_boost)
+
+
+def search_fused_read(state: ArenaState, csr_indptr, csr_nbr, q, q_valid,
+                      tenant, gate_on, super_gate, k: int, cap_take: int,
+                      max_nbr: int) -> torch.Tensor:
+    """Read-only twin of :func:`search_fused` (no query boosts): same
+    result columns, the state untouched. Returns the packed array."""
+    sg = _scalar(super_gate, state.emb.device)
+    res = _search_fused_scan(state, csr_indptr, csr_nbr, q, q_valid, tenant,
+                             gate_on, None, sg, k, cap_take, max_nbr,
+                             read_only=True)
+    return _sem_finish_read(res)
+
+
+def search_fused_ragged(state: ArenaState, csr_indptr, csr_nbr, q, q_valid,
+                        tenant, gate_on, boost_on, k_q, cap_q, now,
+                        super_gate, acc_boost, nbr_boost, k: int,
+                        cap_take: int, max_nbr: int, k_live=None):
+    """:func:`search_fused` with the per-query ``k_q``/``cap_q`` sidecars
+    (``state.py:search_fused_ragged``): ``k`` and ``cap_take`` are the
+    static ceilings. Returns ``(state, packed)``."""
+    sg = _scalar(super_gate, state.emb.device)
+    res = _search_fused_scan(state, csr_indptr, csr_nbr, q, q_valid, tenant,
+                             gate_on, boost_on, sg, k, cap_take, max_nbr,
+                             k_q=k_q, cap_q=cap_q, k_live=k_live)
+    return _sem_finish(state, res, now, acc_boost, nbr_boost)
+
+
+def search_fused_ragged_read(state: ArenaState, csr_indptr, csr_nbr, q,
+                             q_valid, tenant, gate_on, k_q, super_gate,
+                             k: int, cap_take: int, max_nbr: int,
+                             k_live=None) -> torch.Tensor:
+    """Read-only ragged twin (``state.py:search_fused_ragged_read``)."""
+    sg = _scalar(super_gate, state.emb.device)
+    res = _search_fused_scan(state, csr_indptr, csr_nbr, q, q_valid, tenant,
+                             gate_on, None, sg, k, cap_take, max_nbr,
+                             k_q=k_q, k_live=k_live, read_only=True)
+    return _sem_finish_read(res)

@@ -3,22 +3,32 @@ plain version.
 
 Replaces the TPU kernel ``lazzaro_tpu/ops/pallas_topk.py:pallas_masked_topk``
 (and its arena wrapper ``masked_topk_arena``). The kernel is CUDA C++ in
-``csrc/masked_topk.cu``, built with ``nvcc`` for ``sm_90a`` on first use and
-bound through ``ctypes``; its source note says what bounds it and how it is
-laid out. :func:`masked_topk` launches it for a CUDA tensor and runs
+``csrc/masked_topk.cu``, the additive mode of the templated scan in
+``csrc/topk_scan.cuh`` (whose keyed mode is ``ops.fused_topk``), built with
+``nvcc`` for ``sm_90a`` on first use and bound through ``ctypes``; the
+header's note says what bounds it and how it is laid out.
+:func:`masked_topk` launches it for a CUDA tensor and runs
 :func:`masked_topk_reference` only for a CPU tensor. The plain version is
 ``ops.topk.masked_topk``, the port's one plain formulation of the function.
-``launches`` counts the kernel launches made through :func:`masked_topk`.
+``launches`` counts the kernel launches made through :func:`masked_topk`
+and :func:`masked_topk_ragged`.
+
+The ragged form (:func:`masked_topk_ragged`) replaces
+``pallas_topk.py:pallas_masked_topk_ragged`` and its arena wrapper
+``masked_topk_arena_ragged``: ``k`` is a static ceiling, ``k_q [Q]`` each
+query's own k as device data, and positions at or past ``k_q[q]`` come back
+as ``(NEG_INF, -1)``. :func:`masked_topk_auto` is the port of the dispatch
+wrapper ``pallas_topk.py:masked_topk_auto`` and launches the same kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
-from lazzaro_tpu_torch.ops.topk import additive_mask
+from lazzaro_tpu_torch.ops.topk import additive_mask, ragged_mask
 from lazzaro_tpu_torch.ops.topk import masked_topk as masked_topk_reference
 from lazzaro_tpu_torch.utils import cuda_build
 
@@ -44,6 +54,10 @@ def _library():
             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p]
         lib.masked_topk.restype = ctypes.c_int
+        lib.masked_topk_ragged.argtypes = (
+            lib.masked_topk.argtypes[:8] + [ctypes.c_void_p, ctypes.c_longlong]
+            + lib.masked_topk.argtypes[8:])
+        lib.masked_topk_ragged.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -56,7 +70,8 @@ def _sms(device: torch.device) -> int:
 
 
 def _launch(emb: torch.Tensor, madd: torch.Tensor, queries: torch.Tensor,
-            k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+            k: int, k_q: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     global launches
     if emb.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"masked_topk takes f32 or bf16 arenas, not {emb.dtype}")
@@ -75,6 +90,10 @@ def _launch(emb: torch.Tensor, madd: torch.Tensor, queries: torch.Tensor,
     if q.shape[1] != d or madd.shape != (n,):
         raise ValueError("masked_topk: queries [Q, d] and mask [N] must match emb")
     nq = q.shape[0]
+    if k_q is not None:
+        k_q = k_q.to(device=dev, dtype=torch.int32).contiguous()
+        if k_q.shape != (nq,):
+            raise ValueError("masked_topk: k_q must be [Q]")
     lib = _library()
     splits = lib.masked_topk_splits(n, nq, _sms(dev))
     kc = min(k, MAX_K)
@@ -84,10 +103,12 @@ def _launch(emb: torch.Tensor, madd: torch.Tensor, queries: torch.Tensor,
     out_r = torch.empty((nq, k), dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.masked_topk(emb.data_ptr(), int(emb.dtype == torch.bfloat16),
-                             madd.data_ptr(), q.data_ptr(), n, d, nq, k, splits,
-                             cand_s.data_ptr(), cand_r.data_ptr(),
-                             out_s.data_ptr(), out_r.data_ptr(), stream)
+        rc = lib.masked_topk_ragged(
+            emb.data_ptr(), int(emb.dtype == torch.bfloat16), madd.data_ptr(),
+            q.data_ptr(), n, d, nq, k,
+            None if k_q is None else k_q.data_ptr(), -1, splits,
+            cand_s.data_ptr(), cand_r.data_ptr(), out_s.data_ptr(),
+            out_r.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"masked_topk kernel launch failed: CUDA error {rc}")
     launches += 1
@@ -106,3 +127,36 @@ def masked_topk(emb: torch.Tensor, mask: torch.Tensor, queries: torch.Tensor,
     if emb.device.type == "cpu":
         return masked_topk_reference(emb, mask, queries, k)
     raise ValueError(f"masked_topk: unsupported device {emb.device}")
+
+
+def masked_topk_ragged_reference(emb: torch.Tensor, mask: torch.Tensor,
+                                 queries: torch.Tensor, k_q: torch.Tensor,
+                                 k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain ragged version: :func:`masked_topk_reference` to the ceiling,
+    then ``(NEG_INF, -1)`` at positions at or past ``k_q``."""
+    s, r = masked_topk_reference(emb, mask, torch.atleast_2d(queries), k)
+    return ragged_mask(s, r, k_q, -1)
+
+
+def masked_topk_ragged(emb: torch.Tensor, mask: torch.Tensor,
+                       queries: torch.Tensor, k_q: torch.Tensor,
+                       k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Ragged masked cosine top-k (``masked_topk_arena_ragged``): the
+    ``[Q, k]`` result of :func:`masked_topk` at the static ceiling ``k``,
+    with positions at or past ``k_q[q]`` (``[Q]`` i32) set to ``(NEG_INF,
+    -1)``. A CUDA arena launches the kernel, which writes the tail itself;
+    a CPU arena runs the plain version."""
+    if emb.device.type == "cuda":
+        return _launch(emb, additive_mask(mask), queries, k, k_q)
+    if emb.device.type == "cpu":
+        return masked_topk_ragged_reference(emb, mask, queries, k_q, k)
+    raise ValueError(f"masked_topk_ragged: unsupported device {emb.device}")
+
+
+def masked_topk_auto(emb: torch.Tensor, madd: torch.Tensor,
+                     queries: torch.Tensor, k: int = 10
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``pallas_topk.py:masked_topk_auto``: the JAX dispatch between the TPU
+    kernel and its interpret mode. Here the device of the arena decides,
+    as in :func:`masked_topk`, which it calls."""
+    return masked_topk(emb, madd, queries, k)

@@ -5,7 +5,8 @@ kernel: it reproduces ``lax.top_k``'s order (score descending, ties to the
 lowest index), which ``torch.topk`` does not promise. Duplicate facts score
 exact ties, and the dedup and link decisions must not depend on luck.
 ``masked_topk`` is the plain masked cosine top-k, and the plain version the
-Hopper kernel (``ops.masked_topk``) is held against.
+Hopper kernel (``ops.masked_topk``) is held against; ``ragged_mask`` is the
+per-query k boundary of both kernels' ragged forms.
 """
 
 from __future__ import annotations
@@ -33,6 +34,18 @@ def stable_topk(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     keys = key32.to(torch.int64) * (1 << 32) + (0xFFFFFFFF - idx)
     top = torch.topk(keys, k, dim=-1).indices
     return torch.gather(x, -1, top), top
+
+
+def ragged_mask(scores: torch.Tensor, rows: torch.Tensor, k_q: torch.Tensor,
+                sentinel: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-query top-k boundary (``pallas_topk.py:pallas_masked_topk_ragged``,
+    ``state.py:_ragged_topk_mask``): positions at or past each query's
+    ``k_q`` become ``(NEG_INF, sentinel)``. Exactly the per-query top-k,
+    since the ceiling top-k is score-sorted."""
+    live = (torch.arange(scores.shape[1], device=scores.device)[None, :]
+            < k_q.to(scores.device)[:, None])
+    return (torch.where(live, scores, NEG_INF),
+            torch.where(live, rows, torch.full_like(rows, sentinel)))
 
 
 def additive_mask(mask: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """Host-side batching helpers of the port, a subset of
-``lazzaro_tpu/utils/batching.py``: power-of-two query padding, the top-k
-decode from (scores, rows) back to ids, and the ingest coalescer with its
-time/size flush policy.
+``lazzaro_tpu/utils/batching.py``: power-of-two and linear-bucket query
+padding, the top-k decode from (scores, rows) back to ids, the unpacking of
+the fused serving readback, and the time/size flush policy shared by the
+ingest coalescer and the query scheduler.
 """
 
 from __future__ import annotations
@@ -21,6 +22,28 @@ def pad_to_pow2(arr: np.ndarray) -> np.ndarray:
     """Pad axis 0 with zero rows up to the power-of-two bucket."""
     n = arr.shape[0]
     bucket = next_pow2(n)
+    if bucket == n:
+        return arr
+    pad = np.zeros((bucket - n,) + arr.shape[1:], arr.dtype)
+    return np.concatenate([arr, pad])
+
+
+def bucket_size(n: int, granularity: int) -> int:
+    """Query-batch bucket of the ragged serving path: linear multiples of
+    ``granularity`` once a batch passes it (padding wastes at most
+    ``granularity - 1`` slots), the power-of-two ladder below it (a lone
+    request stays a 1-slot batch)."""
+    g = max(1, int(granularity))
+    n = max(1, int(n))
+    if n <= g:
+        return next_pow2(n)
+    return -(-n // g) * g
+
+
+def pad_to_bucket(arr: np.ndarray, granularity: int) -> np.ndarray:
+    """Pad axis 0 with zero rows up to :func:`bucket_size`."""
+    n = arr.shape[0]
+    bucket = bucket_size(n, granularity)
     if bucket == n:
         return arr
     pad = np.zeros((bucket - n,) + arr.shape[1:], arr.dtype)
@@ -74,6 +97,30 @@ def empty_results(n: int) -> List[Tuple[List[str], List[float]]]:
     return [([], []) for _ in range(n)]
 
 
+# Column names of the device-counter tail of every fused serving readback
+# (bit-cast int32 columns after the fast bit, core.state._pack_retrieval).
+RETRIEVAL_COUNTERS = ("live", "dedup_dropped", "acc_boost_rows",
+                      "nbr_boost_rows", "semantic")
+
+
+def unpack_retrieval(host: np.ndarray, k: int
+                     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
+                                np.ndarray, np.ndarray, np.ndarray]:
+    """Host half of ``core.state._pack_retrieval``: split the one
+    ``[Q, 3 + 2k + 5]`` packed readback into (gate_scores, gate_rows,
+    ann_scores, ann_rows, fast, counters). Row and counter columns were
+    bit-cast on the device, so the int32 view restores them exactly."""
+    ann_s = host[:, 2:2 + k]
+    ann_r = np.ascontiguousarray(host[:, 2 + k:2 + 2 * k]).view(np.int32)
+    gate_s = host[:, 0]
+    gate_r = np.ascontiguousarray(host[:, 1:2]).view(np.int32)[:, 0]
+    fast = host[:, 2 + 2 * k] > 0.5
+    counters = np.ascontiguousarray(
+        host[:, 3 + 2 * k:3 + 2 * k + len(RETRIEVAL_COUNTERS)]
+    ).view(np.int32)
+    return gate_s, gate_r, ann_s, ann_r, fast, counters
+
+
 class FlushPolicy:
     """Time/size flush decision shared by ``IngestCoalescer`` (ingest side)
     and ``serve.QueryScheduler`` (query side).
@@ -106,6 +153,18 @@ class FlushPolicy:
         if oldest is None:
             oldest = self._oldest
         return oldest is not None and (now - oldest) >= self.max_wait_s
+
+    def wait_remaining(self, now: float,
+                       oldest: Optional[float] = None) -> float:
+        """Seconds until the oldest entry's deadline (0 when due, an hour
+        when empty): the query scheduler's condition-wait timeout."""
+        if oldest is None:
+            oldest = self._oldest
+        if oldest is None:
+            return 3600.0
+        if self.max_wait_s <= 0:
+            return 0.0
+        return max(0.0, oldest + self.max_wait_s - now)
 
     @property
     def oldest(self) -> Optional[float]:

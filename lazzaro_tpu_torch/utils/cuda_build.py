@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its own
 into ``lazzaro_tpu_torch/_build/<name>-<hash>.so`` (the hash covers the
-source and the flags, so an edited source rebuilds). Nothing here runs at
+source, the ``csrc/*.cuh`` headers it may include and the flags, so an
+edited source or header rebuilds). Nothing here runs at
 import time: the first call that needs a kernel builds it.
 """
 
@@ -39,9 +40,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    source = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(source.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    digest = hashlib.sha256()
+    for path in [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))]:
+        digest.update(path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest = digest.hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 

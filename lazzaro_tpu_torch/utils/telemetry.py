@@ -1,5 +1,5 @@
 """Metrics registry of the port: the subset of ``lazzaro_tpu/utils/telemetry.py``
-that the classic path records into.
+that the classic and fused serving paths record into.
 
 - **timers**: ring-buffered latency samples (``record``), e.g. chat
   retrieval and consolidation wall time;
@@ -15,8 +15,12 @@ owns one instance.
 from __future__ import annotations
 
 import threading
+import time
 from collections import defaultdict, deque
+from contextlib import contextmanager
 from typing import Deque, Dict, Optional
+
+import numpy as np
 
 MAX_LABEL_SETS = 256
 
@@ -78,6 +82,15 @@ class Telemetry:
             return
         self.gauges[self._key(name, labels)] = float(value)
 
+    @contextmanager
+    def span(self, name: str, labels: Optional[Dict] = None):
+        """Record the wall time of the ``with`` body as a timer sample."""
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.record(name, (time.perf_counter() - t0) * 1e3, labels)
+
     def counter_total(self, name: str) -> int:
         """Sum of a counter across every label set."""
         with self._lock:
@@ -96,3 +109,37 @@ class Telemetry:
     def tier(latency_ms: float) -> str:
         """The reference's emoji latency tiers (memory_system.py:332-337)."""
         return "⚡" if latency_ms < 100 else ("✓" if latency_ms < 200 else "⏱")
+
+
+# The process-wide default registry: components built on their own (a bare
+# MemoryIndex, a QueryScheduler in a test) record here; MemorySystem passes
+# its own instance to everything it owns.
+REGISTRY = Telemetry()
+
+
+def default_registry() -> Telemetry:
+    return REGISTRY
+
+
+def record_device_counters(tel: Telemetry, counters, fast, gate_on, valid,
+                           k_req) -> None:
+    """Fold one fused readback's device-counter tail into the registry
+    (``lazzaro_tpu/utils/telemetry.py:record_device_counters`` without the
+    semantic cache). ``counters`` is the ``[Q, 5]`` int32 tail of
+    ``utils.batching.unpack_retrieval`` (live, dedup, acc-boost rows,
+    nbr-boost rows, semantic), ``fast`` the gate verdicts, ``gate_on`` and
+    ``valid`` the per-query flags, ``k_req`` each request's own k (the
+    top-k shortfall counts against it)."""
+    v = np.asarray(valid, bool)
+    if not v.any():
+        return
+    live = np.asarray(counters[:, 0])[v]
+    want = np.asarray(k_req)[v]
+    g_on = np.asarray(gate_on, bool)[v]
+    f = np.asarray(fast, bool)[v]
+    tel.bump("device.gate_hit", int((g_on & f).sum()))
+    tel.bump("device.gate_miss", int((g_on & ~f).sum()))
+    tel.bump("device.topk_shortfall", int(np.maximum(want - live, 0).sum()))
+    tel.bump("device.dedup_hits", int(counters[:, 1][v].sum()))
+    tel.bump("device.boost_rows", int(counters[:, 2][v].sum()))
+    tel.bump("device.nbr_boost_rows", int(counters[:, 3][v].sum()))

@@ -1,4 +1,4 @@
-"""The masked top-k kernel on the card, against its plain version.
+"""The top-k kernels on the card, against their plain versions.
 
 Marked ``cuda``: these tests need an NVIDIA GPU with ``nvcc`` and skip
 elsewhere. Run them on the card with
@@ -13,6 +13,7 @@ included.
 import pytest
 import torch
 
+from lazzaro_tpu_torch.ops import fused_topk as ft
 from lazzaro_tpu_torch.ops import masked_topk as mt
 
 pytestmark = pytest.mark.cuda
@@ -82,3 +83,153 @@ def test_a_refused_launch_raises(cuda):
                          out.data_ptr(), out.data_ptr(),
                          torch.cuda.current_stream().cuda_stream)
     assert rc != 0
+
+
+def test_ragged_kernel_masks_each_query_at_its_k(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    emb = grid(gen, (5003, 64), torch.bfloat16, cuda)
+    mask = torch.rand(5003, generator=gen, device=cuda) < 0.8
+    q = grid(gen, (4, 64), torch.bfloat16, cuda)
+    for k, kq in ((10, [1, 5, 10, 0]), (300, [300, 129, 128, 7])):
+        k_q = torch.tensor(kq, dtype=torch.int32, device=cuda)
+        before = mt.launches
+        s, r = mt.masked_topk_ragged(emb, mask, q, k_q, k)
+        ps, pr = mt.masked_topk_ragged_reference(emb, mask, q, k_q, k)
+        torch.cuda.synchronize()
+        assert mt.launches == before + 1
+        assert torch.equal(r, pr) and torch.equal(s, ps)
+        assert (r[3, kq[3]:] == -1).all()
+    s, r = mt.masked_topk_auto(emb, torch.where(mask, 0.0, -1e30), q, 5)
+    ps, pr = mt.masked_topk_reference(emb, mask, q, 5)
+    assert torch.equal(r, pr) and torch.equal(s, ps)
+
+
+def two_tier_arena(gen, n, d, dtype, device):
+    """Two tenants (0 and 1) over live rows, a few super rows, some dead
+    rows, and exact duplicates so that ties are real."""
+    emb = grid(gen, (n, d), dtype, device)
+    emb[n // 2:n // 2 + 40] = emb[:40]
+    alive = torch.rand(n, generator=gen, device=device) < 0.9
+    alive[-1] = False                                   # the sentinel row
+    tenant = (torch.rand(n, generator=gen, device=device) < 0.5).int()
+    tenant = torch.where(alive, tenant, -1)
+    sup = torch.rand(n, generator=gen, device=device) < 0.02
+    return emb, alive, tenant, sup
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,nq,k,k_live", [(4096, 8, 128, 10), (5003, 3, 16, 16),
+                                           (20000, 64, 128, 128),
+                                           (20000, 5, 300, 300),
+                                           (777, 70, 32, None)])
+def test_two_tier_kernel_matches_plain_version(cuda, dtype, n, nq, k, k_live):
+    gen = torch.Generator(device=cuda).manual_seed(n + nq + k)
+    emb, alive, tenant, sup = two_tier_arena(gen, n, 64, dtype, cuda)
+    q = grid(gen, (nq, 64), dtype, cuda)
+    q_ten = torch.randint(0, 2, (nq,), generator=gen, device=cuda).int()
+    kq = torch.randint(1, (k_live or k) + 1, (nq,), generator=gen,
+                       device=cuda).int()
+    q_ten[-1], kq[-1] = -1, 0                            # a pad query
+    before = ft.launches
+    got = ft.fused_topk(emb, alive, tenant, sup, q, q_ten, kq, k,
+                        k_live=k_live)
+    want = ft.fused_topk_reference(emb, alive, tenant, sup, q, q_ten, kq, k)
+    torch.cuda.synchronize()
+    assert ft.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert (got[3][-1] == n - 1).all() and (got[2][-1] == -1e30).all()
+
+
+def test_two_tier_kernel_corners(cuda):
+    """A tenant with no super rows gets the gate (-1e30, row 0); a tenant
+    with fewer non-super rows than k fills its tail with the lowest other
+    rows at -1e30; without k_q every position is live."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    n = 3000
+    emb = grid(gen, (n, 32), torch.bfloat16, cuda)
+    alive = torch.ones(n, dtype=torch.bool, device=cuda)
+    tenant = torch.zeros(n, dtype=torch.int32, device=cuda)
+    tenant[[7, 900, 2999]] = 1
+    sup = torch.zeros(n, dtype=torch.bool, device=cuda)
+    sup[[10, 20]] = True
+    q = grid(gen, (2, 32), torch.bfloat16, cuda)
+    q_ten = torch.tensor([1, 0], dtype=torch.int32, device=cuda)
+    got = ft.fused_topk(emb, alive, tenant, sup, q, q_ten, None, 8)
+    want = ft.fused_topk_reference(emb, alive, tenant, sup, q, q_ten, None, 8)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert got[0][0] == -1e30 and got[1][0].item() == 0
+    assert got[3][0, 3:].tolist() == [0, 1, 2, 3, 4]
+
+
+def test_fused_chat_turn_syncs_only_at_the_readback(cuda, tmp_path):
+    """One fused chat turn on the card: one two-tier launch, no classic
+    launch, and inside the dispatch no host wait but the one packed
+    readback (``torch.cuda.set_sync_debug_mode("error")`` raises on any
+    other)."""
+    from lazzaro_tpu_torch import MemorySystem
+
+    ms = MemorySystem(enable_async=False, load_from_disk=False,
+                      db_dir=str(tmp_path), verbose=False, device="cuda")
+    try:
+        for c in range(2):
+            ms.start_conversation()
+            for i in range(6):
+                ms.add_to_short_term(f"I like topic {c} number {i} a lot.",
+                                     "semantic", 0.6)
+            ms.end_conversation()
+        ms.start_conversation()
+        ms.chat("Which topic number do I like?")          # builds the CSR
+        index = ms.index
+        serve, readback = index.search_fused_requests, index._readback
+        readbacks = []
+
+        def read_once(packed):
+            torch.cuda.set_sync_debug_mode(0)
+            try:
+                readbacks.append(packed.shape)
+                return readback(packed)
+            finally:
+                torch.cuda.set_sync_debug_mode("error")
+
+        def strict(*args, **kwargs):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return serve(*args, **kwargs)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+
+        index.search_fused_requests, index._readback = strict, read_once
+        before = (ft.launches, mt.launches)
+        ms.chat("Tell me about topic 1 number 3 please.")
+        ms.search_memories("topic 0 number 2")
+        torch.cuda.synchronize()
+        assert (ft.launches - before[0], mt.launches - before[1]) == (2, 0)
+        assert len(readbacks) == 2
+        assert index._stage.allocations == 1     # one pinned buffer, reused
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        ms.close()
+
+
+def test_host_stage_never_overwrites_a_pending_upload(cuda):
+    """The pinned buffer is reused only after the copy that read it has run:
+    an upload queued behind a busy stream leaves the buffer to that copy and
+    the next upload takes a fresh one; both arrive intact."""
+    import numpy as np
+    from lazzaro_tpu_torch.core.index import HostStage
+
+    stage = HostStage(cuda)
+    a = [np.arange(12, dtype=np.float32).reshape(3, 4),
+         np.array([True, False, True]), np.array([7, -1, 3], np.int32)]
+    b = [x + 1 if x.dtype != bool else ~x for x in a]
+    torch.cuda._sleep(100_000_000)                      # keep the stream busy
+    got_a = stage.upload(a)
+    got_b = stage.upload(b)
+    assert stage.allocations == 2
+    torch.cuda.synchronize()
+    for g, w in zip(got_a + got_b, a + b):
+        assert np.array_equal(g.cpu().numpy(), w)
+    stage.upload(b)
+    assert stage.allocations == 2                       # copy done: reused

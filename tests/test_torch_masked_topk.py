@@ -1,6 +1,7 @@
 """Parity of the port's masked top-k (``lazzaro_tpu_torch.ops.masked_topk``)
 with its two JAX oracles: the Pallas kernel in interpret mode
-(``pallas_masked_topk``) and ``state.arena_search(impl="xla")``.
+(``pallas_masked_topk``, its ragged form ``pallas_masked_topk_ragged`` and
+the ``masked_topk_auto`` dispatch) and ``state.arena_search(impl="xla")``.
 
 The same numpy inputs, made from a fixed seed, go through both packages.
 Tolerances: f32 arenas must give equal rows and scores within 1e-5 (f32 sums
@@ -17,7 +18,9 @@ import pytest
 import torch
 
 from lazzaro_tpu.core import state as JS
-from lazzaro_tpu.ops.pallas_topk import pallas_masked_topk
+from lazzaro_tpu.ops.pallas_topk import (masked_topk_auto,
+                                         pallas_masked_topk,
+                                         pallas_masked_topk_ragged)
 from lazzaro_tpu_torch.core import state as TS
 from lazzaro_tpu_torch.ops import masked_topk as mt
 from lazzaro_tpu_torch.ops import topk as tk
@@ -253,3 +256,43 @@ def test_plain_xla_formulation_matches_jax(dtype, query_ndim):
     assert tuple(s.shape) == tuple(ref_s.shape)
     assert_topk_match(np.atleast_2d(ref_s), np.atleast_2d(ref_r),
                       np.atleast_2d(s.numpy()), np.atleast_2d(r.numpy()), dtype)
+
+
+@pytest.mark.parametrize("dtype,k,kq", [("float32", 8, [2, 8, 1, 5]),
+                                        ("bfloat16", 16, [16, 0, 3, 9]),
+                                        ("float32", 1, [1, 1, 0, 1])])
+def test_ragged_form_matches_pallas_interpret(dtype, k, kq):
+    """``masked_topk_ragged`` against ``pallas_masked_topk_ragged`` run in
+    interpret mode as ``tests/test_ragged_serving.py`` runs it: the
+    ceiling top-k with ``(-1e30, -1)`` at positions at or past each query's
+    ``k_q``."""
+    rng = np.random.default_rng(11)
+    emb = unit_rows(rng, N)
+    q = unit_rows(rng, len(kq))
+    alive = np.arange(N) % 7 != 0
+    madd = np.where(alive, 0.0, -1e30).astype(np.float32)
+    k_q = np.asarray(kq, np.int32)
+    ref_s, ref_r = pallas_masked_topk_ragged(
+        as_jax(emb, dtype), jnp.asarray(madd), as_jax(q, dtype),
+        jnp.asarray(k_q), k=k, block_rows=4096, interpret=True)
+    s, r = mt.masked_topk_ragged(as_torch(emb, dtype), torch.from_numpy(alive),
+                                 torch.from_numpy(q), torch.from_numpy(k_q), k)
+    assert r.dtype == torch.int64 and s.dtype == torch.float32
+    for qi, kk in enumerate(kq):
+        assert (r[qi, kk:] == -1).all() and (s[qi, kk:] == -1e30).all()
+        assert (np.asarray(ref_r)[qi, kk:] == -1).all()
+    assert_topk_match(ref_s, ref_r, s, r, dtype)
+
+
+def test_auto_dispatch_matches_pallas_interpret():
+    """``masked_topk_auto`` takes an additive mask, as the JAX dispatch
+    does, and gives its result."""
+    rng = np.random.default_rng(12)
+    emb = unit_rows(rng, N)
+    q = unit_rows(rng, 5)
+    madd = np.where(rng.random(N) > 0.3, 0.0, -1e30).astype(np.float32)
+    ref_s, ref_r = masked_topk_auto(jnp.asarray(emb), jnp.asarray(madd),
+                                    jnp.asarray(q), k=10)
+    s, r = mt.masked_topk_auto(torch.from_numpy(emb), torch.from_numpy(madd),
+                               torch.from_numpy(q), k=10)
+    assert_topk_match(ref_s, ref_r, s, r, "float32")

@@ -14,6 +14,7 @@ chat-turn retrieved ids and ``search_memories`` ids (in order) must be equal;
 saliences and edge weights agree within 1e-6 (f32 sums in another order).
 """
 
+import threading
 import time
 
 import numpy as np
@@ -133,12 +134,12 @@ def snapshot(ms):
 
 
 def run(system_cls, config_cls, embedder_cls, llm_cls, tmp_db, monkeypatch,
-        **kw):
+        config_kw=CLASSIC, **kw):
     monkeypatch.setattr(time, "time", lambda: 1_700_000_000.0)
     ms = system_cls(enable_async=False, load_from_disk=False, db_dir=tmp_db,
                     max_buffer_size=40, verbose=False,
                     embedding_provider=embedder_cls(64), llm_provider=llm_cls(),
-                    config=config_cls(**CLASSIC), **kw)
+                    config=config_cls(**config_kw), **kw)
     retrieved = []
     inner = ms._retrieve_for_chat
 
@@ -233,3 +234,208 @@ def test_dialogue_exercises_the_slice(both):
     assert bob and not set(bob) & set(nodes)
     for ids in [r[1] for r in trec if r[0] == "search_bob"][0]:
         assert set(ids) <= set(bob)
+
+
+# --------------------------------------------------------- fused serving
+# The same dialogue with the default serving, fused and ragged: every chat
+# turn and search goes through the query scheduler and one fused dispatch in
+# both packages (the JAX side keeps the classic ingest the port runs).
+FUSED = dict(CLASSIC, serve_fused=True)
+
+
+@pytest.fixture(scope="module")
+def both_fused(tmp_path_factory):
+    root = tmp_path_factory.mktemp("dialogue_fused")
+    with pytest.MonkeyPatch.context() as mp:
+        jrec, jret = run(JaxSystem, JaxConfig, JaxEmbedder, JaxLLM,
+                         str(root / "jax_db"), mp, config_kw=FUSED)
+        trec, tret = run(TorchSystem, TorchConfig, TorchEmbedder, TorchLLM,
+                         str(root / "torch_db"), mp, device="cpu",
+                         config_kw=FUSED)
+    return jrec, jret, trec, tret
+
+
+def test_fused_dialogue_matches_jax(both_fused):
+    """Chat-turn ids and boost modes, node saliences and access counts,
+    ``search_memories`` ids in order: equal to the JAX system's."""
+    jrec, jret, trec, tret = both_fused
+    assert tret == jret
+    assert {mode for _, _, mode in tret} >= {"device"}
+    for j, t in zip(jrec, trec):
+        if j[0] in ("nodes", "nodes_bob"):
+            assert_snapshots_match(j[1], t[1])
+        elif j[0] == "ranked":
+            for (jids, js), (tids, ts) in zip(j[1], t[1]):
+                assert_same_ranking(jids, js, tids, ts)
+        elif j[0] == "top5":
+            for ids, (ranked, _) in zip(t[1], t_ranked(trec)):
+                assert ids == [i.partition(":")[2] for i in ranked[:5]]
+        else:
+            assert t == j, j[0]
+
+
+class _FusedFixture:
+    """The JAX fused-retrieval fixture (``tests/test_fused_retrieval.py``)
+    on the port: clustered facts, 20 per conversation."""
+
+    @staticmethod
+    def system(tmp, serve_fused=True, super_threshold=100):
+        from tests.test_fused_ingest import ClusteredEmb, QueueLLM
+        ms = TorchSystem(
+            enable_async=False, db_dir=tmp, verbose=False, load_from_disk=False,
+            llm_provider=QueueLLM(20), embedding_provider=ClusteredEmb(),
+            auto_prune=False, max_buffer_size=10_000,
+            super_node_threshold=super_threshold, device="cpu",
+            config=TorchConfig(decay_rate=0.0))
+        ms.config.serve_fused = serve_fused
+        for c in range(2):
+            ms.start_conversation()
+            ms.add_to_short_term(f"conv {c}", "episodic", 0.7)
+            ms.end_conversation()
+        return ms
+
+
+def _numeric(ms):
+    cols = ms.index.pull_numeric()
+    n = len(ms.index.id_to_row)
+    return {k: cols[k][: n + 2] for k in ("salience", "access_count")}
+
+
+def test_fused_matches_classic_chat_turns(tmp_path):
+    """Ids, order and boost effects (arena and host copies) of fused and
+    classic serving agree on gate-miss turns, a cached turn included; the
+    fused turns make one fused launch each and no classic one."""
+    from lazzaro_tpu_torch.ops import fused_topk as ft
+    from lazzaro_tpu_torch.ops import masked_topk as mt
+
+    a = _FusedFixture.system(str(tmp_path / "a"), serve_fused=True)
+    b = _FusedFixture.system(str(tmp_path / "b"), serve_fused=False)
+    try:
+        a.start_conversation()
+        b.start_conversation()
+        calls = []
+        plain = {"fused": ft.fused_topk_reference,
+                 "masked": mt.masked_topk_reference}
+
+        def counting(name):
+            return lambda *x, **kw: (calls.append(name), plain[name](*x, **kw))[1]
+
+        a_calls = []
+        ft.fused_topk_reference = counting("fused")
+        mt.masked_topk_reference = counting("masked")
+        try:
+            for q in ("fact 3 body", "fact 17 body", "fact 31 body",
+                      "fact 3 body"):          # the last one is a cache hit
+                calls.clear()
+                ra = a.chat(q)
+                a_calls.append(list(calls))
+                assert ra == b.chat(q)
+        finally:
+            ft.fused_topk_reference = plain["fused"]
+            mt.masked_topk_reference = plain["masked"]
+        assert a_calls == [["fused"]] * 3 + [[]]
+        a.end_conversation()
+        b.end_conversation()
+        ca, cb = _numeric(a), _numeric(b)
+        np.testing.assert_allclose(ca["salience"], cb["salience"], atol=1e-6)
+        np.testing.assert_array_equal(ca["access_count"], cb["access_count"])
+        ha = {n: (round(a.buffer.nodes[n].salience, 5),
+                  a.buffer.nodes[n].access_count) for n in a.buffer.nodes}
+        hb = {n: (round(b.buffer.nodes[n].salience, 5),
+                  b.buffer.nodes[n].access_count) for n in b.buffer.nodes}
+        assert ha == hb
+    finally:
+        a.close()
+        b.close()
+
+
+def test_fused_matches_classic_super_gate_hit(tmp_path):
+    """A query on a super-node centroid fires the gate: the device reports
+    ``fast`` and boosts nothing, the host serves the children in child-list
+    order with classic boosts; results and arena numerics match classic."""
+    a = _FusedFixture.system(str(tmp_path / "a"), True, super_threshold=5)
+    b = _FusedFixture.system(str(tmp_path / "b"), False, super_threshold=5)
+    try:
+        assert a.super_nodes
+        sid = sorted(a.super_nodes)[0]
+        centroid = np.asarray(a.super_nodes[sid].embedding, np.float32)
+        ids_a, mode_a = a._retrieve_for_chat(centroid.tolist(), "probe-q")
+        ids_b, mode_b = b._retrieve_for_chat(centroid.tolist(), "probe-q")
+        assert ids_a == ids_b
+        assert mode_a == mode_b == "classic"
+        assert ids_a[0] == a.super_nodes[sid].child_ids[0]
+        a.start_conversation()
+        b.start_conversation()
+        a.chat("fact 5 body")
+        b.chat("fact 5 body")
+        ca, cb = _numeric(a), _numeric(b)
+        np.testing.assert_allclose(ca["salience"], cb["salience"], atol=1e-6)
+        np.testing.assert_array_equal(ca["access_count"], cb["access_count"])
+    finally:
+        a.close()
+        b.close()
+
+
+def test_fused_matches_classic_empty_graph(tmp_path):
+    from tests.test_fused_ingest import ClusteredEmb
+
+    kw = dict(enable_async=False, verbose=False, load_from_disk=False,
+              embedding_provider=ClusteredEmb(), device="cpu")
+    a = TorchSystem(db_dir=str(tmp_path / "a"), **kw)
+    b = TorchSystem(db_dir=str(tmp_path / "b"),
+                    config=TorchConfig(serve_fused=False), **kw)
+    try:
+        emb = ClusteredEmb().embed("fact 1 body")
+        assert a._retrieve_for_chat(emb, "fact 1 body")[0] == []
+        assert b._retrieve_for_chat(emb, "fact 1 body")[0] == []
+        assert a.search_memories("anything") == []
+    finally:
+        a.close()
+        b.close()
+
+
+def test_scheduler_coalesces_concurrent_searches(tmp_path):
+    ms = _FusedFixture.system(str(tmp_path))
+    try:
+        expected = {q: [n.id for n in ms.search_memories(q)]
+                    for q in (f"fact {i} body" for i in range(8))}
+        results = {}
+
+        def worker(q):
+            results[q] = [n.id for n in ms.search_memories(q)]
+
+        threads = [threading.Thread(target=worker, args=(q,))
+                   for q in expected]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        assert results == expected
+        assert ms.query_scheduler.stats()["requests_served"] >= 16
+        assert ms.get_stats()["serving"]["requests_served"] >= 16
+    finally:
+        ms.close()
+    assert ms.query_scheduler.closed
+
+
+def test_multi_tenant_batch_isolation(tmp_path):
+    """One batch serving two tenants keeps each to its own rows."""
+    from tests.test_fused_ingest import ClusteredEmb
+    from lazzaro_tpu_torch.serve import RetrievalRequest
+
+    ms = _FusedFixture.system(str(tmp_path))
+    try:
+        emb = ClusteredEmb()
+        q = np.asarray(emb.embed("fact 3 body"), np.float32)
+        ms.index.add(["t2:alien_1"], q[None, :], [0.9], [0.0], ["semantic"],
+                     ["default"], "t2")
+        res = ms.index.search_fused_requests(
+            [RetrievalRequest(query=q, tenant=ms.user_id, k=5),
+             RetrievalRequest(query=q, tenant="t2", k=5)],
+            cap_take=5, max_nbr=8, super_gate=0.4, acc_boost=0.05,
+            nbr_boost=0.02)
+        assert res[0].ids and all(i.startswith(f"{ms.user_id}:")
+                                  for i in res[0].ids)
+        assert res[1].ids == ["t2:alien_1"]
+    finally:
+        ms.close()

@@ -105,8 +105,11 @@ def test_unported_entry_points_raise(tmp_path):
 
 
 def test_slice_defaults_are_the_classic_path():
+    """Defaults: fused serving (the JAX default) with the classic ingest and
+    lifecycle paths, and they pass the ported-path check."""
     cfg = MemoryConfig()
-    for name in ("serve_fused", "ingest_fused", "ingest_dedup_fused",
+    assert cfg.serve_fused is True and cfg.serve_ragged is True
+    for name in ("ingest_fused", "ingest_dedup_fused",
                  "lifecycle_fused", "journal", "ingest_journal",
                  "auto_consolidate"):
         assert getattr(cfg, name) is False, name
