@@ -10,7 +10,8 @@ Phases, each printing its own lines; any failure exits non-zero:
   2. build    every ``lazzaro_tpu_torch/csrc/*.cu`` with nvcc, all at once;
   3. kernels  each kernel, in every call form, against its plain PyTorch
               version on the card, at every shape the main paths give it and
-              at edge cases, with times and bounds;
+              at edge cases, with times and bounds (the top-k scans, then
+              the flash-attention forward at the decoder's shapes);
   4. main     ``MemorySystem`` on a bf16 768-d arena of 1,048,576 rows. The
               classic path: fill it through ``end_conversation`` with
               ``FILL`` facts (8,192 per conversation, two tenants, a
@@ -23,6 +24,15 @@ Phases, each printing its own lines; any failure exits non-zero:
               batches, each dispatch one two-tier kernel launch and one
               device-to-host copy. Each path's kernel launches are counted
               from 0 over that path alone;
+  5. lm       the decoder LM at full width (``LMConfig()``: 18 layers, hidden
+              2048, 8 query and 2 kv heads of 256, ~1.1 B parameters, bf16,
+              random weights from a seed): ``logits_for`` on a 2,047-token
+              text through the flash kernel against the same weights'
+              materialized-scores path, then ``MemorySystem`` with
+              ``OnDeviceLLM`` serving chat turns (KV-cache decoding) and one
+              ``end_conversation`` whose extraction runs the on-device
+              constrained JSON loop, then a search. Flash launches are
+              counted from 0 over this phase;
 then the card's name and power limit, one JSON line listing every kernel, and
 as the last line ``{"ok": true, "device": {...}}``. Without a GPU, or outside
 a checkout, it exits non-zero and prints no result.
@@ -30,6 +40,7 @@ a checkout, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -58,6 +69,34 @@ DUP_EVERY = 101
 # its shard's super node, under the 0.4 gate, so every chat turn runs both the
 # gate search and the ANN search.
 TOPIC_W, GROUP_W, NOISE_W = 0.3, 0.75 ** 0.5, 0.16 ** 0.5
+# Flash-attention cases (label, B, T, S, H, Hkv, D, dtype): the decoder's
+# shapes at full width (logits_for of 2,047 tokens, a batch of 4 at max_seq),
+# LMConfig.small()'s heads, chunked prefill (S > T), MQA, and f32.
+FLASH_CASES = [
+    ("logits_for_b1_t2047_h8_kv2_d256_bf16", 1, 2047, 2047, 8, 2, 256, "bfloat16"),
+    ("b4_t2048_h8_kv2_d256_bf16", 4, 2048, 2048, 8, 2, 256, "bfloat16"),
+    ("small_b8_t1024_h8_kv2_d64_bf16", 8, 1024, 1024, 8, 2, 64, "bfloat16"),
+    ("chunked_b1_t13_s2048_h8_kv2_d256_bf16", 1, 13, 2048, 8, 2, 256, "bfloat16"),
+    ("mqa_b2_t1024_h8_kv1_d128_bf16", 2, 1024, 1024, 8, 1, 128, "bfloat16"),
+    ("f32_b2_t512_h8_kv2_d64", 2, 512, 512, 8, 2, 64, "float32"),
+]
+# Tolerances (max |kernel - plain| of O, and of the f32 LSE). f32: the two
+# differ only in the order of f32 sums. bf16: both round P to bf16 before
+# P.V, but O is rounded to bf16 after sums in another order, so a value may
+# land one bf16 step away (1.6e-2 in [2, 4)).
+FLASH_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 1e-3)}
+LM_TOKENS = 2047                   # logits_for length: BOS + 2,046 bytes
+# Largest |logit| difference of the full-width forward through the kernel
+# against the materialized-scores path: that path rounds the scores to bf16
+# before the softmax, the kernel keeps them in f32, and 18 layers carry the
+# difference through a bf16 residual branch.
+LM_LOGIT_TOL = 0.25
+# The extraction pins its schema and a content prefix: the pipeline drops
+# facts whose content is empty, which random weights may well produce.
+EXTRACTION_SCAFFOLD = '{"memories": [{"content": "The user said: '
+LM_CHAT = ["I work as a data engineer on a big ETL project.",
+           "My sister lives in Lisbon and we talk every Sunday.",
+           "I am training for a marathon in October."]
 SLICE = dict(serve_fused=False, ingest_fused=False, ingest_dedup_fused=False,
              lifecycle_fused=False, journal=False, ingest_journal=False,
              auto_consolidate=False)
@@ -937,6 +976,264 @@ def _drive_fused(ms, corpus, served, launches_out, torch):
     return fused
 
 
+# ---------------------------------------------------------------------------
+# Phase 3, flash attention
+# ---------------------------------------------------------------------------
+
+
+def flash_bound(B, T, S, H, Hkv, D, item):
+    """(bound_ms, bound_by) of the causal forward: 4*B*H*D*sum_i(S-T+i+1)
+    operations at the type's peak, against q, k, v read once and O and the
+    f32 LSE written once."""
+    ops = 4.0 * B * H * D * (T * (S - T) + T * (T + 1) / 2)
+    moved = (2 * B * T * H * D + 2 * B * S * Hkv * D) * item + 4 * B * H * T
+    peak = PEAK_OPS["bfloat16" if item == 2 else "float32"]
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S, ops / peak
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_flash(device):
+    """The flash kernel against its plain version on every case, O and
+    LSE; times of the kernel, the plain version and, as the yardstick the
+    port never calls, ``scaled_dot_product_attention``."""
+    import torch
+    import torch.nn.functional as F
+
+    from lazzaro_tpu_torch.ops import flash_attention as fa
+
+    rows_out = []
+    for label, B, T, S, H, Hkv, D, dtype in FLASH_CASES:
+        dt = getattr(torch, dtype)
+        gen = torch.Generator(device=device).manual_seed(T + S + D)
+        q = torch.randn((B, T, H, D), generator=gen, device=device).to(dt)
+        k = torch.randn((B, S, Hkv, D), generator=gen, device=device).to(dt)
+        v = torch.randn((B, S, Hkv, D), generator=gen, device=device).to(dt)
+        out, lse = fa.flash_attention_fwd(q, k, v)
+        ref_out, ref_lse = fa.flash_attention_reference(q, k, v)
+        torch.cuda.synchronize()
+        err = float((out.float() - ref_out.float()).abs().max())
+        lse_err = float((lse - ref_lse).abs().max())
+        out_tol, lse_tol = FLASH_TOL[dtype]
+        if not (err <= out_tol and lse_err <= lse_tol):
+            raise AssertionError(f"flash {label}: kernel disagrees with the plain "
+                                 f"version (O {err}, LSE {lse_err})")
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        mask = None
+        if S != T:
+            mask = (torch.arange(S, device=device)[None, :]
+                    <= (S - T) + torch.arange(T, device=device)[:, None])
+
+        def lib(qt=qt, kt=kt, vt=vt, mask=mask, causal=S == T):
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                  is_causal=causal,
+                                                  enable_gqa=True)
+
+        lib_err = float((lib().transpose(1, 2).float() - ref_out.float()).abs().max())
+        big = B * T * S > 8e6
+        ms = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v), 20)
+        plain = cuda_ms(lambda: fa.flash_attention_reference(q, k, v), 2 if big else 5)
+        lib_ms = cuda_ms(lib, 20)
+        b_ms, b_by = flash_bound(B, T, S, H, Hkv, D, q.element_size())
+        log(f"[flash] {label}: max_abs_err O {err} (tol {out_tol}), LSE {lse_err} "
+            f"(tol {lse_tol}), library vs plain {lib_err}; ms {ms:.4f}, plain_ms "
+            f"{plain:.4f}, library_ms {lib_ms:.4f}, bound_ms {b_ms:.4f} ({b_by})")
+        rows_out.append({"kernel": "flash_attention", "form": "causal_gqa_fwd",
+                         "case": label, "shape": [B, T, S, H, Hkv, D],
+                         "dtype": dtype, "ms": ms, "plain_ms": plain,
+                         "library_ms": lib_ms, "bound_ms": b_ms,
+                         "bound_by": b_by, "max_abs_err": err,
+                         "lse_max_abs_err": lse_err,
+                         "library_vs_plain_max_abs_err": lib_err})
+        del q, k, v, out, lse, ref_out, ref_lse, qt, kt, vt
+        torch.cuda.empty_cache()
+    return rows_out
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: the decoder LM at full width
+# ---------------------------------------------------------------------------
+
+
+class RecordingLLM:
+    """Passes completions through and keeps (response_format, reply)."""
+
+    def __init__(self, inner):
+        self.inner, self.calls = inner, []
+
+    def completion(self, messages, response_format=None):
+        out = self.inner.completion(messages, response_format)
+        self.calls.append((response_format, out))
+        return out
+
+
+def _strict_json_loop(lm, torch):
+    """Run ``lm``'s on-device JSON loop under
+    ``torch.cuda.set_sync_debug_mode("error")``, which raises on any host
+    wait, except inside its counted readbacks."""
+    loop, read = lm._json_device_loop, lm._readback
+
+    def read_allowed(t):
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            return read(t)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    def strict(*args, **kwargs):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return loop(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    lm._json_device_loop, lm._readback = strict, read_allowed
+
+
+def phase_lm(launches_out: dict):
+    import tempfile
+
+    import torch
+
+    from lazzaro_tpu_torch import MemorySystem
+    from lazzaro_tpu_torch.core.providers import OnDeviceLLM
+    from lazzaro_tpu_torch.models.llm import LanguageModel, LMConfig
+    from lazzaro_tpu_torch.ops import flash_attention as fa
+
+    cfg = LMConfig()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lm = LanguageModel(cfg, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in lm.model.parameters())
+    if lm.cfg.attn_impl != "flash":
+        raise AssertionError(f"attn_impl resolved to {lm.cfg.attn_impl} on the card")
+    words = ("the user keeps notes about work family travel and health "
+             "and asks the assistant to remember them ").split()
+    text = " ".join(words[i % len(words)] for i in range(600))[:LM_TOKENS - 1]
+    if len(lm.tokenizer.encode(text)) != LM_TOKENS:
+        raise AssertionError("the logits_for text is not 2,047 tokens long")
+
+    fa.launches = 0                            # the LM path's count starts here
+    flash_ms, per_call = [], []
+    for _ in range(6):
+        before = fa.launches
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        logits = lm.logits_for(text)
+        flash_ms.append(1e3 * (time.perf_counter() - t1))
+        per_call.append(fa.launches - before)
+    if set(per_call) != {cfg.layers}:
+        raise AssertionError(f"logits_for launched the kernel {per_call} times per "
+                             f"call, not {cfg.layers}")
+    plain_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        plain = lm.logits_for(text, attn_impl="xla")
+        plain_ms.append(1e3 * (time.perf_counter() - t1))
+    if fa.launches != 6 * cfg.layers:
+        raise AssertionError("the materialized-scores path launched the kernel")
+    if logits.shape != (LM_TOKENS, cfg.vocab_size) or not np.isfinite(logits).all():
+        raise AssertionError(f"logits_for gave {logits.shape} or non-finite values")
+    logit_err = float(np.abs(logits - plain).max())
+    top1 = float((logits.argmax(-1) == plain.argmax(-1)).mean())
+    if logit_err > LM_LOGIT_TOL:
+        raise AssertionError(f"flash logits differ from the plain path by {logit_err}")
+    fwd_p50 = p50(flash_ms[1:])
+    log(f"[lm] {n_params / 1e9:.3f} B parameters, init {init_s:.1f} s; logits_for "
+        f"({LM_TOKENS} tokens) p50 {fwd_p50:.2f} ms = {LM_TOKENS / fwd_p50 * 1e3:.0f} "
+        f"tokens/s through flash ({cfg.layers} launches/call), plain path p50 "
+        f"{p50(plain_ms[1:]):.2f} ms; max |logit diff| {logit_err} (tol "
+        f"{LM_LOGIT_TOL}), top-1 agreement {top1:.4f}")
+
+    # Decode: greedy tokens after a prefill, and generate == generate_stream.
+    prompt = "User: " + LM_CHAT[0] + "\nAssistant:"
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    lm._prep_prompt(prompt, 64)
+    torch.cuda.synchronize()
+    prefill_ms = 1e3 * (time.perf_counter() - t1)
+    t1 = time.perf_counter()
+    ids = list(lm._token_stream(prompt, 64, 0.0, 0))
+    gen_ms = 1e3 * (time.perf_counter() - t1)
+    decode_ms = (gen_ms - prefill_ms) / max(len(ids), 1)
+    full = lm.generate(prompt, max_new_tokens=64)
+    if "".join(lm.generate_stream(prompt, max_new_tokens=64)) != full:
+        raise AssertionError("generate_stream does not concatenate to generate")
+
+    # The memory system with the LM as its provider; its extraction is
+    # scaffolded, so random weights still extract one fact.
+    rec = RecordingLLM(OnDeviceLLM(lm, max_new_tokens=64,
+                                   json_scaffold=EXTRACTION_SCAFFOLD))
+    _strict_json_loop(lm, torch)
+    db = tempfile.mkdtemp(prefix="lm_phase_")
+    ms = MemorySystem(device="cuda", llm_provider=rec, enable_async=False,
+                      load_from_disk=False, db_dir=db, verbose=False)
+    try:
+        ms.start_conversation()
+        chat_ms = []
+        for msg in LM_CHAT:
+            before = fa.launches
+            t1 = time.perf_counter()
+            reply = ms.chat(msg)
+            chat_ms.append(1e3 * (time.perf_counter() - t1))
+            if not isinstance(reply, str) or fa.launches != before:
+                raise AssertionError("a chat turn did not decode through the cache path")
+        reads0 = lm.readbacks
+        t1 = time.perf_counter()
+        out = ms.end_conversation()
+        end_s = time.perf_counter() - t1
+        copies = lm.readbacks - reads0
+        if "Consolidation complete" not in out:
+            raise AssertionError(f"end_conversation did not consolidate: {out!r}")
+        docs = [r for fmt, r in rec.calls if fmt == {"type": "json_object"}]
+        if len(docs) != 1:
+            raise AssertionError(f"{len(docs)} constrained generations, expected 1")
+        extracted = json.loads(docs[0])
+        if not (docs[0].startswith(EXTRACTION_SCAFFOLD)
+                and len(extracted["memories"]) >= 1):
+            raise AssertionError(f"the extraction holds no fact: {docs[0]!r}")
+        rows = len(ms.index)
+        hits = ms.search_memories("what did the user say?")
+        if not hits or hits[0].content != extracted["memories"][0]["content"]:
+            raise AssertionError(f"search_memories missed the extracted fact "
+                                 f"({rows} rows, {len(hits)} hits, extraction "
+                                 f"{docs[0][:120]!r})")
+    finally:
+        ms.close()
+        vars(lm).pop("_json_device_loop", None)
+        vars(lm).pop("_readback", None)
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    launches_out["flash_attention"] = fa.launches
+    summary = {
+        "params": n_params, "init_s": init_s, "logits_for_tokens": LM_TOKENS,
+        "logits_for_p50_ms": fwd_p50,
+        "logits_for_tokens_per_s": LM_TOKENS / fwd_p50 * 1e3,
+        "logits_for_plain_p50_ms": p50(plain_ms[1:]),
+        "flash_launches_per_logits_for": cfg.layers,
+        "logits_max_abs_diff_vs_plain": logit_err, "top1_agreement": top1,
+        "prefill_ms": prefill_ms, "decode_tokens": len(ids),
+        "decode_ms_per_token": decode_ms, "chat_turn_p50_ms": p50(chat_ms),
+        "chat_turn_ms": chat_ms, "end_conversation_s": end_s,
+        "copies_per_constrained_generation": copies,
+        "extraction_chars": len(docs[0]),
+        "extracted_facts": len(extracted["memories"]),
+        "rows_after_end": rows, "search_hits": len(hits),
+        "flash_launches": fa.launches,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+    }
+    log(f"[lm] prefill {prefill_ms:.1f} ms, decode {decode_ms:.2f} ms/token "
+        f"({len(ids)} tokens); chat turn p50 {summary['chat_turn_p50_ms']:.1f} ms; "
+        f"end_conversation {end_s:.2f} s with {copies} device-to-host copies in its "
+        f"constrained generation ({len(docs[0])} chars, parsed); {rows} rows, "
+        f"search {len(hits)} hits; {fa.launches} flash launches; peak "
+        f"{summary['peak_gib']:.1f} GiB")
+    return summary
+
+
 def main() -> int:
     import torch
 
@@ -964,9 +1261,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     fused_rows = phase_fused_kernel(device)
     torch.cuda.empty_cache()
+    flash_rows = phase_flash(device)
     launches: dict = {}
     summary = phase_main(launches)
     log(f"[main] summary {json.dumps(summary)}")
+    gc.collect()                       # the phase-4 arena goes before the LM
+    torch.cuda.empty_cache()
+    lm_summary = phase_lm(launches)
+    log(f"[lm] summary {json.dumps(lm_summary)}")
     log(f"[smoke] {time.perf_counter() - t_start:.1f} s after the device phase")
 
     def entry(name, source, replaces, rows, head_case, extra_err=0.0):
@@ -987,6 +1289,9 @@ def main() -> int:
         entry("fused_topk", "lazzaro_tpu_torch/csrc/fused_topk.cu",
               "lazzaro_tpu/ops/pallas_topk.py:101", fused_rows,
               "chat_q1_k128_kq10"),
+        entry("flash_attention", "lazzaro_tpu_torch/csrc/flash_attention.cu",
+              "lazzaro_tpu/ops/flash_attention.py:109", flash_rows,
+              FLASH_CASES[0][0]),
     ]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

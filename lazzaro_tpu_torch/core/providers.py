@@ -2,8 +2,10 @@
 
 ``HashingEmbedder`` and ``HeuristicLLM`` run with no weights and no network
 and are the constructor defaults; ``infer_topic`` routes facts to shards and
-``_extract_json_object`` pulls the JSON out of an extraction reply. The
-remote and on-device providers are not ported yet (ROADMAP Queue 1 item 10).
+``_extract_json_object`` pulls the JSON out of an extraction reply.
+``OnDeviceLLM`` runs the in-tree decoder LM (``models/llm.py``) on the card.
+The remote providers and the encoder embedder are not ported yet (ROADMAP
+Queue 1 items 10 and 20).
 """
 
 from __future__ import annotations
@@ -11,9 +13,11 @@ from __future__ import annotations
 import hashlib
 import json
 import re
-from typing import Dict, List, Optional
+from typing import Dict, Iterator, List, Optional
 
 import numpy as np
+
+from lazzaro_tpu_torch.models.tokenizer import ByteTokenizer
 
 
 def _balanced_block(text: str, start: int) -> Optional[str]:
@@ -216,3 +220,71 @@ class HeuristicLLM:
                 return ("Based on what I remember: " + "; ".join(b[2:] for b in bullets[:3])
                         + f". Regarding '{user[:80]}': noted.")
         return f"Understood: {user[:120]}"
+
+
+class OnDeviceLLM:
+    """The in-tree decoder LM (``lazzaro_tpu_torch.models.llm``) as the LLM
+    provider: greedy or temperature sampling with a KV cache on the card.
+
+    With ``response_format={"type": "json_object"}`` the decode runs under
+    the byte-level JSON grammar automaton, so the consolidation pipeline's
+    extraction prompts get valid JSON by construction, from any weights.
+    With random weights free-text output is noise."""
+
+    def __init__(self, lm=None, max_new_tokens: int = 128,
+                 temperature: float = 0.0,
+                 json_scaffold: Optional[str] = None):
+        if lm is None:
+            from lazzaro_tpu_torch.models.llm import LanguageModel, LMConfig
+            lm = LanguageModel(LMConfig.small())
+        self.lm = lm
+        self.max_new_tokens = max_new_tokens
+        self.temperature = temperature
+        # Optional schema scaffold for json_object responses: a literal JSON
+        # prefix the constrained decode must start with (e.g.
+        # '{"memories": [{"content": "'). Byte tokenizer only: a subword
+        # vocabulary cannot teacher-force a byte-exact prefix.
+        if json_scaffold is not None and not isinstance(self.lm.tokenizer,
+                                                        ByteTokenizer):
+            raise ValueError(
+                "json_scaffold requires a ByteTokenizer-backed model; "
+                "subword vocabularies cannot teacher-force a byte-exact "
+                "JSON prefix")
+        self.json_scaffold = json_scaffold
+
+    def _render(self, messages: List[Dict[str, str]]) -> str:
+        parts = [f"{m['role'].capitalize()}: {m['content']}" for m in messages]
+        return "\n".join(parts) + "\nAssistant:"
+
+    def completion(self, messages: List[Dict[str, str]],
+                   response_format: Optional[Dict] = None) -> str:
+        if response_format and response_format.get("type") == "json_object":
+            if isinstance(self.lm.tokenizer, ByteTokenizer):
+                return self.lm.generate_json(self._render(messages),
+                                             max_new_tokens=self.max_new_tokens,
+                                             temperature=self.temperature,
+                                             scaffold=self.json_scaffold)
+            # Subword tokenizer: the byte automaton cannot mask its logits,
+            # so decode free text and extract the JSON. The instruction goes
+            # in as a system turn BEFORE the final "Assistant:" cue.
+            json_prompt = self._render(
+                messages + [{"role": "system",
+                             "content": "Respond with a single JSON object only."}])
+            text = self.lm.generate(json_prompt,
+                                    max_new_tokens=self.max_new_tokens,
+                                    temperature=self.temperature)
+            return _extract_json_object(text)
+        return self.lm.generate(self._render(messages),
+                                max_new_tokens=self.max_new_tokens,
+                                temperature=self.temperature)
+
+    def completion_stream(self, messages: List[Dict[str, str]],
+                          response_format: Optional[Dict] = None) -> Iterator[str]:
+        if response_format and response_format.get("type") == "json_object":
+            # Constrained decoding cannot stream piecewise (the budget repair
+            # may rewrite the tail); emit the finished document.
+            yield self.completion(messages, response_format)
+            return
+        yield from self.lm.generate_stream(self._render(messages),
+                                           max_new_tokens=self.max_new_tokens,
+                                           temperature=self.temperature)

@@ -1,15 +1,17 @@
-"""The top-k kernels on the card, against their plain versions.
+"""The top-k and flash-attention kernels on the card, against their plain
+versions, and the decoder LM's device paths.
 
 Marked ``cuda``: these tests need an NVIDIA GPU with ``nvcc`` and skip
 elsewhere. Run them on the card with
 
     python -m pytest -m cuda tests/test_torch_cuda.py
 
-Inputs are small multiples of 1/256, so every product and sum is exact in
-f32 and the kernel must agree with the plain version bit for bit, exact ties
-included.
+Top-k inputs are small multiples of 1/256, so every product and sum is
+exact in f32 and the kernel must agree with the plain version bit for bit,
+exact ties included. Flash-attention tolerances are stated beside its tests.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -233,3 +235,157 @@ def test_host_stage_never_overwrites_a_pending_upload(cuda):
         assert np.array_equal(g.cpu().numpy(), w)
     stage.upload(b)
     assert stage.allocations == 2                       # copy done: reused
+
+
+# ---------------------------------------------------------------------------
+# Flash attention (csrc/flash_attention.cu) against its plain version
+# ---------------------------------------------------------------------------
+
+# Tolerances: in f32 the kernel and the plain version differ only in the
+# order of their f32 sums (1e-4). In bf16 both round P to bf16 before P.V,
+# but the output is rounded to bf16 after sums taken in another order, so a
+# value may land one bf16 step away (<= 1.6e-2 below 4 in magnitude); the
+# f32 log-sum-exp stays within 1e-3.
+FLASH_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 1e-3)}
+
+
+def flash_inputs(gen, B, T, S, H, Hkv, D, dtype, device):
+    return (torch.randn((B, T, H, D), generator=gen, device=device).to(dtype),
+            torch.randn((B, S, Hkv, D), generator=gen, device=device).to(dtype),
+            torch.randn((B, S, Hkv, D), generator=gen, device=device).to(dtype))
+
+
+def assert_flash_close(got, want, dtype):
+    out_tol, lse_tol = FLASH_TOL[dtype]
+    assert got[0].dtype == dtype and got[1].dtype == torch.float32
+    assert float((got[0].float() - want[0].float()).abs().max()) <= out_tol
+    assert float((got[1] - want[1]).abs().max()) <= lse_tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,S,H,Hkv,D", [
+    (2, 64, 64, 4, 2, 32),      # GQA, tile-aligned
+    (1, 37, 37, 4, 4, 16),      # MHA, ragged T
+    (1, 8, 8, 2, 1, 8),         # tiny, extreme GQA
+    (1, 13, 29, 2, 2, 24),      # S > T, head_dim not a multiple of 16
+    (2, 130, 130, 8, 2, 256),   # the full-width head_dim
+    (1, 13, 200, 8, 1, 64),     # chunked prefill, MQA
+])
+def test_flash_kernel_matches_plain_version(cuda, dtype, B, T, S, H, Hkv, D):
+    from lazzaro_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=cuda).manual_seed(B + T + S + D)
+    q, k, v = flash_inputs(gen, B, T, S, H, Hkv, D, dtype, cuda)
+    before = fa.launches
+    got = fa.flash_attention_fwd(q, k, v)
+    want = fa.flash_attention_reference(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    assert_flash_close(got, want, dtype)
+
+
+def test_flash_kernel_reads_strided_inputs_in_place(cuda):
+    """q, k and v as transposed views of [B, H, T, D] tensors: the kernel
+    reads them through their strides."""
+    from lazzaro_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    qt = torch.randn((2, 8, 100, 64), generator=gen, device=cuda).bfloat16()
+    kt = torch.randn((2, 2, 100, 64), generator=gen, device=cuda).bfloat16()
+    vt = torch.randn((2, 2, 100, 64), generator=gen, device=cuda).bfloat16()
+    q, k, v = (x.transpose(1, 2) for x in (qt, kt, vt))
+    assert not q.is_contiguous()
+    got = fa.flash_attention_fwd(q, k, v)
+    want = fa.flash_attention_reference(q.contiguous(), k.contiguous(),
+                                        v.contiguous())
+    assert_flash_close(got, want, torch.bfloat16)
+
+
+def test_flash_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    from lazzaro_tpu_torch.ops import flash_attention as fa
+
+    def qkv(T, S, D, dtype=torch.bfloat16):
+        return (torch.zeros((1, T, 2, D), device=cuda, dtype=dtype),
+                torch.zeros((1, S, 2, D), device=cuda, dtype=dtype),
+                torch.zeros((1, S, 2, D), device=cuda, dtype=dtype))
+
+    for bad in (qkv(8, 8, 12), qkv(8, 8, 264), qkv(16, 8, 64)):
+        with pytest.raises(ValueError):
+            fa.flash_attention_fwd(*bad)
+    with pytest.raises(TypeError):
+        fa.flash_attention_fwd(*qkv(8, 8, 64, torch.float16))
+    q, k, v = qkv(8, 8, 64)
+    with pytest.raises(ValueError):
+        fa.flash_attention_fwd(q[..., 1:57], k[..., 1:57], v[..., 1:57])
+    with pytest.raises(NotImplementedError, match="Queue 2 item 4"):
+        q.requires_grad_(True)
+        fa.flash_attention(q, k, v).sum().backward()
+
+
+def test_flash_refused_launch_raises(cuda):
+    """The C entry point reports what it refuses (head_dim 12) as an error
+    code instead of launching."""
+    from lazzaro_tpu_torch.ops import flash_attention as fa
+
+    x = torch.zeros((1, 8, 2, 16), device=cuda)
+    lse = torch.empty((1, 2, 8), device=cuda)
+    rc = fa._library().flash_attention_fwd(
+        x.data_ptr(), x.data_ptr(), x.data_ptr(), x.data_ptr(), lse.data_ptr(),
+        0, 1, 8, 8, 2, 2, 12, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0.25,
+        torch.cuda.current_stream().cuda_stream)
+    assert rc != 0
+
+
+def test_decoder_flash_equals_plain_on_the_card(cuda):
+    """A bf16 decoder at the small widths: the cache-less forward through
+    the kernel (one launch per layer) against attn_impl="xla"."""
+    import dataclasses
+    from lazzaro_tpu_torch.models.llm import LanguageModel, LMConfig
+    from lazzaro_tpu_torch.ops import flash_attention as fa
+
+    cfg = dataclasses.replace(LMConfig.small(), layers=2, max_seq=256)
+    lm = LanguageModel(cfg, seed=1, device="cuda")
+    assert lm.cfg.attn_impl == "flash"
+    text = "The memory system keeps facts about the user. " * 4
+    before = fa.launches
+    flash = lm.logits_for(text)
+    assert fa.launches == before + cfg.layers
+    plain = lm.logits_for(text, attn_impl="xla")
+    assert fa.launches == before + cfg.layers
+    assert np.abs(flash - plain).max() < 0.1
+
+
+def test_json_device_loop_reads_back_only_its_flags(cuda):
+    """The on-device JSON loop makes no host wait but its counted readbacks
+    (one done flag per step and the ids once): every other sync raises
+    under ``set_sync_debug_mode("error")``."""
+    import json
+    from lazzaro_tpu_torch.models.llm import LanguageModel, LMConfig
+
+    lm = LanguageModel(LMConfig.tiny(), seed=0, device="cuda")
+    loop, read = lm._json_device_loop, lm._readback
+
+    def read_allowed(t):
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            return read(t)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    def strict(*args, **kwargs):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return loop(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    lm._json_device_loop, lm._readback = strict, read_allowed
+    try:
+        doc = lm.generate_json("Extract facts.", max_new_tokens=24)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    json.loads(doc)
+    assert 2 <= lm.readbacks <= 25
+    host = LanguageModel(LMConfig.tiny(), seed=0, device="cuda")
+    assert host.generate_json("Extract facts.", max_new_tokens=24,
+                              device_loop=False) == doc
