@@ -11,7 +11,8 @@ Phases, each printing its own lines; any failure exits non-zero:
   3. kernels  each kernel, in every call form, against its plain PyTorch
               version on the card, at every shape the main paths give it and
               at edge cases, with times and bounds (the top-k scans, then
-              the flash-attention forward at the decoder's shapes);
+              the flash-attention forward and its dQ and dK/dV backward
+              kernels at the decoder's shapes);
   4. main     ``MemorySystem`` on a bf16 768-d arena of 1,048,576 rows. The
               classic path: fill it through ``end_conversation`` with
               ``FILL`` facts (8,192 per conversation, two tenants, a
@@ -33,6 +34,14 @@ Phases, each printing its own lines; any failure exits non-zero:
               ``end_conversation`` whose extraction runs the on-device
               constrained JSON loop, then a search. Flash launches are
               counted from 0 over this phase;
+  6. train    the same decoder at full width trained with AdamW (optax's
+              adamw defaults) on one B=2, T=2,048 batch of byte-tokenized
+              text: one step's loss and gradients through flash against the
+              materialized-scores path, then ``TRAIN_STEPS`` steps through
+              ``make_train_step`` (18 forward and 36 backward kernel
+              launches each, counted from 0 over the steps), then
+              ``logits_for`` on the trained weights against freshly cast
+              copies;
 then the card's name and power limit, one JSON line listing every kernel, and
 as the last line ``{"ok": true, "device": {...}}``. Without a GPU, or outside
 a checkout, it exits non-zero and prints no result.
@@ -85,6 +94,26 @@ FLASH_CASES = [
 # P.V, but O is rounded to bf16 after sums in another order, so a value may
 # land one bf16 step away (1.6e-2 in [2, 4)).
 FLASH_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 1e-3)}
+# Flash backward cases (label, B, T, S, H, Hkv, D, dtype): the training
+# step's shape at full width (LMConfig(), B=2, T=2,048), a ragged T, the
+# small config's heads, chunked S > T, MQA (rep = 8), and f32.
+FLASH_BWD_CASES = [
+    ("train_b2_t2048_h8_kv2_d256_bf16", 2, 2048, 2048, 8, 2, 256, "bfloat16"),
+    ("ragged_b1_t2047_h8_kv2_d256_bf16", 1, 2047, 2047, 8, 2, 256, "bfloat16"),
+    ("small_b8_t1024_h8_kv2_d64_bf16", 8, 1024, 1024, 8, 2, 64, "bfloat16"),
+    ("chunked_b1_t64_s2048_h8_kv2_d256_bf16", 1, 64, 2048, 8, 2, 256, "bfloat16"),
+    ("mqa_b2_t1024_h8_kv1_d128_bf16", 2, 1024, 1024, 8, 1, 128, "bfloat16"),
+    ("f32_b2_t512_h8_kv2_d64", 2, 512, 512, 8, 2, 64, "float32"),
+]
+# Tolerance of dq, dk and dv, as max |kernel - plain| over the plain result's
+# largest magnitude. f32: the two differ only in the order of f32 sums.
+# bf16: both round P and dS to bf16 at the same points and sum in f32, but
+# in other orders, so an element of P or dS may round to the neighbouring
+# bf16 value before its product, and the outputs are rounded to bf16 after.
+FLASH_BWD_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
+# Kernel cases are timed as the median of this many windows (a host stall
+# inflates one window, not the median).
+WINDOWS = 5
 LM_TOKENS = 2047                   # logits_for length: BOS + 2,046 bytes
 # Largest |logit| difference of the full-width forward through the kernel
 # against the materialized-scores path: that path rounds the scores to bf16
@@ -97,6 +126,16 @@ EXTRACTION_SCAFFOLD = '{"memories": [{"content": "The user said: '
 LM_CHAT = ["I work as a data engineer on a big ETL project.",
            "My sister lives in Lisbon and we talk every Sunday.",
            "I am training for a marathon in October."]
+# Training phase: one batch of B=2 rows of T=2,048 byte tokens, AdamW at
+# optax.adamw(TRAIN_LR)'s defaults, TRAIN_STEPS steps.
+TRAIN_B, TRAIN_T, TRAIN_STEPS, TRAIN_LR = 2, 2048, 10, 3e-4
+# Flash against the materialized-scores path, one step from the same
+# weights: the plain path rounds the scores to bf16 before the softmax and
+# the kernels keep them in f32, so logits differ by a few hundredths (0.0393
+# at LMConfig() on the H100) and the gradients by the bf16 rounding that
+# follows through 18 layers. Loss within TRAIN_LOSS_TOL, every tensor's gradients at cosine
+# above TRAIN_GRAD_COS.
+TRAIN_LOSS_TOL, TRAIN_GRAD_COS = 1e-2, 0.99
 SLICE = dict(serve_fused=False, ingest_fused=False, ingest_dedup_fused=False,
              lifecycle_fused=False, journal=False, ingest_journal=False,
              auto_consolidate=False)
@@ -106,9 +145,9 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def nvidia_smi() -> str:
+def nvidia_smi(fields: str = "name,power.limit") -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
+        ["nvidia-smi", f"--query-gpu={fields}",
          "--format=csv,noheader"], capture_output=True, text=True, timeout=30)
     if out.returncode != 0:
         raise RuntimeError(f"nvidia-smi failed: {out.stderr.strip()}")
@@ -132,19 +171,24 @@ def phase_build() -> float:
     return secs
 
 
-def cuda_ms(fn, reps: int) -> float:
+def cuda_ms(fn, reps: int, windows: int = 1) -> float:
+    """ms per call of ``fn``: the median over ``windows`` windows of ``reps``
+    calls, each timed with CUDA events, after one warm-up call."""
     import torch
 
     fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    times = []
+    for _ in range(windows):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return float(np.median(times))
 
 
 def grid_values(gen, shape, dtype, device):
@@ -981,11 +1025,17 @@ def _drive_fused(ms, corpus, served, launches_out, torch):
 # ---------------------------------------------------------------------------
 
 
+def causal_ops(B, T, S, H, D):
+    """Operations of one causal product over the end-aligned window:
+    2*B*H*D*sum_i(S-T+i+1)."""
+    return 2.0 * B * H * D * (T * (S - T) + T * (T + 1) / 2)
+
+
 def flash_bound(B, T, S, H, Hkv, D, item):
     """(bound_ms, bound_by) of the causal forward: 4*B*H*D*sum_i(S-T+i+1)
     operations at the type's peak, against q, k, v read once and O and the
     f32 LSE written once."""
-    ops = 4.0 * B * H * D * (T * (S - T) + T * (T + 1) / 2)
+    ops = 2 * causal_ops(B, T, S, H, D)
     moved = (2 * B * T * H * D + 2 * B * S * Hkv * D) * item + 4 * B * H * T
     peak = PEAK_OPS["bfloat16" if item == 2 else "float32"]
     t_bytes, t_ops = moved / HBM_BYTES_PER_S, ops / peak
@@ -1030,9 +1080,10 @@ def phase_flash(device):
 
         lib_err = float((lib().transpose(1, 2).float() - ref_out.float()).abs().max())
         big = B * T * S > 8e6
-        ms = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v), 20)
-        plain = cuda_ms(lambda: fa.flash_attention_reference(q, k, v), 2 if big else 5)
-        lib_ms = cuda_ms(lib, 20)
+        ms = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v), 20, WINDOWS)
+        plain = cuda_ms(lambda: fa.flash_attention_reference(q, k, v),
+                        2 if big else 5, WINDOWS)
+        lib_ms = cuda_ms(lib, 20, WINDOWS)
         b_ms, b_by = flash_bound(B, T, S, H, Hkv, D, q.element_size())
         log(f"[flash] {label}: max_abs_err O {err} (tol {out_tol}), LSE {lse_err} "
             f"(tol {lse_tol}), library vs plain {lib_err}; ms {ms:.4f}, plain_ms "
@@ -1045,6 +1096,116 @@ def phase_flash(device):
                          "lse_max_abs_err": lse_err,
                          "library_vs_plain_max_abs_err": lib_err})
         del q, k, v, out, lse, ref_out, ref_lse, qt, kt, vt
+        torch.cuda.empty_cache()
+    return rows_out
+
+
+def flash_bwd_bounds(B, T, S, H, Hkv, D, item):
+    """{"dq": ..., "dkv": ...} (bound_ms, bound_by) of the two backward
+    kernels: three causal products for dQ (s, dP, dQ) and four for dK/dV
+    (s, dP, dV, dK) at the type's peak, against each kernel's inputs read
+    once (q, k, v, dO, the f32 lse; dQ also reads O, dK/dV the f32 delta
+    that dQ writes) and its outputs written once."""
+    peak = PEAK_OPS["bfloat16" if item == 2 else "float32"]
+    rows_q, rows_kv, stats = B * T * H * D * item, B * S * Hkv * D * item, 4 * B * H * T
+    out = {}
+    for name, products, moved in (
+            ("dq", 3, 4 * rows_q + 2 * rows_kv + 2 * stats),
+            ("dkv", 4, 2 * rows_q + 4 * rows_kv + 2 * stats)):
+        t_ops = products * causal_ops(B, T, S, H, D) / peak
+        t_bytes = moved / HBM_BYTES_PER_S
+        out[name] = (1e3 * max(t_ops, t_bytes),
+                     "bytes" if t_bytes >= t_ops else "operations")
+    return out
+
+
+def phase_flash_bwd(device):
+    """The dQ and dK/dV kernels against the plain backward on every case
+    (dq, dk and dv, error relative to the plain result's largest
+    magnitude); times of each kernel, the plain backward and, as the
+    yardstick the port never calls, the backward of
+    ``scaled_dot_product_attention`` (``torch.autograd.grad`` of one retained
+    forward). At the training shape, the backward's peak device memory
+    beyond its inputs and outputs. Returns one row per (kernel, case)."""
+    import torch
+    import torch.nn.functional as F
+
+    from lazzaro_tpu_torch.ops import flash_attention as fa
+
+    rows_out = []
+    for label, B, T, S, H, Hkv, D, dtype in FLASH_BWD_CASES:
+        dt = getattr(torch, dtype)
+        gen = torch.Generator(device=device).manual_seed(T + S + D + 1)
+        q, k, v = (torch.randn(shape, generator=gen, device=device).to(dt)
+                   for shape in ((B, T, H, D), (B, S, Hkv, D), (B, S, Hkv, D)))
+        do = torch.randn((B, T, H, D), generator=gen, device=device).to(dt)
+        out, lse = fa.flash_attention_fwd(q, k, v)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        got = fa.flash_attention_bwd(q, k, v, out, lse, do)
+        torch.cuda.synchronize()
+        extra = (torch.cuda.max_memory_allocated() - base
+                 - sum(g.numel() * g.element_size() for g in got))
+        want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do)
+        errs = {}
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            err = float((g.float() - w.float()).abs().max())
+            errs[name] = (err, err / max(float(w.float().abs().max()), 1e-30))
+        tol = FLASH_BWD_TOL[dtype]
+        bad = {n: e for n, e in errs.items() if not e[1] <= tol}
+        if bad:
+            raise AssertionError(f"flash bwd {label}: kernels disagree with the "
+                                 f"plain backward (abs, relative): {bad}")
+        ts_f32 = T * S * 4
+        if extra >= ts_f32:
+            raise AssertionError(f"flash bwd {label}: {extra} bytes beyond inputs "
+                                 f"and outputs, a [T, S] f32 tensor is {ts_f32}")
+        del got, want
+        # Timing: each kernel alone on prepared inputs (dK/dV reads the
+        # delta that the last dQ launch wrote).
+        g_do, g_lse = fa._prepare_bwd(q, k, v, out, lse, do)
+        delta = torch.empty((B, H, T), dtype=torch.float32, device=device)
+        big = B * T * S > 8e6
+        dq_ms = cuda_ms(lambda: fa.launch_bwd_dq(q, k, v, out, g_do, g_lse, delta),
+                        10, WINDOWS)
+        dkv_ms = cuda_ms(lambda: fa.launch_bwd_dkv(q, k, v, out, g_do, g_lse, delta),
+                         10, WINDOWS)
+        plain = cuda_ms(lambda: fa.flash_attention_bwd_reference(q, k, v, out, lse, do),
+                        1 if big else 3, 3)
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                      for x in (q, k, v))
+        mask = None
+        if S != T:
+            mask = (torch.arange(S, device=device)[None, :]
+                    <= (S - T) + torch.arange(T, device=device)[:, None])
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                 is_causal=S == T, enable_gqa=True)
+        dot = do.transpose(1, 2)
+
+        def lib(lib_out=lib_out, qt=qt, kt=kt, vt=vt, dot=dot):
+            return torch.autograd.grad(lib_out, (qt, kt, vt), dot, retain_graph=True)
+
+        lib_ms = cuda_ms(lib, 10, WINDOWS)
+        bounds = flash_bwd_bounds(B, T, S, H, Hkv, D, q.element_size())
+        log(f"[flash-bwd] {label}: dq/dk/dv max_abs_err "
+            f"{errs['dq'][0]:.3e}/{errs['dk'][0]:.3e}/{errs['dv'][0]:.3e}, relative "
+            f"{errs['dq'][1]:.3e}/{errs['dk'][1]:.3e}/{errs['dv'][1]:.3e} (tol {tol}); "
+            f"dq ms {dq_ms:.4f} (bound {bounds['dq'][0]:.4f} {bounds['dq'][1]}), "
+            f"dkv ms {dkv_ms:.4f} (bound {bounds['dkv'][0]:.4f} {bounds['dkv'][1]}), "
+            f"plain_ms {plain:.4f}, library_ms {lib_ms:.4f}; extra device memory "
+            f"{extra} bytes")
+        for kernel, ms, err in (("flash_attention_bwd_dq", dq_ms, errs["dq"]),
+                                ("flash_attention_bwd_dkv", dkv_ms,
+                                 max(errs["dk"], errs["dv"]))):
+            b_ms, b_by = bounds["dq" if kernel.endswith("dq") else "dkv"]
+            rows_out.append({
+                "kernel": kernel, "form": "causal_gqa_bwd", "case": label,
+                "shape": [B, T, S, H, Hkv, D], "dtype": dtype, "ms": ms,
+                "plain_ms": plain, "library_ms": lib_ms, "bound_ms": b_ms,
+                "bound_by": b_by, "max_abs_err": err[0],
+                "max_rel_err": err[1], "extra_device_bytes": extra})
+        del q, k, v, do, out, lse, qt, kt, vt, lib_out, dot, delta, g_do, g_lse
         torch.cuda.empty_cache()
     return rows_out
 
@@ -1234,6 +1395,176 @@ def phase_lm(launches_out: dict):
     return summary
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: training the decoder LM at full width
+# ---------------------------------------------------------------------------
+
+
+def train_batch(device):
+    """TRAIN_B rows of TRAIN_T byte tokens (BOS + text) from seeded words."""
+    import torch
+
+    from lazzaro_tpu_torch.models.tokenizer import ByteTokenizer
+
+    words = ("memory user agent fact work family travel health note remember "
+             "conversation search extract merge link cluster tenant").split()
+    rs = np.random.RandomState(7)
+    tok = ByteTokenizer()
+    rows = []
+    for _ in range(TRAIN_B):
+        text = " ".join(words[i] for i in rs.randint(0, len(words), TRAIN_T))
+        rows.append(tok.encode(text)[:TRAIN_T])
+    tokens = torch.tensor(rows, dtype=torch.long, device=device)
+    return tokens, torch.ones_like(tokens)
+
+
+def _gradients(dec, tokens, mask, impl, torch):
+    from lazzaro_tpu_torch.models.llm import next_token_loss
+
+    with torch.enable_grad():
+        loss = next_token_loss(dec, tokens, mask, impl)
+        loss.backward()
+    grads = {}
+    for name, p in dec.named_parameters():
+        grads[name], p.grad = p.grad, None
+    return float(loss.detach()), grads
+
+
+def phase_train(device, launches_out: dict):
+    import dataclasses
+
+    import torch
+
+    from lazzaro_tpu_torch.models.llm import (Decoder, LanguageModel, LMConfig,
+                                              make_train_step)
+    from lazzaro_tpu_torch.ops import flash_attention as fa
+
+    cfg = LMConfig()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dec = Decoder(cfg, device=device).init_weights(0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in dec.parameters())
+    tokens, mask = train_batch(device)
+
+    # One step's gradients from the same weights, flash against plain.
+    loss_f, g_f = _gradients(dec, tokens, mask, "flash", torch)
+    loss_x, g_x = _gradients(dec, tokens, mask, "xla", torch)
+    missing = [n for n, g in g_f.items() if g is None or g_x[n] is None]
+    if missing:
+        raise AssertionError(f"no gradient reached {missing}")
+    worst_cos, worst_rel = (2.0, ""), (0.0, "")
+    for name, g in g_f.items():
+        w = g_x[name]
+        cos = float(torch.nn.functional.cosine_similarity(
+            g.flatten().double(), w.flatten().double(), dim=0))
+        rel = float((g - w).norm() / w.norm().clamp_min(1e-30))
+        worst_cos = min(worst_cos, (cos, name))
+        worst_rel = max(worst_rel, (rel, name))
+    zero = [n for n, g in g_f.items() if not bool((g != 0).any())]
+    log(f"[train] {n_params / 1e9:.3f} B parameters, init {init_s:.1f} s; one step "
+        f"flash vs plain: loss {loss_f:.6f} vs {loss_x:.6f} (|diff| "
+        f"{abs(loss_f - loss_x):.2e}, tol {TRAIN_LOSS_TOL}), worst gradient cosine "
+        f"{worst_cos[0]:.6f} ({worst_cos[1]}, tol > {TRAIN_GRAD_COS}), worst "
+        f"relative norm error {worst_rel[0]:.4f} ({worst_rel[1]}); {len(g_f)} "
+        f"tensors got a gradient, {len(zero)} all zero")
+    if zero:
+        raise AssertionError(f"all-zero gradients: {zero}")
+    if abs(loss_f - loss_x) > TRAIN_LOSS_TOL or worst_cos[0] <= TRAIN_GRAD_COS:
+        raise AssertionError("flash and plain gradients disagree")
+    del g_f, g_x
+
+    # The served copies before training: logits_for caches bf16 weights.
+    lm = LanguageModel(cfg, device=device, decoder=dec)
+    text = "The user keeps notes about work, family, travel and health." * 8
+    before = lm.logits_for(text)
+
+    opt = torch.optim.AdamW(dec.parameters(), lr=TRAIN_LR, betas=(0.9, 0.999),
+                            eps=1e-8, weight_decay=1e-4)
+    step = make_train_step(dataclasses.replace(cfg, attn_impl="flash"), opt)
+    marks = {}
+
+    def mark(key):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks[key] = ev
+
+    hooks = [dec.register_forward_pre_hook(lambda *a: mark("fwd0")),
+             dec.register_forward_hook(lambda *a: mark("fwd1")),
+             opt.register_step_pre_hook(lambda *a: mark("opt0")),
+             opt.register_step_post_hook(lambda *a: mark("opt1"))]
+    losses, step_ms, split, per_step, clocks = [], [], [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = fa.bwd_dq_launches = fa.bwd_dkv_launches = 0   # the path's counts
+    try:
+        for _ in range(TRAIN_STEPS):
+            before_n = (fa.launches, fa.bwd_dq_launches, fa.bwd_dkv_launches)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            loss = step(dec, tokens, mask)
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t1))
+            losses.append(float(loss))
+            split.append((marks["fwd0"].elapsed_time(marks["fwd1"]),
+                          marks["fwd1"].elapsed_time(marks["opt0"]),
+                          marks["opt0"].elapsed_time(end)))
+            per_step.append(tuple(a - b for a, b in zip(
+                (fa.launches, fa.bwd_dq_launches, fa.bwd_dkv_launches), before_n)))
+            if len(losses) in (1, TRAIN_STEPS):   # the card's state, untimed
+                clocks.append(nvidia_smi("clocks.sm,power.draw,temperature.gpu"))
+    finally:
+        for h in hooks:
+            h.remove()
+    counts = {"flash_attention": fa.launches,
+              "flash_attention_bwd_dq": fa.bwd_dq_launches,
+              "flash_attention_bwd_dkv": fa.bwd_dkv_launches}
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = (cfg.layers, cfg.layers, cfg.layers)
+    if set(per_step) != {want}:
+        raise AssertionError(f"launches per step (fwd, dq, dkv) {per_step}, not {want}")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"the loss did not fall: {losses}")
+    launches_out["flash_attention_bwd_dq"] = counts["flash_attention_bwd_dq"]
+    launches_out["flash_attention_bwd_dkv"] = counts["flash_attention_bwd_dkv"]
+
+    # logits_for on the trained weights: equal to freshly cast copies.
+    after = lm.logits_for(text)
+    for m in dec.modules():
+        m.__dict__.pop("_compute_copies", None)
+    fresh = lm.logits_for(text)
+    if not np.array_equal(after, fresh) or np.array_equal(after, before):
+        raise AssertionError("logits_for after training does not serve the "
+                             "trained weights")
+    p50_ms = p50(step_ms[1:])
+    fwd, bwd, opt_ms = (p50([s[i] for s in split[1:]]) for i in range(3))
+    summary = {
+        "params": n_params, "batch": [TRAIN_B, TRAIN_T], "steps": TRAIN_STEPS,
+        "lr": TRAIN_LR, "losses": losses, "step_ms": step_ms,
+        "step_p50_ms": p50_ms, "tokens_per_s": TRAIN_B * TRAIN_T / p50_ms * 1e3,
+        "split_ms": split, "clocks_power_temp_after_first_and_last": clocks,
+        "forward_p50_ms": fwd, "backward_p50_ms": bwd, "optimizer_p50_ms": opt_ms,
+        "launches_per_step": {"fwd": want[0], "bwd": want[1] + want[2]},
+        "launches": counts, "peak_gib": peak_gib,
+        "parity_loss_flash": loss_f, "parity_loss_plain": loss_x,
+        "parity_worst_grad_cos": worst_cos[0],
+        "parity_worst_grad_cos_tensor": worst_cos[1],
+        "parity_worst_rel_norm_err": worst_rel[0],
+        "parity_worst_rel_norm_err_tensor": worst_rel[1],
+    }
+    log(f"[train] {TRAIN_STEPS} AdamW steps on B={TRAIN_B} T={TRAIN_T}: loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; step p50 {p50_ms:.2f} ms = "
+        f"{summary['tokens_per_s']:.0f} tokens/s (forward {fwd:.2f}, loss + backward "
+        f"{bwd:.2f}, optimizer {opt_ms:.2f} ms, CUDA events); launches per step "
+        f"{want[0]} forward + {want[1] + want[2]} backward; peak {peak_gib:.2f} GiB; "
+        f"SM clock, power, temperature after the first and last step {clocks}; "
+        f"logits_for after training equals freshly cast weights")
+    return summary
+
+
 def main() -> int:
     import torch
 
@@ -1262,6 +1593,7 @@ def main() -> int:
     fused_rows = phase_fused_kernel(device)
     torch.cuda.empty_cache()
     flash_rows = phase_flash(device)
+    bwd_rows = phase_flash_bwd(device)
     launches: dict = {}
     summary = phase_main(launches)
     log(f"[main] summary {json.dumps(summary)}")
@@ -1269,6 +1601,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     lm_summary = phase_lm(launches)
     log(f"[lm] summary {json.dumps(lm_summary)}")
+    gc.collect()                       # the LM phase's model goes before training
+    torch.cuda.empty_cache()
+    train_summary = phase_train(device, launches)
+    log(f"[train] summary {json.dumps(train_summary)}")
     log(f"[smoke] {time.perf_counter() - t_start:.1f} s after the device phase")
 
     def entry(name, source, replaces, rows, head_case, extra_err=0.0):
@@ -1292,6 +1628,16 @@ def main() -> int:
         entry("flash_attention", "lazzaro_tpu_torch/csrc/flash_attention.cu",
               "lazzaro_tpu/ops/flash_attention.py:109", flash_rows,
               FLASH_CASES[0][0]),
+        entry("flash_attention_bwd_dq",
+              "lazzaro_tpu_torch/csrc/flash_attention_bwd.cu",
+              "lazzaro_tpu/ops/flash_attention.py:279",
+              [c for c in bwd_rows if c["kernel"] == "flash_attention_bwd_dq"],
+              FLASH_BWD_CASES[0][0]),
+        entry("flash_attention_bwd_dkv",
+              "lazzaro_tpu_torch/csrc/flash_attention_bwd.cu",
+              "lazzaro_tpu/ops/flash_attention.py:310",
+              [c for c in bwd_rows if c["kernel"] == "flash_attention_bwd_dkv"],
+              FLASH_BWD_CASES[0][0]),
     ]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -17,10 +17,14 @@ Layers with softcap, a sliding window or a query scale take the plain path,
 as in JAX. ``"auto"`` resolves to ``"flash"`` on a CUDA device and to
 ``"xla"`` on the CPU.
 
-Not ported yet (ROADMAP Queue 1 item 20): training (``make_train_step``,
-waiting for the flash backward), ``param_specs``/``shard_params``
-(multi-device), ``from_hf``/``gemma_params_from_hf``/
-``HFLMTokenizerAdapter`` and ``save_params``/``load_params``.
+Training: :func:`make_train_step` is the next-token cross-entropy step of
+``_make_ce_train_step`` on a ``torch.optim`` optimizer; through flash its
+backward runs the hand-written dQ and dK/dV kernels.
+
+Not ported yet (ROADMAP Queue 1 items 20-21): ``make_seq_parallel_train_step``
+and ``param_specs``/``shard_params`` (multi-device), ``from_hf``/
+``gemma_params_from_hf``/``HFLMTokenizerAdapter``, ``save_params``/
+``load_params`` and the encoder.
 """
 
 from __future__ import annotations
@@ -95,11 +99,16 @@ def compute_dtype(cfg: LMConfig) -> torch.dtype:
 
 
 def _weight(module: nn.Module, name: str, dtype: torch.dtype) -> torch.Tensor:
-    """Parameter ``name`` of ``module`` in ``dtype``: the f32 master itself,
-    or a cached copy rebuilt whenever the master changes (load, move)."""
+    """Parameter ``name`` of ``module`` in ``dtype``: the f32 master itself;
+    under autograd a differentiable cast of it (as flax's ``DenseGeneral``
+    casts its kernel inside the differentiated function), so the gradient
+    reaches the master; otherwise a cached copy rebuilt whenever the master
+    changes (load, move, an optimizer's in-place step)."""
     p = getattr(module, name)
     if p.dtype == dtype:
         return p
+    if torch.is_grad_enabled() and p.requires_grad:
+        return p.to(dtype)
     key = (p.data_ptr(), p._version, p.device, dtype)
     cache = module.__dict__.setdefault("_compute_copies", {})
     got = cache.get(name)
@@ -341,6 +350,78 @@ def params_from_jax(tree, cfg: LMConfig) -> Decoder:
         state[name] = torch.from_numpy(arr.copy())
     dec.load_state_dict(state)
     return dec
+
+
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+
+
+def next_token_loss(decoder: Decoder, tokens: torch.Tensor, mask: torch.Tensor,
+                    attn_impl: str) -> torch.Tensor:
+    """Mean next-token cross-entropy of ``decoder`` on ``tokens [B, T]``:
+    positions ``arange(T)``, f32 logits, ``log_softmax``, the NLL of
+    ``tokens[:, 1:]`` weighted by ``mask[:, 1:]`` and divided by
+    ``max(mask[:, 1:].sum(), 1)`` (JAX ``_make_ce_train_step``'s
+    ``loss_fn``)."""
+    B, T = tokens.shape
+    positions = torch.arange(T, device=tokens.device)[None].expand(B, T)
+    logits, _ = decoder(tokens, positions, attn_impl=attn_impl)
+    logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
+    nll = -torch.gather(logp, -1, tokens[:, 1:, None].long())[..., 0]
+    weights = mask[:, 1:].float()
+    return (nll * weights).sum() / torch.clamp(weights.sum(), min=1.0)
+
+
+def make_train_step(cfg: LMConfig, optimizer: torch.optim.Optimizer,
+                    mesh=None):
+    """Next-token cross-entropy train step (JAX ``make_train_step``).
+
+    Returns ``train_step(decoder, tokens, mask) -> loss``: ``decoder`` is a
+    :class:`Decoder` built for ``cfg`` whose parameters ``optimizer`` holds,
+    ``tokens`` ``[B, T]`` ids and ``mask`` ``[B, T]`` (1 where a token
+    counts) on the decoder's device. It computes :func:`next_token_loss`,
+    runs the backward, ``optimizer.step()`` and
+    ``optimizer.zero_grad(set_to_none=True)``, and returns the loss before
+    the update as a 0-d f32 tensor on the device (no host sync). The
+    parameters change in place. ``cfg.attn_impl`` resolves as JAX's
+    ``_resolve_attn_impl`` does: ``"auto"`` is flash on a CUDA device, whose
+    backward launches the dQ and dK/dV kernels, and xla on the CPU.
+
+    optax optimizers map to torch as: ``optax.sgd(lr)`` is ``SGD(params,
+    lr)``; ``optax.adam(lr)`` is ``Adam(params, lr, eps=1e-8)``;
+    ``optax.adamw(lr)`` is ``AdamW(params, lr, betas=(0.9, 0.999), eps=1e-8,
+    weight_decay=1e-4)`` (torch's AdamW defaults to ``weight_decay=0.01``,
+    optax's to 1e-4). A ``mesh`` (data/tensor parallelism) is not ported yet
+    and raises ``NotImplementedError``."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "make_train_step over a mesh is not ported yet (ROADMAP Queue 1 "
+            "item 21, multi-device)")
+
+    def train_step(decoder: Decoder, tokens: torch.Tensor,
+                   mask: torch.Tensor) -> torch.Tensor:
+        if dataclasses.replace(decoder.cfg, attn_impl=cfg.attn_impl) != cfg:
+            raise ValueError("decoder was built for another LMConfig")
+        impl = resolve_impl(cfg.attn_impl, decoder.embed.device)
+        with torch.enable_grad():
+            loss = next_token_loss(decoder, tokens, mask, impl)
+            loss.backward()
+        optimizer.step()
+        optimizer.zero_grad(set_to_none=True)
+        return loss.detach()
+
+    return train_step
+
+
+def make_seq_parallel_train_step(cfg: LMConfig, optimizer, mesh,
+                                 seq_axis: str = "sp",
+                                 dp_axis: Optional[str] = "data"):
+    """The long-context train step over a ``(data, sp)`` mesh (ring
+    attention) is multi-device and not ported yet."""
+    raise NotImplementedError(
+        "make_seq_parallel_train_step is not ported yet (ROADMAP Queue 1 "
+        "item 21, multi-device)")
 
 
 class LanguageModel:

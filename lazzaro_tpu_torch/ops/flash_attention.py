@@ -1,11 +1,14 @@
-"""Causal grouped-query flash attention: the Hopper kernel, its plain version
-and the materialized-scores reference of the decoder LM.
+"""Causal grouped-query flash attention: the Hopper kernels, their plain
+versions and the materialized-scores reference of the decoder LM.
 
-Replaces the TPU kernel ``lazzaro_tpu/ops/flash_attention.py:_flash_fwd_bhtd``
-(body ``_flash_kernel``) and the forward half of its ``flash_attention``
-custom VJP. The kernel is CUDA C++ in ``csrc/flash_attention.cu`` (its note
-says what bounds it and how it is laid out), built with ``nvcc`` for
-``sm_90a`` on first use and bound through ``ctypes``.
+Replaces the TPU kernels of ``lazzaro_tpu/ops/flash_attention.py``:
+``_flash_fwd_bhtd`` (body ``_flash_kernel``), the two ``pallas_call``s of
+``_flash_bwd_bhtd`` (bodies ``_flash_dq_kernel`` and ``_flash_dkv_kernel``)
+and their ``flash_attention`` custom VJP. The kernels are CUDA C++ in
+``csrc/flash_attention.cu`` (forward) and ``csrc/flash_attention_bwd.cu``
+(dQ and dK/dV; their notes say what bounds them and how they are laid
+out), built with ``nvcc`` for ``sm_90a`` on first use and bound through
+``ctypes``.
 
 Layouts are the JAX package's at every public function: q ``[B, T, H, D]``,
 k/v ``[B, S, Hkv, D]`` with ``H % Hkv == 0`` and ``S >= T``; the causal
@@ -15,13 +18,18 @@ diagonal is end-aligned (query row i attends keys ``0 .. (S - T) + i``).
   lse [B, H, T] f32)``. A CUDA tensor launches the kernel (which reads q, k
   and v in place through their strides); a CPU tensor runs
   :func:`flash_attention_reference`, the kernel's arithmetic written plainly.
-- :func:`flash_attention` is the ``torch.autograd.Function`` around it; its
-  backward (TPU kernels ``_flash_bwd_bhtd`` and the VJP) is not ported yet.
+- :func:`flash_attention_bwd` returns ``(dq, dk, dv)`` from q, k, v, the
+  forward's out and lse and the upstream gradient; a CUDA tensor launches
+  the dQ and the dK/dV kernels, a CPU tensor runs
+  :func:`flash_attention_bwd_reference`.
+- :func:`flash_attention` is the ``torch.autograd.Function`` around both: the
+  forward keeps q, k, v, out and lse for the backward.
 - :func:`reference_attention` is the decoder's ``"xla"`` path, with JAX's
   rounding: the score product runs in q's type and is then cast to f32, P is
   cast to q's type before the P.V product, masked scores are ``NEG``.
 
-``launches`` counts the kernel launches.
+``launches`` counts the forward kernel's launches, ``bwd_dq_launches`` and
+``bwd_dkv_launches`` the backward kernels'.
 """
 
 from __future__ import annotations
@@ -38,8 +46,11 @@ NEG = -1e30
 MAX_HEAD_DIM = 256
 
 launches = 0
+bwd_dq_launches = 0
+bwd_dkv_launches = 0
 
 _lib = None
+_bwd_lib = None
 
 
 def _library():
@@ -52,6 +63,20 @@ def _library():
         lib.flash_attention_fwd.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def _bwd_library():
+    global _bwd_lib
+    if _bwd_lib is None:
+        lib = cuda_build.load("flash_attention_bwd")
+        for fn, outs in ((lib.flash_attention_bwd_dq, 1),
+                         (lib.flash_attention_bwd_dkv, 2)):
+            fn.argtypes = ([ctypes.c_void_p] * (7 + outs) + [ctypes.c_int] * 7
+                           + [ctypes.c_longlong] * 15
+                           + [ctypes.c_float, ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+        _bwd_lib = lib
+    return _bwd_lib
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -97,30 +122,46 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
     return out, (m + torch.log(l))[..., 0]
 
 
-def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    global launches
-    _check(q, k, v)
+def _check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, /, **rows) -> None:
+    """What the kernels take: f32 or bf16 throughout, one device, head_dim a
+    multiple of 8 up to 256, T >= 1, at most 2**31 - 1 blocks of 32 rows,
+    and every row tensor (``rows``: name -> tensor) with a unit last stride
+    and 16-byte aligned rows. Raises ``TypeError``/``ValueError``."""
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"flash_attention takes f32 or bf16, not {q.dtype}")
-    if k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError("flash_attention: q, k and v must share one dtype")
-    if not (k.device == q.device and v.device == q.device):
-        raise ValueError("flash_attention: q, k and v must be on one device")
+    if any(t.dtype != q.dtype for t in rows.values()):
+        raise TypeError(f"flash_attention: {', '.join(rows)} must share one dtype")
+    if any(t.device != q.device for t in rows.values()):
+        raise ValueError(f"flash_attention: {', '.join(rows)} must be on one device")
     B, T, H, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     if D % 8 or D > MAX_HEAD_DIM:
         raise ValueError(f"flash_attention: head_dim {D} is not a multiple "
                          f"of 8 up to {MAX_HEAD_DIM}")
-    if T < 1 or -(-T // 64) * H * B >= 2 ** 31:
+    if T < 1 or max(-(-T // 32) * H, -(-S // 32) * Hkv) * B >= 2 ** 31:
         raise ValueError("flash_attention: needs T >= 1 and at most 2**31 - 1 "
-                         "blocks of 64 query rows")
-    vec = 16 // q.element_size()
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(3) != 1 or t.data_ptr() % 16 or any(
-                s % vec for s in t.stride()[:3]):
+                         "blocks of 32 rows")
+    for name, t in rows.items():
+        if not _rows_aligned(t):
             raise ValueError(f"flash_attention: {name} needs a unit last "
                              f"stride and 16-byte aligned rows")
+
+
+def _rows_aligned(t: torch.Tensor) -> bool:
+    """Unit last stride, 16-byte aligned start and row strides: what the
+    kernels' 16-byte row loads need."""
+    vec = 16 // t.element_size()
+    return (t.stride(3) == 1 and t.data_ptr() % 16 == 0
+            and all(s % vec == 0 for s in t.stride()[:3]))
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    global launches
+    _check(q, k, v)
+    _check_kernel_inputs(q, k, q=q, k=k, v=v)
+    B, T, H, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
     out = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     lib = _library()
@@ -151,16 +192,147 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     raise ValueError(f"flash_attention: unsupported device {q.device}")
 
 
+def _check_bwd(q, k, v, out, lse, do) -> None:
+    _check(q, k, v)
+    B, T, H, _ = q.shape
+    if out.shape != q.shape or do.shape != q.shape:
+        raise ValueError("flash_attention_bwd: out and the gradient must be "
+                         "shaped as q [B, T, H, D]")
+    if lse.shape != (B, H, T) or lse.dtype != torch.float32:
+        raise ValueError("flash_attention_bwd: lse must be [B, H, T] f32")
+
+
+def flash_attention_bwd_reference(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor, out: torch.Tensor,
+                                  lse: torch.Tensor, do: torch.Tensor
+                                  ) -> Tuple[torch.Tensor, torch.Tensor,
+                                             torch.Tensor]:
+    """The backward kernels' arithmetic, written plainly with the scores
+    materialized: f32 scores ``s = (q . k) * scale`` with ``NEG`` above the
+    end-aligned diagonal, ``p = exp(s - lse)``, ``dp = dO . v`` and
+    ``delta = rowsum(dO * out)`` in f32, ``dS = p * (dp - delta) * scale``;
+    ``dV = cast(p, dO's type)^T . dO``, ``dK = cast(dS, q's type)^T . Q``,
+    ``dQ = cast(dS, k's type) . K``, every product accumulated in f32 and
+    dK/dV summed over the ``rep`` query heads of each kv head. Returns
+    ``(dq [B, T, H, D], dk, dv [B, S, Hkv, D])`` in the inputs' types."""
+    _check_bwd(q, k, v, out, lse, do)
+    B, T, H, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    rep = H // Hkv
+    scale = 1.0 / math.sqrt(D)
+    kf = _repeat_heads(k.float(), rep)
+    vf = _repeat_heads(v.float(), rep)
+    qf, dof = q.float(), do.float()
+    s = torch.einsum("bthd,bshd->bhts", qf, kf) * scale
+    row = (S - T) + torch.arange(T, device=q.device)[:, None]
+    col = torch.arange(S, device=q.device)[None, :]
+    s = s.masked_fill(col > row, NEG)
+    p = torch.exp(s - lse[..., None])
+    dp = torch.einsum("bthd,bshd->bhts", dof, vf)
+    delta = torch.einsum("bthd,bthd->bht", dof, out.float())
+    ds = p * (dp - delta[..., None]) * scale
+    dv = torch.einsum("bhts,bthd->bshd", p.to(do.dtype).float(), dof)
+    dk = torch.einsum("bhts,bthd->bshd", ds.to(q.dtype).float(), qf)
+    dq = torch.einsum("bhts,bshd->bthd", ds.to(k.dtype).float(), kf)
+    dk = dk.reshape(B, S, Hkv, rep, D).sum(dim=3)
+    dv = dv.reshape(B, S, Hkv, rep, D).sum(dim=3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _prepare_bwd(q, k, v, out, lse, do):
+    """Checks what the backward kernels take; returns the gradient (a dense
+    copy when its rows are not 16-byte aligned, e.g. the stride-0 gradient
+    of a sum) and the lse made contiguous."""
+    _check_bwd(q, k, v, out, lse, do)
+    if do.dtype == q.dtype and not _rows_aligned(do):
+        do = do.contiguous()
+    _check_kernel_inputs(q, k, q=q, k=k, v=v, out=out, grad=do)
+    if lse.device != q.device:
+        raise ValueError("flash_attention_bwd: lse must be on q's device")
+    return do, lse.contiguous()
+
+
+def _bwd_args(q, k, v, out, do, lse, delta):
+    B, T, H, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr())
+    tail = (int(q.dtype == torch.bfloat16), B, T, S, H, Hkv, D,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *do.stride()[:3], *out.stride()[:3], 1.0 / math.sqrt(D),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    return head, tail
+
+
+def launch_bwd_dq(q, k, v, out, do, lse, delta) -> torch.Tensor:
+    """One launch of the dQ kernel on checked inputs (see
+    :func:`flash_attention_bwd`): returns dq and writes
+    ``delta = rowsum(dO * out)`` ``[B, H, T]`` f32 into ``delta``."""
+    global bwd_dq_launches
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        head, tail = _bwd_args(q, k, v, out, do, lse, delta)
+        rc = _bwd_library().flash_attention_bwd_dq(*head, dq.data_ptr(), *tail)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention dQ kernel launch failed: CUDA error {rc}")
+    bwd_dq_launches += 1
+    return dq
+
+
+def launch_bwd_dkv(q, k, v, out, do, lse, delta
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of the dK/dV kernel on checked inputs, reading the
+    ``delta`` that :func:`launch_bwd_dq` wrote: returns ``(dk, dv)``."""
+    global bwd_dkv_launches
+    dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        head, tail = _bwd_args(q, k, v, out, do, lse, delta)
+        rc = _bwd_library().flash_attention_bwd_dkv(*head, dk.data_ptr(),
+                                                    dv.data_ptr(), *tail)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention dK/dV kernel launch failed: CUDA "
+                           f"error {rc}")
+    bwd_dkv_launches += 1
+    return dk, dv
+
+
+def _launch_bwd(q, k, v, out, lse, do):
+    do, lse = _prepare_bwd(q, k, v, out, lse, do)
+    B, T, H, _ = q.shape
+    delta = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    dq = launch_bwd_dq(q, k, v, out, do, lse, delta)
+    dk, dv = launch_bwd_dkv(q, k, v, out, do, lse, delta)
+    return dq, dk, dv
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Causal GQA attention backward: ``(dq [B, T, H, D], dk, dv
+    [B, S, Hkv, D])`` in the inputs' types from q, k, v, the forward's
+    ``out`` and ``lse [B, H, T]`` and the upstream gradient ``do`` (read
+    through its strides). A CUDA tensor launches the dQ kernel (which also
+    computes ``delta = rowsum(dO * out)``, the one ``[B, H, T]`` f32
+    scratch) and then the dK/dV kernel; a CPU tensor runs
+    :func:`flash_attention_bwd_reference`."""
+    if q.device.type == "cuda":
+        return _launch_bwd(q, k, v, out, lse, do)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_reference(q, k, v, out, lse, do)
+    raise ValueError(f"flash_attention: unsupported device {q.device}")
+
+
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v):
-        return flash_attention_fwd(q, k, v)[0]
+        out, lse = flash_attention_fwd(q, k, v)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
 
     @staticmethod
     def backward(ctx, grad_out):
-        raise NotImplementedError(
-            "flash_attention backward (TPU kernel _flash_bwd_bhtd) is not "
-            "ported yet (ROADMAP Queue 2 item 4)")
+        return flash_attention_bwd(*ctx.saved_tensors, grad_out)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor,

@@ -1,5 +1,6 @@
-"""The top-k and flash-attention kernels on the card, against their plain
-versions, and the decoder LM's device paths.
+"""The top-k and flash-attention kernels (forward and backward) on the card,
+against their plain versions, and the decoder LM's device paths, its train
+step included.
 
 Marked ``cuda``: these tests need an NVIDIA GPU with ``nvcc`` and skip
 elsewhere. Run them on the card with
@@ -317,9 +318,6 @@ def test_flash_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     q, k, v = qkv(8, 8, 64)
     with pytest.raises(ValueError):
         fa.flash_attention_fwd(q[..., 1:57], k[..., 1:57], v[..., 1:57])
-    with pytest.raises(NotImplementedError, match="Queue 2 item 4"):
-        q.requires_grad_(True)
-        fa.flash_attention(q, k, v).sum().backward()
 
 
 def test_flash_refused_launch_raises(cuda):
@@ -334,6 +332,150 @@ def test_flash_refused_launch_raises(cuda):
         0, 1, 8, 8, 2, 2, 12, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0.25,
         torch.cuda.current_stream().cuda_stream)
     assert rc != 0
+
+
+# Backward tolerances (dq, dk and dv against the plain backward). f32: the
+# two differ only in the order of f32 sums (2e-4 of the plain result's
+# largest magnitude). bf16: both round P and dS to bf16 at the same points
+# and sum in f32, but in other orders, so an element of dS or P may round to
+# the neighbouring bf16 value, and the outputs are rounded to bf16 after
+# that: errors are taken relative to the plain result's largest magnitude
+# (2e-2, about three bf16 steps of the largest element).
+FLASH_BWD_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+
+
+def flash_bwd_case(gen, B, T, S, H, Hkv, D, dtype, device):
+    from lazzaro_tpu_torch.ops import flash_attention as fa
+
+    q, k, v = flash_inputs(gen, B, T, S, H, Hkv, D, dtype, device)
+    do = torch.randn((B, T, H, D), generator=gen, device=device).to(dtype)
+    out, lse = fa.flash_attention_fwd(q, k, v)
+    return q, k, v, out, lse, do
+
+
+def assert_bwd_close(got, want, dtype):
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == dtype and g.shape == w.shape, name
+        assert torch.isfinite(g.float()).all(), name
+        scale = float(w.float().abs().max())
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= FLASH_BWD_TOL[dtype] * max(scale, 1e-6), (name, err, scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,S,H,Hkv,D", [
+    (2, 64, 64, 4, 2, 32),      # GQA, tile-aligned
+    (1, 37, 37, 4, 4, 16),      # MHA, ragged T
+    (1, 8, 8, 8, 1, 8),         # MQA rep = 8
+    (1, 13, 29, 2, 2, 24),      # S > T, head_dim not a multiple of 16
+    (2, 130, 130, 8, 2, 256),   # the full-width head_dim, ragged
+    (1, 13, 200, 8, 1, 64),     # chunked S > T, MQA
+])
+def test_flash_bwd_kernels_match_plain_version(cuda, dtype, B, T, S, H, Hkv, D):
+    from lazzaro_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=cuda).manual_seed(B + T + S + D + 1)
+    args = flash_bwd_case(gen, B, T, S, H, Hkv, D, dtype, cuda)
+    before = (fa.bwd_dq_launches, fa.bwd_dkv_launches)
+    got = fa.flash_attention_bwd(*args)
+    want = fa.flash_attention_bwd_reference(*args)
+    torch.cuda.synchronize()
+    assert (fa.bwd_dq_launches, fa.bwd_dkv_launches) == (before[0] + 1,
+                                                         before[1] + 1)
+    assert_bwd_close(got, want, dtype)
+
+
+def test_flash_bwd_reads_strided_inputs_in_place(cuda):
+    """q, k, v and the gradient as transposed views of [B, H, T, D]
+    tensors, and the stride-0 gradient of a sum through autograd."""
+    from lazzaro_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    qt = torch.randn((2, 8, 100, 64), generator=gen, device=cuda).bfloat16()
+    kt = torch.randn((2, 2, 100, 64), generator=gen, device=cuda).bfloat16()
+    vt = torch.randn((2, 2, 100, 64), generator=gen, device=cuda).bfloat16()
+    dot = torch.randn((2, 8, 100, 64), generator=gen, device=cuda).bfloat16()
+    q, k, v, do = (x.transpose(1, 2) for x in (qt, kt, vt, dot))
+    out, lse = fa.flash_attention_fwd(q, k, v)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do)
+    want = fa.flash_attention_bwd_reference(q.contiguous(), k.contiguous(),
+                                            v.contiguous(), out, lse,
+                                            do.contiguous())
+    assert_bwd_close(got, want, torch.bfloat16)
+    leaves = [x.contiguous().requires_grad_(True) for x in (q, k, v)]
+    fa.flash_attention(*leaves).sum().backward()
+    want = fa.flash_attention_bwd_reference(*(x.detach() for x in leaves), out,
+                                            lse, torch.ones_like(out))
+    assert_bwd_close([x.grad for x in leaves], want, torch.bfloat16)
+
+
+def test_flash_bwd_wrapper_refuses_what_the_kernels_do_not_take(cuda):
+    from lazzaro_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    q, k, v, out, lse, do = flash_bwd_case(gen, 1, 16, 16, 2, 2, 64,
+                                           torch.bfloat16, cuda)
+    with pytest.raises(ValueError):                     # lse of another shape
+        fa.flash_attention_bwd(q, k, v, out, lse[:, :, :8], do)
+    with pytest.raises(ValueError):                     # gradient of another shape
+        fa.flash_attention_bwd(q, k, v, out, lse, do[:, :8])
+    with pytest.raises(TypeError):                      # mixed types
+        fa.flash_attention_bwd(q, k, v, out, lse, do.float())
+    with pytest.raises(TypeError):                      # f16
+        h = [x.half() for x in (q, k, v, out)]
+        fa.flash_attention_bwd(*h, lse, do.half())
+    with pytest.raises(ValueError):                     # misaligned rows
+        fa.flash_attention_bwd(q[..., 1:57], k[..., 1:57], v[..., 1:57],
+                               out[..., 1:57], lse, do[..., 1:57].contiguous())
+    bad = [torch.zeros((1, 16, 2, 12), device=cuda, dtype=torch.bfloat16)] * 2
+    with pytest.raises(ValueError):                     # head_dim 12
+        fa.flash_attention_bwd(bad[0], bad[0], bad[0], bad[0], lse, bad[1])
+    x = torch.zeros((1, 8, 2, 16), device=cuda)
+    lse8 = torch.zeros((1, 2, 8), device=cuda)
+    for fn, outs in ((fa._bwd_library().flash_attention_bwd_dq, 1),
+                     (fa._bwd_library().flash_attention_bwd_dkv, 2)):
+        rc = fn(*([x.data_ptr()] * 5), lse8.data_ptr(), lse8.data_ptr(),
+                *([x.data_ptr()] * outs), 0, 1, 8, 8, 2, 2, 12, *([0] * 15),
+                0.25, torch.cuda.current_stream().cuda_stream)
+        assert rc != 0
+
+
+def test_decoder_train_step_flash_gradients_equal_plain(cuda):
+    """A bf16 decoder at the small widths: one train step's loss and
+    gradients through the flash kernels (one forward and two backward
+    launches per layer) against attn_impl="xla" from the same weights. The
+    paths round the scores at other points (the plain path to bf16 before
+    the softmax), so gradients are compared by cosine (> 0.99 per tensor)."""
+    import dataclasses
+    from lazzaro_tpu_torch.models.llm import Decoder, LMConfig, make_train_step
+    from lazzaro_tpu_torch.ops import flash_attention as fa
+
+    cfg = dataclasses.replace(LMConfig.small(), layers=2, max_seq=256)
+    tokens = torch.randint(0, 256, (2, 200), device=cuda,
+                           generator=torch.Generator(device=cuda).manual_seed(3))
+    mask = torch.ones_like(tokens)
+    grads, losses = {}, {}
+    for impl in ("flash", "xla"):
+        dec = Decoder(cfg, device=cuda).init_weights(1)
+        opt = torch.optim.SGD(dec.parameters(), lr=0.0)
+        seen = {}
+        for name, p in dec.named_parameters():
+            p.register_post_accumulate_grad_hook(
+                lambda p, name=name: seen.__setitem__(name, p.grad.clone()))
+        before = (fa.launches, fa.bwd_dq_launches, fa.bwd_dkv_launches)
+        losses[impl] = float(make_train_step(
+            dataclasses.replace(cfg, attn_impl=impl), opt)(dec, tokens, mask))
+        after = (fa.launches, fa.bwd_dq_launches, fa.bwd_dkv_launches)
+        launched = tuple(a - b for a, b in zip(after, before))
+        assert launched == ((cfg.layers,) * 3 if impl == "flash" else (0, 0, 0))
+        assert set(seen) == {n for n, _ in dec.named_parameters()}
+        grads[impl] = seen
+    assert abs(losses["flash"] - losses["xla"]) < 1e-2
+    for name, g in grads["flash"].items():
+        w = grads["xla"][name]
+        cos = float(torch.nn.functional.cosine_similarity(
+            g.flatten().double(), w.flatten().double(), dim=0))
+        assert cos > 0.99, (name, cos)
 
 
 def test_decoder_flash_equals_plain_on_the_card(cuda):

@@ -1,11 +1,14 @@
 """The port's flash attention (``lazzaro_tpu_torch.ops.flash_attention``) on
-the CPU, where it runs its plain version, against the JAX package's Pallas
-kernel in interpret mode and its einsum reference, on the same numpy inputs.
+the CPU, where it runs its plain versions, against the JAX package's Pallas
+kernels (forward and backward) in interpret mode and its einsum reference,
+on the same numpy inputs.
 
-Tolerances are the JAX package's own for its kernel against its reference
-(``tests/test_flash_attention.py``): atol/rtol 2e-5 in f32.
+Tolerances are the JAX package's own (``tests/test_flash_attention.py``):
+atol/rtol 2e-5 in f32 for the forward against its reference, 2e-4 for the
+backward's gradients.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -111,12 +114,81 @@ def test_causality():
     assert not np.allclose(base[:, 20:].numpy(), pert[:, 20:].numpy())
 
 
-def test_backward_is_not_ported_yet():
-    q = torch.from_numpy(_rand((1, 8, 2, 8), 6)).requires_grad_(True)
-    k, v = (torch.from_numpy(_rand((1, 8, 1, 8), s)) for s in (7, 8))
-    out = fa.flash_attention(q, k, v)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 item 4"):
-        out.sum().backward()
+@pytest.mark.parametrize("B,T,S,H,Hkv,D", [
+    (2, 16, 16, 4, 2, 8),      # GQA rep=2, self-attention
+    (1, 8, 24, 4, 1, 8),       # S > T with MQA (rep=4)
+    (1, 13, 21, 2, 2, 8),      # ragged T and S (JAX pads internally)
+    (1, 37, 37, 4, 2, 16),     # odd T
+])
+def test_flash_gradients_match_jax_pallas_backward(B, T, S, H, Hkv, D):
+    """The port's autograd backward (plain on the CPU) against ``jax.vjp``
+    of the JAX ``flash_attention``, whose Pallas dQ and dK/dV kernels run in
+    interpret mode, with a non-trivial upstream gradient. atol/rtol 2e-4,
+    the JAX test's own for its backward."""
+    q, k, v = (_rand((B, T, H, D), 1), _rand((B, S, Hkv, D), 2),
+               _rand((B, S, Hkv, D), 3))
+    g = _rand((B, T, H, D), 4)
+    (jq, jk, jv, jg), (tq, tk, tv, tg) = _both(q, k, v, g)
+    _, vjp = jax.vjp(lambda a, b, c: jfa.flash_attention(
+        a, b, c, blk_q=8, blk_k=8, interpret=True), jq, jk, jv)
+    want = vjp(jg)
+    leaves = [x.requires_grad_(True) for x in (tq, tk, tv)]
+    fa.flash_attention(*leaves).backward(tg)
+    for name, got, w in zip("qkv", leaves, want):
+        np.testing.assert_allclose(got.grad.numpy(), np.asarray(w),
+                                   atol=2e-4, rtol=2e-4, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("B,T,S,H,Hkv,D", [
+    (2, 19, 19, 4, 2, 16),
+    (1, 5, 30, 8, 1, 8),
+])
+def test_bwd_reference_matches_autograd_of_reference_gqa(B, T, S, H, Hkv, D):
+    """The kernels' plain arithmetic (scores recomputed from the LSE, delta
+    = rowsum(dO * O)) against autograd through the materialized-scores
+    reference, in f32."""
+    q, k, v = (torch.from_numpy(_rand(s, i)) for i, s in enumerate(
+        ((B, T, H, D), (B, S, Hkv, D), (B, S, Hkv, D)), start=20))
+    do = torch.from_numpy(_rand((B, T, H, D), 23))
+    out, lse = fa.flash_attention_fwd(q, k, v)
+    got = fa.flash_attention_bwd_reference(q, k, v, out, lse, do)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    fa.reference_gqa(*leaves).backward(do)
+    for name, g, leaf in zip("qkv", got, leaves):
+        assert g.shape == leaf.shape and g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), leaf.grad.numpy(), atol=2e-5,
+                                   rtol=2e-5, err_msg=f"d{name}")
+
+
+def test_bwd_reference_rounds_dS_and_P_to_the_input_type():
+    """bf16: the plain backward casts P and dS to bf16 before the products
+    and returns bf16 gradients; it stays within a few bf16 steps of the f32
+    computation on the same (bf16-exact) inputs."""
+    q, k, v, do = (torch.from_numpy(_rand(s, i)).bfloat16() for i, s in enumerate(
+        ((1, 12, 4, 16), (1, 12, 2, 16), (1, 12, 2, 16), (1, 12, 4, 16)), start=30))
+    out, lse = fa.flash_attention_fwd(q, k, v)
+    got = fa.flash_attention_bwd_reference(q, k, v, out, lse, do)
+    want = fa.flash_attention_bwd_reference(q.float(), k.float(), v.float(),
+                                            out.float(), lse, do.float())
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        scale = float(w.abs().max())
+        assert float((g.float() - w).abs().max()) <= 3e-2 * scale
+
+
+def test_bwd_wrapper_takes_only_cpu_and_cuda_tensors():
+    x = torch.zeros((1, 8, 2, 8), device="meta")
+    lse = torch.zeros((1, 2, 8), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        fa.flash_attention_bwd(x, x, x, x, lse, x)
+
+
+def test_no_backward_kernel_launch_on_the_cpu():
+    before = (fa.bwd_dq_launches, fa.bwd_dkv_launches)
+    q = torch.from_numpy(_rand((1, 8, 2, 8), 1)).requires_grad_(True)
+    fa.flash_attention(q, q, q).sum().backward()
+    assert q.grad is not None
+    assert (fa.bwd_dq_launches, fa.bwd_dkv_launches) == before
 
 
 def test_wrapper_takes_only_cpu_and_cuda_tensors():
