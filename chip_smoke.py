@@ -11,6 +11,7 @@ Phases, each printing its own lines; any failure exits non-zero:
   3. kernels  each kernel, in every call form, against its plain PyTorch
               version on the card, at every shape the main paths give it and
               at edge cases, with times and bounds (the top-k scans, then
+              the cross-shard merge and ``make_sharded_topk`` over 8 shards,
               the flash-attention forward and its dQ and dK/dV backward
               kernels at the decoder's shapes);
   4. main     ``MemorySystem`` on a bf16 768-d arena of 1,048,576 rows. The
@@ -24,7 +25,19 @@ Phases, each printing its own lines; any failure exits non-zero:
               hit the super-node gate, ``search_memories`` and 64-query
               batches, each dispatch one two-tier kernel launch and one
               device-to-host copy. Each path's kernel launches are counted
-              from 0 over that path alone;
+              from 0 over that path alone. After its 34th conversation the
+              phase records, without boosting or counting, what the mesh
+              phase must reproduce;
+  4b. mesh    the same path on ``MemorySystem(mesh=...)``: the same arena
+              row-sharded over 8 shards (one per card when the cards divide
+              8, else all on ``cuda:0``), filled for 34 conversations
+              (278,528 facts) and held equal to phase 4's record (counts,
+              ``search_batch`` ids and scores, fused gate verdicts and ids),
+              then classic and fused serving as in phase 4, every search one
+              scan per shard plus the cross-shard merge kernel, every fused
+              dispatch one two-tier scan per shard, two merges and one
+              device-to-host copy; ``make_sharded_topk`` on the filled arena
+              against one scan of the whole arena and its plain version;
   5. lm       the decoder LM at full width (``LMConfig()``: 18 layers, hidden
               2048, 8 query and 2 kv heads of 256, ~1.1 B parameters, bf16,
               random weights from a seed): ``logits_for`` on a 2,047-token
@@ -68,6 +81,13 @@ DIM = 768
 PER_CONV = 8_192                   # facts per conversation (ingest_coalesce_max)
 FILL = ARENA_ROWS - PER_CONV       # facts the fill ingests, a PER_CONV multiple
 MIN_ROWS = 262_144                 # the least fill worth a run (PALLAS_TOPK_MIN_ROWS)
+# The mesh phase's fill: 34 conversations (278,528 facts). A conversation
+# shares its group directions with the tenant's conversation 32 before it
+# (Corpus), so the 33rd and 34th are each tenant's first to link to earlier
+# facts, and the parity record after them covers the link verdicts.
+MESH_CONVS = MIN_ROWS // PER_CONV + 2
+MESH_SHARDS = 8                    # shards of the mesh on one card
+PARITY_FACTS = 32                  # snapshot queries per tenant
 TENANTS = ("alice", "bob")
 TOPICS = ["work", "hobbies", "family", "travel", "health", "food", "sports",
           "music", "books", "tech", "home", "finance"]
@@ -602,7 +622,9 @@ def p50(xs):
     return float(np.percentile(np.asarray(xs, np.float64), 50))
 
 
-def phase_main(launches_out: dict):
+def phase_main(launches_out: dict, parity: dict):
+    """Phase 4; ``parity`` receives the snapshot the mesh phase must
+    reproduce."""
     import torch
 
     from lazzaro_tpu_torch import MemoryConfig, MemorySystem
@@ -621,12 +643,262 @@ def phase_main(launches_out: dict):
                       embedding_provider=CorpusEmbedder(corpus))
     try:
         summary, served = _drive(ms, llm, corpus, convs, fill, launches_out,
-                                 mt, torch)
+                                 mt, torch, snapshot=parity)
         summary["fused"] = _drive_fused(ms, corpus, served, launches_out,
                                         torch)
         return summary
     finally:
         ms.close()
+
+
+# ---------------------------------------------------------------------------
+# The row-sharded arena: the merge kernel, make_sharded_topk, and phase 4's
+# path on a mesh
+# ---------------------------------------------------------------------------
+
+
+def mesh_devices(torch):
+    """One shard per card when the cards divide ``MESH_SHARDS`` (and are
+    more than one), else ``MESH_SHARDS`` shards on ``cuda:0``."""
+    n = torch.cuda.device_count()
+    if n > 1 and MESH_SHARDS % n == 0:
+        return [f"cuda:{i}" for i in range(n)]
+    return ["cuda:0"] * MESH_SHARDS
+
+
+# (label, n, Q, kl, k, rows per shard, ragged k_q, sentinel, masked share,
+# all-masked shard) at the shapes the mesh path gives the merge: a classic
+# search, the dedup probe and link scan of a fill conversation, the fused
+# fleet (k_q 5/10/128) and gate; then corner cases.
+MERGE_CASES = [
+    ("search_q1_kl10_k10", 8, 1, 10, 10, 131_072, False, False, 0.0, None),
+    ("dedup_q8192_kl1_k1", 8, 8192, 1, 1, 131_072, False, False, 0.1, None),
+    ("link_q8192_kl3_k3", 8, 8192, 3, 3, 131_072, False, False, 0.1, None),
+    ("fleet_q64_kl128_k128_kq5-10-128", 8, 64, 128, 128, 131_072, True, True,
+     0.2, None),
+    ("gate_q64_kl1_k1", 8, 64, 1, 1, 131_072, False, True, 0.3, None),
+    ("dead_shard_q16_kl4_k24", 8, 16, 4, 24, 64, True, True, 0.1, 2),
+    ("rows_below_k_q5_kl3_k10", 8, 5, 3, 10, 3, False, True, 0.0, None),
+]
+
+
+def merge_lists(gen, n, q, kl, local_n, device, masked, dead):
+    """Per-shard lists in scan order (score descending, lower row first on
+    ties): scores on the 1/256 grid, so ties cross shards; a ``masked``
+    share at -1e30; shard ``dead`` all masked; i32 local rows."""
+    import torch
+
+    s = grid_values(gen, (n, q, kl), torch.float32, device) / 4
+    s = torch.where(torch.rand((n, q, kl), generator=gen, device=device)
+                    < masked, -1e30, s)
+    if dead is not None:
+        s[dead] = -1e30
+    step = local_n // kl
+    rows = (torch.arange(kl, device=device) * step
+            + torch.randint(0, step, (n, q, 1), generator=gen, device=device))
+    s, order = s.sort(dim=-1, descending=True, stable=True)
+    return s, torch.gather(rows, -1, order).int()
+
+
+def merge_bound(n, q, kl, k, ragged):
+    """(bound_ms, bound_by) of a merge: the n lists (f32 score, i32 row)
+    and ``k_q`` read once, ``[Q, k]`` scores and rows written once; the
+    binary searches' comparisons (``n - 1`` searches of ``log2(kl + 1)``
+    steps per candidate) at the f32 rate of the CUDA cores."""
+    moved = n * q * kl * 8 + q * k * 8 + (4 * q if ragged else 0)
+    ops = n * q * kl * (n - 1) * max(1, int(np.ceil(np.log2(kl + 1))))
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S, ops / PEAK_OPS["float32"]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def sharded_bound(emb, queries, k, n):
+    """The row-sharded top-k: every shard's scan (:func:`bound`'s bytes and
+    operations over the whole arena) plus the merge of ``n`` lists."""
+    b_ms, b_by = bound(emb, queries, k)
+    m_ms, _ = merge_bound(n, queries.shape[0], k, k, False)
+    return b_ms + m_ms, b_by
+
+
+def phase_sharded_kernel(device):
+    """The merge kernel against its plain version at the mesh path's shapes,
+    exact on grid inputs, then ``make_sharded_topk`` over ``MESH_SHARDS``
+    shards of a 1,048,576-row grid arena against its plain version (each
+    shard's plain scan and the plain merge), exact."""
+    import torch
+
+    from lazzaro_tpu_torch.ops import masked_topk as mt
+    from lazzaro_tpu_torch.ops import sharded_merge as sm
+    from lazzaro_tpu_torch.ops.topk import make_sharded_topk
+    from lazzaro_tpu_torch.parallel import make_mesh
+
+    gen = torch.Generator(device=device).manual_seed(4)
+    rows_out = []
+    for label, n, q, kl, k, local_n, ragged, sent, masked, dead in MERGE_CASES:
+        s, r = merge_lists(gen, n, q, kl, local_n, device, masked, dead)
+        s_l, r_l = list(s), list(r)
+        k_q = None
+        if ragged:
+            k_q = torch.tensor([min((5, 10, 128)[i % 3], k) for i in range(q)],
+                               dtype=torch.int32, device=device)
+        sentinel = n * local_n - 1 if sent else None
+        err = _check_equal(
+            label, sm.sharded_merge(s_l, r_l, local_n, k, k_q, sentinel),
+            sm.sharded_merge_reference(s_l, r_l, local_n, k, k_q, sentinel))
+
+        def lib(s=s, r=r, k=k):
+            # Yardstick only: torch.topk + gather over the concatenated lists.
+            all_s = s.permute(1, 0, 2).reshape(s.shape[1], -1)
+            top = torch.topk(all_s, k)
+            return top.values, torch.gather(
+                r.permute(1, 0, 2).reshape(r.shape[1], -1), 1, top.indices)
+
+        rows_out.append(_case_row(
+            "sharded_merge", "merge", label, n * local_n, q, k,
+            lambda: sm.sharded_merge(s_l, r_l, local_n, k, k_q, sentinel),
+            lambda: sm.sharded_merge_reference(s_l, r_l, local_n, k, k_q,
+                                               sentinel),
+            lib, merge_bound(n, q, kl, k, ragged), err, 50, 5))
+
+    mesh = make_mesh(devices=mesh_devices(torch))
+    n = mesh.size
+    local_n = ARENA_ROWS // n
+    big = grid_values(gen, (ARENA_ROWS, DIM), torch.bfloat16, device)
+    big[local_n * 5 + 7] = big[11]               # an exact tie across shards
+    alive = torch.rand(ARENA_ROWS, generator=gen, device=device) < 0.9
+    alive[local_n:2 * local_n] = False           # an all-masked shard
+    shards = [x.to(d) for x, d in zip(big.split(local_n), mesh.devices)]
+    masks = [x.to(d) for x, d in zip(alive.split(local_n), mesh.devices)]
+    madd_t = torch.where(alive, 0.0, -1e30).to(big.dtype)
+    search = make_sharded_topk(mesh, k=10)
+
+    def plain(q):
+        parts = [mt.masked_topk_reference(e, m, q.to(e.device), 10)
+                 for e, m in zip(shards, masks)]
+        return sm.sharded_merge_reference([p[0] for p in parts],
+                                          [p[1] for p in parts], local_n, 10)
+
+    for nq in (1, 64):
+        q = grid_values(gen, (nq, DIM), torch.bfloat16, device)
+        q[0] = big[11]
+        label = f"sharded_topk_q{nq}_k10_grid"
+        err = _check_equal(label, search(shards, masks, q), plain(q))
+        rows_out.append(_case_row(
+            "sharded_topk", "whole", label, ARENA_ROWS, nq, 10,
+            lambda: search(shards, masks, q), lambda: plain(q),
+            lambda: torch.topk(torch.addmm(madd_t, q, big.t()), 10),
+            sharded_bound(big, q, 10, n), err, 20, 3))
+    return rows_out
+
+
+def sharded_topk_filled(ms, corpus, served, torch):
+    """``make_sharded_topk`` on the filled meshed arena: equal, rows and
+    scores, to one launch of the masked top-k kernel over the same rows
+    made whole (every score is the same per-row arithmetic, so only the
+    merge could differ), and within phase 4's rule of the plain version
+    (real bf16 rows: f32 sums in another order than ``torch.matmul``'s,
+    so scores within 1e-5 and rows wherever neighbours differ by more)."""
+    from lazzaro_tpu_torch.core import state as S
+    from lazzaro_tpu_torch.ops import masked_topk as mt
+    from lazzaro_tpu_torch.ops import sharded_merge as sm
+
+    idx = ms.index
+    tid = idx._tenants[TENANTS[0]]
+    embs = [st.emb for st in idx.shards]
+    masks = [S.arena_mask(st, tid, -1) for st in idx.shards]
+    whole = torch.cat([e.to(idx.device) for e in embs])
+    whole_mask = torch.cat([m.to(idx.device) for m in masks])
+    local_n = idx._local_n
+    search = idx._mesh_searcher(10)
+
+    def plain(q):
+        parts = [mt.masked_topk_reference(e, m, q.to(e.device), 10)
+                 for e, m in zip(embs, masks)]
+        return sm.sharded_merge_reference([p[0] for p in parts],
+                                          [p[1] for p in parts], local_n, 10)
+
+    rows_out, worst = [], 0.0
+    for nq in (1, 64):
+        q = torch.from_numpy(corpus.vectors((served["targets"] * 4)[:nq]))
+        q = S.normalize(q.to(idx.device)).to(whole.dtype)
+        ks, kr = search(embs, masks, q)
+        ws, wr = mt.masked_topk(whole, whole_mask, q, 10)
+        if not (torch.equal(kr.long(), wr) and torch.equal(ks, ws)):
+            raise AssertionError(f"filled mesh arena, Q={nq}: make_sharded_topk "
+                                 f"differs from one scan of the whole arena")
+        ps, pr = plain(q)
+        torch.cuda.synchronize()
+        err = float((ks - ps).abs().max())
+        gaps = torch.diff(ps, dim=1).abs()
+        clear = torch.ones_like(kr, dtype=torch.bool)
+        clear[:, 1:] &= gaps > 1e-5
+        clear[:, :-1] &= gaps > 1e-5
+        if err > 1e-5 or not torch.equal(kr[clear], pr[clear]):
+            raise AssertionError(f"filled mesh arena: kernel disagrees (max err {err})")
+        worst = max(worst, err)
+        madd_t = torch.where(whole_mask, 0.0, -1e30).to(whole.dtype)
+        rows_out.append(_case_row(
+            "sharded_topk", "whole", f"sharded_topk_q{nq}_k10_filled",
+            whole.shape[0], nq, 10, lambda: search(embs, masks, q),
+            lambda: plain(q),
+            lambda: torch.topk(torch.addmm(madd_t, q, whole.t()), 10),
+            sharded_bound(whole, q, 10, len(embs)), err, 20, 3))
+    log(f"[mesh] make_sharded_topk on the filled arena equals one scan of the "
+        f"whole arena; vs plain max_abs_err {worst}")
+    return rows_out
+
+
+def phase_mesh(launches_out: dict, parity: dict, single: dict):
+    """Phase 4's path on a ``MESH_SHARDS``-shard mesh: the same arena,
+    corpus and tenants, filled through ``end_conversation`` for
+    ``MESH_CONVS`` conversations, held equal to phase 4's snapshot, then
+    classic and fused serving with their launches counted from 0."""
+    import torch
+
+    from lazzaro_tpu_torch import MemoryConfig, MemorySystem
+    from lazzaro_tpu_torch.ops import masked_topk as mt
+    from lazzaro_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(devices=mesh_devices(torch))
+    log(f"[mesh] {mesh.size} shards on "
+        f"{', '.join(sorted({str(d) for d in mesh.devices}))}, "
+        f"{ARENA_ROWS // mesh.size} rows each")
+    fill = MESH_CONVS * PER_CONV
+    corpus = Corpus(FILL + PER_CONV)              # phase 4's corpus
+    llm = PayloadLLM()
+    cfg = MemoryConfig(**SLICE, dtype="bfloat16", embed_dim=DIM,
+                       initial_capacity=ARENA_ROWS - 1, max_edges=4 * FILL)
+    torch.cuda.reset_peak_memory_stats()
+    ms = MemorySystem(mesh=mesh, config=cfg, enable_async=False,
+                      load_from_disk=False, max_buffer_size=2 * FILL,
+                      user_id=TENANTS[0], verbose=False, llm_provider=llm,
+                      embedding_provider=CorpusEmbedder(corpus))
+    try:
+        summary, served = _drive(ms, llm, corpus, MESH_CONVS, fill,
+                                 launches_out, mt, torch, parity=parity)
+        summary["fused"] = _drive_fused(ms, corpus, served, launches_out,
+                                        torch)
+        rows = sharded_topk_filled(ms, corpus, served, torch)
+    finally:
+        ms.close()
+    f, sf = summary["fused"], single["fused"]
+    log("[mesh] p50 ms, mesh vs one device (phase 4): "
+        f"classic chat {summary['chat_p50_ms']:.2f} vs {single['chat_p50_ms']:.2f}, "
+        f"classic search {summary['search_p50_ms']:.2f} vs {single['search_p50_ms']:.2f}, "
+        f"fused chat miss {f['chat_miss_p50_ms']:.2f} vs {sf['chat_miss_p50_ms']:.2f}, "
+        f"hit {f['chat_hit_p50_ms']:.2f} vs {sf['chat_hit_p50_ms']:.2f}, "
+        f"fused search {f['search_p50_ms']:.2f} vs {sf['search_p50_ms']:.2f}, "
+        f"batch(64) {f['batch64_p50_ms']:.2f} vs {sf['batch64_p50_ms']:.2f}, "
+        f"fleet(64) {f['fleet64_mixed_k_p50_ms']:.2f} vs "
+        f"{sf['fleet64_mixed_k_p50_ms']:.2f}")
+    log(f"[mesh] launches over the phase: classic path {launches_out['mesh_masked_topk']} "
+        f"masked_topk scans + {launches_out['mesh_sharded_merge']} merges "
+        f"(per chat turn {summary['launches_per_chat_turn']}), fused path "
+        f"{launches_out['mesh_fused_topk']} two-tier scans + "
+        f"{launches_out['mesh_sharded_merge_on_fused_path']} merges, "
+        f"{f['readbacks']} readbacks")
+    launches_out["sharded_topk"] = (launches_out["mesh_sharded_merge"]
+                                    + launches_out["mesh_sharded_merge_on_fused_path"])
+    return summary, rows
 
 
 def _timed(spent: dict, key: str, fn, torch):
@@ -654,13 +926,102 @@ FILL_STAGES = (("index", "search_batch", "dedup_probe"),
                ("embedder", "batch_embed", "embed"))
 
 
-def _drive(ms, llm, corpus, convs, fill, launches_out, mt, torch):
+def _stable_id(qid: str) -> str:
+    """A node id without the creation second a super-node id carries
+    (``super_<topic>_<unix seconds>``), which two runs do not share."""
+    head, _, tail = qid.rpartition("_")
+    return head if ":super_" in qid and tail.isdigit() else qid
+
+
+def parity_snapshot(ms, corpus):
+    """What the meshed system must reproduce after ``MESH_CONVS``
+    conversations, read at the index without boosting and without counting
+    launches: node, edge and merge counts, ``search_batch`` (k = 10) ids and
+    scores and the fused read twin's gate verdicts, gate ids and ANN ids for
+    ``PARITY_FACTS`` facts of each tenant."""
+    from lazzaro_tpu_torch.ops import fused_topk as ft
+    from lazzaro_tpu_torch.ops import masked_topk as mt
+    from lazzaro_tpu_torch.ops import sharded_merge as sm
+    from lazzaro_tpu_torch.serve import RetrievalRequest
+
+    counts = (mt.launches, ft.launches, sm.launches)
+    idx, cfg = ms.index, ms.config
+    rows = len(idx)
+    supers = len(ms.super_nodes) + sum(len(g.super_nodes)
+                                       for g in ms._parked.values())
+    snap = {"nodes": rows, "edges": len(idx.edge_slots),
+            "merged": MESH_CONVS * PER_CONV - (rows - supers)}
+    for t, tenant in enumerate(TENANTS):
+        facts = [c * PER_CONV + (977 * j) % PER_CONV for j, c in enumerate(
+            range(t, MESH_CONVS, len(TENANTS)))][:PARITY_FACTS]
+        facts += [f + 3 for f in facts][:PARITY_FACTS - len(facts)]
+        q = corpus.vectors(facts)
+        snap[("search", tenant)] = [
+            ([_stable_id(i) for i in ids], scores)
+            for ids, scores in type(idx).search_batch(idx, q, tenant, k=10)]
+        reqs = [RetrievalRequest(query=v, tenant=tenant, k=10,
+                                 gate_enabled=True) for v in q]
+        got = type(idx).search_fused_requests(
+            idx, reqs, cap_take=cfg.retrieval_cap, max_nbr=cfg.serve_max_nbr,
+            super_gate=cfg.super_node_gate,
+            acc_boost=cfg.access_salience_boost,
+            nbr_boost=cfg.neighbor_salience_boost)
+        snap[("fused", tenant)] = [
+            (r.fast, r.gate_id and _stable_id(r.gate_id),
+             [_stable_id(i) for i in r.ids]) for r in got]
+    mt.launches, ft.launches, sm.launches = counts
+    return snap
+
+
+def check_parity(want: dict, got: dict) -> dict:
+    """The meshed system's snapshot against the single-device one: counts,
+    ids, verdicts exact, scores within 1e-6. Raises with the count of what
+    differs."""
+    if want["edges"] == 0:
+        raise AssertionError("the parity record holds no edge: the link "
+                             "verdicts would go unchecked")
+    for key in ("nodes", "edges", "merged"):
+        if got[key] != want[key]:
+            raise AssertionError(f"mesh parity: {key} {got[key]} != {want[key]}")
+    worst, queries = 0.0, 0
+    for tenant in TENANTS:
+        bad_ids = bad_fused = 0
+        for (gi, gs), (wi, ws) in zip(got[("search", tenant)],
+                                      want[("search", tenant)]):
+            bad_ids += gi != wi
+            if gi == wi and gs:
+                worst = max(worst, float(np.abs(np.subtract(gs, ws)).max()))
+            queries += 1
+        for g, w in zip(got[("fused", tenant)], want[("fused", tenant)]):
+            bad_fused += g != w
+        if bad_ids or bad_fused:
+            raise AssertionError(
+                f"mesh parity, tenant {tenant}: {bad_ids} search id lists and "
+                f"{bad_fused} fused (verdict, gate, ids) differ of "
+                f"{len(want[('search', tenant)])}")
+    if worst > 1e-6:
+        raise AssertionError(f"mesh parity: scores differ by {worst}")
+    return {"queries": queries, "max_score_diff": worst}
+
+
+def _drive(ms, llm, corpus, convs, fill, launches_out, mt, torch,
+           snapshot=None, parity=None):
+    """The classic path: ``convs`` fill conversations, chat turns, one more
+    conversation end, searches. ``snapshot`` (a dict) takes
+    :func:`parity_snapshot` after conversation ``MESH_CONVS``, outside the
+    fill's time; under a mesh ``parity`` is that snapshot of the
+    single-device run, which the filled system must reproduce."""
+    from lazzaro_tpu_torch.ops import sharded_merge as sm
+
+    n_shards = ms.index.mesh.size if ms.index.mesh is not None else 1
+    prefix = "mesh_" if ms.index.mesh is not None else ""
+    tag = "[mesh]" if ms.index.mesh is not None else "[main]"
     # ---- fill: one conversation per 8,192 facts, tenants alternating
     spent: dict = {}
     for owner, method, stage in FILL_STAGES:
         obj = getattr(ms, owner)
         setattr(obj, method, _timed(spent, stage, getattr(obj, method), torch))
-    mt.launches = 0
+    mt.launches = sm.launches = 0
     t0 = time.perf_counter()
     for c in range(convs):
         tenant = TENANTS[c % len(TENANTS)]
@@ -670,27 +1031,42 @@ def _drive(ms, llm, corpus, convs, fill, launches_out, mt, torch):
         ms.start_conversation()
         ms.add_to_short_term(f"conversation {c}", "episodic", 0.5)
         ms.end_conversation()
+        if snapshot is not None and c + 1 == MESH_CONVS:
+            torch.cuda.synchronize()
+            t_snap = time.perf_counter()
+            snapshot.update(parity_snapshot(ms, corpus))
+            t0 += time.perf_counter() - t_snap     # not part of the fill
         if (c + 1) % 16 == 0 or c + 1 == convs:
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
-            log(f"[main] filled {(c + 1) * PER_CONV} facts in {dt:.1f} s "
+            log(f"{tag} filled {(c + 1) * PER_CONV} facts in {dt:.1f} s "
                 f"(rows {len(ms.index)}, edges {len(ms.index.edge_slots)})")
     torch.cuda.synchronize()
     fill_s = time.perf_counter() - t0
-    fill_launches = mt.launches
+    fill_launches, fill_merges = mt.launches, sm.launches
     for owner, method, _ in FILL_STAGES:
         vars(getattr(ms, owner)).pop(method, None)
     spent["rest"] = fill_s - sum(spent.values())
-    log("[main] fill time by stage (s): "
+    log(f"{tag} fill time by stage (s): "
         + ", ".join(f"{k} {v:.1f}" for k, v in spent.items()))
     rows = len(ms.index)
-    if rows < MIN_ROWS:
-        raise AssertionError(f"arena holds {rows} rows, fewer than {MIN_ROWS}")
+    # the full fill must reach MIN_ROWS; the mesh's shorter fill, less the
+    # near-duplicates merged (1 in 101), 98% of its facts
+    floor = MIN_ROWS if n_shards == 1 else int(0.98 * fill)
+    if rows < floor:
+        raise AssertionError(f"arena holds {rows} rows, fewer than {floor}")
     supers = len(ms.super_nodes) + sum(len(g.super_nodes)
                                        for g in ms._parked.values())
     merged = fill - (rows - supers)
     if merged <= 0:
         raise AssertionError("no near-duplicate was merged during the fill")
+    parity_out = None
+    if parity is not None:
+        parity_out = check_parity(parity, parity_snapshot(ms, corpus))
+        log(f"[mesh] parity with the single-device system after {MESH_CONVS} "
+            f"conversations: {rows} nodes, {len(ms.index.edge_slots)} edges, "
+            f"{merged} merged, {parity_out['queries']} search_batch and fused "
+            f"read results equal (max score diff {parity_out['max_score_diff']})")
 
     # ---- serve: chat turns for facts whose answer is known
     ms.switch_user(TENANTS[0])
@@ -710,11 +1086,12 @@ def _drive(ms, llm, corpus, convs, fill, launches_out, mt, torch):
     chat_ms, chat_launches = [], []
     ms.start_conversation()
     for i, prompt in zip(targets, prompts):
-        before = mt.launches
+        before = (mt.launches, sm.launches)
         t1 = time.perf_counter()
         ms.chat(prompt)
         chat_ms.append(1e3 * (time.perf_counter() - t1))
-        chat_launches.append(mt.launches - before)
+        chat_launches.append((mt.launches - before[0], sm.launches - before[1])
+                             if n_shards > 1 else mt.launches - before[0])
         context = " ".join(m["content"] for m in llm.last_messages)
         if corpus.text(i) not in context:
             raise AssertionError(f"chat turn did not retrieve fact {i}")
@@ -725,11 +1102,12 @@ def _drive(ms, llm, corpus, convs, fill, launches_out, mt, torch):
     acc_before = node.access_count
     rows_before = len(ms.index)
     llm.payloads.append(corpus.payload(new_ids + [again]))
-    before = mt.launches
+    before = (mt.launches, sm.launches)
     t1 = time.perf_counter()
     ms.end_conversation()
     end_s = time.perf_counter() - t1
-    end_launches = mt.launches - before
+    end_launches = mt.launches - before[0]
+    end_merges = sm.launches - before[1]
     if node.access_count != acc_before + 1:
         raise AssertionError("the repeated fact was not merged")
     added = len(ms.index) - rows_before
@@ -738,12 +1116,15 @@ def _drive(ms, llm, corpus, convs, fill, launches_out, mt, torch):
 
     search_ms = []
     for i in targets + new_ids[:16]:
-        before = mt.launches
+        before = (mt.launches, sm.launches)
         t1 = time.perf_counter()
         hits = ms.search_memories(corpus.text(i))
         search_ms.append(1e3 * (time.perf_counter() - t1))
-        if mt.launches - before != 1:
-            raise AssertionError("search_memories did not launch the kernel once")
+        made = (mt.launches - before[0], sm.launches - before[1])
+        if made != ((n_shards, 1) if n_shards > 1 else (1, 0)):
+            raise AssertionError(f"search_memories made (scans, merges) = "
+                                 f"{made}, not one scan per shard and one "
+                                 f"merge")
         if not hits or hits[0].content != corpus.text(i):
             raise AssertionError(f"search_memories missed fact {i}")
 
@@ -758,9 +1139,12 @@ def _drive(ms, llm, corpus, convs, fill, launches_out, mt, torch):
     if not hits or hits[0].content != corpus.text(bob_fact):
         raise AssertionError("tenant bob missed his own fact")
     torch.cuda.synchronize()
-    launches_out["masked_topk"] = mt.launches
+    launches_out[prefix + "masked_topk"] = mt.launches
+    launches_out[prefix + "sharded_merge"] = sm.launches
     if mt.launches <= fill_launches:
         raise AssertionError("serving launched no masked_topk kernel")
+    if n_shards > 1 and sm.launches <= fill_merges:
+        raise AssertionError("serving launched no sharded_merge kernel")
 
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     summary = {
@@ -774,12 +1158,18 @@ def _drive(ms, llm, corpus, convs, fill, launches_out, mt, torch):
         "launches_per_conversation_end": end_launches,
         "launches": mt.launches, "peak_gib": peak_gb,
     }
-    log(f"[main] fill {fill} facts in {fill_s:.1f} s = {fill / fill_s:.0f} facts/s; "
+    if n_shards > 1:
+        summary.update(parity=parity_out, fill_merges=fill_merges,
+                       merges_per_conversation_end=end_merges,
+                       merges=sm.launches)
+    log(f"{tag} fill {fill} facts in {fill_s:.1f} s = {fill / fill_s:.0f} facts/s; "
         f"{summary['rows']} rows, {summary['edges']} edges, {merged} merged; "
         f"chat p50 {summary['chat_p50_ms']:.2f} ms "
         f"({chat_launches[0]} launches/turn), search_memories p50 "
         f"{summary['search_p50_ms']:.2f} ms, conversation end {end_s:.2f} s "
-        f"({end_launches} launches), peak {peak_gb:.1f} GiB")
+        f"({end_launches} launches, {end_merges} merges), peak {peak_gb:.1f} GiB")
+    if n_shards > 1:
+        return summary, {"targets": targets, "new_ids": new_ids, "own": own}
 
     # ---- the kernel on the filled arena, against its plain version
     from lazzaro_tpu_torch.core import state as S
@@ -839,8 +1229,15 @@ def _drive_fused(ms, corpus, served, launches_out, torch):
     ``search_memories_batch`` and a 64-request mixed-k, two-tenant fleet."""
     from lazzaro_tpu_torch.ops import fused_topk as ft
     from lazzaro_tpu_torch.ops import masked_topk as mt
+    from lazzaro_tpu_torch.ops import sharded_merge as sm
     from lazzaro_tpu_torch.serve import RetrievalRequest
 
+    # A dispatch is one two-tier launch, or under a mesh one per shard and
+    # two merges (the ANN and the gate); one device-to-host copy either way.
+    n_shards = ms.index.mesh.size if ms.index.mesh is not None else 1
+    merges = 2 if ms.index.mesh is not None else 0
+    tag = "[mesh]" if ms.index.mesh is not None else "[fused]"
+    prefix = "mesh_" if ms.index.mesh is not None else ""
     targets, new_ids = served["targets"], served["new_ids"]
     ms.switch_user(TENANTS[0])
     rng = np.random.default_rng(11)
@@ -875,7 +1272,7 @@ def _drive_fused(ms, corpus, served, launches_out, torch):
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     csr_s = ms.index.csr_build_s
-    log(f"[fused] warmup {warm_s:.2f} s ({ {str(k): round(v, 1) for k, v in warm.items()} } ms), "
+    log(f"{tag} warmup {warm_s:.2f} s ({ {str(k): round(v, 1) for k, v in warm.items()} } ms), "
         f"CSR of {len(ms.index.edge_slots)} edges built in {csr_s:.3f} s")
 
     readbacks = _strict_dispatch(ms.index, torch)
@@ -888,20 +1285,22 @@ def _drive_fused(ms, corpus, served, launches_out, torch):
         return ids, mode
 
     ms._retrieve_for_chat = spy
-    ft.launches = mt.launches = 0
+    ft.launches = mt.launches = sm.launches = 0
+    want = (n_shards, 0, merges, 1)
     try:
         ms.start_conversation()
         chat_ms = {"miss": [], "hit": []}
         for p in everything:
-            before = (ft.launches, mt.launches, len(readbacks))
+            before = (ft.launches, mt.launches, sm.launches, len(readbacks))
             t1 = time.perf_counter()
             ms.chat(p)
             dt = 1e3 * (time.perf_counter() - t1)
-            after = (ft.launches, mt.launches, len(readbacks))
-            if tuple(a - b for a, b in zip(after, before)) != (1, 0, 1):
+            after = (ft.launches, mt.launches, sm.launches, len(readbacks))
+            if tuple(a - b for a, b in zip(after, before)) != want:
                 raise AssertionError(
-                    f"fused chat turn made (fused, classic, readbacks) = "
-                    f"{tuple(a - b for a, b in zip(after, before))}, not (1, 0, 1)")
+                    f"fused chat turn made (fused, classic, merges, readbacks)"
+                    f" = {tuple(a - b for a, b in zip(after, before))}, "
+                    f"not {want}")
             ids, mode = got[p]
             if ids != expected[p]:
                 raise AssertionError(f"fused chat ids {ids} != classic "
@@ -918,11 +1317,12 @@ def _drive_fused(ms, corpus, served, launches_out, torch):
 
         search_ms = []
         for i in misses + new_ids[:8]:
-            before = (ft.launches, len(readbacks))
+            before = (ft.launches, sm.launches, len(readbacks))
             t1 = time.perf_counter()
             hits = ms.search_memories(corpus.text(i))
             search_ms.append(1e3 * (time.perf_counter() - t1))
-            if (ft.launches - before[0], len(readbacks) - before[1]) != (1, 1):
+            if (ft.launches - before[0], sm.launches - before[1],
+                    len(readbacks) - before[2]) != (n_shards, merges, 1):
                 raise AssertionError("search_memories is not one fused dispatch")
             if not hits or hits[0].content != corpus.text(i):
                 raise AssertionError(f"fused search_memories missed fact {i}")
@@ -931,15 +1331,17 @@ def _drive_fused(ms, corpus, served, launches_out, torch):
         texts = [corpus.text(i) for i in batch_facts]
         ms.embedder.warm(texts)
         def one_launch_p50(fn, what):
-            """p50 ms of 5 calls of ``fn``, each one two-tier launch."""
+            """p50 ms of 5 calls of ``fn``, each one dispatch: one two-tier
+            launch per shard."""
             runs = []
             for _ in range(5):
-                before = ft.launches
+                before = (ft.launches, sm.launches)
                 t1 = time.perf_counter()
                 out = fn()
                 runs.append(1e3 * (time.perf_counter() - t1))
-                if ft.launches - before != 1:
-                    raise AssertionError(f"{what} is not one launch")
+                if (ft.launches - before[0],
+                        sm.launches - before[1]) != (n_shards, merges):
+                    raise AssertionError(f"{what} is not one dispatch")
             return p50(runs), out
 
         # Each 64-query shape through the user entry point and, to split
@@ -985,17 +1387,20 @@ def _drive_fused(ms, corpus, served, launches_out, torch):
         vars(ms.index).pop("search_fused_requests", None)
         vars(ms.index).pop("_readback", None)
         torch.cuda.set_sync_debug_mode(0)
-    launches_out["fused_topk"] = ft.launches
-    launches_out["masked_topk_on_fused_path"] = mt.launches
+    launches_out[prefix + "fused_topk"] = ft.launches
+    launches_out[prefix + "masked_topk_on_fused_path"] = mt.launches
+    launches_out[prefix + "sharded_merge_on_fused_path"] = sm.launches
     if ft.launches == 0 or mt.launches != 0:
         raise AssertionError("the fused path did not run on the two-tier kernel alone")
+    if merges and sm.launches == 0:
+        raise AssertionError("the fused path under a mesh launched no merge")
     # Where a fused dispatch's time goes, from the serving telemetry: queue
     # wait (submit to the worker's pickup), dispatch (host set-up, launches
     # and the readback wait), decode (ids from the readback).
     tel = ms.telemetry
     spans = {name: p50(tel.timer_values(name)) for name in (
         "serve.queue_wait_ms", "serve.dispatch_ms", "serve.decode_ms")}
-    log("[fused] p50 spans (ms): "
+    log(f"{tag} fused p50 spans (ms): "
         + ", ".join(f"{k} {v:.3f}" for k, v in spans.items()))
     fused = {
         "spans_p50_ms": spans,
@@ -1005,18 +1410,20 @@ def _drive_fused(ms, corpus, served, launches_out, torch):
         "batch64_index_p50_ms": batch_index_ms,
         "fleet64_mixed_k_p50_ms": fleet_ms,
         "fleet64_mixed_k_index_p50_ms": fleet_index_ms,
-        "launches_per_chat_turn": 1,
+        "launches_per_chat_turn": n_shards, "merges_per_chat_turn": merges,
         "readbacks_per_dispatch": 1, "launches": ft.launches,
+        "merges": sm.launches,
         "readbacks": len(readbacks), "csr_build_s": csr_s,
         "csr_builds": ms.index.csr_builds, "warmup_s": warm_s,
     }
-    log(f"[fused] chat p50 {fused['chat_miss_p50_ms']:.2f} ms (gate miss), "
+    log(f"{tag} fused chat p50 {fused['chat_miss_p50_ms']:.2f} ms (gate miss), "
         f"{fused['chat_hit_p50_ms']:.2f} ms (gate hit); search_memories p50 "
         f"{fused['search_p50_ms']:.2f} ms; search_memories_batch(64) p50 "
         f"{batch_ms:.2f} ms (index {batch_index_ms:.2f}); mixed-k fleet(64) "
         f"p50 {fleet_ms:.2f} ms (index {fleet_index_ms:.2f}); "
-        f"{ft.launches} two-tier launches, {len(readbacks)} readbacks, "
-        f"0 classic launches; CSR build {csr_s:.3f} s")
+        f"{ft.launches} two-tier launches, {sm.launches} merges, "
+        f"{len(readbacks)} readbacks, 0 classic launches; CSR build "
+        f"{csr_s:.3f} s")
     return fused
 
 
@@ -1592,12 +1999,20 @@ def main() -> int:
     torch.cuda.empty_cache()
     fused_rows = phase_fused_kernel(device)
     torch.cuda.empty_cache()
+    sharded_rows = phase_sharded_kernel(device)
+    gc.collect()
+    torch.cuda.empty_cache()
     flash_rows = phase_flash(device)
     bwd_rows = phase_flash_bwd(device)
     launches: dict = {}
-    summary = phase_main(launches)
+    parity: dict = {}
+    summary = phase_main(launches, parity)
     log(f"[main] summary {json.dumps(summary)}")
-    gc.collect()                       # the phase-4 arena goes before the LM
+    gc.collect()                       # the phase-4 arena goes before the mesh's
+    torch.cuda.empty_cache()
+    mesh_summary, filled_rows = phase_mesh(launches, parity, summary)
+    log(f"[mesh] summary {json.dumps(mesh_summary)}")
+    gc.collect()                       # and the mesh's before the LM
     torch.cuda.empty_cache()
     lm_summary = phase_lm(launches)
     log(f"[lm] summary {json.dumps(lm_summary)}")
@@ -1625,6 +2040,9 @@ def main() -> int:
         entry("fused_topk", "lazzaro_tpu_torch/csrc/fused_topk.cu",
               "lazzaro_tpu/ops/pallas_topk.py:101", fused_rows,
               "chat_q1_k128_kq10"),
+        entry("sharded_topk", "lazzaro_tpu_torch/csrc/sharded_merge.cu",
+              "lazzaro_tpu/ops/topk.py:115", sharded_rows + filled_rows,
+              "sharded_topk_q1_k10_grid"),
         entry("flash_attention", "lazzaro_tpu_torch/csrc/flash_attention.cu",
               "lazzaro_tpu/ops/flash_attention.py:109", flash_rows,
               FLASH_CASES[0][0]),

@@ -1,25 +1,38 @@
 """MemoryIndex: host bookkeeping around the device arena, in torch.
 
-Counterpart of the dense single-device subset of ``lazzaro_tpu/core/index.py``:
-string id <-> row maps, free lists, capacity growth and sentinel padding on
-the host; every numeric column on the device (``core.state``). Classic search
+Counterpart of the dense subset of ``lazzaro_tpu/core/index.py``: string
+id <-> row maps, free lists, capacity growth and sentinel padding on the
+host; every numeric column on the device (``core.state``). Classic search
 runs the masked top-k kernel on a CUDA arena; fused serving
 (:meth:`MemoryIndex.search_fused_requests`) runs a whole request batch as
 one launch of the two-tier kernel plus plain torch on the device, and reads
 back one packed array. Mutations update the index's own tensors in place
 under one lock.
+
+``MemoryIndex(mesh=...)`` row-shards the arena over the mesh's ``data`` axis
+(``parallel.mesh``), as the JAX index does with GSPMD: one ``ArenaState``
+per shard on its device, holding the global rows ``[p * L, (p + 1) * L)``.
+Writes are split by owner on the host and run the single-device ops on the
+owning shards with local rows; searches run each shard's scan kernel and
+merge the candidates on the first device (``ops.topk.make_sharded_topk``,
+``core.state.search_fused_sharded``). The edge arena stays whole on the
+first device.
 """
 
 from __future__ import annotations
 
+import math
 import threading
 import time
+from collections import OrderedDict
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from lazzaro_tpu_torch.core import state as S
+from lazzaro_tpu_torch.ops.sharded_merge import sharded_merge
+from lazzaro_tpu_torch.ops.topk import make_sharded_topk
 from lazzaro_tpu_torch.serve.scheduler import RetrievalRequest, RetrievalResult
 from lazzaro_tpu_torch.utils.batching import (bucket_size, decode_topk,
                                               empty_results, next_pow2,
@@ -71,6 +84,29 @@ def build_host_csr(edge_keys, id_to_row: Dict[str, int], n: int,
     nbr = np.full((max(8, int(min_pad), next_pow2(len(dst))),), -1, np.int32)
     nbr[:len(dst)] = dst
     return indptr, nbr
+
+
+def split_csr(indptr: np.ndarray, nbr: np.ndarray, n_shards: int
+              ) -> Tuple[np.ndarray, np.ndarray]:
+    """Row-shard a global CSR (``lazzaro_tpu/core/index.py:split_csr``):
+    shard ``p`` gets the neighbor lists of its own rows ``[p * L, (p + 1) *
+    L)`` with offsets rebased to its slice; neighbor ids stay global.
+    Returns ``(indptr_sh [n, L + 1] i32, nbr_sh [n, E_max] i32)``, every
+    shard's neighbor array padded to one power-of-two bucket."""
+    n_rows = indptr.shape[0] - 1
+    assert n_rows % n_shards == 0
+    L = n_rows // n_shards
+    indptr_sh = np.zeros((n_shards, L + 1), np.int32)
+    parts = []
+    for p in range(n_shards):
+        lo, hi = indptr[p * L], indptr[(p + 1) * L]
+        indptr_sh[p] = indptr[p * L:(p + 1) * L + 1] - lo
+        parts.append(np.asarray(nbr[lo:hi], np.int32))
+    e_max = max(8, next_pow2(max(len(x) for x in parts)))
+    nbr_sh = np.full((n_shards, e_max), -1, np.int32)
+    for p, x in enumerate(parts):
+        nbr_sh[p, :len(x)] = x
+    return indptr_sh, nbr_sh
 
 
 _TORCH_DTYPES = {np.dtype(np.float32): torch.float32,
@@ -162,14 +198,32 @@ class _EdgeSlotMap(dict):
 
 
 class MemoryIndex:
-    """Single-device dense arena index. ``device`` defaults to CUDA and
-    raises without a GPU; pass ``device="cpu"`` for the plain versions."""
+    """Dense arena index. ``device`` defaults to CUDA and raises without a
+    GPU; pass ``device="cpu"`` for the plain versions. With ``mesh`` (a
+    ``parallel.mesh.Mesh``) the arena is row-sharded over its devices, which
+    replace ``device`` (passing both raises unless ``device`` is the mesh's
+    first device)."""
+
+    _MESH_SEARCHERS = 16           # make_sharded_topk closures kept, per k
 
     def __init__(self, dim: int, capacity: int = 1024, edge_capacity: int = 8192,
                  dtype=torch.float32, epoch: Optional[float] = None,
                  device=None, telemetry=None, serve_ragged: bool = True,
-                 serve_k_max: int = 128, serve_pad_granularity: int = 8):
-        self.device = resolve_device(device)
+                 serve_k_max: int = 128, serve_pad_granularity: int = 8,
+                 mesh=None):
+        self.mesh = mesh
+        self.shard_axis = mesh.axis_names[0] if mesh is not None else None
+        self._n_parts = mesh.size if mesh is not None else 1
+        if mesh is None:
+            self.device = resolve_device(device)
+        else:
+            self.device = mesh.devices[0]
+            want = torch.device(device) if device is not None else None
+            if want is not None and (want.type != self.device.type or (
+                    want.index is not None and want != self.device)):
+                raise ValueError(f"MemoryIndex: device {device} is not the "
+                                 f"mesh's first device {self.device}")
+        self._mesh_topk: "OrderedDict[int, object]" = OrderedDict()
         self.telemetry = telemetry if telemetry is not None \
             else default_registry()
         # Ragged serving: per-request k and cap ride as device columns and
@@ -194,7 +248,12 @@ class MemoryIndex:
         self.epoch = float(epoch if epoch is not None else time.time())
         capacity = self._round_capacity(capacity)
         edge_capacity = self._round_capacity(edge_capacity, block=False)
-        self.state = S.init_arena(capacity, dim, self.dtype, self.device)
+        self.state: Optional[S.ArenaState] = None
+        self.shards: List[S.ArenaState] = []
+        if mesh is None:
+            self.state = S.init_arena(capacity, dim, self.dtype, self.device)
+        else:
+            self.shards = S.init_shards(capacity, dim, self.dtype, mesh.devices)
         self.edge_state = S.init_edges(edge_capacity, self.device)
         self._free_rows: List[int] = list(range(capacity - 1, -1, -1))
         self._free_edge_slots: List[int] = list(range(edge_capacity - 1, -1, -1))
@@ -209,18 +268,23 @@ class MemoryIndex:
     @classmethod
     def from_numpy(cls, arena: Dict[str, np.ndarray],
                    edges: Dict[str, np.ndarray], meta: Dict, device=None,
-                   **kwargs) -> "MemoryIndex":
+                   mesh=None, **kwargs) -> "MemoryIndex":
         """Build an index from another index's state as numpy arrays: every
         ``ArenaState``/``EdgeState`` column, and ``meta`` with ``id_to_row``,
         ``tenants``, ``shards``, ``edge_slots``, ``free_rows``,
         ``free_edge_slots`` and optionally ``epoch`` (the JAX index's
         ``_tenants``, ``_shards``, ``_free_rows``, ... under these names).
-        ``kwargs`` go to the constructor (the serving settings)."""
+        With ``mesh`` each column is split by owner shard (the row count
+        must divide by the mesh size). ``kwargs`` go to the constructor
+        (the serving settings)."""
         emb = arena["emb"]
         idx = cls(emb.shape[1], capacity=8, edge_capacity=8,
                   dtype=emb.dtype.name, epoch=meta.get("epoch"), device=device,
-                  **kwargs)
-        idx.state = S.arena_from_numpy(arena, idx.device)
+                  mesh=mesh, **kwargs)
+        if mesh is None:
+            idx.state = S.arena_from_numpy(arena, idx.device)
+        else:
+            idx.shards = S.shards_from_numpy(arena, mesh.devices)
         idx.edge_state = S.edges_from_numpy(edges, idx.device)
         idx.id_to_row = {k: int(v) for k, v in meta["id_to_row"].items()}
         idx.row_to_id = {r: k for k, r in idx.id_to_row.items()}
@@ -242,11 +306,15 @@ class MemoryIndex:
     # ------------------------------------------------------------ capacity
     def _round_capacity(self, capacity: int, block: bool = True) -> int:
         """capacity + 1 rounds up to a TOPK_BLOCK multiple once it reaches a
-        block (node arena only), the JAX package's row layout."""
+        block (node arena only), and under a mesh to a multiple of
+        ``lcm(that, n_shards)`` so the rows split evenly
+        (``lazzaro_tpu/core/index.py:_round_capacity``), the JAX package's
+        row layout."""
         total = capacity + 1
-        if block and total >= S.TOPK_BLOCK:
-            total = -(-total // S.TOPK_BLOCK) * S.TOPK_BLOCK
-        return total - 1
+        multiple = S.TOPK_BLOCK if block and total >= S.TOPK_BLOCK else 1
+        if self._n_parts > 1:
+            multiple = math.lcm(multiple, self._n_parts)
+        return -(-total // multiple) * multiple - 1
 
     def _grown_capacity(self, old_capacity: int, block: bool = True) -> int:
         return self._round_capacity((old_capacity + 1) * 2 - 1, block=block)
@@ -264,7 +332,41 @@ class MemoryIndex:
 
     @property
     def capacity(self) -> int:
-        return self.state.capacity
+        if self.mesh is None:
+            return self.state.capacity
+        return self._n_parts * self._local_n - 1
+
+    @property
+    def _local_n(self) -> int:
+        """Rows per shard under a mesh."""
+        return self.shards[0].salience.shape[0]
+
+    def _routes(self, rows):
+        """``(shard state, sel, local rows)`` for each shard owning one of
+        the global ``rows`` (``state.route_rows``); no other shard is
+        touched, and no padding crosses a shard."""
+        return [(self.shards[p], sel, loc)
+                for p, sel, loc in S.route_rows(rows, self._local_n)]
+
+    def _gather(self, name: str, rows) -> torch.Tensor:
+        """Column ``name`` at the global ``rows``, gathered from their owner
+        shards onto the first device, in the order given."""
+        rows = np.asarray(rows, np.int64)
+        col = getattr(self.shards[0], name)
+        out = torch.empty((len(rows),) + tuple(col.shape[1:]), dtype=col.dtype,
+                          device=self.device)
+        for st, sel, loc in self._routes(rows):
+            src = getattr(st, name)
+            out[torch.from_numpy(sel).to(self.device)] = src[
+                torch.from_numpy(loc).to(src.device)].to(self.device)
+        return out
+
+    def _column(self, name: str) -> torch.Tensor:
+        """The whole column ``name`` over every shard, on the first device."""
+        if self.mesh is None:
+            return getattr(self.state, name)
+        return torch.cat([getattr(st, name).to(self.device)
+                          for st in self.shards])
 
     def __len__(self) -> int:
         return len(self.id_to_row)
@@ -272,21 +374,27 @@ class MemoryIndex:
     def stats(self) -> Dict[str, object]:
         return {
             "rows": len(self.id_to_row),
-            "capacity": self.state.capacity,
+            "capacity": self.capacity,
             "edge_capacity": self.edge_state.capacity,
             "edges": len(self.edge_slots),
             "dim": self.dim,
             "dtype": str(self.dtype).replace("torch.", ""),
             "tenants": len(self._tenants),
             "device": str(self.device),
+            "mesh": (f"{self._n_parts}x {self.shard_axis}"
+                     if self.mesh is not None else None),
         }
 
     # ---------------------------------------------------------------- nodes
     def _alloc_rows(self, n: int) -> List[int]:
         while len(self._free_rows) < n:
-            old_cap = self.state.capacity
+            old_cap = self.capacity
             new_cap = self._grown_capacity(old_cap)
-            self.state = S.grow_arena(self.state, new_cap)
+            if self.mesh is None:
+                self.state = S.grow_arena(self.state, new_cap)
+            else:                    # L changes: the rows split anew
+                self.shards = S.grow_shards(self.shards, new_cap,
+                                            self.mesh.devices)
             self._free_rows = list(range(new_cap - 1, old_cap - 1, -1)) + self._free_rows
         return [self._free_rows.pop() for _ in range(n)]
 
@@ -315,7 +423,13 @@ class MemoryIndex:
                     self.row_to_id[r] = node_id
                     rows.append(r)
 
-            padded = S.pad_rows(np.asarray(rows, np.int32), self.state.capacity)
+            tid = self.tenant_id(tenant)
+            self.tenant_nodes.setdefault(tenant, set()).update(ids)
+            if self.mesh is not None:
+                self._add_sharded(rows, embeddings, saliences, timestamps,
+                                  types, shard_keys, tid, is_super)
+                return rows
+            padded = S.pad_rows(np.asarray(rows, np.int32), self.capacity)
             b = len(padded)
 
             def pad(vals, fill=0.0, dt=np.float32):
@@ -326,8 +440,6 @@ class MemoryIndex:
             emb = np.zeros((b, self.dim), np.float32)
             emb[:n] = np.asarray(embeddings, np.float32).reshape(n, self.dim)
             emb[n:, 0] = 1.0   # sentinel rows get a unit vector (normalizable)
-            tid = self.tenant_id(tenant)
-            self.tenant_nodes.setdefault(tenant, set()).update(ids)
             S._arena_add(
                 self.state, torch.from_numpy(padded), torch.from_numpy(emb),
                 pad([float(s) for s in saliences]),
@@ -337,6 +449,23 @@ class MemoryIndex:
                 pad([tid] * n, -1, np.int32),
                 pad([bool(x) for x in is_super], False, bool))
             return rows
+
+    def _add_sharded(self, rows, embeddings, saliences, timestamps, types,
+                     shard_keys, tid, is_super) -> None:
+        """:meth:`add`'s arena write under a mesh: each owner shard writes
+        its own rows, unpadded."""
+        n = len(rows)
+        emb = np.asarray(embeddings, np.float32).reshape(n, self.dim)
+        cols = (np.asarray([float(s) for s in saliences], np.float32),
+                np.asarray([float(t) - self.epoch for t in timestamps],
+                           np.float32),
+                np.asarray([S.TYPE_IDS.get(t, 0) for t in types], np.int32),
+                np.asarray([self.shard_id(k or "default") for k in shard_keys],
+                           np.int32),
+                np.full((n,), tid, np.int32),
+                np.asarray([bool(x) for x in is_super], bool))
+        for st, sel, loc in self._routes(rows):
+            S._arena_add(st, loc, emb[sel], *(c[sel] for c in cols))
 
     def delete(self, ids: Iterable[str]) -> None:
         ids = list(ids)
@@ -348,8 +477,12 @@ class MemoryIndex:
                 return
             for r in rows:
                 self.row_to_id.pop(r, None)
-            padded = S.pad_rows(np.asarray(rows, np.int32), self.state.capacity)
-            S._arena_delete(self.state, padded)
+            padded = S.pad_rows(np.asarray(rows, np.int32), self.capacity)
+            if self.mesh is None:
+                S._arena_delete(self.state, padded)
+            else:
+                for st, _, loc in self._routes(rows):
+                    S._arena_delete(st, loc)
             S._edges_delete_for_nodes(self.edge_state, padded)
             self._free_rows.extend(rows)
             dead = [k for k in self.edge_slots
@@ -384,11 +517,37 @@ class MemoryIndex:
             return empty_results(nq)
         q_pad = torch.from_numpy(pad_to_pow2(queries)).to(self.device)
         with self._lock:
-            k_eff = min(k, self.state.capacity)
-            scores, rows = S.arena_search(self.state, q_pad, tid, k_eff,
-                                          super_filter)
-        return decode_topk(scores[:nq].cpu().numpy(), rows[:nq].cpu().numpy(),
+            k_eff = min(k, self.capacity)
+            if self.mesh is None:
+                scores, rows = S.arena_search(self.state, q_pad, tid, k_eff,
+                                              super_filter)
+            else:
+                # Each shard's scan on its rows, one merge, one readback.
+                scores, rows = self._mesh_searcher(k_eff)(
+                    [st.emb for st in self.shards],
+                    [S.arena_mask(st, tid, super_filter) for st in self.shards],
+                    S.normalize(q_pad.float()))
+                packed = torch.cat([scores, rows.view(torch.float32)], dim=1)
+        if self.mesh is None:
+            return decode_topk(scores[:nq].cpu().numpy(),
+                               rows[:nq].cpu().numpy(), self.row_to_id,
+                               S.NEG_INF)
+        host = packed.cpu().numpy()
+        return decode_topk(host[:nq, :k_eff], host[:nq, k_eff:].view(np.int32),
                            self.row_to_id, S.NEG_INF)
+
+    def _mesh_searcher(self, k: int):
+        """``ops.topk.make_sharded_topk`` over the mesh, one per k, the
+        least recently used dropped past ``_MESH_SEARCHERS``
+        (``lazzaro_tpu/core/index.py:_mesh_searcher``)."""
+        fn = self._mesh_topk.get(k)
+        if fn is None:
+            fn = make_sharded_topk(self.mesh, self.shard_axis, k=k)
+            self._mesh_topk[k] = fn
+            if len(self._mesh_topk) > self._MESH_SEARCHERS:
+                self._mesh_topk.popitem(last=False)
+        self._mesh_topk.move_to_end(k)
+        return fn
 
     def best_earlier_match(self, embeddings: np.ndarray
                            ) -> Tuple[np.ndarray, np.ndarray]:
@@ -406,22 +565,30 @@ class MemoryIndex:
         rows = [self.id_to_row[i] for i in ids if i in self.id_to_row]
         if not rows:
             return None
-        return S.pad_rows(np.asarray(rows, np.int32), self.state.capacity)
+        return S.pad_rows(np.asarray(rows, np.int32), self.capacity)
+
+    def _write_rows(self, op, ids: Sequence[str], *args) -> None:
+        """``op(state, rows, *args)`` on the rows of ``ids``: sentinel-padded
+        on one device, per owner shard under a mesh."""
+        if self.mesh is None:
+            padded = self._padded_rows(ids)
+            if padded is not None:
+                op(self.state, padded, *args)
+            return
+        rows = [self.id_to_row[i] for i in ids if i in self.id_to_row]
+        for st, _, loc in self._routes(rows):
+            op(st, loc, *args)
 
     def update_access(self, ids: Sequence[str], boost: float = 0.05,
                       now: Optional[float] = None) -> None:
         with self._lock:
-            padded = self._padded_rows(ids)
-            if padded is not None:
-                S._arena_update_access(self.state, padded, self._now(now), boost)
+            self._write_rows(S._arena_update_access, ids, self._now(now), boost)
 
     def boost(self, ids: Sequence[str], boost: float = 0.02,
               now: Optional[float] = None) -> None:
         """Neighbor boost: salience bump + freshness, no access increment."""
         with self._lock:
-            padded = self._padded_rows(ids)
-            if padded is not None:
-                S._arena_boost(self.state, padded, self._now(now), boost)
+            self._write_rows(S._arena_boost, ids, self._now(now), boost)
 
     def apply_boosts(self, entries: Dict[str, Tuple[int, int, float]],
                      acc_boost: float, nbr_boost: float) -> None:
@@ -439,7 +606,14 @@ class MemoryIndex:
                 nows.append(float(now) - self.epoch)
             if not rows:
                 return
-            padded = S.pad_rows(np.asarray(rows, np.int32), self.state.capacity)
+            if self.mesh is not None:
+                cols = (np.asarray(accs, np.int32), np.asarray(nbrs, np.int32),
+                        np.asarray(nows, np.float32))
+                for st, sel, loc in self._routes(rows):
+                    S._arena_apply_boosts(st, loc, *(c[sel] for c in cols),
+                                          acc_boost, nbr_boost)
+                return
+            padded = S.pad_rows(np.asarray(rows, np.int32), self.capacity)
             b = len(padded)
             acc_arr = np.zeros((b,), np.int32)
             acc_arr[:len(accs)] = accs
@@ -461,7 +635,12 @@ class MemoryIndex:
                     sals.append(float(s))
             if not rows:
                 return
-            padded = S.pad_rows(np.asarray(rows, np.int32), self.state.capacity)
+            if self.mesh is not None:
+                sal = np.asarray(sals, np.float32)
+                for st, sel, loc in self._routes(rows):
+                    S._arena_merge_touch(st, loc, sal[sel], self._now(now))
+                return
+            padded = S.pad_rows(np.asarray(rows, np.int32), self.capacity)
             sal = np.zeros((len(padded),), np.float32)
             sal[:len(sals)] = sals
             S._arena_merge_touch(self.state, padded, sal, self._now(now))
@@ -472,7 +651,13 @@ class MemoryIndex:
         if tid is None:
             return
         with self._lock:
-            S._decay_fused(self.state, self.edge_state, tid, rate, salience_floor)
+            if self.mesh is None:
+                S._decay_fused(self.state, self.edge_state, tid, rate,
+                               salience_floor)
+                return
+            for st in self.shards:
+                S._arena_decay(st, tid, rate, salience_floor)
+            S._edges_decay(self.edge_state, tid, rate)
 
     def evict_candidates(self, tenant: str, k: int, now: Optional[float] = None,
                          weights: Tuple[float, float, float] = (0.5, 0.3, 0.2)
@@ -482,10 +667,23 @@ class MemoryIndex:
         if tid is None:
             return []
         with self._lock:
-            k_bucket = min(self.state.capacity,
+            k_bucket = min(self.capacity,
                            max(8, 1 << (max(1, k - 1)).bit_length()))
-            imps, rows = S.arena_evict_candidates(
-                self.state, tid, self._now(now), *weights, k_bucket)
+            if self.mesh is None:
+                imps, rows = S.arena_evict_candidates(
+                    self.state, tid, self._now(now), *weights, k_bucket)
+            else:
+                # Each shard's bottom-k, merged on -importance (ties to the
+                # lower global row, as one top-k over the arena).
+                k_l = min(k_bucket, self._local_n)
+                parts = [S.arena_evict_candidates(st, tid, self._now(now),
+                                                  *weights, k_l)
+                         for st in self.shards]
+                neg, rows = sharded_merge([-imp[None] for imp, _ in parts],
+                                          [r[None] for _, r in parts],
+                                          self._local_n, k_bucket,
+                                          device=self.device)
+                imps, rows = -neg[0], rows[0]
         out = []
         for imp, r in zip(imps.cpu().numpy(), rows.cpu().numpy()):
             if not np.isfinite(imp):
@@ -533,10 +731,15 @@ class MemoryIndex:
             return {sm: {} for sm in shard_modes}
         all_rows = np.asarray(rows, np.int32)
         with self._lock:
-            padded = S.pad_rows(all_rows, self.state.capacity)
-            flat = [t.cpu().numpy() for t in S.arena_link_candidates_multi(
-                self.state, padded, padded, tid, min(k, self.state.capacity),
-                tuple(shard_modes))]
+            k_eff = min(k, self.capacity)
+            if self.mesh is None:
+                padded = S.pad_rows(all_rows, self.capacity)
+                flat = [t.cpu().numpy() for t in S.arena_link_candidates_multi(
+                    self.state, padded, padded, tid, k_eff,
+                    tuple(shard_modes))]
+            else:
+                flat = self._link_sharded(all_rows, tid, k_eff,
+                                          tuple(shard_modes))
         result: Dict[int, Dict[str, List[Tuple[str, float]]]] = {}
         for i, sm in enumerate(shard_modes):
             scores, cand = flat[2 * i], flat[2 * i + 1]
@@ -553,6 +756,39 @@ class MemoryIndex:
             result[sm] = out
         return result
 
+    def _link_sharded(self, rows: np.ndarray, tid: int, k: int,
+                      shard_modes: Tuple[int, ...]) -> List[np.ndarray]:
+        """The link scan under a mesh: the new rows' embeddings and shard
+        ids gathered from their owners, each shard's scan of its rows (the
+        new rows it owns excluded), one merge per shard mode, one readback.
+        Returns the flat ``(scores, rows)`` list of the single-device
+        scan."""
+        q_emb = self._gather("emb", rows)
+        q_shard = self._gather("shard_id", rows)
+        excl = {p: loc for p, _, loc in S.route_rows(rows, self._local_n)}
+        k_l = min(k, self._local_n)
+        parts = []
+        for p, st in enumerate(self.shards):
+            dev = st.emb.device
+            parts.append(S.arena_link_scan(
+                st, q_emb.to(dev), q_shard.to(dev),
+                excl.get(p, np.zeros((0,), np.int64)), tid, k_l, shard_modes))
+        merged = []
+        for i in range(len(shard_modes)):
+            merged.extend(sharded_merge([x[2 * i] for x in parts],
+                                        [x[2 * i + 1] for x in parts],
+                                        self._local_n, k, device=self.device))
+        width = [t.shape[1] for t in merged]
+        host = torch.cat([t if t.dtype == torch.float32
+                          else t.view(torch.float32) for t in merged],
+                         dim=1).cpu().numpy()
+        out, off = [], 0
+        for j, w in enumerate(width):
+            col = host[:, off:off + w]
+            out.append(col if j % 2 == 0 else col.view(np.int32))
+            off += w
+        return out
+
     def link_candidates(self, new_ids: Sequence[str], tenant: str, k: int = 3,
                         shard_mode: int = 0) -> Dict[str, List[Tuple[str, float]]]:
         """Single-mode view of :meth:`link_candidates_multi`."""
@@ -565,23 +801,40 @@ class MemoryIndex:
         if padded is None:
             return np.zeros((self.dim,), np.float32)
         with self._lock:
-            return S.arena_mean_embedding(self.state, padded).cpu().numpy()
+            if self.mesh is None:
+                return S.arena_mean_embedding(self.state, padded).cpu().numpy()
+            # The owners' rows, zero rows for the padding: the sum of the
+            # single-device function over the same [B, d] block.
+            live = padded < self.capacity
+            embs = torch.zeros((len(padded), self.dim), dtype=torch.float32,
+                               device=self.device)
+            embs[torch.from_numpy(np.nonzero(live)[0]).to(self.device)] = \
+                self._gather("emb", padded[live]).float()
+            return S.normalize(embs.sum(0) / max(int(live.sum()), 1)
+                               ).cpu().numpy()
 
     def get_embedding(self, node_id: str) -> Optional[np.ndarray]:
         r = self.id_to_row.get(node_id)
         if r is None:
             return None
+        if self.mesh is not None:
+            return self._gather("emb", [r])[0].float().cpu().numpy()
         return self.state.emb[r].float().cpu().numpy()
 
     def pull_numeric(self) -> Dict[str, np.ndarray]:
         """Bulk readback of the mutable numeric columns."""
-        st = self.state
-        return {"salience": st.salience.cpu().numpy(),
-                "last_accessed": st.last_accessed.cpu().numpy() + self.epoch,
-                "access_count": st.access_count.cpu().numpy()}
+        return {"salience": self._column("salience").cpu().numpy(),
+                "last_accessed": (self._column("last_accessed").cpu().numpy()
+                                  + self.epoch),
+                "access_count": self._column("access_count").cpu().numpy()}
 
     def pull_numeric_rows(self, rows: Sequence[int]) -> Dict[str, np.ndarray]:
         """``pull_numeric`` for the given rows only."""
+        if self.mesh is not None:
+            cols = {name: self._gather(name, rows).cpu().numpy() for name in
+                    ("salience", "last_accessed", "access_count")}
+            cols["last_accessed"] = cols["last_accessed"] + self.epoch
+            return cols
         st = self.state
         r = torch.as_tensor(np.asarray(rows, np.int64), device=self.device)
         return {"salience": st.salience[r].cpu().numpy(),
@@ -672,17 +925,19 @@ class MemoryIndex:
             return self._reclaim_pruned_slots(slots.cpu().numpy())
 
     # ------------------------------------------------- fused retrieval path
-    def _csr_for(self, st: S.ArenaState) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _csr_for(self, st: Optional[S.ArenaState] = None):
         """Device CSR of the edge graph (``indptr [rows+1]``, ``nbr
         [E_pad]``, i32) for the fused neighbor gather, built from host
         bookkeeping (no device readback) and uploaded again only after an
         edge or row change. The dirty flag is cleared before the build, so
         a writer racing past marks it again. ``csr_builds`` counts the
-        builds, ``csr_build_s`` is the last one's host seconds."""
-        n = st.salience.shape[0]
+        builds, ``csr_build_s`` is the last one's host seconds. Under a
+        mesh it returns each shard's ``(indptr, nbr)`` slice
+        (:func:`split_csr`) on the shard's device, one upload per device."""
+        n = st.salience.shape[0] if st is not None else self.capacity + 1
         cache = self._csr_cache
         if cache is not None and not self._csr_dirty and cache[0] == n:
-            return cache[1], cache[2]
+            return cache[1]
         self._csr_dirty = False
         t0 = time.perf_counter()
         indptr, nbr = build_host_csr(list(self.edge_slots.keys()),
@@ -691,9 +946,20 @@ class MemoryIndex:
         self.csr_builds += 1
         self.csr_build_s = time.perf_counter() - t0
         self._csr_pad_hwm = nbr.shape[0]
-        dev = HostStage(self.device).upload([indptr, nbr])
-        self._csr_cache = (n, dev[0], dev[1])
-        return dev[0], dev[1]
+        if self.mesh is None:
+            out = tuple(HostStage(self.device).upload([indptr, nbr]))
+        else:
+            indptr_sh, nbr_sh = split_csr(indptr, nbr, self._n_parts)
+            by_dev: Dict[torch.device, List[int]] = {}
+            for p, d in enumerate(self.mesh.devices):
+                by_dev.setdefault(d, []).append(p)
+            out = [None] * self._n_parts
+            for d, ps in by_dev.items():
+                ip, nb = HostStage(d).upload([indptr_sh[ps], nbr_sh[ps]])
+                for j, p in enumerate(ps):
+                    out[p] = (ip[j], nb[j])
+        self._csr_cache = (n, out)
+        return out
 
     def _readback(self, packed: torch.Tensor) -> np.ndarray:
         """The one device-to-host copy of a fused dispatch."""
@@ -715,7 +981,7 @@ class MemoryIndex:
         results = [RetrievalResult() for _ in range(nq)]
         if nq == 0 or not self.id_to_row:
             return results
-        cap = self.state.capacity
+        cap = self.capacity
         dim = self.dim
         ragged = self.serve_ragged
         if ragged:
@@ -762,50 +1028,20 @@ class MemoryIndex:
             out[:nq] = arr
             return out
 
-        cap_take_s = min(cap_take, k_bucket)
-        boost = bool(boost_on.any())
         t0 = time.perf_counter()
-        with torch.profiler.record_function("lz.serve.exact"):
+        mode = "exact" if self.mesh is None else "sharded_exact"
+        dispatch = (self._dispatch_one if self.mesh is None
+                    else self._dispatch_sharded)
+        with torch.profiler.record_function(f"lz.serve.{mode}"):
             with self._lock:
-                st = self.state
-                indptr, nbr = self._csr_for(st)
-                cols = {"q": qp, "valid": padb(valid),
-                        "tenant": padb(tenants, -1, np.int32),
-                        "gate": padb(gate_on)}
-                if ragged:
-                    cols["k_q"] = padb(k_arr, 0, np.int32)
-                if boost:
-                    cols["boost"] = padb(boost_on)
-                    if ragged:
-                        cols["cap_q"] = padb(cap_arr, 0, np.int32)
-                up = dict(zip(cols, self._stage.upload(list(cols.values()))))
-                args = (indptr, nbr, up["q"], up["valid"], up["tenant"],
-                        up["gate"])
-                statics = dict(k=k_bucket, cap_take=cap_take_s,
-                               max_nbr=max_nbr)
-                if ragged:
-                    statics["k_live"] = int(k_arr.max())
-                if boost:
-                    now_rel = ((now if now is not None else time.time())
-                               - self.epoch)
-                    scalars = (now_rel, super_gate, acc_boost, nbr_boost)
-                    if ragged:
-                        _, packed = S.search_fused_ragged(
-                            st, *args, up["boost"], up["k_q"], up["cap_q"],
-                            *scalars, **statics)
-                    else:
-                        _, packed = S.search_fused(st, *args, up["boost"],
-                                                   *scalars, **statics)
-                elif ragged:
-                    packed = S.search_fused_ragged_read(
-                        st, *args, up["k_q"], super_gate, **statics)
-                else:
-                    packed = S.search_fused_read(st, *args, super_gate,
-                                                 **statics)
+                packed = dispatch(qp, padb, valid, tenants, gate_on, boost_on,
+                                  k_arr, cap_arr, k_bucket,
+                                  min(cap_take, k_bucket), max_nbr,
+                                  super_gate, acc_boost, nbr_boost, now)
             host = self._readback(packed)
         tel.record("serve.dispatch_ms", (time.perf_counter() - t0) * 1e3,
-                   labels={"mode": "exact"})
-        tel.bump("serve.dispatches", labels={"mode": "exact"})
+                   labels={"mode": mode})
+        tel.bump("serve.dispatches", labels={"mode": mode})
         with tel.span("serve.decode_ms"):
             gate_s, gate_r, ann_s, ann_r, fast, counters = unpack_retrieval(
                 host[:nq], k_bucket)
@@ -816,6 +1052,79 @@ class MemoryIndex:
         record_device_counters(tel, counters, fast, gate_on[:nq], valid[:nq],
                                np.asarray([min(int(r.k), cap) for r in reqs]))
         return out
+
+    def _dispatch_sharded(self, qp, padb, valid, tenants, gate_on, boost_on,
+                          k_arr, cap_arr, k_bucket, cap_take, max_nbr,
+                          super_gate, acc_boost, nbr_boost, now):
+        """The fused dispatch under a mesh (``state.search_fused_sharded``,
+        the counterpart of ``lazzaro_tpu/core/index.py:
+        _dispatch_fused_sharded`` in exact mode): one upload to the first
+        device, each shard's two-tier scan, the merges, the owner-local
+        boosts; returns the packed array. It is always ragged: a static
+        batch gives every query the bucket's k and cap, which masks
+        nothing. Called under the state lock."""
+        csr = self._csr_for()
+        fill_k = 0
+        if not self.serve_ragged:
+            fill_k = k_bucket
+            k_arr = np.full_like(k_arr, k_bucket)
+            cap_arr = np.full_like(cap_arr, cap_take)
+        boost = bool(boost_on.any())
+        cols = {"q": qp, "valid": padb(valid),
+                "tenant": padb(tenants, -1, np.int32), "gate": padb(gate_on),
+                "k_q": padb(k_arr, fill_k, np.int32)}
+        if boost:
+            cols["boost"] = padb(boost_on)
+            cols["cap_q"] = padb(cap_arr, 0, np.int32)
+        up = dict(zip(cols, self._stage.upload(list(cols.values()))))
+        statics = dict(k=k_bucket, cap_take=cap_take, max_nbr=max_nbr,
+                       k_live=int(k_arr.max()))
+        if boost:
+            now_rel = (now if now is not None else time.time()) - self.epoch
+            return S.search_fused_sharded(
+                self.shards, csr, up["q"], up["valid"], up["tenant"],
+                up["gate"], up["boost"], up["k_q"], up["cap_q"], now_rel,
+                super_gate, acc_boost, nbr_boost, **statics)
+        return S.search_fused_sharded_read(
+            self.shards, csr, up["q"], up["valid"], up["tenant"], up["gate"],
+            up["k_q"], super_gate, **statics)
+
+    def _dispatch_one(self, qp, padb, valid, tenants, gate_on, boost_on,
+                      k_arr, cap_arr, k_bucket, cap_take, max_nbr,
+                      super_gate, acc_boost, nbr_boost, now):
+        """The single-device fused dispatch: one upload, one two-tier launch
+        and the tail; returns the packed array. Called under the state
+        lock."""
+        ragged = self.serve_ragged
+        boost = bool(boost_on.any())
+        st = self.state
+        indptr, nbr = self._csr_for(st)
+        cols = {"q": qp, "valid": padb(valid),
+                "tenant": padb(tenants, -1, np.int32), "gate": padb(gate_on)}
+        if ragged:
+            cols["k_q"] = padb(k_arr, 0, np.int32)
+        if boost:
+            cols["boost"] = padb(boost_on)
+            if ragged:
+                cols["cap_q"] = padb(cap_arr, 0, np.int32)
+        up = dict(zip(cols, self._stage.upload(list(cols.values()))))
+        args = (indptr, nbr, up["q"], up["valid"], up["tenant"], up["gate"])
+        statics = dict(k=k_bucket, cap_take=cap_take, max_nbr=max_nbr)
+        if ragged:
+            statics["k_live"] = int(k_arr.max())
+        if boost:
+            now_rel = (now if now is not None else time.time()) - self.epoch
+            scalars = (now_rel, super_gate, acc_boost, nbr_boost)
+            if ragged:
+                return S.search_fused_ragged(
+                    st, *args, up["boost"], up["k_q"], up["cap_q"], *scalars,
+                    **statics)[1]
+            return S.search_fused(st, *args, up["boost"], *scalars,
+                                  **statics)[1]
+        if ragged:
+            return S.search_fused_ragged_read(st, *args, up["k_q"],
+                                              super_gate, **statics)
+        return S.search_fused_read(st, *args, super_gate, **statics)
 
     def _demux_fused(self, reqs, results, valid, boost_on, gate_s, gate_r,
                      ann_s, ann_r, fast, cap, lengths=None):

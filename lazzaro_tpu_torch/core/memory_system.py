@@ -11,7 +11,9 @@ turn runs the gate and the ANN search as two launches of the masked top-k
 kernel and pays the boosts as separate scatters. A conversation end
 extracts facts, probes them for duplicates with one batched top-1 search,
 adds the new ones, links them (same-shard and any-shard scans) and decays,
-prunes and evicts.
+prunes and evicts. With ``mesh`` the arena is row-sharded over the mesh's
+devices (``core.index``): every scan runs per shard and a merge kernel
+combines the shards' candidates.
 
 State lives in memory only in this slice: there is no store, no turn or
 fact journal and no snapshot. ``switch_user`` keeps each tenant's host graph
@@ -106,7 +108,9 @@ class MemorySystem:
         device=None,
     ):
         """``device`` defaults to ``"cuda"`` and raises ``RuntimeError``
-        without a GPU; ``device="cpu"`` runs every kernel's plain version."""
+        without a GPU; ``device="cpu"`` runs every kernel's plain version.
+        ``mesh`` (``lazzaro_tpu_torch.parallel.make_mesh(...)``) row-shards
+        the arena over the mesh's devices, which then replace ``device``."""
         self.config = config or MemoryConfig()
         cfg = self.config
 
@@ -132,10 +136,6 @@ class MemorySystem:
         self.verbose = verbose
 
         cfg.check_ported()
-        if mesh is not None:
-            raise NotImplementedError(
-                "MemorySystem(mesh=...): not ported to lazzaro_tpu_torch yet "
-                "(ROADMAP Queue 1 item 21, multi-device)")
         if store is not None:
             raise NotImplementedError(
                 f"MemorySystem(store=...): not ported yet (ROADMAP {_STORE_ITEM})")
@@ -163,9 +163,10 @@ class MemorySystem:
         self._parked: Dict[str, _TenantGraph] = {}
         self.telemetry = Telemetry(cfg.serve_telemetry_window,
                                    enabled=cfg.serve_telemetry)
+        self.mesh = mesh
         self.index = MemoryIndex(dim, capacity=cfg.initial_capacity,
                                  edge_capacity=cfg.max_edges,
-                                 dtype=cfg.dtype, device=device,
+                                 dtype=cfg.dtype, device=device, mesh=mesh,
                                  telemetry=self.telemetry,
                                  serve_ragged=cfg.serve_ragged,
                                  serve_k_max=cfg.serve_k_max,
@@ -1138,7 +1139,11 @@ Return JSON: {"memories": [{"content": "...", "type": "semantic|episodic|procedu
             "conversation_count": self.conversation_count,
             "profile_domains_filled": sum(1 for v in self.profile.data.values() if v),
             "auto_consolidate": self.auto_consolidate,
-            "vector_store": f"device arena on {self.device} (in memory)",
+            "vector_store": (f"device arena on {self.device} (in memory)"
+                             if self.mesh is None else
+                             f"device arena over a {self.mesh.size}-shard "
+                             f"mesh (in memory)"),
+            "mesh_size": self.mesh.size if self.mesh is not None else 1,
             "performance": {
                 "avg_retrieval_ms": f"{float(np.mean(rt)) if rt else 0:.1f}",
                 "p95_retrieval_ms": f"{float(np.percentile(rt, 95)) if rt else 0:.1f}",

@@ -17,12 +17,21 @@ calls :func:`ops.topk.stable_topk` (score descending, ties to the lowest
 row), and the arena scans go through :func:`ops.masked_topk.masked_topk`
 (classic search) and :func:`ops.fused_topk.fused_topk` (fused serving), the
 Hopper kernels on a CUDA arena.
+
+Under a mesh (``MemoryIndex(mesh=...)``) the arena is a list of shards, one
+``ArenaState`` per shard holding the global rows ``[p * L, (p + 1) * L)``,
+the JAX package's row sharding: the global sentinel is the last row of the
+last shard. Every single-device function here runs unchanged on one
+shard's state with local rows, as each device sees a plain local array
+under ``shard_map``; :func:`route_rows` splits a host row list by owner,
+and :func:`search_fused_sharded` is the fused serving program over the
+shards (``state.py:make_fused_sharded``, exact mode).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, fields
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -30,6 +39,7 @@ import torch
 from lazzaro_tpu_torch.ops.chunking import chunked_map, nt_dot
 from lazzaro_tpu_torch.ops.fused_topk import fused_topk
 from lazzaro_tpu_torch.ops.masked_topk import masked_topk
+from lazzaro_tpu_torch.ops.sharded_merge import sharded_merge
 from lazzaro_tpu_torch.ops.topk import stable_topk
 
 NEG_INF = -1e30
@@ -345,6 +355,18 @@ def arena_link_candidates_multi(state: ArenaState, new_rows, excl_rows,
     1 same shard, -1 other shards): one score matrix per query chunk,
     re-masked per mode. Returns ``(scores, rows)`` pairs flattened in
     ``shard_modes`` order."""
+    r = _rows(new_rows, state.emb.device)
+    return arena_link_scan(state, state.emb[r], state.shard_id[r], excl_rows,
+                           tenant, k, shard_modes)
+
+
+def arena_link_scan(state: ArenaState, q_emb: torch.Tensor,
+                    q_shard: torch.Tensor, excl_rows, tenant, k: int,
+                    shard_modes: Tuple[int, ...] = (1, 0)):
+    """:func:`arena_link_candidates_multi` for query rows given by value
+    (``q_emb [B, d]``, ``q_shard [B]`` their shard ids): under a mesh each
+    shard scans its own rows for new rows that may live on another shard.
+    ``excl_rows`` are rows of ``state``."""
     dev = state.emb.device
     lmask = state.alive & (state.tenant_id == int(tenant)) & ~state.is_super
     excl = torch.zeros_like(state.alive)
@@ -353,20 +375,20 @@ def arena_link_candidates_multi(state: ArenaState, new_rows, excl_rows,
     emb = state.emb.float()
     neg = _f32(NEG_INF, dev)
 
-    def chunk(rows_c):
-        scores = nt_dot(emb[rows_c], emb)
+    def chunk(idx):
+        scores = nt_dot(q_emb[idx], emb)
         same = None
         outs = []
         for sm in shard_modes:
             full_mask = mask[None, :]
             if sm != 0:
                 if same is None:
-                    same = state.shard_id[rows_c][:, None] == state.shard_id[None, :]
+                    same = q_shard[idx][:, None] == state.shard_id[None, :]
                 full_mask = full_mask & (same if sm == 1 else ~same)
             outs.extend(stable_topk(torch.where(full_mask, scores, neg), k))
         return tuple(outs)
 
-    return chunked_map(chunk, _rows(new_rows, dev))
+    return chunked_map(chunk, torch.arange(q_emb.shape[0], device=dev))
 
 
 def best_earlier_match(m: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -590,22 +612,27 @@ def _search_fused_scan(state: ArenaState, csr_indptr, csr_nbr, q, q_valid,
 
 def _boost_scatter(state: ArenaState, acc_rows: torch.Tensor,
                    nbr_rows: torch.Tensor, now, acc_boost,
-                   nbr_boost) -> ArenaState:
+                   nbr_boost, zero_last: bool = True) -> ArenaState:
     """Scatter phase (``state.py:_boost_scatter``), in place: per-row
     access and neighbor counts (a row retrieved by two queries of the batch
     counts twice), salience raised by the count-weighted boosts in the JAX
     order of operations and capped at 1.0, ``access_count`` raised by the
     access count, ``last_accessed`` set to ``now`` on every touched row.
-    Masked entries point at the sentinel row, whose counts are zeroed."""
+    Masked entries point at the sentinel row, whose counts are zeroed; a
+    shard's scatter (``zero_last=False``) routes the rows it does not own
+    to index ``n``, one past its rows, whose counts are dropped (XLA drops
+    such out-of-range updates; here they land in a spare bucket)."""
     n = state.salience.shape[0]
     dev = state.salience.device
+    size = n if zero_last else n + 1
 
     def counts(rows):
         flat = rows.reshape(-1).long()
-        cnt = torch.zeros((n,), dtype=torch.int32, device=dev)
+        cnt = torch.zeros((size,), dtype=torch.int32, device=dev)
         cnt.index_add_(0, flat, torch.ones_like(flat, dtype=torch.int32))
-        cnt[n - 1:].zero_()        # a fill: no host value to copy over
-        return cnt
+        if zero_last:
+            cnt[n - 1:].zero_()    # a fill: no host value to copy over
+        return cnt[:n]
 
     acc_cnt, nbr_cnt = counts(acc_rows), counts(nbr_rows)
     sal = (state.salience + acc_cnt.float() * acc_boost
@@ -716,3 +743,199 @@ def search_fused_ragged_read(state: ArenaState, csr_indptr, csr_nbr, q,
                              gate_on, None, sg, k, cap_take, max_nbr,
                              k_q=k_q, k_live=k_live, read_only=True)
     return _sem_finish_read(res)
+
+
+# ---------------------------------------------------------------------------
+# Row-sharded arena (MemoryIndex(mesh=...)): host routing and the fused
+# serving program over the shards, ``state.py:make_fused_sharded`` in exact
+# mode. The shards' scans launch on their devices; the merges and the
+# replicated arithmetic run on the first shard's device, the owner shards
+# gather CSR windows and scatter boosts for their own rows only.
+# ---------------------------------------------------------------------------
+
+
+def init_shards(capacity: int, dim: int, dtype, devices) -> List[ArenaState]:
+    """An empty arena of ``capacity + 1`` rows split over ``devices``: shard
+    ``p`` holds ``L = (capacity + 1) / n`` rows on ``devices[p]``, no scratch
+    row of its own (the global sentinel is the last shard's last row)."""
+    n = len(devices)
+    if (capacity + 1) % n:
+        raise ValueError(f"{capacity + 1} rows do not split over {n} shards")
+    local_n = (capacity + 1) // n
+    return [init_arena(local_n - 1, dim, dtype, dev) for dev in devices]
+
+
+def shards_from_numpy(cols: Dict[str, np.ndarray], devices) -> List[ArenaState]:
+    """Global numpy columns split by owner onto ``devices``."""
+    n = len(devices)
+    total = cols["salience"].shape[0]
+    if total % n:
+        raise ValueError(f"{total} rows do not split over {n} shards")
+    local_n = total // n
+    return [ArenaState(**{f: _tensor(cols[f][p * local_n:(p + 1) * local_n],
+                                     dev) for f in ARENA_FIELDS})
+            for p, dev in enumerate(devices)]
+
+
+def grow_shards(shards: List[ArenaState], new_capacity: int,
+                devices) -> List[ArenaState]:
+    """:func:`grow_arena` for a row-sharded arena: the rows per shard change,
+    so the live rows (all but the old sentinel) split anew over the
+    devices, each keeping its global row number (rare)."""
+    old_cap = len(shards) * shards[0].salience.shape[0] - 1
+    assert new_capacity > old_cap
+    fresh = init_shards(new_capacity, shards[0].dim, shards[0].emb.dtype,
+                        devices)
+    local_n = fresh[0].salience.shape[0]
+    dev0 = shards[0].emb.device
+    for name in ARENA_FIELDS:
+        whole = torch.cat([getattr(st, name).to(dev0) for st in shards])
+        for p, st in enumerate(fresh):
+            lo, hi = p * local_n, min((p + 1) * local_n, old_cap)
+            if lo < hi:
+                getattr(st, name)[:hi - lo] = whole[lo:hi].to(st.emb.device)
+    return fresh
+
+
+def route_rows(rows: np.ndarray, local_n: int):
+    """Split global ``rows`` by owner shard: ``[(p, sel, local_rows)]`` for
+    every shard that owns one (``sel`` indexes ``rows``), in shard order."""
+    rows = np.asarray(rows, np.int64)
+    owner = rows // local_n
+    out = []
+    for p in np.unique(owner).tolist():
+        sel = np.nonzero(owner == p)[0]
+        out.append((int(p), sel, rows[sel] - p * local_n))
+    return out
+
+
+def _fused_scan_sharded(shards, q, tenant, k: int, k_q, k_live=None):
+    """Shard-local two-tier scans, then the two merges (``make_fused_sharded.
+    _scan_merge``): the ANN top-``min(k, n * k_l)`` with the ``k_q`` tail
+    and the gate top-1, masked entries on the global sentinel. Returns
+    ``(gate_s [Q], gate_r [Q], ann_s, ann_r)`` with global rows on the
+    first shard's device."""
+    n = len(shards)
+    local_n = shards[0].salience.shape[0]
+    sent = n * local_n - 1
+    k_l = max(1, min(k, local_n))
+    kl_live = None if k_live is None else min(int(k_live), k_l)
+    dev0 = shards[0].emb.device
+    qn = normalize(q.float()).to(shards[0].emb.dtype)
+    g_s, g_r, a_s, a_r = [], [], [], []
+    for st in shards:
+        dev = st.emb.device
+        outs = fused_topk(st.emb, st.alive, st.tenant_id, st.is_super,
+                          qn.to(dev, non_blocking=True),
+                          tenant.to(dev, non_blocking=True), None, k_l,
+                          k_live=kl_live)
+        for lst, x in zip((g_s, g_r, a_s, a_r), outs):
+            lst.append(x)
+    ann_s, ann_r = sharded_merge(a_s, a_r, local_n, min(k, n * k_l),
+                                 k_q=k_q, sentinel=sent, device=dev0)
+    gate_s, gate_r = sharded_merge([x[:, None] for x in g_s],
+                                   [x[:, None] for x in g_r], local_n, 1,
+                                   sentinel=sent, device=dev0)
+    return gate_s[:, 0], gate_r[:, 0], ann_s, ann_r
+
+
+def _boost_tail_sharded(shards, csr, ann_s, ann_r, fast, q_valid, tenant,
+                        boost_on, cap_q, now, acc_boost, nbr_boost,
+                        cap_take: int, max_nbr: int):
+    """The gate/CSR/boost tail against the row-sharded arena
+    (``make_fused_sharded._boost_tail``): the owner shard gathers each
+    accessed row's CSR window from its own slice (``-1`` elsewhere; the
+    element-wise max on the first device keeps exactly the owner's window,
+    the ``pmax``), the dedup and in-result masks are computed once on the
+    merged ids, and each shard scatters the boosts of the rows it owns.
+    Returns ``(n_acc [Q], n_nbr [Q])``, the ``psum`` a sum over shards."""
+    n = len(shards)
+    local_n = shards[0].salience.shape[0]
+    sent = n * local_n - 1
+    dev0 = ann_s.device
+    do_boost = boost_on & q_valid & ~fast
+    take = (ann_s[:, :cap_take] > NEG_INF / 2) & do_boost[:, None]
+    if cap_q is not None:
+        take = take & (torch.arange(cap_take, device=dev0)[None, :]
+                       < cap_q[:, None])
+    acc_rows = torch.where(take, ann_r[:, :cap_take], sent)     # global rows
+    acc_idx, windows = [], None
+    for p, (st, (indptr, nbr)) in enumerate(zip(shards, csr)):
+        dev = st.emb.device
+        acc_p = acc_rows.to(dev, non_blocking=True)
+        loc = acc_p - p * local_n
+        mine = (loc >= 0) & (loc < local_n) & (acc_p != sent)
+        safe = torch.clamp(loc, 0, local_n - 1).long()
+        start = torch.where(mine, indptr[safe], 0)
+        end = torch.where(mine, indptr[safe + 1], 0)
+        idx = start[:, :, None] + torch.arange(max_nbr, device=dev,
+                                               dtype=start.dtype)[None, None, :]
+        ok = idx < end[:, :, None]
+        win = torch.where(ok, nbr[torch.clamp(idx, max=nbr.shape[0] - 1).long()],
+                          -1).to(dev0, non_blocking=True)
+        windows = win if windows is None else torch.maximum(windows, win)
+        acc_idx.append(torch.where(mine, loc, local_n))
+    flat = windows.reshape(windows.shape[0], -1)                 # [Q, M]
+    m = flat.shape[1]
+    earlier = torch.ones((m, m), dtype=torch.bool, device=dev0).tril(-1)
+    dup = ((flat[:, :, None] == flat[:, None, :]) & earlier[None]).any(-1)
+    in_res = (flat[:, :, None] == acc_rows[:, None, :]).any(-1)
+    keep = ~dup & ~in_res
+    n_acc = (acc_rows != sent).sum(-1).int()
+    n_nbr = torch.zeros_like(n_acc)
+    for p, st in enumerate(shards):
+        dev = st.emb.device
+        flat_p = flat.to(dev, non_blocking=True)
+        nloc = flat_p - p * local_n
+        nmine = (nloc >= 0) & (nloc < local_n) & (flat_p >= 0)
+        nsafe = torch.clamp(nloc, 0, local_n - 1).long()
+        nvalid = (nmine & st.alive[nsafe]
+                  & (st.tenant_id[nsafe]
+                     == tenant.to(dev, non_blocking=True)[:, None]))
+        nbr_idx = torch.where(nvalid & keep.to(dev, non_blocking=True), nloc,
+                              local_n)
+        _boost_scatter(st, acc_idx[p], nbr_idx, _scalar(now, dev),
+                       _scalar(acc_boost, dev), _scalar(nbr_boost, dev),
+                       zero_last=False)
+        n_nbr += (nbr_idx != local_n).sum(-1).int().to(dev0, non_blocking=True)
+    return n_acc, n_nbr
+
+
+def search_fused_sharded(shards, csr_shards, q, q_valid, tenant, gate_on,
+                         boost_on, k_q, cap_q, now, super_gate, acc_boost,
+                         nbr_boost, k: int, cap_take: int, max_nbr: int,
+                         k_live=None) -> torch.Tensor:
+    """One padded cross-tenant query batch against the row-sharded arena
+    (``state.py:make_fused_sharded(mode="exact", ragged=True).serve``): per
+    shard one launch of the two-tier kernel over its rows at ``k_l = min(k,
+    L)``, the ANN and gate merges, the gate verdict, and the boosts applied
+    in place by their owner shards. ``shards`` is the list of shard states,
+    ``csr_shards`` each shard's ``(indptr [L + 1], nbr [E])`` with global
+    neighbor rows (``core.index.split_csr``); the batch columns live on the
+    first shard's device. ``k_live`` (host int >= max k_q) lets the scans
+    stop their lists early. Returns the packed ``[Q, 3 + 2k + 5]`` array
+    on the first shard's device, as :func:`search_fused_ragged` does."""
+    dev0 = shards[0].emb.device
+    gate_s, gate_r, ann_s, ann_r = _fused_scan_sharded(shards, q, tenant, k,
+                                                       k_q, k_live)
+    fast = gate_on & (gate_s > _scalar(super_gate, dev0))
+    n_acc, n_nbr = _boost_tail_sharded(
+        shards, csr_shards, ann_s, ann_r, fast, q_valid, tenant, boost_on,
+        cap_q, now, acc_boost, nbr_boost, min(cap_take, ann_s.shape[1]),
+        max_nbr)
+    return _pack_retrieval(gate_s, gate_r, ann_s, ann_r, fast, acc=n_acc,
+                           nbr=n_nbr)
+
+
+def search_fused_sharded_read(shards, csr_shards, q, q_valid, tenant,
+                              gate_on, k_q, super_gate, k: int,
+                              cap_take: int, max_nbr: int,
+                              k_live=None) -> torch.Tensor:
+    """Read-only twin of :func:`search_fused_sharded` (``make_fused_sharded
+    .read``): the scans, the merges and the verdict, no boosts; the boost
+    counters are 0. Returns the packed array."""
+    dev0 = shards[0].emb.device
+    gate_s, gate_r, ann_s, ann_r = _fused_scan_sharded(shards, q, tenant, k,
+                                                       k_q, k_live)
+    fast = gate_on & (gate_s > _scalar(super_gate, dev0))
+    return _pack_retrieval(gate_s, gate_r, ann_s, ann_r, fast)

@@ -7,11 +7,16 @@ exact ties, and the dedup and link decisions must not depend on luck.
 ``masked_topk`` is the plain masked cosine top-k, and the plain version the
 Hopper kernel (``ops.masked_topk``) is held against; ``ragged_mask`` is the
 per-query k boundary of both kernels' ragged forms.
+
+The row-sharded top-k (``lazzaro_tpu/ops/topk.py:make_sharded_topk``) is
+:func:`make_sharded_topk`: the masked top-k kernel on each shard's rows,
+then the cross-shard merge (``ops.sharded_merge``), whose plain version is
+:func:`sharded_topk_merge`.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
@@ -75,3 +80,72 @@ def masked_topk(emb: torch.Tensor, mask: torch.Tensor, query: torch.Tensor,
     if query.ndim == 1:
         return top_s[0], top_i[0]
     return top_s, top_i
+
+
+def sharded_topk_merge(top_s: Sequence[torch.Tensor],
+                       top_i: Sequence[torch.Tensor], local_n: int, k: int,
+                       k_q: Optional[torch.Tensor] = None,
+                       sentinel: Optional[int] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain cross-shard merge (``lazzaro_tpu/ops/topk.py:sharded_topk_merge``
+    with the row globalization of ``:165`` and
+    ``core/state.py:_globalize_rows``). ``top_s[p]`` / ``top_i[p]`` are shard
+    ``p``'s ``[Q, kl]`` candidates (scores f32, LOCAL rows) in
+    :func:`stable_topk` order; shard ``p`` holds the global rows ``[p *
+    local_n, (p + 1) * local_n)``. Rows are globalized (entries scoring at
+    or below ``NEG_INF / 2`` become ``sentinel`` when one is given), the
+    lists concatenate shard-major, so ties go to the lower shard, i.e. to
+    the lower global row, as ``lax.top_k`` over the ``all_gather`` orders
+    them, and :func:`stable_topk` takes the top ``k``. With ``k_q [Q]`` the
+    positions at or past ``k_q[q]`` become ``(NEG_INF, sentinel)`` (-1
+    without one). Runs on the device of ``top_s[0]``; returns ``(scores
+    [Q, k] f32, rows [Q, k] i32)``."""
+    dev = top_s[0].device
+    scores, rows = [], []
+    for p, (s, r) in enumerate(zip(top_s, top_i)):
+        s = s.to(dev).float()
+        r = r.to(dev).long() + p * int(local_n)
+        if sentinel is not None:
+            r = torch.where(s > NEG_INF / 2, r, int(sentinel))
+        scores.append(s)
+        rows.append(r)
+    all_s, all_r = torch.cat(scores, dim=1), torch.cat(rows, dim=1)
+    fin_s, pos = stable_topk(all_s, k)
+    fin_r = torch.gather(all_r, 1, pos).int()
+    if k_q is not None:
+        fin_s, fin_r = ragged_mask(fin_s, fin_r, k_q,
+                                   -1 if sentinel is None else int(sentinel))
+    return fin_s, fin_r
+
+
+def make_sharded_topk(mesh, axis: str = "data", k: int = 10) -> Callable:
+    """The row-sharded masked top-k (``lazzaro_tpu/ops/topk.py:115``) over
+    ``mesh`` (``parallel.mesh.Mesh``). Returns ``search(shards, mask_shards,
+    query) -> (scores [Q, k] f32, global_rows [Q, k] i32)``: ``shards[p]``
+    is shard ``p``'s ``[L, d]`` embedding rows on its device and
+    ``mask_shards[p]`` its ``[L]`` bool alive mask, the query ``[Q, d]`` (or
+    ``[d]``) is replicated to every shard. Each shard runs
+    ``ops.masked_topk.masked_topk`` at ``k_l = min(k, L)`` (the Hopper kernel
+    on a CUDA shard); the merge (``ops.sharded_merge``) runs on the mesh's
+    first device and globalizes every entry, as ``:165`` does."""
+    from lazzaro_tpu_torch.ops.masked_topk import masked_topk
+    from lazzaro_tpu_torch.ops.sharded_merge import sharded_merge
+
+    n = mesh.shape[axis]
+    dev0 = mesh.devices[0]
+
+    def search(shards, mask_shards, query):
+        if len(shards) != n or len(mask_shards) != n:
+            raise ValueError(f"make_sharded_topk: {n} shards expected")
+        q = torch.atleast_2d(query)
+        local_n = shards[0].shape[0]
+        k_l = min(k, local_n)
+        top_s, top_i = [], []
+        for emb_l, mask_l in zip(shards, mask_shards):
+            s, r = masked_topk(emb_l, mask_l,
+                               q.to(emb_l.device, non_blocking=True), k_l)
+            top_s.append(s)
+            top_i.append(r)
+        return sharded_merge(top_s, top_i, local_n, k, device=dev0)
+
+    return search

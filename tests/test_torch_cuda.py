@@ -1,6 +1,6 @@
-"""The top-k and flash-attention kernels (forward and backward) on the card,
-against their plain versions, and the decoder LM's device paths, its train
-step included.
+"""The top-k, cross-shard merge and flash-attention kernels (forward and
+backward) on the card, against their plain versions, the row-sharded arena
+on one card, and the decoder LM's device paths, its train step included.
 
 Marked ``cuda``: these tests need an NVIDIA GPU with ``nvcc`` and skip
 elsewhere. Run them on the card with
@@ -236,6 +236,163 @@ def test_host_stage_never_overwrites_a_pending_upload(cuda):
         assert np.array_equal(g.cpu().numpy(), w)
     stage.upload(b)
     assert stage.allocations == 2                       # copy done: reused
+
+
+# ---------------------------------------------------------------------------
+# The cross-shard merge (csrc/sharded_merge.cu) and the row-sharded arena
+# ---------------------------------------------------------------------------
+
+
+def merge_lists(gen, n, q, kl, local_n, device, masked=0.0, dead_shard=None):
+    """Per-shard lists in scan order (score descending, lower row first on
+    ties): grid scores with ties inside and across shards, a ``masked``
+    share at -1e30, optionally one shard all masked; i32 local rows."""
+    s = grid(gen, (n, q, kl), torch.float32, device) / 4
+    s = torch.where(torch.rand((n, q, kl), generator=gen, device=device)
+                    < masked, -1e30, s)
+    if dead_shard is not None:
+        s[dead_shard] = -1e30
+    step = local_n // kl
+    rows = (torch.arange(kl, device=device) * step
+            + torch.randint(0, step, (n, q, 1), generator=gen, device=device))
+    s, order = s.sort(dim=-1, descending=True, stable=True)
+    return s, torch.gather(rows, -1, order).int()
+
+
+@pytest.mark.parametrize("n,q,kl,k,local_n,ragged,sentinel,masked,dead", [
+    (8, 1, 10, 10, 131_072, False, False, 0.0, None),    # classic search
+    (8, 8192, 1, 1, 131_072, False, False, 0.1, None),   # dedup probe
+    (8, 8192, 3, 3, 131_072, False, False, 0.1, None),   # link scan
+    (8, 64, 128, 128, 131_072, True, True, 0.2, None),   # fused fleet, ragged
+    (8, 64, 1, 1, 131_072, False, True, 0.3, None),      # the gate
+    (8, 16, 4, 24, 64, True, True, 0.1, 2),              # an all-masked shard
+    (8, 5, 3, 10, 3, False, True, 0.0, None),            # L < k: kl = L = 3
+    (1, 7, 9, 9, 100, False, False, 0.0, None),
+])
+def test_merge_kernel_matches_plain_version(cuda, n, q, kl, k, local_n, ragged,
+                                            sentinel, masked, dead):
+    from lazzaro_tpu_torch.ops import sharded_merge as sm
+
+    gen = torch.Generator(device=cuda).manual_seed(n * q + kl)
+    s, r = merge_lists(gen, n, q, kl, local_n, cuda, masked, dead)
+    k_q = None
+    if ragged:
+        k_q = torch.tensor([(5, 10, 128)[i % 3] for i in range(q)],
+                           dtype=torch.int32, device=cuda).clamp(max=k)
+        k_q[-1] = 0
+    sent = n * local_n - 1 if sentinel else None
+    before = sm.launches
+    got = sm.sharded_merge(list(s), list(r), local_n, k, k_q=k_q, sentinel=sent)
+    want = sm.sharded_merge_reference(list(s), list(r), local_n, k, k_q, sent)
+    torch.cuda.synchronize()
+    assert sm.launches == before + 1
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[0], want[0])
+    # i64 rows (the classic scan's) give the same merge
+    got64 = sm.sharded_merge(list(s), [x.long() for x in r], local_n, k,
+                             k_q=k_q, sentinel=sent)
+    assert torch.equal(got64[1], want[1]) and torch.equal(got64[0], want[0])
+
+
+def test_merge_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    from lazzaro_tpu_torch.ops import sharded_merge as sm
+
+    s = torch.zeros((2, 3), device=cuda)
+    r = torch.zeros((2, 3), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        sm.sharded_merge([s, s], [r, r], 8, 7)              # k > n * kl
+    with pytest.raises(ValueError):
+        sm.sharded_merge([s, s[:, :2]], [r, r[:, :2]], 8, 2)
+    with pytest.raises(TypeError):
+        sm.sharded_merge([s, s], [r.float(), r.float()], 8, 2)
+
+
+def test_sharded_topk_on_one_card_equals_the_single_device_kernel(cuda):
+    """``make_sharded_topk`` over 8 shards of ``cuda:0`` against one launch
+    of the masked top-k kernel over the whole arena: exact rows and scores
+    (grid inputs), 8 scan launches and 1 merge launch."""
+    from lazzaro_tpu_torch.ops import sharded_merge as sm
+    from lazzaro_tpu_torch.ops.topk import make_sharded_topk
+    from lazzaro_tpu_torch.parallel import make_mesh
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    n, local_n = 8, 16_384
+    emb = grid(gen, (n * local_n, 64), torch.bfloat16, cuda)
+    emb[local_n * 5 + 7] = emb[11]                          # ties across shards
+    mask = torch.rand(n * local_n, generator=gen, device=cuda) < 0.8
+    mask[local_n:2 * local_n] = False                       # a dead shard
+    q = grid(gen, (64, 64), torch.bfloat16, cuda)
+    q[0] = emb[11]
+    mesh = make_mesh(devices=["cuda:0"] * n)
+    search = make_sharded_topk(mesh, k=10)
+    before = (mt.launches, sm.launches)
+    s, r = search(list(emb.split(local_n)), list(mask.split(local_n)), q)
+    torch.cuda.synchronize()
+    assert (mt.launches - before[0], sm.launches - before[1]) == (n, 1)
+    ws, wr = mt.masked_topk(emb, mask, q, 10)
+    assert torch.equal(r.long(), wr) and torch.equal(s, ws)
+
+
+def test_fused_sharded_dispatch_syncs_only_at_the_readback(cuda, tmp_path):
+    """A ``MemorySystem`` on an 8-shard ``cuda:0`` mesh: a chat turn and a
+    search are each 8 two-tier launches, 2 merges and one device-to-host
+    copy, under ``set_sync_debug_mode("error")``; a classic search is 8
+    scans and 1 merge; ids equal the single-device system's."""
+    from lazzaro_tpu_torch import MemoryConfig, MemorySystem
+    from lazzaro_tpu_torch.ops import sharded_merge as sm
+    from lazzaro_tpu_torch.parallel import make_mesh
+
+    kw = dict(enable_async=False, load_from_disk=False, verbose=False)
+    mesh = make_mesh(devices=["cuda:0"] * 8)
+    ms = MemorySystem(db_dir=str(tmp_path / "m"), mesh=mesh, **kw)
+    one = MemorySystem(db_dir=str(tmp_path / "o"), device="cuda", **kw)
+    try:
+        for sys_ in (ms, one):
+            for c in range(2):
+                sys_.start_conversation()
+                for i in range(6):
+                    sys_.add_to_short_term(f"I like topic {c} number {i} a lot.",
+                                           "semantic", 0.6)
+                sys_.end_conversation()
+            sys_.start_conversation()
+            sys_.chat("Which topic number do I like?")     # builds the CSR
+        index = ms.index
+        serve, readback = index.search_fused_requests, index._readback
+        readbacks = []
+
+        def read_once(packed):
+            torch.cuda.set_sync_debug_mode(0)
+            try:
+                readbacks.append(packed.shape)
+                return readback(packed)
+            finally:
+                torch.cuda.set_sync_debug_mode("error")
+
+        def strict(*args, **kwargs):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return serve(*args, **kwargs)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+
+        index.search_fused_requests, index._readback = strict, read_once
+        before = (ft.launches, sm.launches, mt.launches)
+        ms.chat("Tell me about topic 1 number 3 please.")
+        got = [n.id for n in ms.search_memories("topic 0 number 2")]
+        torch.cuda.synchronize()
+        assert (ft.launches - before[0], sm.launches - before[1],
+                mt.launches - before[2]) == (16, 4, 0)
+        assert len(readbacks) == 2
+        assert got == [n.id for n in one.search_memories("topic 0 number 2")]
+        ms.config.serve_fused = one.config.serve_fused = False
+        before = (sm.launches, mt.launches)
+        got = [n.id for n in ms.search_memories("topic 1 number 4")]
+        assert (sm.launches - before[0], mt.launches - before[1]) == (1, 8)
+        assert got == [n.id for n in one.search_memories("topic 1 number 4")]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        ms.close()
+        one.close()
 
 
 # ---------------------------------------------------------------------------

@@ -21,6 +21,7 @@ from lazzaro_tpu_torch.core.memory_shard import MemoryShard
 from lazzaro_tpu_torch.core.providers import HashingEmbedder, HeuristicLLM
 from lazzaro_tpu_torch.models.graph import Edge
 from lazzaro_tpu_torch.ops import masked_topk as mt
+from lazzaro_tpu_torch.parallel import make_mesh
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -88,7 +89,7 @@ def test_unported_entry_points_raise(tmp_path):
     kw = dict(enable_async=False, verbose=False, device="cpu",
               db_dir=str(tmp_path))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MemorySystem(load_from_disk=False, mesh=object(), **kw)
+        make_mesh(("data", "model"), (4, 2), devices=["cpu"] * 8)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         MemorySystem(load_from_disk=False, store=object(), **kw)
     (tmp_path / "nodes.parquet").write_bytes(b"")
