@@ -13,7 +13,9 @@ Phases, each printing its own lines; any failure exits non-zero:
               at edge cases, with times and bounds (the top-k scans, then
               the cross-shard merge and ``make_sharded_topk`` over 8 shards,
               the flash-attention forward and its dQ and dK/dV backward
-              kernels at the decoder's shapes);
+              kernels at the decoder's shapes; the forward's times are
+              device times from ``torch.profiler``, with its achieved
+              TFLOP/s and share of the bound);
   4. main     ``MemorySystem`` on a bf16 768-d arena of 1,048,576 rows. The
               classic path: fill it through ``end_conversation`` with
               ``FILL`` facts (8,192 per conversation, two tenants, a
@@ -184,7 +186,9 @@ def phase_build() -> float:
     for name, proc, out in started:
         text = cuda_build.finish_build(proc, out)
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "Compiling entry function" in line:
+                log(f"  ptxas {name}: {line.split(chr(39))[1]}")
+            elif "registers" in line or "spill" in line or "arning" in line:
                 log(f"  ptxas {name}: {line.strip()}")
     secs = time.perf_counter() - t0
     log(f"[build] {len(names)} source(s) {names} built in {secs:.2f} s")
@@ -209,6 +213,29 @@ def cuda_ms(fn, reps: int, windows: int = 1) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return float(np.median(times))
+
+
+def device_ms(fn, calls: int) -> float:
+    """ms of device time per call of ``fn``: the sum of the CUDA kernels
+    that ``torch.profiler`` records over ``calls`` calls, after one warm-up
+    call. Unlike :func:`cuda_ms` it leaves out the gaps in which the device
+    waits for the host, which for a call of ~0.05 ms are as long as the
+    call itself."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == cuda)
+    if total <= 0:
+        raise RuntimeError("torch.profiler recorded no device time")
+    return total / 1e3 / calls
 
 
 def grid_values(gen, shape, dtype, device):
@@ -1451,8 +1478,10 @@ def flash_bound(B, T, S, H, Hkv, D, item):
 
 def phase_flash(device):
     """The flash kernel against its plain version on every case, O and
-    LSE; times of the kernel, the plain version and, as the yardstick the
-    port never calls, ``scaled_dot_product_attention``."""
+    LSE; device times (:func:`device_ms`) of the kernel, the plain version
+    and, as the yardstick the port never calls,
+    ``scaled_dot_product_attention``, the kernel's achieved TFLOP/s and its
+    share of the bound; event times of back-to-back calls beside them."""
     import torch
     import torch.nn.functional as F
 
@@ -1487,19 +1516,27 @@ def phase_flash(device):
 
         lib_err = float((lib().transpose(1, 2).float() - ref_out.float()).abs().max())
         big = B * T * S > 8e6
-        ms = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v), 20, WINDOWS)
-        plain = cuda_ms(lambda: fa.flash_attention_reference(q, k, v),
-                        2 if big else 5, WINDOWS)
-        lib_ms = cuda_ms(lib, 20, WINDOWS)
+        ms = device_ms(lambda: fa.flash_attention_fwd(q, k, v), 50)
+        plain = device_ms(lambda: fa.flash_attention_reference(q, k, v),
+                          4 if big else 10)
+        lib_ms = device_ms(lib, 50)
+        event_ms = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v), 20, WINDOWS)
+        lib_event_ms = cuda_ms(lib, 20, WINDOWS)
         b_ms, b_by = flash_bound(B, T, S, H, Hkv, D, q.element_size())
+        tflops = 2 * causal_ops(B, T, S, H, D) / ms / 1e9
         log(f"[flash] {label}: max_abs_err O {err} (tol {out_tol}), LSE {lse_err} "
-            f"(tol {lse_tol}), library vs plain {lib_err}; ms {ms:.4f}, plain_ms "
-            f"{plain:.4f}, library_ms {lib_ms:.4f}, bound_ms {b_ms:.4f} ({b_by})")
+            f"(tol {lse_tol}), library vs plain {lib_err}; device ms {ms:.4f} "
+            f"({tflops:.1f} TFLOP/s, {b_ms / ms:.3f} of the bound), plain_ms "
+            f"{plain:.4f}, library_ms {lib_ms:.4f}, bound_ms {b_ms:.4f} ({b_by}); "
+            f"events of back-to-back calls: kernel {event_ms:.4f}, library "
+            f"{lib_event_ms:.4f}")
         rows_out.append({"kernel": "flash_attention", "form": "causal_gqa_fwd",
                          "case": label, "shape": [B, T, S, H, Hkv, D],
                          "dtype": dtype, "ms": ms, "plain_ms": plain,
                          "library_ms": lib_ms, "bound_ms": b_ms,
-                         "bound_by": b_by, "max_abs_err": err,
+                         "bound_by": b_by, "tflops": tflops,
+                         "bound_share": b_ms / ms, "event_ms": event_ms,
+                         "library_event_ms": lib_event_ms, "max_abs_err": err,
                          "lse_max_abs_err": lse_err,
                          "library_vs_plain_max_abs_err": lib_err})
         del q, k, v, out, lse, ref_out, ref_lse, qt, kt, vt

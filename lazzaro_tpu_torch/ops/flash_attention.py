@@ -5,10 +5,11 @@ Replaces the TPU kernels of ``lazzaro_tpu/ops/flash_attention.py``:
 ``_flash_fwd_bhtd`` (body ``_flash_kernel``), the two ``pallas_call``s of
 ``_flash_bwd_bhtd`` (bodies ``_flash_dq_kernel`` and ``_flash_dkv_kernel``)
 and their ``flash_attention`` custom VJP. The kernels are CUDA C++ in
-``csrc/flash_attention.cu`` (forward) and ``csrc/flash_attention_bwd.cu``
-(dQ and dK/dV; their notes say what bounds them and how they are laid
-out), built with ``nvcc`` for ``sm_90a`` on first use and bound through
-``ctypes``.
+``csrc/flash_attention.cu`` (forward: wgmma with register accumulators, K
+and V through a TMA ring, from the Hopper building blocks of
+``csrc/flash_hopper.cuh``) and ``csrc/flash_attention_bwd.cu`` (dQ and
+dK/dV; their notes say what bounds them and how they are laid out), built
+with ``nvcc`` for ``sm_90a`` on first use and bound through ``ctypes``.
 
 Layouts are the JAX package's at every public function: q ``[B, T, H, D]``,
 k/v ``[B, S, Hkv, D]`` with ``H % Hkv == 0`` and ``S >= T``; the causal

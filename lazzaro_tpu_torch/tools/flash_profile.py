@@ -4,8 +4,11 @@ for an A/B of two checkouts on one card.
 
 For each forward case (B, T, S, H, Hkv, D, bf16; the decoder's shapes) it
 prints the kernel's median time over ``--reps`` rounds of 20 calls timed
-with CUDA events, and for each backward case the dQ and the dK/dV kernels'
-medians over ``--reps`` rounds of 10 calls. It then builds
+with CUDA events and its device time per call under ``torch.profiler``
+(the events also count the gaps in which the card waits for the host,
+which for a call of ~0.05 ms are as long as the call), and for each
+backward case the dQ and the dK/dV kernels' medians over ``--reps`` rounds
+of 10 calls and their device times. It then builds
 ``LanguageModel(LMConfig())`` (1.1 B parameters, random weights from
 ``--seed``) and prints the host-clock p50 of ``--reps`` ``logits_for`` calls
 on a 2,047-token text, each through 18 launches of the forward kernel, and
@@ -70,8 +73,25 @@ def median_ms(fn, reps: int, calls: int) -> list:
     return rounds
 
 
-# Kernel groups of a train step, by a substring of the kernel's name.
-GROUPS = (("flash_fwd", "flash_fwd_kernel"), ("flash_bwd_dq", "flash_bwd_dq_kernel"),
+def device_ms(fn, calls: int) -> float:
+    """Device time per call of ``fn`` under ``torch.profiler`` (the sum of
+    its CUDA kernels over ``calls`` calls, after one warm-up call)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / calls
+
+
+# Kernel groups of a train step, by a substring of the kernel's name (the
+# forward is flash_fwd_wgmma for bf16, flash_fwd_kernel in older trees).
+GROUPS = (("flash_fwd", "flash_fwd_"), ("flash_bwd_dq", "flash_bwd_dq_kernel"),
           ("flash_bwd_dkv", "flash_bwd_dkv_kernel"))
 
 
@@ -120,7 +140,8 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     device = torch.device("cuda")
-    result = {"label": args.label, "root": args.root, "card": card, "kernel_ms": {}}
+    result = {"label": args.label, "root": args.root, "card": card, "kernel_ms": {},
+              "kernel_device_ms": {}}
 
     def inputs(seed, B, T, S, H, Hkv, D):
         gen = torch.Generator(device=device).manual_seed(seed)
@@ -128,24 +149,27 @@ def main() -> int:
                 for shape in ((B, T, H, D), (B, S, Hkv, D), (B, S, Hkv, D),
                               (B, T, H, D))]
 
-    def report(key, rounds):
+    def report(key, fn, calls):
+        rounds = median_ms(fn, args.reps, calls)
+        dev = device_ms(fn, 2 * calls)
         result["kernel_ms"][key] = statistics.median(rounds)
+        result["kernel_device_ms"][key] = dev
         print(f"[{args.label}] {key}: kernel median {statistics.median(rounds):.4f} "
-              f"ms (rounds {min(rounds):.4f}-{max(rounds):.4f})", flush=True)
+              f"ms (rounds {min(rounds):.4f}-{max(rounds):.4f}), device {dev:.4f} "
+              f"ms", flush=True)
 
     for label, B, T, S, H, Hkv, D in CASES:
         q, k, v, _ = inputs(args.seed + T + S + D, B, T, S, H, Hkv, D)
-        report(label, median_ms(lambda: fa.flash_attention_fwd(q, k, v),
-                                args.reps, 20))
+        report(label, lambda: fa.flash_attention_fwd(q, k, v), 20)
     has_bwd = hasattr(fa, "launch_bwd_dq")
     for label, B, T, S, H, Hkv, D in BWD_CASES if has_bwd else ():
         q, k, v, do = inputs(args.seed + T + S + D + 1, B, T, S, H, Hkv, D)
         out, lse = fa.flash_attention_fwd(q, k, v)
         delta = torch.empty((B, H, T), dtype=torch.float32, device=device)
-        report(f"bwd_dq_{label}", median_ms(
-            lambda: fa.launch_bwd_dq(q, k, v, out, do, lse, delta), args.reps, 10))
-        report(f"bwd_dkv_{label}", median_ms(
-            lambda: fa.launch_bwd_dkv(q, k, v, out, do, lse, delta), args.reps, 10))
+        report(f"bwd_dq_{label}",
+               lambda: fa.launch_bwd_dq(q, k, v, out, do, lse, delta), 10)
+        report(f"bwd_dkv_{label}",
+               lambda: fa.launch_bwd_dkv(q, k, v, out, do, lse, delta), 10)
         del q, k, v, do, out, lse, delta
         torch.cuda.empty_cache()
 

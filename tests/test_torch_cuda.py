@@ -428,6 +428,11 @@ def assert_flash_close(got, want, dtype):
     (1, 13, 29, 2, 2, 24),      # S > T, head_dim not a multiple of 16
     (2, 130, 130, 8, 2, 256),   # the full-width head_dim
     (1, 13, 200, 8, 1, 64),     # chunked prefill, MQA
+    (2, 256, 256, 4, 2, 192),   # head_dim 192, full tiles
+    (2, 256, 256, 4, 2, 128),   # head_dim 128, full tiles
+    (1, 200, 333, 8, 2, 256),   # S - T = 133, a multiple of no tile
+    (4, 1024, 1024, 8, 2, 128),  # more blocks than one wave of the card
+    (1, 300, 300, 8, 1, 256),   # MQA rep = 8 at the full-width head_dim
 ])
 def test_flash_kernel_matches_plain_version(cuda, dtype, B, T, S, H, Hkv, D):
     from lazzaro_tpu_torch.ops import flash_attention as fa
@@ -457,6 +462,58 @@ def test_flash_kernel_reads_strided_inputs_in_place(cuda):
     want = fa.flash_attention_reference(q.contiguous(), k.contiguous(),
                                         v.contiguous())
     assert_flash_close(got, want, torch.bfloat16)
+
+
+def test_flash_kernel_is_bitwise_deterministic(cuda):
+    """Two launches on the same inputs give the same O and LSE bit for bit:
+    each output element is computed by one block in one order."""
+    from lazzaro_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    q, k, v = flash_inputs(gen, 2, 777, 777, 8, 2, 256, torch.bfloat16, cuda)
+    first = fa.flash_attention_fwd(q, k, v)
+    second = fa.flash_attention_fwd(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+
+
+def test_flash_kernel_reads_transposed_views_at_full_head_dim(cuda):
+    """q, k and v as transposed views of [B, H, T, D] tensors at D = 256:
+    the tensor maps see strides in another order than a dense layout's."""
+    from lazzaro_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    qt = torch.randn((2, 8, 190, 256), generator=gen, device=cuda).bfloat16()
+    kt = torch.randn((2, 2, 190, 256), generator=gen, device=cuda).bfloat16()
+    vt = torch.randn((2, 2, 190, 256), generator=gen, device=cuda).bfloat16()
+    q, k, v = (x.transpose(1, 2) for x in (qt, kt, vt))
+    assert not q.is_contiguous()
+    got = fa.flash_attention_fwd(q, k, v)
+    want = fa.flash_attention_reference(q.contiguous(), k.contiguous(),
+                                        v.contiguous())
+    assert_flash_close(got, want, torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_reads_stride_zero_inputs_in_place(cuda, dtype):
+    """k broadcast over its heads and v over the batch (stride 0), read in
+    place: no tensor map takes a zero stride, so these tiles are loaded
+    with cp.async into the same ring."""
+    from lazzaro_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=cuda).manual_seed(15)
+    B, T, S, H, Hkv, D = 2, 150, 170, 8, 2, 256
+    q = torch.randn((B, T, H, D), generator=gen, device=cuda).to(dtype)
+    k = torch.randn((B, S, 1, D), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((1, S, Hkv, D), generator=gen, device=cuda).to(dtype)
+    k, v = k.expand(B, S, Hkv, D), v.expand(B, S, Hkv, D)
+    assert k.stride(2) == 0 and v.stride(0) == 0
+    before = fa.launches
+    got = fa.flash_attention_fwd(q, k, v)
+    want = fa.flash_attention_reference(q, k.contiguous(), v.contiguous())
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    assert_flash_close(got, want, dtype)
 
 
 def test_flash_wrapper_refuses_what_the_kernel_does_not_take(cuda):

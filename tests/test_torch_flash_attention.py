@@ -35,6 +35,8 @@ def _both(*arrays):
     (1, 8, 8, 2, 1, 8),        # tiny, extreme GQA
     (1, 13, 29, 2, 2, 16),     # S > T: end-aligned chunked prefill
     (1, 8, 24, 4, 1, 8),       # S > T with MQA
+    (1, 16, 16, 2, 1, 192),    # head_dim 192 (the kernel's third width)
+    (1, 40, 107, 4, 2, 16),    # S - T = 67, a multiple of no block
 ])
 def test_flash_matches_jax_kernel_and_lse(B, T, S, H, Hkv, D):
     q, k, v = (_rand((B, T, H, D), 0), _rand((B, S, Hkv, D), 1),
