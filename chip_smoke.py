@@ -13,8 +13,8 @@ Phases, each printing its own lines; any failure exits non-zero:
               at edge cases, with times and bounds (the top-k scans, then
               the cross-shard merge and ``make_sharded_topk`` over 8 shards,
               the flash-attention forward and its dQ and dK/dV backward
-              kernels at the decoder's shapes; the forward's times are
-              device times from ``torch.profiler``, with its achieved
+              kernels at the decoder's shapes; the flash kernels' times are
+              device times from ``torch.profiler``, with their achieved
               TFLOP/s and share of the bound);
   4. main     ``MemorySystem`` on a bf16 768-d arena of 1,048,576 rows. The
               classic path: fill it through ``end_conversation`` with
@@ -1566,11 +1566,13 @@ def flash_bwd_bounds(B, T, S, H, Hkv, D, item):
 def phase_flash_bwd(device):
     """The dQ and dK/dV kernels against the plain backward on every case
     (dq, dk and dv, error relative to the plain result's largest
-    magnitude); times of each kernel, the plain backward and, as the
-    yardstick the port never calls, the backward of
+    magnitude); device times (:func:`device_ms`) of each kernel, the plain
+    backward and, as the yardstick the port never calls, the backward of
     ``scaled_dot_product_attention`` (``torch.autograd.grad`` of one retained
-    forward). At the training shape, the backward's peak device memory
-    beyond its inputs and outputs. Returns one row per (kernel, case)."""
+    forward), each kernel's achieved TFLOP/s and share of the bound, event
+    times of back-to-back calls beside them. On every case, the backward's
+    peak device memory beyond its inputs and outputs. Returns one row per
+    (kernel, case)."""
     import torch
     import torch.nn.functional as F
 
@@ -1607,16 +1609,24 @@ def phase_flash_bwd(device):
                                  f"and outputs, a [T, S] f32 tensor is {ts_f32}")
         del got, want
         # Timing: each kernel alone on prepared inputs (dK/dV reads the
-        # delta that the last dQ launch wrote).
+        # delta that the last dQ launch wrote), by device time under
+        # torch.profiler: at ~0.1-0.2 ms a call, CUDA events over
+        # back-to-back calls also time the wrapper's host work. Event times
+        # are kept beside them.
         g_do, g_lse = fa._prepare_bwd(q, k, v, out, lse, do)
         delta = torch.empty((B, H, T), dtype=torch.float32, device=device)
         big = B * T * S > 8e6
-        dq_ms = cuda_ms(lambda: fa.launch_bwd_dq(q, k, v, out, g_do, g_lse, delta),
-                        10, WINDOWS)
-        dkv_ms = cuda_ms(lambda: fa.launch_bwd_dkv(q, k, v, out, g_do, g_lse, delta),
-                         10, WINDOWS)
-        plain = cuda_ms(lambda: fa.flash_attention_bwd_reference(q, k, v, out, lse, do),
-                        1 if big else 3, 3)
+
+        def run_dq():
+            return fa.launch_bwd_dq(q, k, v, out, g_do, g_lse, delta)
+
+        def run_dkv():
+            return fa.launch_bwd_dkv(q, k, v, out, g_do, g_lse, delta)
+
+        dq_ms, dkv_ms = device_ms(run_dq, 20), device_ms(run_dkv, 20)
+        dq_event, dkv_event = cuda_ms(run_dq, 10, WINDOWS), cuda_ms(run_dkv, 10, WINDOWS)
+        plain = device_ms(lambda: fa.flash_attention_bwd_reference(q, k, v, out, lse, do),
+                          1 if big else 3)
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
                       for x in (q, k, v))
         mask = None
@@ -1630,25 +1640,35 @@ def phase_flash_bwd(device):
         def lib(lib_out=lib_out, qt=qt, kt=kt, vt=vt, dot=dot):
             return torch.autograd.grad(lib_out, (qt, kt, vt), dot, retain_graph=True)
 
-        lib_ms = cuda_ms(lib, 10, WINDOWS)
+        lib_ms = device_ms(lib, 20)
+        lib_event = cuda_ms(lib, 10, WINDOWS)
         bounds = flash_bwd_bounds(B, T, S, H, Hkv, D, q.element_size())
+        ops = causal_ops(B, T, S, H, D)
+        tflops = {"dq": 3 * ops / dq_ms / 1e9, "dkv": 4 * ops / dkv_ms / 1e9}
         log(f"[flash-bwd] {label}: dq/dk/dv max_abs_err "
             f"{errs['dq'][0]:.3e}/{errs['dk'][0]:.3e}/{errs['dv'][0]:.3e}, relative "
             f"{errs['dq'][1]:.3e}/{errs['dk'][1]:.3e}/{errs['dv'][1]:.3e} (tol {tol}); "
-            f"dq ms {dq_ms:.4f} (bound {bounds['dq'][0]:.4f} {bounds['dq'][1]}), "
-            f"dkv ms {dkv_ms:.4f} (bound {bounds['dkv'][0]:.4f} {bounds['dkv'][1]}), "
-            f"plain_ms {plain:.4f}, library_ms {lib_ms:.4f}; extra device memory "
+            f"device ms: dq {dq_ms:.4f} ({tflops['dq']:.1f} TFLOP/s, "
+            f"{bounds['dq'][0] / dq_ms:.3f} of the bound {bounds['dq'][0]:.4f} "
+            f"{bounds['dq'][1]}), dkv {dkv_ms:.4f} ({tflops['dkv']:.1f} TFLOP/s, "
+            f"{bounds['dkv'][0] / dkv_ms:.3f} of the bound {bounds['dkv'][0]:.4f} "
+            f"{bounds['dkv'][1]}), pair {dq_ms + dkv_ms:.4f}, plain_ms {plain:.4f}, "
+            f"library_ms {lib_ms:.4f}; events of back-to-back calls: dq {dq_event:.4f}, "
+            f"dkv {dkv_event:.4f}, library {lib_event:.4f}; extra device memory "
             f"{extra} bytes")
-        for kernel, ms, err in (("flash_attention_bwd_dq", dq_ms, errs["dq"]),
-                                ("flash_attention_bwd_dkv", dkv_ms,
-                                 max(errs["dk"], errs["dv"]))):
-            b_ms, b_by = bounds["dq" if kernel.endswith("dq") else "dkv"]
+        for kernel, key, ms, event, err in (
+                ("flash_attention_bwd_dq", "dq", dq_ms, dq_event, errs["dq"]),
+                ("flash_attention_bwd_dkv", "dkv", dkv_ms, dkv_event,
+                 max(errs["dk"], errs["dv"]))):
+            b_ms, b_by = bounds[key]
             rows_out.append({
                 "kernel": kernel, "form": "causal_gqa_bwd", "case": label,
                 "shape": [B, T, S, H, Hkv, D], "dtype": dtype, "ms": ms,
                 "plain_ms": plain, "library_ms": lib_ms, "bound_ms": b_ms,
-                "bound_by": b_by, "max_abs_err": err[0],
-                "max_rel_err": err[1], "extra_device_bytes": extra})
+                "bound_by": b_by, "tflops": tflops[key], "bound_share": b_ms / ms,
+                "event_ms": event, "library_event_ms": lib_event,
+                "max_abs_err": err[0], "max_rel_err": err[1],
+                "extra_device_bytes": extra})
         del q, k, v, do, out, lse, qt, kt, vt, lib_out, dot, delta, g_do, g_lse
         torch.cuda.empty_cache()
     return rows_out

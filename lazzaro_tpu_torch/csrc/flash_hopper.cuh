@@ -18,6 +18,9 @@
 // - MN-major (the contraction runs down the rows, as for V in P.V, the
 //   transposed B operand): one k16 step is 16 rows (2048 bytes), the next
 //   8 rows 1024 bytes on (SBO), the next 64 columns one panel on (LBO).
+//   The same descriptor serves an MN-major A operand (trans-a: dO and Q in
+//   the backward's dV^T = dO^T . P and dK^T = Q^T . dS, one 64-column panel
+//   of the tile being the 64 rows of M).
 #pragma once
 
 #include <cuda.h>
@@ -268,6 +271,23 @@ __device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32], uint64_t desc
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
+// D[64 x 32] (+)= A[64 x 16] . B[16 x 32], both in shared memory, B
+// K-major; A K-major (TRANS_A 0, as Q in Q.K^T) or MN-major (TRANS_A 1:
+// the tile is stored [K rows][M columns], as dO in dV^T = dO^T . P, with the
+// descriptor of an MN-major operand).
+template <int TRANS_A>
+__device__ __forceinline__ void wgmma_ss_m64n32k16(float (&d)[16], uint64_t desc_a,
+                                                  uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, %19, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_A));
+}
+
 // D[64 x 64] (+)= A[64 x 16] . B[16 x 64], A from registers (the
 // accumulator-shaped bf16 fragment), B MN-major in shared memory (trans-b).
 __device__ __forceinline__ void wgmma_rs_m64n64k16(float (&d)[32], const uint32_t (&a)[4],
@@ -370,6 +390,17 @@ __device__ __forceinline__ void wgmma_rs_m64n256k16(float (&d)[128], const uint3
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// D[64 x DP] (+)= A[64 x 16] . B[16 x DP] for DP in {64, 128, 192, 256}, A
+// from registers, B MN-major in shared memory (the wrappers above).
+template <int DP>
+__device__ __forceinline__ void wgmma_rs_m64nDk16(float (&d)[DP / 2], const uint32_t (&a)[4],
+                                                  uint64_t desc_b, int scale_d) {
+  if constexpr (DP == 64) wgmma_rs_m64n64k16(d, a, desc_b, scale_d);
+  if constexpr (DP == 128) wgmma_rs_m64n128k16(d, a, desc_b, scale_d);
+  if constexpr (DP == 192) wgmma_rs_m64n192k16(d, a, desc_b, scale_d);
+  if constexpr (DP == 256) wgmma_rs_m64n256k16(d, a, desc_b, scale_d);
 }
 
 // ---------------------------------------------------------------------------

@@ -8,7 +8,8 @@ and their ``flash_attention`` custom VJP. The kernels are CUDA C++ in
 ``csrc/flash_attention.cu`` (forward: wgmma with register accumulators, K
 and V through a TMA ring, from the Hopper building blocks of
 ``csrc/flash_hopper.cuh``) and ``csrc/flash_attention_bwd.cu`` (dQ and
-dK/dV; their notes say what bounds them and how they are laid out), built
+dK/dV, bf16 on the same blocks: wgmma, register accumulators, TMA rings;
+their notes say what bounds them and how they are laid out), built
 with ``nvcc`` for ``sm_90a`` on first use and bound through ``ctypes``.
 
 Layouts are the JAX package's at every public function: q ``[B, T, H, D]``,

@@ -89,10 +89,11 @@ def device_ms(fn, calls: int) -> float:
                if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / calls
 
 
-# Kernel groups of a train step, by a substring of the kernel's name (the
-# forward is flash_fwd_wgmma for bf16, flash_fwd_kernel in older trees).
-GROUPS = (("flash_fwd", "flash_fwd_"), ("flash_bwd_dq", "flash_bwd_dq_kernel"),
-          ("flash_bwd_dkv", "flash_bwd_dkv_kernel"))
+# Kernel groups of a train step, by a substring of the kernel's name (bf16
+# runs flash_fwd_wgmma, flash_bwd_dq_wgmma and flash_bwd_dkv_wgmma; older
+# trees' kernels end in _kernel).
+GROUPS = (("flash_fwd", "flash_fwd_"), ("flash_bwd_dq", "flash_bwd_dq_"),
+          ("flash_bwd_dkv", "flash_bwd_dkv_"))
 
 
 def step_device_ms(run, steps: int, label: str) -> dict:

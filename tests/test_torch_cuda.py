@@ -584,6 +584,12 @@ def assert_bwd_close(got, want, dtype):
     (1, 13, 29, 2, 2, 24),      # S > T, head_dim not a multiple of 16
     (2, 130, 130, 8, 2, 256),   # the full-width head_dim, ragged
     (1, 13, 200, 8, 1, 64),     # chunked S > T, MQA
+    (2, 256, 256, 4, 2, 128),   # head_dim 128, full tiles
+    (2, 256, 256, 4, 2, 192),   # head_dim 192, full tiles
+    (1, 512, 512, 8, 2, 256),   # D = 256, one wave of both kernels
+    (4, 1024, 1024, 8, 2, 256),  # D = 256, several waves of both kernels
+    (1, 300, 300, 8, 1, 256),   # MQA rep = 8 at the full-width head_dim
+    (1, 200, 333, 8, 2, 256),   # S - T = 133, a multiple of no tile
 ])
 def test_flash_bwd_kernels_match_plain_version(cuda, dtype, B, T, S, H, Hkv, D):
     from lazzaro_tpu_torch.ops import flash_attention as fa
@@ -621,6 +627,72 @@ def test_flash_bwd_reads_strided_inputs_in_place(cuda):
     want = fa.flash_attention_bwd_reference(*(x.detach() for x in leaves), out,
                                             lse, torch.ones_like(out))
     assert_bwd_close([x.grad for x in leaves], want, torch.bfloat16)
+
+
+def test_flash_bwd_kernels_are_bitwise_deterministic(cuda):
+    """Two backward launches on the same inputs give the same dq, dk and dv
+    bit for bit: each output element is summed by one block in one order,
+    with no atomics."""
+    from lazzaro_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=cuda).manual_seed(16)
+    args = flash_bwd_case(gen, 2, 777, 777, 8, 2, 256, torch.bfloat16, cuda)
+    first = fa.flash_attention_bwd(*args)
+    second = fa.flash_attention_bwd(*args)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
+
+
+def test_flash_bwd_reads_transposed_views_and_stride_zero_at_full_head_dim(cuda):
+    """bf16 at D = 256: q, k, v and the gradient as transposed views of
+    [B, H, T, D] tensors (the tensor maps see strides in another order than
+    a dense layout's), then a gradient broadcast over batch and heads
+    (stride 0 with a unit last stride, read in place by cp.async)."""
+    from lazzaro_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    qt = torch.randn((2, 8, 190, 256), generator=gen, device=cuda).bfloat16()
+    kt = torch.randn((2, 2, 190, 256), generator=gen, device=cuda).bfloat16()
+    vt = torch.randn((2, 2, 190, 256), generator=gen, device=cuda).bfloat16()
+    dot = torch.randn((2, 8, 190, 256), generator=gen, device=cuda).bfloat16()
+    q, k, v, do = (x.transpose(1, 2) for x in (qt, kt, vt, dot))
+    assert not q.is_contiguous()
+    out, lse = fa.flash_attention_fwd(q, k, v)
+    dense = [x.contiguous() for x in (q, k, v)]
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do)
+    want = fa.flash_attention_bwd_reference(*dense, out, lse, do.contiguous())
+    assert_bwd_close(got, want, torch.bfloat16)
+    row = torch.randn((1, 190, 1, 256), generator=gen, device=cuda).bfloat16()
+    do0 = row.expand(2, 190, 8, 256)
+    assert do0.stride(0) == 0 and do0.stride(2) == 0 and do0.stride(3) == 1
+    before = (fa.bwd_dq_launches, fa.bwd_dkv_launches)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do0)
+    torch.cuda.synchronize()
+    assert (fa.bwd_dq_launches, fa.bwd_dkv_launches) == (before[0] + 1,
+                                                         before[1] + 1)
+    want = fa.flash_attention_bwd_reference(*dense, out, lse, do0.contiguous())
+    assert_bwd_close(got, want, torch.bfloat16)
+
+
+def test_flash_bwd_allocates_only_its_outputs_and_delta(cuda):
+    """The backward's peak device memory beyond its inputs is dq, dk, dv
+    and the [B, H, T] f32 delta: the kernels allocate nothing."""
+    from lazzaro_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=cuda).manual_seed(18)
+    B, T, S, H, Hkv, D = 2, 1024, 1024, 8, 2, 256
+    args = flash_bwd_case(gen, B, T, S, H, Hkv, D, torch.bfloat16, cuda)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = fa.flash_attention_bwd(*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    outputs = sum(g.numel() * g.element_size() for g in got)
+    assert outputs == 2 * (B * T * H * D + 2 * B * S * Hkv * D)
+    # the allocator rounds each block up to 512 bytes
+    assert peak <= outputs + B * H * T * 4 + 4 * 512, (peak, outputs)
 
 
 def test_flash_bwd_wrapper_refuses_what_the_kernels_do_not_take(cuda):

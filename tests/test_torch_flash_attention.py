@@ -121,6 +121,8 @@ def test_causality():
     (1, 8, 24, 4, 1, 8),       # S > T with MQA (rep=4)
     (1, 13, 21, 2, 2, 8),      # ragged T and S (JAX pads internally)
     (1, 37, 37, 4, 2, 16),     # odd T
+    (1, 16, 16, 2, 1, 192),    # head_dim 192 (a width the kernels template on)
+    (1, 13, 40, 4, 2, 64),     # ragged S > T (S - T = 27) at head_dim 64
 ])
 def test_flash_gradients_match_jax_pallas_backward(B, T, S, H, Hkv, D):
     """The port's autograd backward (plain on the CPU) against ``jax.vjp``
