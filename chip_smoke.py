@@ -10,11 +10,14 @@ Phases, each printing its own lines; any failure exits non-zero:
   2. build    every ``lazzaro_tpu_torch/csrc/*.cu`` with nvcc, all at once;
   3. kernels  each kernel, in every call form, against its plain PyTorch
               version on the card, at every shape the main paths give it and
-              at edge cases, with times and bounds (the top-k scans, then
-              the cross-shard merge and ``make_sharded_topk`` over 8 shards,
-              the flash-attention forward and its dQ and dK/dV backward
-              kernels at the decoder's shapes; the flash kernels' times are
-              device times from ``torch.profiler``, with their achieved
+              at edge cases, with times and bounds (the top-k scans on the
+              route the wrapper takes, the tensor-core stage 1 also forced
+              at Q = 1 and 8, then the cross-shard merge and
+              ``make_sharded_topk`` over 8 shards, the flash-attention
+              forward and its dQ and dK/dV backward kernels at the decoder's
+              shapes; times are device times from ``torch.profiler``, the
+              top-k scans' split into stage 1 and the merge, event times of
+              back-to-back calls beside them, the flash kernels' achieved
               TFLOP/s and share of the bound);
   4. main     ``MemorySystem`` on a bf16 768-d arena of 1,048,576 rows. The
               classic path: fill it through ``end_conversation`` with
@@ -29,7 +32,8 @@ Phases, each printing its own lines; any failure exits non-zero:
               device-to-host copy. Each path's kernel launches are counted
               from 0 over that path alone. After its 34th conversation the
               phase records, without boosting or counting, what the mesh
-              phase must reproduce;
+              phase must reproduce. Every dedup probe of the fill past 16
+              queries must scan on the tensor-core route;
   4b. mesh    the same path on ``MemorySystem(mesh=...)``: the same arena
               row-sharded over 8 shards (one per card when the cards divide
               8, else all on ``cuda:0``), filled for 34 conversations
@@ -136,6 +140,9 @@ FLASH_BWD_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 # Kernel cases are timed as the median of this many windows (a host stall
 # inflates one window, not the median).
 WINDOWS = 5
+# Small-Q cases also timed with the tensor-core route forced (phase 3).
+FORCED_WGMMA = ("chat_ann_q1_k10_bf16", "q8_k10_bf16", "chat_q1_k128_kq10",
+                "chat_q8_k128_kq10")
 LM_TOKENS = 2047                   # logits_for length: BOS + 2,046 bytes
 # Largest |logit| difference of the full-width forward through the kernel
 # against the materialized-scores path: that path rounds the scores to bf16
@@ -215,27 +222,53 @@ def cuda_ms(fn, reps: int, windows: int = 1) -> float:
     return float(np.median(times))
 
 
+def _device_kernels(fn, calls: int):
+    """The CUDA kernel events ``torch.profiler`` records over ``calls`` calls
+    of ``fn``, after one warm-up call. The profiler now and then hands back
+    a window without device events; the window is then run again, up to
+    three times, before this fails."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    cuda = torch.autograd.DeviceType.CUDA
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages() if e.device_type == cuda]
+        if sum(e.self_device_time_total for e in kernels) > 0:
+            return kernels
+    raise RuntimeError("torch.profiler recorded no device time")
+
+
 def device_ms(fn, calls: int) -> float:
     """ms of device time per call of ``fn``: the sum of the CUDA kernels
     that ``torch.profiler`` records over ``calls`` calls, after one warm-up
     call. Unlike :func:`cuda_ms` it leaves out the gaps in which the device
     waits for the host, which for a call of ~0.05 ms are as long as the
     call itself."""
-    import torch
+    kernels = _device_kernels(fn, calls)
+    return sum(e.self_device_time_total for e in kernels) / 1e3 / calls
 
-    fn()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    cuda = torch.autograd.DeviceType.CUDA
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == cuda)
-    if total <= 0:
-        raise RuntimeError("torch.profiler recorded no device time")
-    return total / 1e3 / calls
+
+def device_split(fn, calls: int) -> dict:
+    """Device ms per call of ``fn`` under ``torch.profiler`` (as
+    :func:`device_ms`), with the top-k scan's two stages apart: stage 1
+    (``scan_stage1*``), the merge (``scan_merge``) and the rest (casts and
+    masks around the launch)."""
+    kernels = _device_kernels(fn, calls)
+
+    def total(needle):
+        return sum(e.self_device_time_total for e in kernels
+                   if needle in e.key) / 1e3 / calls
+
+    out = {"all": total(""), "stage1": total("scan_stage1"),
+           "merge": total("scan_merge")}
+    out["rest"] = out["all"] - out["stage1"] - out["merge"]
+    return out
 
 
 def grid_values(gen, shape, dtype, device):
@@ -266,7 +299,9 @@ def kernel_cases(device):
     # Every launch shape of the main path on the full arena: a chat turn's
     # super-node gate and ANN search, search_memories (limit 5), the dedup
     # probe of a fill conversation (8,192 facts) and of the last one (64);
-    # then search_memories_batch of 64 queries at limit 10.
+    # then search_memories_batch of 64 queries at limit 10; then the edges
+    # of the two routes (Q = 8 and 16 stay on the FMA route, Q = 17 takes
+    # the tensor cores), a large list batch and lists in three passes.
     cases = [
         ("chat_gate_q1_k1_bf16", big, madd_big, queries(big, 1), 1),
         ("chat_ann_q1_k10_bf16", big, madd_big, queries(big, 1), 10),
@@ -274,6 +309,10 @@ def kernel_cases(device):
         ("dedup_q8192_k1_bf16", big, madd_big, queries(big, 8192), 1),
         ("dedup_q64_k1_bf16", big, madd_big, queries(big, 64), 1),
         ("search_batch_q64_k10_bf16", big, madd_big, queries(big, 64), 10),
+        ("q8_k10_bf16", big, madd_big, queries(big, 8), 10),
+        ("q17_k10_bf16", big, madd_big, queries(big, 17), 10),
+        ("q1024_k10_bf16", big, madd_big, queries(big, 1024), 10),
+        ("q64_k300_bf16", big, madd_big, queries(big, 64), 300),
     ]
     mid = grid_values(gen, (262_144, DIM), f32, device)
     cases.append(("q128_k16_f32", mid, torch.zeros(mid.shape[0], device=device),
@@ -328,17 +367,28 @@ def _check_equal(label, got, want):
     return err
 
 
-def _case_row(kernel, form, label, n, q, k, fn, plain_fn, lib_fn, b, err,
-              reps, plain_reps):
-    ms = cuda_ms(fn, reps)
-    plain = cuda_ms(plain_fn, plain_reps)
-    lib = cuda_ms(lib_fn, reps)
+def _case_row(kernel, form, label, route, n, q, k, fn, plain_fn, lib_fn, b,
+              err, reps, plain_reps):
+    """One timed case: device times under ``torch.profiler`` of the kernel
+    (stage 1 and the merge apart), its plain version and the library call;
+    CUDA-event times of back-to-back calls of the kernel and the library
+    beside them (they include the wrapper's host work)."""
+    split = device_split(fn, reps)
+    ms = split["all"]
+    plain = device_ms(plain_fn, plain_reps)
+    lib = device_ms(lib_fn, reps)
+    event = cuda_ms(fn, reps)
+    lib_event = cuda_ms(lib_fn, reps)
     b_ms, b_by = b
-    log(f"[kernels] {kernel} {label}: rows equal, max_abs_err {err}, "
-        f"ms {ms:.4f}, plain_ms {plain:.4f}, library_ms {lib:.4f}, "
-        f"bound_ms {b_ms:.4f} ({b_by})")
-    return {"kernel": kernel, "form": form, "case": label, "n": n, "q": q,
-            "k": k, "ms": ms, "plain_ms": plain, "library_ms": lib,
+    log(f"[kernels] {kernel} {label} ({route} route): rows equal, max_abs_err "
+        f"{err}, device ms {ms:.4f} (stage 1 {split['stage1']:.4f}, merge "
+        f"{split['merge']:.4f}, rest {split['rest']:.4f}), plain_ms {plain:.4f}, "
+        f"library_ms {lib:.4f}, bound_ms {b_ms:.4f} ({b_by}); events of "
+        f"back-to-back calls: kernel {event:.4f}, library {lib_event:.4f}")
+    return {"kernel": kernel, "form": form, "case": label, "route": route,
+            "n": n, "q": q, "k": k, "ms": ms, "stage1_ms": split["stage1"],
+            "merge_ms": split["merge"], "event_ms": event, "plain_ms": plain,
+            "library_ms": lib, "library_event_ms": lib_event,
             "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
 
 
@@ -349,14 +399,16 @@ def phase_kernels(device):
 
     rows_out = []
     for label, emb, madd, q, k in kernel_cases(device):
+        nq = q.shape[0]
+        route = mt.route_for(emb.dtype, nq)
         err = _check_equal(label, mt.masked_topk(emb, madd, q, k),
                            mt.masked_topk_reference(emb, madd, q, k))
-        big_q = q.shape[0] > 1024
+        big_q = nq > 1024
         # Yardstick only (the port never calls it): one product with the
         # mask folded in, then torch.topk.
         madd_t = madd.to(emb.dtype)
         rows_out.append(_case_row(
-            "masked_topk", "classic", label, emb.shape[0], q.shape[0], k,
+            "masked_topk", "classic", label, route, emb.shape[0], nq, k,
             lambda: mt.masked_topk(emb, madd, q, k),
             lambda: mt.masked_topk_reference(emb, madd, q, k),
             lambda: torch.topk(torch.addmm(madd_t, q, emb.t()), k),
@@ -367,8 +419,20 @@ def phase_kernels(device):
             err = _check_equal("auto", mt.masked_topk_auto(emb, madd, q, k),
                                mt.masked_topk_reference(emb, madd, q, k))
             rows_out.append(_case_row(
-                "masked_topk", "auto", "auto_q1_k10_bf16", emb.shape[0], 1,
-                k, lambda: mt.masked_topk_auto(emb, madd, q, k),
+                "masked_topk", "auto", "auto_q1_k10_bf16", route, emb.shape[0],
+                1, k, lambda: mt.masked_topk_auto(emb, madd, q, k),
+                lambda: mt.masked_topk_reference(emb, madd, q, k),
+                lambda: torch.topk(torch.addmm(madd_t, q, emb.t()), k),
+                bound(emb, q, k), err, 20, 3))
+        if label in FORCED_WGMMA:
+            # A record for small-Q scans: the tensor-core route forced
+            # where the wrapper takes the FMA one.
+            forced = f"{label}_forced_wgmma"
+            err = _check_equal(forced, mt._launch(emb, madd, q, k, route="wgmma"),
+                               mt.masked_topk_reference(emb, madd, q, k))
+            rows_out.append(_case_row(
+                "masked_topk", "classic", forced, "wgmma", emb.shape[0], nq, k,
+                lambda: mt._launch(emb, madd, q, k, route="wgmma"),
                 lambda: mt.masked_topk_reference(emb, madd, q, k),
                 lambda: torch.topk(torch.addmm(madd_t, q, emb.t()), k),
                 bound(emb, q, k), err, 20, 3))
@@ -393,7 +457,8 @@ def ragged_cases(device):
     madd_t = torch.where(alive, 0.0, -1e30).to(emb.dtype)
     return [_case_row(
         "masked_topk", "ragged", "ragged_n100003_q3_k10_kq1-5-10_bf16",
-        emb.shape[0], 3, k, lambda: mt.masked_topk_ragged(emb, alive, q, k_q, k),
+        mt.route_for(emb.dtype, 3), emb.shape[0], 3, k,
+        lambda: mt.masked_topk_ragged(emb, alive, q, k_q, k),
         lambda: mt.masked_topk_ragged_reference(emb, alive, q, k_q, k),
         lambda: torch.topk(torch.addmm(madd_t, q, emb.t()), k),
         bound(emb, q, k), err, 20, 3)]
@@ -467,13 +532,24 @@ def phase_fused_kernel(device):
     import torch
 
     from lazzaro_tpu_torch.ops import fused_topk as ft
+    from lazzaro_tpu_torch.ops import masked_topk as mt
 
     (emb, alive, tenant, sup), cases = fused_cases(device)
     k = 128
     rows_out = []
-    for label, q, q_ten, k_q, k_live in cases:
-        got = ft.fused_topk(emb, alive, tenant, sup, q, q_ten, k_q, k,
-                            k_live=k_live)
+    forced = [(f"{c[0]}_forced_wgmma", *c[1:], "wgmma") for c in cases
+              if c[0] in FORCED_WGMMA]
+    for label, q, q_ten, k_q, k_live, *force in cases + forced:
+        route = force[0] if force else mt.route_for(emb.dtype, q.shape[0])
+
+        def run(q=q, q_ten=q_ten, k_q=k_q, k_live=k_live, force=force):
+            if force:
+                return ft._launch(emb, alive, tenant, sup, q, q_ten, k_q, k,
+                                  emb.shape[0] - 1, k_live, route=force[0])
+            return ft.fused_topk(emb, alive, tenant, sup, q, q_ten, k_q, k,
+                                 k_live=k_live)
+
+        got = run()
         want = ft.fused_topk_reference(emb, alive, tenant, sup, q, q_ten,
                                        k_q, k)
         err = _check_equal(label, got, want)
@@ -493,9 +569,8 @@ def phase_fused_kernel(device):
             return torch.topk(torch.where(ok & ~sup[None, :], s, -1e30), k)
 
         rows_out.append(_case_row(
-            "fused_topk", "two_tier", label, emb.shape[0], q.shape[0], k,
-            lambda: ft.fused_topk(emb, alive, tenant, sup, q, q_ten, k_q, k,
-                                  k_live=k_live),
+            "fused_topk", "two_tier", label, route, emb.shape[0], q.shape[0],
+            k, run,
             lambda: ft.fused_topk_reference(emb, alive, tenant, sup, q,
                                             q_ten, k_q, k),
             lib, fused_bound(emb, q, k), err, 20, 3))
@@ -780,7 +855,7 @@ def phase_sharded_kernel(device):
                 r.permute(1, 0, 2).reshape(r.shape[1], -1), 1, top.indices)
 
         rows_out.append(_case_row(
-            "sharded_merge", "merge", label, n * local_n, q, k,
+            "sharded_merge", "merge", label, None, n * local_n, q, k,
             lambda: sm.sharded_merge(s_l, r_l, local_n, k, k_q, sentinel),
             lambda: sm.sharded_merge_reference(s_l, r_l, local_n, k, k_q,
                                                sentinel),
@@ -810,7 +885,8 @@ def phase_sharded_kernel(device):
         label = f"sharded_topk_q{nq}_k10_grid"
         err = _check_equal(label, search(shards, masks, q), plain(q))
         rows_out.append(_case_row(
-            "sharded_topk", "whole", label, ARENA_ROWS, nq, 10,
+            "sharded_topk", "whole", label, mt.route_for(big.dtype, nq),
+            ARENA_ROWS, nq, 10,
             lambda: search(shards, masks, q), lambda: plain(q),
             lambda: torch.topk(torch.addmm(madd_t, q, big.t()), 10),
             sharded_bound(big, q, 10, n), err, 20, 3))
@@ -865,7 +941,8 @@ def sharded_topk_filled(ms, corpus, served, torch):
         madd_t = torch.where(whole_mask, 0.0, -1e30).to(whole.dtype)
         rows_out.append(_case_row(
             "sharded_topk", "whole", f"sharded_topk_q{nq}_k10_filled",
-            whole.shape[0], nq, 10, lambda: search(embs, masks, q),
+            mt.route_for(whole.dtype, nq), whole.shape[0], nq, 10,
+            lambda: search(embs, masks, q),
             lambda: plain(q),
             lambda: torch.topk(torch.addmm(madd_t, q, whole.t()), 10),
             sharded_bound(whole, q, 10, len(embs)), err, 20, 3))
@@ -953,6 +1030,29 @@ FILL_STAGES = (("index", "search_batch", "dedup_probe"),
                ("embedder", "batch_embed", "embed"))
 
 
+def _count_probes(index, mt):
+    """Wrap ``index.search_batch`` (the fill's dedup probe) so that each call
+    appends (padded Q, masked_topk launches, tensor-core launches) to the
+    returned list; the wrapper is an instance attribute, removed with the
+    fill's timers."""
+    from lazzaro_tpu_torch.utils.batching import next_pow2
+
+    probes = []
+    inner = index.search_batch
+
+    def probe(queries, *args, **kwargs):
+        before = (mt.launches, mt.launches_wgmma)
+        try:
+            return inner(queries, *args, **kwargs)
+        finally:
+            nq = np.asarray(queries).reshape(-1, DIM).shape[0]
+            probes.append((next_pow2(nq), mt.launches - before[0],
+                           mt.launches_wgmma - before[1]))
+
+    index.search_batch = probe
+    return probes
+
+
 def _stable_id(qid: str) -> str:
     """A node id without the creation second a super-node id carries
     (``super_<topic>_<unix seconds>``), which two runs do not share."""
@@ -971,7 +1071,8 @@ def parity_snapshot(ms, corpus):
     from lazzaro_tpu_torch.ops import sharded_merge as sm
     from lazzaro_tpu_torch.serve import RetrievalRequest
 
-    counts = (mt.launches, ft.launches, sm.launches)
+    counts = (mt.launches, mt.launches_wgmma, ft.launches, ft.launches_wgmma,
+              sm.launches)
     idx, cfg = ms.index, ms.config
     rows = len(idx)
     supers = len(ms.super_nodes) + sum(len(g.super_nodes)
@@ -996,7 +1097,8 @@ def parity_snapshot(ms, corpus):
         snap[("fused", tenant)] = [
             (r.fast, r.gate_id and _stable_id(r.gate_id),
              [_stable_id(i) for i in r.ids]) for r in got]
-    mt.launches, ft.launches, sm.launches = counts
+    (mt.launches, mt.launches_wgmma, ft.launches, ft.launches_wgmma,
+     sm.launches) = counts
     return snap
 
 
@@ -1048,7 +1150,8 @@ def _drive(ms, llm, corpus, convs, fill, launches_out, mt, torch,
     for owner, method, stage in FILL_STAGES:
         obj = getattr(ms, owner)
         setattr(obj, method, _timed(spent, stage, getattr(obj, method), torch))
-    mt.launches = sm.launches = 0
+    probes = _count_probes(ms.index, mt)
+    mt.launches = mt.launches_wgmma = sm.launches = 0
     t0 = time.perf_counter()
     for c in range(convs):
         tenant = TENANTS[c % len(TENANTS)]
@@ -1071,11 +1174,25 @@ def _drive(ms, llm, corpus, convs, fill, launches_out, mt, torch,
     torch.cuda.synchronize()
     fill_s = time.perf_counter() - t0
     fill_launches, fill_merges = mt.launches, sm.launches
+    fill_wgmma = mt.launches_wgmma
     for owner, method, _ in FILL_STAGES:
         vars(getattr(ms, owner)).pop(method, None)
     spent["rest"] = fill_s - sum(spent.values())
     log(f"{tag} fill time by stage (s): "
         + ", ".join(f"{k} {v:.1f}" for k, v in spent.items()))
+    # Every dedup probe past 16 queries (a power-of-two batch) scans on the
+    # tensor cores, one scan per shard; smaller ones on the FMA route. A
+    # probe of a tenant with no row yet returns before any scan.
+    wrong = [(q, n, w) for q, n, w in probes
+             if n not in (0, n_shards) or w != (n if q > mt.WGMMA_MIN_Q else 0)]
+    big = sum(q > mt.WGMMA_MIN_Q and n > 0 for q, n, _ in probes)
+    log(f"{tag} fill: {fill_launches} masked_topk launches, {fill_wgmma} on the "
+        f"tensor-core route; {len(probes)} dedup probes (Q "
+        f"{sorted({q for q, _, _ in probes})}), {big} of them past "
+        f"{mt.WGMMA_MIN_Q} queries")
+    if wrong or big == 0:
+        raise AssertionError(f"dedup probes off their route (padded Q, scans, "
+                             f"tensor-core scans): {wrong[:5]}, {big} past 16")
     rows = len(ms.index)
     # the full fill must reach MIN_ROWS; the mesh's shorter fill, less the
     # near-duplicates merged (1 in 101), 98% of its facts
@@ -1178,6 +1295,7 @@ def _drive(ms, llm, corpus, convs, fill, launches_out, mt, torch,
         "rows": len(ms.index), "edges": len(ms.index.edge_slots),
         "fill_facts": fill, "fill_s": fill_s, "fill_facts_per_s": fill / fill_s,
         "merged_in_fill": merged, "fill_launches": fill_launches,
+        "fill_launches_wgmma": fill_wgmma, "fill_dedup_probes": len(probes),
         "fill_stage_s": spent,
         "chat_p50_ms": p50(chat_ms), "search_p50_ms": p50(search_ms),
         "launches_per_chat_turn": sorted(set(chat_launches)),

@@ -28,36 +28,80 @@
 //
 // Design. Blocks run in parallel on 132 SMs, so the work is cut two ways and
 // merged in a second pass:
-//   stage 1  grid = (query tiles) x (row splits). A block walks its row range
-//            in tiles of BR=128 rows: register-tiled f32 FMA dot products of
-//            its BQ queries with the tile (16-byte loads, slices of DK=32
-//            dimensions staged in shared memory). The tile's masked scores go
-//            to shared memory, and one warp per query folds them into that
-//            query's sorted top-kmax list (insertion on a strictly better
-//            score; rows arrive in ascending order, so equal scores keep the
-//            lower row) and, in keyed mode, its gate top-1 (a warp arg-max).
-//            Keyed mode reads the row columns of a tile once into shared
-//            memory as one key per row (tenant, or none if dead) and a super
-//            bit, and compares each query's tenant against them.
+//   stage 1  grid = (query tiles) x (row splits): each block scores its
+//            queries against its row range and keeps, per query, its top-kc
+//            list (and in keyed mode its gate top-1) of the range; on one of
+//            two routes, below.
 //   stage 2  one block per query merges the splits: the gate by a block
-//            arg-max, the lists by a kmax-round head merge, and writes the
-//            k_q tail and the columns [kmax, k) as (NEG, tail_row).
+//            arg-max, the lists by a kc-round head merge, and writes the k_q
+//            tail and the columns [kmax, k) as (NEG, tail_row).
 // kmax is the longest list the caller needs (keyed mode: the largest k_q of
 // the batch, as the columns past it are masked whatever is computed there).
-// Lists hold at most 128 entries; a larger kmax runs in passes of 128, pass p
-// admitting only pairs that rank after the last pair pass p-1 wrote (the
-// gate is taken in the first pass). A later pass may start from a masked
-// pair, but every position it writes is past k_q too. No scratch is
+// Lists hold at most kc = 128 entries; a larger kmax runs in passes of 128,
+// pass p admitting only pairs that rank after the last pair pass p-1 wrote
+// (the gate is taken in the first pass). A later pass may start from a
+// masked pair, but every position it writes is past k_q too. No scratch is
 // allocated here: the caller passes it.
 //
-// What bounds it on an H100: at the chat and search shapes (Q <= 64) the scan
-// reads every arena row once, so the bound is HBM bytes, N*d*itemsize (plus
-// 4 B of madd or 6 B of row columns per row) over 3.35 TB/s: 0.48 ms for
-// 1,048,576 x 768 bf16. At the dedup-probe shape (Q = 8,192) it is
-// arithmetic, 2*N*d*Q operations, run here as f32 FMA on the CUDA cores, far
-// from the tensor-core bound. The per-candidate list insertion at large kmax
-// and the splits x kmax head merge are the other likely losses. Tensor cores
-// (wgmma) and TMA are later work.
+// The two stage-1 routes (the wrapper picks one: the tensor-core route for
+// a bf16 arena and more than 16 queries, else the FMA route; never from N).
+//
+// FMA route (scan_stage1; f32 arenas, and Q <= 16): a block of BQ queries
+// walks its range in tiles of 128 rows with register-tiled f32 FMA dot
+// products (16-byte loads, 32-dimension slices in shared memory); the tile's
+// masked scores go to shared memory and one warp per query inserts each
+// candidate that beats its list's last into the sorted list (rows arrive
+// in ascending order, so equal scores keep the lower row), and takes the
+// gate as a warp arg-max. At Q <= 16 the scan reads every arena row once:
+// the bound is HBM bytes, N*d*itemsize (plus 4 B of madd or 6 B of row
+// columns a row) over 3.35 TB/s, 0.48 ms for 1,048,576 x 768 bf16.
+//
+// Tensor-core route (scan_stage1_wgmma, bf16): one or two consumer
+// warpgroups of 64 queries and a producer warpgroup whose one thread keeps
+// TMA loads of (query panel, arena panel) pairs, 64 columns of 128-byte
+// swizzled rows each, in an mbarrier ring; the arena tile is wgmma's B
+// operand K-major straight from the row-major arena (K in the flash
+// forward's Q.K^T), rows past N and columns past d arrive as zeros. Each
+// warpgroup runs S = Q.E^T as a chain of SS wgmma m64nBNk16 over d with the
+// f32 sums in registers, panel p issued behind panel p - 1, whose stage is
+// released once it retires. The mask is applied to the accumulator after
+// the product from three row words a tile stages in shared memory (madd's
+// bits, or the list-tier and gate keys and the NEG fill), one compare and
+// one select a tier; a row past the split's end scores -inf, never a
+// candidate. Epilogues:
+// - kc = 1 (the dedup probe; lists of one): 256-row tiles, one warpgroup at
+//   Q <= 64, two past it (128 queries a block). Each thread keeps the best
+//   (score, row) of its two queries across the walk in registers, replaced
+//   only on a strictly better score; the quad's four threads are reduced
+//   with better() at the end. The keyed gate is the same arg-max in
+//   registers. No score tile goes through shared memory.
+// - 1 < kc <= 128: 128-row tiles, one warpgroup. Each query keeps a sorted
+//   list (kc entries) and a batch in shared memory, as exact 64-bit keys
+//   (order-preserving f32 bits over the complement of the row, the key of
+//   ops.topk.stable_topk, so no two are equal). A branch-free pass makes a
+//   mask of the scores above the query's threshold (its list's last once
+//   the list is full) and after the previous pass's last pair; the
+//   survivors go to the batch at positions from a quad prefix sum. Once the
+//   tile's scores are dead, a batch that could not take another tile, or
+//   that can fill a list not yet full, is merged: lists of up to 32 by kc
+//   rounds of a warp arg-max, longer ones by a bitonic sort of the batch (a
+//   network of 32 to 256 keys) and a merge by rank (binary searches); then
+//   the threshold rises to the list's last. A masked row scores NEG and is
+//   a candidate like any other, so a tier with fewer rows than kc lists the
+//   lowest other rows at NEG, in row order.
+// What bounds it, at the smoke's shapes on the 1,048,576 x 768 arena: at Q =
+// 64 the arena's 1.61 GB from HBM (0.48 ms; 2 * N * d * Q = 103 GFLOP is
+// 0.10 ms at 989 TFLOP/s), so the grid is one wave of single blocks over
+// ~131 splits and the ring is as deep as shared memory allows (5 stages of
+// 40 KB at kc = 1, 3-5 of 24 KB for lists), the query panels (8 KB a stage)
+// coming from L2. At Q = 8,192 it is arithmetic: 13.2 TFLOP, 13.3 ms at the
+// bf16 tensor rate. There a block takes 128 queries and 256-row tiles: per
+// tile it reads 12 x (16 + 32) KB of panels for 50.3 MFLOP, ~11 KB a MFLOP,
+// which at the tensor rate would be 11 TB/s from L2. 64 query tiles x 33
+// splits make 16 whole waves, launched query tiles first, so the 64 blocks
+// of a split read the same rows together and the arena comes from HBM about
+// once; the L2 traffic (~150 GB a scan) is what holds it near half the
+// tensor rate.
 
 #pragma once
 
@@ -66,6 +110,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "flash_hopper.cuh"
 
 namespace {
 
@@ -435,9 +481,9 @@ int query_tile(int nq) {
   return nq <= 4 ? 4 : (nq <= 8 ? 8 : (nq <= 16 ? 16 : 64));
 }
 
-// Number of row splits stage 1 uses for this shape on a card with `sms`
-// multiprocessors: enough blocks for about four per SM.
-int scan_splits(long long n, int nq, int sms) {
+// Number of row splits the FMA stage 1 uses for this shape on a card with
+// `sms` multiprocessors: enough blocks for about four per SM.
+int fma_splits(long long n, int nq, int sms) {
   const long long qtiles = (nq + query_tile(nq) - 1) / query_tile(nq);
   const long long rtiles = (n + kBR - 1) / kBR;
   long long want = (4LL * sms + qtiles - 1) / qtiles;
@@ -445,6 +491,665 @@ int scan_splits(long long n, int nq, int sms) {
   if (want > rtiles) want = rtiles;
   if (want > kMaxSplits) want = kMaxSplits;
   return (int)want;
+}
+
+// ---------------------------------------------------------------------------
+// Stage 1, tensor-core route (bf16 arenas): wgmma score tiles fed by a TMA
+// ring of arena and query panels
+// ---------------------------------------------------------------------------
+
+constexpr int kRouteFma = 0;
+constexpr int kRouteWgmma = 1;
+constexpr int kRowBytes = hopper::SWIZZLE_ROW_BYTES;  // one row of a 64-column panel
+constexpr int kSortN = 256;                           // keys one warp sorts, 8 a lane
+
+constexpr int kSmemMax = 232448;                      // a block's shared memory
+constexpr int kMaxStages = 8;
+
+// Tile shape of one pass. kc == 1 keeps a running arg-max in registers:
+// 256 arena rows a tile, one warpgroup of 64 queries, or two (128 queries)
+// past 64 queries; the ring takes the shared memory, up to kMaxStages
+// stages. Lists (kc > 1) take 128 rows a tile and one warpgroup, per query
+// lcap entries of sorted list (kc rounded up to 8) and bcap entries of
+// batch, and a ring of what is left: lists of up to 32 keep a batch of a
+// tile and 32 (a merge is cheap), longer ones the most that leaves 3
+// stages.
+struct WgShape {
+  int wgs, bn, list, ns, lcap, bcap;
+};
+
+inline size_t wg_stage_bytes(const WgShape& sh) {
+  return (size_t)(sh.wgs * 64 + sh.bn) * kRowBytes + 16;   // + two barriers
+}
+
+// 1 KB of alignment slack and two buffers of a tile's three row words per
+// warpgroup.
+inline size_t wg_cols_bytes(const WgShape& sh) {
+  return 1024 + (size_t)sh.wgs * 6 * sh.bn * 4;
+}
+
+// Lists add 64 entries of (lcap + bcap) keys.
+inline size_t wg_smem(const WgShape& sh) {
+  return wg_cols_bytes(sh) + (sh.list ? (size_t)64 * (sh.lcap + sh.bcap) * 8 : 0) +
+         sh.ns * wg_stage_bytes(sh);
+}
+
+inline WgShape wg_shape(int nq, int kc) {
+  if (kc == 1) {
+    WgShape sh{nq > 64 ? 2 : 1, 256, 0, 0, 0, 0};
+    const size_t ns = (kSmemMax - wg_cols_bytes(sh)) / wg_stage_bytes(sh);
+    sh.ns = (int)(ns < kMaxStages ? ns : kMaxStages);
+    return sh;
+  }
+  WgShape sh{1, 128, 1, 3, ((kc + 7) / 8) * 8, 0};
+  if (kc <= 32) {
+    sh.bcap = sh.bn + 32;
+  } else {
+    const size_t per_query =
+        (kSmemMax - wg_cols_bytes(sh) - sh.ns * wg_stage_bytes(sh)) / (64 * 8);
+    sh.bcap = (int)(((per_query - sh.lcap) / 8) * 8);
+    if (sh.bcap > kSortN) sh.bcap = kSortN;
+  }
+  const size_t ns = (kSmemMax - wg_cols_bytes(sh) - (size_t)64 * (sh.lcap + sh.bcap) * 8) /
+                    wg_stage_bytes(sh);
+  sh.ns = (int)(ns < kMaxStages ? ns : kMaxStages);
+  return sh;
+}
+
+// One exact key per (score, row): the order-preserving bits of the f32
+// score above the complement of the row, so that a larger key ranks first
+// (better()'s order with no ties left; ops.topk.stable_topk builds the
+// same key). 0 is below every key: an empty slot.
+__device__ __forceinline__ uint64_t list_key(float s, int r) {
+  uint32_t b = __float_as_uint(s);
+  b = (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+  return ((uint64_t)b << 32) | (uint32_t)(0xFFFFFFFFu - (uint32_t)r);
+}
+
+__device__ __forceinline__ float key_score(uint64_t k) {
+  uint32_t b = (uint32_t)(k >> 32);
+  b = (b & 0x80000000u) ? (b & 0x7FFFFFFFu) : ~b;
+  return __uint_as_float(b);
+}
+
+__device__ __forceinline__ int key_row(uint64_t k) {
+  return (int)(0xFFFFFFFFu - (uint32_t)k);
+}
+
+// (s, r) ranks after (ts, ta): the admission rule of a later pass.
+__device__ __forceinline__ bool ranks_after(float s, long long r, float ts, long long ta) {
+  return s < ts || (s == ts && r > ta);
+}
+
+// Exclusive offset and total of x over the four lanes of a quad (the four
+// threads that hold one accumulator row).
+__device__ __forceinline__ void quad_scan(int x, int& off, int& tot) {
+  const int tq = threadIdx.x & 3;
+  int inc = x;
+#pragma unroll
+  for (int o = 1; o < 4; o <<= 1) {
+    const int y = __shfl_up_sync(kFull, inc, o, 4);
+    if (tq >= o) inc += y;
+  }
+  tot = __shfl_sync(kFull, inc, 3, 4);
+  off = inc - x;
+}
+
+// The first n (<= S) keys at L sorted descending by the whole warp, a
+// bitonic network of S keys in registers (zeros past n sort last): key[j]
+// is position 32 j + lane.
+template <int S>
+__device__ __forceinline__ void warp_sort_desc(const uint64_t* L, int n,
+                                               uint64_t (&key)[S / 32]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int j = 0; j < S / 32; ++j) {
+    const int i = 32 * j + lane;
+    key[j] = i < n ? L[i] : 0ull;
+  }
+#pragma unroll
+  for (int size = 2; size <= S; size <<= 1) {
+#pragma unroll
+    for (int stride = size / 2; stride > 0; stride >>= 1) {
+      if (stride >= 32) {
+        const int js = stride / 32;
+#pragma unroll
+        for (int j = 0; j < S / 32; ++j) {
+          if (j & js) continue;
+          const bool desc = ((32 * j) & size) == 0;
+          const uint64_t x = key[j], y = key[j | js];
+          if (desc ? x < y : x > y) {
+            key[j] = y;
+            key[j | js] = x;
+          }
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < S / 32; ++j) {
+          const uint64_t y = __shfl_xor_sync(kFull, key[j], stride);
+          const bool desc = ((32 * j + lane) & size) == 0;
+          const bool lower = (lane & stride) == 0;
+          const uint64_t x = key[j];
+          key[j] = (lower == desc) ? (x > y ? x : y) : (x < y ? x : y);
+        }
+      }
+    }
+  }
+}
+
+// Keys greater than x in the descending keys arr[0, len).
+__device__ __forceinline__ int count_greater(const uint64_t* arr, int len, uint64_t x) {
+  int lo = 0, hi = len;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (arr[mid] > x) lo = mid + 1;
+    else hi = mid;
+  }
+  return lo;
+}
+
+// One query's batch B[0, nb) merged into its sorted list L[0, m) by the
+// whole warp, keeping the best kc: the batch is sorted (a network of S >=
+// nb keys) and written back, then every key's place in the merged order is
+// its own index plus the keys of the other array above it (no two keys are
+// equal), found by binary search; all reads end before the writes. Returns
+// the new list length.
+template <int S>
+__device__ __forceinline__ int merge_batch(uint64_t* L, int m, uint64_t* B, int nb, int kc) {
+  const int lane = threadIdx.x & 31;
+  uint64_t key[S / 32];
+  warp_sort_desc<S>(B, nb, key);
+  __syncwarp();
+#pragma unroll
+  for (int j = 0; j < S / 32; ++j)
+    if (32 * j + lane < nb) B[32 * j + lane] = key[j];
+  uint64_t lv[kMaxK / 32];
+#pragma unroll
+  for (int t = 0; t < kMaxK / 32; ++t)
+    lv[t] = lane + 32 * t < m ? L[lane + 32 * t] : 0ull;
+  __syncwarp();
+  int pb[S / 32], pl[kMaxK / 32];
+#pragma unroll
+  for (int j = 0; j < S / 32; ++j) {
+    const int i = 32 * j + lane;
+    pb[j] = i < nb ? i + count_greater(L, m, key[j]) : kc;
+  }
+#pragma unroll
+  for (int t = 0; t < kMaxK / 32; ++t) {
+    const int i = lane + 32 * t;
+    pl[t] = i < m ? i + count_greater(B, nb, lv[t]) : kc;
+  }
+  __syncwarp();
+#pragma unroll
+  for (int j = 0; j < S / 32; ++j)
+    if (pb[j] < kc) L[pb[j]] = key[j];
+#pragma unroll
+  for (int t = 0; t < kMaxK / 32; ++t)
+    if (pl[t] < kc) L[pl[t]] = lv[t];
+  __syncwarp();
+  return m + nb < kc ? m + nb : kc;
+}
+
+// The best kc (<= 32) of a query's sorted list L[0, m) and its batch
+// B[0, nb) (nb <= 32 NB), chosen by the whole warp in kc rounds of a warp
+// arg-max over the keys (each round takes the largest left; no two keys
+// are equal) and written sorted to L. Returns the new list length.
+template <int NB>
+__device__ __forceinline__ int select_small(uint64_t* L, int m, const uint64_t* B, int nb,
+                                            int kc) {
+  const int lane = threadIdx.x & 31;
+  uint64_t v[NB + 1];
+  v[0] = lane < m ? L[lane] : 0ull;
+#pragma unroll
+  for (int j = 0; j < NB; ++j) v[j + 1] = 32 * j + lane < nb ? B[32 * j + lane] : 0ull;
+  const int total = m + nb < kc ? m + nb : kc;
+  uint64_t mine = 0ull;
+  for (int r = 0; r < total; ++r) {
+    uint64_t best = v[0];
+#pragma unroll
+    for (int j = 1; j <= NB; ++j) best = v[j] > best ? v[j] : best;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      const uint64_t y = __shfl_xor_sync(kFull, best, o);
+      best = y > best ? y : best;
+    }
+#pragma unroll
+    for (int j = 0; j <= NB; ++j)
+      if (v[j] == best) v[j] = 0ull;
+    if (lane == r) mine = best;
+  }
+  __syncwarp();
+  if (lane < total) L[lane] = mine;
+  __syncwarp();
+  return total;
+}
+
+// Merges the batch of each of the warp's 16 queries whose need bit is set
+// (rows a at lanes 4g of need_a, rows b of need_b) into its list: lists of
+// up to 32 by select_small, longer ones by merge_batch with a network sized
+// to the batch. Raises the query's threshold to the list's last key once
+// the list holds kc. Query row i of the warp keeps its list at lists + i *
+// (lcap + bcap) and its batch lcap entries on.
+__device__ __forceinline__ void merge_pending(uint64_t* lists, int lcap, int bcap,
+                                              int kc, bool need_a, bool need_b, int& m_a,
+                                              int& m_b, int& nb_a, int& nb_b,
+                                              float& thr_a, float& thr_b) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+  unsigned bits_a = __ballot_sync(kFull, tq == 0 && need_a);
+  unsigned bits_b = __ballot_sync(kFull, tq == 0 && need_b);
+  while (bits_a | bits_b) {
+    const bool is_a = bits_a != 0u;
+    unsigned& bits = is_a ? bits_a : bits_b;
+    const int src = __ffs(bits) - 1;
+    bits &= bits - 1;
+    const int i = src / 4 + (is_a ? 0 : 8);
+    const int m = __shfl_sync(kFull, is_a ? m_a : m_b, src);
+    const int nb = __shfl_sync(kFull, is_a ? nb_a : nb_b, src);
+    uint64_t* L = lists + i * (lcap + bcap);
+    uint64_t* B = L + lcap;
+    int m2;
+    if (kc <= 32) {
+      if (nb <= 32) m2 = select_small<1>(L, m, B, nb, kc);
+      else if (nb <= 64) m2 = select_small<2>(L, m, B, nb, kc);
+      else if (nb <= 128) m2 = select_small<4>(L, m, B, nb, kc);
+      else m2 = select_small<8>(L, m, B, nb, kc);
+    } else {
+      if (nb <= 32) m2 = merge_batch<32>(L, m, B, nb, kc);
+      else if (nb <= 64) m2 = merge_batch<64>(L, m, B, nb, kc);
+      else if (nb <= 128) m2 = merge_batch<128>(L, m, B, nb, kc);
+      else m2 = merge_batch<256>(L, m, B, nb, kc);
+    }
+    const float t = m2 == kc ? key_score(L[kc - 1]) : -INFINITY;
+    if (g == src / 4) {
+      if (is_a) { m_a = m2; nb_a = 0; thr_a = t; }
+      else { m_b = m2; nb_b = 0; thr_b = t; }
+    }
+    __syncwarp();
+  }
+}
+
+template <bool kKeyed>
+struct WgArgs {
+  const float* madd;
+  const uint8_t* alive;
+  const int* row_tenant;
+  const uint8_t* is_super;
+  const int* q_tenant;
+  long long n, rows_per_split;
+  int nq, kc, panels, ns, lcap, bcap, with_gate, ld_after;
+  const float* after_s;
+  const RowT<kKeyed>* after_r;
+  float* gate_cs;
+  int* gate_cr;
+  float* cand_s;
+  int* cand_r;
+};
+
+// Scores of a tile from its three row words (ca, cb, cc), one compare and
+// one select a tier. Additive mode: ca holds madd's bits, added to the sum
+// (-inf past the split's end). Keyed mode: ca is the row's tenant if it is
+// a live non-super row, cb if it is a live super row (else a key no query
+// has), cc the score of a row outside the tier: NEG, or -inf past the
+// split's end, which no threshold admits. + 0.0f turns a -0 sum into +0.
+template <bool kKeyed>
+__device__ __forceinline__ float tier_score(float acc, uint32_t ca, uint32_t cc, int ten) {
+  if constexpr (kKeyed) return (int)ca == ten ? acc + 0.0f : __uint_as_float(cc);
+  return acc + __uint_as_float(ca);
+}
+
+__device__ __forceinline__ float gate_score(float acc, uint32_t cb, uint32_t cc, int ten) {
+  return (int)cb == ten ? acc + 0.0f : __uint_as_float(cc);
+}
+
+// Stage 1 on the tensor cores. Block (x, y) scores queries x * 64 WGS ..
+// + 64 WGS - 1 (warpgroup w takes 64 of them) against the rows of split y,
+// in tiles of BN rows. Warpgroup WGS produces: one thread keeps TMA loads
+// of (query panel, arena panel) pairs, 64 columns each, in a ring of NS
+// stages; the consumers run S = Q.E^T as wgmma m64nBNk16 with both operands
+// in 128-byte swizzled shared memory and the f32 sums in registers, then
+// fold the tile into their queries' results (see the header note).
+template <int WGS, int BN, bool kList, bool kKeyed>
+__global__ void __launch_bounds__((WGS + 1) * 128, 1)
+scan_stage1_wgmma(const __grid_constant__ CUtensorMap map_e,
+                  const __grid_constant__ CUtensorMap map_q, const WgArgs<kKeyed> a) {
+  // Ring of a.ns stages: item j uses stage j % ns; its full barrier waits
+  // for completion j / ns, the producer's empty wait for completion
+  // j / ns - 1 (hopper::Ring with a stage count known at launch).
+  const int NS = a.ns;
+  constexpr int QB = WGS * 64 * kRowBytes;   // query panel of a stage
+  constexpr int STAGE = QB + BN * kRowBytes;
+  constexpr int NF = BN / 2;                 // accumulator registers a thread
+  constexpr int CPT = BN / 128;              // row columns a thread stages
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint32_t* cols = reinterpret_cast<uint32_t*>(ring + NS * STAGE);  // [WGS][2][3][BN]
+  uint64_t* lists = reinterpret_cast<uint64_t*>(cols + WGS * 6 * BN);  // [64][lcap + bcap]
+  uint64_t* full = lists + (kList ? 64 * (a.lcap + a.bcap) : 0);
+  uint64_t* empty = full + NS;
+
+  const int q0 = blockIdx.x * WGS * 64;
+  const int split = blockIdx.y;
+  const long long r_begin = (long long)split * a.rows_per_split;
+  const long long r_end = min(r_begin + a.rows_per_split, a.n);
+  const int tiles = r_end > r_begin ? (int)((r_end - r_begin + BN - 1) / BN) : 0;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NS; ++s) {
+      hopper::mbar_init(full + s, 1);
+      hopper::mbar_init(empty + s, WGS);
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == WGS) {
+    // ---- producer: one thread issues every load
+    if constexpr (WGS == 2) hopper::regs_shrink<24>();
+    if (threadIdx.x == WGS * 128) {
+      const int items = tiles * a.panels;
+      for (int j = 0; j < items; ++j) {
+        const int s = j % NS, t = j / a.panels, p = j - t * a.panels;
+        if (j >= NS) hopper::mbar_wait(empty + s, ((j / NS) - 1) & 1);
+        hopper::mbar_arrive_expect_tx(full + s, STAGE);
+        uint8_t* st = ring + s * STAGE;
+        hopper::tma_load_4d(st, &map_q, full + s, 64 * p, q0, 0, 0);
+        hopper::tma_load_4d(st + QB, &map_e, full + s, 64 * p,
+                            (int)(r_begin + (long long)t * BN), 0, 0);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup wg owns 64 queries; this thread rows a and b
+  if constexpr (WGS == 2) hopper::regs_grow<240>();
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int la = 16 * warp + g, lb = la + 8;
+  const int qa = q0 + 64 * wg + la, qb = qa + 8;
+  const bool va = qa < a.nq, vb = qb < a.nq;
+  uint32_t* wcols = cols + wg * 6 * BN;
+
+  float ts_a = INFINITY, ts_b = INFINITY;
+  long long ta_a = -1, ta_b = -1;
+  if (a.after_s) {
+    if (va) {
+      ts_a = a.after_s[(long long)qa * a.ld_after];
+      ta_a = (long long)a.after_r[(long long)qa * a.ld_after];
+    }
+    if (vb) {
+      ts_b = a.after_s[(long long)qb * a.ld_after];
+      ta_b = (long long)a.after_r[(long long)qb * a.ld_after];
+    }
+  }
+  int ten_a = 0, ten_b = 0;
+  if constexpr (kKeyed) {
+    ten_a = va ? a.q_tenant[qa] : kNoTenant;
+    ten_b = vb ? a.q_tenant[qb] : kNoTenant;
+  }
+  // kc == 1: running best of the list tier; keyed: the gate's.
+  float bs_a = -INFINITY, bs_b = -INFINITY, gs_a = -INFINITY, gs_b = -INFINITY;
+  int br_a = INT32_MAX, br_b = INT32_MAX, gr_a = INT32_MAX, gr_b = INT32_MAX;
+  // Lists: the sorted list's length, the batch's, and the score a
+  // candidate must beat (the list's last once it holds kc; +inf for a query
+  // past nq).
+  int m_a = 0, m_b = 0, nb_a = 0, nb_b = 0;
+  float thr_a = va ? -INFINITY : INFINITY, thr_b = vb ? -INFINITY : INFINITY;
+  const int stride = a.lcap + a.bcap;
+  uint64_t* wlists = lists + 16 * warp * stride;   // this warp's 16 queries
+  uint64_t* Ba = lists + la * stride + a.lcap;
+  uint64_t* Bb = lists + lb * stride + a.lcap;
+  const bool first_pass = a.after_s == nullptr;
+
+  float acc[NF];
+#pragma unroll
+  for (int i = 0; i < NF; ++i) acc[i] = 0.0f;
+
+  for (int t = 0; t < tiles; ++t) {
+    const long long r0 = r_begin + (long long)t * BN;
+    // The tile's row words, loaded now and stored after the product.
+    uint32_t ca[CPT], cb[CPT], cc[CPT];
+#pragma unroll
+    for (int u = 0; u < CPT; ++u) {
+      const long long r = r0 + tid + 128 * u;
+      const bool in = r < r_end;
+      if constexpr (kKeyed) {
+        const int key = in && a.alive[r] ? a.row_tenant[r] : kNoTenant;
+        const bool sup = in && a.is_super[r];
+        ca[u] = (uint32_t)(sup ? kNoTenant : key);
+        cb[u] = (uint32_t)(sup ? key : kNoTenant);
+        cc[u] = __float_as_uint(in ? kNeg : -INFINITY);
+      } else {
+        ca[u] = __float_as_uint(in ? a.madd[r] : -INFINITY);
+        cb[u] = cc[u] = 0u;
+      }
+    }
+    // Panel p's four products go out behind panel p - 1's; panel p - 1's
+    // stage is released once they retire (wait<1>), the last after the
+    // loop.
+    const int j0 = t * a.panels;
+    for (int p = 0; p < a.panels; ++p) {
+      const int j = j0 + p, s = j % NS;
+      hopper::mbar_wait(full + s, (j / NS) & 1);
+      const uint8_t* qs = ring + s * STAGE + wg * 64 * kRowBytes;
+      const uint8_t* es = ring + s * STAGE + QB;
+      hopper::fence_regs(acc);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t da = hopper::sw128_desc(qs + 32 * kk, 16, 1024);
+        const uint64_t db = hopper::sw128_desc(es + 32 * kk, 16, 1024);
+        if constexpr (BN == 128) hopper::wgmma_ss_m64n128k16(acc, da, db, p > 0 || kk > 0);
+        if constexpr (BN == 256) hopper::wgmma_ss_m64n256k16(acc, da, db, p > 0 || kk > 0);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<1>();
+      hopper::fence_regs(acc);
+      if (p > 0 && tid == 0) hopper::mbar_arrive(empty + (j - 1) % NS);
+    }
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+    if (tid == 0) hopper::mbar_arrive(empty + (j0 + a.panels - 1) % NS);
+    // Buffer t % 2 was last read in tile t - 2's epilogue, which every
+    // thread finished before tile t - 1's barrier.
+    uint32_t* colA = wcols + (t & 1) * 3 * BN;
+    uint32_t* colB = colA + BN;
+    uint32_t* colC = colB + BN;
+#pragma unroll
+    for (int u = 0; u < CPT; ++u) {
+      colA[tid + 128 * u] = ca[u];
+      colB[tid + 128 * u] = cb[u];
+      colC[tid + 128 * u] = cc[u];
+    }
+    hopper::named_sync(1 + wg, 128);
+
+    // Fragment element 4c + e is row a, column 8c + 2tq + e; 4c + 2 + e row
+    // b. A thread's two columns of chunk c are adjacent row words. Rows
+    // reach a thread in ascending order, so an arg-max that replaces only on
+    // a strictly better score keeps the lowest row.
+    if constexpr (kKeyed) {
+      if (a.with_gate) {
+#pragma unroll
+        for (int c = 0; c < BN / 8; ++c) {
+          const uint2 kb = *reinterpret_cast<const uint2*>(colB + 8 * c + 2 * tq);
+          const uint2 kc2 = *reinterpret_cast<const uint2*>(colC + 8 * c + 2 * tq);
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int r = (int)r0 + 8 * c + 2 * tq + e;
+            const uint32_t cb = e ? kb.y : kb.x, cc = e ? kc2.y : kc2.x;
+            const float sa = gate_score(acc[4 * c + e], cb, cc, ten_a);
+            const float sb = gate_score(acc[4 * c + 2 + e], cb, cc, ten_b);
+            gr_a = sa > gs_a ? r : gr_a;
+            gs_a = sa > gs_a ? sa : gs_a;
+            gr_b = sb > gs_b ? r : gr_b;
+            gs_b = sb > gs_b ? sb : gs_b;
+          }
+        }
+      }
+    }
+    if constexpr (!kList) {
+#pragma unroll
+      for (int c = 0; c < BN / 8; ++c) {
+        const uint2 ka = *reinterpret_cast<const uint2*>(colA + 8 * c + 2 * tq);
+        uint2 kc2 = make_uint2(0u, 0u);
+        if constexpr (kKeyed) kc2 = *reinterpret_cast<const uint2*>(colC + 8 * c + 2 * tq);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int r = (int)r0 + 8 * c + 2 * tq + e;
+          const uint32_t ca = e ? ka.y : ka.x, cc = e ? kc2.y : kc2.x;
+          const float sa = tier_score<kKeyed>(acc[4 * c + e], ca, cc, ten_a);
+          const float sb = tier_score<kKeyed>(acc[4 * c + 2 + e], ca, cc, ten_b);
+          const bool ua = sa > bs_a && (first_pass || ranks_after(sa, r, ts_a, ta_a));
+          const bool ub = sb > bs_b && (first_pass || ranks_after(sb, r, ts_b, ta_b));
+          bs_a = ua ? sa : bs_a;
+          br_a = ua ? r : br_a;
+          bs_b = ub ? sb : bs_b;
+          br_b = ub ? r : br_b;
+        }
+      }
+    } else {
+      // Each score above its query's threshold (and, in a later pass, after
+      // the previous pass's last pair) goes to the query's batch, which has
+      // room for a whole tile: a branch-free mask first, then the few
+      // survivors, a pair of columns at a time. Then, the tile's scores
+      // dead, each batch that could not take another tile, or that can fill
+      // a list not yet full, is merged into its list.
+      uint32_t ma = 0u, mb = 0u;
+#pragma unroll
+      for (int c = 0; c < BN / 8; ++c) {
+        const uint2 ka = *reinterpret_cast<const uint2*>(colA + 8 * c + 2 * tq);
+        uint2 kc2 = make_uint2(0u, 0u);
+        if constexpr (kKeyed) kc2 = *reinterpret_cast<const uint2*>(colC + 8 * c + 2 * tq);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const uint32_t ca = e ? ka.y : ka.x, cc = e ? kc2.y : kc2.x;
+          const int r = (int)r0 + 8 * c + 2 * tq + e;
+          const float sa = tier_score<kKeyed>(acc[4 * c + e], ca, cc, ten_a);
+          const float sb = tier_score<kKeyed>(acc[4 * c + 2 + e], ca, cc, ten_b);
+          const bool ua = sa > thr_a && (first_pass || ranks_after(sa, r, ts_a, ta_a));
+          const bool ub = sb > thr_b && (first_pass || ranks_after(sb, r, ts_b, ta_b));
+          ma |= ua ? 1u << (2 * c + e) : 0u;
+          mb |= ub ? 1u << (2 * c + e) : 0u;
+        }
+      }
+      int off_a, tot_a, off_b, tot_b;
+      quad_scan(__popc(ma), off_a, tot_a);
+      quad_scan(__popc(mb), off_b, tot_b);
+      if (ma | mb) {
+        int pa = nb_a + off_a, pb = nb_b + off_b;
+#pragma unroll
+        for (int c = 0; c < BN / 8; ++c) {
+          if (!(((ma | mb) >> (2 * c)) & 3u)) continue;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = 8 * c + 2 * tq + e, bit = 2 * c + e;
+            const int r = (int)r0 + col;
+            if ((ma >> bit) & 1u)
+              Ba[pa++] = list_key(
+                  tier_score<kKeyed>(acc[4 * c + e], colA[col], colC[col], ten_a), r);
+            if ((mb >> bit) & 1u)
+              Bb[pb++] = list_key(
+                  tier_score<kKeyed>(acc[4 * c + 2 + e], colA[col], colC[col], ten_b), r);
+          }
+        }
+      }
+      nb_a += tot_a;
+      nb_b += tot_b;
+      merge_pending(wlists, a.lcap, a.bcap, a.kc,
+                    nb_a > 0 && (nb_a > a.bcap - BN || m_a < a.kc),
+                    nb_b > 0 && (nb_b > a.bcap - BN || m_b < a.kc), m_a, m_b, nb_a, nb_b,
+                    thr_a, thr_b);
+    }
+  }
+
+  // ---- results of the split: quad reductions, or the last merges
+  if constexpr (kKeyed) {
+    if (a.with_gate) {
+#pragma unroll
+      for (int o = 1; o <= 2; o <<= 1) {
+        const float sa = __shfl_xor_sync(kFull, gs_a, o), sb = __shfl_xor_sync(kFull, gs_b, o);
+        const int ra = __shfl_xor_sync(kFull, gr_a, o), rb = __shfl_xor_sync(kFull, gr_b, o);
+        if (better(sa, ra, gs_a, gr_a)) { gs_a = sa; gr_a = ra; }
+        if (better(sb, rb, gs_b, gr_b)) { gs_b = sb; gr_b = rb; }
+      }
+      if (tq == 0) {
+        if (va) { a.gate_cs[(long long)split * a.nq + qa] = gs_a; a.gate_cr[(long long)split * a.nq + qa] = gr_a; }
+        if (vb) { a.gate_cs[(long long)split * a.nq + qb] = gs_b; a.gate_cr[(long long)split * a.nq + qb] = gr_b; }
+      }
+    }
+  }
+  if constexpr (!kList) {
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1) {
+      const float sa = __shfl_xor_sync(kFull, bs_a, o), sb = __shfl_xor_sync(kFull, bs_b, o);
+      const int ra = __shfl_xor_sync(kFull, br_a, o), rb = __shfl_xor_sync(kFull, br_b, o);
+      if (better(sa, ra, bs_a, br_a)) { bs_a = sa; br_a = ra; }
+      if (better(sb, rb, bs_b, br_b)) { bs_b = sb; br_b = rb; }
+    }
+    if (tq == 0) {   // kc == 1
+      if (va) { a.cand_s[(long long)split * a.nq + qa] = bs_a; a.cand_r[(long long)split * a.nq + qa] = br_a; }
+      if (vb) { a.cand_s[(long long)split * a.nq + qb] = bs_b; a.cand_r[(long long)split * a.nq + qb] = br_b; }
+    }
+  } else {
+    merge_pending(wlists, a.lcap, a.bcap, a.kc, nb_a > 0, nb_b > 0, m_a, m_b, nb_a, nb_b,
+                  thr_a, thr_b);
+    for (int i = 0; i < 16; ++i) {
+      const int m = __shfl_sync(kFull, i < 8 ? m_a : m_b, 4 * (i & 7));
+      const int q = q0 + 64 * wg + 16 * warp + i;
+      if (q >= a.nq) continue;
+      const uint64_t* L = wlists + i * stride;
+      const long long o = ((long long)split * a.nq + q) * a.kc;
+      for (int idx = lane; idx < a.kc; idx += 32) {
+        const bool live = idx < m;
+        const uint64_t key = live ? L[idx] : 0ull;
+        a.cand_s[o + idx] = live ? key_score(key) : -INFINITY;
+        a.cand_r[o + idx] = live ? key_row(key) : INT32_MAX;
+      }
+    }
+  }
+}
+
+template <int WGS, int BN, bool kList, bool kKeyed>
+cudaError_t launch_stage1_wgmma(const void* emb, const void* qry, int d,
+                                const WgArgs<kKeyed>& w, int splits, cudaStream_t stream) {
+  auto kernel = scan_stage1_wgmma<WGS, BN, kList, kKeyed>;
+  const size_t smem = wg_smem(WgShape{WGS, BN, kList, w.ns, w.lcap, w.bcap});
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  // Rows past N and columns past d arrive as zeros.
+  CUtensorMap map_e, map_q;
+  if (!hopper::encode_rows_map(&map_e, emb, d, w.n, 1, 1, d, 0, 0, BN) ||
+      !hopper::encode_rows_map(&map_q, qry, d, w.nq, 1, 1, d, 0, 0, WGS * 64))
+    return cudaErrorNotSupported;
+  dim3 grid((w.nq + WGS * 64 - 1) / (WGS * 64), splits);
+  kernel<<<grid, (WGS + 1) * 128, smem, stream>>>(map_e, map_q, w);
+  return cudaGetLastError();
+}
+
+// Splits of the tensor-core route: the count whose blocks fill whole waves
+// of one block per SM best (ties to the fewest), from the first pass's
+// shape. Blocks of one split read the same rows in the same order, and the
+// grid launches query tiles fastest, so a wave shares its arena panels in
+// L2.
+int wg_splits(long long n, int nq, int kmax, int sms) {
+  const WgShape sh = wg_shape(nq, kmax < kMaxK ? kmax : kMaxK);
+  const long long qtiles = (nq + sh.wgs * 64 - 1) / (sh.wgs * 64);
+  const long long rtiles = (n + sh.bn - 1) / sh.bn;
+  const long long top = rtiles < kMaxSplits ? rtiles : kMaxSplits;
+  int best = 1;
+  double best_eff = -1.0;
+  for (long long s = 1; s <= top; ++s) {
+    const long long per = (rtiles + s - 1) / s;
+    const long long waves = (qtiles * s + sms - 1) / sms;
+    const double eff = (double)(qtiles * rtiles) / ((double)waves * sms * per);
+    if (eff > best_eff * (1.0 + 1e-9)) {
+      best_eff = eff;
+      best = (int)s;
+    }
+  }
+  return best;
 }
 
 // Everything one scan needs; the mode's unused pointers are null.
@@ -502,19 +1207,54 @@ cudaError_t launch_stage1_for(const Scan<kKeyed>& a, int kc, int k0,
   }
 }
 
-// Stage 1 and stage 2 for every pass of 128 list entries up to kmax.
+// Row splits of stage 1 on a route for this shape (the scratch's leading
+// dimension).
+int scan_splits(long long n, int nq, int kmax, int route, int sms) {
+  return route == kRouteWgmma ? wg_splits(n, nq, kmax, sms) : fma_splits(n, nq, sms);
+}
+
+// The tensor-core stage 1 of one pass (bf16 arenas only).
 template <bool kKeyed>
-int run_scan(const Scan<kKeyed>& a, cudaStream_t st) {
+cudaError_t launch_stage1_wg(const Scan<kKeyed>& a, int kc, int k0, cudaStream_t st) {
+  if (!a.is_bf16) return cudaErrorInvalidValue;
+  const WgShape sh = wg_shape(a.nq, kc);
+  const long long rtiles = (a.n + sh.bn - 1) / sh.bn;
+  WgArgs<kKeyed> w{};
+  w.madd = a.madd; w.alive = a.alive; w.row_tenant = a.row_tenant;
+  w.is_super = a.is_super; w.q_tenant = a.q_tenant;
+  w.n = a.n;
+  w.rows_per_split = ((rtiles + a.splits - 1) / a.splits) * sh.bn;
+  w.nq = a.nq; w.kc = kc; w.panels = (a.d + 63) / 64;
+  w.ns = sh.ns; w.lcap = sh.lcap; w.bcap = sh.bcap;
+  w.with_gate = kKeyed && k0 == 0; w.ld_after = a.k_out;
+  w.after_s = k0 ? a.out_s + k0 - 1 : nullptr;
+  w.after_r = k0 ? a.out_r + k0 - 1 : nullptr;
+  w.gate_cs = a.gate_cs; w.gate_cr = a.gate_cr; w.cand_s = a.cand_s; w.cand_r = a.cand_r;
+  if (sh.list) return launch_stage1_wgmma<1, 128, true, kKeyed>(a.emb, a.qry, a.d, w, a.splits, st);
+  if (sh.wgs == 2) return launch_stage1_wgmma<2, 256, false, kKeyed>(a.emb, a.qry, a.d, w, a.splits, st);
+  return launch_stage1_wgmma<1, 256, false, kKeyed>(a.emb, a.qry, a.d, w, a.splits, st);
+}
+
+// Stage 1 on `route` and stage 2 for every pass of 128 list entries up to
+// kmax. A launch the card refuses returns its error: no route stands in for
+// another.
+template <bool kKeyed>
+int run_scan(const Scan<kKeyed>& a, int route, cudaStream_t st) {
   if (a.d % 8 != 0 || a.kmax < 1 || a.kmax > a.k_out || a.k_out > a.n ||
-      a.nq < 1 || a.splits < 1 || a.splits > kMaxSplits)
+      a.nq < 1 || a.splits < 1 || a.splits > kMaxSplits ||
+      (route != kRouteFma && route != kRouteWgmma))
     return (int)cudaErrorInvalidValue;
   const long long rtiles = (a.n + kBR - 1) / kBR;
   const long long rows_per_split = ((rtiles + a.splits - 1) / a.splits) * kBR;
   for (int k0 = 0; k0 < a.kmax; k0 += kMaxK) {
     const int kc = a.kmax - k0 < kMaxK ? a.kmax - k0 : kMaxK;
-    cudaError_t err =
-        a.is_bf16 ? launch_stage1_for<uint16_t, kKeyed>(a, kc, k0, rows_per_split, st)
-                  : launch_stage1_for<float, kKeyed>(a, kc, k0, rows_per_split, st);
+    cudaError_t err;
+    if (route == kRouteWgmma)
+      err = launch_stage1_wg<kKeyed>(a, kc, k0, st);
+    else if (a.is_bf16)
+      err = launch_stage1_for<uint16_t, kKeyed>(a, kc, k0, rows_per_split, st);
+    else
+      err = launch_stage1_for<float, kKeyed>(a, kc, k0, rows_per_split, st);
     if (err != cudaSuccess) return (int)err;
     scan_merge<RowT<kKeyed>><<<a.nq, kThreads, 0, st>>>(
         a.gate_cs, a.gate_cr, a.cand_s, a.cand_r, a.splits, a.nq, kc, k0,

@@ -16,7 +16,9 @@ for ``sm_90a``, built with ``nvcc`` on first use and bound through
 
 :func:`fused_topk` launches the kernel for a CUDA arena and runs
 :func:`fused_topk_reference` only for a CPU arena. ``launches`` counts the
-kernel launches made through :func:`fused_topk`.
+kernel launches made through :func:`fused_topk`, ``launches_wgmma`` those
+that took the tensor-core stage 1 (``ops.masked_topk.route_for``: a bf16
+arena and more than 16 queries).
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from typing import Optional, Tuple
 import torch
 
 from lazzaro_tpu_torch.ops.chunking import chunked_map, nt_dot
-from lazzaro_tpu_torch.ops.masked_topk import _sms
+from lazzaro_tpu_torch.ops.masked_topk import ROUTES, _sms, route_for
 from lazzaro_tpu_torch.ops.topk import NEG_INF, ragged_mask, stable_topk
 from lazzaro_tpu_torch.utils import cuda_build
 
@@ -35,6 +37,7 @@ from lazzaro_tpu_torch.utils import cuda_build
 MAX_K = 128
 
 launches = 0
+launches_wgmma = 0
 
 _lib = None
 
@@ -45,14 +48,14 @@ def _library():
     global _lib
     if _lib is None:
         lib = cuda_build.load("fused_topk")
-        lib.fused_topk_splits.argtypes = [ctypes.c_longlong, ctypes.c_int,
-                                          ctypes.c_int]
-        lib.fused_topk_splits.restype = ctypes.c_int
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.fused_topk_splits.argtypes = [ctypes.c_longlong, i32, i32, i32,
+                                          i32]
+        lib.fused_topk_splits.restype = i32
         lib.fused_topk.argtypes = [
             ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, ctypes.c_longlong, i32,
-            i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
-            ptr]
+            i32, i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+            ptr, ptr]
         lib.fused_topk.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -91,8 +94,10 @@ def fused_topk_reference(emb: torch.Tensor, alive: torch.Tensor,
 
 
 def _launch(emb, alive, tenant_id, is_super, queries, tenant, k_q, k,
-            sentinel, k_live) -> Result:
-    global launches
+            sentinel, k_live, route=None) -> Result:
+    """One scan on the card; ``route`` forces a stage 1 as in
+    ``ops.masked_topk._launch``."""
+    global launches, launches_wgmma
     if emb.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"fused_topk takes f32 or bf16 arenas, not {emb.dtype}")
     if emb.ndim != 2 or not emb.is_contiguous():
@@ -120,8 +125,9 @@ def _launch(emb, alive, tenant_id, is_super, queries, tenant, k_q, k,
     kq = None if k_q is None else k_q.to(device=dev, dtype=torch.int32).contiguous()
     if ten.shape != (nq,) or (kq is not None and kq.shape != (nq,)):
         raise ValueError("fused_topk: tenant and k_q must be [Q]")
+    route = route or route_for(emb.dtype, nq)
     lib = _library()
-    splits = lib.fused_topk_splits(n, nq, _sms(dev))
+    splits = lib.fused_topk_splits(n, nq, kmax, ROUTES[route], _sms(dev))
     kc = min(kmax, MAX_K)
     f32, i32 = torch.float32, torch.int32
     gate_cs = torch.empty((splits, nq), dtype=f32, device=dev)
@@ -138,13 +144,15 @@ def _launch(emb, alive, tenant_id, is_super, queries, tenant, k_q, k,
             emb.data_ptr(), int(emb.dtype == torch.bfloat16), alive.data_ptr(),
             tenant_id.data_ptr(), is_super.data_ptr(), q.data_ptr(),
             ten.data_ptr(), None if kq is None else kq.data_ptr(), n, d, nq,
-            k, kmax, int(sentinel), splits, gate_cs.data_ptr(),
+            k, kmax, int(sentinel), ROUTES[route], splits, gate_cs.data_ptr(),
             gate_cr.data_ptr(), cand_s.data_ptr(), cand_r.data_ptr(),
             gate_s.data_ptr(), gate_r.data_ptr(), ann_s.data_ptr(),
             ann_r.data_ptr(), stream)
     if rc != 0:
-        raise RuntimeError(f"fused_topk kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"fused_topk kernel launch failed ({route} route): "
+                           f"CUDA error {rc}")
     launches += 1
+    launches_wgmma += route == "wgmma"
     return gate_s, gate_r, ann_s, ann_r
 
 

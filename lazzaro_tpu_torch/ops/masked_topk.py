@@ -13,6 +13,12 @@ header's note says what bounds it and how it is laid out.
 ``launches`` counts the kernel launches made through :func:`masked_topk`
 and :func:`masked_topk_ragged`.
 
+Two routes compute the same result (:func:`route_for` picks one from the
+arena dtype and the query count, never from N): a bf16 arena scanned for
+more than ``WGMMA_MIN_Q`` queries goes through the tensor-core stage 1
+(wgmma score tiles fed by TMA), anything else through the FMA stage 1.
+``launches_wgmma`` counts the launches that took the tensor-core route.
+
 The ragged form (:func:`masked_topk_ragged`) replaces
 ``pallas_topk.py:pallas_masked_topk_ragged`` and its arena wrapper
 ``masked_topk_arena_ragged``: ``k`` is a static ceiling, ``k_q [Q]`` each
@@ -34,8 +40,13 @@ from lazzaro_tpu_torch.utils import cuda_build
 
 # Longest per-query list the kernel keeps; a larger k runs in passes.
 MAX_K = 128
+# Above this many queries a bf16 scan runs on the tensor cores; at or below
+# it the scan is a bandwidth-bound matrix-vector product (FMA route).
+WGMMA_MIN_Q = 16
+ROUTES = {"fma": 0, "wgmma": 1}
 
 launches = 0
+launches_wgmma = 0
 
 _lib = None
 _sm_count: Dict[int, int] = {}
@@ -46,6 +57,7 @@ def _library():
     if _lib is None:
         lib = cuda_build.load("masked_topk")
         lib.masked_topk_splits.argtypes = [ctypes.c_longlong, ctypes.c_int,
+                                           ctypes.c_int, ctypes.c_int,
                                            ctypes.c_int]
         lib.masked_topk_splits.restype = ctypes.c_int
         lib.masked_topk.argtypes = [
@@ -55,7 +67,8 @@ def _library():
             ctypes.c_void_p, ctypes.c_void_p]
         lib.masked_topk.restype = ctypes.c_int
         lib.masked_topk_ragged.argtypes = (
-            lib.masked_topk.argtypes[:8] + [ctypes.c_void_p, ctypes.c_longlong]
+            lib.masked_topk.argtypes[:8]
+            + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int]
             + lib.masked_topk.argtypes[8:])
         lib.masked_topk_ragged.restype = ctypes.c_int
         _lib = lib
@@ -69,10 +82,21 @@ def _sms(device: torch.device) -> int:
     return _sm_count[idx]
 
 
+def route_for(dtype: torch.dtype, nq: int) -> str:
+    """The stage-1 route of a scan: ``"wgmma"`` (tensor cores) for a bf16
+    arena and more than ``WGMMA_MIN_Q`` queries, else ``"fma"``. It depends
+    on nothing else, so every shard of a row-sharded arena takes the route
+    one device would take for the same batch."""
+    return "wgmma" if dtype == torch.bfloat16 and nq > WGMMA_MIN_Q else "fma"
+
+
 def _launch(emb: torch.Tensor, madd: torch.Tensor, queries: torch.Tensor,
-            k: int, k_q: Optional[torch.Tensor] = None
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    global launches
+            k: int, k_q: Optional[torch.Tensor] = None,
+            route: Optional[str] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One scan on the card. ``route`` forces a stage 1 (a record of the
+    tensor-core route at small Q); by default :func:`route_for` picks it.
+    The card refuses the tensor-core route for an f32 arena: that raises."""
+    global launches, launches_wgmma
     if emb.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"masked_topk takes f32 or bf16 arenas, not {emb.dtype}")
     if emb.ndim != 2 or not emb.is_contiguous():
@@ -94,8 +118,9 @@ def _launch(emb: torch.Tensor, madd: torch.Tensor, queries: torch.Tensor,
         k_q = k_q.to(device=dev, dtype=torch.int32).contiguous()
         if k_q.shape != (nq,):
             raise ValueError("masked_topk: k_q must be [Q]")
+    route = route or route_for(emb.dtype, nq)
     lib = _library()
-    splits = lib.masked_topk_splits(n, nq, _sms(dev))
+    splits = lib.masked_topk_splits(n, nq, k, ROUTES[route], _sms(dev))
     kc = min(k, MAX_K)
     cand_s = torch.empty((splits, nq, kc), dtype=torch.float32, device=dev)
     cand_r = torch.empty((splits, nq, kc), dtype=torch.int32, device=dev)
@@ -106,12 +131,14 @@ def _launch(emb: torch.Tensor, madd: torch.Tensor, queries: torch.Tensor,
         rc = lib.masked_topk_ragged(
             emb.data_ptr(), int(emb.dtype == torch.bfloat16), madd.data_ptr(),
             q.data_ptr(), n, d, nq, k,
-            None if k_q is None else k_q.data_ptr(), -1, splits,
+            None if k_q is None else k_q.data_ptr(), -1, ROUTES[route], splits,
             cand_s.data_ptr(), cand_r.data_ptr(), out_s.data_ptr(),
             out_r.data_ptr(), stream)
     if rc != 0:
-        raise RuntimeError(f"masked_topk kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"masked_topk kernel launch failed ({route} route): "
+                           f"CUDA error {rc}")
     launches += 1
+    launches_wgmma += route == "wgmma"
     return out_s, out_r
 
 

@@ -18,6 +18,7 @@ import torch
 
 from lazzaro_tpu_torch.ops import fused_topk as ft
 from lazzaro_tpu_torch.ops import masked_topk as mt
+from lazzaro_tpu_torch.ops import topk as tk
 
 pytestmark = pytest.mark.cuda
 
@@ -35,15 +36,19 @@ def grid(gen, shape, dtype, device):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,nq,k", [(4096, 1, 10), (5003, 3, 1), (777, 70, 16),
-                                    (20000, 5, 128), (300, 1100, 3),
-                                    (20000, 5, 300), (1000, 2, 1000)])
-def test_kernel_matches_plain_version(cuda, dtype, n, nq, k):
+@pytest.mark.parametrize("n,nq,k,d", [
+    (4096, 1, 10, 64), (5003, 3, 1, 64), (777, 70, 16, 64), (20000, 5, 128, 64),
+    (300, 1100, 3, 64), (20000, 5, 300, 64), (1000, 2, 1000, 64),
+    # Q > 16: bf16 takes the tensor-core route (ragged N, d past one panel
+    # and not a multiple of 64, lists at and past 128, ties across tiles)
+    (777, 17, 1, 32), (5003, 64, 10, 72), (5003, 65, 128, 64),
+    (777, 200, 300, 32), (5003, 1100, 1, 768), (20000, 64, 300, 64)])
+def test_kernel_matches_plain_version(cuda, dtype, n, nq, k, d):
     gen = torch.Generator(device=cuda).manual_seed(n + nq + k)
-    emb = grid(gen, (n, 64), dtype, cuda)
+    emb = grid(gen, (n, d), dtype, cuda)
     emb[n // 2:n // 2 + 40] = emb[:40]                       # exact ties
     mask = torch.rand(n, generator=gen, device=cuda) < 0.7
-    q = grid(gen, (nq, 64), dtype, cuda)
+    q = grid(gen, (nq, d), dtype, cuda)
     before = mt.launches
     s, r = mt.masked_topk(emb, mask, q, k)
     ps, pr = mt.masked_topk_reference(emb, mask, q, k)
@@ -51,6 +56,108 @@ def test_kernel_matches_plain_version(cuda, dtype, n, nq, k):
     assert mt.launches == before + 1
     assert torch.equal(r, pr)
     assert torch.equal(s, ps)
+
+
+@pytest.mark.parametrize("k", [128, 300])
+def test_tensor_core_lists_keep_tie_order_across_passes(cuda, k):
+    """600 distinct rows repeated 13 times and queries drawn from them: every
+    list is runs of exact ties, which straddle the tiles, the splits and the
+    seams of the 128-entry passes; the kernel must list each run in row
+    order, as the plain version does."""
+    gen = torch.Generator(device=cuda).manual_seed(k)
+    base = grid(gen, (600, 64), torch.bfloat16, cuda)
+    emb = base.repeat(13, 1)
+    mask = torch.rand(emb.shape[0], generator=gen, device=cuda) < 0.9
+    q = base[:64].clone()
+    before = mt.launches_wgmma
+    s, r = mt.masked_topk(emb, mask, q, k)
+    ps, pr = mt.masked_topk_reference(emb, mask, q, k)
+    torch.cuda.synchronize()
+    assert mt.launches_wgmma == before + 1
+    assert torch.equal(r, pr) and torch.equal(s, ps)
+    if k > 128:                                 # a run crosses the first seam
+        assert (s[:, 127] == s[:, 128]).any()
+
+
+@pytest.mark.parametrize("nq,k", [(1, 10), (8, 1), (16, 128), (3, 300)])
+def test_tensor_core_route_forced_at_small_q(cuda, nq, k):
+    """The tensor-core stage 1 forced below its Q threshold (a record for
+    small-Q scans) gives the plain version's result, as the FMA one does."""
+    gen = torch.Generator(device=cuda).manual_seed(nq + k)
+    emb = grid(gen, (5003, 64), torch.bfloat16, cuda)
+    emb[2500:2540] = emb[:40]
+    mask = torch.rand(5003, generator=gen, device=cuda) < 0.7
+    q = grid(gen, (nq, 64), torch.bfloat16, cuda)
+    want = mt.masked_topk_reference(emb, mask, q, k)
+    for route in ("wgmma", "fma"):
+        got = mt._launch(emb, tk.additive_mask(mask), q, k, route=route)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), route
+
+
+@pytest.mark.parametrize("dtype,nq,routed", [
+    (torch.bfloat16, 1, False), (torch.bfloat16, 16, False),
+    (torch.float32, 64, False), (torch.bfloat16, 17, True),
+    (torch.bfloat16, 8192, True)])
+def test_route_counts_follow_dtype_and_query_count(cuda, dtype, nq, routed):
+    """Only a bf16 scan of more than 16 queries counts a tensor-core launch,
+    in both modes; every call counts one launch."""
+    gen = torch.Generator(device=cuda).manual_seed(nq)
+    n = 3000
+    emb = grid(gen, (n, 32), dtype, cuda)
+    mask = torch.ones(n, dtype=torch.bool, device=cuda)
+    q = grid(gen, (nq, 32), dtype, cuda)
+    before = (mt.launches, mt.launches_wgmma)
+    mt.masked_topk(emb, mask, q, 5)
+    assert (mt.launches - before[0], mt.launches_wgmma - before[1]) == (1, int(routed))
+    ten = torch.zeros(n, dtype=torch.int32, device=cuda)
+    q_ten = torch.zeros(nq, dtype=torch.int32, device=cuda)
+    sup = torch.zeros(n, dtype=torch.bool, device=cuda)
+    before = (ft.launches, ft.launches_wgmma)
+    ft.fused_topk(emb, mask, ten, sup, q, q_ten, None, 5)
+    assert (ft.launches - before[0], ft.launches_wgmma - before[1]) == (1, int(routed))
+    torch.cuda.synchronize()
+
+
+def test_scores_do_not_depend_on_the_row_offset(cuda):
+    """On real (non-grid) bf16 data a row's score on the tensor-core route is
+    bitwise the same when the row is scanned in the whole arena and in a
+    slice starting at an unaligned row: what the mesh's per-shard scans
+    rest on."""
+    rng = np.random.default_rng(5)
+    n, d, nq, k = 9000, 768, 64, 128
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    emb = torch.from_numpy(x / np.linalg.norm(x, axis=1, keepdims=True)).to(
+        cuda, torch.bfloat16)
+    q = torch.from_numpy(rng.standard_normal((nq, d)).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    rows = torch.from_numpy(rng.choice(np.arange(3001, n), k, replace=False)).to(cuda)
+    mask = torch.zeros(n, dtype=torch.bool, device=cuda)
+    mask[rows] = True
+    for kk in (1, k):                    # the arg-max and the list epilogues
+        whole_s, whole_r = mt.masked_topk(emb, mask, q, kk)
+        for off in (1, 777, 3001):
+            part_s, part_r = mt.masked_topk(emb[off:], mask[off:], q, kk)
+            order = torch.argsort(whole_r, dim=1)
+            part_order = torch.argsort(part_r, dim=1)
+            assert torch.equal(torch.gather(whole_r, 1, order),
+                               torch.gather(part_r, 1, part_order) + off)
+            assert torch.equal(torch.gather(whole_s, 1, order),
+                               torch.gather(part_s, 1, part_order)), (kk, off)
+
+
+def test_tensor_core_route_is_bitwise_deterministic(cuda):
+    rng = np.random.default_rng(6)
+    emb = torch.from_numpy(rng.standard_normal((20000, 256)).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    mask = torch.from_numpy(rng.random(20000) < 0.8).to(cuda)
+    q = torch.from_numpy(rng.standard_normal((300, 256)).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    for k in (1, 10, 300):
+        first = mt.masked_topk(emb, mask, q, k)
+        second = mt.masked_topk(emb, mask, q, k)
+        for a, b in zip(first, second):
+            assert torch.equal(a, b)
 
 
 def test_fewer_live_rows_than_k(cuda):
@@ -88,6 +195,27 @@ def test_a_refused_launch_raises(cuda):
     assert rc != 0
 
 
+def test_a_refused_tensor_core_launch_raises(cuda):
+    """The tensor-core route takes bf16 arenas only: forced on an f32 arena,
+    or on queries no tensor map can address, the card refuses it and the
+    wrapper raises instead of running the FMA route."""
+    emb = torch.zeros((300, 32), device=cuda)
+    madd = torch.zeros(300, device=cuda)
+    q = torch.zeros((32, 32), device=cuda)
+    before = mt.launches
+    with pytest.raises(RuntimeError, match="wgmma"):
+        mt._launch(emb, madd, q, 3, route="wgmma")
+    with pytest.raises(RuntimeError, match="wgmma"):
+        ft._launch(emb, madd == 0, torch.zeros(300, dtype=torch.int32, device=cuda),
+                   madd != 0, q, torch.zeros(32, dtype=torch.int32, device=cuda),
+                   None, 3, 299, None, route="wgmma")
+    assert mt.launches == before
+    flat = torch.zeros(32 * 32 + 4, device=cuda, dtype=torch.bfloat16)
+    misaligned = flat[4:].view(32, 32)        # 8 bytes past a 16-byte boundary
+    with pytest.raises(RuntimeError, match="wgmma"):
+        mt._launch(emb.bfloat16(), madd, misaligned, 3)
+
+
 def test_ragged_kernel_masks_each_query_at_its_k(cuda):
     gen = torch.Generator(device=cuda).manual_seed(3)
     emb = grid(gen, (5003, 64), torch.bfloat16, cuda)
@@ -121,14 +249,17 @@ def two_tier_arena(gen, n, d, dtype, device):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,nq,k,k_live", [(4096, 8, 128, 10), (5003, 3, 16, 16),
-                                           (20000, 64, 128, 128),
-                                           (20000, 5, 300, 300),
-                                           (777, 70, 32, None)])
-def test_two_tier_kernel_matches_plain_version(cuda, dtype, n, nq, k, k_live):
+@pytest.mark.parametrize("n,nq,k,k_live,d", [
+    (4096, 8, 128, 10, 64), (5003, 3, 16, 16, 64), (20000, 64, 128, 128, 64),
+    (20000, 5, 300, 300, 64), (777, 70, 32, None, 64),
+    # Q > 16 (bf16: the tensor-core route): the fleet's and a batch's shapes,
+    # a gate with a list of one, lists past 128, d not a multiple of 64
+    (5003, 64, 128, 10, 768), (777, 17, 1, None, 32), (5003, 65, 300, 300, 72),
+    (20000, 200, 128, 128, 32)])
+def test_two_tier_kernel_matches_plain_version(cuda, dtype, n, nq, k, k_live, d):
     gen = torch.Generator(device=cuda).manual_seed(n + nq + k)
-    emb, alive, tenant, sup = two_tier_arena(gen, n, 64, dtype, cuda)
-    q = grid(gen, (nq, 64), dtype, cuda)
+    emb, alive, tenant, sup = two_tier_arena(gen, n, d, dtype, cuda)
+    q = grid(gen, (nq, d), dtype, cuda)
     q_ten = torch.randint(0, 2, (nq,), generator=gen, device=cuda).int()
     kq = torch.randint(1, (k_live or k) + 1, (nq,), generator=gen,
                        device=cuda).int()
@@ -164,6 +295,42 @@ def test_two_tier_kernel_corners(cuda):
         assert torch.equal(g, w)
     assert got[0][0] == -1e30 and got[1][0].item() == 0
     assert got[3][0, 3:].tolist() == [0, 1, 2, 3, 4]
+
+
+def test_two_tier_corners_on_the_tensor_core_route(cuda):
+    """The corners at Q = 64 (tensor-core route), K = 128, k_q in {5, 10,
+    128}: tenant 2 has no super row (gate (-1e30, row 0)), tenant 3 three
+    live rows (its list ends with rows 0, 1, ... at -1e30), a pad query
+    (tenant -1, k 0) only sentinels."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    n = 5003
+    emb, alive, tenant, sup = two_tier_arena(gen, n, 64, torch.bfloat16, cuda)
+    tenant[2000:2100] = 2
+    sup[2000:2100] = False
+    alive[2000:2100] = True
+    short = [100, 2600, 4000]
+    tenant[short] = 3
+    alive[short] = True
+    sup[short] = False
+    q = grid(gen, (64, 64), torch.bfloat16, cuda)
+    q_ten = torch.tensor([(0, 1, 2, 3)[i % 4] for i in range(64)],
+                         dtype=torch.int32, device=cuda)
+    kq = torch.tensor([(5, 10, 128)[i % 3] for i in range(64)],
+                      dtype=torch.int32, device=cuda)
+    q_ten[-1], kq[-1] = -1, 0
+    before = ft.launches_wgmma
+    got = ft.fused_topk(emb, alive, tenant, sup, q, q_ten, kq, 128, k_live=128)
+    want = ft.fused_topk_reference(emb, alive, tenant, sup, q, q_ten, kq, 128)
+    torch.cuda.synchronize()
+    assert ft.launches_wgmma == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert got[1][2].item() == 0 and got[0][2] == -1e30
+    # query 11: tenant 3, k_q 128
+    assert sorted(got[3][11, :3].tolist()) == short
+    assert got[3][11, 3:8].tolist() == [0, 1, 2, 3, 4]
+    assert (got[2][11, 3:128] == -1e30).all()
+    assert (got[3][-1] == n - 1).all()
 
 
 def test_fused_chat_turn_syncs_only_at_the_readback(cuda, tmp_path):

@@ -426,3 +426,40 @@ def test_host_stage_packs_one_upload_into_typed_views():
         assert v.untyped_storage().data_ptr() == base
         assert (v.data_ptr() - base) % HostStage.ALIGN == 0
         assert np.array_equal(v.numpy(), c)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_two_tier_plain_version_matches_xla_at_the_fleet_shape(dtype):
+    """``fused_topk_reference`` against ``_exact_two_tier`` +
+    ``_ragged_topk_mask`` at the shape the tensor-core route serves: Q = 64,
+    K = 128, k_q cycling 5 / 10 / 128, tenants 0 and 1 and the short tenant
+    3 (three live rows). Grid rows and unit-axis queries make every score
+    exact, so the lists hold long runs of exact ties that must come back in
+    row order, and the short tenant's tail lists the lowest other rows."""
+    cols = arena(9)
+    rng = np.random.default_rng(9)
+    cols["emb"] = (rng.integers(-8, 9, size=(N, D)) / 64).astype(np.float32)
+    q = np.zeros((64, D), np.float32)
+    q[np.arange(64), np.arange(64) % D] = np.where(np.arange(64) < 32, 1.0, -1.0)
+    tenant = np.array([(0, 1, 3)[i % 3] for i in range(64)], np.int32)
+    k_q = np.array([(5, 10, 128)[i % 3] for i in range(64)], np.int32)
+    jcols = {k: jnp.asarray(v) for k, v in cols.items()}
+    tcols = TS.arena_from_numpy(cols, "cpu")
+    if dtype == "bfloat16":
+        jcols["emb"] = jcols["emb"].astype(jnp.bfloat16)
+        tcols.emb = tcols.emb.to(torch.bfloat16)
+    jstate = JS.ArenaState(**jcols)
+    gs, gr, as_, ar = JS._exact_two_tier(jstate, JS.normalize(jnp.asarray(q)),
+                                         jnp.asarray(tenant), 1, 128)
+    as_, ar = JS._ragged_topk_mask(as_, ar, jnp.asarray(k_q), CAP)
+    t = ft.fused_topk(tcols.emb, tcols.alive, tcols.tenant_id, tcols.is_super,
+                      TS.normalize(torch.from_numpy(q)), torch.from_numpy(tenant),
+                      torch.from_numpy(k_q), 128, k_live=128)
+    np.testing.assert_array_equal(t[1].numpy(), np.asarray(gr)[:, 0])
+    np.testing.assert_array_equal(t[3].numpy(), np.asarray(ar))
+    np.testing.assert_array_equal(t[0].numpy(), np.asarray(gs)[:, 0])
+    np.testing.assert_array_equal(t[2].numpy(), np.asarray(as_))
+    ann = t[2].numpy()
+    assert (ann[:, 1:] == ann[:, :-1])[ann[:, 1:] > -1e29].any()   # exact ties
+    short = [i for i in range(64) if tenant[i] == 3 and k_q[i] > 3]
+    assert short and all(t[3][i, 3:6].tolist() == [0, 1, 2] for i in short)

@@ -296,3 +296,69 @@ def test_auto_dispatch_matches_pallas_interpret():
     s, r = mt.masked_topk_auto(torch.from_numpy(emb), torch.from_numpy(madd),
                                torch.from_numpy(q), k=10)
     assert_topk_match(ref_s, ref_r, s, r, "float32")
+
+
+def test_route_rule():
+    """The wrapper's stage-1 route: tensor cores for a bf16 arena scanned
+    for more than 16 queries, the FMA scan otherwise. It reads nothing but
+    the dtype and Q, so a row-sharded arena's scans take the route one
+    device takes; a CPU arena counts no launch on either route."""
+    assert mt.WGMMA_MIN_Q == 16
+    assert mt.route_for(torch.bfloat16, 17) == "wgmma"
+    assert mt.route_for(torch.bfloat16, 8192) == "wgmma"
+    assert mt.route_for(torch.bfloat16, 16) == "fma"
+    assert mt.route_for(torch.bfloat16, 1) == "fma"
+    assert mt.route_for(torch.float32, 64) == "fma"
+    assert set(mt.ROUTES) == {"fma", "wgmma"}
+    rng = np.random.default_rng(3)
+    before = (mt.launches, mt.launches_wgmma)
+    mt.masked_topk(as_torch(unit_rows(rng, 64), "bfloat16"),
+                   torch.ones(64, dtype=torch.bool),
+                   torch.from_numpy(unit_rows(rng, 32)), 3)
+    assert (mt.launches, mt.launches_wgmma) == before
+
+
+def test_tensor_core_shape_k1_matches_pallas_interpret():
+    """The plain version the tensor-core route is held to, at that route's
+    dedup-probe shape (bf16, Q = 96 > 16, k = 1), against the Pallas kernel
+    in interpret mode: grid rows (exact sums), every row four times in four
+    blocks and half the queries equal to a row, so the best score is an
+    exact tie that must go to the lowest live row."""
+    rng = np.random.default_rng(31)
+    base = grid_rows(rng, N // 4)
+    emb = np.concatenate([base] * 4)
+    alive = rng.random(N) > 0.2
+    madd = np.where(alive, 0.0, -1e30).astype(np.float32)
+    q = np.concatenate([base[:48], grid_rows(rng, 48)])
+    ref_s, ref_r = pallas_masked_topk(as_jax(emb, "bfloat16"), jnp.asarray(madd),
+                                      jnp.asarray(q), k=1, block_rows=4096,
+                                      interpret=True)
+    s, r = mt.masked_topk(as_torch(emb, "bfloat16"), torch.from_numpy(alive),
+                          torch.from_numpy(q), 1)
+    np.testing.assert_array_equal(r.numpy(), np.asarray(ref_r))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(ref_s))
+    live_copies = [[i + j * (N // 4) for j in range(4) if alive[i + j * (N // 4)]]
+                   for i in range(48)]
+    assert [int(r[i, 0]) for i in range(48) if live_copies[i]] == \
+        [c[0] for c in live_copies if c]
+
+
+def test_tensor_core_shape_k128_matches_xla_formulation():
+    """``ops.topk.masked_topk`` at the route's list shape (bf16, Q = 64,
+    k = 128) against ``lazzaro_tpu.ops.topk.masked_topk``: grid rows, each
+    five times, so the lists are runs of exact ties in row order."""
+    from lazzaro_tpu.ops.topk import masked_topk as jax_masked_topk
+    from lazzaro_tpu_torch.ops.topk import masked_topk as plain_masked_topk
+
+    rng = np.random.default_rng(32)
+    base = grid_rows(rng, 200)
+    emb = np.concatenate([base] * 5)
+    mask = rng.random(1000) > 0.25
+    q = np.concatenate([base[:32], grid_rows(rng, 32)])
+    ref_s, ref_r = jax_masked_topk(as_jax(emb, "bfloat16"), jnp.asarray(mask),
+                                   jnp.asarray(q), 128)
+    s, r = plain_masked_topk(as_torch(emb, "bfloat16"), torch.from_numpy(mask),
+                             torch.from_numpy(q), 128)
+    np.testing.assert_array_equal(r.numpy(), np.asarray(ref_r))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(ref_s))
+    assert (s.numpy()[:, 1:] == s.numpy()[:, :-1]).any()
