@@ -11,9 +11,11 @@ Phases, each printing its own lines; any failure exits non-zero:
   3. kernels  each kernel, in every call form, against its plain PyTorch
               version on the card, at every shape the main paths give it and
               at edge cases, with times and bounds (the top-k scans on the
-              route the wrapper takes, the tensor-core stage 1 also forced
-              at Q = 1 and 8, then the cross-shard merge and
-              ``make_sharded_topk`` over 8 shards, the flash-attention
+              route the wrapper takes, on bf16, on the default f32 arena
+              and on a 3,072-wide f32 one, the FMA route also forced at
+              small Q, then the cross-shard merge, and
+              ``make_sharded_topk`` and the keyed grouped scan over 8
+              shards with their launches a call, the flash-attention
               forward and its dQ and dK/dV backward kernels at the decoder's
               shapes; times are device times from ``torch.profiler``, the
               top-k scans' split into stage 1 and the merge, event times of
@@ -32,18 +34,20 @@ Phases, each printing its own lines; any failure exits non-zero:
               device-to-host copy. Each path's kernel launches are counted
               from 0 over that path alone. After its 34th conversation the
               phase records, without boosting or counting, what the mesh
-              phase must reproduce. Every dedup probe of the fill past 16
-              queries must scan on the tensor-core route;
+              phase must reproduce. Every dedup probe of the fill must
+              scan on the tensor-core route;
   4b. mesh    the same path on ``MemorySystem(mesh=...)``: the same arena
               row-sharded over 8 shards (one per card when the cards divide
               8, else all on ``cuda:0``), filled for 34 conversations
               (278,528 facts) and held equal to phase 4's record (counts,
               ``search_batch`` ids and scores, fused gate verdicts and ids),
               then classic and fused serving as in phase 4, every search one
-              scan per shard plus the cross-shard merge kernel, every fused
-              dispatch one two-tier scan per shard, two merges and one
-              device-to-host copy; ``make_sharded_topk`` on the filled arena
-              against one scan of the whole arena and its plain version;
+              grouped scan per card (a stage 1 and a stage 2 a pass; the
+              merge kernel only past one card), every fused dispatch one
+              grouped two-tier scan per card and one device-to-host copy,
+              the routes taken printed; ``make_sharded_topk`` on the filled
+              arena against one scan of the whole arena and its plain
+              version;
   5. lm       the decoder LM at full width (``LMConfig()``: 18 layers, hidden
               2048, 8 query and 2 kv heads of 256, ~1.1 B parameters, bf16,
               random weights from a seed): ``logits_for`` on a 2,047-token
@@ -140,9 +144,13 @@ FLASH_BWD_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 # Kernel cases are timed as the median of this many windows (a host stall
 # inflates one window, not the median).
 WINDOWS = 5
-# Small-Q cases also timed with the tensor-core route forced (phase 3).
-FORCED_WGMMA = ("chat_ann_q1_k10_bf16", "q8_k10_bf16", "chat_q1_k128_kq10",
-                "chat_q8_k128_kq10")
+# Small-Q cases also timed on the FMA route, forced (phase 3): the route
+# every scan of up to 16 queries took before the streaming route (f32) and
+# the tensor cores (bf16) took them, and the one an f32 scan too wide for
+# the streaming route takes, so that the route rule stays visible.
+FORCED_FMA = ("chat_ann_q1_k10_bf16", "chat_ann_q1_k10_f32", "q8_k10_f32",
+              "chat_ann_q1_k10_f32_d3072", "chat_q1_k128_kq10",
+              "chat_q1_k128_kq10_f32")
 LM_TOKENS = 2047                   # logits_for length: BOS + 2,046 bytes
 # Largest |logit| difference of the full-width forward through the kernel
 # against the materialized-scores path: that path rounds the scores to bf16
@@ -258,7 +266,8 @@ def device_split(fn, calls: int) -> dict:
     """Device ms per call of ``fn`` under ``torch.profiler`` (as
     :func:`device_ms`), with the top-k scan's two stages apart: stage 1
     (``scan_stage1*``), the merge (``scan_merge``) and the rest (casts and
-    masks around the launch)."""
+    masks around the launch), and the launches of the two stages a call
+    that the trace shows."""
     kernels = _device_kernels(fn, calls)
 
     def total(needle):
@@ -266,7 +275,9 @@ def device_split(fn, calls: int) -> dict:
                    if needle in e.key) / 1e3 / calls
 
     out = {"all": total(""), "stage1": total("scan_stage1"),
-           "merge": total("scan_merge")}
+           "merge": total("scan_merge"),
+           "scan_kernels": sum(e.count for e in kernels if "scan_stage1" in e.key
+                               or "scan_merge" in e.key) / calls}
     out["rest"] = out["all"] - out["stage1"] - out["merge"]
     return out
 
@@ -299,9 +310,9 @@ def kernel_cases(device):
     # Every launch shape of the main path on the full arena: a chat turn's
     # super-node gate and ANN search, search_memories (limit 5), the dedup
     # probe of a fill conversation (8,192 facts) and of the last one (64);
-    # then search_memories_batch of 64 queries at limit 10; then the edges
-    # of the two routes (Q = 8 and 16 stay on the FMA route, Q = 17 takes
-    # the tensor cores), a large list batch and lists in three passes.
+    # then search_memories_batch of 64 queries at limit 10; then more
+    # batch sizes (bf16 takes the tensor cores at every Q), a large list
+    # batch and lists in three passes.
     cases = [
         ("chat_gate_q1_k1_bf16", big, madd_big, queries(big, 1), 1),
         ("chat_ann_q1_k10_bf16", big, madd_big, queries(big, 1), 10),
@@ -334,6 +345,16 @@ def kernel_cases(device):
     madd_few = torch.full((few.shape[0],), NEG, device=device)
     madd_few[torch.tensor([5, 77, 1_000, 19_999], device=device)] = 0.0
     cases.append(("few_live_q5_k16_bf16", few, madd_few, queries(few, 5), 16))
+    # The default arena type (MemoryConfig.dtype, f32): a chat turn's ANN
+    # search and a small batch on the streaming route, 3.2 GB of arena.
+    big32 = grid_values(gen, (ARENA_ROWS, DIM), f32, device)
+    cases.append(("chat_ann_q1_k10_f32", big32, madd_big, queries(big32, 1), 10))
+    cases.append(("q8_k10_f32", big32, madd_big, queries(big32, 8), 10))
+    # A wide f32 arena (d = 3,072, text-embedding-3-large's width): rows of
+    # 12 KB, four a ring stage, on the streaming route.
+    wide = grid_values(gen, (262_144, 3_072), f32, device)
+    cases.append(("chat_ann_q1_k10_f32_d3072", wide,
+                  madd_big[:wide.shape[0]].contiguous(), queries(wide, 1), 10))
     return cases
 
 
@@ -387,7 +408,8 @@ def _case_row(kernel, form, label, route, n, q, k, fn, plain_fn, lib_fn, b,
         f"back-to-back calls: kernel {event:.4f}, library {lib_event:.4f}")
     return {"kernel": kernel, "form": form, "case": label, "route": route,
             "n": n, "q": q, "k": k, "ms": ms, "stage1_ms": split["stage1"],
-            "merge_ms": split["merge"], "event_ms": event, "plain_ms": plain,
+            "merge_ms": split["merge"], "scan_kernels": split["scan_kernels"],
+            "event_ms": event, "plain_ms": plain,
             "library_ms": lib, "library_event_ms": lib_event,
             "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
 
@@ -400,7 +422,7 @@ def phase_kernels(device):
     rows_out = []
     for label, emb, madd, q, k in kernel_cases(device):
         nq = q.shape[0]
-        route = mt.route_for(emb.dtype, nq)
+        route = mt.route_for(emb.dtype, nq, emb.shape[1])
         err = _check_equal(label, mt.masked_topk(emb, madd, q, k),
                            mt.masked_topk_reference(emb, madd, q, k))
         big_q = nq > 1024
@@ -424,15 +446,16 @@ def phase_kernels(device):
                 lambda: mt.masked_topk_reference(emb, madd, q, k),
                 lambda: torch.topk(torch.addmm(madd_t, q, emb.t()), k),
                 bound(emb, q, k), err, 20, 3))
-        if label in FORCED_WGMMA:
-            # A record for small-Q scans: the tensor-core route forced
-            # where the wrapper takes the FMA one.
-            forced = f"{label}_forced_wgmma"
-            err = _check_equal(forced, mt._launch(emb, madd, q, k, route="wgmma"),
+        other = "fma" if label in FORCED_FMA else None
+        if other:
+            # A record of the route rule: the route the wrapper does not
+            # take at this Q, forced.
+            forced = f"{label}_forced_{other}"
+            err = _check_equal(forced, mt._launch(emb, madd, q, k, route=other),
                                mt.masked_topk_reference(emb, madd, q, k))
             rows_out.append(_case_row(
-                "masked_topk", "classic", forced, "wgmma", emb.shape[0], nq, k,
-                lambda: mt._launch(emb, madd, q, k, route="wgmma"),
+                "masked_topk", "classic", forced, other, emb.shape[0], nq, k,
+                lambda: mt._launch(emb, madd, q, k, route=other),
                 lambda: mt.masked_topk_reference(emb, madd, q, k),
                 lambda: torch.topk(torch.addmm(madd_t, q, emb.t()), k),
                 bound(emb, q, k), err, 20, 3))
@@ -457,7 +480,7 @@ def ragged_cases(device):
     madd_t = torch.where(alive, 0.0, -1e30).to(emb.dtype)
     return [_case_row(
         "masked_topk", "ragged", "ragged_n100003_q3_k10_kq1-5-10_bf16",
-        mt.route_for(emb.dtype, 3), emb.shape[0], 3, k,
+        mt.route_for(emb.dtype, 3, DIM), emb.shape[0], 3, k,
         lambda: mt.masked_topk_ragged(emb, alive, q, k_q, k),
         lambda: mt.masked_topk_ragged_reference(emb, alive, q, k_q, k),
         lambda: torch.topk(torch.addmm(madd_t, q, emb.t()), k),
@@ -534,15 +557,24 @@ def phase_fused_kernel(device):
     from lazzaro_tpu_torch.ops import fused_topk as ft
     from lazzaro_tpu_torch.ops import masked_topk as mt
 
-    (emb, alive, tenant, sup), cases = fused_cases(device)
+    (emb16, alive, tenant, sup), cases = fused_cases(device)
     k = 128
     rows_out = []
-    forced = [(f"{c[0]}_forced_wgmma", *c[1:], "wgmma") for c in cases
-              if c[0] in FORCED_WGMMA]
+    # The keyed chat turn on the default arena type (f32), the same rows.
+    chat = next(c for c in cases if c[0] == "chat_q1_k128_kq10")
+    cases.append(("chat_q1_k128_kq10_f32", *chat[1:]))
+    forced = [(f"{c[0]}_forced_fma", *c[1:], "fma") for c in cases
+              if c[0] in FORCED_FMA]
+    emb32 = None
     for label, q, q_ten, k_q, k_live, *force in cases + forced:
-        route = force[0] if force else mt.route_for(emb.dtype, q.shape[0])
+        emb = emb16
+        if "_f32" in label:
+            if emb32 is None:
+                emb32 = emb16.float()
+            emb, q = emb32, q.float()
+        route = force[0] if force else mt.route_for(emb.dtype, q.shape[0], DIM)
 
-        def run(q=q, q_ten=q_ten, k_q=k_q, k_live=k_live, force=force):
+        def run(emb=emb, q=q, q_ten=q_ten, k_q=k_q, k_live=k_live, force=force):
             if force:
                 return ft._launch(emb, alive, tenant, sup, q, q_ten, k_q, k,
                                   emb.shape[0] - 1, k_live, route=force[0])
@@ -561,7 +593,7 @@ def phase_fused_kernel(device):
             if got[3][1, 3:6].tolist() != [0, 1, 2]:
                 raise AssertionError("short tenant's tail is not rows 0, 1, 2")
 
-        def lib(q=q, q_ten=q_ten):
+        def lib(emb=emb, q=q, q_ten=q_ten):
             # Yardstick only: one product, the tier masks, two torch.topk.
             s = torch.matmul(q, emb.t()).float()
             ok = alive[None, :] & (tenant[None, :] == q_ten[:, None])
@@ -571,8 +603,8 @@ def phase_fused_kernel(device):
         rows_out.append(_case_row(
             "fused_topk", "two_tier", label, route, emb.shape[0], q.shape[0],
             k, run,
-            lambda: ft.fused_topk_reference(emb, alive, tenant, sup, q,
-                                            q_ten, k_q, k),
+            lambda emb=emb, q=q, q_ten=q_ten, k_q=k_q: ft.fused_topk_reference(
+                emb, alive, tenant, sup, q, q_ten, k_q, k),
             lib, fused_bound(emb, q, k), err, 20, 3))
     return rows_out
 
@@ -823,14 +855,18 @@ def sharded_bound(emb, queries, k, n):
 
 def phase_sharded_kernel(device):
     """The merge kernel against its plain version at the mesh path's shapes,
-    exact on grid inputs, then ``make_sharded_topk`` over ``MESH_SHARDS``
-    shards of a 1,048,576-row grid arena against its plain version (each
-    shard's plain scan and the plain merge), exact."""
+    exact on grid inputs, then ``make_sharded_topk`` and the keyed grouped
+    scan (the fused mesh chat's) over ``MESH_SHARDS`` shards of a
+    1,048,576-row grid arena against their plain versions (each shard's
+    plain scan and the plain merges), exact, with the kernel launches a
+    call (a stage 1 and a stage 2 a pass when one card holds the shards)."""
     import torch
 
+    from lazzaro_tpu_torch.core import state as S
+    from lazzaro_tpu_torch.ops import fused_topk as ft
     from lazzaro_tpu_torch.ops import masked_topk as mt
     from lazzaro_tpu_torch.ops import sharded_merge as sm
-    from lazzaro_tpu_torch.ops.topk import make_sharded_topk
+    from lazzaro_tpu_torch.ops.topk import make_sharded_topk, shard_groups
     from lazzaro_tpu_torch.parallel import make_mesh
 
     gen = torch.Generator(device=device).manual_seed(4)
@@ -879,17 +915,89 @@ def phase_sharded_kernel(device):
         return sm.sharded_merge_reference([p[0] for p in parts],
                                           [p[1] for p in parts], local_n, 10)
 
+    groups = len(shard_groups(mesh.devices))
+
+    def per_call(fn, mod):
+        """(grouped scans, kernel launches, merges) of one call of fn."""
+        before = (mod.launches, mod.stage_launches, sm.launches)
+        fn()
+        torch.cuda.synchronize()
+        return (mod.launches - before[0], mod.stage_launches - before[1],
+                sm.launches - before[2])
+
+    def note(row, made):
+        """Check the launches of a call: those the scan's C entry point
+        counted, and the scan kernels the profiler's trace shows."""
+        want = (groups, 2 * groups, int(groups > 1))
+        log(f"[kernels] {row['case']}: {made[1]} kernel launches a call "
+            f"({made[0]} grouped scan(s) over {n} shards on {groups} card(s), "
+            f"{made[2]} merges; route {row['route']}); the trace shows "
+            f"{row['scan_kernels']} scan kernels a call")
+        if made != want or row["scan_kernels"] != made[1]:
+            raise AssertionError(f"{row['case']}: (scans, launches, merges) a call "
+                                 f"{made}, not {want}; traced scan kernels "
+                                 f"{row['scan_kernels']}")
+        row["launches_per_call"] = made[1]
+        rows_out.append(row)
+
     for nq in (1, 64):
         q = grid_values(gen, (nq, DIM), torch.bfloat16, device)
         q[0] = big[11]
         label = f"sharded_topk_q{nq}_k10_grid"
         err = _check_equal(label, search(shards, masks, q), plain(q))
-        rows_out.append(_case_row(
-            "sharded_topk", "whole", label, mt.route_for(big.dtype, nq),
+        made = per_call(lambda: search(shards, masks, q), mt)
+        note(_case_row(
+            "sharded_topk", "whole", label, mt.route_for(big.dtype, nq, DIM),
             ARENA_ROWS, nq, 10,
             lambda: search(shards, masks, q), lambda: plain(q),
             lambda: torch.topk(torch.addmm(madd_t, q, big.t()), 10),
-            sharded_bound(big, q, 10, n), err, 20, 3))
+            sharded_bound(big, q, 10, n), err, 20, 3), made)
+
+    # The keyed grouped scan of a fused mesh chat turn
+    # (core.state._fused_scan_sharded at K = 128, k_live 10): two tenants,
+    # super rows, an empty gate (tenant 2), k_q 10, masked pairs on the
+    # global sentinel; against each shard's plain two-tier scan and the
+    # plain ANN and gate merges. Its query is a grid vector of norm 1 (256
+    # entries of +-1/16), which the scan's normalization leaves as it is.
+    tenant = torch.where(alive, (torch.rand(ARENA_ROWS, generator=gen, device=device)
+                                 < 0.5).int(), -1).int()
+    sup = torch.rand(ARENA_ROWS, generator=gen, device=device) < 0.01
+    arena = S.init_shards(ARENA_ROWS - 1, DIM, torch.bfloat16, mesh.devices)
+    for st, cols in zip(arena, zip(big.split(local_n), alive.split(local_n),
+                                   tenant.split(local_n), sup.split(local_n))):
+        for name, col in zip(("emb", "alive", "tenant_id", "is_super"), cols):
+            getattr(st, name).copy_(col)
+    states = [(st.emb, st.alive, st.tenant_id, st.is_super) for st in arena]
+    sent = ARENA_ROWS - 1
+    q = torch.zeros((1, DIM), device=device)
+    pick = torch.randperm(DIM, generator=gen, device=device)[:256]
+    q[0, pick] = torch.where(torch.rand(256, generator=gen, device=device) < 0.5,
+                             1 / 16, -1 / 16)
+    if not torch.equal(S.normalize(q), q):
+        raise AssertionError("the keyed case's query is not of norm 1")
+    q_ten = torch.tensor([0], dtype=torch.int32, device=device)
+    k_q = torch.tensor([10], dtype=torch.int32, device=device)
+
+    def keyed():
+        return S._fused_scan_sharded(arena, q, q_ten, 128, k_q, k_live=10)
+
+    def keyed_plain():
+        return ft.fused_topk_grouped_reference(states, q.to(big.dtype), q_ten, k_q, 128,
+                                               sent, range(n))
+
+    def keyed_lib():
+        # Yardstick only: one product, the tier masks, two torch.topk.
+        sc = torch.matmul(q.to(big.dtype), big.t()).float()
+        ok = alive[None, :] & (tenant[None, :] == q_ten[:, None])
+        torch.topk(torch.where(ok & sup[None, :], sc, -1e30), 1)
+        return torch.topk(torch.where(ok & ~sup[None, :], sc, -1e30), 128)
+
+    err = _check_equal("sharded_fused_q1_k128_kq10_grid", keyed(), keyed_plain())
+    made = per_call(keyed, ft)
+    note(_case_row(
+        "sharded_topk", "two_tier", "sharded_fused_q1_k128_kq10_grid",
+        mt.route_for(big.dtype, 1, DIM), ARENA_ROWS, 1, 128, keyed, keyed_plain,
+        keyed_lib, fused_bound(big, q, 128), err, 20, 3), made)
     return rows_out
 
 
@@ -941,7 +1049,7 @@ def sharded_topk_filled(ms, corpus, served, torch):
         madd_t = torch.where(whole_mask, 0.0, -1e30).to(whole.dtype)
         rows_out.append(_case_row(
             "sharded_topk", "whole", f"sharded_topk_q{nq}_k10_filled",
-            mt.route_for(whole.dtype, nq), whole.shape[0], nq, 10,
+            mt.route_for(whole.dtype, nq, DIM), whole.shape[0], nq, 10,
             lambda: search(embs, masks, q),
             lambda: plain(q),
             lambda: torch.topk(torch.addmm(madd_t, q, whole.t()), 10),
@@ -995,13 +1103,18 @@ def phase_mesh(launches_out: dict, parity: dict, single: dict):
         f"fleet(64) {f['fleet64_mixed_k_p50_ms']:.2f} vs "
         f"{sf['fleet64_mixed_k_p50_ms']:.2f}")
     log(f"[mesh] launches over the phase: classic path {launches_out['mesh_masked_topk']} "
-        f"masked_topk scans + {launches_out['mesh_sharded_merge']} merges "
-        f"(per chat turn {summary['launches_per_chat_turn']}), fused path "
-        f"{launches_out['mesh_fused_topk']} two-tier scans + "
+        f"grouped masked_topk scans + {launches_out['mesh_sharded_merge']} merges "
+        f"(the fill's link scans; per chat turn {summary['launches_per_chat_turn']}), "
+        f"fused path {launches_out['mesh_fused_topk']} grouped two-tier scans + "
         f"{launches_out['mesh_sharded_merge_on_fused_path']} merges, "
         f"{f['readbacks']} readbacks")
-    launches_out["sharded_topk"] = (launches_out["mesh_sharded_merge"]
-                                    + launches_out["mesh_sharded_merge_on_fused_path"])
+    # Kernel B: the grouped scans of the mesh's searches (classic, the
+    # fill's dedup probes included, and fused); the merge kernel: the link
+    # scans' merges and, past one card, the searches'.
+    launches_out["sharded_topk"] = (launches_out["mesh_masked_topk"]
+                                    + launches_out["mesh_fused_topk"])
+    launches_out["sharded_merge"] = (launches_out["mesh_sharded_merge"]
+                                     + launches_out["mesh_sharded_merge_on_fused_path"])
     return summary, rows
 
 
@@ -1141,17 +1254,23 @@ def _drive(ms, llm, corpus, convs, fill, launches_out, mt, torch,
     fill's time; under a mesh ``parity`` is that snapshot of the
     single-device run, which the filled system must reproduce."""
     from lazzaro_tpu_torch.ops import sharded_merge as sm
+    from lazzaro_tpu_torch.ops.topk import shard_groups
 
-    n_shards = ms.index.mesh.size if ms.index.mesh is not None else 1
-    prefix = "mesh_" if ms.index.mesh is not None else ""
-    tag = "[mesh]" if ms.index.mesh is not None else "[main]"
+    mesh = ms.index.mesh
+    n_shards = mesh.size if mesh is not None else 1
+    # A scan is one grouped launch per card holding shards; several cards
+    # add one merge.
+    scans = len(shard_groups(mesh.devices)) if mesh is not None else 1
+    search_made = (scans, int(scans > 1))
+    prefix = "mesh_" if mesh is not None else ""
+    tag = "[mesh]" if mesh is not None else "[main]"
     # ---- fill: one conversation per 8,192 facts, tenants alternating
     spent: dict = {}
     for owner, method, stage in FILL_STAGES:
         obj = getattr(ms, owner)
         setattr(obj, method, _timed(spent, stage, getattr(obj, method), torch))
     probes = _count_probes(ms.index, mt)
-    mt.launches = mt.launches_wgmma = sm.launches = 0
+    mt.launches = mt.launches_wgmma = mt.launches_stream = sm.launches = 0
     t0 = time.perf_counter()
     for c in range(convs):
         tenant = TENANTS[c % len(TENANTS)]
@@ -1174,25 +1293,24 @@ def _drive(ms, llm, corpus, convs, fill, launches_out, mt, torch,
     torch.cuda.synchronize()
     fill_s = time.perf_counter() - t0
     fill_launches, fill_merges = mt.launches, sm.launches
-    fill_wgmma = mt.launches_wgmma
+    fill_wgmma, fill_stream = mt.launches_wgmma, mt.launches_stream
     for owner, method, _ in FILL_STAGES:
         vars(getattr(ms, owner)).pop(method, None)
     spent["rest"] = fill_s - sum(spent.values())
     log(f"{tag} fill time by stage (s): "
         + ", ".join(f"{k} {v:.1f}" for k, v in spent.items()))
-    # Every dedup probe past 16 queries (a power-of-two batch) scans on the
-    # tensor cores, one scan per shard; smaller ones on the FMA route. A
-    # probe of a tenant with no row yet returns before any scan.
-    wrong = [(q, n, w) for q, n, w in probes
-             if n not in (0, n_shards) or w != (n if q > mt.WGMMA_MIN_Q else 0)]
-    big = sum(q > mt.WGMMA_MIN_Q and n > 0 for q, n, _ in probes)
+    # Every dedup probe (a power-of-two batch) scans the bf16 arena on the
+    # tensor cores, one grouped scan per card. A probe of a tenant with no
+    # row yet returns before any scan.
+    wrong = [(q, n, w) for q, n, w in probes if n not in (0, scans) or w != n]
+    scanned = sum(n > 0 for _, n, _ in probes)
     log(f"{tag} fill: {fill_launches} masked_topk launches, {fill_wgmma} on the "
-        f"tensor-core route; {len(probes)} dedup probes (Q "
-        f"{sorted({q for q, _, _ in probes})}), {big} of them past "
-        f"{mt.WGMMA_MIN_Q} queries")
-    if wrong or big == 0:
+        f"tensor-core route, {fill_stream} on the streaming route; "
+        f"{len(probes)} dedup probes (Q {sorted({q for q, _, _ in probes})}), "
+        f"{scanned} of them scanned")
+    if wrong or scanned == 0:
         raise AssertionError(f"dedup probes off their route (padded Q, scans, "
-                             f"tensor-core scans): {wrong[:5]}, {big} past 16")
+                             f"tensor-core scans): {wrong[:5]}, {scanned} scanned")
     rows = len(ms.index)
     # the full fill must reach MIN_ROWS; the mesh's shorter fill, less the
     # near-duplicates merged (1 in 101), 98% of its facts
@@ -1260,15 +1378,15 @@ def _drive(ms, llm, corpus, convs, fill, launches_out, mt, torch,
 
     search_ms = []
     for i in targets + new_ids[:16]:
-        before = (mt.launches, sm.launches)
+        before = (mt.launches, sm.launches, mt.launches_wgmma)
         t1 = time.perf_counter()
         hits = ms.search_memories(corpus.text(i))
         search_ms.append(1e3 * (time.perf_counter() - t1))
         made = (mt.launches - before[0], sm.launches - before[1])
-        if made != ((n_shards, 1) if n_shards > 1 else (1, 0)):
+        if made != search_made or mt.launches_wgmma - before[2] != scans:
             raise AssertionError(f"search_memories made (scans, merges) = "
-                                 f"{made}, not one scan per shard and one "
-                                 f"merge")
+                                 f"{made}, not {search_made}, or left the "
+                                 f"tensor-core route (a bf16 arena's)")
         if not hits or hits[0].content != corpus.text(i):
             raise AssertionError(f"search_memories missed fact {i}")
 
@@ -1285,9 +1403,13 @@ def _drive(ms, llm, corpus, convs, fill, launches_out, mt, torch,
     torch.cuda.synchronize()
     launches_out[prefix + "masked_topk"] = mt.launches
     launches_out[prefix + "sharded_merge"] = sm.launches
+    log(f"{tag} classic path routes: {mt.launches_stream} streaming, "
+        f"{mt.launches_wgmma} tensor-core, "
+        f"{mt.launches - mt.launches_stream - mt.launches_wgmma} FMA of "
+        f"{mt.launches} masked_topk launches")
     if mt.launches <= fill_launches:
         raise AssertionError("serving launched no masked_topk kernel")
-    if n_shards > 1 and sm.launches <= fill_merges:
+    if scans > 1 and sm.launches <= fill_merges:
         raise AssertionError("serving launched no sharded_merge kernel")
 
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -1377,10 +1499,14 @@ def _drive_fused(ms, corpus, served, launches_out, torch):
     from lazzaro_tpu_torch.ops import sharded_merge as sm
     from lazzaro_tpu_torch.serve import RetrievalRequest
 
-    # A dispatch is one two-tier launch, or under a mesh one per shard and
-    # two merges (the ANN and the gate); one device-to-host copy either way.
-    n_shards = ms.index.mesh.size if ms.index.mesh is not None else 1
-    merges = 2 if ms.index.mesh is not None else 0
+    from lazzaro_tpu_torch.ops.topk import shard_groups
+
+    # A dispatch is one two-tier launch, under a mesh one grouped launch per
+    # card and, past one card, two merges (the ANN and the gate); one
+    # device-to-host copy either way.
+    mesh = ms.index.mesh
+    scans = len(shard_groups(mesh.devices)) if mesh is not None else 1
+    merges = 2 if scans > 1 else 0
     tag = "[mesh]" if ms.index.mesh is not None else "[fused]"
     prefix = "mesh_" if ms.index.mesh is not None else ""
     targets, new_ids = served["targets"], served["new_ids"]
@@ -1430,8 +1556,9 @@ def _drive_fused(ms, corpus, served, launches_out, torch):
         return ids, mode
 
     ms._retrieve_for_chat = spy
-    ft.launches = mt.launches = sm.launches = 0
-    want = (n_shards, 0, merges, 1)
+    ft.launches = ft.launches_wgmma = ft.launches_stream = 0
+    mt.launches = sm.launches = ft.stage_launches = 0
+    want = (scans, 0, merges, 1)
     try:
         ms.start_conversation()
         chat_ms = {"miss": [], "hit": []}
@@ -1467,7 +1594,7 @@ def _drive_fused(ms, corpus, served, launches_out, torch):
             hits = ms.search_memories(corpus.text(i))
             search_ms.append(1e3 * (time.perf_counter() - t1))
             if (ft.launches - before[0], sm.launches - before[1],
-                    len(readbacks) - before[2]) != (n_shards, merges, 1):
+                    len(readbacks) - before[2]) != (scans, merges, 1):
                 raise AssertionError("search_memories is not one fused dispatch")
             if not hits or hits[0].content != corpus.text(i):
                 raise AssertionError(f"fused search_memories missed fact {i}")
@@ -1485,7 +1612,7 @@ def _drive_fused(ms, corpus, served, launches_out, torch):
                 out = fn()
                 runs.append(1e3 * (time.perf_counter() - t1))
                 if (ft.launches - before[0],
-                        sm.launches - before[1]) != (n_shards, merges):
+                        sm.launches - before[1]) != (scans, merges):
                     raise AssertionError(f"{what} is not one dispatch")
             return p50(runs), out
 
@@ -1535,6 +1662,9 @@ def _drive_fused(ms, corpus, served, launches_out, torch):
     launches_out[prefix + "fused_topk"] = ft.launches
     launches_out[prefix + "masked_topk_on_fused_path"] = mt.launches
     launches_out[prefix + "sharded_merge_on_fused_path"] = sm.launches
+    log(f"{tag} fused path routes: {ft.launches_stream} streaming, "
+        f"{ft.launches_wgmma} tensor-core of {ft.launches} two-tier launches; "
+        f"{ft.stage_launches} kernels (a stage 1 and a stage 2 a pass)")
     if ft.launches == 0 or mt.launches != 0:
         raise AssertionError("the fused path did not run on the two-tier kernel alone")
     if merges and sm.launches == 0:
@@ -1555,7 +1685,7 @@ def _drive_fused(ms, corpus, served, launches_out, torch):
         "batch64_index_p50_ms": batch_index_ms,
         "fleet64_mixed_k_p50_ms": fleet_ms,
         "fleet64_mixed_k_index_p50_ms": fleet_index_ms,
-        "launches_per_chat_turn": n_shards, "merges_per_chat_turn": merges,
+        "launches_per_chat_turn": scans, "merges_per_chat_turn": merges,
         "readbacks_per_dispatch": 1, "launches": ft.launches,
         "merges": sm.launches,
         "readbacks": len(readbacks), "csr_build_s": csr_s,
@@ -2215,9 +2345,14 @@ def main() -> int:
         entry("fused_topk", "lazzaro_tpu_torch/csrc/fused_topk.cu",
               "lazzaro_tpu/ops/pallas_topk.py:101", fused_rows,
               "chat_q1_k128_kq10"),
-        entry("sharded_topk", "lazzaro_tpu_torch/csrc/sharded_merge.cu",
-              "lazzaro_tpu/ops/topk.py:115", sharded_rows + filled_rows,
+        entry("sharded_topk", "lazzaro_tpu_torch/csrc/masked_topk.cu",
+              "lazzaro_tpu/ops/topk.py:115",
+              [c for c in sharded_rows if c["kernel"] == "sharded_topk"] + filled_rows,
               "sharded_topk_q1_k10_grid"),
+        entry("sharded_merge", "lazzaro_tpu_torch/csrc/sharded_merge.cu",
+              "lazzaro_tpu/ops/topk.py:47",
+              [c for c in sharded_rows if c["kernel"] == "sharded_merge"],
+              "search_q1_kl10_k10"),
         entry("flash_attention", "lazzaro_tpu_torch/csrc/flash_attention.cu",
               "lazzaro_tpu/ops/flash_attention.py:109", flash_rows,
               FLASH_CASES[0][0]),
@@ -2232,6 +2367,9 @@ def main() -> int:
               [c for c in bwd_rows if c["kernel"] == "flash_attention_bwd_dkv"],
               FLASH_BWD_CASES[0][0]),
     ]
+    idle = [k["name"] for k in kernels if not k["launches"]]
+    if idle:
+        raise AssertionError(f"kernels the main paths never launched: {idle}")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -37,10 +37,10 @@ import numpy as np
 import torch
 
 from lazzaro_tpu_torch.ops.chunking import chunked_map, nt_dot
-from lazzaro_tpu_torch.ops.fused_topk import fused_topk
+from lazzaro_tpu_torch.ops.fused_topk import fused_topk, fused_topk_grouped
 from lazzaro_tpu_torch.ops.masked_topk import masked_topk
 from lazzaro_tpu_torch.ops.sharded_merge import sharded_merge
-from lazzaro_tpu_torch.ops.topk import stable_topk
+from lazzaro_tpu_torch.ops.topk import shard_groups, stable_topk
 
 NEG_INF = -1e30
 
@@ -810,31 +810,37 @@ def route_rows(rows: np.ndarray, local_n: int):
 
 
 def _fused_scan_sharded(shards, q, tenant, k: int, k_q, k_live=None):
-    """Shard-local two-tier scans, then the two merges (``make_fused_sharded.
-    _scan_merge``): the ANN top-``min(k, n * k_l)`` with the ``k_q`` tail
-    and the gate top-1, masked entries on the global sentinel. Returns
-    ``(gate_s [Q], gate_r [Q], ann_s, ann_r)`` with global rows on the
-    first shard's device."""
+    """The shard-local two-tier scans and the two merges
+    (``make_fused_sharded._scan_merge``): the ANN top-``min(k, n * k_l)``
+    with the ``k_q`` tail and the gate top-1, masked entries on the global
+    sentinel. The shards of each device are one grouped launch
+    (``ops.fused_topk.fused_topk_grouped``, scan and merges in one); runs on
+    several devices meet in the merge kernel. Returns ``(gate_s [Q], gate_r
+    [Q], ann_s, ann_r)`` with global rows on the first shard's device."""
     n = len(shards)
     local_n = shards[0].salience.shape[0]
     sent = n * local_n - 1
     k_l = max(1, min(k, local_n))
-    kl_live = None if k_live is None else min(int(k_live), k_l)
+    k_out = min(k, n * k_l)
     dev0 = shards[0].emb.device
     qn = normalize(q.float()).to(shards[0].emb.dtype)
-    g_s, g_r, a_s, a_r = [], [], [], []
-    for st in shards:
-        dev = st.emb.device
-        outs = fused_topk(st.emb, st.alive, st.tenant_id, st.is_super,
-                          qn.to(dev, non_blocking=True),
-                          tenant.to(dev, non_blocking=True), None, k_l,
-                          k_live=kl_live)
-        for lst, x in zip((g_s, g_r, a_s, a_r), outs):
-            lst.append(x)
-    ann_s, ann_r = sharded_merge(a_s, a_r, local_n, min(k, n * k_l),
-                                 k_q=k_q, sentinel=sent, device=dev0)
-    gate_s, gate_r = sharded_merge([x[:, None] for x in g_s],
-                                   [x[:, None] for x in g_r], local_n, 1,
+    groups = shard_groups([st.emb.device for st in shards])
+    if len(groups) == 1:
+        return fused_topk_grouped(
+            [(st.emb, st.alive, st.tenant_id, st.is_super) for st in shards],
+            qn, tenant, k_q, k_out, sent, k_live)
+    parts = []
+    for dev, ids in groups:
+        parts.append(fused_topk_grouped(
+            [(shards[p].emb, shards[p].alive, shards[p].tenant_id,
+              shards[p].is_super) for p in ids],
+            qn.to(dev, non_blocking=True), tenant.to(dev, non_blocking=True),
+            None, min(k_out, len(ids) * k_l), sent,
+            None if k_live is None else min(int(k_live), k_out), ids))
+    ann_s, ann_r = sharded_merge([x[2] for x in parts], [x[3] for x in parts], 0,
+                                 k_out, k_q=k_q, sentinel=sent, device=dev0)
+    gate_s, gate_r = sharded_merge([x[0][:, None] for x in parts],
+                                   [x[1][:, None] for x in parts], 0, 1,
                                    sentinel=sent, device=dev0)
     return gate_s[:, 0], gate_r[:, 0], ann_s, ann_r
 

@@ -1,9 +1,9 @@
 // Hopper building blocks for the flash-attention kernels and the tensor-core
-// route of the top-k scan (topk_scan.cuh): 128-byte swizzled shared-memory
-// tiles, wgmma descriptors and instructions, mbarriers, TMA loads from 4-D
-// tensor maps encoded on the host, and a cp.async loader that fills the
-// same swizzled tiles for layouts a tensor map cannot express. Needs sm_90a
-// (wgmma, setmaxnreg).
+// and streaming routes of the top-k scan (topk_scan.cuh): 128-byte swizzled
+// shared-memory tiles, wgmma descriptors and instructions, mbarriers, TMA
+// loads from 4-D tensor maps encoded on the host, 1-D bulk copies, and a
+// cp.async loader that fills the same swizzled tiles for layouts a tensor
+// map cannot express. Needs sm_90a (wgmma, setmaxnreg).
 //
 // Tile layout. A tile of R rows by a padded head dimension DP (a multiple
 // of 64) of bf16 is stored as DP / 64 panels; panel p holds columns
@@ -110,6 +110,17 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n"
       ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// `bytes` contiguous bytes (a multiple of 16, both addresses 16-byte
+// aligned) from global into shared memory by the bulk copy engine, no tensor
+// map; the bytes count against the barrier's expected transactions.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 

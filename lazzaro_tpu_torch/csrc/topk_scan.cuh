@@ -28,13 +28,22 @@
 //
 // Design. Blocks run in parallel on 132 SMs, so the work is cut two ways and
 // merged in a second pass:
-//   stage 1  grid = (query tiles) x (row splits): each block scores its
-//            queries against its row range and keeps, per query, its top-kc
-//            list (and in keyed mode its gate top-1) of the range; on one of
-//            two routes, below.
-//   stage 2  one block per query merges the splits: the gate by a block
-//            arg-max, the lists by a kc-round head merge, and writes the k_q
-//            tail and the columns [kmax, k) as (NEG, tail_row).
+//   stage 1  grid = (query tiles) x (row splits) x (shard entries): each
+//            block scores its queries against a row range of one shard and
+//            keeps, per query, its top-kc list (and in keyed mode its gate
+//            top-1) of the range, with global rows; on one of three routes,
+//            below.
+//   stage 2  one block per query merges the splits of every entry: the gate
+//            by a block arg-max, the lists by a kc-round head merge, and
+//            writes the k_q tail and the columns [kmax, k) as (NEG,
+//            tail_row) (with mask_dead also every masked pair).
+// A shard table (ShardTable, up to 64 entries in the kernel's parameters)
+// lets one launch of each stage scan every shard of a row-sharded arena
+// that one card holds: no two (score, global row) keys are equal, so the
+// top k of all the shards' rows is the top k of the union of per-shard top
+// k lists, ties falling to the lower global row as lax.top_k orders the
+// all_gather (lazzaro_tpu/ops/topk.py:make_sharded_topk). A single device
+// is a table of one entry.
 // kmax is the longest list the caller needs (keyed mode: the largest k_q of
 // the batch, as the columns past it are masked whatever is computed there).
 // Lists hold at most kc = 128 entries; a larger kmax runs in passes of 128,
@@ -43,18 +52,25 @@
 // masked pair, but every position it writes is past k_q too. No scratch is
 // allocated here: the caller passes it.
 //
-// The two stage-1 routes (the wrapper picks one: the tensor-core route for
-// a bf16 arena and more than 16 queries, else the FMA route; never from N).
+// The three stage-1 routes (the wrapper picks one from the dtype, Q and d,
+// never from N: the tensor cores for every bf16 arena, the streaming route
+// for an f32 arena up to 16 queries where their values fit a lane's
+// registers, the FMA route for any other f32 scan; the measured reasons
+// are in PERF.md).
 //
-// FMA route (scan_stage1; f32 arenas, and Q <= 16): a block of BQ queries
-// walks its range in tiles of 128 rows with register-tiled f32 FMA dot
+// Streaming route (scan_stage1_stream, f32, Q <= 16): see its section. At
+// Q <= 16 the scan reads every arena row once: the bound is HBM bytes,
+// N*d*itemsize (plus 4 B of madd or 6 B of row columns a row) over 3.35
+// TB/s, 0.96 ms for 1,048,576 x 768 f32 (0.48 ms in bf16).
+//
+// FMA route (scan_stage1; f32 scans the streaming route does not take,
+// past 16 queries or wider than its registers hold): a block of 4, 8, 16 or
+// 64 queries (query_tile) walks its range in tiles of 128 rows with register-tiled f32 FMA dot
 // products (16-byte loads, 32-dimension slices in shared memory); the tile's
 // masked scores go to shared memory and one warp per query inserts each
 // candidate that beats its list's last into the sorted list (rows arrive
 // in ascending order, so equal scores keep the lower row), and takes the
-// gate as a warp arg-max. At Q <= 16 the scan reads every arena row once:
-// the bound is HBM bytes, N*d*itemsize (plus 4 B of madd or 6 B of row
-// columns a row) over 3.35 TB/s, 0.48 ms for 1,048,576 x 768 bf16.
+// gate as a warp arg-max.
 //
 // Tensor-core route (scan_stage1_wgmma, bf16): one or two consumer
 // warpgroups of 64 queries and a producer warpgroup whose one thread keeps
@@ -125,6 +141,21 @@ constexpr int kMaxSplits = 1024;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kNeg = -1e30f;     // the masked score (state.NEG_INF)
 constexpr int kNoTenant = INT32_MIN;   // key of a dead row: matches no query
+constexpr int kMaxShards = 64;         // entries of a shard table
+
+// The arenas one launch scans: entry p is a shard of local_n rows whose
+// first row is global row base[p]; words[p] is its madd [local_n] f32
+// (additive mode) or row_tenant [local_n] i32 (keyed mode, with alive and
+// is_super [local_n] u8). A single-device scan is a table of one entry at
+// base 0. Candidates carry global rows, so every entry's blocks feed one
+// stage-2 merge.
+struct ShardTable {
+  const void* emb[kMaxShards];
+  const void* words[kMaxShards];
+  const uint8_t* alive[kMaxShards];
+  const uint8_t* is_super[kMaxShards];
+  long long base[kMaxShards];
+};
 
 // 8 consecutive elements as f32 (one 16-byte load for bf16, two for f32).
 __device__ __forceinline__ void load8(const uint16_t* p, float* out) {
@@ -168,11 +199,9 @@ size_t stage1_smem(int bq, int k) {
 // q_tenant, and takes the gate when with_gate is set.
 template <typename T, int BQ, int MQ, int MR, bool kKeyed>
 __global__ void __launch_bounds__(kThreads)
-scan_stage1(const T* __restrict__ emb, const float* __restrict__ madd,
-            const uint8_t* __restrict__ alive, const int* __restrict__ row_tenant,
-            const uint8_t* __restrict__ is_super, const T* __restrict__ qry,
-            const int* __restrict__ q_tenant, long long n, int d, int nq, int k,
-            long long rows_per_split, int with_gate,
+scan_stage1(const ShardTable t, const T* __restrict__ qry,
+            const int* __restrict__ q_tenant, long long n, int splits, int d,
+            int nq, int k, long long rows_per_split, int with_gate,
             const float* __restrict__ after_s,
             const RowT<kKeyed>* __restrict__ after_r, int ld_after,
             float* __restrict__ gate_cs, int* __restrict__ gate_cr,
@@ -200,6 +229,14 @@ scan_stage1(const T* __restrict__ emb, const float* __restrict__ madd,
   const int tr = tid % TR;
   const int q0 = blockIdx.x * BQ;
   const int split = blockIdx.y;
+  const int p = blockIdx.z;                  // shard entry; n rows each
+  const T* __restrict__ emb = static_cast<const T*>(t.emb[p]);
+  const float* __restrict__ madd = static_cast<const float*>(t.words[p]);
+  const int* __restrict__ row_tenant = static_cast<const int*>(t.words[p]);
+  const uint8_t* __restrict__ alive = t.alive[p];
+  const uint8_t* __restrict__ is_super = t.is_super[p];
+  const int base = (int)t.base[p];           // rows leave global
+  const long long slot = (long long)p * splits + split;
   const long long r_begin = (long long)split * rows_per_split;
   long long r_end = r_begin + rows_per_split;
   if (r_end > n) r_end = n;
@@ -293,7 +330,7 @@ scan_stage1(const T* __restrict__ emb, const float* __restrict__ madd,
             const long long r = r0 + c;
             if (r < r_end) {
               const float s = (rkey[c] == ten && rsup[c]) ? scq[c] : kNeg;
-              if (better(s, (int)r, bs, br)) { bs = s; br = (int)r; }
+              if (better(s, base + (int)r, bs, br)) { bs = s; br = base + (int)r; }
             }
           }
 #pragma unroll
@@ -316,11 +353,12 @@ scan_stage1(const T* __restrict__ emb, const float* __restrict__ madd,
           after_r ? (long long)after_r[(long long)(q0 + qi) * ld_after] : -1;
       for (int c = 0; c < kBR; c += 32) {
         const long long r = r0 + c + lane;
+        const long long rg = base + r;
         float s = scq[c + lane];
         if constexpr (kKeyed) {
           if (!(rkey[c + lane] == ten && !rsup[c + lane])) s = kNeg;
         }
-        const bool after = s < ts || (s == ts && r > ta);
+        const bool after = s < ts || (s == ts && rg > ta);
         unsigned hits = __ballot_sync(kFull, r < r_end && after && s > lsq[k - 1]);
         while (hits) {
           const int src = __ffs(hits) - 1;
@@ -346,7 +384,7 @@ scan_stage1(const T* __restrict__ emb, const float* __restrict__ madd,
             if (e < k - 1) { lsq[e + 1] = vs[m]; lrq[e + 1] = vr[m]; }
           }
           __syncwarp();
-          if (lane == 0) { lsq[cnt] = sn; lrq[cnt] = (int)(r0 + c + src); }
+          if (lane == 0) { lsq[cnt] = sn; lrq[cnt] = base + (int)(r0 + c + src); }
           __syncwarp();
         }
       }
@@ -357,7 +395,7 @@ scan_stage1(const T* __restrict__ emb, const float* __restrict__ madd,
   for (int e = tid; e < BQ * k; e += kThreads) {
     const int q = q0 + e / k;
     if (q < nq) {
-      const long long o = ((long long)split * nq + q) * k + e % k;
+      const long long o = (slot * nq + q) * k + e % k;
       cand_s[o] = ls[e];
       cand_r[o] = lr[e];
     }
@@ -366,8 +404,8 @@ scan_stage1(const T* __restrict__ emb, const float* __restrict__ madd,
     if (with_gate) {
       for (int e = tid; e < BQ; e += kThreads) {
         if (q0 + e < nq) {
-          gate_cs[(long long)split * nq + q0 + e] = gs[e];
-          gate_cr[(long long)split * nq + q0 + e] = gr[e];
+          gate_cs[slot * nq + q0 + e] = gs[e];
+          gate_cr[slot * nq + q0 + e] = gr[e];
         }
       }
     }
@@ -398,15 +436,18 @@ __device__ void block_best(float& s, int& r, int& p, float* ws, int* wr,
 }
 
 // One block per query. Columns [k0, k0 + kc) of the output come from kc
-// rounds of "best head among the splits' sorted lists"; a column at or past
-// k_q[q] is written as (kNeg, tail_row). The pass that ends at kmax also
-// writes the columns [kmax, ldo) that way. with_gate merges the gate too.
+// rounds of "best head among the splits' sorted lists" (the splits of every
+// shard entry: rows are global); a column at or past k_q[q] is written as
+// (kNeg, tail_row). The pass that ends at kmax also writes the columns
+// [kmax, ldo) that way. with_gate merges the gate too. mask_dead writes
+// tail_row for a pair scoring at or below kNeg / 2 (a masked row), as the
+// cross-shard merge does with its sentinel.
 template <typename R>
 __global__ void __launch_bounds__(kThreads)
 scan_merge(const float* __restrict__ gate_cs, const int* __restrict__ gate_cr,
            const float* __restrict__ cand_s, const int* __restrict__ cand_r,
            int splits, int nq, int kc, int k0, int kmax,
-           const int* __restrict__ k_q, R tail_row, int with_gate,
+           const int* __restrict__ k_q, R tail_row, int mask_dead, int with_gate,
            float* __restrict__ gate_s, int* __restrict__ gate_r,
            float* __restrict__ out_s, R* __restrict__ out_r, int ldo) {
   constexpr int kOwn = kMaxSplits / kThreads;
@@ -426,7 +467,10 @@ scan_merge(const float* __restrict__ gate_cs, const int* __restrict__ gate_cr,
       if (bp < 0 || better(s, r, bs, br)) { bs = s; br = r; bp = sp; }
     }
     block_best(bs, br, bp, ws, wr, wp);
-    if (tid == 0) { gate_s[q] = bs; gate_r[q] = br; }
+    if (tid == 0) {
+      gate_s[q] = bs;
+      gate_r[q] = mask_dead && bs <= kNeg / 2 ? (int)tail_row : br;
+    }
   }
 
   int ptr[kOwn];
@@ -459,7 +503,8 @@ scan_merge(const float* __restrict__ gate_cs, const int* __restrict__ gate_cr,
     if (tid == 0) {
       const bool live = k0 + t < kq;
       out_s[(long long)q * ldo + k0 + t] = live ? bs : kNeg;
-      out_r[(long long)q * ldo + k0 + t] = live ? (R)br : tail_row;
+      out_r[(long long)q * ldo + k0 + t] =
+          live && !(mask_dead && bs <= kNeg / 2) ? (R)br : tail_row;
     }
     if (bp % kThreads == tid) {
       const int o = bp / kThreads;
@@ -477,19 +522,23 @@ scan_merge(const float* __restrict__ gate_cs, const int* __restrict__ gate_cr,
   }
 }
 
-int query_tile(int nq) {
+// Queries a block of the FMA stage 1 takes: the least of 4, 8, 16 and 64
+// that covers nq (an f32 scan too wide for the streaming route runs here at
+// any Q).
+inline int query_tile(int nq) {
   return nq <= 4 ? 4 : (nq <= 8 ? 8 : (nq <= 16 ? 16 : 64));
 }
 
-// Number of row splits the FMA stage 1 uses for this shape on a card with
-// `sms` multiprocessors: enough blocks for about four per SM.
-int fma_splits(long long n, int nq, int sms) {
+// Row splits of each of `shards` entries of n rows the FMA stage 1 uses for
+// this shape on a card with `sms` multiprocessors: enough blocks for about
+// four per SM.
+int fma_splits(long long n, int shards, int nq, int sms) {
   const long long qtiles = (nq + query_tile(nq) - 1) / query_tile(nq);
   const long long rtiles = (n + kBR - 1) / kBR;
-  long long want = (4LL * sms + qtiles - 1) / qtiles;
-  if (want < 1) want = 1;
+  long long want = (4LL * sms + qtiles * shards - 1) / (qtiles * shards);
   if (want > rtiles) want = rtiles;
-  if (want > kMaxSplits) want = kMaxSplits;
+  if (want > kMaxSplits / shards) want = kMaxSplits / shards;
+  if (want < 1) want = 1;
   return (int)want;
 }
 
@@ -729,11 +778,11 @@ __device__ __forceinline__ int select_small(uint64_t* L, int m, const uint64_t* 
 // up to 32 by select_small, longer ones by merge_batch with a network sized
 // to the batch. Raises the query's threshold to the list's last key once
 // the list holds kc. Query row i of the warp keeps its list at lists + i *
-// (lcap + bcap) and its batch lcap entries on.
+// (lcap + bcap) and its batch lcap + boff entries on.
 __device__ __forceinline__ void merge_pending(uint64_t* lists, int lcap, int bcap,
                                               int kc, bool need_a, bool need_b, int& m_a,
                                               int& m_b, int& nb_a, int& nb_b,
-                                              float& thr_a, float& thr_b) {
+                                              float& thr_a, float& thr_b, int boff = 0) {
   const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
   unsigned bits_a = __ballot_sync(kFull, tq == 0 && need_a);
   unsigned bits_b = __ballot_sync(kFull, tq == 0 && need_b);
@@ -746,7 +795,7 @@ __device__ __forceinline__ void merge_pending(uint64_t* lists, int lcap, int bca
     const int m = __shfl_sync(kFull, is_a ? m_a : m_b, src);
     const int nb = __shfl_sync(kFull, is_a ? nb_a : nb_b, src);
     uint64_t* L = lists + i * (lcap + bcap);
-    uint64_t* B = L + lcap;
+    uint64_t* B = L + lcap + boff;
     int m2;
     if (kc <= 32) {
       if (nb <= 32) m2 = select_small<1>(L, m, B, nb, kc);
@@ -768,15 +817,13 @@ __device__ __forceinline__ void merge_pending(uint64_t* lists, int lcap, int bca
   }
 }
 
+// n: rows of each shard entry; splits: row splits of each entry.
 template <bool kKeyed>
 struct WgArgs {
-  const float* madd;
-  const uint8_t* alive;
-  const int* row_tenant;
-  const uint8_t* is_super;
+  ShardTable t;
   const int* q_tenant;
   long long n, rows_per_split;
-  int nq, kc, panels, ns, lcap, bcap, with_gate, ld_after;
+  int splits, nq, kc, panels, ns, lcap, bcap, with_gate, ld_after;
   const float* after_s;
   const RowT<kKeyed>* after_r;
   float* gate_cs;
@@ -808,9 +855,14 @@ __device__ __forceinline__ float gate_score(float acc, uint32_t cb, uint32_t cc,
 // stages; the consumers run S = Q.E^T as wgmma m64nBNk16 with both operands
 // in 128-byte swizzled shared memory and the f32 sums in registers, then
 // fold the tile into their queries' results (see the header note).
+// The arena tensor map of each shard entry.
+struct MapTable {
+  CUtensorMap e[kMaxShards];
+};
+
 template <int WGS, int BN, bool kList, bool kKeyed>
 __global__ void __launch_bounds__((WGS + 1) * 128, 1)
-scan_stage1_wgmma(const __grid_constant__ CUtensorMap map_e,
+scan_stage1_wgmma(const __grid_constant__ MapTable maps,
                   const __grid_constant__ CUtensorMap map_q, const WgArgs<kKeyed> a) {
   // Ring of a.ns stages: item j uses stage j % ns; its full barrier waits
   // for completion j / ns, the producer's empty wait for completion
@@ -830,6 +882,14 @@ scan_stage1_wgmma(const __grid_constant__ CUtensorMap map_e,
 
   const int q0 = blockIdx.x * WGS * 64;
   const int split = blockIdx.y;
+  const int sh = blockIdx.z;                   // shard entry
+  const CUtensorMap* map_e = &maps.e[sh];
+  const float* madd = static_cast<const float*>(a.t.words[sh]);
+  const int* row_tenant = static_cast<const int*>(a.t.words[sh]);
+  const uint8_t* alive = a.t.alive[sh];
+  const uint8_t* is_super = a.t.is_super[sh];
+  const int base = (int)a.t.base[sh];          // rows leave global
+  const long long slot = (long long)sh * a.splits + split;
   const long long r_begin = (long long)split * a.rows_per_split;
   const long long r_end = min(r_begin + a.rows_per_split, a.n);
   const int tiles = r_end > r_begin ? (int)((r_end - r_begin + BN - 1) / BN) : 0;
@@ -855,7 +915,7 @@ scan_stage1_wgmma(const __grid_constant__ CUtensorMap map_e,
         hopper::mbar_arrive_expect_tx(full + s, STAGE);
         uint8_t* st = ring + s * STAGE;
         hopper::tma_load_4d(st, &map_q, full + s, 64 * p, q0, 0, 0);
-        hopper::tma_load_4d(st + QB, &map_e, full + s, 64 * p,
+        hopper::tma_load_4d(st + QB, map_e, full + s, 64 * p,
                             (int)(r_begin + (long long)t * BN), 0, 0);
       }
     }
@@ -908,6 +968,7 @@ scan_stage1_wgmma(const __grid_constant__ CUtensorMap map_e,
 
   for (int t = 0; t < tiles; ++t) {
     const long long r0 = r_begin + (long long)t * BN;
+    const int g0 = base + (int)r0;               // global row of column 0
     // The tile's row words, loaded now and stored after the product.
     uint32_t ca[CPT], cb[CPT], cc[CPT];
 #pragma unroll
@@ -915,13 +976,13 @@ scan_stage1_wgmma(const __grid_constant__ CUtensorMap map_e,
       const long long r = r0 + tid + 128 * u;
       const bool in = r < r_end;
       if constexpr (kKeyed) {
-        const int key = in && a.alive[r] ? a.row_tenant[r] : kNoTenant;
-        const bool sup = in && a.is_super[r];
+        const int key = in && alive[r] ? row_tenant[r] : kNoTenant;
+        const bool sup = in && is_super[r];
         ca[u] = (uint32_t)(sup ? kNoTenant : key);
         cb[u] = (uint32_t)(sup ? key : kNoTenant);
         cc[u] = __float_as_uint(in ? kNeg : -INFINITY);
       } else {
-        ca[u] = __float_as_uint(in ? a.madd[r] : -INFINITY);
+        ca[u] = __float_as_uint(in ? madd[r] : -INFINITY);
         cb[u] = cc[u] = 0u;
       }
     }
@@ -976,7 +1037,7 @@ scan_stage1_wgmma(const __grid_constant__ CUtensorMap map_e,
           const uint2 kc2 = *reinterpret_cast<const uint2*>(colC + 8 * c + 2 * tq);
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
-            const int r = (int)r0 + 8 * c + 2 * tq + e;
+            const int r = g0 + 8 * c + 2 * tq + e;
             const uint32_t cb = e ? kb.y : kb.x, cc = e ? kc2.y : kc2.x;
             const float sa = gate_score(acc[4 * c + e], cb, cc, ten_a);
             const float sb = gate_score(acc[4 * c + 2 + e], cb, cc, ten_b);
@@ -996,7 +1057,7 @@ scan_stage1_wgmma(const __grid_constant__ CUtensorMap map_e,
         if constexpr (kKeyed) kc2 = *reinterpret_cast<const uint2*>(colC + 8 * c + 2 * tq);
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const int r = (int)r0 + 8 * c + 2 * tq + e;
+          const int r = g0 + 8 * c + 2 * tq + e;
           const uint32_t ca = e ? ka.y : ka.x, cc = e ? kc2.y : kc2.x;
           const float sa = tier_score<kKeyed>(acc[4 * c + e], ca, cc, ten_a);
           const float sb = tier_score<kKeyed>(acc[4 * c + 2 + e], ca, cc, ten_b);
@@ -1024,7 +1085,7 @@ scan_stage1_wgmma(const __grid_constant__ CUtensorMap map_e,
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const uint32_t ca = e ? ka.y : ka.x, cc = e ? kc2.y : kc2.x;
-          const int r = (int)r0 + 8 * c + 2 * tq + e;
+          const int r = g0 + 8 * c + 2 * tq + e;
           const float sa = tier_score<kKeyed>(acc[4 * c + e], ca, cc, ten_a);
           const float sb = tier_score<kKeyed>(acc[4 * c + 2 + e], ca, cc, ten_b);
           const bool ua = sa > thr_a && (first_pass || ranks_after(sa, r, ts_a, ta_a));
@@ -1044,7 +1105,7 @@ scan_stage1_wgmma(const __grid_constant__ CUtensorMap map_e,
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int col = 8 * c + 2 * tq + e, bit = 2 * c + e;
-            const int r = (int)r0 + col;
+            const int r = g0 + col;
             if ((ma >> bit) & 1u)
               Ba[pa++] = list_key(
                   tier_score<kKeyed>(acc[4 * c + e], colA[col], colC[col], ten_a), r);
@@ -1074,8 +1135,8 @@ scan_stage1_wgmma(const __grid_constant__ CUtensorMap map_e,
         if (better(sb, rb, gs_b, gr_b)) { gs_b = sb; gr_b = rb; }
       }
       if (tq == 0) {
-        if (va) { a.gate_cs[(long long)split * a.nq + qa] = gs_a; a.gate_cr[(long long)split * a.nq + qa] = gr_a; }
-        if (vb) { a.gate_cs[(long long)split * a.nq + qb] = gs_b; a.gate_cr[(long long)split * a.nq + qb] = gr_b; }
+        if (va) { a.gate_cs[slot * a.nq + qa] = gs_a; a.gate_cr[slot * a.nq + qa] = gr_a; }
+        if (vb) { a.gate_cs[slot * a.nq + qb] = gs_b; a.gate_cr[slot * a.nq + qb] = gr_b; }
       }
     }
   }
@@ -1088,8 +1149,8 @@ scan_stage1_wgmma(const __grid_constant__ CUtensorMap map_e,
       if (better(sb, rb, bs_b, br_b)) { bs_b = sb; br_b = rb; }
     }
     if (tq == 0) {   // kc == 1
-      if (va) { a.cand_s[(long long)split * a.nq + qa] = bs_a; a.cand_r[(long long)split * a.nq + qa] = br_a; }
-      if (vb) { a.cand_s[(long long)split * a.nq + qb] = bs_b; a.cand_r[(long long)split * a.nq + qb] = br_b; }
+      if (va) { a.cand_s[slot * a.nq + qa] = bs_a; a.cand_r[slot * a.nq + qa] = br_a; }
+      if (vb) { a.cand_s[slot * a.nq + qb] = bs_b; a.cand_r[slot * a.nq + qb] = br_b; }
     }
   } else {
     merge_pending(wlists, a.lcap, a.bcap, a.kc, nb_a > 0, nb_b > 0, m_a, m_b, nb_a, nb_b,
@@ -1099,7 +1160,7 @@ scan_stage1_wgmma(const __grid_constant__ CUtensorMap map_e,
       const int q = q0 + 64 * wg + 16 * warp + i;
       if (q >= a.nq) continue;
       const uint64_t* L = wlists + i * stride;
-      const long long o = ((long long)split * a.nq + q) * a.kc;
+      const long long o = (slot * a.nq + q) * a.kc;
       for (int idx = lane; idx < a.kc; idx += 32) {
         const bool live = idx < m;
         const uint64_t key = live ? L[idx] : 0ull;
@@ -1111,33 +1172,40 @@ scan_stage1_wgmma(const __grid_constant__ CUtensorMap map_e,
 }
 
 template <int WGS, int BN, bool kList, bool kKeyed>
-cudaError_t launch_stage1_wgmma(const void* emb, const void* qry, int d,
-                                const WgArgs<kKeyed>& w, int splits, cudaStream_t stream) {
+cudaError_t launch_stage1_wgmma(int shards, const void* qry, int d,
+                                const WgArgs<kKeyed>& w, cudaStream_t stream) {
   auto kernel = scan_stage1_wgmma<WGS, BN, kList, kKeyed>;
   const size_t smem = wg_smem(WgShape{WGS, BN, kList, w.ns, w.lcap, w.bcap});
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  // Rows past N and columns past d arrive as zeros.
-  CUtensorMap map_e, map_q;
-  if (!hopper::encode_rows_map(&map_e, emb, d, w.n, 1, 1, d, 0, 0, BN) ||
-      !hopper::encode_rows_map(&map_q, qry, d, w.nq, 1, 1, d, 0, 0, WGS * 64))
+  // Rows past each shard's n and columns past d arrive as zeros.
+  MapTable maps;
+  CUtensorMap map_q;
+  for (int p = 0; p < shards; ++p)
+    if (!hopper::encode_rows_map(&maps.e[p], w.t.emb[p], d, w.n, 1, 1, d, 0, 0, BN))
+      return cudaErrorNotSupported;
+  if (!hopper::encode_rows_map(&map_q, qry, d, w.nq, 1, 1, d, 0, 0, WGS * 64))
     return cudaErrorNotSupported;
-  dim3 grid((w.nq + WGS * 64 - 1) / (WGS * 64), splits);
-  kernel<<<grid, (WGS + 1) * 128, smem, stream>>>(map_e, map_q, w);
+  dim3 grid((w.nq + WGS * 64 - 1) / (WGS * 64), w.splits, shards);
+  kernel<<<grid, (WGS + 1) * 128, smem, stream>>>(maps, map_q, w);
   return cudaGetLastError();
 }
 
-// Splits of the tensor-core route: the count whose blocks fill whole waves
-// of one block per SM best (ties to the fewest), from the first pass's
-// shape. Blocks of one split read the same rows in the same order, and the
-// grid launches query tiles fastest, so a wave shares its arena panels in
-// L2.
-int wg_splits(long long n, int nq, int kmax, int sms) {
+// Splits of each of `shards` entries of n rows on the tensor-core route: the
+// count whose blocks fill whole waves of one block per SM best (ties to the
+// fewest), from the first pass's shape; within one wave when every entry
+// has a single query tile (more waves of equal fill only add block
+// prologues and lists to merge). Blocks of one split read the same rows in
+// the same order, and the grid launches query tiles fastest, so a wave
+// shares its arena panels in L2.
+int wg_splits(long long n, int shards, int nq, int kmax, int sms) {
   const WgShape sh = wg_shape(nq, kmax < kMaxK ? kmax : kMaxK);
-  const long long qtiles = (nq + sh.wgs * 64 - 1) / (sh.wgs * 64);
+  const long long qtiles = (nq + sh.wgs * 64 - 1) / (sh.wgs * 64) * shards;
   const long long rtiles = (n + sh.bn - 1) / sh.bn;
-  const long long top = rtiles < kMaxSplits ? rtiles : kMaxSplits;
+  long long cap = kMaxSplits / shards;
+  if (qtiles == shards && shards <= sms && sms / shards < cap) cap = sms / shards;
+  const long long top = rtiles < cap ? rtiles : cap;
   int best = 1;
   double best_eff = -1.0;
   for (long long s = 1; s <= top; ++s) {
@@ -1152,22 +1220,544 @@ int wg_splits(long long n, int nq, int kmax, int sms) {
   return best;
 }
 
-// Everything one scan needs; the mode's unused pointers are null.
+// ---------------------------------------------------------------------------
+// Stage 1, streaming route (f32 arenas, Q <= 16 queries): a matrix-vector
+// scan fed by 1-D bulk copies through an mbarrier ring
+// ---------------------------------------------------------------------------
+//
+// What bounds it: HBM bytes (the route's whole point: a split's rows are one
+// contiguous byte range, streamed once by the copy engine with no
+// registers or instructions spent on addresses). The arithmetic is 2 Q
+// FLOP an element on the CUDA cores in f32; an f32 row carries 4 bytes an
+// element, so the scan stays near its bytes' bound up to Q = 8 or so. (A
+// bf16 row carries half the bytes for the same FMAs: on an H100 the
+// tensor-core route is as fast at one query and faster from two, so every
+// bf16 scan takes it.) Each block takes one split (one wave of blocks); the
+// ring is as deep as shared memory allows. A lane holds its slots of its
+// queries in registers, kStreamQregs values at most: that caps d at 3,072
+// up to 8 queries and 1,536 at 9 to 16 (the wrapper's rule sends wider
+// scans to the FMA route; the launch refuses them).
+
+constexpr int kRouteStream = 2;
+constexpr int kStreamMaxQ = 16;
+constexpr int kStreamStageBytes = 49152;   // arena bytes a ring stage aims at
+constexpr int kStreamMaxRows = 128;        // rows of a chunk at most (a batch)
+constexpr int kStreamHead = 512;           // barriers, batch sizes, thresholds
+constexpr int kStreamMathWarps = 8;
+constexpr int kStreamQregs = 96;           // query values a lane holds
+
+// Layout of a streaming launch, fixed by d, the mode, the list length kc
+// and the query tile qt (nq rounded up to a power of two):
+//   cr    rows a chunk (one ring stage): the rows in kStreamStageBytes of
+//         arena, rounded down to a multiple of 16 when there are 16 or
+//         more (then the row words come by bulk copies too), at most
+//         kStreamMaxRows; fewer than 16 are raised to one a math warp
+//         where two stages of them fit;
+//   g     lanes sharing a row: its d / 8 slots of 8 elements rounded up to
+//         a power of two, at most 32; spl slots a lane (a row never spans
+//         two warps);
+//   qg    queries a math warp sums (its query group): the most of 4, 2, 1
+//         whose qg * spl * 8 values fit in kStreamQregs registers (and qg
+//         <= g); ng = qt / qg groups, pr = kStreamMathWarps / ng warps a
+//         group (0 when the groups do not fit: the launch is refused);
+//   ns    ring stages, as many as shared memory holds (at most kMaxStages);
+//   bc    entries of each of a query's two batches: a batch takes the
+//         candidates of every other chunk until it could not take another.
+// A stage holds cr arena rows, then their row words (madd f32, or tenant
+// i32, alive u8 and is_super u8, column by column), padded to 128 bytes.
+struct StreamShape {
+  int cr, g, spl, qg, ng, pr, ns, lcap, bc, row_bytes, words_off, stage_bytes, fin;
+  size_t lists_off, fin_off, smem;
+};
+
+template <bool kKeyed>
+inline StreamShape stream_shape(int d, int kc, int qt, int cr = 0) {
+  StreamShape sh{};
+  sh.row_bytes = d * 4;
+  if (cr == 0) {
+    // Wide rows: one a math warp if two such stages fit, else what fits.
+    const int fit = kStreamStageBytes / sh.row_bytes;
+    if (fit >= 16) return stream_shape<kKeyed>(d, kc, qt, fit / 16 * 16 > kStreamMaxRows
+                                                              ? kStreamMaxRows : fit / 16 * 16);
+    const StreamShape wide = stream_shape<kKeyed>(d, kc, qt, fit > kStreamMathWarps
+                                                               ? fit : kStreamMathWarps);
+    return wide.ns >= 2 ? wide : stream_shape<kKeyed>(d, kc, qt, fit < 1 ? 1 : fit);
+  }
+  sh.cr = cr;
+  const int slots = d / 8;
+  sh.g = 1;
+  while (sh.g < slots && sh.g < 32) sh.g <<= 1;
+  sh.spl = (slots + sh.g - 1) / sh.g;
+  sh.qg = 4;
+  while (sh.qg > 1 && (sh.qg > qt || sh.qg > sh.g || sh.qg * sh.spl * 8 > kStreamQregs))
+    sh.qg >>= 1;
+  sh.ng = qt / sh.qg;
+  sh.pr = kStreamMathWarps / sh.ng;
+  sh.words_off = sh.cr * sh.row_bytes;
+  sh.stage_bytes = (sh.words_off + sh.cr * (kKeyed ? 6 : 4) + 127) / 128 * 128;
+  sh.lcap = ((kc + 7) / 8) * 8;
+  sh.bc = 2 * sh.cr + 32 < kSortN ? 2 * sh.cr + 32 : kSortN;
+  sh.fin = sh.pr * (32 / sh.g);
+  const size_t lists = kc > 1 ? (size_t)16 * (sh.lcap + 2 * sh.bc) * 8 : 0;
+  const size_t fin = (size_t)qt * sh.fin * 8 * (kKeyed ? 2 : 1);
+  const size_t fixed = kStreamHead + lists + fin;
+  const size_t ns = fixed < (size_t)kSmemMax ? (kSmemMax - fixed) / sh.stage_bytes : 0;
+  sh.ns = (int)(ns < kMaxStages ? ns : kMaxStages);
+  sh.lists_off = kStreamHead + (size_t)sh.ns * sh.stage_bytes;
+  sh.fin_off = sh.lists_off + lists;
+  sh.smem = fixed + (size_t)sh.ns * sh.stage_bytes;
+  return sh;
+}
+
+// n: rows of each shard entry; rows_per_split: a multiple of cr; words_bulk:
+// cr is a multiple of 16 and every entry's row-word columns are 16-byte
+// aligned (else the producer warp copies them with plain loads).
+template <bool kKeyed>
+struct StreamArgs {
+  ShardTable t;
+  const void* qry;
+  const int* q_tenant;
+  long long n, rows_per_split;
+  int splits, d, nq, qt, kc, with_gate, ld_after, words_bulk;
+  int cr, g, spl, ng, pr, ns, lcap, bc, row_bytes, words_off, stage_bytes, fin, lists_off,
+      fin_off;
+  const float* after_s;
+  const RowT<kKeyed>* after_r;
+  float* gate_cs;
+  int* gate_cr;
+  float* cand_s;
+  int* cand_r;
+};
+
+// A lane's slot vs (8 elements) of a row: elements 4 vs .. 4 vs + 3 and d/2
+// + 4 vs .. + 3 (two 16-byte reads, each 512 contiguous bytes over a
+// warp). Zeros for a slot past the row.
+__device__ __forceinline__ void load_slot(const float* row, int vs, int d, bool live,
+                                          float* x) {
+  if (!live) {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) x[e] = 0.f;
+    return;
+  }
+  const float4 lo = *reinterpret_cast<const float4*>(row + 4 * vs);
+  const float4 hi = *reinterpret_cast<const float4*>(row + d / 2 + 4 * vs);
+  x[0] = lo.x; x[1] = lo.y; x[2] = lo.z; x[3] = lo.w;
+  x[4] = hi.x; x[5] = hi.y; x[6] = hi.z; x[7] = hi.w;
+}
+
+// The xor mask m of a lane: sum j of its QG partial sums belongs to query
+// j ^ m of its group, so that at every halving step of row_reduce both
+// partners send their upper half and keep their lower one (no selects).
+template <int QG>
+__device__ __forceinline__ int query_xor(int sl, int g) {
+  int m = 0;
+#pragma unroll
+  for (int st = 0; st < 5; ++st) {
+    const int o = g >> (st + 1), h = QG >> (st + 1);
+    if (o == 0 || h == 0) break;
+    if (sl & o) m |= h;
+  }
+  return m;
+}
+
+// Reduce-scatter of one row's QG partial sums over the g lanes sharing the
+// row: step ST (offset g >> (ST + 1)) halves the sums a lane holds while it
+// holds more than one, then adds its partner's one sum. Lane sl ends with
+// query m's full sum (the lanes whose low bits differ hold the same). The
+// order of the additions depends on the lanes' places in the row only,
+// never on the row's.
+template <int QG, int ST = 0>
+__device__ __forceinline__ void row_reduce(float (&v)[QG], int g) {
+  if constexpr (ST < 5) {
+    const int o = g >> (ST + 1);
+    if (o == 0) return;
+    constexpr int H = QG >> (ST + 1);
+    if constexpr (H >= 1) {
+#pragma unroll
+      for (int j = 0; j < H; ++j) v[j] += __shfl_xor_sync(kFull, v[j + H], o);
+    } else {
+      v[0] += __shfl_xor_sync(kFull, v[0], o);
+    }
+    row_reduce<QG, ST + 1>(v, g);
+  }
+}
+
+// Stage 1 on the streaming route. Block (split, entry) scans the rows of
+// split `split` of shard entry `entry` for all nq <= 16 queries, chunk by
+// chunk.
+// - Warp 0 produces: lane 0 keeps a chunk's rows (one contiguous byte range)
+//   and its row words in flight by bulk copies into a ring of ns stages;
+//   the lanes copy the words of a ragged last chunk.
+// - Math warps (2 ..): warp w sums query group w % ng (QG queries) over the
+//   row phase w / ng. A lane holds its slots of the group's queries in
+//   registers, reads its slots of RU rows from the stage (16-byte reads),
+//   sums 8 FMAs a slot and query, and the g lanes of a row reduce-scatter
+//   the QG sums (row_reduce). The lane left with a query's full sum (its
+//   owner) adds madd, or applies the tiers, and folds the score: kc = 1 and
+//   the keyed gate into an arg-max in registers (replaced only on a
+//   strictly better score; its rows ascend), lists into the query's batch
+//   when the score beats the query's threshold (and, in a later pass, ranks
+//   after the previous pass's last pair), at a position from a shared
+//   atomic. A row's score is the same wherever it sits.
+// - Warp 1 keeps the lists, as a warp of the tensor-core route's consumers
+//   does (queries g and g + 8 of a quad). Chunks alternate between two
+//   batches a query; after each chunk it merges the chunk's batch into the
+//   sorted list (merge_pending) when the batch could not take another
+//   chunk or the list is not full, and publishes the list's last score as
+//   the threshold. At the end it merges what is left, reduces the owners'
+//   arg-maxes and writes the split's candidates.
+template <int QG, bool kList, bool kKeyed>
+__global__ void __launch_bounds__(64 + 32 * kStreamMathWarps, 1)
+scan_stage1_stream(const StreamArgs<kKeyed> a) {
+  constexpr int SPLMAX = kStreamQregs / (8 * QG);
+  constexpr int RU = QG == 1 ? 4 : 2;        // rows a lane sums at once
+  constexpr int MW = kStreamMathWarps;
+  extern __shared__ __align__(128) uint8_t stream_smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(stream_smem);
+  uint64_t* empty = full + kMaxStages;
+  uint64_t* sfull = empty + kMaxStages;   // [2] batches written
+  uint64_t* sempty = sfull + 2;           // [2] batches merged
+  uint64_t* done = sempty + 2;            // the owners' arg-maxes written
+  int* cnt = reinterpret_cast<int*>(stream_smem + 256);         // [2][16] batch sizes
+  float* thrs = reinterpret_cast<float*>(stream_smem + 384);    // [16] thresholds
+  uint8_t* ring = stream_smem + kStreamHead;
+  uint64_t* lists = reinterpret_cast<uint64_t*>(stream_smem + a.lists_off);
+  float* fin_s = reinterpret_cast<float*>(stream_smem + a.fin_off);   // [qt][fin]
+  int* fin_r = reinterpret_cast<int*>(fin_s + a.qt * a.fin);
+  float* gfin_s = reinterpret_cast<float*>(fin_r + a.qt * a.fin);     // keyed gate
+  int* gfin_r = reinterpret_cast<int*>(gfin_s + a.qt * a.fin);
+  const int stride = a.lcap + 2 * a.bc;   // a query's list and two batches
+
+  const int split = blockIdx.x, entry = blockIdx.y;
+  const long long slot = (long long)entry * a.splits + split;
+  const int base = (int)a.t.base[entry];
+  const long long r_begin = (long long)split * a.rows_per_split;
+  const long long r_end = min(r_begin + a.rows_per_split, a.n);
+  const int chunks = r_end > r_begin ? (int)((r_end - r_begin + a.cr - 1) / a.cr) : 0;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < a.ns; ++s) {
+      hopper::mbar_init(full + s, 1);
+      hopper::mbar_init(empty + s, 32 * MW);
+    }
+    for (int b = 0; b < 2; ++b) {
+      hopper::mbar_init(sfull + b, 32 * MW);
+      hopper::mbar_init(sempty + b, 32);
+    }
+    hopper::mbar_init(done, 32 * MW);
+    hopper::mbar_init_fence();
+  }
+  if (threadIdx.x < 32) {
+    cnt[threadIdx.x] = 0;
+    if (threadIdx.x < 16) thrs[threadIdx.x] = -INFINITY;
+  }
+  __syncthreads();
+
+  if (warp == 0) {
+    // ---- producer
+    const uint8_t* emb = static_cast<const uint8_t*>(a.t.emb[entry]);
+    const uint8_t* words = static_cast<const uint8_t*>(a.t.words[entry]);
+    const uint8_t* alive = a.t.alive[entry];
+    const uint8_t* sup = a.t.is_super[entry];
+    const uint32_t wbytes = (uint32_t)a.cr * (kKeyed ? 6 : 4);
+    for (int j = 0; j < chunks; ++j) {
+      const int s = j % a.ns;
+      if (j >= a.ns) hopper::mbar_wait(empty + s, ((j / a.ns) - 1) & 1);
+      const long long r0 = r_begin + (long long)j * a.cr;
+      const int rows = (int)min((long long)a.cr, r_end - r0);
+      uint8_t* st = ring + (size_t)s * a.stage_bytes;
+      uint8_t* wst = st + a.words_off;
+      const bool bulk_words = a.words_bulk && rows == a.cr;
+      if (!bulk_words) {
+        for (int i = lane; i < a.cr; i += 32) {
+          const bool in = i < rows;
+          reinterpret_cast<uint32_t*>(wst)[i] =
+              in ? reinterpret_cast<const uint32_t*>(words)[r0 + i] : 0u;
+          if constexpr (kKeyed) {
+            wst[4 * a.cr + i] = in ? alive[r0 + i] : 0;
+            wst[5 * a.cr + i] = in ? sup[r0 + i] : 0;
+          }
+        }
+        __threadfence_block();
+        __syncwarp();
+      }
+      if (lane == 0) {
+        const uint32_t eb = (uint32_t)rows * a.row_bytes;
+        hopper::mbar_arrive_expect_tx(full + s, eb + (bulk_words ? wbytes : 0u));
+        hopper::bulk_load(st, emb + r0 * a.row_bytes, eb, full + s);
+        if (bulk_words) {
+          hopper::bulk_load(wst, words + 4 * r0, 4 * a.cr, full + s);
+          if constexpr (kKeyed) {
+            hopper::bulk_load(wst + 4 * a.cr, alive + r0, a.cr, full + s);
+            hopper::bulk_load(wst + 5 * a.cr, sup + r0, a.cr, full + s);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  if (warp == 1) {
+    // ---- the lists' keeper: queries qa = g8 and qb = g8 + 8 of lane (g8, tq)
+    const int g8 = lane >> 2, tq = lane & 3;
+    const int qa = g8, qb = g8 + 8;
+    const bool va = qa < a.nq, vb = qb < a.nq;
+    if constexpr (kList) {
+      int m_a = 0, m_b = 0, nb_a = 0, nb_b = 0;
+      float thr_a = -INFINITY, thr_b = -INFINITY;
+      for (int j = 0; j < chunks + 2; ++j) {
+        // Chunk j's batch; past the last chunk, what is left in both.
+        const int b = j & 1;
+        const bool last = j >= chunks;
+        if (!last) hopper::mbar_wait(sfull + b, (j >> 1) & 1);
+        nb_a = va ? cnt[16 * b + qa] : 0;
+        nb_b = vb ? cnt[16 * b + qb] : 0;
+        merge_pending(lists, a.lcap, 2 * a.bc, a.kc,
+                      nb_a > 0 && (last || nb_a > a.bc - a.cr || m_a < a.kc),
+                      nb_b > 0 && (last || nb_b > a.bc - a.cr || m_b < a.kc), m_a, m_b,
+                      nb_a, nb_b, thr_a, thr_b, b * a.bc);
+        if (tq == 0) {
+          if (va) { thrs[qa] = thr_a; cnt[16 * b + qa] = nb_a; }
+          if (vb) { thrs[qb] = thr_b; cnt[16 * b + qb] = nb_b; }
+        }
+        __syncwarp();
+        if (!last) hopper::mbar_arrive(sempty + b);
+      }
+      for (int i = 0; i < 16 && i < a.nq; ++i) {
+        const int m = __shfl_sync(kFull, i < 8 ? m_a : m_b, 4 * (i & 7));
+        const uint64_t* L = lists + i * stride;
+        const long long o = (slot * a.nq + i) * a.kc;
+        for (int idx = lane; idx < a.kc; idx += 32) {
+          const bool live = idx < m;
+          const uint64_t key = live ? L[idx] : 0ull;
+          a.cand_s[o + idx] = live ? key_score(key) : -INFINITY;
+          a.cand_r[o + idx] = live ? key_row(key) : INT32_MAX;
+        }
+      }
+    }
+    if (!kList || (kKeyed && a.with_gate)) {
+      hopper::mbar_wait(done, 0);
+      for (int q = lane; q < a.nq; q += 32) {
+        if constexpr (!kList) {
+          float bs = -INFINITY;
+          int br = INT32_MAX;
+          for (int i = 0; i < a.fin; ++i) {
+            const float s = fin_s[q * a.fin + i];
+            const int r = fin_r[q * a.fin + i];
+            if (better(s, r, bs, br)) { bs = s; br = r; }
+          }
+          a.cand_s[slot * a.nq + q] = bs;
+          a.cand_r[slot * a.nq + q] = br;
+        }
+        if constexpr (kKeyed) {
+          if (a.with_gate) {
+            float gs = -INFINITY;
+            int gr = INT32_MAX;
+            for (int i = 0; i < a.fin; ++i) {
+              const float s = gfin_s[q * a.fin + i];
+              const int r = gfin_r[q * a.fin + i];
+              if (better(s, r, gs, gr)) { gs = s; gr = r; }
+            }
+            a.gate_cs[slot * a.nq + q] = gs;
+            a.gate_cr[slot * a.nq + q] = gr;
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- math warps: warp mwi sums query group grp over row phase ph; lane
+  // (sub, sl) takes slots sl, sl + g, .. of rows ph * rpw + sub, + P, ..
+  const int mwi = warp - 2;
+  const int grp = mwi % a.ng, ph = mwi / a.ng;
+  const int rpw = 32 / a.g;
+  const int sub = lane / a.g, sl = lane % a.g;
+  const int P = a.pr * rpw;
+  const int r_lane = ph * rpw + sub;
+  const int slots = a.d / 8;
+  const int m = query_xor<QG>(sl, a.g);
+  const int q = grp * QG + m;                    // the query this lane may own
+  const bool owner = (sl & (a.g / QG - 1)) == 0;
+  const bool qlive = owner && q < a.nq;
+  float qv[QG][SPLMAX * 8];
+  const float* qry = static_cast<const float*>(a.qry);
+#pragma unroll
+  for (int j = 0; j < QG; ++j) {
+    const int qj = grp * QG + (j ^ m);
+#pragma unroll
+    for (int s = 0; s < SPLMAX; ++s) {
+      if (s < a.spl) {
+        const int vs = s * a.g + sl;
+        load_slot(qry + (long long)(qj < a.nq ? qj : 0) * a.d, vs, a.d,
+                  vs < slots && qj < a.nq, &qv[j][8 * s]);
+      }
+    }
+  }
+  float ts = INFINITY;
+  long long ta = -1;
+  if (qlive && a.after_s) {
+    ts = a.after_s[(long long)q * a.ld_after];
+    ta = (long long)a.after_r[(long long)q * a.ld_after];
+  }
+  const bool first_pass = a.after_s == nullptr;
+  int ten = 0;
+  if constexpr (kKeyed) ten = qlive ? a.q_tenant[q] : kNoTenant;
+  float bs = -INFINITY, gs = -INFINITY;
+  int br = INT32_MAX, gr = INT32_MAX;
+  float thr = -INFINITY;
+  uint64_t* qlist = lists + (qlive ? q : 0) * stride + a.lcap;
+  const int iters = (a.cr + P * RU - 1) / (P * RU);
+
+  for (int j = 0; j < chunks; ++j) {
+    const int s = j % a.ns, b = j & 1;
+    hopper::mbar_wait(full + s, (j / a.ns) & 1);
+    if constexpr (kList) {
+      if (j >= 2) hopper::mbar_wait(sempty + b, ((j >> 1) - 1) & 1);
+      thr = qlive ? thrs[q] : INFINITY;
+    }
+    const long long r0 = r_begin + (long long)j * a.cr;
+    const int rows = (int)min((long long)a.cr, r_end - r0);
+    const int g0 = base + (int)r0;               // global row of row 0
+    const uint8_t* st = ring + (size_t)s * a.stage_bytes;
+    const uint8_t* wst = st + a.words_off;
+    for (int it = 0; it < iters; ++it) {
+      float acc[RU][QG];
+#pragma unroll
+      for (int u = 0; u < RU; ++u)
+#pragma unroll
+        for (int jj = 0; jj < QG; ++jj) acc[u][jj] = 0.f;
+#pragma unroll
+      for (int sidx = 0; sidx < SPLMAX; ++sidx) {
+        if (sidx < a.spl) {
+          const int vs = sidx * a.g + sl;
+          const bool live = vs < slots;
+#pragma unroll
+          for (int u = 0; u < RU; ++u) {
+            const int row = r_lane + (it * RU + u) * P;
+            float x[8];
+            // A row past the chunk sums zeros and reads nothing.
+            load_slot(reinterpret_cast<const float*>(
+                          st + (size_t)(row < rows ? row : 0) * a.row_bytes),
+                      vs, a.d, live && row < rows, x);
+#pragma unroll
+            for (int e = 0; e < 8; ++e)
+#pragma unroll
+              for (int jj = 0; jj < QG; ++jj)
+                acc[u][jj] = fmaf(x[e], qv[jj][8 * sidx + e], acc[u][jj]);
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < RU; ++u) row_reduce<QG>(acc[u], a.g);
+      if (qlive) {
+#pragma unroll
+        for (int u = 0; u < RU; ++u) {
+          const int row = r_lane + (it * RU + u) * P;
+          if (row < rows) {
+            const int grow = g0 + row;
+            float sc;
+            if constexpr (kKeyed) {
+              const int key = wst[4 * a.cr + row]
+                                  ? reinterpret_cast<const int*>(wst)[row] : kNoTenant;
+              const bool sp = wst[5 * a.cr + row];
+              const uint32_t cc = __float_as_uint(kNeg);
+              sc = tier_score<true>(acc[u][0], (uint32_t)(sp ? kNoTenant : key), cc, ten);
+              if (a.with_gate) {
+                const float sg = gate_score(acc[u][0], (uint32_t)(sp ? key : kNoTenant), cc,
+                                            ten);
+                gr = sg > gs ? grow : gr;
+                gs = sg > gs ? sg : gs;
+              }
+            } else {
+              sc = acc[u][0] + reinterpret_cast<const float*>(wst)[row];
+            }
+            if (first_pass || ranks_after(sc, grow, ts, ta)) {
+              if constexpr (!kList) {
+                br = sc > bs ? grow : br;
+                bs = sc > bs ? sc : bs;
+              } else if (sc > thr) {
+                const int pos = atomicAdd(cnt + 16 * b + q, 1);
+                qlist[b * a.bc + pos] = list_key(sc, grow);
+              }
+            }
+          }
+        }
+      }
+    }
+    hopper::mbar_arrive(empty + s);
+    if constexpr (kList) hopper::mbar_arrive(sfull + b);
+  }
+  if (qlive) {
+    const int i = q * a.fin + ph * rpw + sub;
+    if constexpr (!kList) { fin_s[i] = bs; fin_r[i] = br; }
+    if constexpr (kKeyed) {
+      if (a.with_gate) { gfin_s[i] = gs; gfin_r[i] = gr; }
+    }
+  }
+  hopper::mbar_arrive(done);
+}
+
+template <int QG, bool kList, bool kKeyed>
+cudaError_t launch_stream(const StreamArgs<kKeyed>& w, size_t smem, int shards,
+                          cudaStream_t stream) {
+  auto kernel = scan_stage1_stream<QG, kList, kKeyed>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(w.splits, shards), 64 + 32 * kStreamMathWarps, smem, stream>>>(w);
+  return cudaGetLastError();
+}
+
+template <bool kList, bool kKeyed>
+cudaError_t launch_stream_qg(int qg, const StreamArgs<kKeyed>& w, size_t smem, int shards,
+                             cudaStream_t st) {
+  switch (qg) {
+    case 1: return launch_stream<1, kList, kKeyed>(w, smem, shards, st);
+    case 2: return launch_stream<2, kList, kKeyed>(w, smem, shards, st);
+    default: return launch_stream<4, kList, kKeyed>(w, smem, shards, st);
+  }
+}
+
+// The query tile of the streaming route: nq rounded up to a power of two.
+inline int stream_tile(int nq) {
+  int qt = 1;
+  while (qt < nq) qt <<= 1;
+  return qt;
+}
+
+// Splits of each of `shards` entries of n rows on the streaming route: one
+// wave of blocks (the ring takes an SM's shared memory, so one block an
+// SM), no split shorter than four chunks.
+template <bool kKeyed>
+int stream_splits(long long n, int shards, int nq, int kmax, int sms, int d) {
+  const StreamShape sh = stream_shape<kKeyed>(d, kmax < kMaxK ? kmax : kMaxK, stream_tile(nq));
+  const long long chunks = (n + sh.cr - 1) / sh.cr;
+  long long want = sms / shards;
+  if (want > chunks / 4) want = chunks / 4;
+  if (want > kMaxSplits / shards) want = kMaxSplits / shards;
+  if (want < 1) want = 1;
+  return (int)want;
+}
+
+// Everything one scan needs: a table of `shards` arenas of n rows each
+// (one entry at base 0 for a single device), the queries and the outputs;
+// the mode's unused pointers are null. mask_dead writes tail_row for the
+// masked pairs (the grouped keyed scan's global sentinel).
 template <bool kKeyed>
 struct Scan {
   using R = RowT<kKeyed>;
-  const void* emb;
+  ShardTable t;
+  int shards;
   int is_bf16;
-  const float* madd;
-  const uint8_t* alive;
-  const int* row_tenant;
-  const uint8_t* is_super;
   const void* qry;
   const int* q_tenant;
   const int* k_q;
   long long n;
-  int d, nq, k_out, kmax, splits;
+  int d, nq, k_out, kmax, splits;   // splits of each entry
   R tail_row;
+  int mask_dead;
   float* gate_cs;
   int* gate_cr;
   float* cand_s;
@@ -1186,10 +1776,9 @@ cudaError_t launch_stage1(const Scan<kKeyed>& a, int kc, int k0,
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((a.nq + BQ - 1) / BQ, a.splits);
+  dim3 grid((a.nq + BQ - 1) / BQ, a.splits, a.shards);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(a.emb), a.madd, a.alive, a.row_tenant, a.is_super,
-      static_cast<const T*>(a.qry), a.q_tenant, a.n, a.d, a.nq, kc,
+      a.t, static_cast<const T*>(a.qry), a.q_tenant, a.n, a.splits, a.d, a.nq, kc,
       rows_per_split, kKeyed && k0 == 0, k0 ? a.out_s + k0 - 1 : nullptr,
       k0 ? a.out_r + k0 - 1 : nullptr, a.k_out, a.gate_cs, a.gate_cr,
       a.cand_s, a.cand_r);
@@ -1207,10 +1796,14 @@ cudaError_t launch_stage1_for(const Scan<kKeyed>& a, int kc, int k0,
   }
 }
 
-// Row splits of stage 1 on a route for this shape (the scratch's leading
-// dimension).
-int scan_splits(long long n, int nq, int kmax, int route, int sms) {
-  return route == kRouteWgmma ? wg_splits(n, nq, kmax, sms) : fma_splits(n, nq, sms);
+// Row splits of each shard entry of n rows on a route for this shape (the
+// scratch's leading dimension is shards times this).
+template <bool kKeyed>
+int scan_splits(long long n, int shards, int nq, int kmax, int route, int sms, int d) {
+  if (shards < 1 || shards > kMaxShards || n < 1 || d < 8) return 1;
+  if (route == kRouteWgmma) return wg_splits(n, shards, nq, kmax, sms);
+  if (route == kRouteStream) return stream_splits<kKeyed>(n, shards, nq, kmax, sms, d);
+  return fma_splits(n, shards, nq, sms);
 }
 
 // The tensor-core stage 1 of one pass (bf16 arenas only).
@@ -1220,29 +1813,68 @@ cudaError_t launch_stage1_wg(const Scan<kKeyed>& a, int kc, int k0, cudaStream_t
   const WgShape sh = wg_shape(a.nq, kc);
   const long long rtiles = (a.n + sh.bn - 1) / sh.bn;
   WgArgs<kKeyed> w{};
-  w.madd = a.madd; w.alive = a.alive; w.row_tenant = a.row_tenant;
-  w.is_super = a.is_super; w.q_tenant = a.q_tenant;
+  w.t = a.t;
+  w.q_tenant = a.q_tenant;
   w.n = a.n;
   w.rows_per_split = ((rtiles + a.splits - 1) / a.splits) * sh.bn;
-  w.nq = a.nq; w.kc = kc; w.panels = (a.d + 63) / 64;
+  w.splits = a.splits; w.nq = a.nq; w.kc = kc; w.panels = (a.d + 63) / 64;
   w.ns = sh.ns; w.lcap = sh.lcap; w.bcap = sh.bcap;
   w.with_gate = kKeyed && k0 == 0; w.ld_after = a.k_out;
   w.after_s = k0 ? a.out_s + k0 - 1 : nullptr;
   w.after_r = k0 ? a.out_r + k0 - 1 : nullptr;
   w.gate_cs = a.gate_cs; w.gate_cr = a.gate_cr; w.cand_s = a.cand_s; w.cand_r = a.cand_r;
-  if (sh.list) return launch_stage1_wgmma<1, 128, true, kKeyed>(a.emb, a.qry, a.d, w, a.splits, st);
-  if (sh.wgs == 2) return launch_stage1_wgmma<2, 256, false, kKeyed>(a.emb, a.qry, a.d, w, a.splits, st);
-  return launch_stage1_wgmma<1, 256, false, kKeyed>(a.emb, a.qry, a.d, w, a.splits, st);
+  if (sh.list) return launch_stage1_wgmma<1, 128, true, kKeyed>(a.shards, a.qry, a.d, w, st);
+  if (sh.wgs == 2) return launch_stage1_wgmma<2, 256, false, kKeyed>(a.shards, a.qry, a.d, w, st);
+  return launch_stage1_wgmma<1, 256, false, kKeyed>(a.shards, a.qry, a.d, w, st);
+}
+
+// The streaming stage 1 of one pass (f32 arenas, Q <= 16).
+template <bool kKeyed>
+cudaError_t launch_stage1_stream(const Scan<kKeyed>& a, int kc, int k0, cudaStream_t st) {
+  if (a.is_bf16 || a.nq > kStreamMaxQ) return cudaErrorInvalidValue;
+  const int qt = stream_tile(a.nq);
+  const StreamShape sh = stream_shape<kKeyed>(a.d, kc, qt);
+  if (sh.ns < 2 || sh.pr < 1 || sh.qg * sh.spl * 8 > kStreamQregs)
+    return cudaErrorInvalidValue;
+  StreamArgs<kKeyed> w{};
+  w.t = a.t;
+  w.qry = a.qry; w.q_tenant = a.q_tenant;
+  w.n = a.n;
+  const long long chunks = (a.n + sh.cr - 1) / sh.cr;
+  w.rows_per_split = ((chunks + a.splits - 1) / a.splits) * sh.cr;
+  w.splits = a.splits; w.d = a.d; w.nq = a.nq; w.qt = qt; w.kc = kc;
+  w.with_gate = kKeyed && k0 == 0; w.ld_after = a.k_out;
+  // Bulk copies of the row words need 16-byte aligned columns in the stage
+  // and in memory.
+  w.words_bulk = sh.cr % 16 == 0;
+  for (int p = 0; p < a.shards; ++p) {
+    const uintptr_t bits = reinterpret_cast<uintptr_t>(a.t.words[p]) |
+                           (kKeyed ? reinterpret_cast<uintptr_t>(a.t.alive[p]) |
+                                         reinterpret_cast<uintptr_t>(a.t.is_super[p])
+                                   : 0);
+    if (bits % 16) w.words_bulk = 0;
+  }
+  w.cr = sh.cr; w.g = sh.g; w.spl = sh.spl; w.ng = sh.ng; w.pr = sh.pr; w.ns = sh.ns;
+  w.lcap = sh.lcap; w.bc = sh.bc; w.row_bytes = sh.row_bytes; w.words_off = sh.words_off;
+  w.stage_bytes = sh.stage_bytes; w.fin = sh.fin;
+  w.lists_off = (int)sh.lists_off; w.fin_off = (int)sh.fin_off;
+  w.after_s = k0 ? a.out_s + k0 - 1 : nullptr;
+  w.after_r = k0 ? a.out_r + k0 - 1 : nullptr;
+  w.gate_cs = a.gate_cs; w.gate_cr = a.gate_cr; w.cand_s = a.cand_s; w.cand_r = a.cand_r;
+  return kc > 1 ? launch_stream_qg<true, kKeyed>(sh.qg, w, sh.smem, a.shards, st)
+                : launch_stream_qg<false, kKeyed>(sh.qg, w, sh.smem, a.shards, st);
 }
 
 // Stage 1 on `route` and stage 2 for every pass of 128 list entries up to
-// kmax. A launch the card refuses returns its error: no route stands in for
-// another.
+// kmax: two launches a pass, whatever the number of shard entries, each
+// added to *launched (when not null) once the card has taken it. A launch
+// the card refuses returns its error: no route stands in for another.
 template <bool kKeyed>
-int run_scan(const Scan<kKeyed>& a, int route, cudaStream_t st) {
-  if (a.d % 8 != 0 || a.kmax < 1 || a.kmax > a.k_out || a.k_out > a.n ||
-      a.nq < 1 || a.splits < 1 || a.splits > kMaxSplits ||
-      (route != kRouteFma && route != kRouteWgmma))
+int run_scan(const Scan<kKeyed>& a, int route, int* launched, cudaStream_t st) {
+  if (a.d % 8 != 0 || a.kmax < 1 || a.kmax > a.k_out || a.shards < 1 ||
+      a.shards > kMaxShards || a.n < 1 || a.k_out > a.shards * a.n || a.nq < 1 ||
+      a.splits < 1 || (long long)a.splits * a.shards > kMaxSplits ||
+      (route != kRouteFma && route != kRouteWgmma && route != kRouteStream))
     return (int)cudaErrorInvalidValue;
   const long long rtiles = (a.n + kBR - 1) / kBR;
   const long long rows_per_split = ((rtiles + a.splits - 1) / a.splits) * kBR;
@@ -1251,17 +1883,21 @@ int run_scan(const Scan<kKeyed>& a, int route, cudaStream_t st) {
     cudaError_t err;
     if (route == kRouteWgmma)
       err = launch_stage1_wg<kKeyed>(a, kc, k0, st);
+    else if (route == kRouteStream)
+      err = launch_stage1_stream<kKeyed>(a, kc, k0, st);
     else if (a.is_bf16)
       err = launch_stage1_for<uint16_t, kKeyed>(a, kc, k0, rows_per_split, st);
     else
       err = launch_stage1_for<float, kKeyed>(a, kc, k0, rows_per_split, st);
     if (err != cudaSuccess) return (int)err;
+    if (launched) ++*launched;
     scan_merge<RowT<kKeyed>><<<a.nq, kThreads, 0, st>>>(
-        a.gate_cs, a.gate_cr, a.cand_s, a.cand_r, a.splits, a.nq, kc, k0,
-        a.kmax, a.k_q, a.tail_row, kKeyed && k0 == 0, a.gate_s, a.gate_r,
+        a.gate_cs, a.gate_cr, a.cand_s, a.cand_r, a.shards * a.splits, a.nq, kc, k0,
+        a.kmax, a.k_q, a.tail_row, a.mask_dead, kKeyed && k0 == 0, a.gate_s, a.gate_r,
         a.out_s, a.out_r, a.k_out);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
+    if (launched) ++*launched;
   }
   return 0;
 }

@@ -9,14 +9,16 @@ Hopper kernel (``ops.masked_topk``) is held against; ``ragged_mask`` is the
 per-query k boundary of both kernels' ragged forms.
 
 The row-sharded top-k (``lazzaro_tpu/ops/topk.py:make_sharded_topk``) is
-:func:`make_sharded_topk`: the masked top-k kernel on each shard's rows,
-then the cross-shard merge (``ops.sharded_merge``), whose plain version is
+:func:`make_sharded_topk`: the shards that share a card scanned by one
+grouped launch of the masked top-k kernel (``ops.masked_topk.
+masked_topk_grouped``), and the groups of several cards joined by the
+cross-shard merge (``ops.sharded_merge``), whose plain version is
 :func:`sharded_topk_merge`.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -118,17 +120,36 @@ def sharded_topk_merge(top_s: Sequence[torch.Tensor],
     return fin_s, fin_r
 
 
+def shard_groups(devices: Sequence) -> List[Tuple[torch.device, List[int]]]:
+    """Runs of consecutive shards on one device: ``[(device, [p, ...])]`` in
+    shard order. Each run is one grouped launch; the runs of a mesh that
+    puts every shard on one card are one run, and ascending shard ids keep
+    the cross-run merge's ties in global-row order."""
+    groups: List[Tuple[torch.device, List[int]]] = []
+    for p, dev in enumerate(devices):
+        dev = torch.device(dev)
+        if groups and groups[-1][0] == dev:
+            groups[-1][1].append(p)
+        else:
+            groups.append((dev, [p]))
+    return groups
+
+
 def make_sharded_topk(mesh, axis: str = "data", k: int = 10) -> Callable:
     """The row-sharded masked top-k (``lazzaro_tpu/ops/topk.py:115``) over
     ``mesh`` (``parallel.mesh.Mesh``). Returns ``search(shards, mask_shards,
     query) -> (scores [Q, k] f32, global_rows [Q, k] i32)``: ``shards[p]``
     is shard ``p``'s ``[L, d]`` embedding rows on its device and
     ``mask_shards[p]`` its ``[L]`` bool alive mask, the query ``[Q, d]`` (or
-    ``[d]``) is replicated to every shard. Each shard runs
-    ``ops.masked_topk.masked_topk`` at ``k_l = min(k, L)`` (the Hopper kernel
-    on a CUDA shard); the merge (``ops.sharded_merge``) runs on the mesh's
-    first device and globalizes every entry, as ``:165`` does."""
-    from lazzaro_tpu_torch.ops.masked_topk import masked_topk
+    ``[d]``) is replicated to every shard. The shards of each device (a run,
+    :func:`shard_groups`) are one grouped scan,
+    ``ops.masked_topk.masked_topk_grouped``: the top ``k`` of the union of
+    the per-shard top-``k_l`` lists (``k_l = min(k, L)``), the same pairs
+    since no two ``(score, global row)`` keys are equal. Several runs meet
+    in the merge kernel (``ops.sharded_merge``) on the mesh's first device,
+    ties to the lower run, i.e. the lower global row, as ``:165`` orders
+    them."""
+    from lazzaro_tpu_torch.ops.masked_topk import masked_topk_grouped
     from lazzaro_tpu_torch.ops.sharded_merge import sharded_merge
 
     n = mesh.shape[axis]
@@ -140,12 +161,14 @@ def make_sharded_topk(mesh, axis: str = "data", k: int = 10) -> Callable:
         q = torch.atleast_2d(query)
         local_n = shards[0].shape[0]
         k_l = min(k, local_n)
-        top_s, top_i = [], []
-        for emb_l, mask_l in zip(shards, mask_shards):
-            s, r = masked_topk(emb_l, mask_l,
-                               q.to(emb_l.device, non_blocking=True), k_l)
-            top_s.append(s)
-            top_i.append(r)
-        return sharded_merge(top_s, top_i, local_n, k, device=dev0)
+        parts = [masked_topk_grouped([shards[p] for p in ids],
+                                     [mask_shards[p] for p in ids],
+                                     q.to(dev, non_blocking=True),
+                                     min(k, len(ids) * k_l), ids)
+                 for dev, ids in shard_groups([s.device for s in shards])]
+        if len(parts) == 1:
+            return parts[0]
+        return sharded_merge([s for s, _ in parts], [r for _, r in parts], 0, k,
+                             device=dev0)
 
     return search

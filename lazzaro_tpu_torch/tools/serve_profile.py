@@ -25,7 +25,10 @@ Run it on a GPU from the root of a checkout:
 
 ``--root DIR`` serves with the ``lazzaro_tpu_torch`` package found under
 ``DIR`` instead (an older checkout, for an A/B in one process layout);
-``--device cpu --rows 20000 --dim 64`` runs it on the CPU at a small size.
+``--shards N`` row-shards the same arena over N shards of the one device
+(``MemoryIndex(mesh=make_mesh(devices=[device] * N))``, the smoke's mesh
+phase layout); ``--device cpu --rows 20000 --dim 64`` runs it on the CPU
+at a small size.
 """
 
 from __future__ import annotations
@@ -46,25 +49,36 @@ def p50(xs):
 BLOCK = 8192            # rows per tenant block; tenants alternate by block
 
 
-def build_index(torch, np, S, MemoryIndex, rows, dim, device, seed):
-    """An index of ``rows`` live rows filled in place on ``device``."""
+def build_index(torch, np, S, MemoryIndex, rows, dim, device, seed, shards=0):
+    """An index of ``rows`` live rows filled in place on ``device``, one
+    arena or ``shards`` shards of it."""
     block, super_every = BLOCK, 1024
     cap = -(-(rows + 1) // S.TOPK_BLOCK) * S.TOPK_BLOCK - 1
+    mesh = None
+    if shards:
+        from lazzaro_tpu_torch.parallel import make_mesh
+        mesh = make_mesh(devices=[device] * shards)
     idx = MemoryIndex(dim, capacity=cap, edge_capacity=8,
                       dtype="bfloat16" if device.type == "cuda" else "float32",
-                      device=device)
-    st = idx.state
+                      **({"mesh": mesh} if mesh is not None else {"device": device}))
+    parts = [idx.state] if mesh is None else idx.shards
+    local_n = parts[0].salience.shape[0]
     gen = torch.Generator(device=device).manual_seed(seed)
     for r0 in range(0, rows, 65536):
         r1 = min(rows, r0 + 65536)
         x = torch.randn((r1 - r0, dim), generator=gen, device=device)
-        st.emb[r0:r1] = (x / x.norm(dim=1, keepdim=True)).to(st.emb.dtype)
-    r = torch.arange(cap + 1, device=device)
-    live = r < rows
-    st.alive.copy_(live)
-    st.tenant_id.copy_(torch.where(live, (r // block) % 2, -1).int())
-    st.is_super.copy_(live & (r % super_every == 0))
-    st.salience.copy_(torch.where(live, 0.5, 0.0))
+        x = (x / x.norm(dim=1, keepdim=True)).to(parts[0].emb.dtype)
+        for p, st in enumerate(parts):
+            lo, hi = max(r0, p * local_n), min(r1, (p + 1) * local_n)
+            if lo < hi:
+                st.emb[lo - p * local_n:hi - p * local_n] = x[lo - r0:hi - r0]
+    for p, st in enumerate(parts):
+        r = torch.arange(p * local_n, (p + 1) * local_n, device=device)
+        live = r < rows
+        st.alive.copy_(live)
+        st.tenant_id.copy_(torch.where(live, (r // block) % 2, -1).int())
+        st.is_super.copy_(live & (r % super_every == 0))
+        st.salience.copy_(torch.where(live, 0.5, 0.0))
     idx._tenants = {"alice": 0, "bob": 1}
     names = ("alice", "bob")
     idx.id_to_row = {f"{names[(i // block) % 2]}:{i}": i for i in range(rows)}
@@ -91,6 +105,7 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=40)
     ap.add_argument("--trace", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--shards", type=int, default=0)
     ap.add_argument("--out", default="serve_profile_out")
     args = ap.parse_args()
     if args.rows <= BLOCK:
@@ -121,12 +136,12 @@ def main() -> int:
 
     t0 = time.perf_counter()
     idx = build_index(torch, np, S, MemoryIndex, args.rows, args.dim, device,
-                      args.seed)
+                      args.seed, args.shards)
     sync()
     build_s = time.perf_counter() - t0
 
     rng = np.random.default_rng(args.seed)
-    emb = idx.state.emb
+    emb = idx.state.emb if not args.shards else torch.cat([st.emb for st in idx.shards])
 
     def requests(n, tenants, ks, boost=False):
         rows = []
@@ -160,7 +175,7 @@ def main() -> int:
     serve("search")                 # builds the kernel and the CSR
     sync()
     first_s = time.perf_counter() - t0
-    out = {"label": args.label, "card": card, "rows": args.rows,
+    out = {"label": args.label, "card": card, "rows": args.rows, "shards": args.shards,
            "dim": args.dim, "build_s": build_s, "first_call_s": first_s,
            "csr_build_s": idx.csr_build_s, "edges": len(idx.edge_slots)}
     os.makedirs(args.out, exist_ok=True)

@@ -81,41 +81,50 @@ def test_tensor_core_lists_keep_tie_order_across_passes(cuda, k):
 
 @pytest.mark.parametrize("nq,k", [(1, 10), (8, 1), (16, 128), (3, 300)])
 def test_tensor_core_route_forced_at_small_q(cuda, nq, k):
-    """The tensor-core stage 1 forced below its Q threshold (a record for
-    small-Q scans) gives the plain version's result, as the FMA one does."""
+    """At small Q every route a dtype has gives the plain version's result:
+    the tensor-core and the FMA stage 1 on a bf16 arena, the streaming and
+    the FMA one on an f32 arena (the FMA route forced, a record of the
+    route small-Q scans took before)."""
     gen = torch.Generator(device=cuda).manual_seed(nq + k)
-    emb = grid(gen, (5003, 64), torch.bfloat16, cuda)
-    emb[2500:2540] = emb[:40]
-    mask = torch.rand(5003, generator=gen, device=cuda) < 0.7
-    q = grid(gen, (nq, 64), torch.bfloat16, cuda)
-    want = mt.masked_topk_reference(emb, mask, q, k)
-    for route in ("wgmma", "fma"):
-        got = mt._launch(emb, tk.additive_mask(mask), q, k, route=route)
-        for g, w in zip(got, want):
-            assert torch.equal(g, w), route
+    for dtype, routes in ((torch.bfloat16, ("wgmma", "fma")),
+                          (torch.float32, ("stream", "fma"))):
+        emb = grid(gen, (5003, 64), dtype, cuda)
+        emb[2500:2540] = emb[:40]
+        mask = torch.rand(5003, generator=gen, device=cuda) < 0.7
+        q = grid(gen, (nq, 64), dtype, cuda)
+        want = mt.masked_topk_reference(emb, mask, q, k)
+        for route in routes:
+            got = mt._launch(emb, tk.additive_mask(mask), q, k, route=route)
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), (dtype, route)
 
 
 @pytest.mark.parametrize("dtype,nq,routed", [
-    (torch.bfloat16, 1, False), (torch.bfloat16, 16, False),
+    (torch.bfloat16, 1, True), (torch.bfloat16, 16, True),
     (torch.float32, 64, False), (torch.bfloat16, 17, True),
-    (torch.bfloat16, 8192, True)])
+    (torch.bfloat16, 8192, True), (torch.float32, 16, False)])
 def test_route_counts_follow_dtype_and_query_count(cuda, dtype, nq, routed):
-    """Only a bf16 scan of more than 16 queries counts a tensor-core launch,
-    in both modes; every call counts one launch."""
+    """Every bf16 scan counts a tensor-core launch, and an f32 scan of up
+    to 16 queries a streaming one, in both modes; every call counts one
+    launch."""
     gen = torch.Generator(device=cuda).manual_seed(nq)
     n = 3000
     emb = grid(gen, (n, 32), dtype, cuda)
     mask = torch.ones(n, dtype=torch.bool, device=cuda)
     q = grid(gen, (nq, 32), dtype, cuda)
-    before = (mt.launches, mt.launches_wgmma)
+    streamed = int(mt.route_for(dtype, nq, 32) == "stream")
+    assert streamed == int(not routed and nq <= mt.STREAM_MAX_Q)
+    before = (mt.launches, mt.launches_wgmma, mt.launches_stream)
     mt.masked_topk(emb, mask, q, 5)
-    assert (mt.launches - before[0], mt.launches_wgmma - before[1]) == (1, int(routed))
+    assert (mt.launches - before[0], mt.launches_wgmma - before[1],
+            mt.launches_stream - before[2]) == (1, int(routed), streamed)
     ten = torch.zeros(n, dtype=torch.int32, device=cuda)
     q_ten = torch.zeros(nq, dtype=torch.int32, device=cuda)
     sup = torch.zeros(n, dtype=torch.bool, device=cuda)
-    before = (ft.launches, ft.launches_wgmma)
+    before = (ft.launches, ft.launches_wgmma, ft.launches_stream)
     ft.fused_topk(emb, mask, ten, sup, q, q_ten, None, 5)
-    assert (ft.launches - before[0], ft.launches_wgmma - before[1]) == (1, int(routed))
+    assert (ft.launches - before[0], ft.launches_wgmma - before[1],
+            ft.launches_stream - before[2]) == (1, int(routed), streamed)
     torch.cuda.synchronize()
 
 
@@ -183,16 +192,22 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
 
 
 def test_a_refused_launch_raises(cuda):
-    """The C entry point reports a launch it refuses; the wrapper's check of
-    that code is what turns it into an exception."""
+    """The C entry point reports a launch it refuses (here more splits than
+    the scratch may have) and counts no launch; the wrapper's check of that
+    code is what turns it into an exception."""
+    import ctypes
+
     lib = mt._library()
     emb = torch.zeros((64, 16), device=cuda)
     out = torch.empty(16, device=cuda)
-    rc = lib.masked_topk(emb.data_ptr(), 0, out.data_ptr(), emb.data_ptr(),
-                         64, 16, 1, 3, 5000, out.data_ptr(), out.data_ptr(),
-                         out.data_ptr(), out.data_ptr(),
-                         torch.cuda.current_stream().cuda_stream)
-    assert rc != 0
+    one = ctypes.c_void_p * 1
+    launched = ctypes.c_int(0)
+    rc = lib.masked_topk_grouped(
+        one(emb.data_ptr()), one(out.data_ptr()), (ctypes.c_longlong * 1)(0), 1, 0,
+        emb.data_ptr(), 64, 16, 1, 3, None, -1, mt.ROUTES["fma"], 5000,
+        out.data_ptr(), out.data_ptr(), out.data_ptr(), out.data_ptr(),
+        ctypes.byref(launched), torch.cuda.current_stream().cuda_stream)
+    assert rc != 0 and launched.value == 0
 
 
 def test_a_refused_tensor_core_launch_raises(cuda):
@@ -477,7 +492,8 @@ def test_merge_wrapper_refuses_what_the_kernel_does_not_take(cuda):
 def test_sharded_topk_on_one_card_equals_the_single_device_kernel(cuda):
     """``make_sharded_topk`` over 8 shards of ``cuda:0`` against one launch
     of the masked top-k kernel over the whole arena: exact rows and scores
-    (grid inputs), 8 scan launches and 1 merge launch."""
+    (grid inputs), one grouped scan (a stage 1 and a stage 2) and no merge
+    launch."""
     from lazzaro_tpu_torch.ops import sharded_merge as sm
     from lazzaro_tpu_torch.ops.topk import make_sharded_topk
     from lazzaro_tpu_torch.parallel import make_mesh
@@ -492,19 +508,21 @@ def test_sharded_topk_on_one_card_equals_the_single_device_kernel(cuda):
     q[0] = emb[11]
     mesh = make_mesh(devices=["cuda:0"] * n)
     search = make_sharded_topk(mesh, k=10)
-    before = (mt.launches, sm.launches)
+    before = (mt.launches, mt.stage_launches, sm.launches)
     s, r = search(list(emb.split(local_n)), list(mask.split(local_n)), q)
     torch.cuda.synchronize()
-    assert (mt.launches - before[0], sm.launches - before[1]) == (n, 1)
+    assert (mt.launches - before[0], mt.stage_launches - before[1],
+            sm.launches - before[2]) == (1, 2, 0)
     ws, wr = mt.masked_topk(emb, mask, q, 10)
     assert torch.equal(r.long(), wr) and torch.equal(s, ws)
 
 
 def test_fused_sharded_dispatch_syncs_only_at_the_readback(cuda, tmp_path):
     """A ``MemorySystem`` on an 8-shard ``cuda:0`` mesh: a chat turn and a
-    search are each 8 two-tier launches, 2 merges and one device-to-host
-    copy, under ``set_sync_debug_mode("error")``; a classic search is 8
-    scans and 1 merge; ids equal the single-device system's."""
+    search are each one grouped two-tier launch (a stage 1 and a stage 2),
+    no merge and one device-to-host copy, under
+    ``set_sync_debug_mode("error")``; a classic search is one grouped scan
+    and no merge; ids equal the single-device system's."""
     from lazzaro_tpu_torch import MemoryConfig, MemorySystem
     from lazzaro_tpu_torch.ops import sharded_merge as sm
     from lazzaro_tpu_torch.parallel import make_mesh
@@ -543,23 +561,302 @@ def test_fused_sharded_dispatch_syncs_only_at_the_readback(cuda, tmp_path):
                 torch.cuda.set_sync_debug_mode(0)
 
         index.search_fused_requests, index._readback = strict, read_once
-        before = (ft.launches, sm.launches, mt.launches)
+        before = (ft.launches, sm.launches, mt.launches, ft.stage_launches)
         ms.chat("Tell me about topic 1 number 3 please.")
         got = [n.id for n in ms.search_memories("topic 0 number 2")]
         torch.cuda.synchronize()
         assert (ft.launches - before[0], sm.launches - before[1],
-                mt.launches - before[2]) == (16, 4, 0)
+                mt.launches - before[2], ft.stage_launches - before[3]) == (2, 0, 0, 4)
         assert len(readbacks) == 2
         assert got == [n.id for n in one.search_memories("topic 0 number 2")]
         ms.config.serve_fused = one.config.serve_fused = False
         before = (sm.launches, mt.launches)
         got = [n.id for n in ms.search_memories("topic 1 number 4")]
-        assert (sm.launches - before[0], mt.launches - before[1]) == (1, 8)
+        assert (sm.launches - before[0], mt.launches - before[1]) == (0, 1)
         assert got == [n.id for n in one.search_memories("topic 1 number 4")]
     finally:
         torch.cuda.set_sync_debug_mode(0)
         ms.close()
         one.close()
+
+
+# ---------------------------------------------------------------------------
+# The streaming stage 1 (Q <= 16) and the grouped scan of a card's shards
+# ---------------------------------------------------------------------------
+
+
+def seam_arena(gen, n, d, dtype, device):
+    """A ragged arena of 257 distinct grid rows repeated: every top-k list
+    is runs of exact duplicates, which straddle the chunks, the splits and
+    the 128-entry passes."""
+    base = grid(gen, (257, d), dtype, device)
+    return base.repeat((n + 256) // 257, 1)[:n].contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 256, 768])
+@pytest.mark.parametrize("nq", [1, 2, 3, 5, 8, 16])
+@pytest.mark.parametrize("k", [1, 5, 10, 128, 300])
+def test_streaming_stage1_matches_plain_version(cuda, dtype, d, nq, k):
+    """Both modes at Q <= 16 through the public entry points, on the route
+    the rule picks (streaming for f32, tensor cores for bf16), bit for bit:
+    a ragged N, exact duplicates across every seam, a masked share, queries
+    equal to arena rows (exact ties at the top), the keyed mode's two
+    tenants, super rows and the k_q tail."""
+    gen = torch.Generator(device=cuda).manual_seed(nq * 1000 + k * 7 + d)
+    n = 6007
+    emb = seam_arena(gen, n, d, dtype, cuda)
+    mask = torch.rand(n, generator=gen, device=cuda) < 0.8
+    q = grid(gen, (nq, d), dtype, cuda)
+    q[0] = emb[3]
+    counter = "launches_stream" if dtype == torch.float32 else "launches_wgmma"
+    before = (getattr(mt, counter), mt.stage_launches)
+    s, r = mt.masked_topk(emb, mask, q, k)
+    ps, pr = mt.masked_topk_reference(emb, mask, q, k)
+    torch.cuda.synchronize()
+    assert (getattr(mt, counter) - before[0],
+            mt.stage_launches - before[1]) == (1, 2 * mt.passes(k))
+    assert torch.equal(r, pr) and torch.equal(s, ps)
+    alive = mask.clone()
+    alive[-1] = False
+    tenant = torch.where(alive, (torch.rand(n, generator=gen, device=cuda) < 0.5).int(),
+                         -1).int()
+    sup = torch.rand(n, generator=gen, device=cuda) < 0.03
+    q_ten = torch.randint(0, 2, (nq,), generator=gen, device=cuda).int()
+    kq = torch.randint(1, k + 1, (nq,), generator=gen, device=cuda).int()
+    before = getattr(ft, counter)
+    got = ft.fused_topk(emb, alive, tenant, sup, q, q_ten, kq, k)
+    want = ft.fused_topk_reference(emb, alive, tenant, sup, q, q_ten, kq, k)
+    torch.cuda.synchronize()
+    assert getattr(ft, counter) == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_streaming_corners(cuda, dtype):
+    """Fewer live rows than k (the tail lists the lowest dead rows at
+    -1e30), an all-masked arena, and the keyed empty gate (-1e30, row 0),
+    at Q = 5 on the route the rule picks (streaming for f32)."""
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    n, d = 3001, 256
+    emb = grid(gen, (n, d), dtype, cuda)
+    q = grid(gen, (5, d), dtype, cuda)
+    few = torch.zeros(n, dtype=torch.bool, device=cuda)
+    few[[3, 1500, 3000]] = True
+    for mask, k in ((few, 8), (torch.zeros_like(few), 10), (few, 300)):
+        s, r = mt.masked_topk(emb, mask, q, k)
+        ps, pr = mt.masked_topk_reference(emb, mask, q, k)
+        assert torch.equal(r, pr) and torch.equal(s, ps)
+    s, r = mt.masked_topk(emb, few, q, 8)
+    assert r[:, 3:].tolist() == [[0, 1, 2, 4, 5]] * 5
+    alive = torch.ones(n, dtype=torch.bool, device=cuda)
+    tenant = torch.zeros(n, dtype=torch.int32, device=cuda)
+    tenant[[7, 900, 2999]] = 1
+    sup = torch.zeros(n, dtype=torch.bool, device=cuda)
+    sup[[10, 20]] = True
+    q_ten = torch.tensor([1, 0, 2, 1, 0], dtype=torch.int32, device=cuda)
+    got = ft.fused_topk(emb, alive, tenant, sup, q, q_ten, None, 8)
+    want = ft.fused_topk_reference(emb, alive, tenant, sup, q, q_ten, None, 8)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert got[0][0] == -1e30 and got[1][0].item() == 0
+    assert got[3][0, 3:].tolist() == [0, 1, 2, 3, 4]
+    assert (got[2][2] == -1e30).all()                 # tenant 2 has no row
+
+
+@pytest.mark.parametrize("nq", [1, 8, 16])
+def test_streaming_scores_do_not_depend_on_the_row_offset(cuda, nq):
+    """On real (non-grid) data a row's score at Q <= 16 is bitwise the same
+    in the whole arena and in a slice starting at an unaligned row, on the
+    streaming route (f32) and the tensor cores (bf16): the summation order
+    is fixed per row, whatever its chunk, split or shard."""
+    rng = np.random.default_rng(nq)
+    n, d, k = 9000, 768, 128
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    rows = torch.from_numpy(rng.choice(np.arange(3001, n), k, replace=False)).to(cuda)
+    for dtype in (torch.float32, torch.bfloat16):
+        emb = torch.from_numpy(x / np.linalg.norm(x, axis=1, keepdims=True)).to(
+            cuda, dtype)
+        q = torch.from_numpy(rng.standard_normal((nq, d)).astype(np.float32)).to(
+            cuda, dtype)
+        mask = torch.zeros(n, dtype=torch.bool, device=cuda)
+        mask[rows] = True
+        for kk in (1, k):
+            whole_s, whole_r = mt.masked_topk(emb, mask, q, kk)
+            for off in (1, 777, 3001):
+                part_s, part_r = mt.masked_topk(emb[off:], mask[off:], q, kk)
+                order = torch.argsort(whole_r, dim=1)
+                part_order = torch.argsort(part_r, dim=1)
+                assert torch.equal(torch.gather(whole_r, 1, order),
+                                   torch.gather(part_r, 1, part_order) + off)
+                assert torch.equal(torch.gather(whole_s, 1, order),
+                                   torch.gather(part_s, 1, part_order)), (dtype, kk, off)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,nq,f32_route", [
+    (1536, 1, "stream"), (1536, 8, "stream"), (1536, 16, "fma"),
+    (2048, 1, "stream"), (2048, 4, "stream"), (2048, 16, "fma"),
+    (3072, 1, "stream"), (3072, 8, "fma"), (3072, 16, "fma"), (4096, 1, "fma"),
+    (4096, 16, "fma"),
+    (8, 4, "stream"), (8, 16, "fma"), (16, 8, "stream"), (16, 16, "fma")])
+def test_wide_rows_take_a_route_that_takes_them(cuda, dtype, d, nq, f32_route):
+    """Every width the scans took before the small-Q routes came is taken
+    still, through the public entry points, bit for bit: an f32 scan the
+    streaming route does not take (its registers cannot hold the queries,
+    or more than four query groups would re-read each row) goes to the FMA
+    route, and wide rows come in chunks of fewer than 16; bf16 goes to the
+    tensor cores."""
+    gen = torch.Generator(device=cuda).manual_seed(d + nq)
+    n = 3001
+    emb = seam_arena(gen, n, d, dtype, cuda)
+    mask = torch.rand(n, generator=gen, device=cuda) < 0.8
+    q = grid(gen, (nq, d), dtype, cuda)
+    q[0] = emb[3]
+    route = mt.route_for(dtype, nq, d)
+    assert route == ("wgmma" if dtype == torch.bfloat16 else f32_route)
+    for k in (1, 10, 128):
+        before = (mt.launches, mt.launches_wgmma, mt.launches_stream)
+        got = mt.masked_topk(emb, mask, q, k)
+        want = mt.masked_topk_reference(emb, mask, q, k)
+        assert (mt.launches - before[0], mt.launches_wgmma - before[1],
+                mt.launches_stream - before[2]) == \
+            (1, int(route == "wgmma"), int(route == "stream"))
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), (route, k)
+    alive = mask.clone()
+    alive[-1] = False
+    tenant = torch.where(alive, (torch.rand(n, generator=gen, device=cuda) < 0.5).int(),
+                         -1).int()
+    sup = torch.rand(n, generator=gen, device=cuda) < 0.03
+    q_ten = torch.randint(0, 2, (nq,), generator=gen, device=cuda).int()
+    kq = torch.randint(1, 11, (nq,), generator=gen, device=cuda).int()
+    got = ft.fused_topk(emb, alive, tenant, sup, q, q_ten, kq, 128, k_live=10)
+    want = ft.fused_topk_reference(emb, alive, tenant, sup, q, q_ten, kq, 128)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w), route
+
+
+def sharded_case(gen, n, local_n, d, nq, device):
+    """Grid shards with an exact tie across shards, an all-masked shard, a
+    shard with fewer live rows than k, two tenants and super rows."""
+    emb = grid(gen, (n * local_n, d), torch.bfloat16, device)
+    emb[local_n * (n - 1) + 7] = emb[11]
+    alive = torch.rand(n * local_n, generator=gen, device=device) < 0.8
+    alive[local_n:2 * local_n] = False                    # an all-masked shard
+    alive[-1] = False                                     # the global sentinel
+    if n > 2:
+        alive[2 * local_n:3 * local_n] = False
+        alive[2 * local_n + 5] = True                     # one live row
+    tenant = torch.where(alive, (torch.rand(n * local_n, generator=gen,
+                                            device=device) < 0.5).int(), -1).int()
+    sup = torch.rand(n * local_n, generator=gen, device=device) < 0.02
+    q = grid(gen, (nq, d), torch.bfloat16, device)
+    q[0] = emb[11]
+    return emb, alive, tenant, sup, q
+
+
+@pytest.mark.parametrize("n", [2, 8])
+@pytest.mark.parametrize("nq", [1, 64])
+def test_grouped_scan_equals_per_shard_plain_and_merge(cuda, n, nq):
+    """The grouped launch over n shards of one card, both modes, against each
+    shard's plain scan and the plain merge: ties across shards, an
+    all-masked shard, a shard with one live row, the k_q tail and the
+    keyed empty gate on the global sentinel."""
+    gen = torch.Generator(device=cuda).manual_seed(n * 100 + nq)
+    local_n, d = 4099, 64
+    emb, alive, tenant, sup, q = sharded_case(gen, n, local_n, d, nq, cuda)
+    embs, masks = list(emb.split(local_n)), list(alive.split(local_n))
+    for k in (10, 128, 300):
+        before = (mt.launches, mt.stage_launches)
+        got = mt.masked_topk_grouped(embs, masks, q, k)
+        torch.cuda.synchronize()
+        assert (mt.launches - before[0], mt.stage_launches - before[1]) == \
+            (1, 2 * mt.passes(k))
+        want = mt.masked_topk_grouped_reference(embs, masks, q, k, range(n))
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), k
+    states = list(zip(emb.split(local_n), alive.split(local_n),
+                      tenant.split(local_n), sup.split(local_n)))
+    q_ten = torch.tensor([(0, 1, 2)[i % 3] for i in range(nq)], dtype=torch.int32,
+                         device=cuda)
+    sent = n * local_n - 1
+    for k, kqs in ((128, (5, 10, 128)), (10, (10, 1))):
+        kq = torch.tensor([kqs[i % len(kqs)] for i in range(nq)], dtype=torch.int32,
+                          device=cuda)
+        before = (ft.launches, ft.stage_launches)
+        got = ft.fused_topk_grouped(states, q, q_ten, kq, k, sent, k_live=max(kqs))
+        torch.cuda.synchronize()
+        assert (ft.launches - before[0], ft.stage_launches - before[1]) == (1, 2)
+        cpu = [tuple(x.cpu() for x in st) for st in states]
+        want = ft.fused_topk_grouped_reference(cpu, q.cpu(), q_ten.cpu(), kq.cpu(), k,
+                                               sent, range(n))
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w), k
+        if nq > 2:                                      # tenant 2 has no row
+            assert got[1][2].item() == sent and got[0][2] == -1e30
+
+
+def test_two_device_groups_compose_through_the_merge(cuda):
+    """Shards 0-3 and 4-7 scanned as two groups and joined by the merge
+    kernel (rows already global) equal one group of all 8, both modes."""
+    from lazzaro_tpu_torch.ops import sharded_merge as sm
+
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    n, local_n, d, nq, k = 8, 3001, 256, 16, 10
+    emb, alive, tenant, sup, q = sharded_case(gen, n, local_n, d, nq, cuda)
+    embs, masks = list(emb.split(local_n)), list(alive.split(local_n))
+    whole = mt.masked_topk_grouped(embs, masks, q, k)
+    halves = [mt.masked_topk_grouped(embs[i:i + 4], masks[i:i + 4], q, k,
+                                     range(i, i + 4)) for i in (0, 4)]
+    joined = sm.sharded_merge([h[0] for h in halves], [h[1] for h in halves], 0, k)
+    for g, w in zip(joined, whole):
+        assert torch.equal(g, w)
+    states = list(zip(emb.split(local_n), alive.split(local_n),
+                      tenant.split(local_n), sup.split(local_n)))
+    q_ten = torch.tensor([i % 3 for i in range(nq)], dtype=torch.int32, device=cuda)
+    kq = torch.tensor([(5, 10)[i % 2] for i in range(nq)], dtype=torch.int32, device=cuda)
+    sent = n * local_n - 1
+    whole = ft.fused_topk_grouped(states, q, q_ten, kq, k, sent)
+    halves = [ft.fused_topk_grouped(states[i:i + 4], q, q_ten, None, k, sent,
+                                    shard_ids=range(i, i + 4)) for i in (0, 4)]
+    ann = sm.sharded_merge([h[2] for h in halves], [h[3] for h in halves], 0, k,
+                           k_q=kq, sentinel=sent)
+    gate = sm.sharded_merge([h[0][:, None] for h in halves],
+                            [h[1][:, None] for h in halves], 0, 1, sentinel=sent)
+    for g, w in zip((gate[0][:, 0], gate[1][:, 0], *ann), whole):
+        assert torch.equal(g, w)
+
+
+def test_one_card_mesh_search_and_chat_scan_are_two_launches_a_pass(cuda):
+    """On a one-card mesh, ``make_sharded_topk`` and the fused chat scan
+    (``core.state._fused_scan_sharded``) each launch one stage 1 and one
+    stage 2 a pass of 128 list entries, and no merge."""
+    from lazzaro_tpu_torch.core import state as S
+    from lazzaro_tpu_torch.ops import sharded_merge as sm
+    from lazzaro_tpu_torch.parallel import make_mesh
+
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    n, local_n, d = 8, 2048, 64
+    mesh = make_mesh(devices=["cuda:0"] * n)
+    shards = S.init_shards(n * local_n - 1, d, torch.bfloat16, mesh.devices)
+    for st in shards:
+        st.emb.copy_(grid(gen, (local_n, d), torch.bfloat16, cuda))
+        st.alive.fill_(True)
+    q = grid(gen, (1, d), torch.bfloat16, cuda)
+    masks = [st.alive for st in shards]
+    for k, want in ((10, 2), (300, 6)):
+        search = tk.make_sharded_topk(mesh, k=k)
+        before = (mt.stage_launches, sm.launches)
+        search([st.emb for st in shards], masks, q)
+        assert (mt.stage_launches - before[0], sm.launches - before[1]) == (want, 0)
+    tenant = torch.zeros(1, dtype=torch.int32, device=cuda)
+    k_q = torch.tensor([10], dtype=torch.int32, device=cuda)
+    before = (ft.stage_launches, sm.launches)
+    S._fused_scan_sharded(shards, q.float(), tenant, 128, k_q, k_live=10)
+    torch.cuda.synchronize()
+    assert (ft.stage_launches - before[0], sm.launches - before[1]) == (2, 0)
 
 
 # ---------------------------------------------------------------------------

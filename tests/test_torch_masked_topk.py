@@ -299,23 +299,46 @@ def test_auto_dispatch_matches_pallas_interpret():
 
 
 def test_route_rule():
-    """The wrapper's stage-1 route: tensor cores for a bf16 arena scanned
-    for more than 16 queries, the FMA scan otherwise. It reads nothing but
-    the dtype and Q, so a row-sharded arena's scans take the route one
-    device takes; a CPU arena counts no launch on either route."""
-    assert mt.WGMMA_MIN_Q == 16
-    assert mt.route_for(torch.bfloat16, 17) == "wgmma"
-    assert mt.route_for(torch.bfloat16, 8192) == "wgmma"
-    assert mt.route_for(torch.bfloat16, 16) == "fma"
-    assert mt.route_for(torch.bfloat16, 1) == "fma"
-    assert mt.route_for(torch.float32, 64) == "fma"
-    assert set(mt.ROUTES) == {"fma", "wgmma"}
+    """The wrapper's stage-1 route, as measured on the card: tensor cores
+    for every bf16 arena, the streaming scan for an f32 arena up to 16
+    queries where a lane's registers hold its share of them and at most
+    four query groups re-read each row (d up to 768 at every Q <= 16, up
+    to 1,536 through 8 queries, up to 3,072 through 4), the FMA scan for
+    every other f32 scan. It reads nothing but the dtype, Q and d, so a
+    row-sharded arena's scans take the route one device takes; a CPU
+    arena counts no launch on any route."""
+    assert (mt.STREAM_MAX_Q, mt.STREAM_QREGS, mt.STREAM_MAX_GROUPS) == (16, 96, 4)
+    for nq in (1, 2, 16, 17, 8192):
+        for d in (8, 768, 3072, 4096):
+            assert mt.route_for(torch.bfloat16, nq, d) == "wgmma"
+    stream = {(768, 1), (768, 8), (768, 16), (1536, 1), (1536, 8), (2048, 1),
+              (2048, 4), (3072, 1), (3072, 4), (8, 4), (16, 8), (32, 16)}
+    fma = {(768, 17), (768, 64), (1536, 16), (1544, 8), (2048, 8), (3072, 8),
+           (3072, 16), (3080, 1), (4096, 1), (8, 8), (16, 16)}
+    for d, nq in stream | fma:
+        assert mt.route_for(torch.float32, nq, d) == \
+            ("stream" if (d, nq) in stream else "fma"), (d, nq)
+    assert mt.stream_groups(768, 16) == (4, 96)
+    assert mt.stream_groups(3072, 1) == (1, 96)
+    assert mt.stream_groups(2048, 8) == (8, 64)
+    assert set(mt.ROUTES) == {"fma", "wgmma", "stream"}
     rng = np.random.default_rng(3)
-    before = (mt.launches, mt.launches_wgmma)
+    before = (mt.launches, mt.launches_wgmma, mt.launches_stream,
+              mt.stage_launches)
     mt.masked_topk(as_torch(unit_rows(rng, 64), "bfloat16"),
                    torch.ones(64, dtype=torch.bool),
                    torch.from_numpy(unit_rows(rng, 32)), 3)
-    assert (mt.launches, mt.launches_wgmma) == before
+    mt.masked_topk(as_torch(unit_rows(rng, 64), "bfloat16"),
+                   torch.ones(64, dtype=torch.bool),
+                   torch.from_numpy(unit_rows(rng, 1)), 3)
+    assert (mt.launches, mt.launches_wgmma, mt.launches_stream,
+            mt.stage_launches) == before
+
+
+def test_passes_count_two_launches_each():
+    """A scan runs one stage 1 and one stage 2 a pass of 128 list entries;
+    ``stage_launches`` counts both, whatever the number of shards."""
+    assert [mt.passes(k) for k in (1, 10, 128, 129, 256, 300)] == [1, 1, 1, 2, 2, 3]
 
 
 def test_tensor_core_shape_k1_matches_pallas_interpret():

@@ -397,3 +397,97 @@ def test_boost_scatter_of_a_shard_drops_rows_it_does_not_own():
     diff = (shard.access_count - before).tolist()
     assert diff[L - 1] == 1 and sum(diff) == 1
     assert shard.last_accessed[3] == 5.0 and shard.last_accessed[L - 1] == 5.0
+
+
+# -------------------------------------- grouped scans: one launch per card
+def test_shard_groups_are_runs_of_one_device():
+    """Shards are grouped into runs of consecutive shards on one device, in
+    shard order: a one-card mesh is one run, an interleaved one runs of
+    one."""
+    from lazzaro_tpu_torch.ops.topk import shard_groups
+
+    dev = torch.device
+    assert shard_groups(["cpu"] * 8) == [(dev("cpu"), list(range(8)))]
+    assert shard_groups(["cuda:0"] * 2 + ["cuda:1"] * 2) == [
+        (dev("cuda:0"), [0, 1]), (dev("cuda:1"), [2, 3])]
+    assert shard_groups(["cuda:0", "cuda:1", "cuda:0"]) == [
+        (dev("cuda:0"), [0]), (dev("cuda:1"), [1]), (dev("cuda:0"), [2])]
+
+
+def test_grouped_scan_rows_are_global():
+    """The grouped scan of shards 4-7 alone (its plain version on the CPU)
+    lists global rows 4L .., equal to the single-device top-k over those
+    rows shifted by 4L; the keyed form puts masked pairs on the sentinel."""
+    from lazzaro_tpu_torch.ops import fused_topk as ft
+    from lazzaro_tpu_torch.ops import masked_topk as mt
+
+    rng = np.random.default_rng(11)
+    n, local_n, d, k = 8, 16, 16, 10
+    emb = grid(rng, (n * local_n, d))
+    mask = rng.random(n * local_n) > 0.3
+    q = grid(rng, (3, d))
+    shards = [torch.from_numpy(emb[p * local_n:(p + 1) * local_n]) for p in range(n)]
+    masks = [torch.from_numpy(mask[p * local_n:(p + 1) * local_n]) for p in range(n)]
+    ids = [4, 5, 6, 7]
+    s, r = mt.masked_topk_grouped([shards[p] for p in ids], [masks[p] for p in ids],
+                                  torch.from_numpy(q), k, ids)
+    ws, wr = jax_masked_topk(jnp.asarray(emb[4 * local_n:]),
+                             jnp.asarray(mask[4 * local_n:]), jnp.asarray(q), k)
+    np.testing.assert_array_equal(r.numpy(), np.asarray(wr) + 4 * local_n)
+    np.testing.assert_array_equal(s.numpy(), np.asarray(ws))
+    tenant = np.where(mask, rng.integers(0, 2, n * local_n), -1).astype(np.int32)
+    sup = rng.random(n * local_n) < 0.1
+    states = [tuple(torch.from_numpy(np.ascontiguousarray(c[p * local_n:(p + 1) * local_n]))
+                    for c in (emb, mask, tenant, sup)) for p in ids]
+    sent = n * local_n - 1
+    q_ten = torch.tensor([0, 1, 2], dtype=torch.int32)
+    gs, gr, a_s, a_r = ft.fused_topk_grouped(states, torch.from_numpy(q), q_ten,
+                                             torch.tensor([10, 4, 10], dtype=torch.int32),
+                                             k, sent, shard_ids=ids)
+    assert ((a_r >= 4 * local_n) | (a_r == sent)).all()
+    assert (a_r[a_s <= NEG_INF / 2] == sent).all()
+    assert (a_r[1, 4:] == sent).all() and (a_s[1, 4:] == NEG_INF).all()
+    assert gr[2].item() == sent and gs[2] == NEG_INF          # tenant 2: no row
+
+
+@pytest.mark.parametrize("split", [1, 4, 7])
+def test_sharded_search_over_two_device_runs_matches_jax(monkeypatch, split):
+    """``make_sharded_topk`` and the keyed sharded scan with the mesh's
+    shards in two device runs (the grouping forced on the CPU mesh): the
+    runs' grouped results joined by the merge equal the JAX
+    ``make_sharded_topk`` and the one-run results."""
+    from lazzaro_tpu_torch.ops import topk as tk
+
+    rng = np.random.default_rng(split)
+    n, local_n, d, k = 8, 16, 16, 10
+    emb = grid(rng, (n * local_n, d))
+    emb[n * local_n - 3] = emb[2]                   # a tie across the runs
+    mask = rng.random(n * local_n) > 0.2
+    mask[local_n:2 * local_n] = False
+    q = grid(rng, (4, d))
+    q[0] = emb[2]
+    shards = [torch.from_numpy(emb[p * local_n:(p + 1) * local_n]) for p in range(n)]
+    masks = [torch.from_numpy(mask[p * local_n:(p + 1) * local_n]) for p in range(n)]
+    one = make_sharded_topk(cpu_mesh(n), k=k)(shards, masks, torch.from_numpy(q))
+    st, indptr, nbr, (qv, _, tq, _, _) = fused_fixture(seed=split)
+    tshards = torch_shards(st, n)
+    k_q = torch.tensor([8, 5, 3, 8, 1, 7, 2, 0], dtype=torch.int32)
+    one_fused = TS._fused_scan_sharded(tshards, torch.from_numpy(qv),
+                                       torch.from_numpy(tq), 8, k_q, k_live=8)
+    cpu = torch.device("cpu")
+    monkeypatch.setattr(tk, "shard_groups", lambda devices: [
+        (cpu, list(range(split))), (cpu, list(range(split, len(devices))))])
+    monkeypatch.setattr(TS, "shard_groups", tk.shard_groups)
+    two = make_sharded_topk(cpu_mesh(n), k=k)(shards, masks, torch.from_numpy(q))
+    jmesh = jax_mesh(n)
+    js, ji = jax_make_sharded_topk(jmesh, "data", k=k)(
+        jax.device_put(jnp.asarray(emb), NamedSharding(jmesh, P("data", None))),
+        jax.device_put(jnp.asarray(mask), NamedSharding(jmesh, P("data"))),
+        jnp.asarray(q))
+    for got in (one, two):
+        np.testing.assert_array_equal(got[1].numpy(), np.asarray(ji))
+        np.testing.assert_array_equal(got[0].numpy(), np.asarray(js))
+    two_fused = TS._fused_scan_sharded(tshards, torch.from_numpy(qv),
+                                       torch.from_numpy(tq), 8, k_q, k_live=8)
+    for a, b in zip(two_fused, one_fused):
+        assert torch.equal(a, b)
