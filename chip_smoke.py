@@ -176,6 +176,9 @@ TRAIN_LOSS_TOL, TRAIN_GRAD_COS = 1e-2, 0.99
 SLICE = dict(serve_fused=False, ingest_fused=False, ingest_dedup_fused=False,
              lifecycle_fused=False, journal=False, ingest_journal=False,
              auto_consolidate=False)
+# Phase 4's: the fused dedup ingest, the default (phase 4b's mesh takes the
+# classic ingest, SLICE).
+FUSED_INGEST = dict(SLICE, ingest_fused=True, ingest_dedup_fused=True)
 
 
 def log(msg: str) -> None:
@@ -262,10 +265,11 @@ def device_ms(fn, calls: int) -> float:
     return sum(e.self_device_time_total for e in kernels) / 1e3 / calls
 
 
-def device_split(fn, calls: int) -> dict:
+def device_split(fn, calls: int, stage1: str = "scan_stage1") -> dict:
     """Device ms per call of ``fn`` under ``torch.profiler`` (as
     :func:`device_ms`), with the top-k scan's two stages apart: stage 1
-    (``scan_stage1*``), the merge (``scan_merge``) and the rest (casts and
+    (kernels named ``stage1*``: ``scan_stage1``, or ``ingest_stage1`` for
+    the ingest mode), the merge (``scan_merge``) and the rest (casts and
     masks around the launch), and the launches of the two stages a call
     that the trace shows."""
     kernels = _device_kernels(fn, calls)
@@ -274,9 +278,9 @@ def device_split(fn, calls: int) -> dict:
         return sum(e.self_device_time_total for e in kernels
                    if needle in e.key) / 1e3 / calls
 
-    out = {"all": total(""), "stage1": total("scan_stage1"),
+    out = {"all": total(""), "stage1": total(stage1),
            "merge": total("scan_merge"),
-           "scan_kernels": sum(e.count for e in kernels if "scan_stage1" in e.key
+           "scan_kernels": sum(e.count for e in kernels if stage1 in e.key
                                or "scan_merge" in e.key) / calls}
     out["rest"] = out["all"] - out["stage1"] - out["merge"]
     return out
@@ -389,12 +393,12 @@ def _check_equal(label, got, want):
 
 
 def _case_row(kernel, form, label, route, n, q, k, fn, plain_fn, lib_fn, b,
-              err, reps, plain_reps):
+              err, reps, plain_reps, stage1="scan_stage1"):
     """One timed case: device times under ``torch.profiler`` of the kernel
     (stage 1 and the merge apart), its plain version and the library call;
     CUDA-event times of back-to-back calls of the kernel and the library
     beside them (they include the wrapper's host work)."""
-    split = device_split(fn, reps)
+    split = device_split(fn, reps, stage1)
     ms = split["all"]
     plain = device_ms(plain_fn, plain_reps)
     lib = device_ms(lib_fn, reps)
@@ -609,6 +613,179 @@ def phase_fused_kernel(device):
     return rows_out
 
 
+def ingest_bound(emb, nq, k, modes, with_probe=True):
+    """(bound_ms, bound_by) of the ingest scan: the arena and its row
+    columns (alive, tenant, is_super, shard, the two exclusion masks: 12
+    bytes a row) and the queries with their shard read once, the probe and
+    every mode's [Q, k] list written once; 2*N*d*Q operations at the arena
+    type's peak."""
+    n, d = emb.shape
+    item = emb.element_size()
+    moved = (n * d * item + 12 * n + nq * (d * item + 4)
+             + nq * (8 * with_probe + 8 * k * modes))
+    ops = 2.0 * n * d * nq
+    peak = PEAK_OPS["bfloat16" if item == 2 else "float32"]
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S, ops / peak
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def ingest_corners(device):
+    """K1 on a 20,000-row grid arena, both routes, against its plain
+    version: a tenant with fewer eligible rows than k (its tail the lowest
+    other rows at -1e30), an empty tenant (probe (-1e30, row 0)), mode -1,
+    and a live sentinel row of the tenant (never listed)."""
+    import torch
+
+    from lazzaro_tpu_torch.ops import ingest_topk as it
+
+    gen = torch.Generator(device=device).manual_seed(5)
+    n, k = 20_000, 8
+    for dtype in (torch.bfloat16, torch.float32):
+        emb = grid_values(gen, (n, DIM), dtype, device)
+        alive = torch.rand(n, generator=gen, device=device) < 0.9
+        ten = torch.zeros(n, dtype=torch.int32, device=device)
+        sup = torch.zeros(n, dtype=torch.bool, device=device)
+        shard = torch.randint(0, 3, (n,), generator=gen, device=device).int()
+        few = torch.tensor([5, 77, 1_000, n - 1], device=device)
+        alive[few] = True
+        ten[few] = 1                          # 3 rows and the live sentinel
+        excl = torch.arange(n, device=device) == n - 1
+        q = emb[few].clone()
+        for tenant in (1, 2):                 # tenant 2 owns no row
+            args = (emb, alive, ten, sup, shard, excl, excl, q, shard[few],
+                    tenant, k, (-1, 0))
+            got = it.ingest_topk(*args)
+            _check_equal(f"ingest corners {dtype} tenant {tenant}", got,
+                         it.ingest_topk_reference(*args))
+            if tenant == 1 and (got[5][0, 3:].tolist() != [0, 1, 2, 3, 4]
+                                or (torch.cat([got[1].view(-1), got[3].view(-1),
+                                               got[5].view(-1)]) == n - 1).any()):
+                raise AssertionError("ingest corners: short tenant's tail or "
+                                     "the sentinel row is wrong")
+            if tenant == 2 and not ((got[0] == -1e30).all()
+                                    and (got[1] == 0).all()):
+                raise AssertionError("empty tenant's probe is not (-1e30, row 0)")
+    log("[kernels] ingest_topk corners (few rows, empty tenant, mode -1, live "
+        "sentinel) equal on both routes")
+
+
+def phase_ingest_kernel(device):
+    """K1, the ingest mode of the top-k scan, and the dedup resolve kernel
+    at the fused ingest's shapes on the 1,048,576 x 768 arena (bf16, then
+    the default f32), against their plain versions; grid values, so rows,
+    verdicts and scores must be equal. The arena has two tenants, one live
+    sentinel row of tenant 0 (probe- and link-excluded), 12 shards; half of
+    each batch repeats arena rows (probe duplicates)."""
+    import torch
+
+    from lazzaro_tpu_torch.ops import dedup_resolve as dr
+    from lazzaro_tpu_torch.ops import ingest_topk as it
+
+    gen = torch.Generator(device=device).manual_seed(3)
+    n = ARENA_ROWS
+    emb16 = grid_values(gen, (n, DIM), torch.bfloat16, device)
+    alive = torch.rand(n, generator=gen, device=device) < 0.9
+    ten = (torch.rand(n, generator=gen, device=device) < 0.5).int()
+    sup = (torch.rand(n, generator=gen, device=device) < 0.01) & alive
+    shard = torch.randint(0, len(TOPICS), (n,), generator=gen, device=device).int()
+    alive[-1] = True
+    ten = torch.where(alive, ten, -1).int()
+    ten[-1] = 0
+    probe_excl = torch.arange(n, device=device) == n - 1
+    rows_out, resolve_in = [], None
+    emb32 = None
+    for label, dtype, nq, with_probe in (
+            ("ingest_q8192_k3_bf16", torch.bfloat16, PER_CONV, True),
+            ("ingest_q16_k3_bf16", torch.bfloat16, 16, True),
+            ("link_q8192_k3_bf16", torch.bfloat16, PER_CONV, False),
+            ("ingest_q8192_k3_f32", torch.float32, PER_CONV, True),
+            ("ingest_q16_k3_f32", torch.float32, 16, True)):
+        if dtype == torch.float32 and emb32 is None:
+            emb32 = emb16.float()
+        emb = emb16 if dtype == torch.bfloat16 else emb32
+        batch = torch.randperm(n - 1, generator=gen, device=device)[:nq]
+        # half repeats arena rows (probe duplicates), the last eighth
+        # repeats new facts (intra-batch duplicates)
+        q = torch.cat([emb[batch[:nq // 2]],
+                       grid_values(gen, (nq - nq // 2, DIM), dtype, device)])
+        q[nq - nq // 8:] = q[nq // 2:nq // 2 + nq // 8].clone()
+        qs = torch.randint(0, len(TOPICS), (nq,), generator=gen, device=device).int()
+        link_excl = probe_excl.index_fill(0, batch, True)
+        args = (emb, alive, ten, sup, shard, probe_excl, link_excl, q, qs, 0, 3,
+                (1, 0), with_probe)
+        got = it.ingest_topk(*args)
+        err = _check_equal(label, got, it.ingest_topk_reference(*args))
+        if (torch.cat([x.view(-1) for x in got[1::2]]) == n - 1).any():
+            raise AssertionError(f"{label}: the excluded sentinel row was listed")
+        if label == "ingest_q8192_k3_bf16":
+            resolve_in = (q, batch, got[0][:, 0], got[1][:, 0])
+        pmask = alive & (ten == 0) & ~sup & ~probe_excl
+        lmask = pmask & ~link_excl
+
+        def lib(emb=emb, q=q, qs=qs, pmask=pmask, lmask=lmask,
+                with_probe=with_probe):
+            # Yardstick only: chunked products, the masks, torch.topk a mode.
+            for i in range(0, q.shape[0], 512):
+                s = torch.matmul(q[i:i + 512], emb.t()).float()
+                if with_probe:
+                    torch.topk(torch.where(pmask, s, -1e30), 1)
+                same = qs[i:i + 512, None] == shard[None, :]
+                torch.topk(torch.where(lmask & same, s, -1e30), 3)
+                torch.topk(torch.where(lmask, s, -1e30), 3)
+
+        big = nq > 1024
+        rows_out.append(_case_row(
+            "ingest_topk", "ingest" if with_probe else "link", label,
+            it.route_for(dtype), n, nq, 3, lambda args=args: it.ingest_topk(*args),
+            lambda args=args: it.ingest_topk_reference(*args), lib,
+            ingest_bound(emb, nq, 3, 2, with_probe), err, 2 if big else 20,
+            1 if big else 3, stage1="ingest_stage1"))
+    del emb32
+    ingest_corners(device)
+
+    # The resolve of the Q = 8,192 batch: the gram of its facts, the probe
+    # the kernel just took as a cosine (grid rows are not unit vectors),
+    # shard groups by topic.
+    q, batch, p_s, p_r = resolve_in
+    qf = torch.nn.functional.normalize(q.float(), dim=1)
+    norms = q.float().norm(dim=1) * emb16[p_r.long()].float().norm(dim=1)
+    p_s = torch.where(p_s > -1e29, p_s / norms.clamp(min=1e-9), p_s)
+    b = qf.shape[0]
+    gram = qf @ qf.t()
+    earlier = torch.ones((b, b), dtype=torch.bool, device=device).tril(-1)
+    gram.masked_fill_(~earlier, -1e30)
+    g_j = torch.argmax(gram, dim=1)
+    g_s = torch.gather(gram, 1, g_j[:, None])[:, 0]
+    del gram, earlier
+    valid = torch.ones(b, dtype=torch.bool, device=device)
+    rows = batch.int()
+    gid = torch.randint(0, len(TOPICS), (b,), generator=gen, device=device).int()
+    cols = (g_s, g_j, p_s, p_r, valid, rows, gid)
+    got = dr.dedup_resolve(*cols, 0.95, n - 1)
+    t0 = time.perf_counter()
+    want = dr.dedup_resolve_reference(*[c.cpu() for c in cols], 0.95, n - 1)
+    plain = 1e3 * (time.perf_counter() - t0)
+    for g, w in zip(got, want):
+        if not torch.equal(g.cpu(), w):
+            raise AssertionError("dedup_resolve: kernel disagrees with the plain loop")
+    dups = int(want[1].sum())
+    if not 0 < dups < b:
+        raise AssertionError(f"dedup_resolve case has {dups} duplicates of {b}")
+    ms = device_ms(lambda: dr.dedup_resolve(*cols, 0.95, n - 1), 20)
+    moved = b * (4 * 6 + 1) + b * 12
+    bms = 1e3 * moved / HBM_BYTES_PER_S
+    log(f"[kernels] dedup_resolve dedup_resolve_b8192: target, dup, chain_src "
+        f"equal ({dups} duplicates), device ms {ms:.4f}, plain (host loop) ms "
+        f"{plain:.1f}, library_ms none, bound_ms {bms:.6f} (bytes; the walk is "
+        f"sequential)")
+    resolve_rows = [{"kernel": "dedup_resolve", "form": "resolve",
+                     "case": "dedup_resolve_b8192", "route": "cuda", "n": b,
+                     "q": b, "k": 0, "ms": ms, "plain_ms": plain,
+                     "library_ms": None, "bound_ms": bms, "bound_by": "bytes",
+                     "max_abs_err": 0.0}]
+    return rows_out, resolve_rows
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: the main path at full width
 # ---------------------------------------------------------------------------
@@ -768,7 +945,7 @@ def phase_main(launches_out: dict, parity: dict):
     convs = fill // PER_CONV
     corpus = Corpus(fill + PER_CONV)
     llm = PayloadLLM()
-    cfg = MemoryConfig(**SLICE, dtype="bfloat16", embed_dim=DIM,
+    cfg = MemoryConfig(**FUSED_INGEST, dtype="bfloat16", embed_dim=DIM,
                        initial_capacity=ARENA_ROWS - 1, max_edges=4 * fill)
     torch.cuda.reset_peak_memory_stats()
     ms = MemorySystem(device="cuda", config=cfg, enable_async=False,
@@ -1107,7 +1284,8 @@ def phase_mesh(launches_out: dict, parity: dict, single: dict):
         f"(the fill's link scans; per chat turn {summary['launches_per_chat_turn']}), "
         f"fused path {launches_out['mesh_fused_topk']} grouped two-tier scans + "
         f"{launches_out['mesh_sharded_merge_on_fused_path']} merges, "
-        f"{f['readbacks']} readbacks")
+        f"{f['readbacks']} readbacks; {launches_out['mesh_ingest_topk']} "
+        f"ingest_topk link scans (one a shard a conversation end)")
     # Kernel B: the grouped scans of the mesh's searches (classic, the
     # fill's dedup probes included, and fused); the merge kernel: the link
     # scans' merges and, past one card, the searches'.
@@ -1120,19 +1298,38 @@ def phase_mesh(launches_out: dict, parity: dict, single: dict):
 
 def _timed(spent: dict, key: str, fn, torch):
     """``fn`` with its wall time, device work included, added to
-    ``spent[key]``."""
+    ``spent[key]``; a timed call inside another counts to the outer one."""
     def wrapper(*args, **kwargs):
+        if spent.get("_open"):
+            return fn(*args, **kwargs)
         torch.cuda.synchronize()
+        spent["_open"] = True
         t = time.perf_counter()
         try:
             return fn(*args, **kwargs)
         finally:
             torch.cuda.synchronize()
+            spent["_open"] = False
             spent[key] = spent.get(key, 0.0) + time.perf_counter() - t
     return wrapper
 
 
-# Stages of a conversation end timed during the fill: (object, method, stage).
+# Stages of a fused conversation end timed during the fill (object, method,
+# stage): the ingest scan, the resolve (the gram and the kernel), the arena
+# and edge writes of the dispatch, its one readback, the host commit, the
+# lifecycle writes after it, and the embedding.
+FUSED_FILL_STAGES = (("state", "_ingest_scan_core", "scan"),
+                     ("state", "_dedup_resolve", "resolve"),
+                     ("state", "_arena_add", "writes"),
+                     ("state", "_arena_merge_touch", "writes"),
+                     ("state", "_edges_add", "writes"),
+                     ("state", "_gated_link_insert", "writes"),
+                     ("index", "_readback", "readback"),
+                     ("index", "commit_ingest_dedup", "host_commit"),
+                     ("index", "decay", "lifecycle"),
+                     ("index", "prune_edges", "lifecycle"),
+                     ("embedder", "batch_embed", "embed"))
+# The same for a classic conversation end (the mesh phase's).
 FILL_STAGES = (("index", "search_batch", "dedup_probe"),
                ("index", "link_candidates_multi", "link_scan"),
                ("index", "add", "arena_writes"),
@@ -1166,6 +1363,32 @@ def _count_probes(index, mt):
     return probes
 
 
+def _strict_ingest(index, torch):
+    """Run every fused ingest dispatch of ``index`` under
+    ``torch.cuda.set_sync_debug_mode("error")``, except inside the one
+    packed readback, which is counted. Returns the list of readbacks."""
+    ingest, readback = index.ingest_batch_dedup, index._readback
+    readbacks = []
+
+    def read_once(packed):
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            readbacks.append(tuple(packed.shape))
+            return readback(packed)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    def strict(*args, **kwargs):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return ingest(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    index.ingest_batch_dedup, index._readback = strict, read_once
+    return readbacks
+
+
 def _stable_id(qid: str) -> str:
     """A node id without the creation second a super-node id carries
     (``super_<topic>_<unix seconds>``), which two runs do not share."""
@@ -1191,7 +1414,9 @@ def parity_snapshot(ms, corpus):
     supers = len(ms.super_nodes) + sum(len(g.super_nodes)
                                        for g in ms._parked.values())
     snap = {"nodes": rows, "edges": len(idx.edge_slots),
-            "merged": MESH_CONVS * PER_CONV - (rows - supers)}
+            "merged": MESH_CONVS * PER_CONV - (rows - supers),
+            "links": {(_stable_id(a), _stable_id(b)): wc
+                      for (a, b), wc in idx.edge_weights().items()}}
     for t, tenant in enumerate(TENANTS):
         facts = [c * PER_CONV + (977 * j) % PER_CONV for j, c in enumerate(
             range(t, MESH_CONVS, len(TENANTS)))][:PARITY_FACTS]
@@ -1225,6 +1450,14 @@ def check_parity(want: dict, got: dict) -> dict:
     for key in ("nodes", "edges", "merged"):
         if got[key] != want[key]:
             raise AssertionError(f"mesh parity: {key} {got[key]} != {want[key]}")
+    gl, wl = got["links"], want["links"]
+    if set(gl) != set(wl):
+        raise AssertionError(f"mesh parity: {len(set(gl) ^ set(wl))} edge keys "
+                             f"differ of {len(wl)}")
+    worst_w = max((abs(gl[k][0] - wl[k][0]) for k in wl), default=0.0)
+    if worst_w > 1e-6 or any(gl[k][1] != wl[k][1] for k in wl):
+        raise AssertionError(f"mesh parity: edge weights differ by {worst_w} "
+                             f"or co-occurrence counts differ")
     worst, queries = 0.0, 0
     for tenant in TENANTS:
         bad_ids = bad_fused = 0
@@ -1243,7 +1476,8 @@ def check_parity(want: dict, got: dict) -> dict:
                 f"{len(want[('search', tenant)])}")
     if worst > 1e-6:
         raise AssertionError(f"mesh parity: scores differ by {worst}")
-    return {"queries": queries, "max_score_diff": worst}
+    return {"queries": queries, "max_score_diff": worst, "links": len(wl),
+            "max_link_weight_diff": worst_w}
 
 
 def _drive(ms, llm, corpus, convs, fill, launches_out, mt, torch,
@@ -1253,10 +1487,14 @@ def _drive(ms, llm, corpus, convs, fill, launches_out, mt, torch,
     :func:`parity_snapshot` after conversation ``MESH_CONVS``, outside the
     fill's time; under a mesh ``parity`` is that snapshot of the
     single-device run, which the filled system must reproduce."""
+    from lazzaro_tpu_torch.core import state as S
+    from lazzaro_tpu_torch.ops import dedup_resolve as dr
+    from lazzaro_tpu_torch.ops import ingest_topk as it
     from lazzaro_tpu_torch.ops import sharded_merge as sm
     from lazzaro_tpu_torch.ops.topk import shard_groups
 
     mesh = ms.index.mesh
+    fused = ms.config.ingest_fused
     n_shards = mesh.size if mesh is not None else 1
     # A scan is one grouped launch per card holding shards; several cards
     # add one merge.
@@ -1266,11 +1504,35 @@ def _drive(ms, llm, corpus, convs, fill, launches_out, mt, torch,
     tag = "[mesh]" if mesh is not None else "[main]"
     # ---- fill: one conversation per 8,192 facts, tenants alternating
     spent: dict = {}
-    for owner, method, stage in FILL_STAGES:
-        obj = getattr(ms, owner)
+    owners = {"index": ms.index, "embedder": ms.embedder, "state": S}
+    patched = []
+    for owner, method, stage in (FUSED_FILL_STAGES if fused else FILL_STAGES):
+        obj = owners[owner]
+        patched.append((obj, method, getattr(obj, method)))
         setattr(obj, method, _timed(spent, stage, getattr(obj, method), torch))
-    probes = _count_probes(ms.index, mt)
+    probes = [] if fused else _count_probes(ms.index, mt)
+    copies = []        # device-to-host copies inside the ingest dispatches
+    if fused:
+        timed_readback, ingest = ms.index._readback, ms.index.ingest_batch_dedup
+        inside = []
+
+        def count_copy(p):
+            if inside:
+                copies.append(p.shape)
+            return timed_readback(p)
+
+        def count_ingest(*args, **kwargs):
+            inside.append(1)
+            try:
+                return ingest(*args, **kwargs)
+            finally:
+                inside.pop()
+
+        ms.index._readback = count_copy
+        ms.index.ingest_batch_dedup = count_ingest
+    dispatches0 = ms.index.ingest_dispatch_count
     mt.launches = mt.launches_wgmma = mt.launches_stream = sm.launches = 0
+    it.launches = it.launches_wgmma = dr.launches = 0
     t0 = time.perf_counter()
     for c in range(convs):
         tenant = TENANTS[c % len(TENANTS)]
@@ -1294,23 +1556,47 @@ def _drive(ms, llm, corpus, convs, fill, launches_out, mt, torch,
     fill_s = time.perf_counter() - t0
     fill_launches, fill_merges = mt.launches, sm.launches
     fill_wgmma, fill_stream = mt.launches_wgmma, mt.launches_stream
-    for owner, method, _ in FILL_STAGES:
-        vars(getattr(ms, owner)).pop(method, None)
+    fill_k1 = (it.launches, it.launches_wgmma, dr.launches)
+    fill_dispatches = ms.index.ingest_dispatch_count - dispatches0
+    for obj, method, orig in reversed(patched):
+        if obj is S:
+            setattr(obj, method, orig)
+        else:
+            vars(obj).pop(method, None)
+    vars(ms.index).pop("ingest_batch_dedup", None)
+    spent.pop("_open", None)
     spent["rest"] = fill_s - sum(spent.values())
     log(f"{tag} fill time by stage (s): "
         + ", ".join(f"{k} {v:.1f}" for k, v in spent.items()))
-    # Every dedup probe (a power-of-two batch) scans the bf16 arena on the
-    # tensor cores, one grouped scan per card. A probe of a tenant with no
-    # row yet returns before any scan.
-    wrong = [(q, n, w) for q, n, w in probes if n not in (0, scans) or w != n]
-    scanned = sum(n > 0 for _, n, _ in probes)
-    log(f"{tag} fill: {fill_launches} masked_topk launches, {fill_wgmma} on the "
-        f"tensor-core route, {fill_stream} on the streaming route; "
-        f"{len(probes)} dedup probes (Q {sorted({q for q, _, _ in probes})}), "
-        f"{scanned} of them scanned")
-    if wrong or scanned == 0:
-        raise AssertionError(f"dedup probes off their route (padded Q, scans, "
-                             f"tensor-core scans): {wrong[:5]}, {scanned} scanned")
+    if fused:
+        # One dispatch, one ingest scan on the tensor cores (a bf16 arena),
+        # one resolve and one device-to-host copy per mega-batch (a
+        # conversation of PER_CONV facts); no classic probe.
+        log(f"{tag} fill: {convs} mega-batches, {fill_dispatches} fused "
+            f"dispatches, {len(copies)} device-to-host copies, {fill_k1[0]} "
+            f"ingest_topk launches ({fill_k1[1]} tensor-core, "
+            f"{fill_k1[0] - fill_k1[1]} FMA), {fill_k1[2]} dedup_resolve "
+            f"launches, {fill_launches} masked_topk launches")
+        if not (fill_dispatches == len(copies) == fill_k1[0] == fill_k1[1]
+                == fill_k1[2] == convs) or fill_launches:
+            raise AssertionError("the fused fill is not one dispatch, one "
+                                 "tensor-core ingest scan, one resolve and one "
+                                 "copy per mega-batch")
+    else:
+        # Every dedup probe (a power-of-two batch) scans the bf16 arena on
+        # the tensor cores, one grouped scan per card. A probe of a tenant
+        # with no row yet returns before any scan.
+        wrong = [(q, n, w) for q, n, w in probes if n not in (0, scans) or w != n]
+        scanned = sum(n > 0 for _, n, _ in probes)
+        log(f"{tag} fill: {fill_launches} masked_topk launches, {fill_wgmma} on "
+            f"the tensor-core route, {fill_stream} on the streaming route; "
+            f"{len(probes)} dedup probes (Q {sorted({q for q, _, _ in probes})}), "
+            f"{scanned} of them scanned; {fill_k1[0]} ingest_topk link scans "
+            f"({fill_k1[1]} tensor-core)")
+        if wrong or scanned == 0:
+            raise AssertionError(f"dedup probes off their route (padded Q, "
+                                 f"scans, tensor-core scans): {wrong[:5]}, "
+                                 f"{scanned} scanned")
     rows = len(ms.index)
     # the full fill must reach MIN_ROWS; the mesh's shorter fill, less the
     # near-duplicates merged (1 in 101), 98% of its facts
@@ -1328,7 +1614,9 @@ def _drive(ms, llm, corpus, convs, fill, launches_out, mt, torch,
         log(f"[mesh] parity with the single-device system after {MESH_CONVS} "
             f"conversations: {rows} nodes, {len(ms.index.edge_slots)} edges, "
             f"{merged} merged, {parity_out['queries']} search_batch and fused "
-            f"read results equal (max score diff {parity_out['max_score_diff']})")
+            f"read results equal (max score diff {parity_out['max_score_diff']}), "
+            f"{parity_out['links']} edge keys equal (max weight diff "
+            f"{parity_out['max_link_weight_diff']})")
 
     # ---- serve: chat turns for facts whose answer is known
     ms.switch_user(TENANTS[0])
@@ -1364,12 +1652,25 @@ def _drive(ms, llm, corpus, convs, fill, launches_out, mt, torch,
     acc_before = node.access_count
     rows_before = len(ms.index)
     llm.payloads.append(corpus.payload(new_ids + [again]))
-    before = (mt.launches, sm.launches)
+    before = (mt.launches, sm.launches, it.launches)
+    strict = _strict_ingest(ms.index, torch) if fused else None
     t1 = time.perf_counter()
-    ms.end_conversation()
+    try:
+        ms.end_conversation()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        for method in ("ingest_batch_dedup", "_readback"):
+            vars(ms.index).pop(method, None)
     end_s = time.perf_counter() - t1
     end_launches = mt.launches - before[0]
     end_merges = sm.launches - before[1]
+    if fused:
+        log(f"{tag} conversation end under sync debug mode \"error\": "
+            f"{it.launches - before[2]} ingest_topk launch, {end_launches} "
+            f"masked_topk launches, readbacks {strict}")
+        if len(strict) != 1 or it.launches - before[2] != 1 or end_launches:
+            raise AssertionError("a fused conversation end is not one ingest "
+                                 "scan and one device-to-host copy")
     if node.access_count != acc_before + 1:
         raise AssertionError("the repeated fact was not merged")
     added = len(ms.index) - rows_before
@@ -1403,6 +1704,10 @@ def _drive(ms, llm, corpus, convs, fill, launches_out, mt, torch,
     torch.cuda.synchronize()
     launches_out[prefix + "masked_topk"] = mt.launches
     launches_out[prefix + "sharded_merge"] = sm.launches
+    launches_out[prefix + "ingest_topk"] = it.launches
+    launches_out[prefix + "dedup_resolve"] = dr.launches
+    log(f"{tag} ingest_topk launches over the path: {it.launches} "
+        f"({it.launches_wgmma} tensor-core), dedup_resolve {dr.launches}")
     log(f"{tag} classic path routes: {mt.launches_stream} streaming, "
         f"{mt.launches_wgmma} tensor-core, "
         f"{mt.launches - mt.launches_stream - mt.launches_wgmma} FMA of "
@@ -1418,7 +1723,9 @@ def _drive(ms, llm, corpus, convs, fill, launches_out, mt, torch,
         "fill_facts": fill, "fill_s": fill_s, "fill_facts_per_s": fill / fill_s,
         "merged_in_fill": merged, "fill_launches": fill_launches,
         "fill_launches_wgmma": fill_wgmma, "fill_dedup_probes": len(probes),
-        "fill_stage_s": spent,
+        "fill_dispatches": fill_dispatches, "fill_copies": len(copies),
+        "fill_ingest_topk": fill_k1[0], "fill_ingest_topk_wgmma": fill_k1[1],
+        "fill_dedup_resolve": fill_k1[2], "fill_stage_s": spent,
         "chat_p50_ms": p50(chat_ms), "search_p50_ms": p50(search_ms),
         "launches_per_chat_turn": sorted(set(chat_launches)),
         "conversation_end_s": end_s,
@@ -2304,6 +2611,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     fused_rows = phase_fused_kernel(device)
     torch.cuda.empty_cache()
+    ingest_rows, resolve_rows = phase_ingest_kernel(device)
+    gc.collect()
+    torch.cuda.empty_cache()
     sharded_rows = phase_sharded_kernel(device)
     gc.collect()
     torch.cuda.empty_cache()
@@ -2326,6 +2636,9 @@ def main() -> int:
     train_summary = phase_train(device, launches)
     log(f"[train] summary {json.dumps(train_summary)}")
     log(f"[smoke] {time.perf_counter() - t_start:.1f} s after the device phase")
+    # K1 launches on both paths: phase 4's fused ingest, phase 4b's link scans.
+    for kernel in ("ingest_topk", "dedup_resolve"):
+        launches[kernel] += launches["mesh_" + kernel]
 
     def entry(name, source, replaces, rows, head_case, extra_err=0.0):
         head = next(c for c in rows if c["case"] == head_case)
@@ -2345,6 +2658,12 @@ def main() -> int:
         entry("fused_topk", "lazzaro_tpu_torch/csrc/fused_topk.cu",
               "lazzaro_tpu/ops/pallas_topk.py:101", fused_rows,
               "chat_q1_k128_kq10"),
+        entry("ingest_topk", "lazzaro_tpu_torch/csrc/ingest_topk.cu",
+              "lazzaro_tpu/core/state.py:1475", ingest_rows,
+              "ingest_q8192_k3_bf16"),
+        entry("dedup_resolve", "lazzaro_tpu_torch/csrc/dedup_resolve.cu",
+              "lazzaro_tpu/core/state.py:1532", resolve_rows,
+              "dedup_resolve_b8192"),
         entry("sharded_topk", "lazzaro_tpu_torch/csrc/masked_topk.cu",
               "lazzaro_tpu/ops/topk.py:115",
               [c for c in sharded_rows if c["kernel"] == "sharded_topk"] + filled_rows,

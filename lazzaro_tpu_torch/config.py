@@ -92,7 +92,7 @@ class MemoryConfig:
     # two-mode link scan, gated edge insert) runs as ONE donated device
     # program + ONE packed readback. Off = the classic four-dispatch
     # sequence (debug/fallback; semantics are identical).
-    ingest_fused: bool = False    # not ported yet (JAX default: True)
+    ingest_fused: bool = True
     # Cross-conversation ingest coalescing cap (utils/batching.py
     # IngestCoalescer): facts from every buffered conversation merge into
     # mega-batches of at most this many rows per fused dispatch.
@@ -120,7 +120,7 @@ class MemoryConfig:
     # gram that _ingest_facts otherwise pays a separate search_batch
     # dispatch+readback for runs INSIDE the same donated dispatch, making
     # ingest ONE round trip end-to-end. Only effective with ingest_fused.
-    ingest_dedup_fused: bool = False    # not ported yet (JAX default: True)
+    ingest_dedup_fused: bool = True
     # Pod-scale fused ingest: under a mesh, run the whole
     # dedup-fused ingest program as ONE distributed shard_map dispatch
     # (state.make_ingest_fused_sharded) — shard-local dedup/link scans,
@@ -462,8 +462,6 @@ class MemoryConfig:
 
 # (field, "is switched on", ROADMAP item) for every path the port lacks.
 _UNPORTED = (
-    ("ingest_fused", bool, "Queue 1 item 6, fused dedup ingest"),
-    ("ingest_dedup_fused", bool, "Queue 1 item 6, fused dedup ingest"),
     ("auto_consolidate", bool,
      "Queue 1 item 8, run_consolidation and ops/graphops.py"),
     ("journal", bool, "Queue 1 item 9, journals"),

@@ -109,6 +109,33 @@ def split_csr(indptr: np.ndarray, nbr: np.ndarray, n_shards: int
     return indptr_sh, nbr_sh
 
 
+def link_pool_size(worst: int, hint: float) -> int:
+    """Edge-slot pool of the compacting fused ingest
+    (``lazzaro_tpu/core/index.py:link_pool_size``): ``ceil(hint * worst)``
+    real slots instead of the worst case, floored at one slot so that the
+    overflow path, not an empty gather, handles a zero hint."""
+    h = float(hint)
+    if h >= 1.0 or worst <= 0:
+        return worst
+    return min(worst, max(1, int(np.ceil(max(0.0, h) * worst))))
+
+
+def link_pool_dev(pool: Sequence[int], padded_len: int, ecap: int) -> np.ndarray:
+    """The slot pool as the fused ingest takes it on the device
+    (``lazzaro_tpu/core/index.py:link_pool_dev``; uploaded with the batch):
+    real slots first, sentinel (``ecap``) padding up to ``padded_len``, and
+    one trailing sentinel entry every rejected candidate is routed
+    through."""
+    arr = np.full((padded_len + 1,), ecap, np.int32)
+    arr[:len(pool)] = pool
+    return arr
+
+
+_FUSED_INGEST_MESH = ("MemoryIndex(mesh=...): the fused ingest under a mesh is "
+                      "not ported yet (ROADMAP Queue 1 item 21, sharded fused "
+                      "ingest); use the classic ingest")
+
+
 _TORCH_DTYPES = {np.dtype(np.float32): torch.float32,
                  np.dtype(np.int32): torch.int32, np.dtype(bool): torch.bool}
 
@@ -264,6 +291,12 @@ class MemoryIndex:
         self._shards: Dict[str, int] = {}
         self.tenant_nodes: Dict[str, set] = {}
         self._prune_cap_hwm = 0
+        # Fused ingest: dispatches (one per batch; tests and the smoke count
+        # them), batches whose accepted links overflowed the hinted pool, and
+        # the batch upload's own staging buffer.
+        self.ingest_dispatch_count = 0
+        self.link_pool_overflows = 0
+        self._ingest_stage = HostStage(self.device)
 
     @classmethod
     def from_numpy(cls, arena: Dict[str, np.ndarray],
@@ -398,6 +431,20 @@ class MemoryIndex:
             self._free_rows = list(range(new_cap - 1, old_cap - 1, -1)) + self._free_rows
         return [self._free_rows.pop() for _ in range(n)]
 
+    def _assign_rows(self, ids: Sequence[str]) -> List[int]:
+        """The rows of ``ids``: an existing id keeps its row, a new one takes
+        a free row (the arena grows if it must)."""
+        fresh = iter(self._alloc_rows(sum(1 for i in ids if i not in self.id_to_row)))
+        rows: List[int] = []
+        for node_id in ids:
+            r = self.id_to_row.get(node_id)
+            if r is None:
+                r = next(fresh)
+                self.id_to_row[node_id] = r
+                self.row_to_id[r] = node_id
+            rows.append(r)
+        return rows
+
     def add(self, ids: Sequence[str], embeddings: np.ndarray,
             saliences: Sequence[float], timestamps: Sequence[float],
             types: Sequence[str], shard_keys: Sequence[str],
@@ -410,19 +457,7 @@ class MemoryIndex:
         if is_super is None:
             is_super = [False] * n
         with self._lock:
-            rows: List[int] = []
-            fresh = self._alloc_rows(sum(1 for i in ids if i not in self.id_to_row))
-            fi = 0
-            for node_id in ids:
-                if node_id in self.id_to_row:
-                    rows.append(self.id_to_row[node_id])
-                else:
-                    r = fresh[fi]
-                    fi += 1
-                    self.id_to_row[node_id] = r
-                    self.row_to_id[r] = node_id
-                    rows.append(r)
-
+            rows = self._assign_rows(ids)
             tid = self.tenant_id(tenant)
             self.tenant_nodes.setdefault(tenant, set()).update(ids)
             if self.mesh is not None:
@@ -734,9 +769,10 @@ class MemoryIndex:
             k_eff = min(k, self.capacity)
             if self.mesh is None:
                 padded = S.pad_rows(all_rows, self.capacity)
-                flat = [t.cpu().numpy() for t in S.arena_link_candidates_multi(
-                    self.state, padded, padded, tid, k_eff,
-                    tuple(shard_modes))]
+                flat = S.unpack_leaves(self._readback(S.pack_leaves(
+                    S.arena_link_candidates_multi(
+                        self.state, padded, padded, tid, k_eff,
+                        tuple(shard_modes)))), [True, False] * len(shard_modes))
             else:
                 flat = self._link_sharded(all_rows, tid, k_eff,
                                           tuple(shard_modes))
@@ -778,16 +814,8 @@ class MemoryIndex:
             merged.extend(sharded_merge([x[2 * i] for x in parts],
                                         [x[2 * i + 1] for x in parts],
                                         self._local_n, k, device=self.device))
-        width = [t.shape[1] for t in merged]
-        host = torch.cat([t if t.dtype == torch.float32
-                          else t.view(torch.float32) for t in merged],
-                         dim=1).cpu().numpy()
-        out, off = [], 0
-        for j, w in enumerate(width):
-            col = host[:, off:off + w]
-            out.append(col if j % 2 == 0 else col.view(np.int32))
-            off += w
-        return out
+        return S.unpack_leaves(self._readback(S.pack_leaves(merged)),
+                               [True, False] * len(shard_modes))
 
     def link_candidates(self, new_ids: Sequence[str], tenant: str, k: int = 3,
                         shard_mode: int = 0) -> Dict[str, List[Tuple[str, float]]]:
@@ -923,6 +951,388 @@ class MemoryIndex:
             _, slots = S._edges_prune(self.edge_state, tid, threshold,
                                       self._prune_cap())
             return self._reclaim_pruned_slots(slots.cpu().numpy())
+
+    # --------------------------------------------------------- fused ingest
+    def _ingest_dispatch(self, fn, *args, **kwargs):
+        """The device program every fused ingest goes through: tests and the
+        smoke wrap it to count dispatches per batch (one call, one
+        dispatch)."""
+        self.ingest_dispatch_count += 1
+        return fn(*args, **kwargs)
+
+    @staticmethod
+    def _pad_cols(b: int, cols) -> List[np.ndarray]:
+        """``[b]`` host columns from ``(values, fill, dtype)`` triples, each
+        padded with its ``fill``."""
+        arrays = []
+        for vals, fill, dt in cols:
+            out = np.full((b,), fill, dt)
+            out[:len(vals)] = vals
+            arrays.append(out)
+        return arrays
+
+    def _decode_links(self, host, ids, n, k_eff, shard_modes, pool, link_scale,
+                      skip):
+        """Per mode, each fact's full candidate list and the edges the
+        device inserted, from the per-mode ``(scores, cands, pos)`` leaves
+        (``lazzaro_tpu/core/index.py:ingest_batch`` /
+        ``commit_ingest_dedup``): accepted keys are registered in
+        ``edge_slots``, an accepted edge past the real pool is queued for
+        the host retry, a slot the host does not register is reclaimed.
+        ``skip[i]`` leaves fact ``i`` out (a device-merged duplicate).
+        Returns ``(candidates, created, reclaim, overflowed, consumed)``."""
+        pool_real = len(pool)
+        candidates: Dict[int, Dict[str, List[Tuple[str, float]]]] = {}
+        created: Dict[int, List[Tuple[str, str, float]]] = {}
+        reclaim: List[int] = []
+        overflowed: List[Tuple[str, str, float]] = []
+        consumed = 0
+        for mi, sm in enumerate(shard_modes):
+            sc, cd, ps = host[3 * mi], host[3 * mi + 1], host[3 * mi + 2]
+            out_m: Dict[str, List[Tuple[str, float]]] = {}
+            made: List[Tuple[str, str, float]] = []
+            for bi in range(n):
+                nid = ids[bi]
+                pairs = []
+                for j in range(k_eff):
+                    p = int(ps[bi, j])
+                    s = float(sc[bi, j])
+                    cid = (self.row_to_id.get(int(cd[bi, j]))
+                           if s > S.NEG_INF / 2 else None)
+                    if cid is not None and not skip[bi]:
+                        pairs.append((cid, s))
+                    if p < 0:
+                        continue               # rejected: no slot consumed
+                    w = min(1.0, max(0.0, s * link_scale))
+                    if p >= pool_real:
+                        # accepted but past the hinted pool (never written):
+                        # the host retry below inserts it
+                        if cid is not None and not skip[bi] \
+                                and (nid, cid) not in self.edge_slots:
+                            overflowed.append((nid, cid, w))
+                            made.append((nid, cid, w))
+                        continue
+                    consumed = max(consumed, p + 1)
+                    key = (nid, cid)
+                    if cid is not None and not skip[bi] \
+                            and key not in self.edge_slots:
+                        self.edge_slots[key] = pool[p]
+                        made.append((nid, cid, w))
+                    else:
+                        # written by the device but not registered by the
+                        # host (defensive): reclaimed, not cleared, until
+                        # the next write lands on it
+                        reclaim.append(pool[p])
+                if not skip[bi]:
+                    out_m[nid] = pairs
+            candidates[sm] = out_m
+            created[sm] = made
+        return candidates, created, reclaim, overflowed, consumed
+
+    def _finish_links(self, pool, consumed, reclaim, overflowed, tenant, now):
+        """The compaction win (the untouched pool suffix comes back whole)
+        and, for the rare batch that beat the hinted pool, one
+        :meth:`add_edges` of exactly the overflowed edges."""
+        self._free_edge_slots.extend(pool[consumed:])
+        self._free_edge_slots.extend(reclaim)
+        self._csr_dirty = True
+        if overflowed:
+            self.link_pool_overflows += 1
+            self.telemetry.bump("ingest.link_pool_overflows")
+            self.add_edges(overflowed, tenant, now=now)
+
+    def _run_ingest(self, kind: str, fn, up, **kwargs) -> List[np.ndarray]:
+        """One fused ingest dispatch and its one packed readback; records
+        ``ingest.dispatch_ms`` and ``ingest.dispatches``. Returns the host
+        leaves."""
+        t0 = time.perf_counter()
+        with torch.profiler.record_function(f"lz.ingest.{kind}"):
+            _, _, outs = self._ingest_dispatch(fn, self.state, self.edge_state,
+                                               *up, **kwargs)
+            n_modes = len(kwargs["shard_modes"])
+            wide = 3 if kind == "dedup_fused" else 0
+            is_float = ([False] * wide + [True, False, False] * n_modes
+                        + [False] * 3)
+            host = S.unpack_leaves(self._readback(S.pack_leaves(outs)),
+                                   is_float)
+        self.telemetry.record("ingest.dispatch_ms",
+                              (time.perf_counter() - t0) * 1e3,
+                              labels={"kind": kind})
+        self.telemetry.bump("ingest.dispatches", labels={"kind": kind})
+        return host
+
+    def ingest_batch(self, ids: Sequence[str], embeddings: np.ndarray,
+                     saliences: Sequence[float], timestamps: Sequence[float],
+                     types: Sequence[str], shard_keys: Sequence[str],
+                     tenant: str, is_super: Optional[Sequence[bool]] = None,
+                     merge_ids: Sequence[str] = (),
+                     merge_saliences: Sequence[float] = (),
+                     chain_pairs: Sequence[Tuple[str, str]] = (),
+                     chain_weight: float = 0.5, link_k: int = 3,
+                     link_gate: float = 0.5, link_scale: float = 0.8,
+                     shard_modes: Sequence[int] = (1, 0),
+                     now: Optional[float] = None,
+                     link_accept_hint: float = 1.0):
+        """Fused conversation ingest (``lazzaro_tpu/core/index.py:
+        ingest_batch``): insert ``ids``, merge-touch ``merge_ids``, link-scan
+        every new row per shard mode and insert the chain edges plus every
+        gate-passing similarity edge, as ONE dispatch
+        (``state.ingest_fused``) and ONE packed readback. Edge slots come
+        from a pool of ``link_pool_size(modes * B * k, link_accept_hint)``
+        slots that the device compacts accepted links into; the overflowed
+        edges of a batch that beats the hint are re-inserted by one
+        :meth:`add_edges` (``link_pool_overflows`` counts such batches).
+        Returns ``(rows, candidates, created)``: the rows of ``ids``, per
+        mode ``{id: [(cand_id, score), ...]}`` (ungated, as
+        :meth:`link_candidates_multi` gives them) and per mode the
+        ``(src_id, tgt_id, weight)`` edges the device inserted, registered
+        in ``edge_slots``."""
+        if self.mesh is not None:
+            raise NotImplementedError(_FUSED_INGEST_MESH)
+        n = len(ids)
+        shard_modes = tuple(shard_modes)
+        if n == 0:
+            if merge_ids:
+                self.merge_touch(merge_ids, merge_saliences, now)
+            return [], {sm: {} for sm in shard_modes}, {sm: [] for sm in shard_modes}
+        if is_super is None:
+            is_super = [False] * n
+        with self._lock:
+            rows = self._assign_rows(ids)
+            tid = self.tenant_id(tenant)
+            self.tenant_nodes.setdefault(tenant, set()).update(ids)
+            t_rows, t_sals = [], []
+            for mid, msal in zip(merge_ids, merge_saliences):
+                r = self.id_to_row.get(mid)
+                if r is not None:
+                    t_rows.append(r)
+                    t_sals.append(float(msal))
+            # One slot allocation up front (chains + the link pool): growth,
+            # if any, happens before sentinel indices are baked in below.
+            k_eff = min(link_k, self.capacity)
+            n_modes = len(shard_modes)
+            chain_keys = [(a, b) for a, b in chain_pairs
+                          if a in self.id_to_row and b in self.id_to_row]
+            pool_need = link_pool_size(n_modes * n * k_eff, link_accept_hint)
+            slots = self._alloc_edge_slots(len(chain_keys) + pool_need)
+            chain_list, pool = slots[:len(chain_keys)], slots[len(chain_keys):]
+            cap, ecap = self.capacity, self.edge_state.capacity
+            padded = S.pad_rows(np.asarray(rows, np.int32), cap)
+            b = len(padded)
+            emb = np.zeros((b, self.dim), np.float32)
+            emb[:n] = np.asarray(embeddings, np.float32).reshape(n, self.dim)
+            emb[n:, 0] = 1.0   # sentinel rows get a unit vector (normalizable)
+            touch = S.pad_rows(np.asarray(t_rows, np.int32), cap)
+            c_slots = S.pad_rows(np.asarray(chain_list, np.int32), ecap)
+            cb = len(c_slots)
+            cols = self._pad_cols(b, [
+                ([float(x) for x in saliences], 0.0, np.float32),
+                ([float(t) - self.epoch for t in timestamps], 0.0, np.float32),
+                ([S.TYPE_IDS.get(t, 0) for t in types], 0, np.int32),
+                ([self.shard_id(sk or "default") for sk in shard_keys], -1,
+                 np.int32),
+                ([tid] * n, -1, np.int32),
+                ([bool(x) for x in is_super], False, bool)])
+            chain = self._pad_cols(cb, [
+                ([self.id_to_row[a] for a, _ in chain_keys], -1, np.int32),
+                ([self.id_to_row[t] for _, t in chain_keys], -1, np.int32),
+                ([chain_weight] * len(chain_keys), 0.0, np.float32)])
+            touch_sal = np.zeros((len(touch),), np.float32)
+            touch_sal[:len(t_sals)] = t_sals
+            dev = self._ingest_stage.upload(
+                [padded, emb, *cols, touch, touch_sal, c_slots, *chain,
+                 link_pool_dev(pool, n_modes * b * k_eff, ecap)])
+            now_rel = (now if now is not None else time.time()) - self.epoch
+            scal = [S._scalar(x, self.device)
+                    for x in (now_rel, link_gate, link_scale)]
+            pool_len = torch.full((), len(pool), dtype=torch.int32,
+                                  device=self.device)
+            host = self._run_ingest(
+                "fused", S.ingest_fused,
+                [*dev, pool_len, scal[0], tid, scal[1], scal[2]],
+                k=k_eff, shard_modes=shard_modes)
+            ctr = host[3 * n_modes:]
+            self.telemetry.bump("ingest.links_accepted", int(ctr[1][0, 0]))
+            self.telemetry.bump("ingest.pool_slots_used", int(ctr[2][0, 0]))
+            candidates, created, reclaim, overflowed, consumed = \
+                self._decode_links(host, list(ids), n, k_eff, shard_modes,
+                                   pool, link_scale, [False] * n)
+            for key, slot in zip(chain_keys, chain_list):
+                if key in self.edge_slots:     # defensive: should not happen
+                    reclaim.append(slot)
+                else:
+                    self.edge_slots[key] = slot
+            self._finish_links(pool, consumed, reclaim, overflowed, tenant, now)
+        return rows, candidates, created
+
+    def ingest_batch_dedup(self, embeddings: np.ndarray,
+                           saliences: Sequence[float],
+                           timestamps: Sequence[float], types: Sequence[str],
+                           shard_keys: Sequence[str], tenant: str,
+                           dedup_gate: float, chain_weight: float = 0.5,
+                           link_k: int = 3, link_gate: float = 0.5,
+                           link_scale: float = 0.8,
+                           shard_modes: Sequence[int] = (1, 0),
+                           now: Optional[float] = None,
+                           link_accept_hint: float = 1.0) -> Optional[dict]:
+        """Single-round-trip ingest (``lazzaro_tpu/core/index.py:
+        ingest_batch_dedup``): the dedup probe against the pre-add arena
+        and the intra-batch gram run INSIDE the fused dispatch
+        (``state.ingest_dedup_fused``); duplicates never become nodes (the
+        device merges them into their targets) and chain edges link
+        consecutive live facts of each shard key. ONE dispatch and ONE
+        packed readback. Node ids are named by the caller after the
+        readback (the id counter advances as on the classic path, which
+        names only surviving facts): this returns a pending dict that
+        :meth:`commit_ingest_dedup` finishes, or None for no facts."""
+        if self.mesh is not None:
+            raise NotImplementedError(_FUSED_INGEST_MESH)
+        n = len(saliences)
+        shard_modes = tuple(shard_modes)
+        if n == 0:
+            return None
+        with self._lock:
+            rows = self._alloc_rows(n)
+            tid = self.tenant_id(tenant)
+            k_eff = min(link_k, self.capacity)
+            n_modes = len(shard_modes)
+            pool_need = link_pool_size(n_modes * n * k_eff, link_accept_hint)
+            slots = self._alloc_edge_slots(n + pool_need)
+            chain_list, pool = slots[:n], slots[n:]
+            cap, ecap = self.capacity, self.edge_state.capacity
+            padded = S.pad_rows(np.asarray(rows, np.int32), cap)
+            b = len(padded)
+            emb = np.zeros((b, self.dim), np.float32)
+            emb[:n] = np.asarray(embeddings, np.float32).reshape(n, self.dim)
+            emb[n:, 0] = 1.0   # sentinel rows get a unit vector (normalizable)
+            # densified chain group per fact: consecutive live facts of one
+            # shard key chain on the device (a duplicate bridges its
+            # neighbours)
+            gid_of: Dict[str, int] = {}
+            gids = [gid_of.setdefault(sk or "default", len(gid_of))
+                    for sk in shard_keys]
+            cols = self._pad_cols(b, [
+                ([float(x) for x in saliences], 0.0, np.float32),
+                ([float(t) - self.epoch for t in timestamps], 0.0, np.float32),
+                ([S.TYPE_IDS.get(t, 0) for t in types], 0, np.int32),
+                ([self.shard_id(sk or "default") for sk in shard_keys], -1,
+                 np.int32),
+                ([tid] * n, -1, np.int32),
+                ([False] * n, False, bool),
+                (gids, -1, np.int32),
+                (chain_list, ecap, np.int32)])
+            dev = self._ingest_stage.upload(
+                [padded, emb, *cols,
+                 link_pool_dev(pool, n_modes * b * k_eff, ecap)])
+            now_abs = now if now is not None else time.time()
+            now_d, chain_w, gate_d, scale_d = (
+                S._scalar(x, self.device) for x in
+                (now_abs - self.epoch, chain_weight, link_gate, link_scale))
+            pool_len = torch.full((), len(pool), dtype=torch.int32,
+                                  device=self.device)
+            host = self._run_ingest(
+                "dedup_fused", S.ingest_dedup_fused,
+                [*dev, pool_len, now_d, tid, float(dedup_gate), chain_w,
+                 gate_d, scale_d], k=k_eff, shard_modes=shard_modes)
+        ctr = host[3 + 3 * n_modes:]
+        dup = host[0][:n, 0] > 0
+        self.telemetry.bump("ingest.dedup_hits", int(dup.sum()))
+        self.telemetry.bump("ingest.links_accepted", int(ctr[1][0, 0]))
+        self.telemetry.bump("ingest.pool_slots_used", int(ctr[2][0, 0]))
+        return {"rows": rows, "n": n, "k_eff": k_eff,
+                "shard_modes": shard_modes, "link_scale": link_scale,
+                "tenant": tenant, "now": now_abs, "dup": dup,
+                "target_rows": host[1][:n, 0], "chain_src": host[2][:n, 0],
+                "chain_slots": chain_list, "link_pool": pool,
+                "link_host": host[3:]}
+
+    def commit_ingest_dedup(self, pending: dict, ids: Sequence[Optional[str]]
+                            ) -> Tuple[Dict, Dict, List, List]:
+        """Host bookkeeping of :meth:`ingest_batch_dedup`
+        (``lazzaro_tpu/core/index.py:commit_ingest_dedup``): register the
+        surviving facts' ids (``ids[i]`` names fact ``i``; ignored, may be
+        None, for a duplicate), free the duplicates' rows, keep or reclaim
+        edge slots by the device's verdicts. Returns ``(candidates,
+        created, merges, chains)``: per mode ``{id: [(cand_id, score),
+        ...]}``, per mode the inserted ``(src_id, tgt_id, weight)`` links,
+        ``[(fact_index, target_id)]`` for the merged duplicates and the
+        ``(src_id, tgt_id)`` chain edges the device inserted."""
+        n, rows, dup = pending["n"], pending["rows"], pending["dup"]
+        tenant = pending["tenant"]
+        with self._lock:
+            reclaim: List[int] = []
+            for i in range(n):
+                if dup[i]:
+                    self._free_rows.append(rows[i])   # never became alive
+                    continue
+                self.id_to_row[ids[i]] = rows[i]
+                self.row_to_id[rows[i]] = ids[i]
+            self.tenant_nodes.setdefault(tenant, set()).update(
+                ids[i] for i in range(n) if not dup[i])
+            merges = [(i, self.row_to_id.get(int(pending["target_rows"][i])))
+                      for i in range(n) if dup[i]]
+            chains: List[Tuple[str, str]] = []
+            chain_src = pending["chain_src"]
+            for i, slot in enumerate(pending["chain_slots"]):
+                src_id = (self.row_to_id.get(int(chain_src[i]))
+                          if chain_src[i] >= 0 else None)
+                key = (src_id, ids[i]) if src_id and not dup[i] else None
+                if key is not None and key not in self.edge_slots:
+                    self.edge_slots[key] = slot
+                    chains.append(key)
+                else:
+                    reclaim.append(slot)
+            pool = pending["link_pool"]
+            candidates, created, more, overflowed, consumed = self._decode_links(
+                pending["link_host"], ids, n, pending["k_eff"],
+                pending["shard_modes"], pool, pending["link_scale"], dup)
+            self._finish_links(pool, consumed, reclaim + more, overflowed,
+                               tenant, pending["now"])
+        return candidates, created, merges, chains
+
+    def warmup_ingest(self, geometries=(256,), *, dedup_gate: float = 0.95,
+                      link_k: int = 3, shard_modes=(1, 0),
+                      link_accept_hint: float = 1.0) -> Dict[int, float]:
+        """Build the ingest kernels and run the fused dedup ingest once per
+        padded batch size (``lazzaro_tpu/core/index.py:warmup_ingest``): a
+        throwaway batch of a throwaway tenant through
+        :meth:`ingest_batch_dedup` + :meth:`commit_ingest_dedup`, then
+        deleted. Telemetry is muted meanwhile; the wall time lands in
+        ``kernel.warmup_ms{path="ingest",batch}``. Returns ``{padded_batch:
+        ms}``; a size that would grow the arena is skipped."""
+        out: Dict[int, float] = {}
+        tel = self.telemetry
+        rng = np.random.default_rng(0)
+        buckets = sorted({len(S.pad_rows(np.zeros((g,), np.int32), self.capacity))
+                          for g in geometries if g > 0})
+        for g in buckets:
+            if len(self._free_rows) < g:
+                continue                    # would grow the arena
+            t0 = time.perf_counter()
+            prev = tel.enabled
+            tel.enabled = False
+            try:
+                emb = rng.standard_normal((g, self.dim)).astype(np.float32)
+                pending = self.ingest_batch_dedup(
+                    emb, [0.5] * g, [self.epoch] * g, ["semantic"] * g,
+                    ["~warmup"] * g, tenant="~warmup-ingest",
+                    dedup_gate=float(dedup_gate), link_k=link_k,
+                    shard_modes=tuple(shard_modes),
+                    link_accept_hint=link_accept_hint)
+                ids = []
+                if pending is not None:
+                    dup = pending["dup"]
+                    ids = [None if dup[i] else f"~warm:{g}:{i}"
+                           for i in range(g)]
+                    self.commit_ingest_dedup(pending, ids)
+                self.delete([i for i in ids if i])
+            finally:
+                tel.enabled = prev
+            ms = (time.perf_counter() - t0) * 1e3
+            tel.record("kernel.warmup_ms", ms,
+                       labels={"path": "ingest", "batch": str(g)})
+            out[g] = ms
+        return out
 
     # ------------------------------------------------- fused retrieval path
     def _csr_for(self, st: Optional[S.ArenaState] = None):

@@ -1,19 +1,25 @@
 """MemorySystem: the orchestrator of the PyTorch/CUDA port.
 
-Counterpart of ``lazzaro_tpu/core/memory_system.py`` with classic ingest
-(``ingest_fused=False, ingest_dedup_fused=False``). Serving is fused by
+Counterpart of ``lazzaro_tpu/core/memory_system.py``. Serving is fused by
 default (``serve_fused=True``): a chat turn or a ``search_memories[_batch]``
 call goes through the ``QueryScheduler`` to
 ``MemoryIndex.search_fused_requests``, one launch of the two-tier top-k
 kernel (super-node gate + ANN) with the neighbor and access boosts applied
 on the device, and one packed readback. With ``serve_fused=False`` a chat
 turn runs the gate and the ANN search as two launches of the masked top-k
-kernel and pays the boosts as separate scatters. A conversation end
-extracts facts, probes them for duplicates with one batched top-1 search,
-adds the new ones, links them (same-shard and any-shard scans) and decays,
-prunes and evicts. With ``mesh`` the arena is row-sharded over the mesh's
-devices (``core.index``): every scan runs per shard and a merge kernel
-combines the shards' candidates.
+kernel and pays the boosts as separate scatters. Ingest is fused by default
+too (``ingest_fused=True, ingest_dedup_fused=True``): a conversation end
+extracts facts and hands each mega-batch of them to
+``MemoryIndex.ingest_batch_dedup``, ONE device dispatch (the ingest scan
+kernel's dedup probe and link lists, the resolve kernel, node scatter, merge
+touch, chain and gated link edges) and ONE packed readback, then decays,
+prunes and evicts. The classic ingest (both flags off) probes the facts with
+one batched top-1 search, adds the new ones and links them with a second
+scan; ``ingest_fused`` alone fuses everything but the probe. With ``mesh``
+the arena is row-sharded over the mesh's devices (``core.index``): every
+scan runs per shard and a merge kernel combines the shards' candidates; the
+fused ingest under a mesh is not ported yet, so a mesh takes the classic
+flags.
 
 State lives in memory only in this slice: there is no store, no turn or
 fact journal and no snapshot. ``switch_user`` keeps each tenant's host graph
@@ -49,6 +55,7 @@ from lazzaro_tpu_torch.utils.telemetry import Telemetry
 _logger = logging.getLogger("lazzaro_tpu_torch.memory_system")
 
 _STORE_ITEM = "Queue 1 item 7, persistent store"
+_SHARDED_INGEST_ITEM = "Queue 1 item 21, sharded fused ingest"
 _CHECKPOINT_ITEM = "Queue 1 item 11, MemorySystem remainder and checkpoints"
 
 
@@ -136,6 +143,11 @@ class MemorySystem:
         self.verbose = verbose
 
         cfg.check_ported()
+        if mesh is not None and cfg.ingest_fused:
+            raise NotImplementedError(
+                "MemorySystem(mesh=...) with ingest_fused=True: not ported yet "
+                f"(ROADMAP {_SHARDED_INGEST_ITEM}); pass ingest_fused=False, "
+                "ingest_dedup_fused=False for the classic ingest")
         if store is not None:
             raise NotImplementedError(
                 f"MemorySystem(store=...): not ported yet (ROADMAP {_STORE_ITEM})")
@@ -773,6 +785,12 @@ Return JSON: {"memories": [{"content": "...", "type": "semantic|episodic|procedu
                     continue
                 staged.append((mem, content, new_emb))
 
+            if (self.config.ingest_fused and self.config.ingest_dedup_fused
+                    and staged
+                    and all(e.size == self.embed_dim for _, _, e in staged)):
+                # The dedup probe rides inside the one fused dispatch.
+                return self._ingest_facts_dedup_fused(staged)
+
             probe: List[Tuple[Optional[str], float]] = [(None, 0.0)] * len(staged)
             probeable = [i for i, (_, _, e) in enumerate(staged)
                          if e.size == self.embed_dim]
@@ -842,6 +860,33 @@ Return JSON: {"memories": [{"content": "...", "type": "semantic|episodic|procedu
 
             arena_new = [(n, e) for n, e in zip(created, created_embs)
                          if e.size == self.embed_dim]
+            chain_edges = self._chain_edges(new_nodes)
+            if self.config.ingest_fused and arena_new:
+                # Node scatter, merge touch, both link scans and the gated
+                # edge insert in one dispatch; the host registers the edges.
+                arena_ids = {n.id for n, _ in arena_new}
+                _rows, _cands, created_links = self.index.ingest_batch(
+                    ids=[self._q(n.id) for n, _ in arena_new],
+                    embeddings=np.stack([e for _, e in arena_new]),
+                    saliences=[n.salience for n, _ in arena_new],
+                    timestamps=[n.timestamp for n, _ in arena_new],
+                    types=[n.type for n, _ in arena_new],
+                    shard_keys=[n.shard_key or "default" for n, _ in arena_new],
+                    tenant=self.user_id,
+                    is_super=[n.is_super_node for n, _ in arena_new],
+                    merge_ids=[self._q(i) for i in merge_ids],
+                    merge_saliences=merge_sals,
+                    chain_pairs=[(self._q(e.source), self._q(e.target))
+                                 for e in chain_edges if e.source in arena_ids
+                                 and e.target in arena_ids],
+                    chain_weight=self.config.chain_link_weight,
+                    link_k=self.config.cross_link_top_k,
+                    link_gate=self.config.link_gate,
+                    link_scale=self.config.link_weight_scale,
+                    shard_modes=(1, 0),
+                    link_accept_hint=self.config.link_accept_hint)
+                self._register_created(chain_edges, created_links)
+                return new_nodes
             if arena_new:
                 self.index.add(
                     [self._q(n.id) for n, _ in arena_new],
@@ -860,9 +905,80 @@ Return JSON: {"memories": [{"content": "...", "type": "semantic|episodic|procedu
                 [self._q(n) for n, _ in new_nodes], self.user_id,
                 k=self.config.cross_link_top_k,
                 shard_modes=(1, 0)) if new_nodes else {1: {}, 0: {}}
-            self._link_within_shards(new_nodes, link_cands[1],
-                                     chain=self._chain_edges(new_nodes))
+            self._link_within_shards(new_nodes, link_cands[1], chain=chain_edges)
             self._link_to_existing_memories(new_nodes, link_cands[0])
+        return new_nodes
+
+    def _register_created(self, chain_edges: List[Edge], created: Dict) -> None:
+        """Host bookkeeping of the edges a fused dispatch already inserted
+        on the device (shard placement, ``Edge`` objects): the chain edges,
+        then the same-shard and any-shard links."""
+        sim_edges = [Edge(source=s.partition(":")[2],
+                          target=t.partition(":")[2], weight=w)
+                     for sm in (1, 0) for s, t, w in created.get(sm, [])]
+        self._register_edges_host(chain_edges + sim_edges)
+        n_cross = len(created.get(0, []))
+        if n_cross:
+            self._log(f"✓ Created {n_cross} cross-conversation links")
+
+    def _ingest_facts_dedup_fused(
+            self, staged: List[Tuple[Dict, str, np.ndarray]]
+    ) -> List[Tuple[str, str]]:
+        """Device-dedup mega-batch ingest (caller holds ``self._mutex``;
+        ``lazzaro_tpu/core/memory_system.py:_ingest_facts_dedup_fused_one``,
+        no planner split): the dedup probe, node scatter, merge touch, chain
+        edges, link scan and gated edge insert run as ONE dispatch
+        (``MemoryIndex.ingest_batch_dedup``) with ONE packed readback; the
+        host then names the surviving facts (the id counter advances as on
+        the classic path), mirrors the merges and registers the edges."""
+        cfg = self.config
+        now = time.time()
+        shard_keys: List[str] = []
+        for mem, content, _ in staged:
+            sk = mem.get("topic") or self._infer_shard_key(content)
+            if sk == "other":
+                sk = self._infer_shard_key(content)
+            shard_keys.append(sk)
+        saliences = [float(m.get("salience", 0.5)) for m, _, _ in staged]
+        types = [m.get("type", "semantic") for m, _, _ in staged]
+        pending = self.index.ingest_batch_dedup(
+            np.stack([e for _, _, e in staged]).astype(np.float32), saliences,
+            [now] * len(staged), types, shard_keys, tenant=self.user_id,
+            dedup_gate=cfg.dedup_similarity, chain_weight=cfg.chain_link_weight,
+            link_k=cfg.cross_link_top_k, link_gate=cfg.link_gate,
+            link_scale=cfg.link_weight_scale, shard_modes=(1, 0), now=now,
+            link_accept_hint=cfg.link_accept_hint)
+        if pending is None:
+            return []
+        dup = pending["dup"]
+        ids = [None if dup[i] else self._q(self._generate_node_id())
+               for i in range(len(staged))]
+        _cands, created, merges, chains = self.index.commit_ingest_dedup(
+            pending, ids)
+        new_nodes: List[Tuple[str, str]] = []
+        for i, (_, content, _) in enumerate(staged):
+            if dup[i]:
+                continue
+            node = Node(id=ids[i].partition(":")[2], content=content,
+                        embedding=None,          # the arena owns the vector
+                        type=types[i], salience=saliences[i], timestamp=now,
+                        shard_key=shard_keys[i])
+            self._get_or_create_shard(shard_keys[i]).add_node(node)
+            new_nodes.append((node.id, shard_keys[i]))
+        # The device's merge touch, mirrored on the host copy.
+        for i, target_qid in merges:
+            tgt = (self.buffer.get_node(target_qid.partition(":")[2])
+                   if target_qid else None)
+            if tgt is None:
+                continue
+            tgt.salience = max(tgt.salience, saliences[i])
+            tgt.last_accessed = now
+            tgt.access_count += 1
+            self._log(f"   (Merged semantic duplicate into {tgt.id})")
+        chain_edges = [Edge(source=a.partition(":")[2],
+                            target=b.partition(":")[2],
+                            weight=cfg.chain_link_weight) for a, b in chains]
+        self._register_created(chain_edges, created)
         return new_nodes
 
     def _finish_consolidation(self, new_nodes: List[Tuple[str, str]],

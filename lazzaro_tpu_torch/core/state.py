@@ -36,8 +36,10 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from lazzaro_tpu_torch.ops.chunking import chunked_map, nt_dot
+from lazzaro_tpu_torch.ops.chunking import nt_dot
+from lazzaro_tpu_torch.ops.dedup_resolve import dedup_resolve
 from lazzaro_tpu_torch.ops.fused_topk import fused_topk, fused_topk_grouped
+from lazzaro_tpu_torch.ops.ingest_topk import ingest_topk
 from lazzaro_tpu_torch.ops.masked_topk import masked_topk
 from lazzaro_tpu_torch.ops.sharded_merge import sharded_merge
 from lazzaro_tpu_torch.ops.topk import shard_groups, stable_topk
@@ -218,11 +220,11 @@ def _arena_add(state: ArenaState, rows, emb, salience, timestamp, type_id,
     state.salience[r] = torch.as_tensor(salience, dtype=torch.float32, device=dev)
     state.timestamp[r] = ts
     state.last_accessed[r] = ts
-    state.access_count[r] = 0
+    state.access_count.index_fill_(0, r, 0)
     state.type_id[r] = torch.as_tensor(type_id, dtype=torch.int32, device=dev)
     state.shard_id[r] = torch.as_tensor(shard_id, dtype=torch.int32, device=dev)
     state.tenant_id[r] = torch.as_tensor(tenant_id, dtype=torch.int32, device=dev)
-    state.alive[r] = True
+    state.alive.index_fill_(0, r, True)
     state.is_super[r] = torch.as_tensor(is_super, dtype=torch.bool, device=dev)
     return state
 
@@ -352,9 +354,9 @@ def arena_link_candidates_multi(state: ArenaState, new_rows, excl_rows,
                                 shard_modes: Tuple[int, ...] = (1, 0)):
     """For each new row, the top-k most similar live non-super rows of the
     tenant (excluding ``excl_rows``) under each shard mode (0 any shard,
-    1 same shard, -1 other shards): one score matrix per query chunk,
-    re-masked per mode. Returns ``(scores, rows)`` pairs flattened in
-    ``shard_modes`` order."""
+    1 same shard, -1 other shards), every mode a mask over one scan of the
+    arena (:func:`_ingest_scan_core` without the probe). Returns ``(scores,
+    rows)`` pairs flattened in ``shard_modes`` order."""
     r = _rows(new_rows, state.emb.device)
     return arena_link_scan(state, state.emb[r], state.shard_id[r], excl_rows,
                            tenant, k, shard_modes)
@@ -367,28 +369,29 @@ def arena_link_scan(state: ArenaState, q_emb: torch.Tensor,
     (``q_emb [B, d]``, ``q_shard [B]`` their shard ids): under a mesh each
     shard scans its own rows for new rows that may live on another shard.
     ``excl_rows`` are rows of ``state``."""
-    dev = state.emb.device
-    lmask = state.alive & (state.tenant_id == int(tenant)) & ~state.is_super
     excl = torch.zeros_like(state.alive)
-    excl[_rows(excl_rows, dev)] = True
-    mask = lmask & ~excl
-    emb = state.emb.float()
-    neg = _f32(NEG_INF, dev)
+    excl[_rows(excl_rows, state.emb.device)] = True
+    return _ingest_scan_core(state, q_emb, q_shard, torch.zeros_like(excl),
+                             excl, int(tenant), k, shard_modes,
+                             with_probe=False)
 
-    def chunk(idx):
-        scores = nt_dot(q_emb[idx], emb)
-        same = None
-        outs = []
-        for sm in shard_modes:
-            full_mask = mask[None, :]
-            if sm != 0:
-                if same is None:
-                    same = q_shard[idx][:, None] == state.shard_id[None, :]
-                full_mask = full_mask & (same if sm == 1 else ~same)
-            outs.extend(stable_topk(torch.where(full_mask, scores, neg), k))
-        return tuple(outs)
 
-    return chunked_map(chunk, torch.arange(q_emb.shape[0], device=dev))
+def _ingest_scan_core(state: ArenaState, qd: torch.Tensor,
+                      q_shard: torch.Tensor, probe_excl: torch.Tensor,
+                      link_excl: torch.Tensor, tenant: int, k: int,
+                      shard_modes: Tuple[int, ...], with_probe: bool = True):
+    """The whole-arena ingest scan (``state.py:_ingest_scan_core``): the
+    dedup-probe top-1 over the tenant's live non-super rows less
+    ``probe_excl`` and, per shard mode, the link top-k over those less
+    ``link_excl``, from one pass over the arena (``ops.ingest_topk``, the
+    Hopper kernel on a CUDA arena). ``qd [B, d]`` is each fact's normalized
+    embedding in the arena dtype (the bytes the node scatter stores). Returns
+    the flat tuple ``(p_s [B, 1], p_r [B, 1], s_mode, r_mode, ...)``, rows
+    i32; ``with_probe=False`` leaves out the probe pair."""
+    return ingest_topk(state.emb, state.alive, state.tenant_id, state.is_super,
+                       state.shard_id, probe_excl, link_excl,
+                       qd.to(state.emb.dtype), q_shard, int(tenant), k,
+                       shard_modes, with_probe)
 
 
 def best_earlier_match(m: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -456,7 +459,7 @@ def _edges_add(state: EdgeState, slots, src, tgt, weight, co, now, tenant,
     state.co[s] = torch.as_tensor(co, dtype=torch.int32, device=dev)
     state.last_updated[s] = _f32(now, dev)
     state.alive[s] = torch.as_tensor(live, dtype=torch.bool, device=dev)
-    state.tenant_id[s] = int(tenant)
+    state.tenant_id.index_fill_(0, s, int(tenant))
     return state
 
 
@@ -519,6 +522,188 @@ def _edges_delete_for_nodes(state: EdgeState, node_rows) -> EdgeState:
     r = torch.as_tensor(node_rows, device=state.src.device).int()
     state.alive &= ~(torch.isin(state.src, r) | torch.isin(state.tgt, r))
     return state
+
+
+# ---------------------------------------------------------------------------
+# Fused ingest: a conversation's (or a mega-batch's) whole mutation sequence
+# as one run of device work with one packed readback
+# (``state.py:_ingest_fused`` / ``_ingest_dedup_fused``, dense arena; the
+# int8 shadow, IVF, PQ and paged arguments are not ported). The scan is the
+# ingest kernel (ops.ingest_topk), the resolve the dedup kernel
+# (ops.dedup_resolve); the rest is plain torch on the device, no step reads
+# a device value back to the host, and the state is updated in place.
+# ---------------------------------------------------------------------------
+
+
+def _dedup_resolve(qf: torch.Tensor, rows: torch.Tensor, valid: torch.Tensor,
+                   chain_gid: torch.Tensor, p_s: torch.Tensor,
+                   p_r: torch.Tensor, dedup_gate: float, cap: int):
+    """Duplicate resolution of a fact batch (``state.py:_dedup_resolve``):
+    the intra-batch gram ``qf @ qf.T`` (f32, no TF32) picks each fact's best
+    EARLIER valid fact (sentinel padding rows share one unit vector and
+    never match: ``NEG_INF`` elsewhere, the first column on ties), then the
+    sequential scan (``ops.dedup_resolve``) blends it with the pre-add probe
+    ``(p_s, p_r)``, chains targets and finds each live fact's chain
+    predecessor. Returns ``(target [B] i32, dup [B] bool, chain_src [B]
+    i32)``."""
+    b = rows.shape[0]
+    gram = nt_dot(qf, qf)
+    earlier = torch.ones((b, b), dtype=torch.bool, device=qf.device).tril(-1)
+    gram.masked_fill_(~(earlier & valid[None, :]), NEG_INF)
+    g_j = torch.argmax(gram, dim=1)
+    g_s = torch.gather(gram, 1, g_j[:, None])[:, 0]
+    return dedup_resolve(g_s, g_j, p_s, p_r, valid, rows, chain_gid,
+                         dedup_gate, cap)
+
+
+def _gated_link_insert(edges: EdgeState, link_flat, link_pool: torch.Tensor,
+                       pool_len: torch.Tensor, src_rows: torch.Tensor,
+                       valid_q: torch.Tensor, now, tenant: int, link_gate,
+                       link_scale, shard_modes):
+    """Device-gated similarity-edge insert with prefix-sum slot compaction
+    (``state.py:_gated_link_insert``): per shard mode the gate verdict (score
+    > ``link_gate``, a valid source, not already inserted by an earlier
+    mode), then every accepted edge of every mode packed into the head of
+    the slot pool ``link_pool [P + 1]`` (last entry: the sentinel slot) by a
+    cumulative sum, and one :func:`_edges_add`. An accepted edge past
+    ``pool_len`` (a 0-d i32 tensor: the real slots at the pool's head)
+    writes the sentinel slot and keeps its true position. Returns ``(edges,
+    outs)``: per mode ``(scores, cands, pos)`` (``pos`` -1 where rejected),
+    then the overflow flag, the accepted count and the pool slots used,
+    each broadcast to ``[B, k]``."""
+    pool_cap = link_pool.shape[0] - 1
+    per_mode, prior = [], []
+    for mi in range(len(shard_modes)):
+        scores, cand = link_flat[2 * mi], link_flat[2 * mi + 1]
+        live = (scores > link_gate) & valid_q[:, None]
+        for p_cand, p_live in prior:
+            # an (src, cand) pair an earlier mode already inserted must not
+            # become a second live edge (every same-shard candidate is also
+            # an any-shard one)
+            dup = ((cand[:, :, None] == p_cand[:, None, :])
+                   & p_live[:, None, :]).any(-1)
+            live = live & ~dup
+        prior.append((cand, live))
+        per_mode.append((scores, cand, live))
+    live_all = torch.cat([lv.reshape(-1) for _, _, lv in per_mode])
+    pos_all = torch.cumsum(live_all.int(), 0, dtype=torch.int32) - 1
+    room = torch.clamp(pool_len, max=pool_cap)
+    ok = live_all & (pos_all < room)
+    slots = link_pool[torch.where(ok, torch.clamp(pos_all, max=pool_cap - 1),
+                                  pool_cap).long()]
+    overflow = (live_all & ~ok).any()
+    src_all = torch.cat([src_rows[:, None].expand(c.shape).reshape(-1)
+                         for _, c, _ in per_mode])
+    cand_all = torch.cat([c.reshape(-1) for _, c, _ in per_mode])
+    w_all = torch.cat([(s * link_scale).reshape(-1) for s, _, _ in per_mode])
+    _edges_add(edges, slots, src_all, cand_all, w_all,
+               torch.ones_like(cand_all, dtype=torch.int32), now, tenant, ok)
+    outs = []
+    off = 0
+    for scores, cand, live in per_mode:
+        m = live.numel()
+        pos_m = torch.where(live.reshape(-1), pos_all[off:off + m],
+                            -1).reshape(live.shape)
+        outs.extend((scores, cand, pos_m))
+        off += m
+    leaf = per_mode[0][2].shape
+    accepted = live_all.sum(dtype=torch.int32)
+    pool_used = torch.minimum(accepted, room)
+    outs.extend(x.expand(leaf) for x in (overflow.int(), accepted, pool_used))
+    return edges, tuple(outs)
+
+
+def ingest_fused(arena: ArenaState, edges: EdgeState, rows, emb, salience,
+                 timestamp, type_id, shard_id, tenant_id, is_super, touch_rows,
+                 touch_sal, chain_slots, chain_src, chain_tgt, chain_w,
+                 link_pool, pool_len, now, tenant: int, link_gate, link_scale,
+                 k: int, shard_modes: Tuple[int, ...] = (1, 0)):
+    """The per-conversation ingest sequence (``state.py:_ingest_fused``):
+    node scatter, merge touch, the link scan of the new rows (the batch's
+    rows excluded), the chain edges and the gated link insert, in place.
+    Every argument but ``tenant`` (a host int) and the statics is device
+    data: ``rows [B]`` sentinel-padded, ``emb [B, d]``, the ``[B]`` columns,
+    ``touch_rows/touch_sal [M]``, the chain ``[C]`` columns (``chain_src``
+    -1 on padding), ``link_pool [P + 1]``, ``pool_len`` and the 0-d scalars.
+    Returns ``(arena, edges, outs)``, ``outs`` as :func:`_gated_link_insert`
+    gives them."""
+    valid_q = rows < arena.capacity        # sentinel padding makes no edges
+    _arena_add(arena, rows, emb, salience, timestamp, type_id, shard_id,
+               tenant_id, is_super)
+    _arena_merge_touch(arena, touch_rows, touch_sal, now)
+    link_flat = arena_link_candidates_multi(arena, rows, rows, tenant, k,
+                                            shard_modes)
+    _edges_add(edges, chain_slots, chain_src, chain_tgt, chain_w,
+               torch.ones_like(chain_src), now, tenant, chain_src >= 0)
+    edges, outs = _gated_link_insert(edges, link_flat, link_pool, pool_len,
+                                     rows, valid_q, now, tenant, link_gate,
+                                     link_scale, shard_modes)
+    return arena, edges, outs
+
+
+def ingest_dedup_fused(arena: ArenaState, edges: EdgeState, rows, emb,
+                       salience, timestamp, type_id, shard_id, tenant_id,
+                       is_super, chain_gid, chain_slots, link_pool, pool_len,
+                       now, tenant: int, dedup_gate: float, chain_w,
+                       link_gate, link_scale, k: int,
+                       shard_modes: Tuple[int, ...] = (1, 0)):
+    """:func:`ingest_fused` with the dedup probe inside
+    (``state.py:_ingest_dedup_fused``): one ingest scan of the PRE-add arena
+    gives each fact's probe top-1 (sentinel row excluded) and its link
+    candidates (the batch's rows excluded, so the pre-add scan is the
+    post-add one), the resolve decides duplicates against the probe and the
+    intra-batch gram, duplicate facts scatter to the sentinel row while
+    their targets take the merge touch, and chain edges link consecutive
+    LIVE facts of each shard group ``chain_gid [B]`` (-1 padding) through
+    ``chain_slots [B]``. ``dedup_gate`` is a host float (> 1 disables
+    dedup). Returns ``(arena, edges, outs)``: ``(dup, target, chain_src)``
+    broadcast to ``[B, k]``, then the outputs of
+    :func:`_gated_link_insert`."""
+    cap = arena.capacity
+    b = rows.shape[0]
+    dev = arena.emb.device
+    valid = rows < cap
+    qf = normalize(emb.float())            # f32: the intra-batch gram
+    qd = qf.to(arena.emb.dtype)            # arena dtype: the probe
+    probe_excl = torch.arange(cap + 1, device=dev) == cap
+    link_excl = probe_excl.index_fill(0, rows.long(), True)
+    flat = _ingest_scan_core(arena, qd, shard_id, probe_excl, link_excl,
+                             tenant, k, shard_modes)
+    p_s, p_r = flat[0][:, 0], flat[1][:, 0]
+    target, dup, chain_src = _dedup_resolve(qf, rows, valid, chain_gid, p_s,
+                                            p_r, dedup_gate, cap)
+    live_new = valid & ~dup
+    _arena_add(arena, torch.where(live_new, rows, cap), emb, salience,
+               timestamp, type_id, shard_id, tenant_id, is_super)
+    # The duplicates' scatter lands on the sentinel row (alive, their
+    # tenant): its tenant goes back to -1, so that no scan of a tenant
+    # lists it. (The JAX program leaves it there, where serving then lists
+    # it and the decode drops it: k - 1 results; ROADMAP Queue 3.)
+    arena.tenant_id[cap:].fill_(-1)
+    _arena_merge_touch(arena, torch.where(dup, target, cap), salience, now)
+    _edges_add(edges, chain_slots, chain_src, rows, chain_w.expand(b),
+               torch.ones_like(rows), now, tenant, chain_src >= 0)
+    edges, outs = _gated_link_insert(edges, flat[2:], link_pool, pool_len,
+                                     rows, live_new, now, tenant, link_gate,
+                                     link_scale, shard_modes)
+    wide = tuple(x[:, None].expand(b, k) for x in (dup.int(), target, chain_src))
+    return arena, edges, wide + outs
+
+
+def pack_leaves(leaves) -> torch.Tensor:
+    """Same-shape f32 and i32 leaves as one ``[L, ...]`` f32 tensor for ONE
+    device-to-host copy (``lazzaro_tpu/utils/batching.py:fetch_packed``):
+    int leaves are bit-cast, not converted; :func:`unpack_leaves` undoes
+    it."""
+    return torch.stack([x.contiguous() if x.dtype == torch.float32
+                        else _bitcast(x) for x in leaves])
+
+
+def unpack_leaves(host: np.ndarray, is_float) -> List[np.ndarray]:
+    """The host leaves of a :func:`pack_leaves` array, int ones viewed back
+    as i32 (``is_float[i]`` says which were floats)."""
+    return [host[i] if f else host[i].view(np.int32)
+            for i, f in enumerate(is_float)]
 
 
 # ---------------------------------------------------------------------------

@@ -193,6 +193,99 @@ size_t stage1_smem(int bq, int k) {
   return b;
 }
 
+// The f32 sums of the BQ queries q0 .. against the kBR rows r0 .. of a tile
+// (rows past r_end and columns past d add zeros), register-tiled: thread
+// (tq, tr) of the (BQ/MQ) x (kThreads*MQ/BQ) grid keeps queries tq + i * TQ
+// against rows tr + j * TR. Slices of kDK dimensions are staged in qs and
+// rs by the whole block, in order, so a row's sum runs over d in order.
+template <typename T, int BQ, int MQ, int MR>
+__device__ __forceinline__ void fma_tile(float (&acc)[MQ][MR], float* qs, float* rs,
+                                         const T* __restrict__ qry, const T* __restrict__ emb,
+                                         int q0, int nq, long long r0, long long r_end, int d) {
+  constexpr int TQ = BQ / MQ;
+  constexpr int TR = kThreads / TQ;
+  const int tid = threadIdx.x;
+  const int tq = tid / TR;
+  const int tr = tid % TR;
+#pragma unroll
+  for (int i = 0; i < MQ; ++i)
+#pragma unroll
+    for (int j = 0; j < MR; ++j) acc[i][j] = 0.f;
+
+  for (int d0 = 0; d0 < d; d0 += kDK) {
+    // Stage the slice: groups of 8 elements, kDK/8 groups per row.
+    for (int g = tid; g < (BQ + kBR) * (kDK / 8); g += kThreads) {
+      const int row = g / (kDK / 8);
+      const int col = (g % (kDK / 8)) * 8;
+      float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      float* dst;
+      if (row < BQ) {
+        const int q = q0 + row;
+        if (q < nq && d0 + col < d) load8(qry + (long long)q * d + d0 + col, v);
+        dst = qs + row * kLD + col;
+      } else {
+        const long long r = r0 + (row - BQ);
+        if (r < r_end && d0 + col < d) load8(emb + r * d + d0 + col, v);
+        dst = rs + (row - BQ) * kLD + col;
+      }
+#pragma unroll
+      for (int e = 0; e < 8; ++e) dst[e] = v[e];
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int kk = 0; kk < kDK; ++kk) {
+      float a[MQ], b[MR];
+#pragma unroll
+      for (int i = 0; i < MQ; ++i) a[i] = qs[(tq + i * TQ) * kLD + kk];
+#pragma unroll
+      for (int j = 0; j < MR; ++j) b[j] = rs[(tr + j * TR) * kLD + kk];
+#pragma unroll
+      for (int i = 0; i < MQ; ++i)
+#pragma unroll
+        for (int j = 0; j < MR; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+}
+
+// The whole warp inserts the candidates of its 32 lanes (lane l: score s,
+// row row0 + l, where ok) into one query's sorted list (lsq, lrq) of k
+// entries, in lane order: each candidate that beats the list's last goes
+// after every entry scoring >= it. Rows reach a list in ascending order, so
+// equal scores keep the lower row first.
+__device__ __forceinline__ void warp_list_insert(float* lsq, int* lrq, int k, float s,
+                                                 int row0, bool ok) {
+  const int lane = threadIdx.x & 31;
+  unsigned hits = __ballot_sync(kFull, ok && s > lsq[k - 1]);
+  while (hits) {
+    const int src = __ffs(hits) - 1;
+    hits &= hits - 1;
+    const float sn = __shfl_sync(kFull, s, src);
+    if (!(sn > lsq[k - 1])) continue;      // the list moved on
+    // Position: after every entry scoring >= sn (all have lower rows).
+    int cnt = 0;
+    for (int e = lane; e < k; e += 32) cnt += lsq[e] >= sn;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) cnt += __shfl_xor_sync(kFull, cnt, o);
+    float vs[kMaxK / 32];
+    int vr[kMaxK / 32];
+#pragma unroll
+    for (int m = 0; m < kMaxK / 32; ++m) {
+      const int e = cnt + lane + 32 * m;
+      if (e < k - 1) { vs[m] = lsq[e]; vr[m] = lrq[e]; }
+    }
+    __syncwarp();
+#pragma unroll
+    for (int m = 0; m < kMaxK / 32; ++m) {
+      const int e = cnt + lane + 32 * m;
+      if (e < k - 1) { lsq[e + 1] = vs[m]; lrq[e + 1] = vr[m]; }
+    }
+    __syncwarp();
+    if (lane == 0) { lsq[cnt] = sn; lrq[cnt] = row0 + src; }
+    __syncwarp();
+  }
+}
+
 // T: uint16_t (bf16 bits) or float. BQ queries per block, MQ x MR outputs per
 // thread; the thread grid is (BQ/MQ) x (kThreads*MQ/BQ) and covers kBR rows.
 // Additive mode reads madd; keyed mode reads alive, row_tenant, is_super and
@@ -262,45 +355,7 @@ scan_stage1(const ShardTable t, const T* __restrict__ qry,
       }
     }
     float acc[MQ][MR];
-#pragma unroll
-    for (int i = 0; i < MQ; ++i)
-#pragma unroll
-      for (int j = 0; j < MR; ++j) acc[i][j] = 0.f;
-
-    for (int d0 = 0; d0 < d; d0 += kDK) {
-      // Stage the slice: groups of 8 elements, kDK/8 groups per row.
-      for (int g = tid; g < (BQ + kBR) * (kDK / 8); g += kThreads) {
-        const int row = g / (kDK / 8);
-        const int col = (g % (kDK / 8)) * 8;
-        float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-        float* dst;
-        if (row < BQ) {
-          const int q = q0 + row;
-          if (q < nq && d0 + col < d) load8(qry + (long long)q * d + d0 + col, v);
-          dst = qs + row * kLD + col;
-        } else {
-          const long long r = r0 + (row - BQ);
-          if (r < r_end && d0 + col < d) load8(emb + r * d + d0 + col, v);
-          dst = rs + (row - BQ) * kLD + col;
-        }
-#pragma unroll
-        for (int e = 0; e < 8; ++e) dst[e] = v[e];
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int kk = 0; kk < kDK; ++kk) {
-        float a[MQ], b[MR];
-#pragma unroll
-        for (int i = 0; i < MQ; ++i) a[i] = qs[(tq + i * TQ) * kLD + kk];
-#pragma unroll
-        for (int j = 0; j < MR; ++j) b[j] = rs[(tr + j * TR) * kLD + kk];
-#pragma unroll
-        for (int i = 0; i < MQ; ++i)
-#pragma unroll
-          for (int j = 0; j < MR; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
+    fma_tile<T, BQ, MQ, MR>(acc, qs, rs, qry, emb, q0, nq, r0, r_end, d);
 
     // Scores of the tile: additive mode adds the mask here, keyed mode
     // masks per query below. Rows past the range are never candidates.
@@ -359,34 +414,7 @@ scan_stage1(const ShardTable t, const T* __restrict__ qry,
           if (!(rkey[c + lane] == ten && !rsup[c + lane])) s = kNeg;
         }
         const bool after = s < ts || (s == ts && rg > ta);
-        unsigned hits = __ballot_sync(kFull, r < r_end && after && s > lsq[k - 1]);
-        while (hits) {
-          const int src = __ffs(hits) - 1;
-          hits &= hits - 1;
-          const float sn = __shfl_sync(kFull, s, src);
-          if (!(sn > lsq[k - 1])) continue;      // the list moved on
-          // Position: after every entry scoring >= sn (all have lower rows).
-          int cnt = 0;
-          for (int e = lane; e < k; e += 32) cnt += lsq[e] >= sn;
-#pragma unroll
-          for (int o = 16; o > 0; o >>= 1) cnt += __shfl_xor_sync(kFull, cnt, o);
-          float vs[kMaxK / 32];
-          int vr[kMaxK / 32];
-#pragma unroll
-          for (int m = 0; m < kMaxK / 32; ++m) {
-            const int e = cnt + lane + 32 * m;
-            if (e < k - 1) { vs[m] = lsq[e]; vr[m] = lrq[e]; }
-          }
-          __syncwarp();
-#pragma unroll
-          for (int m = 0; m < kMaxK / 32; ++m) {
-            const int e = cnt + lane + 32 * m;
-            if (e < k - 1) { lsq[e + 1] = vs[m]; lrq[e + 1] = vr[m]; }
-          }
-          __syncwarp();
-          if (lane == 0) { lsq[cnt] = sn; lrq[cnt] = base + (int)(r0 + c + src); }
-          __syncwarp();
-        }
+        warp_list_insert(lsq, lrq, k, s, base + (int)(r0 + c), r < r_end && after);
       }
     }
     __syncthreads();
@@ -848,13 +876,72 @@ __device__ __forceinline__ float gate_score(float acc, uint32_t cb, uint32_t cc,
   return (int)cb == ten ? acc + 0.0f : __uint_as_float(cc);
 }
 
+// The producer of a tensor-core stage 1: one thread keeps TMA loads of
+// (query panel, arena panel) pairs, 64 columns each, for `tiles` tiles of
+// BN rows from r_begin, in a ring of ns stages. Item j uses stage j % ns;
+// its full barrier waits for completion j / ns, the producer's empty wait
+// for completion j / ns - 1 (hopper::Ring with a stage count known at
+// launch).
+template <int WGS, int BN>
+__device__ __forceinline__ void wg_produce(const CUtensorMap* map_q, const CUtensorMap* map_e,
+                                           uint8_t* ring, uint64_t* full, uint64_t* empty,
+                                           int ns, int tiles, int panels, int q0,
+                                           long long r_begin) {
+  constexpr int QB = WGS * 64 * kRowBytes;   // query panel of a stage
+  constexpr int STAGE = QB + BN * kRowBytes;
+  const int items = tiles * panels;
+  for (int j = 0; j < items; ++j) {
+    const int s = j % ns, t = j / panels, p = j - t * panels;
+    if (j >= ns) hopper::mbar_wait(empty + s, ((j / ns) - 1) & 1);
+    hopper::mbar_arrive_expect_tx(full + s, STAGE);
+    uint8_t* st = ring + s * STAGE;
+    hopper::tma_load_4d(st, map_q, full + s, 64 * p, q0, 0, 0);
+    hopper::tma_load_4d(st + QB, map_e, full + s, 64 * p,
+                        (int)(r_begin + (long long)t * BN), 0, 0);
+  }
+}
+
+// Warpgroup wg's scores of tile t, S = Q.E^T over d as a chain of SS wgmma
+// m64nBNk16 into acc: panel p's four products go out behind panel p - 1's,
+// whose stage is released once they retire (wait<1>), the last after the
+// chain. tid is the thread's index in its warpgroup.
+template <int WGS, int BN>
+__device__ __forceinline__ void wg_product(float (&acc)[BN / 2], uint8_t* ring, uint64_t* full,
+                                           uint64_t* empty, int ns, int t, int panels, int wg,
+                                           int tid) {
+  constexpr int QB = WGS * 64 * kRowBytes;
+  constexpr int STAGE = QB + BN * kRowBytes;
+  const int j0 = t * panels;
+  for (int p = 0; p < panels; ++p) {
+    const int j = j0 + p, s = j % ns;
+    hopper::mbar_wait(full + s, (j / ns) & 1);
+    const uint8_t* qs = ring + s * STAGE + wg * 64 * kRowBytes;
+    const uint8_t* es = ring + s * STAGE + QB;
+    hopper::fence_regs(acc);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t da = hopper::sw128_desc(qs + 32 * kk, 16, 1024);
+      const uint64_t db = hopper::sw128_desc(es + 32 * kk, 16, 1024);
+      if constexpr (BN == 128) hopper::wgmma_ss_m64n128k16(acc, da, db, p > 0 || kk > 0);
+      if constexpr (BN == 256) hopper::wgmma_ss_m64n256k16(acc, da, db, p > 0 || kk > 0);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<1>();
+    hopper::fence_regs(acc);
+    if (p > 0 && tid == 0) hopper::mbar_arrive(empty + (j - 1) % ns);
+  }
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(acc);
+  if (tid == 0) hopper::mbar_arrive(empty + (j0 + panels - 1) % ns);
+}
+
 // Stage 1 on the tensor cores. Block (x, y) scores queries x * 64 WGS ..
 // + 64 WGS - 1 (warpgroup w takes 64 of them) against the rows of split y,
-// in tiles of BN rows. Warpgroup WGS produces: one thread keeps TMA loads
-// of (query panel, arena panel) pairs, 64 columns each, in a ring of NS
-// stages; the consumers run S = Q.E^T as wgmma m64nBNk16 with both operands
-// in 128-byte swizzled shared memory and the f32 sums in registers, then
-// fold the tile into their queries' results (see the header note).
+// in tiles of BN rows. Warpgroup WGS produces (wg_produce); the consumers
+// run S = Q.E^T (wg_product) with both operands in 128-byte swizzled shared
+// memory and the f32 sums in registers, then fold the tile into their
+// queries' results (see the header note).
 // The arena tensor map of each shard entry.
 struct MapTable {
   CUtensorMap e[kMaxShards];
@@ -864,12 +951,9 @@ template <int WGS, int BN, bool kList, bool kKeyed>
 __global__ void __launch_bounds__((WGS + 1) * 128, 1)
 scan_stage1_wgmma(const __grid_constant__ MapTable maps,
                   const __grid_constant__ CUtensorMap map_q, const WgArgs<kKeyed> a) {
-  // Ring of a.ns stages: item j uses stage j % ns; its full barrier waits
-  // for completion j / ns, the producer's empty wait for completion
-  // j / ns - 1 (hopper::Ring with a stage count known at launch).
+  // Ring of a.ns stages (wg_produce).
   const int NS = a.ns;
-  constexpr int QB = WGS * 64 * kRowBytes;   // query panel of a stage
-  constexpr int STAGE = QB + BN * kRowBytes;
+  constexpr int STAGE = WGS * 64 * kRowBytes + BN * kRowBytes;
   constexpr int NF = BN / 2;                 // accumulator registers a thread
   constexpr int CPT = BN / 128;              // row columns a thread stages
   extern __shared__ uint8_t smem_raw[];
@@ -907,18 +991,8 @@ scan_stage1_wgmma(const __grid_constant__ MapTable maps,
   if (wg == WGS) {
     // ---- producer: one thread issues every load
     if constexpr (WGS == 2) hopper::regs_shrink<24>();
-    if (threadIdx.x == WGS * 128) {
-      const int items = tiles * a.panels;
-      for (int j = 0; j < items; ++j) {
-        const int s = j % NS, t = j / a.panels, p = j - t * a.panels;
-        if (j >= NS) hopper::mbar_wait(empty + s, ((j / NS) - 1) & 1);
-        hopper::mbar_arrive_expect_tx(full + s, STAGE);
-        uint8_t* st = ring + s * STAGE;
-        hopper::tma_load_4d(st, &map_q, full + s, 64 * p, q0, 0, 0);
-        hopper::tma_load_4d(st + QB, map_e, full + s, 64 * p,
-                            (int)(r_begin + (long long)t * BN), 0, 0);
-      }
-    }
+    if (threadIdx.x == WGS * 128)
+      wg_produce<WGS, BN>(&map_q, map_e, ring, full, empty, NS, tiles, a.panels, q0, r_begin);
     return;
   }
 
@@ -986,32 +1060,7 @@ scan_stage1_wgmma(const __grid_constant__ MapTable maps,
         cb[u] = cc[u] = 0u;
       }
     }
-    // Panel p's four products go out behind panel p - 1's; panel p - 1's
-    // stage is released once they retire (wait<1>), the last after the
-    // loop.
-    const int j0 = t * a.panels;
-    for (int p = 0; p < a.panels; ++p) {
-      const int j = j0 + p, s = j % NS;
-      hopper::mbar_wait(full + s, (j / NS) & 1);
-      const uint8_t* qs = ring + s * STAGE + wg * 64 * kRowBytes;
-      const uint8_t* es = ring + s * STAGE + QB;
-      hopper::fence_regs(acc);
-      hopper::wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const uint64_t da = hopper::sw128_desc(qs + 32 * kk, 16, 1024);
-        const uint64_t db = hopper::sw128_desc(es + 32 * kk, 16, 1024);
-        if constexpr (BN == 128) hopper::wgmma_ss_m64n128k16(acc, da, db, p > 0 || kk > 0);
-        if constexpr (BN == 256) hopper::wgmma_ss_m64n256k16(acc, da, db, p > 0 || kk > 0);
-      }
-      hopper::wgmma_commit();
-      hopper::wgmma_wait<1>();
-      hopper::fence_regs(acc);
-      if (p > 0 && tid == 0) hopper::mbar_arrive(empty + (j - 1) % NS);
-    }
-    hopper::wgmma_wait<0>();
-    hopper::fence_regs(acc);
-    if (tid == 0) hopper::mbar_arrive(empty + (j0 + a.panels - 1) % NS);
+    wg_product<WGS, BN>(acc, ring, full, empty, NS, t, a.panels, wg, tid);
     // Buffer t % 2 was last read in tile t - 2's epilogue, which every
     // thread finished before tile t - 1's barrier.
     uint32_t* colA = wcols + (t & 1) * 3 * BN;
@@ -1192,17 +1241,14 @@ cudaError_t launch_stage1_wgmma(int shards, const void* qry, int d,
   return cudaGetLastError();
 }
 
-// Splits of each of `shards` entries of n rows on the tensor-core route: the
+// Splits of each of `shards` entries on the tensor-core route, for
+// `qtiles` query tiles over all entries and `rtiles` row tiles an entry: the
 // count whose blocks fill whole waves of one block per SM best (ties to the
-// fewest), from the first pass's shape; within one wave when every entry
-// has a single query tile (more waves of equal fill only add block
-// prologues and lists to merge). Blocks of one split read the same rows in
-// the same order, and the grid launches query tiles fastest, so a wave
-// shares its arena panels in L2.
-int wg_splits(long long n, int shards, int nq, int kmax, int sms) {
-  const WgShape sh = wg_shape(nq, kmax < kMaxK ? kmax : kMaxK);
-  const long long qtiles = (nq + sh.wgs * 64 - 1) / (sh.wgs * 64) * shards;
-  const long long rtiles = (n + sh.bn - 1) / sh.bn;
+// fewest); within one wave when every entry has a single query tile (more
+// waves of equal fill only add block prologues and lists to merge). Blocks
+// of one split read the same rows in the same order, and the grid launches
+// query tiles fastest, so a wave shares its arena panels in L2.
+int wave_splits(long long qtiles, long long rtiles, int shards, int sms) {
   long long cap = kMaxSplits / shards;
   if (qtiles == shards && shards <= sms && sms / shards < cap) cap = sms / shards;
   const long long top = rtiles < cap ? rtiles : cap;
@@ -1218,6 +1264,14 @@ int wg_splits(long long n, int shards, int nq, int kmax, int sms) {
     }
   }
   return best;
+}
+
+// wave_splits for an additive or keyed scan of n rows an entry, from the
+// first pass's shape.
+int wg_splits(long long n, int shards, int nq, int kmax, int sms) {
+  const WgShape sh = wg_shape(nq, kmax < kMaxK ? kmax : kMaxK);
+  return wave_splits((nq + sh.wgs * 64 - 1) / (sh.wgs * 64) * shards,
+                     (n + sh.bn - 1) / sh.bn, shards, sms);
 }
 
 // ---------------------------------------------------------------------------
@@ -1895,6 +1949,537 @@ int run_scan(const Scan<kKeyed>& a, int route, int* launched, cudaStream_t st) {
         a.gate_cs, a.gate_cr, a.cand_s, a.cand_r, a.shards * a.splits, a.nq, kc, k0,
         a.kmax, a.k_q, a.tail_row, a.mask_dead, kKeyed && k0 == 0, a.gate_s, a.gate_r,
         a.out_s, a.out_r, a.k_out);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    if (launched) ++*launched;
+  }
+  return 0;
+}
+
+
+// ---------------------------------------------------------------------------
+// Ingest mode (exported by ingest_topk.cu): the whole-arena scan of the fused
+// ingest
+// ---------------------------------------------------------------------------
+//
+// Replaces the scan of lazzaro_tpu/core/state.py:_ingest_scan_core (and of
+// _arena_link_candidates_multi), which the JAX package computes with nt_dot
+// + lax.top_k, not with Pallas. For every query q (a new fact's embedding in
+// the arena dtype) and arena row r, one tenant a launch:
+//     s[q, r]      = dot_f32(qd[q], emb[r])
+//     probe[q]     = top-1 of s over rows whose flag bit 0 is set (alive, the
+//                    tenant's, not a super node, not probe-excluded)
+//     list_m[q, :] = top-k of s over rows whose flag bit 1 is set (bit 0 and
+//                    not link-excluded) and, for shard mode m, with
+//                    shard[r] == q_shard[q] (1), != (-1) or either (0)
+// A masked pair scores exactly NEG, so a mode with fewer eligible rows than
+// k lists the lowest other rows at NEG (lax.top_k over jnp.where(m, s,
+// NEG_INF)), and ties go to the lowest row. Rows are i32; k <= 128; at most
+// two modes.
+//
+// Design. One pass over the arena feeds every mask from one score tile: the
+// [Q, N] f32 scores never reach HBM. Stage 1 sums each row as the additive
+// mode's route for the same dtype does, so that a probe scores bit for bit
+// what masked_topk's dedup probe scores on that route:
+// - bf16: the tensor-core product (wg_produce, wg_product) in one geometry
+//   for every k: one consumer warpgroup of 64 queries and tiles of 128 rows
+//   (m64n128k16), the list epilogue's. The kc = 1 epilogue's 256-row tiles
+//   and second warpgroup would double the shared memory the lists take (two
+//   modes of up to 64 x 128 keys of 8 bytes). Each tile is folded from the
+//   accumulator registers, as scan_stage1_wgmma's list epilogue folds it:
+//   the probe is the kc = 1 arg-max in registers; each mode filters its
+//   masked scores against the query's threshold into a batch and merges it
+//   into its sorted list (merge_pending). The modes share one batch of half
+//   a tile, filtered and merged in two passes a tile: a merge after every
+//   pass keeps two lists of 128 and the batch beside a ring of two stages.
+//   (A first form held the tile's sums in shared memory and folded a query
+//   a warp, the FMA route's way: 517 ms at Q = 8,192 on an H100, its warps
+//   waiting on each dependent step; PERF.md.)
+// - f32: the FMA product (fma_tile) at every Q, in its 4/8/16/64-query
+//   tiles of 128 rows, its sums to shared memory, then one warp a query
+//   folds its row (ingest_fold): the probe as a warp arg-max, each mode's
+//   list by warp_list_insert (the FMA route's list epilogue) under its own
+//   mask. The FMA product, not the fold, bounds this route. The streaming
+//   route, which masked_topk takes for f32 up to 16 queries, sums in
+//   another order: there an f32 probe matches masked_topk within rounding,
+//   not bit for bit.
+// Stage 2 is scan_merge, one launch a mode, the probe riding on the first.
+// What bounds it: at the fill's mega-batch (Q = 8,192 over 1,048,576 x 768
+// bf16) the product's 13.2 TFLOP, 13.3 ms at the bf16 tensor rate; at one
+// conversation end (Q = 16) the arena's 1.61 GB, 0.48 ms. The folds run on
+// the consumer warps between two products, so a tile pays both.
+
+constexpr int kIngestModes = 2;
+constexpr int kIngestBN = kBR;     // rows of a tile on both routes
+
+struct IngestArgs {
+  const void* emb;                 // [n, d] f32 or bf16
+  const void* qry;                 // [nq, d] in the emb dtype
+  const uint8_t* flags;            // [n] bit 0 probe mask, bit 1 link mask
+  const int* shard;                // [n]
+  const int* q_shard;              // [nq]
+  long long n, rows_per_split;
+  int d, nq, k, modes, with_probe, splits, panels, ns;
+  int mode[kIngestModes];          // 1 same shard, -1 other shards, 0 any
+  float* probe_cs;                 // [splits, nq] split probes
+  int* probe_cr;
+  float* cand_s;                   // [modes, splits, nq, k] split lists
+  int* cand_r;
+};
+
+// The whole warp folds one query's row of a tile, scq[c] for c < cols (the
+// first `live` columns rows row0 ..., with flags fl[c] and shard sh[c]),
+// into its probe (*gs, *gr) and its lists (ls + m * lstride, lr + m *
+// lstride, k entries each). A live pair scores its sum + 0.0f (-0 becomes
+// +0, as masked_topk's madd of 0 makes it), a masked one NEG.
+__device__ __forceinline__ void ingest_fold(const float* scq, const uint32_t* fl, const int* sh,
+                                            int cols, int live, int row0, int qsh,
+                                            const IngestArgs& a, float* gs, int* gr, float* ls,
+                                            int* lr, int lstride) {
+  const int lane = threadIdx.x & 31;
+  if (a.with_probe) {
+    float bs = -INFINITY;
+    int br = INT32_MAX;
+    for (int c = lane; c < live; c += 32) {
+      const float s = (fl[c] & 1u) ? scq[c] + 0.0f : kNeg;
+      if (better(s, row0 + c, bs, br)) { bs = s; br = row0 + c; }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      const float s2 = __shfl_xor_sync(kFull, bs, o);
+      const int r2 = __shfl_xor_sync(kFull, br, o);
+      if (better(s2, r2, bs, br)) { bs = s2; br = r2; }
+    }
+    if (lane == 0 && better(bs, br, *gs, *gr)) { *gs = bs; *gr = br; }
+    __syncwarp();
+  }
+  for (int m = 0; m < a.modes; ++m) {
+    const int mode = m == 0 ? a.mode[0] : a.mode[1];   // no local copy of a
+    for (int c = 0; c < cols; c += 32) {
+      const int cc = c + lane;
+      const bool in = cc < live;
+      float s = kNeg;
+      if (in && (fl[cc] & 2u) && (mode == 0 || (sh[cc] == qsh) == (mode == 1)))
+        s = scq[cc] + 0.0f;
+      warp_list_insert(ls + m * lstride, lr + m * lstride, a.k, s, row0 + c, in);
+    }
+  }
+}
+
+// Shared memory of the FMA ingest stage 1 for a query tile of bq.
+inline size_t ingest_fma_smem(int bq, int modes, int k) {
+  return sizeof(float) * ((size_t)(bq + kBR) * kLD + (size_t)bq * (kBR + 1)) +
+         sizeof(int) * (3 * (size_t)bq + 2 * (size_t)kBR) + 8 * (size_t)modes * bq * k;
+}
+
+// Stage 1 of the ingest mode on the FMA route (f32). Block (x, y) scores
+// queries x * BQ .. against the rows of split y, tile by tile: fma_tile's
+// sums to shared memory, then one warp a query folds its row.
+template <int BQ, int MQ, int MR>
+__global__ void __launch_bounds__(kThreads) ingest_stage1_fma(const IngestArgs a) {
+  constexpr int TQ = BQ / MQ;
+  constexpr int TR = kThreads / TQ;
+  static_assert(TR * MR == kBR, "thread grid must cover one row tile");
+  extern __shared__ float smem[];
+  float* qs = smem;                                        // [BQ][kLD]
+  float* rs = qs + BQ * kLD;                               // [kBR][kLD]
+  float* sc = rs + kBR * kLD;                              // [BQ][kBR + 1] sums
+  float* gs = sc + BQ * (kBR + 1);                         // [BQ] probe score
+  int* gr = reinterpret_cast<int*>(gs + BQ);               // [BQ] probe row
+  int* qsh = gr + BQ;                                      // [BQ] query shard
+  uint32_t* fl = reinterpret_cast<uint32_t*>(qsh + BQ);    // [kBR] row flags
+  int* sh = reinterpret_cast<int*>(fl + kBR);              // [kBR] row shard
+  float* ls = reinterpret_cast<float*>(sh + kBR);          // [modes][BQ][k]
+  int* lr = reinterpret_cast<int*>(ls + a.modes * BQ * a.k);
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int tq = tid / TR;
+  const int tr = tid % TR;
+  const int q0 = blockIdx.x * BQ;
+  const int split = blockIdx.y;
+  const long long r_begin = (long long)split * a.rows_per_split;
+  const long long r_end = min(r_begin + a.rows_per_split, a.n);
+  const int lstride = BQ * a.k;
+
+  for (int e = tid; e < a.modes * lstride; e += kThreads) {
+    ls[e] = -INFINITY;
+    lr[e] = INT32_MAX;
+  }
+  for (int e = tid; e < BQ; e += kThreads) {
+    gs[e] = -INFINITY;
+    gr[e] = INT32_MAX;
+    qsh[e] = q0 + e < a.nq ? a.q_shard[q0 + e] : 0;
+  }
+  for (long long r0 = r_begin; r0 < r_end; r0 += kBR) {
+    if (tid < kBR) {
+      const long long r = r0 + tid;
+      fl[tid] = r < r_end ? a.flags[r] : 0u;
+      sh[tid] = r < r_end ? a.shard[r] : 0;
+    }
+    float acc[MQ][MR];
+    fma_tile<float, BQ, MQ, MR>(acc, qs, rs, static_cast<const float*>(a.qry),
+                                static_cast<const float*>(a.emb), q0, a.nq, r0, r_end, a.d);
+#pragma unroll
+    for (int j = 0; j < MR; ++j)
+#pragma unroll
+      for (int i = 0; i < MQ; ++i) sc[(tq + i * TQ) * (kBR + 1) + tr + j * TR] = acc[i][j];
+    __syncthreads();
+    const int live = (int)min((long long)kBR, r_end - r0);
+    for (int qi = warp; qi < BQ; qi += kWarps) {
+      if (q0 + qi >= a.nq) break;
+      ingest_fold(sc + qi * (kBR + 1), fl, sh, kBR, live, (int)r0, qsh[qi], a, gs + qi, gr + qi,
+                  ls + qi * a.k, lr + qi * a.k, lstride);
+    }
+    __syncthreads();
+  }
+
+  if (a.with_probe) {
+    for (int e = tid; e < BQ; e += kThreads) {
+      if (q0 + e < a.nq) {
+        a.probe_cs[(long long)split * a.nq + q0 + e] = gs[e];
+        a.probe_cr[(long long)split * a.nq + q0 + e] = gr[e];
+      }
+    }
+  }
+  for (int e = tid; e < a.modes * lstride; e += kThreads) {
+    const int m = e / lstride, qi = (e % lstride) / a.k, j = e % a.k;
+    if (q0 + qi < a.nq) {
+      const long long o = (((long long)m * a.splits + split) * a.nq + q0 + qi) * a.k + j;
+      a.cand_s[o] = ls[e];
+      a.cand_r[o] = lr[e];
+    }
+  }
+}
+
+// Columns of a tile one filter pass of the tensor-core ingest stage takes:
+// a query's batch holds the survivors of one pass.
+constexpr int kIngestHalf = kIngestBN / 2;
+
+__host__ __device__ inline int ingest_lcap(int k) { return (k + 7) / 8 * 8; }
+
+// Shared memory of the tensor-core ingest stage 1 with ns ring stages: 1 KB
+// of alignment slack, the ring and its barriers, two buffers of a tile's two
+// row words, and per query its mode lists (lcap keys each) and one batch.
+inline size_t ingest_wg_smem(int ns, int modes, int k) {
+  const size_t stage = (size_t)(64 + kIngestBN) * kRowBytes;
+  return 1024 + ns * (stage + 16) + 16 * (size_t)kIngestBN +
+         (size_t)64 * (modes * ingest_lcap(k) + kIngestHalf) * 8;
+}
+
+// A score of the ingest mode from a tile's sum and its row words: past the
+// split's end -inf (never a candidate), a pair outside the mask NEG, a live
+// one the sum + 0.0f. f is the row's flags with bit 2 set for a row in the
+// split; the probe takes bit 0, mode `mode` bit 1 and the shard match.
+__device__ __forceinline__ float ingest_probe_score(float acc, uint32_t f) {
+  return (f & 4u) ? ((f & 1u) ? acc + 0.0f : kNeg) : -INFINITY;
+}
+
+__device__ __forceinline__ float ingest_mode_score(float acc, uint32_t f, int sh, int qsh,
+                                                   int mode) {
+  const bool ok = (f & 2u) && (mode == 0 || (sh == qsh) == (mode == 1));
+  return (f & 4u) ? (ok ? acc + 0.0f : kNeg) : -INFINITY;
+}
+
+// Stage 1 of the ingest mode on the tensor cores (bf16). Block (x, y) scores
+// queries x * 64 .. against the rows of split y in tiles of BN rows:
+// warpgroup 1's one thread produces (wg_produce), warpgroup 0 runs the
+// product (wg_product) and folds each tile from its registers, as the list
+// epilogue of scan_stage1_wgmma does: the probe is an arg-max in registers;
+// each mode, in two passes of half a tile, masks its scores, sends those
+// above the query's threshold to the query's batch (positions from a quad
+// prefix sum) and merges the batch into the mode's sorted list
+// (merge_pending), which raises the threshold to the list's last.
+template <int BN>
+__global__ void __launch_bounds__(256, 1)
+ingest_stage1_wgmma(const __grid_constant__ CUtensorMap map_e,
+                    const __grid_constant__ CUtensorMap map_q, const IngestArgs a) {
+  constexpr int NF = BN / 2;                  // accumulator registers a thread
+  constexpr int STAGE = (64 + BN) * kRowBytes;
+  constexpr int HC = BN / 16;                 // 8-column chunks of a pass
+  static_assert(BN == 2 * kIngestHalf && BN == 128, "one row word a consumer thread");
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + a.ns * STAGE);
+  uint64_t* empty = full + a.ns;
+  uint32_t* cols = reinterpret_cast<uint32_t*>(empty + a.ns);    // [2][flags, shard][BN]
+  uint64_t* lists = reinterpret_cast<uint64_t*>(cols + 4 * BN);  // [64][modes lists, batch]
+  const int lcap = ingest_lcap(a.k);
+  const int stride = a.modes * lcap + kIngestHalf;
+
+  const int q0 = blockIdx.x * 64;
+  const int split = blockIdx.y;
+  const long long r_begin = (long long)split * a.rows_per_split;
+  const long long r_end = min(r_begin + a.rows_per_split, a.n);
+  const int tiles = r_end > r_begin ? (int)((r_end - r_begin + BN - 1) / BN) : 0;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < a.ns; ++s) {
+      hopper::mbar_init(full + s, 1);
+      hopper::mbar_init(empty + s, 1);
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {
+    if (threadIdx.x == 128)
+      wg_produce<1, BN>(&map_q, &map_e, ring, full, empty, a.ns, tiles, a.panels, q0, r_begin);
+    return;
+  }
+
+  // ---- consumers: this thread's query rows a and b of the accumulator
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int la = 16 * warp + g, lb = la + 8;
+  const int qa = q0 + la, qb = qa + 8;
+  const bool va = qa < a.nq, vb = qb < a.nq;
+  const int qs_a = va ? a.q_shard[qa] : 0, qs_b = vb ? a.q_shard[qb] : 0;
+  const int mode0 = a.mode[0], mode1 = a.mode[1];
+  float bs_a = -INFINITY, bs_b = -INFINITY;
+  int br_a = INT32_MAX, br_b = INT32_MAX;
+  // Per mode: the sorted list's length and the score a candidate must beat
+  // (the list's last once it holds k; +inf for a query past nq). The batch
+  // is shared by the modes and empty between passes.
+  int m_a[kIngestModes] = {0, 0}, m_b[kIngestModes] = {0, 0};
+  float thr_a[kIngestModes], thr_b[kIngestModes];
+#pragma unroll
+  for (int m = 0; m < kIngestModes; ++m) {
+    thr_a[m] = va ? -INFINITY : INFINITY;
+    thr_b[m] = vb ? -INFINITY : INFINITY;
+  }
+  int nb_a = 0, nb_b = 0;
+  uint64_t* wlists = lists + 16 * warp * stride;   // this warp's 16 queries
+  uint64_t* Ba = lists + la * stride + a.modes * lcap;
+  uint64_t* Bb = lists + lb * stride + a.modes * lcap;
+
+  float acc[NF];
+#pragma unroll
+  for (int i = 0; i < NF; ++i) acc[i] = 0.0f;
+
+  for (int t = 0; t < tiles; ++t) {
+    const long long r0 = r_begin + (long long)t * BN;
+    const int g0 = (int)r0;                       // row of column 0
+    const long long r = r0 + tid;
+    const uint32_t fword = r < r_end ? (uint32_t)a.flags[r] | 4u : 0u;
+    const int sword = r < r_end ? a.shard[r] : 0;
+    wg_product<1, BN>(acc, ring, full, empty, a.ns, t, a.panels, 0, tid);
+    // Buffer t % 2 was last read in tile t - 2's epilogue, which every
+    // thread finished before tile t - 1's barrier.
+    uint32_t* colF = cols + (t & 1) * 2 * BN;
+    const int* colS = reinterpret_cast<const int*>(colF + BN);
+    colF[tid] = fword;
+    reinterpret_cast<int*>(colF + BN)[tid] = sword;
+    hopper::named_sync(1, 128);
+
+    // Fragment element 4c + e is row la, column 8c + 2tq + e; 4c + 2 + e
+    // row lb. A thread's columns ascend, so an arg-max replaced only on a
+    // strictly better score keeps the lowest row.
+    if (a.with_probe) {
+#pragma unroll
+      for (int c = 0; c < BN / 8; ++c) {
+        const uint2 fw = *reinterpret_cast<const uint2*>(colF + 8 * c + 2 * tq);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int row = g0 + 8 * c + 2 * tq + e;
+          const uint32_t f = e ? fw.y : fw.x;
+          const float sa = ingest_probe_score(acc[4 * c + e], f);
+          const float sb = ingest_probe_score(acc[4 * c + 2 + e], f);
+          br_a = sa > bs_a ? row : br_a;
+          bs_a = sa > bs_a ? sa : bs_a;
+          br_b = sb > bs_b ? row : br_b;
+          bs_b = sb > bs_b ? sb : bs_b;
+        }
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < kIngestModes; ++m) {
+      if (m >= a.modes) break;
+      const int mode = m == 0 ? mode0 : mode1;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        // A pair is a candidate only if its sum beats the threshold, or if
+        // the list is not full (a threshold of -inf, which every sum
+        // beats): a pass where no sum of the warp does is skipped whole.
+        bool hit = false;
+#pragma unroll
+        for (int c = h * HC; c < (h + 1) * HC; ++c)
+          hit |= (acc[4 * c] > thr_a[m]) | (acc[4 * c + 1] > thr_a[m]) |
+                 (acc[4 * c + 2] > thr_b[m]) | (acc[4 * c + 3] > thr_b[m]);
+        if (!__any_sync(kFull, hit)) continue;
+        uint32_t ma = 0u, mb = 0u;
+#pragma unroll
+        for (int c = h * HC; c < (h + 1) * HC; ++c) {
+          const uint2 fw = *reinterpret_cast<const uint2*>(colF + 8 * c + 2 * tq);
+          const int2 sw = *reinterpret_cast<const int2*>(colS + 8 * c + 2 * tq);
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const uint32_t f = e ? fw.y : fw.x;
+            const int sh = e ? sw.y : sw.x;
+            const int bit = 2 * (c - h * HC) + e;
+            const float sa = ingest_mode_score(acc[4 * c + e], f, sh, qs_a, mode);
+            const float sb = ingest_mode_score(acc[4 * c + 2 + e], f, sh, qs_b, mode);
+            ma |= sa > thr_a[m] ? 1u << bit : 0u;
+            mb |= sb > thr_b[m] ? 1u << bit : 0u;
+          }
+        }
+        int off_a, tot_a, off_b, tot_b;
+        quad_scan(__popc(ma), off_a, tot_a);
+        quad_scan(__popc(mb), off_b, tot_b);
+        if (ma | mb) {
+          int pa = nb_a + off_a, pb = nb_b + off_b;
+#pragma unroll
+          for (int c = h * HC; c < (h + 1) * HC; ++c) {
+            if (!(((ma | mb) >> (2 * (c - h * HC))) & 3u)) continue;
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int col = 8 * c + 2 * tq + e, bit = 2 * (c - h * HC) + e;
+              const int row = g0 + col;
+              if ((ma >> bit) & 1u)
+                Ba[pa++] = list_key(
+                    ingest_mode_score(acc[4 * c + e], colF[col], colS[col], qs_a, mode), row);
+              if ((mb >> bit) & 1u)
+                Bb[pb++] = list_key(
+                    ingest_mode_score(acc[4 * c + 2 + e], colF[col], colS[col], qs_b, mode),
+                    row);
+            }
+          }
+        }
+        nb_a += tot_a;
+        nb_b += tot_b;
+        // The batch, shared by the modes, is merged after every pass.
+        merge_pending(wlists + m * lcap, lcap, stride - lcap, a.k, nb_a > 0, nb_b > 0,
+                      m_a[m], m_b[m], nb_a, nb_b, thr_a[m], thr_b[m],
+                      (a.modes - m - 1) * lcap);
+      }
+    }
+  }
+
+  // ---- the split's results: the probe by quad reductions, the lists
+  if (a.with_probe) {
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1) {
+      const float sa = __shfl_xor_sync(kFull, bs_a, o), sb = __shfl_xor_sync(kFull, bs_b, o);
+      const int ra = __shfl_xor_sync(kFull, br_a, o), rb = __shfl_xor_sync(kFull, br_b, o);
+      if (better(sa, ra, bs_a, br_a)) { bs_a = sa; br_a = ra; }
+      if (better(sb, rb, bs_b, br_b)) { bs_b = sb; br_b = rb; }
+    }
+    if (tq == 0) {
+      const long long o = (long long)split * a.nq;
+      if (va) { a.probe_cs[o + qa] = bs_a; a.probe_cr[o + qa] = br_a; }
+      if (vb) { a.probe_cs[o + qb] = bs_b; a.probe_cr[o + qb] = br_b; }
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < kIngestModes; ++m) {
+    if (m >= a.modes) break;
+    for (int i = 0; i < 16; ++i) {
+      const int len = __shfl_sync(kFull, i < 8 ? m_a[m] : m_b[m], 4 * (i & 7));
+      const int q = q0 + 16 * warp + i;
+      if (q >= a.nq) continue;
+      const uint64_t* L = wlists + m * lcap + i * stride;
+      const long long o = (((long long)m * a.splits + split) * a.nq + q) * a.k;
+      for (int idx = lane; idx < a.k; idx += 32) {
+        const bool live = idx < len;
+        const uint64_t key = live ? L[idx] : 0ull;
+        a.cand_s[o + idx] = live ? key_score(key) : -INFINITY;
+        a.cand_r[o + idx] = live ? key_row(key) : INT32_MAX;
+      }
+    }
+  }
+}
+
+// Row splits of an ingest scan of n rows and nq queries on `route`. On the
+// tensor cores: one wave of blocks with the rows cut as little as that
+// allows (a single split past sms / 64 query tiles). Every split starts
+// its lists empty, and a short split merges and filters far more often
+// than a long one: at Q = 8,192 the 33 splits of wave_splits took 273 ms on
+// an H100 for the two modes, against 47 ms for the probe alone.
+inline int ingest_splits(long long n, int nq, int route, int sms) {
+  if (n < 1 || nq < 1) return 1;
+  if (route == kRouteWgmma) {
+    const long long qtiles = (nq + 63) / 64, rtiles = (n + kIngestBN - 1) / kIngestBN;
+    long long s = qtiles < sms ? sms / qtiles : 1;
+    if (s > rtiles) s = rtiles;
+    if (s > kMaxSplits) s = kMaxSplits;
+    return (int)s;
+  }
+  return fma_splits(n, 1, nq, sms);
+}
+
+template <int BQ, int MQ, int MR>
+cudaError_t launch_ingest_fma(const IngestArgs& a, cudaStream_t st) {
+  auto kernel = ingest_stage1_fma<BQ, MQ, MR>;
+  const size_t smem = ingest_fma_smem(BQ, a.modes, a.k);
+  if (smem > (size_t)kSmemMax) return cudaErrorInvalidValue;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((a.nq + BQ - 1) / BQ, a.splits), kThreads, smem, st>>>(a);
+  return cudaGetLastError();
+}
+
+template <int BN>
+cudaError_t launch_ingest_wg(IngestArgs a, cudaStream_t st) {
+  int ns = kMaxStages;
+  while (ns >= 2 && ingest_wg_smem(ns, a.modes, a.k) > (size_t)kSmemMax) --ns;
+  if (ns < 2) return cudaErrorInvalidValue;
+  a.ns = ns;
+  const size_t smem = ingest_wg_smem(ns, a.modes, a.k);
+  auto kernel = ingest_stage1_wgmma<BN>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  // Rows past n and columns past d arrive as zeros.
+  CUtensorMap map_e, map_q;
+  if (!hopper::encode_rows_map(&map_e, a.emb, a.d, a.n, 1, 1, a.d, 0, 0, BN) ||
+      !hopper::encode_rows_map(&map_q, a.qry, a.d, a.nq, 1, 1, a.d, 0, 0, 64))
+    return cudaErrorNotSupported;
+  kernel<<<dim3((a.nq + 63) / 64, a.splits), 256, smem, st>>>(map_e, map_q, a);
+  return cudaGetLastError();
+}
+
+// Stage 1 on `route` (the tensor cores for bf16, FMA for f32), then stage 2
+// (scan_merge) once a mode, the probe merged with the first (alone when
+// there is no mode): each launch the card takes adds one to *launched.
+// Outputs: probe_s/probe_r [nq], out_s/out_r [modes, nq, k]. A launch the
+// card refuses returns its error.
+template <int BN>
+int run_ingest(IngestArgs a, int is_bf16, int route, float* probe_s, int* probe_r,
+               float* out_s, int* out_r, int* launched, cudaStream_t st) {
+  bool modes_ok = a.modes >= 0 && a.modes <= kIngestModes && (a.modes > 0 || a.with_probe);
+  for (int m = 0; m < a.modes && modes_ok; ++m) modes_ok = a.mode[m] >= -1 && a.mode[m] <= 1;
+  if (a.d % 8 != 0 || a.k < 1 || a.k > kMaxK || a.k > a.n || a.nq < 1 || !modes_ok ||
+      a.splits < 1 || a.splits > kMaxSplits ||
+      !(route == kRouteWgmma ? is_bf16 : route == kRouteFma && !is_bf16))
+    return (int)cudaErrorInvalidValue;
+  const long long rtiles = (a.n + BN - 1) / BN;
+  a.rows_per_split = ((rtiles + a.splits - 1) / a.splits) * BN;
+  a.panels = (a.d + 63) / 64;
+  cudaError_t err;
+  if (route == kRouteWgmma) {
+    err = launch_ingest_wg<BN>(a, st);
+  } else {
+    switch (query_tile(a.nq)) {
+      case 4: err = launch_ingest_fma<4, 1, 2>(a, st); break;
+      case 8: err = launch_ingest_fma<8, 1, 4>(a, st); break;
+      case 16: err = launch_ingest_fma<16, 1, 8>(a, st); break;
+      default: err = launch_ingest_fma<64, 4, 8>(a, st); break;
+    }
+  }
+  if (err != cudaSuccess) return (int)err;
+  if (launched) ++*launched;
+  const long long per = (long long)a.splits * a.nq * a.k;
+  for (int m = 0; m < (a.modes > 0 ? a.modes : 1); ++m) {
+    const bool lists = a.modes > 0;
+    const int kc = lists ? a.k : 0;
+    scan_merge<int><<<a.nq, kThreads, 0, st>>>(
+        a.probe_cs, a.probe_cr, lists ? a.cand_s + m * per : a.probe_cs,
+        lists ? a.cand_r + m * per : a.probe_cr, a.splits, a.nq, kc, 0, kc, nullptr, 0, 0,
+        m == 0 && a.with_probe, probe_s, probe_r,
+        lists ? out_s + (long long)m * a.nq * a.k : nullptr,
+        lists ? out_r + (long long)m * a.nq * a.k : nullptr, kc);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     if (launched) ++*launched;

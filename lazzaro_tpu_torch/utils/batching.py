@@ -228,6 +228,10 @@ class IngestCoalescer:
     def __len__(self) -> int:
         return sum(len(c) for c in self._convs)
 
+    @property
+    def pending_conversations(self) -> int:
+        return len(self._convs)
+
     def requeue(self, batches: Sequence[Tuple[Sequence[dict], int]],
                 now: Optional[float] = None) -> None:
         """Put drained-but-not-ingested mega-batches BACK at the front of

@@ -529,7 +529,10 @@ def test_fused_sharded_dispatch_syncs_only_at_the_readback(cuda, tmp_path):
 
     kw = dict(enable_async=False, load_from_disk=False, verbose=False)
     mesh = make_mesh(devices=["cuda:0"] * 8)
-    ms = MemorySystem(db_dir=str(tmp_path / "m"), mesh=mesh, **kw)
+    # a mesh takes the classic ingest; the single device the fused default
+    ms = MemorySystem(db_dir=str(tmp_path / "m"), mesh=mesh,
+                      config=MemoryConfig(ingest_fused=False,
+                                          ingest_dedup_fused=False), **kw)
     one = MemorySystem(db_dir=str(tmp_path / "o"), device="cuda", **kw)
     try:
         for sys_ in (ms, one):
@@ -1281,3 +1284,234 @@ def test_json_device_loop_reads_back_only_its_flags(cuda):
     host = LanguageModel(LMConfig.tiny(), seed=0, device="cuda")
     assert host.generate_json("Extract facts.", max_new_tokens=24,
                               device_loop=False) == doc
+
+
+# ---------------------------------------------------------------------------
+# The fused ingest: the ingest mode of the scan (K1) and the dedup resolve
+# ---------------------------------------------------------------------------
+
+from lazzaro_tpu_torch.ops import dedup_resolve as dr  # noqa: E402
+from lazzaro_tpu_torch.ops import ingest_topk as it  # noqa: E402
+
+
+def ingest_arena(gen, n, d, dtype, device, tenants=2, shards=3):
+    """Grid rows with exact duplicates, two tenants, three shards, ~5%
+    super rows, ~20% dead rows; the last row is the sentinel."""
+    emb = grid(gen, (n, d), dtype, device)
+    emb[n // 2:n // 2 + 40] = emb[:40]                       # exact ties
+    alive = torch.rand(n, generator=gen, device=device) < 0.8
+    ten = torch.randint(0, tenants, (n,), generator=gen, device=device).int()
+    sup = (torch.rand(n, generator=gen, device=device) < 0.05) & alive
+    shard = torch.randint(0, shards, (n,), generator=gen, device=device).int()
+    return emb, alive, torch.where(alive, ten, -1).int(), sup, shard
+
+
+def ingest_both(cols, qd, qs, probe_excl, link_excl, tenant, k, modes,
+                with_probe=True, route=None):
+    emb, alive, ten, sup, shard = cols
+    args = (emb, alive, ten, sup, shard, probe_excl, link_excl, qd, qs, tenant,
+            k, modes, with_probe)
+    got = it._launch(*args, route=route) if route else it.ingest_topk(*args)
+    want = it.ingest_topk_reference(*args)
+    torch.cuda.synchronize()
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nq", [1, 3, 16, 17, 512])
+@pytest.mark.parametrize("k", [1, 3, 128])
+def test_ingest_scan_matches_plain_version(cuda, dtype, nq, k):
+    """K1 on the route the wrapper takes (tensor cores for bf16, FMA for
+    f32): the probe and both modes' lists bit for bit, ties included; the
+    batch's own rows excluded from the lists, the sentinel from both."""
+    gen = torch.Generator(device=cuda).manual_seed(nq * 7 + k)
+    n, d = 5003, 72
+    cols = ingest_arena(gen, n, d, dtype, cuda)
+    qd = torch.cat([cols[0][:nq // 2], grid(gen, (nq - nq // 2, d), dtype, cuda)])
+    qs = torch.randint(0, 3, (nq,), generator=gen, device=cuda).int()
+    probe_excl = torch.arange(n, device=cuda) == n - 1
+    link_excl = probe_excl.clone()
+    link_excl[torch.randint(0, n, (nq,), generator=gen, device=cuda)] = True
+    before = (it.launches, it.launches_wgmma)
+    ingest_both(cols, qd, qs, probe_excl, link_excl, 0, k, (1, 0))
+    wg = int(dtype == torch.bfloat16)
+    assert (it.launches - before[0], it.launches_wgmma - before[1]) == (1, wg)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("modes,with_probe", [((-1,), True), ((0,), False),
+                                               ((), True), ((-1, 1), False)])
+def test_ingest_scan_modes(cuda, dtype, modes, with_probe):
+    gen = torch.Generator(device=cuda).manual_seed(len(modes) + 10 * with_probe)
+    n, d = 3001, 64
+    cols = ingest_arena(gen, n, d, dtype, cuda)
+    qd = grid(gen, (40, d), dtype, cuda)
+    qs = torch.randint(0, 3, (40,), generator=gen, device=cuda).int()
+    none = torch.zeros(n, dtype=torch.bool, device=cuda)
+    out = ingest_both(cols, qd, qs, none, none, 1, 5, modes, with_probe)
+    assert len(out) == 2 * len(modes) + 2 * with_probe
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ingest_scan_corners(cuda, dtype):
+    """A tenant with fewer eligible rows than k (its tail: the lowest other
+    rows at -1e30), an empty tenant (probe (-1e30, row 0)), mode -1, a live
+    sentinel row of the tenant (excluded from the probe and the lists)."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    n, d, k = 2000, 32, 8
+    emb, alive, ten, sup, shard = ingest_arena(gen, n, d, dtype, cuda)
+    ten[ten == 1] = 0
+    few = torch.tensor([5, 77, 1000, n - 1], device=cuda)
+    alive[few] = True
+    sup[few] = False
+    ten[few] = 1                                  # tenant 1: 3 rows + sentinel
+    cols = (emb, alive, ten, sup, shard)
+    qd = emb[few].clone()
+    qs = shard[few].clone()
+    probe_excl = torch.arange(n, device=cuda) == n - 1
+    for tenant in (1, 3):                          # tenant 3 owns no row
+        out = ingest_both(cols, qd, qs, probe_excl, probe_excl, tenant, k,
+                          (-1, 0))
+        if tenant == 3:
+            assert (out[0] == -1e30).all() and (out[1] == 0).all()
+    ps, pr = out[0], out[1]
+    got = ingest_both(cols, qd, qs, probe_excl, probe_excl, 1, k, (-1, 0))
+    rows0 = got[5]                                 # mode 0's rows
+    assert n - 1 not in got[1].view(-1).tolist() + rows0.view(-1).tolist()
+    assert rows0[0, 3:].tolist() == [0, 1, 2, 3, 4]
+    assert ps.shape == pr.shape == (4, 1)
+
+
+def test_ingest_probe_equals_masked_topk_probe(cuda):
+    """The probe's scores are bit for bit those of masked_topk's dedup probe
+    on the same route, on real-valued bf16 data (no grid: the sums round),
+    at a tensor-core batch and at Q = 8; f32 at Q = 64 on the FMA route."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    for dtype, nq in ((torch.bfloat16, 300), (torch.bfloat16, 8),
+                      (torch.float32, 64)):
+        n, d = 20_000, 256
+        emb = torch.nn.functional.normalize(
+            torch.randn((n, d), generator=gen, device=cuda), dim=1).to(dtype)
+        alive = torch.rand(n, generator=gen, device=cuda) < 0.9
+        ten = torch.zeros(n, dtype=torch.int32, device=cuda)
+        sup = torch.zeros(n, dtype=torch.bool, device=cuda)
+        shard = torch.zeros(n, dtype=torch.int32, device=cuda)
+        q = torch.nn.functional.normalize(
+            torch.randn((nq, d), generator=gen, device=cuda), dim=1).to(dtype)
+        none = torch.zeros(n, dtype=torch.bool, device=cuda)
+        out = it.ingest_topk(emb, alive, ten, sup, shard, none, none, q,
+                             torch.zeros(nq, dtype=torch.int32, device=cuda), 0,
+                             3, (1, 0))
+        route = "wgmma" if dtype == torch.bfloat16 else "fma"
+        s, r = mt._launch(emb, torch.where(alive, 0.0, -1e30), q, 1, route=route)
+        torch.cuda.synchronize()
+        assert torch.equal(out[0], s) and torch.equal(out[1].long(), r)
+
+
+def test_ingest_scan_refuses_what_the_kernel_does_not_take(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    cols = ingest_arena(gen, 300, 32, torch.float32, cuda)
+    q = grid(gen, (4, 32), torch.float32, cuda)
+    qs = torch.zeros(4, dtype=torch.int32, device=cuda)
+    none = torch.zeros(300, dtype=torch.bool, device=cuda)
+    before = it.launches
+    with pytest.raises(RuntimeError, match="wgmma"):       # f32 on the tensor cores
+        it._launch(*cols, none, none, q, qs, 0, 3, (1, 0), True, route="wgmma")
+    with pytest.raises(RuntimeError, match="fma"):         # bf16 on the FMA route
+        it._launch(cols[0].bfloat16(), *cols[1:], none, none, q.bfloat16(), qs,
+                   0, 3, (1, 0), True, route="fma")
+    with pytest.raises(ValueError):
+        it.ingest_topk(*cols, none, none, q, qs, 0, 129, (1, 0))
+    with pytest.raises(ValueError):
+        it.ingest_topk(*cols, none, none, q, qs, 0, 3, (1, 0, -1))
+    assert it.launches == before
+
+
+@pytest.mark.parametrize("b", [1, 7, 1000, 8192, 30_000])
+def test_dedup_resolve_matches_plain_version(cuda, b):
+    """The resolve kernel against its plain loop: dups of dups, probe and
+    gram dups, padding, shard groups; 30,000 facts keep target and last in
+    device memory instead of shared memory."""
+    g = np.random.default_rng(b)
+    n = max(1, b - b // 8)
+    gs = g.uniform(-0.5, 1.0, b).astype(np.float32)
+    ps = g.uniform(-0.5, 1.0, b).astype(np.float32)
+    ps[g.random(b) < 0.05] = -1e30
+    gj = np.minimum(g.integers(0, b, b), np.maximum(np.arange(b) - 1, 0))
+    rows = np.where(np.arange(b) < n, g.permutation(10 * b)[:b], 10 * b)
+    gid = np.where(np.arange(b) < n, g.integers(0, max(1, b // 50), b), -1)
+    cols = [torch.from_numpy(x).to(cuda) for x in (
+        gs, gj.astype(np.int32), ps, g.integers(0, 10 * b, b).astype(np.int32),
+        rows < 10 * b, rows.astype(np.int32), gid.astype(np.int32))]
+    before = dr.launches
+    got = dr.dedup_resolve(*cols, 0.95, 10 * b)
+    want = dr.dedup_resolve_reference(*[c.cpu() for c in cols], 0.95, 10 * b)
+    torch.cuda.synchronize()
+    assert dr.launches == before + 1
+    for x, y in zip(got, want):
+        assert torch.equal(x.cpu(), y)
+    if b >= 1000:
+        assert 0 < int(got[1].sum()) < b
+
+
+def test_fused_ingest_syncs_only_at_the_readback(cuda, tmp_path):
+    """A conversation end on the card: one fused dispatch (one ingest scan
+    on the tensor cores, one resolve) and, under
+    ``set_sync_debug_mode("error")``, no host wait but the one packed
+    readback; the graph equals the classic ingest's."""
+    from lazzaro_tpu_torch import MemoryConfig, MemorySystem
+
+    def conversations(ms):
+        for c in range(3):
+            ms.start_conversation()
+            for i in range(8):
+                ms.add_to_short_term(f"I like topic {c % 2} number {i} a lot.",
+                                     "semantic", 0.6)
+            ms.end_conversation()
+
+    kw = dict(enable_async=False, load_from_disk=False, verbose=False,
+              device="cuda")
+    ms = MemorySystem(db_dir=str(tmp_path / "f"),
+                      config=MemoryConfig(dtype="bfloat16"), **kw)
+    classic = MemorySystem(db_dir=str(tmp_path / "c"), config=MemoryConfig(
+        dtype="bfloat16", ingest_fused=False, ingest_dedup_fused=False), **kw)
+    index = ms.index
+    ingest, readback = index.ingest_batch_dedup, index._readback
+    readbacks = []
+
+    def read_once(packed):
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            readbacks.append(tuple(packed.shape))
+            return readback(packed)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    def strict(*args, **kwargs):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return ingest(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    index.ingest_batch_dedup, index._readback = strict, read_once
+    try:
+        before = (it.launches, it.launches_wgmma, dr.launches, mt.launches)
+        conversations(ms)
+        assert (it.launches - before[0], it.launches_wgmma - before[1],
+                dr.launches - before[2], mt.launches - before[3]) == (3, 3, 3, 0)
+        assert len(readbacks) == 3 and index.ingest_dispatch_count == 3
+        del index.ingest_batch_dedup, index._readback
+        conversations(classic)
+        assert set(ms.buffer.nodes) == set(classic.buffer.nodes)
+        assert set(index.edge_slots) == set(classic.index.edge_slots)
+        q = "topic 1 number 3"
+        assert ([n.id for n in ms.search_memories(q)]
+                == [n.id for n in classic.search_memories(q)])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        ms.close()
+        classic.close()

@@ -106,15 +106,24 @@ def test_unported_entry_points_raise(tmp_path):
 
 
 def test_slice_defaults_are_the_classic_path():
-    """Defaults: fused serving (the JAX default) with the classic ingest and
-    lifecycle paths, and they pass the ported-path check."""
+    """Defaults: the JAX defaults for serving and ingest, fused serving and
+    the fused dedup ingest, with the classic lifecycle path, and they pass
+    the ported-path check; a mesh with the fused ingest on raises, naming
+    its ROADMAP item, and takes the classic ingest flags."""
     cfg = MemoryConfig()
     assert cfg.serve_fused is True and cfg.serve_ragged is True
-    for name in ("ingest_fused", "ingest_dedup_fused",
-                 "lifecycle_fused", "journal", "ingest_journal",
+    assert cfg.ingest_fused is True and cfg.ingest_dedup_fused is True
+    for name in ("lifecycle_fused", "journal", "ingest_journal",
                  "auto_consolidate"):
         assert getattr(cfg, name) is False, name
     cfg.check_ported()
+    kw = dict(enable_async=False, load_from_disk=False, verbose=False,
+              db_dir="unused", mesh=make_mesh(devices=["cpu"] * 2))
+    with pytest.raises(NotImplementedError,
+                       match="Queue 1 item 21, sharded fused ingest"):
+        MemorySystem(**kw)
+    MemorySystem(config=MemoryConfig(ingest_fused=False,
+                                     ingest_dedup_fused=False), **kw).close()
 
 
 def test_shard_neighbors_follow_edge_inserts_and_deletes():
