@@ -405,7 +405,7 @@ class MemoryConfig:
     # --- scale knobs -------------------------------------------------------
     max_shard_size: int = 500       # shard split threshold (ref declared, never used)
     super_node_threshold: int = 20
-    auto_consolidate: bool = False    # not ported yet (JAX default: True)
+    auto_consolidate: bool = True
     consolidate_every: int = 3
     auto_prune: bool = True
     prune_threshold: float = 0.5
@@ -462,8 +462,6 @@ class MemoryConfig:
 
 # (field, "is switched on", ROADMAP item) for every path the port lacks.
 _UNPORTED = (
-    ("auto_consolidate", bool,
-     "Queue 1 item 8, run_consolidation and ops/graphops.py"),
     ("journal", bool, "Queue 1 item 9, journals"),
     ("ingest_journal", bool, "Queue 1 item 9, journals"),
     ("lifecycle_fused", bool, "Queue 1 item 12, lifecycle sweep"),

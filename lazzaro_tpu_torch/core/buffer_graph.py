@@ -2,12 +2,15 @@
 
 Counterpart of ``lazzaro_tpu/core/buffer_graph.py``: a composite view holding
 references to the same shard/super-node dicts as MemorySystem.
+``get_connected_components`` walks an explicit stack, not a recursion, in
+the JAX package's order (nodes shard by shard, neighbors in edge order), so
+the components and the order of their members match it.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Set, Tuple
 
 from lazzaro_tpu_torch.core.memory_shard import MemoryShard
 from lazzaro_tpu_torch.models.graph import Edge, Node
@@ -57,6 +60,34 @@ class BufferGraph:
         node.access_count += 1
         node.salience = min(1.0, node.salience + salience_boost)
         node.last_accessed = time.time()
+
+    def get_connected_components(self, min_weight: float = 0.0) -> List[Set[str]]:
+        """Components of the bidirectional adjacency across all shards."""
+        adjacency: Dict[str, List[str]] = {}
+        for shard in self.shards.values():
+            for (src, tgt), edge in shard.edges.items():
+                if edge.weight < min_weight:
+                    continue
+                adjacency.setdefault(src, []).append(tgt)
+                adjacency.setdefault(tgt, []).append(src)
+
+        all_ids = [nid for shard in self.shards.values() for nid in shard.nodes]
+        visited: Set[str] = set()
+        components: List[Set[str]] = []
+        for nid in all_ids:
+            if nid in visited:
+                continue
+            component: Set[str] = set()
+            stack = [nid]
+            while stack:
+                cur = stack.pop()
+                if cur in visited:
+                    continue
+                visited.add(cur)
+                component.add(cur)
+                stack.extend(n for n in adjacency.get(cur, []) if n not in visited)
+            components.append(component)
+        return components
 
     def size(self) -> Tuple[int, int]:
         nodes = sum(len(s.nodes) for s in self.shards.values())

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from lazzaro_tpu_torch.core import state as S
+from lazzaro_tpu_torch.ops import graphops
 from lazzaro_tpu_torch.ops.sharded_merge import sharded_merge
 from lazzaro_tpu_torch.ops.topk import make_sharded_topk
 from lazzaro_tpu_torch.serve.scheduler import RetrievalRequest, RetrievalResult
@@ -130,6 +131,10 @@ def link_pool_dev(pool: Sequence[int], padded_len: int, ecap: int) -> np.ndarray
     arr[:len(pool)] = pool
     return arr
 
+
+_CONSOLIDATION_MESH = ("MemoryIndex(mesh=...).merge_candidates: the all-pairs "
+                       "merge scan under a mesh is not ported yet (ROADMAP "
+                       "Queue 1 item 21)")
 
 _FUSED_INGEST_MESH = ("MemoryIndex(mesh=...): the fused ingest under a mesh is "
                       "not ported yet (ROADMAP Queue 1 item 21, sharded fused "
@@ -822,6 +827,57 @@ class MemoryIndex:
         """Single-mode view of :meth:`link_candidates_multi`."""
         return self.link_candidates_multi(new_ids, tenant, k,
                                           (shard_mode,))[shard_mode]
+
+    # -------------------------------------------------------- consolidation
+    def merge_candidates(self, tenant: str, threshold: float = 0.95
+                         ) -> List[Tuple[str, str, float]]:
+        """All-pairs near-duplicates of the tenant's live non-super rows
+        (``lazzaro_tpu/core/index.py:merge_candidates``): ``(keep_id,
+        merge_id, sim)`` triples, each row's up to 4 best later rows above
+        ``threshold``. One launch of the pairwise kernel
+        (``ops.graphops.pairwise_merge_candidates``) and one packed
+        device-to-host copy; only the rows with a hit are decoded."""
+        if self.mesh is not None:
+            raise NotImplementedError(_CONSOLIDATION_MESH)
+        tid = self._tenants.get(tenant)
+        if tid is None:
+            return []
+        with self._lock:
+            st = self.state
+            mask = st.alive & (st.tenant_id == tid) & ~st.is_super
+            top_s, top_j = graphops.pairwise_merge_candidates(
+                st.emb, mask, threshold, k=4)
+            host = self._readback(torch.cat([top_s, top_j.view(torch.float32)],
+                                            dim=1))
+        k = top_s.shape[1]
+        top_s, top_j = host[:, :k], host[:, k:].view(np.int32)
+        out = []
+        for i in np.nonzero((top_j >= 0).any(axis=1))[0].tolist():
+            a = self.row_to_id.get(i)
+            if a is None:
+                continue
+            for s, j in zip(top_s[i], top_j[i]):
+                if j < 0:
+                    continue
+                b = self.row_to_id.get(int(j))
+                if b is not None:
+                    out.append((a, b, float(s)))
+        return out
+
+    def components(self) -> List[List[str]]:
+        """Connected components of the edge arena by label propagation
+        (``lazzaro_tpu/core/index.py:components``): the ids of each, keyed
+        by the component's root row."""
+        alive = self._column("alive").to(self.device)
+        es = self.edge_state
+        labels = graphops.connected_components(
+            es.src, es.tgt, es.alive, alive, alive.shape[0]).cpu().numpy()
+        groups: Dict[int, List[str]] = {}
+        for row, node_id in self.row_to_id.items():
+            lbl = int(labels[row])
+            if lbl >= 0:
+                groups.setdefault(lbl, []).append(node_id)
+        return list(groups.values())
 
     # ---------------------------------------------------------------- reads
     def mean_embedding(self, ids: Sequence[str]) -> np.ndarray:

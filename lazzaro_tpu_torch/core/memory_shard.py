@@ -32,6 +32,16 @@ class _EdgeDict(dict):
 
     def __delitem__(self, key) -> None:
         super().__delitem__(key)
+        self._unindex(key)
+
+    def pop(self, key, *default):
+        if key not in self:
+            return super().pop(key, *default)
+        edge = super().pop(key)
+        self._unindex(key)
+        return edge
+
+    def _unindex(self, key) -> None:
         for nid in key:
             keys = self.by_node.get(nid)
             if keys is not None:

@@ -21,6 +21,12 @@ scan runs per shard and a merge kernel combines the shards' candidates; the
 fused ingest under a mesh is not ported yet, so a mesh takes the classic
 flags.
 
+Every ``consolidate_every``-th conversation end runs ``run_consolidation``
+(``auto_consolidate``, on by default as in JAX): the all-pairs merge of
+near-duplicate nodes (one launch of the pairwise scan kernel and one
+readback, ``MemoryIndex.merge_candidates``), profile extraction from the
+strong components of the graph, and a weak-edge prune.
+
 State lives in memory only in this slice: there is no store, no turn or
 fact journal and no snapshot. ``switch_user`` keeps each tenant's host graph
 in memory and leaves its arena rows in place. Unported paths raise
@@ -56,6 +62,7 @@ _logger = logging.getLogger("lazzaro_tpu_torch.memory_system")
 
 _STORE_ITEM = "Queue 1 item 7, persistent store"
 _SHARDED_INGEST_ITEM = "Queue 1 item 21, sharded fused ingest"
+_SHARDED_CONSOLIDATION_ITEM = "Queue 1 item 21, the all-pairs merge scan under a mesh"
 _CHECKPOINT_ITEM = "Queue 1 item 11, MemorySystem remainder and checkpoints"
 
 
@@ -148,6 +155,11 @@ class MemorySystem:
                 "MemorySystem(mesh=...) with ingest_fused=True: not ported yet "
                 f"(ROADMAP {_SHARDED_INGEST_ITEM}); pass ingest_fused=False, "
                 "ingest_dedup_fused=False for the classic ingest")
+        if mesh is not None and self.auto_consolidate:
+            raise NotImplementedError(
+                "MemorySystem(mesh=...) with auto_consolidate=True: not ported "
+                f"yet (ROADMAP {_SHARDED_CONSOLIDATION_ITEM}); pass "
+                "auto_consolidate=False")
         if store is not None:
             raise NotImplementedError(
                 f"MemorySystem(store=...): not ported yet (ROADMAP {_STORE_ITEM})")
@@ -201,6 +213,10 @@ class MemorySystem:
         # node_id -> [access_count, neighbor_count, latest_now].
         self._pending_boosts: Dict[str, List] = {}
         self._decay_pass = 0
+        # Nodes and edges a consolidation's merges changed on the device,
+        # refreshed from the arena where the JAX package saves them.
+        self._merged_nodes: Set[str] = set()
+        self._merged_edges: Set[Tuple[str, str]] = set()
 
         # Single-writer ingest: one worker thread + one mutation lock.
         self._mutex = threading.RLock()
@@ -271,9 +287,32 @@ class MemorySystem:
             [node.shard_key or "default"], self.user_id,
             [node.is_super_node])
 
-    def _sync_from_arena(self) -> None:
+    def _sync_from_arena(self, node_ids: Optional[Set[str]] = None,
+                         edge_keys: Optional[Set[Tuple[str, str]]] = None) -> None:
         """Refresh the mutable numerics of this tenant's host nodes and
-        edges from the arena (one bulk pull)."""
+        edges from the arena: one bulk pull, or with ``node_ids`` /
+        ``edge_keys`` just those rows and edges."""
+        if node_ids is not None:
+            pairs = [(nid, self.index.id_to_row.get(self._q(nid)))
+                     for nid in node_ids]
+            pairs = [(nid, row) for nid, row in pairs if row is not None]
+            if pairs:
+                cols = self.index.pull_numeric_rows([r for _, r in pairs])
+                for i, (nid, _row) in enumerate(pairs):
+                    node = self.buffer.get_node(nid)
+                    if node is None:
+                        continue
+                    node.salience = float(cols["salience"][i])
+                    node.last_accessed = float(cols["last_accessed"][i])
+                    node.access_count = int(cols["access_count"][i])
+            keys = {(self._q(s), self._q(t)) for s, t in (edge_keys or set())}
+            for (qsrc, qtgt), (w, co) in self.index.edge_weights_for(sorted(keys)).items():
+                edge = self._find_edge((qsrc.partition(":")[2],
+                                        qtgt.partition(":")[2]))
+                if edge is not None:
+                    edge.weight = w
+                    edge.co_occurrence = co
+            return
         cols = self.index.pull_numeric()
         for qid, row in self.index.id_to_row.items():
             user, _, nid = qid.partition(":")
@@ -380,8 +419,14 @@ class MemorySystem:
 
         self._enforce_buffer_limit()
         self.conversation_count += 1
+
+        if self.auto_consolidate and self.conversation_count % self.consolidate_every == 0:
+            self._log(f"🔄 Auto-consolidation triggered (every {self.consolidate_every} conversations)...")
+            results.append(self.run_consolidation(persist=False))
+
         self.short_term_memory = []
         self.conversation_history = []
+        self._sync_merged()
         return "\n".join(results)
 
     def _prune_weak_edges(self, threshold: float) -> int:
@@ -1020,6 +1065,10 @@ Return JSON: {"memories": [{"content": "...", "type": "semantic|episodic|procedu
             self._edge_shard[key] = shard.shard_key
         self.metrics["edges_linked"] += len(edges)
 
+    def _add_edge(self, edge: Edge) -> None:
+        """Insert into both the host shard record and the edge arena."""
+        self._add_edges_batch([edge])
+
     def _add_edges_batch(self, edges: List[Edge]) -> None:
         """Host bookkeeping per edge + one device scatter for the batch."""
         if not edges:
@@ -1221,12 +1270,229 @@ Return JSON: {"memories": [{"content": "...", "type": "semantic|episodic|procedu
             results.append(nodes)
         return results
 
-    # ------------------------------------------------------------ unported
-    def run_consolidation(self, *args, **kwargs) -> str:
-        raise NotImplementedError(
-            "run_consolidation is not ported yet (ROADMAP Queue 1 item 8, "
-            "run_consolidation and ops/graphops.py)")
+    # ------------------------------------------------------ deep consolidation
+    def run_consolidation(self, weight_threshold: float = 0.6,
+                          merge_similar: bool = True,
+                          persist: bool = True) -> str:
+        """Merge near-duplicate nodes, extract profile insights from the
+        strong components of the graph (or from every node when none
+        qualifies), prune weak edges (``lazzaro_tpu/core/memory_system.py:
+        run_consolidation``). Each stage's host wall time goes to the
+        ``consolidation.stage_ms`` timer under its ``stage`` label (``pairs``,
+        ``merge_loop``, ``components``, ``weights``, ``profile``, ``prune``),
+        the pair and component counts to the ``consolidation.merge_pairs``
+        and ``consolidation.components`` gauges."""
+        results = []
+        self._log("🔄 Running consolidation...")
+        self._flush_pending_boosts()   # consolidation reads arena salience
 
+        if merge_similar:
+            merged = self._merge_similar_nodes(self.config.merge_similarity)
+            if merged > 0:
+                self._status(results, f"✓ Merged {merged} similar nodes")
+
+        with self._stage("components"):
+            components = self.buffer.get_connected_components()
+        self.telemetry.gauge("consolidation.components", len(components))
+        with self._stage("weights"):
+            w_sum, w_cnt = self._component_weights(components)
+        with self._stage("profile"):
+            profile_updates = self._profile_from_components(components, w_sum,
+                                                            w_cnt, results)
+
+        with self._stage("prune"):
+            pruned = self._prune_weak_edges(self.prune_threshold)
+        if pruned > 0:
+            self._status(results, f"✓ Pruned {pruned} weak edges")
+
+        if profile_updates > 0:
+            self._status(results, f"✓ Updated {profile_updates} profile domains")
+        else:
+            all_contents = [n.content for n in self.buffer.nodes.values()
+                            if not n.is_super_node]
+            if len(all_contents) >= self.config.component_min_size:
+                with self._stage("profile"):
+                    update = self._extract_profile_from_contents(all_contents)
+                if "Updated" in update:
+                    results.append(update)
+
+        if not results:
+            self._status(results, "✓ No consolidation actions needed")
+        elif persist:
+            # The JAX package saves here for standalone callers. The port
+            # has no store yet (ROADMAP Queue 1 item 7): the merged nodes and
+            # the profile stay in memory, and the host copies of the rows
+            # the merges touched are refreshed as that save refreshes them.
+            self._sync_merged()
+        return "\n".join(results)
+
+    def _stage(self, name: str):
+        """A span of one consolidation stage (see :meth:`run_consolidation`)."""
+        return self.telemetry.span("consolidation.stage_ms", {"stage": name})
+
+    def _sync_merged(self) -> None:
+        """Refresh the host copies of the nodes and edges the last merges
+        touched from the arena (the JAX package's save syncs its dirty rows
+        this way): the keepers' merge-touched numerics, the rewired edges'
+        weights."""
+        with self._mutex:
+            if self._merged_nodes or self._merged_edges:
+                self._sync_from_arena(self._merged_nodes, self._merged_edges)
+            self._merged_nodes.clear()
+            self._merged_edges.clear()
+
+    def _component_weights(self, components: List[Set[str]]
+                           ) -> Tuple[List[float], List[int]]:
+        """One pass over every edge: the summed weight and the count of the
+        edges inside each component."""
+        comp_of: Dict[str, int] = {}
+        for ci, component in enumerate(components):
+            for nid in component:
+                comp_of[nid] = ci
+        w_sum = [0.0] * len(components)
+        w_cnt = [0] * len(components)
+        for s in self.shards.values():
+            for (src, tgt), e in s.edges.items():
+                ci = comp_of.get(src)
+                if ci is not None and comp_of.get(tgt) == ci:
+                    w_sum[ci] += e.weight
+                    w_cnt[ci] += 1
+        return w_sum, w_cnt
+
+    def _profile_from_components(self, components: List[Set[str]],
+                                 w_sum: List[float], w_cnt: List[int],
+                                 results: List[str]) -> int:
+        """Profile extraction from every component of at least
+        ``component_min_size`` nodes whose mean edge weight beats
+        ``component_min_avg_weight``; returns the updates made."""
+        updates = 0
+        for ci, component in enumerate(components):
+            if len(component) < self.config.component_min_size or not w_cnt[ci]:
+                continue
+            if w_sum[ci] / w_cnt[ci] > self.config.component_min_avg_weight:
+                update = self._extract_profile_from_component(component)
+                if "Updated" in update:
+                    updates += 1
+                    results.append(update)
+        return updates
+
+    def _extract_profile_from_component(self, component: Set[str]) -> str:
+        contents = []
+        for nid in component:
+            node = self.buffer.get_node(nid)
+            if node and not node.is_super_node:
+                contents.append(node.content)
+        if not contents:
+            return "No content to extract"
+        return self._extract_profile_from_contents(contents)
+
+    _PROFILE_PROMPT = """Analyze these related memories and generate brief, factual personality insights (1-2 sentences each).
+Identify all applicable domains: preferences, personality_traits, knowledge_domains, interaction_style, or key_experiences.
+Return a JSON object where keys are the domain names and values are the specific insights.
+Example: {"preferences": "User prefers Python for data science.", "knowledge_domains": "Exhibits deep expertise in memory systems."}"""
+
+    def _extract_profile_from_contents(self, contents: List[str]) -> str:
+        if not contents:
+            return "No content to extract"
+        prompt = "Related memories:\n" + "\n".join(f"- {c}" for c in contents[:10])
+        response = self._call_llm(
+            [{"role": "system", "content": self._PROFILE_PROMPT},
+             {"role": "user", "content": prompt}],
+            response_format={"type": "json_object"})
+        try:
+            data = json.loads(_extract_json_object(response))
+            if not isinstance(data, dict):
+                # a top-level array or scalar parses but has no domains
+                return "Failed to extract profile"
+            updated_any = False
+            for domain, insight in data.items():
+                if domain in self.profile.data and insight:
+                    current = self.profile.data.get(domain, "")
+                    if current and insight not in current:
+                        updated = f"{current}. {insight}".strip()
+                    else:
+                        updated = insight
+                    self.profile.update_domain(domain, updated)
+                    self._log(f"  ✓ Profile updated: {domain} = {insight[:50]}...")
+                    updated_any = True
+            if updated_any:
+                return "✓ Updated profile domains"
+        except json.JSONDecodeError as e:
+            self._log(f"  ⚠ JSON parse error: {e}")
+        return "Failed to extract profile"
+
+    def _merge_similar_nodes(self, similarity_threshold: float = 0.95) -> int:
+        """All-pairs near-duplicate merge (``lazzaro_tpu/core/memory_system.py:
+        _merge_similar_nodes``): the pairs come from one launch of the
+        pairwise scan kernel (``MemoryIndex.merge_candidates``); each pair
+        whose nodes are both still there folds the second into the first
+        (contents joined, the larger salience, summed access counts), moves
+        the second's edges in every shard onto the first and deletes it."""
+        with self._mutex:
+            if len(self.buffer.nodes) < 2:
+                return 0
+            with self._stage("pairs"):
+                pairs = self.index.merge_candidates(self.user_id,
+                                                    similarity_threshold)
+            self.telemetry.gauge("consolidation.merge_pairs", len(pairs))
+            with self._stage("merge_loop"):
+                return self._merge_pairs(pairs)
+
+    def _merge_pairs(self, pairs) -> int:
+        """The host side of :meth:`_merge_similar_nodes` (under the mutex)."""
+        merged_count = 0
+        absorbed: Set[str] = set()
+        for qkeep, qmerge, _sim in pairs:
+            user, _, keep_id = qkeep.partition(":")
+            if user != self.user_id:
+                continue
+            merge_id = qmerge.partition(":")[2]
+            if keep_id in absorbed or merge_id in absorbed:
+                continue
+            node1 = self.buffer.get_node(keep_id)
+            node2 = self.buffer.get_node(merge_id)
+            if node1 is None or node2 is None or node1.is_super_node or node2.is_super_node:
+                continue
+
+            node1.content = f"{node1.content} | {node2.content}"
+            node1.salience = max(node1.salience, node2.salience)
+            node1.access_count += node2.access_count
+
+            # Cross-links live in the source node's shard, not
+            # necessarily the merged node's: rewire in every shard.
+            for shard in self.shards.values():
+                rewires = []
+                for (src, tgt) in list(shard.edges.keys()):
+                    if src == merge_id:
+                        rewires.append(((src, tgt), (keep_id, tgt)))
+                    elif tgt == merge_id:
+                        rewires.append(((src, tgt), (src, keep_id)))
+                for old_key, new_key in rewires:
+                    edge = shard.edges.pop(old_key)
+                    self._edge_shard.pop(old_key, None)
+                    edge.source, edge.target = new_key
+                    if new_key[0] != new_key[1]:
+                        shard.edges[new_key] = edge
+                        self._edge_shard[new_key] = shard.shard_key
+                        self.index.add_edges(
+                            [(self._q(new_key[0]), self._q(new_key[1]), edge.weight)],
+                            self.user_id)
+                        self._merged_edges.add(new_key)
+                if merge_id in shard.nodes:
+                    del shard.nodes[merge_id]
+                    self._node_shard_cache.pop(merge_id, None)
+
+            self.index.merge_touch([qkeep], [node1.salience])
+            self.index.delete([qmerge])
+            absorbed.add(merge_id)
+            self._merged_nodes.discard(merge_id)
+            self._merged_nodes.add(keep_id)
+            merged_count += 1
+        if merged_count and self.query_cache:
+            self.query_cache.invalidate_results(self.user_id)
+        return merged_count
+
+    # ------------------------------------------------------------ unported
     def save_snapshot(self, snapshot_dir: str) -> str:
         raise NotImplementedError(f"snapshots are not ported yet (ROADMAP {_CHECKPOINT_ITEM})")
 

@@ -2487,4 +2487,271 @@ int run_ingest(IngestArgs a, int is_bf16, int route, float* probe_s, int* probe_
   return 0;
 }
 
+
+// ---------------------------------------------------------------------------
+// Pairwise mode (exported by pairwise_topk.cu): the all-pairs merge scan
+// ---------------------------------------------------------------------------
+//
+// Replaces lazzaro_tpu/ops/graphops.py:pairwise_merge_candidates, which the
+// JAX package computes in XLA (chunked nt_dot + where + lax.top_k), not with
+// Pallas. The queries are the arena's own rows. The caller gathers the rows
+// that take part (a tenant's live non-super rows) into an ascending compact
+// copy E whose first n_live rows are live; the gather is monotone, so every
+// sum and the order of ties are kept. For every pair a < b < n_live:
+//     s[a, b]   = dot_f32(E[a], E[b])
+//     list[a,:] = the k best (s, b) with b > a and s > threshold, in
+//                 lax.top_k's order (score descending, ties to the lowest b)
+// and the decode maps both back to arena rows: slot p of arena row r is
+// list[pos[r], p] as (score, comp[b]), or (NEG, -1) where the list is
+// shorter or r takes no part. k <= kPairMaxK.
+//
+// Design. Block (x, c) scores the 64 queries of query tile x against the row
+// tiles (kBR rows) of chunk c (kPairTiles tiles) that hold a b > a for one of
+// them: a tile wholly at or below the diagonal is never loaded, and the b > a
+// test runs only on a tile that crosses it. The blocks are numbered chunk by
+// chunk, chunk c listing the query tiles that reach it (the first 2 (c + 1)
+// kPairTiles), so every block off the diagonal does the same work and the
+// triangle fills whole waves evenly. bf16 rows take the tensor-core product
+// (wg_produce / wg_product: one consumer warpgroup, m64n128k16 from a TMA
+// ring), f32 rows the FMA product (fma_tile, 64 queries x 128 rows); the sums
+// stay in registers. A warp none of whose sums beats the threshold skips the
+// tile's list work (at 0.95 nearly every warp). A sum that beats it and the
+// query's last list key goes into the query's list in device memory by a
+// cascade of 64-bit atomicMax over its k slots, the key being list_key's
+// (exact, one a pair): a slot that takes the key hands its old key on to the
+// next slot, so in whatever order the blocks insert, slot p ends holding
+// the p-th best key. Lists start at 0, below every key; a decode kernel
+// writes the outputs. The grid is sized from the arena's rows (n_live stays
+// on the device, so the launch never waits for it); blocks past n_live end
+// at once.
+// What bounds it: the product, 2 d n_live (n_live - 1) / 2 FLOP on the tensor
+// cores for bf16 and on the FMA units for f32, and each live row read once.
+
+constexpr int kPairMaxK = 8;
+constexpr int kPairBQ = 64;                          // queries a block
+constexpr int kPairTiles = 32;                       // row tiles a chunk
+constexpr int kPairPerChunk = kBR * kPairTiles / kPairBQ;   // query tiles a chunk adds
+
+struct PairArgs {
+  const void* emb;                 // [n_rows, d] compact rows, the first *n_live live
+  const int* n_live;               // [1] on the device
+  long long n_rows, qtiles;        // rows of the copy; query tiles of the grid
+  int d, k, panels, ns;
+  float thr;
+  unsigned long long* keys;        // [n_rows, k] lists, zeroed
+};
+
+// Blocks of a pairwise launch over n rows: chunk c holds min(qtiles, (c + 1)
+// kPairPerChunk) query tiles.
+inline long long pair_blocks(long long n) {
+  const long long qt = (n + kPairBQ - 1) / kPairBQ;
+  const long long chunks = (n + (long long)kBR * kPairTiles - 1) / ((long long)kBR * kPairTiles);
+  long long b = 0;
+  for (long long c = 0; c < chunks; ++c) {
+    const long long cnt = (c + 1) * kPairPerChunk;
+    b += cnt < qt ? cnt : qt;
+  }
+  return b;
+}
+
+// Block b's query tile x and row tiles [t0, t1); false when it has none (its
+// queries or its chunk past n_live, or its tiles at or below the diagonal).
+__device__ __forceinline__ bool pair_block(long long b, int n, long long qtiles, int& x,
+                                           long long& t0, long long& t1) {
+  long long c = 0;
+  for (;; ++c) {
+    const long long cnt = min(qtiles, (c + 1) * kPairPerChunk);
+    if (b < cnt) break;
+    b -= cnt;
+  }
+  x = (int)b;
+  const long long q0 = (long long)x * kPairBQ;
+  if (q0 >= n) return false;
+  const long long first = (q0 + 1) / kBR, last = ((long long)n + kBR - 1) / kBR;
+  t0 = max(c * kPairTiles, first);
+  t1 = min((c + 1) * kPairTiles, last);
+  return t0 < t1;
+}
+
+// Pair (a, b) with sum s into a's list of k slots L (see the design note).
+__device__ __forceinline__ void pair_insert(unsigned long long* L, int k, float s, int b) {
+  unsigned long long key = list_key(s, b);
+  if (key <= *reinterpret_cast<volatile unsigned long long*>(L + k - 1)) return;
+  for (int p = 0; p < k; ++p) {
+    const unsigned long long old = atomicMax(L + p, key);
+    if (old < key) {
+      key = old;
+      if (key == 0ull) return;
+    }
+  }
+}
+
+// Stage 1 on the FMA route (f32): 64 queries against 128-row tiles, thread
+// (tq, tr) holding queries tq + 16 i against rows tr + 16 j.
+__global__ void __launch_bounds__(kThreads) pair_stage1_fma(const PairArgs a) {
+  constexpr int BQ = kPairBQ, MQ = 4, MR = 8, TQ = BQ / MQ, TR = kThreads / TQ;
+  static_assert(TR * MR == kBR, "thread grid must cover one row tile");
+  __shared__ float qs[BQ * kLD];
+  __shared__ float rs[kBR * kLD];
+  const int n = *a.n_live;
+  int x;
+  long long t0, t1;
+  if (!pair_block(blockIdx.x, n, a.qtiles, x, t0, t1)) return;
+  const int q0 = x * BQ, tid = threadIdx.x, tq = tid / TR, tr = tid % TR;
+  const float* e = static_cast<const float*>(a.emb);
+  for (long long t = t0; t < t1; ++t) {
+    const long long r0 = t * kBR;
+    float acc[MQ][MR];
+    fma_tile<float, BQ, MQ, MR>(acc, qs, rs, e, e, q0, n, r0, n, a.d);
+    bool hit = false;
+#pragma unroll
+    for (int i = 0; i < MQ; ++i)
+#pragma unroll
+      for (int j = 0; j < MR; ++j) hit |= acc[i][j] > a.thr;
+    if (!__any_sync(kFull, hit)) continue;
+    const bool diag = r0 < q0 + BQ;
+#pragma unroll
+    for (int i = 0; i < MQ; ++i) {
+      const int qi = q0 + tq + i * TQ;
+#pragma unroll
+      for (int j = 0; j < MR; ++j) {
+        const long long rj = r0 + tr + j * TR;
+        const float s = acc[i][j] + 0.0f;
+        if (s > a.thr && qi < n && rj < n && (!diag || rj > qi))
+          pair_insert(a.keys + (long long)qi * a.k, a.k, s, (int)rj);
+      }
+    }
+  }
+}
+
+// Stage 1 on the tensor cores (bf16): warpgroup 1's one thread produces
+// (query panel, row panel) pairs of the compact copy (wg_produce), warpgroup
+// 0 runs the product (wg_product) and filters each tile from its registers.
+template <int BN>
+__global__ void __launch_bounds__(256, 1)
+pair_stage1_wgmma(const __grid_constant__ CUtensorMap map_e,
+                  const __grid_constant__ CUtensorMap map_q, const PairArgs a) {
+  constexpr int NF = BN / 2;                  // accumulator registers a thread
+  constexpr int STAGE = (64 + BN) * kRowBytes;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + a.ns * STAGE);
+  uint64_t* empty = full + a.ns;
+  const int n = *a.n_live;
+  int x;
+  long long t0, t1;
+  if (!pair_block(blockIdx.x, n, a.qtiles, x, t0, t1)) return;
+  const int q0 = x * 64, tiles = (int)(t1 - t0);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < a.ns; ++s) {
+      hopper::mbar_init(full + s, 1);
+      hopper::mbar_init(empty + s, 1);
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+  if (threadIdx.x >= 128) {
+    if (threadIdx.x == 128)
+      wg_produce<1, BN>(&map_q, &map_e, ring, full, empty, a.ns, tiles, a.panels, q0, t0 * BN);
+    return;
+  }
+
+  // Fragment element 4c + e is query ia, column 8c + 2tq + e; 4c + 2 + e
+  // query ib.
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int ia = q0 + 16 * warp + g, ib = ia + 8;
+  unsigned long long* La = a.keys + (long long)ia * a.k;
+  unsigned long long* Lb = a.keys + (long long)ib * a.k;
+  float acc[NF];
+#pragma unroll
+  for (int i = 0; i < NF; ++i) acc[i] = 0.0f;
+  for (int t = 0; t < tiles; ++t) {
+    wg_product<1, BN>(acc, ring, full, empty, a.ns, t, a.panels, 0, tid);
+    bool hit = false;
+#pragma unroll
+    for (int i = 0; i < NF; ++i) hit |= acc[i] > a.thr;
+    if (!__any_sync(kFull, hit)) continue;
+    const long long r0 = (t0 + t) * BN;
+    const bool diag = r0 < q0 + 64;
+#pragma unroll
+    for (int c = 0; c < BN / 8; ++c) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const long long j = r0 + 8 * c + 2 * tq + e;
+        const float sa = acc[4 * c + e] + 0.0f, sb = acc[4 * c + 2 + e] + 0.0f;
+        if (sa > a.thr && ia < n && j < n && (!diag || j > ia)) pair_insert(La, a.k, sa, (int)j);
+        if (sb > a.thr && ib < n && j < n && (!diag || j > ib)) pair_insert(Lb, a.k, sb, (int)j);
+      }
+    }
+  }
+}
+
+// Slot p of arena row r: list pos[r]'s key p as (score, comp[row]), or (NEG,
+// -1) for an empty slot or a row outside the mask.
+__global__ void __launch_bounds__(kThreads)
+pair_decode(const unsigned long long* __restrict__ keys, const uint8_t* __restrict__ mask,
+            const int* __restrict__ pos, const int* __restrict__ comp, long long n, int k,
+            float* __restrict__ out_s, int* __restrict__ out_r) {
+  const long long r = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (r >= n) return;
+  const bool live = mask[r] != 0;
+  const unsigned long long* L = keys + (live ? (long long)pos[r] * k : 0);
+  for (int p = 0; p < k; ++p) {
+    const unsigned long long key = live ? L[p] : 0ull;
+    out_s[r * k + p] = key ? key_score(key) : kNeg;
+    out_r[r * k + p] = key ? comp[key_row(key)] : -1;
+  }
+}
+
+// Shared memory of the tensor-core pairwise stage 1 with ns ring stages: 1 KB
+// of alignment slack and the ring with its barriers.
+inline size_t pair_wg_smem(int ns) {
+  return 1024 + ns * ((size_t)(64 + kBR) * kRowBytes + 16);
+}
+
+// The lists zeroed, stage 1 on `route` (the tensor cores for bf16, FMA for
+// f32), the decode: each kernel the card takes adds one to *launched. A
+// launch the card refuses returns its error.
+inline int run_pairwise(PairArgs a, int is_bf16, int route, const uint8_t* mask, const int* pos,
+                        const int* comp, float* out_s, int* out_r, int* launched,
+                        cudaStream_t st) {
+  if (a.d % 8 != 0 || a.k < 1 || a.k > kPairMaxK || a.n_rows < 1 ||
+      !(route == kRouteWgmma ? is_bf16 : route == kRouteFma && !is_bf16))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaMemsetAsync(a.keys, 0, sizeof(unsigned long long) * a.n_rows * a.k, st);
+  if (err != cudaSuccess) return (int)err;
+  a.qtiles = (a.n_rows + kPairBQ - 1) / kPairBQ;
+  a.panels = (a.d + 63) / 64;
+  const long long blocks = pair_blocks(a.n_rows);
+  if (blocks > INT32_MAX) return (int)cudaErrorInvalidValue;
+  if (route == kRouteWgmma) {
+    a.ns = kMaxStages;
+    while (a.ns >= 2 && pair_wg_smem(a.ns) > (size_t)kSmemMax) --a.ns;
+    const size_t smem = pair_wg_smem(a.ns);
+    auto kernel = pair_stage1_wgmma<kBR>;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    // Rows past n_rows and columns past d arrive as zeros.
+    CUtensorMap map_e, map_q;
+    if (!hopper::encode_rows_map(&map_e, a.emb, a.d, a.n_rows, 1, 1, a.d, 0, 0, kBR) ||
+        !hopper::encode_rows_map(&map_q, a.emb, a.d, a.n_rows, 1, 1, a.d, 0, 0, 64))
+      return (int)cudaErrorNotSupported;
+    kernel<<<(unsigned)blocks, 256, smem, st>>>(map_e, map_q, a);
+  } else {
+    pair_stage1_fma<<<(unsigned)blocks, kThreads, 0, st>>>(a);
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  if (launched) ++*launched;
+  pair_decode<<<(unsigned)((a.n_rows + kThreads - 1) / kThreads), kThreads, 0, st>>>(
+      a.keys, mask, pos, comp, a.n_rows, a.k, out_s, out_r);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  if (launched) ++*launched;
+  return 0;
+}
+
 }  // namespace

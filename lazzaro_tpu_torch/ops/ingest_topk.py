@@ -13,11 +13,21 @@ The kernel is the ingest mode of the templated scan in
 ``sm_90a``, built with ``nvcc`` on first use and bound through ``ctypes``):
 one pass over the arena feeds the probe and every mode from one score tile,
 so the ``[B, N]`` f32 scores never reach device memory. A bf16 arena takes
-the tensor-core stage 1, an f32 one the FMA stage 1, at every batch size
-(:func:`route_for`). :func:`ingest_topk` launches it for a CUDA arena and
-runs :func:`ingest_topk_reference` only for a CPU arena. ``launches``
-counts the launches made through :func:`ingest_topk`, ``launches_wgmma``
-those on the tensor-core route.
+the tensor-core stage 1 at every batch size, an f32 one the FMA stage 1
+(:func:`route_for`), except that up to 16 f32 facts whose values fit the
+streaming stage (``ops.masked_topk.stream_fits``) take their dedup probe
+there: the additive-mode streaming scan of ``csrc/masked_topk.cu`` at k = 1
+over the probe mask, then the ingest stage for the link lists alone. The
+classic ingest probes with ``masked_topk``, which takes that streaming
+route at those batch sizes, and the two stages sum a row in different
+orders: on an H100 the FMA probe differed from it in the last bit at Q = 8
+and 16 on hashed 768-d rows, so a verdict at the 0.95 gate could differ
+between the two ingests. This way both probes score every pair bit for
+bit alike. :func:`ingest_topk` launches the kernel for a CUDA arena and runs
+:func:`ingest_topk_reference` only for a CPU arena. ``launches`` counts the
+launches of this kernel made through :func:`ingest_topk`, ``launches_wgmma``
+those on the tensor-core route; a streamed probe is a ``masked_topk``
+launch and counts there (``masked_topk.launches_stream``).
 """
 
 from __future__ import annotations
@@ -28,8 +38,9 @@ from typing import Sequence, Tuple
 import torch
 
 from lazzaro_tpu_torch.ops.chunking import QUERY_CHUNK, chunked_map, nt_dot
+from lazzaro_tpu_torch.ops import masked_topk as mt
 from lazzaro_tpu_torch.ops.masked_topk import ROUTES, _sms, check_arena
-from lazzaro_tpu_torch.ops.topk import NEG_INF, stable_topk
+from lazzaro_tpu_torch.ops.topk import NEG_INF, additive_mask, stable_topk
 from lazzaro_tpu_torch.utils import cuda_build
 
 MAX_K = 128          # longest list the kernel keeps
@@ -56,10 +67,15 @@ def _library():
     return _lib
 
 
-def route_for(dtype: torch.dtype) -> str:
-    """The stage-1 route of an ingest scan: the tensor cores for a bf16
-    arena, the FMA stage for an f32 one, at every batch size."""
-    return "wgmma" if dtype == torch.bfloat16 else "fma"
+def route_for(dtype: torch.dtype, nq: int, d: int) -> str:
+    """The stage-1 route of an ingest scan of ``nq`` facts of width ``d``:
+    the tensor cores for a bf16 arena; for an f32 one ``"stream"`` (the
+    dedup probe on ``masked_topk``'s streaming stage, the link lists on the
+    FMA stage) where ``masked_topk.route_for`` streams the same batch, else
+    the FMA stage."""
+    if dtype == torch.bfloat16:
+        return "wgmma"
+    return "stream" if mt.route_for(dtype, nq, d) == "stream" else "fma"
 
 
 def masks(alive, tenant_id, is_super, probe_excl, link_excl, tenant):
@@ -109,7 +125,8 @@ def _launch(emb, alive, tenant_id, is_super, shard_id, probe_excl, link_excl,
             qd, q_shard, tenant, k, shard_modes, with_probe, route=None):
     """One scan on the card: a stage 1 and a stage 2 a mode. ``route``
     forces a stage 1; the card refuses the tensor cores for an f32 arena
-    and the FMA route for a bf16 one, and the wrapper raises."""
+    and the FMA route for a bf16 one, and the wrapper raises (``"stream"``
+    takes what ``masked_topk``'s streaming route takes)."""
     global launches, launches_wgmma
     check_arena(emb, "ingest_topk")
     n, d = emb.shape
@@ -134,7 +151,18 @@ def _launch(emb, alive, tenant_id, is_super, shard_id, probe_excl, link_excl,
     qs = q_shard.to(device=dev, dtype=torch.int32).contiguous()
     if flags.shape != (n,) or shard.shape != (n,) or qs.shape != (nq,):
         raise ValueError("ingest_topk: row columns must be [N], q_shard [B]")
-    route = route or route_for(emb.dtype)
+    route = route or route_for(emb.dtype, nq, d)
+    streamed = None
+    if route == "stream":
+        if not with_probe:
+            route = "fma"
+        else:
+            # The probe as masked_topk probes: its streaming scan at k = 1.
+            streamed = mt._launch_table([emb], [additive_mask(pmask)], [0], q,
+                                        1, None, "stream")
+            if not modes:
+                return streamed[0], streamed[1].int()
+            with_probe, route = False, "fma"
     lib = _library()
     splits = lib.ingest_topk_splits(n, nq, ROUTES[route], _sms(dev))
     nm = len(modes)
@@ -164,6 +192,8 @@ def _launch(emb, alive, tenant_id, is_super, shard_id, probe_excl, link_excl,
     launches += 1
     launches_wgmma += route == "wgmma"
     outs = []
+    if streamed is not None:
+        outs.extend((streamed[0], streamed[1].int()))
     if with_probe:
         outs.extend((probe_s[:, None], probe_r[:, None]))
     for m in range(nm):

@@ -532,7 +532,8 @@ def test_fused_sharded_dispatch_syncs_only_at_the_readback(cuda, tmp_path):
     # a mesh takes the classic ingest; the single device the fused default
     ms = MemorySystem(db_dir=str(tmp_path / "m"), mesh=mesh,
                       config=MemoryConfig(ingest_fused=False,
-                                          ingest_dedup_fused=False), **kw)
+                                          ingest_dedup_fused=False,
+                                          auto_consolidate=False), **kw)
     one = MemorySystem(db_dir=str(tmp_path / "o"), device="cuda", **kw)
     try:
         for sys_ in (ms, one):
@@ -1411,6 +1412,57 @@ def test_ingest_probe_equals_masked_topk_probe(cuda):
         assert torch.equal(out[0], s) and torch.equal(out[1].long(), r)
 
 
+def hashed_rows(n, dim, seed):
+    """L2-normalized HashingEmbedder vectors of made-up texts: real-valued
+    f32 data whose sums round, as the default configuration's arena holds."""
+    from lazzaro_tpu_torch.core.providers import HashingEmbedder
+
+    rng = np.random.default_rng(seed)
+    vocab = [f"w{i}" for i in range(5000)]
+    texts = [" ".join(rng.choice(vocab, size=rng.integers(4, 24)))
+             for _ in range(n)]
+    return np.asarray(HashingEmbedder(dim).batch_embed(texts), np.float32)
+
+
+@pytest.mark.parametrize("nq", [1, 8, 16])
+def test_ingest_f32_probe_equals_streaming_masked_topk_probe(cuda, nq):
+    """ROADMAP Queue 3's open check: at Q <= 16 an f32 arena's dedup probe
+    in K1 (the fused ingest) and in ``masked_topk`` (the classic ingest's
+    ``search_batch``, on the streaming route) must score every pair bit for
+    bit, else a verdict at the 0.95 gate could differ between the two
+    ingests. Hashed 768-d rows, queries that repeat and perturb arena
+    rows."""
+    n, d = 30_000, 768
+    emb = torch.from_numpy(hashed_rows(n, d, nq)).to(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(nq)
+    alive = torch.rand(n, generator=gen, device=cuda) < 0.9
+    ten = torch.zeros(n, dtype=torch.int32, device=cuda)
+    sup = torch.zeros(n, dtype=torch.bool, device=cuda)
+    shard = torch.zeros(n, dtype=torch.int32, device=cuda)
+    pick = torch.randint(0, n, (nq,), generator=gen, device=cuda)
+    q = torch.nn.functional.normalize(
+        emb[pick] + 0.02 * torch.randn((nq, d), generator=gen, device=cuda), dim=1)
+    q[: nq // 2] = emb[pick[: nq // 2]]
+    none = torch.zeros(n, dtype=torch.bool, device=cuda)
+    args = (emb, alive, ten, sup, shard, none, none, q,
+            torch.zeros(nq, dtype=torch.int32, device=cuda), 0, 3, (1, 0))
+    before = (it.launches, mt.launches, mt.launches_stream)
+    out = it.ingest_topk(*args)
+    # One streaming masked_topk launch for the probe, one K1 launch for
+    # the link lists; each wrapper counts its own.
+    assert (it.launches - before[0], mt.launches - before[1],
+            mt.launches_stream - before[2]) == (1, 1, 1)
+    assert mt.route_for(torch.float32, nq, d) == "stream"
+    s, r = mt.masked_topk(emb, alive, q, 1)
+    torch.cuda.synchronize()
+    assert torch.equal(out[1].long(), r)
+    assert torch.equal(out[0], s), (out[0] - s).abs().max().item()
+    # The link lists stay on the FMA stage: equal to the FMA route forced.
+    fma = it._launch(*args, True, route="fma")
+    for got, want in zip(out[2:], fma[2:]):
+        assert torch.equal(got, want)
+
+
 def test_ingest_scan_refuses_what_the_kernel_does_not_take(cuda):
     gen = torch.Generator(device=cuda).manual_seed(2)
     cols = ingest_arena(gen, 300, 32, torch.float32, cuda)
@@ -1472,8 +1524,10 @@ def test_fused_ingest_syncs_only_at_the_readback(cuda, tmp_path):
                                      "semantic", 0.6)
             ms.end_conversation()
 
+    # The third conversation end would consolidate (its own readback, held
+    # by test_default_system_consolidates_through_one_launch_and_one_copy).
     kw = dict(enable_async=False, load_from_disk=False, verbose=False,
-              device="cuda")
+              device="cuda", auto_consolidate=False)
     ms = MemorySystem(db_dir=str(tmp_path / "f"),
                       config=MemoryConfig(dtype="bfloat16"), **kw)
     classic = MemorySystem(db_dir=str(tmp_path / "c"), config=MemoryConfig(
@@ -1515,3 +1569,227 @@ def test_fused_ingest_syncs_only_at_the_readback(cuda, tmp_path):
         torch.cuda.set_sync_debug_mode(0)
         ms.close()
         classic.close()
+
+
+# ------------------------------------------------------------------ K3
+from lazzaro_tpu_torch.ops import graphops as gops  # noqa: E402
+
+
+def pairwise_arena(gen, n, d, dtype, device):
+    """Grid rows (exact sums) of two tenants with ~10% dead rows, and
+    planted near-duplicates of unit norm: three identical rows (exact ties),
+    groups of a base and up to six rows that each move one entry of it (a
+    full list of 4), and copies at every offset across the diagonal of a
+    64 x 128 tile (pairs (i, i + delta) for delta 1 .. 130)."""
+    emb = grid(gen, (n, d), dtype, device)
+    ten = torch.randint(0, 2, (n,), generator=gen, device=device).int()
+    alive = torch.rand(n, generator=gen, device=device) < 0.9
+    base = torch.zeros(d, device=device)
+    base[:16] = 0.25
+    rows = torch.randperm(n, generator=gen, device=device)
+    take = 0
+
+    def plant(r, v):
+        emb[r] = v.to(dtype)
+        ten[r], alive[r] = 0, True
+
+    for g in range(min(8, n // 16)):
+        members = rows[take:take + 7].sort().values
+        take += 7
+        for m, r in enumerate(members.tolist()):
+            v = base.roll(g)
+            if m:
+                v[(g + m) % d] -= m / 64
+            plant(r, v)
+    if n > 8:
+        tri = torch.zeros(d, device=device)
+        tri[[1, 5, 9, 13]] = 0.5
+        for r in rows[take:take + 3].tolist():
+            plant(r, tri)
+        take += 3
+    for delta in range(1, 131):
+        i = (delta * 37) % max(1, n - delta)
+        if i + delta < n:
+            v = torch.zeros(d, device=device)
+            v[(delta % (d - 1)) + 1] = 1.0
+            plant(i, v)
+            plant(i + delta, v)
+    mask = alive & (ten == 0)
+    return emb, mask
+
+
+def pairwise_both(emb, mask, thr=0.95, k=4, route=None):
+    got = gops._launch(emb, mask, thr, k, route=route) if route else \
+        gops.pairwise_merge_candidates(emb, mask, thr, k)
+    want = gops.pairwise_merge_candidates_reference(emb, mask, thr, k)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[0], want[0])
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d", [(1, 64), (63, 64), (129, 72), (4097, 64),
+                                 (4097, 768), (131_072, 64)])
+def test_pairwise_kernel_matches_plain_version(cuda, dtype, n, d):
+    """K3 on the route the wrapper takes (tensor cores for bf16, FMA for
+    f32): rows and scores bit for bit, ties to the lowest row, a full list,
+    pairs across the diagonal at every offset, masked rows never listed."""
+    gen = torch.Generator(device=cuda).manual_seed(n + d)
+    emb, mask = pairwise_arena(gen, n, d, dtype, cuda)
+    before = (gops.launches, gops.launches_wgmma)
+    s, r = pairwise_both(emb, mask)
+    wg = int(dtype == torch.bfloat16)
+    assert (gops.launches - before[0], gops.launches_wgmma - before[1]) == (1, wg)
+    if n >= 4097:
+        assert (r >= 0).all(dim=1).any()                      # a full list
+        assert (r >= 0).sum() > 130
+    assert not mask[r[r >= 0].long()].logical_not().any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,k", [(600, 4), (1000, 8), (300, 1)])
+def test_pairwise_kernel_under_heavy_contention(cuda, dtype, n, k):
+    """A threshold every pair beats: each row lists its k best later rows
+    out of hundreds of candidates, many of them exact ties (grid values),
+    inserted by many blocks at once."""
+    gen = torch.Generator(device=cuda).manual_seed(n * k)
+    emb = grid(gen, (n, 64), dtype, cuda)
+    emb[n // 2:] = emb[: n - n // 2]
+    mask = torch.rand(n, generator=gen, device=cuda) < 0.8
+    s, r = pairwise_both(emb, mask, thr=-10.0, k=k)
+    live = mask.nonzero().view(-1)
+    assert (r[live[:-k]] >= 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pairwise_kernel_corners(cuda, dtype):
+    """An all-masked arena lists nothing; a mask of one tenant never pairs
+    with the other's identical rows; the sentinel-like last row pairs like
+    any other."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    n, d = 3000, 64
+    emb = grid(gen, (n, d), dtype, cuda)
+    emb[1500:] = emb[:1500]
+    none = torch.zeros(n, dtype=torch.bool, device=cuda)
+    s, r = pairwise_both(emb, none, thr=-10.0)
+    assert (r == -1).all() and (s == -1e30).all()
+    half = torch.arange(n, device=cuda) < 1500
+    s, r = pairwise_both(emb, half, thr=-10.0)
+    assert (r < 1500).all()
+    v = torch.zeros(d, device=cuda)
+    v[3] = 1.0
+    emb[7], emb[n - 1] = v.to(dtype), v.to(dtype)
+    s, r = pairwise_both(emb, torch.ones(n, dtype=torch.bool, device=cuda))
+    assert r[7].tolist() == [n - 1, -1, -1, -1]
+
+
+def test_pairwise_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    emb = grid(gen, (300, 32), torch.float32, cuda)
+    mask = torch.ones(300, dtype=torch.bool, device=cuda)
+    before = gops.launches
+    with pytest.raises(RuntimeError, match="wgmma"):       # f32 on the tensor cores
+        gops._launch(emb, mask, 0.95, 4, route="wgmma")
+    with pytest.raises(RuntimeError, match="fma"):         # bf16 on the FMA route
+        gops._launch(emb.bfloat16(), mask, 0.95, 4, route="fma")
+    with pytest.raises(ValueError):
+        gops.pairwise_merge_candidates(emb, mask, 0.95, k=9)
+    with pytest.raises(ValueError):
+        gops.pairwise_merge_candidates(emb, mask[:10], 0.95)
+    assert gops.launches == before
+
+
+def near_duplicate_dialogue(ms, words, convs=6):
+    """Conversations of three facts, each a 30-word base with one more
+    word (cosine ~0.97 to one another under the hashing embedder), and a
+    chat turn that retrieves them and boosts their neighbours."""
+    for c in range(convs):
+        ms.start_conversation()
+        base = " ".join(words[40 * c:40 * c + 30])
+        for extra in range(3):
+            ms.add_to_short_term(f"{base} {words[40 * c + 30 + extra]}",
+                                 "semantic", 0.6)
+        ms.chat(f"What about {words[40 * c]} {words[40 * c + 1]}?")
+        ms.end_conversation()
+
+
+def test_default_system_consolidates_through_one_launch_and_one_copy(cuda, tmp_path):
+    """``MemorySystem()`` as configured by default (f32 arena, fused
+    serving and ingest, ``auto_consolidate`` every 3 conversations) on the
+    card: conversations 3 and 6 each consolidate through one K3 launch on
+    the FMA route and, under ``set_sync_debug_mode("error")``, no host wait
+    but the one packed readback of the pair lists."""
+    from lazzaro_tpu_torch import MemorySystem
+
+    ms = MemorySystem(enable_async=False, load_from_disk=False, verbose=False,
+                      db_dir=str(tmp_path))
+    index = ms.index
+    merge, readback = index.merge_candidates, index._readback
+    readbacks = []
+
+    def read_once(packed):
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            readbacks.append(tuple(packed.shape))
+            return readback(packed)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    def strict(*args, **kwargs):
+        torch.cuda.set_sync_debug_mode("error")
+        index._readback = read_once
+        try:
+            return merge(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            index._readback = readback
+
+    index.merge_candidates = strict
+    words = [f"zq{i}x" for i in range(400)]
+    try:
+        before = (gops.launches, gops.launches_wgmma)
+        near_duplicate_dialogue(ms, words)
+        torch.cuda.synchronize()
+        assert (gops.launches - before[0], gops.launches_wgmma - before[1]) == (2, 0)
+        assert [r[1] for r in readbacks] == [8, 8]
+        assert ms.conversation_count == 6
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        ms.close()
+
+
+def test_consolidation_merges_on_the_card_alike_on_both_ingests(cuda, tmp_path):
+    """With the dedup gate (0.99) above the merge gate (0.95) the
+    near-duplicates arrive as nodes, and the consolidations at conversations
+    3 and 6 merge them on the card: the merge loop's arena writes
+    (``add_edges``, ``merge_touch``, ``delete``), the refresh of the host
+    copies after it, and chat turns over the merged graph. The fused and
+    the classic ingest end with the same nodes, contents, edges, saliences
+    and profile."""
+    from lazzaro_tpu_torch import MemoryConfig, MemorySystem
+
+    words = [f"zq{i}x" for i in range(400)]
+    states = []
+    for flags in ({}, {"ingest_fused": False, "ingest_dedup_fused": False}):
+        ms = MemorySystem(enable_async=False, load_from_disk=False,
+                          verbose=False, db_dir=str(tmp_path / str(len(states))),
+                          max_buffer_size=1000, config=MemoryConfig(
+                              dedup_similarity=0.99, **flags))
+        results = []
+        inner = ms.run_consolidation
+        ms.run_consolidation = lambda *a, **k: results.append(inner(*a, **k)) or results[-1]
+        try:
+            before = gops.launches
+            near_duplicate_dialogue(ms, words)
+            assert len(results) == 2 and all("Merged" in r for r in results)
+            assert gops.launches - before == 2
+            states.append((results,
+                           {nid: (n.content, round(n.salience, 6))
+                            for nid, n in ms.buffer.nodes.items()},
+                           {k: round(e.weight, 6) for k, e in ms.buffer.edges.items()},
+                           dict(ms.profile.data)))
+        finally:
+            ms.close()
+    assert states[0] == states[1]
+    assert sum(" | " in c for c, _ in states[0][1].values()) >= 4

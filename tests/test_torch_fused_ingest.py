@@ -825,3 +825,16 @@ def test_fused_ingest_dialogue_equals_the_classic_run(both_fused_ingest,
             assert_snapshots_match(c[1], t[1])
         elif c[0] != "ranked":
             assert t == c, c[0]
+
+
+def test_ingest_route_rule():
+    """K1's stage-1 route: the tensor cores for bf16; for f32 the dedup
+    probe streams where ``masked_topk`` streams the same batch (so the
+    fused and the classic ingest's probes score alike), else the FMA
+    stage."""
+    assert it.route_for(torch.bfloat16, 8, 768) == "wgmma"
+    assert it.route_for(torch.bfloat16, 8192, 768) == "wgmma"
+    for nq, d in ((1, 768), (8, 768), (16, 768), (4, 3072), (8, 1536)):
+        assert it.route_for(torch.float32, nq, d) == "stream"
+    for nq, d in ((17, 768), (8192, 768), (8, 3072), (16, 1536)):
+        assert it.route_for(torch.float32, nq, d) == "fma"

@@ -287,7 +287,8 @@ def test_mesh_chat_turn_is_one_dispatch_and_one_readback(tmp_path,
     ms = TorchSystem(enable_async=False, db_dir=str(tmp_path), verbose=False,
                      load_from_disk=False, mesh=cpu_mesh(8), device="cpu",
                      config=TorchConfig(ingest_fused=False,
-                                        ingest_dedup_fused=False))
+                                        ingest_dedup_fused=False,
+                                        auto_consolidate=False))
     try:
         ms.start_conversation()
         ms.chat("I work as a data engineer on a big ETL project.")

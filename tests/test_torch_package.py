@@ -98,23 +98,23 @@ def test_unported_entry_points_raise(tmp_path):
     ms = MemorySystem(load_from_disk=False, **kw)
     for call in (lambda: ms.save_snapshot(str(tmp_path / "s")),
                  lambda: ms.load_snapshot(str(tmp_path / "s")),
-                 lambda: ms.save_state(), lambda: ms.load_state(),
-                 lambda: ms.run_consolidation()):
+                 lambda: ms.save_state(), lambda: ms.load_state()):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
     ms.close()
 
 
 def test_slice_defaults_are_the_classic_path():
-    """Defaults: the JAX defaults for serving and ingest, fused serving and
-    the fused dedup ingest, with the classic lifecycle path, and they pass
-    the ported-path check; a mesh with the fused ingest on raises, naming
-    its ROADMAP item, and takes the classic ingest flags."""
+    """Defaults: the JAX defaults for serving, ingest and consolidation,
+    fused serving, the fused dedup ingest and ``auto_consolidate``, with the
+    classic lifecycle path, and they pass the ported-path check; a mesh with
+    the fused ingest on raises, naming its ROADMAP item, and takes the
+    classic ingest flags and ``auto_consolidate=False``."""
     cfg = MemoryConfig()
     assert cfg.serve_fused is True and cfg.serve_ragged is True
     assert cfg.ingest_fused is True and cfg.ingest_dedup_fused is True
-    for name in ("lifecycle_fused", "journal", "ingest_journal",
-                 "auto_consolidate"):
+    assert cfg.auto_consolidate is True and cfg.consolidate_every == 3
+    for name in ("lifecycle_fused", "journal", "ingest_journal"):
         assert getattr(cfg, name) is False, name
     cfg.check_ported()
     kw = dict(enable_async=False, load_from_disk=False, verbose=False,
@@ -123,7 +123,8 @@ def test_slice_defaults_are_the_classic_path():
                        match="Queue 1 item 21, sharded fused ingest"):
         MemorySystem(**kw)
     MemorySystem(config=MemoryConfig(ingest_fused=False,
-                                     ingest_dedup_fused=False), **kw).close()
+                                     ingest_dedup_fused=False,
+                                     auto_consolidate=False), **kw).close()
 
 
 def test_shard_neighbors_follow_edge_inserts_and_deletes():
