@@ -21,10 +21,16 @@ Phases, each printing its own lines; any failure exits non-zero:
               top-k scans' split into stage 1 and the merge, event times of
               back-to-back calls beside them, the flash kernels' achieved
               TFLOP/s and share of the bound);
-  4. main     ``MemorySystem`` on a bf16 768-d arena of 1,048,576 rows. The
+  4. main     ``MemorySystem`` on a bf16 768-d arena of 1,048,576 rows, its
+              ``ArrowStore`` and journals under a temporary directory
+              (every phase's are; removed at the end). The
               classic path: fill it through ``end_conversation`` with
-              ``FILL`` facts (8,192 per conversation, two tenants, a
-              near-duplicate every 101 facts), then chat turns, one more
+              ``FILL`` facts (8,192 per conversation, two tenants in
+              blocks, each conversation end saving to the store, a
+              near-duplicate every 101 facts), then ``switch_user`` back to
+              the first tenant, which reloads her ~519k rows from the store
+              onto the card (seconds by part, the served top-k held to the
+              one before), then chat turns, one more
               conversation end and ``search_memories`` for facts whose answer
               is known; the masked top-k kernel is then held against its
               plain version on the filled arena. The fused path on the same
@@ -36,6 +42,14 @@ Phases, each printing its own lines; any failure exits non-zero:
               phase records, without boosting or counting, what the mesh
               phase must reproduce. Every dedup probe of the fill must
               scan on the tensor-core route;
+  4c. default ``MemorySystem()`` as configured by default (f32, the store and
+              both journals): nine conversations consolidating three times,
+              each conversation end's ingest, merge scan and saves under
+              sync debug mode "error"; a restart that must give the same
+              rankings, profile and salience bits; a crash whose turns and
+              uncommitted fact batch the next start replays through the
+              fused ingest on the card; the fused and classic ingests held
+              equal on the same dialogue;
   4b. mesh    the same path on ``MemorySystem(mesh=...)``: the same arena
               row-sharded over 8 shards (one per card when the cards divide
               8, else all on ``cuda:0``), filled for 34 conversations
@@ -74,8 +88,11 @@ from __future__ import annotations
 
 import gc
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import zlib
 from collections import deque
@@ -173,8 +190,10 @@ TRAIN_B, TRAIN_T, TRAIN_STEPS, TRAIN_LR = 2, 2048, 10, 3e-4
 # follows through 18 layers. Loss within TRAIN_LOSS_TOL, every tensor's gradients at cosine
 # above TRAIN_GRAD_COS.
 TRAIN_LOSS_TOL, TRAIN_GRAD_COS = 1e-2, 0.99
+# Phases 4 and 4b's flags. As the JAX bench builds its fill: the store and
+# the ingest journal on, the turn journal off.
 SLICE = dict(serve_fused=False, ingest_fused=False, ingest_dedup_fused=False,
-             lifecycle_fused=False, journal=False, ingest_journal=False,
+             lifecycle_fused=False, journal=False, ingest_journal=True,
              auto_consolidate=False)
 # Phase 4's: the fused dedup ingest, the default (phase 4b's mesh takes the
 # classic ingest, SLICE).
@@ -183,6 +202,47 @@ FUSED_INGEST = dict(SLICE, ingest_fused=True, ingest_dedup_fused=True)
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+# Every MemorySystem of the run writes its store and journals under one
+# temporary directory on local disk, which main() removes at the end.
+STORE_ROOT = None
+
+
+def store_dir(name: str) -> str:
+    return os.path.join(STORE_ROOT, name)
+
+
+def disk_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def _store_seconds(tel, kind: str, marks: dict) -> dict:
+    """Seconds by part from the ``store.<kind>_ms`` timer samples recorded
+    since ``marks`` (timer key -> sample count)."""
+    out = {}
+    for key, samples in list(tel.timers.items()):
+        if not key.startswith(f"store.{kind}_ms{{"):
+            continue
+        part = key.split('"')[1]
+        new = list(samples)[marks.get(key, 0):]
+        out[part] = out.get(part, 0.0) + sum(new) / 1e3
+    return out
+
+
+def fill_order(convs: int):
+    """The fill's conversation order. ``switch_user`` saves a tenant and
+    reloads the next from the store, so the tenants' conversations run in
+    blocks, each tenant's in its own order (no tenant sees another's rows,
+    so each one's final state is the interleaved run's): alice's first
+    ``MESH_CONVS // 2``, bob's first as many (the mesh phase's whole fill,
+    where the parity snapshot is taken), then bob's rest and alice's rest.
+    Node ids count across tenants, so phase 4b keeps this order too."""
+    own = [[c for c in range(convs) if c % len(TENANTS) == t]
+           for t in range(len(TENANTS))]
+    half = MESH_CONVS // 2
+    return own[0][:half] + own[1][:half] + own[1][half:] + own[0][half:]
 
 
 def nvidia_smi(fields: str = "name,power.limit") -> str:
@@ -1076,6 +1136,7 @@ def phase_main(launches_out: dict, parity: dict):
     torch.cuda.reset_peak_memory_stats()
     ms = MemorySystem(device="cuda", config=cfg, enable_async=False,
                       load_from_disk=False, max_buffer_size=2 * fill,
+                      db_dir=store_dir("main"),
                       user_id=TENANTS[0], verbose=False, llm_provider=llm,
                       embedding_provider=CorpusEmbedder(corpus))
     try:
@@ -1300,34 +1361,127 @@ def default_turns(c: int):
 default_turns.cache = {}
 
 
+def _strict_phase(ms, torch):
+    """Run the conversation end's device work of ``ms`` under
+    ``torch.cuda.set_sync_debug_mode("error")``, which raises on any host
+    wait on the device: the fused ingest dispatch, the consolidation's merge
+    scan and every save. Inside them only the designed device-to-host
+    copies may wait, and each is recorded as (context, copy): the ingest's
+    and the merge scan's packed readback, and the save's pull of the rows
+    and of the edges it dirtied (``pull_numeric_rows``,
+    ``edge_weights_for``). Each save also records what it was due to pull:
+    the rows when a dirty node has a row, the edges when an edge is dirty.
+    Returns (copies, saves)."""
+    index = ms.index
+    copies, saves, ctx = [], [], []
+
+    def strict(name, fn):
+        def run(*args, **kwargs):
+            ctx.append(name)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                ctx.pop()
+                torch.cuda.set_sync_debug_mode("error" if ctx else 0)
+        return run
+
+    def allowed(name, fn):
+        def run(*args, **kwargs):
+            if ctx:
+                copies.append((ctx[-1], name))
+            torch.cuda.set_sync_debug_mode(0)
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.set_sync_debug_mode("error" if ctx else 0)
+        return run
+
+    save = strict("save", ms._save_to_persistence)
+
+    def due_save():
+        saves.append((
+            any(ms._q(n) in index.id_to_row for n in ms._dirty_nodes),
+            bool(ms._dirty_edges)))
+        return save()
+
+    index.ingest_batch_dedup = strict("ingest", index.ingest_batch_dedup)
+    index.merge_candidates = strict("merge", index.merge_candidates)
+    ms._save_to_persistence = due_save
+    for name in ("_readback", "pull_numeric_rows", "edge_weights_for"):
+        setattr(index, name, allowed(name, getattr(index, name)))
+    return copies, saves
+
+
+def _unstrict(ms):
+    for name in ("ingest_batch_dedup", "merge_candidates", "_readback",
+                 "pull_numeric_rows", "edge_weights_for"):
+        vars(ms.index).pop(name, None)
+    vars(ms).pop("_save_to_persistence", None)
+
+
+def _ranked(ms, queries):
+    """Each query's ranking over the tenant (k = 64) as (score, ids at that
+    score) groups: a reload places rows in other arena rows, which may
+    order exact ties differently."""
+    out = []
+    for q in queries:
+        ids, scores = ms.index.search(np.asarray(ms.embedder.embed(q),
+                                                 np.float32),
+                                      ms.user_id, k=64, super_filter=-1)
+        groups: dict = {}
+        for i, sc in zip(ids, scores):
+            groups.setdefault(sc, set()).add(i)
+        out.append(sorted(groups.items(), reverse=True))
+    return out
+
+
+def _salience_bits(ms, torch):
+    sal = ms.index.state.salience.view(torch.int32).cpu().numpy()
+    return {q: int(sal[r]) for q, r in ms.index.id_to_row.items()}
+
+
 def phase_default(launches_out: dict) -> dict:
     """The default configuration on the card: ``MemorySystem()`` with
     nothing overridden but ``enable_async=False`` (and ``verbose=False``,
-    which is logging, not configuration): an f32 768-d arena,
-    ``HashingEmbedder``, ``HeuristicLLM``, fused serving and the fused
-    dedup ingest, ``auto_consolidate`` every 3 conversations. Nine
+    which is logging, not configuration) and its ``db_dir``: an f32 768-d
+    arena, ``HashingEmbedder``, ``HeuristicLLM``, fused serving and the
+    fused dedup ingest, ``auto_consolidate`` every 3 conversations, the
+    ``ArrowStore`` saved at every conversation end and both journals. Nine
     conversations (a chat turn in each) consolidate at 3, 6 and 9, each
-    through one K3 launch on the FMA route and, under
-    ``torch.cuda.set_sync_debug_mode("error")``, no host wait but its one
-    packed readback. Then the f32 counterpart of phase 4b's comparison: the
-    same dialogue with eviction out of the way (``max_buffer_size``
-    10,000; at the default of 10 the two ingests evict among equal
-    importances in their own row order) and the dedup gate at 0.99, above
-    the merge gate, so that the near-duplicates arrive as nodes and the
-    consolidations merge them on the card; once on the fused ingest (its
-    probe on ``masked_topk``'s streaming route, its link lists in K1) and
-    once on the classic ingest (``ingest_fused=False,
-    ingest_dedup_fused=False``: the probe in ``search_batch``, on that
-    route too): nodes must merge, and node ids and contents, edge keys and
-    the profile must be equal."""
+    through one K3 launch on the FMA route; under
+    ``torch.cuda.set_sync_debug_mode("error")`` each ingest, merge scan and
+    save waits on the card only in its designed copies
+    (:func:`_strict_phase`). Then a restart: ``close()`` and a new
+    ``MemorySystem(load_from_disk=True)`` on the same ``db_dir``, which must
+    serve the same rankings and profile and hold the same salience bits in
+    every row (rows stamped at early passes replay the passes they missed).
+    Then a crash: turns added and a fact batch appended to the ingest
+    journal, half of it facts that already landed, and the system dropped
+    without ``end_conversation``; the next start recovers the turns and
+    replays the batch through the fused ingest on the card (one dispatch:
+    K1, the resolve kernel, one readback), merging the landed facts and
+    ingesting the rest once. Then the f32 counterpart of phase 4b's
+    comparison: the same dialogue with eviction out of the way
+    (``max_buffer_size`` 10,000; at the default of 10 the two ingests evict
+    among equal importances in their own row order) and the dedup gate at
+    0.99, above the merge gate, so that the near-duplicates arrive as nodes
+    and the consolidations merge them on the card; once on the fused ingest
+    (its probe on ``masked_topk``'s streaming route, its link lists in K1)
+    and once on the classic ingest (``ingest_fused=False,
+    ingest_dedup_fused=False``: the probe in ``search_batch``, on that route
+    too): nodes must merge, and node ids and contents, edge keys and the
+    profile must be equal."""
     import torch
 
     from lazzaro_tpu_torch import MemoryConfig, MemorySystem
+    from lazzaro_tpu_torch.core.index import MemoryIndex
+    from lazzaro_tpu_torch.ops import dedup_resolve as dr
+    from lazzaro_tpu_torch.ops import graphops as gops
     from lazzaro_tpu_torch.ops import ingest_topk as it
     from lazzaro_tpu_torch.ops import masked_topk as mt
-    from lazzaro_tpu_torch.ops import graphops as gops
 
-    def drive(ms):
+    def drive(ms, mark=None):
         ends = []
         for c in range(DEFAULT_CONVS):
             ms.start_conversation()
@@ -1335,6 +1489,8 @@ def phase_default(launches_out: dict) -> dict:
                 ms.add_to_short_term(turn, "semantic", 0.6)
             ms.chat(f"What do I remember about the {('project', 'family')[c % 2]}?")
             torch.cuda.synchronize()
+            if mark is not None:
+                mark.append(c)
             t = time.perf_counter()
             ms.end_conversation()
             torch.cuda.synchronize()
@@ -1348,55 +1504,159 @@ def phase_default(launches_out: dict) -> dict:
                 sorted((sid(a), sid(b)) for a, b in ms.buffer.edges),
                 dict(ms.profile.data))
 
-    ms = MemorySystem(enable_async=False, verbose=False)
+    db = store_dir("default")
+    ms = MemorySystem(enable_async=False, verbose=False, db_dir=db)
     cfg = ms.config
     if not (cfg.dtype == "float32" and cfg.embed_dim == 768 and cfg.serve_fused
             and cfg.ingest_dedup_fused and cfg.auto_consolidate
-            and cfg.consolidate_every == 3):
+            and cfg.consolidate_every == 3 and cfg.journal
+            and cfg.ingest_journal and cfg.load_from_disk):
         raise AssertionError(f"unexpected default configuration: {cfg}")
-    index = ms.index
-    merge, readback = index.merge_candidates, index._readback
-    readbacks = []
-
-    def read_once(packed):
-        torch.cuda.set_sync_debug_mode(0)
-        try:
-            readbacks.append(tuple(packed.shape))
-            return readback(packed)
-        finally:
-            torch.cuda.set_sync_debug_mode("error")
-
-    def strict(*args, **kwargs):
-        torch.cuda.set_sync_debug_mode("error")
-        index._readback = read_once
-        try:
-            return merge(*args, **kwargs)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-            del index._readback
-
-    index.merge_candidates = strict
+    copies, saves = _strict_phase(ms, torch)
     gops.launches = gops.launches_wgmma = 0
-    before = (it.launches, mt.launches_stream)
+    mt.launches = mt.launches_wgmma = mt.launches_stream = 0
+    it.launches = it.launches_wgmma = dr.launches = 0
     try:
         ends = drive(ms)
-        nodes = len(ms.buffer.nodes)
-        rows = len(ms.index)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-        ms.close()
-    launches_out["pairwise_topk"] = launches_out.get("pairwise_topk", 0) + gops.launches
+        _unstrict(ms)
+    path = {"pairwise_topk": gops.launches, "ingest_topk": it.launches,
+            "dedup_resolve": dr.launches, "masked_topk": mt.launches}
     k3 = (gops.launches, gops.launches_wgmma)
-    if k3 != (3, 0) or [r[1] for r in readbacks] != [8] * 3:
-        raise AssertionError(f"default config: K3 launches {k3}, consolidation "
-                             f"readbacks {readbacks}; want 3 FMA launches, 3 "
-                             f"readbacks")
-    k1 = (it.launches - before[0], mt.launches_stream - before[1])
+    k1 = (it.launches, mt.launches_stream)
+    reads = {what: [c for c in copies if c[0] == what]
+             for what in ("ingest", "merge", "save")}
+    due = [["pull_numeric_rows"] * rows + ["edge_weights_for"] * edges
+           for rows, edges in saves]
+    pulled = [c[1] for c in reads["save"]]
+    if (k3 != (3, 0) or len(reads["merge"]) != 3
+            or len(reads["ingest"]) != DEFAULT_CONVS
+            or pulled != [p for d in due for p in d]
+            or not any(d == ["pull_numeric_rows", "edge_weights_for"]
+                       for d in due)):
+        raise AssertionError(f"default config: K3 launches {k3}; copies "
+                             f"{copies}; saves due {due}")
+    log(f"[default] MemorySystem() (f32 768-d, fused serving and ingest, "
+        f"auto_consolidate every 3, ArrowStore, both journals): "
+        f"{DEFAULT_CONVS} conversations, {len(ms.buffer.nodes)} nodes at "
+        f"the buffer limit, {k3[0]} K3 launches (FMA route), {k1[0]} K1 "
+        f"launches (link lists), {k1[1]} streaming masked_topk launches "
+        f"(dedup probes); under sync debug mode \"error\" the device-to-host "
+        f"copies were {len(reads['ingest'])} ingest readbacks (one an end), "
+        f"{len(reads['merge'])} merge-scan readbacks and, over "
+        f"{len(saves)} saves (two an end), {pulled.count('pull_numeric_rows')} "
+        f"row pulls and {pulled.count('edge_weights_for')} edge pulls, each "
+        f"where the save had dirty rows or edges; end_conversation s "
+        f"{[round(x, 3) for x in ends]}")
+
+    # ---- restart: close, reload from the store, compare
+    queries = [f"What do I remember about the {t}?"
+               for t in ("project", "family", "course", "exercise", "travel")]
+    want = (_ranked(ms, queries), dict(ms.profile.data),
+            _salience_bits(ms, torch), ms.node_counter)
+    rows = len(ms.index)
+    ms.close()
+    t = time.perf_counter()
+    ms = MemorySystem(enable_async=False, verbose=False, db_dir=db)
+    restart_s = time.perf_counter() - t
+    stamps = ms.store.get_nodes_columns(ms.user_id)["decay_pass"]
+    missed = int((stamps < ms._decay_pass).sum())
+    got = (_ranked(ms, queries), dict(ms.profile.data),
+           _salience_bits(ms, torch), ms.node_counter)
+    if got != want or not missed:
+        raise AssertionError(
+            f"default config restart: rankings equal {got[0] == want[0]}, "
+            f"profile equal {got[1] == want[1]}, salience bits differ in "
+            f"{sum(got[2].get(q) != b for q, b in want[2].items())} of "
+            f"{len(want[2])} rows, counter {got[3]} vs {want[3]}, "
+            f"{missed} rows replayed missed passes")
+    log(f"[default] restart: load_from_disk=True reloaded {len(ms.index)} "
+        f"rows in {restart_s:.3f} s; {missed} rows stamped before the last "
+        f"of {ms._decay_pass} decay passes replayed them; rankings of "
+        f"{len(queries)} queries, the profile and the salience bits of all "
+        f"{len(want[2])} rows equal to the system before the restart")
+
+    # ---- crash: turns and an uncommitted fact batch, no end_conversation
+    landed = [n for n in sorted(ms.buffer.nodes.values(), key=lambda n: n.id)
+              if not n.is_super_node and " | " not in n.content][:5]
+    if len(landed) < 5:
+        raise AssertionError("default config: fewer than 5 plain nodes")
+    facts = [{"content": n.content, "type": n.type, "salience": 0.5,
+              "topic": n.shard_key} for n in landed]
+    facts += [{"content": f"I {verb} the marina {w} every spring",
+               "type": "episodic", "salience": 0.6, "topic": "travel"}
+              for verb, w in zip(("visit", "paint", "sail", "clean", "map"),
+                                 DEFAULT_WORDS[::20])]
+    turns = [f"I moved to the lighthouse {w} last week." for w in
+             DEFAULT_WORDS[5:8]]
+    ms.start_conversation()
+    for turn in turns:
+        ms.add_to_short_term(turn, "episodic", 0.7)
+    ms._ingest_journal.append(facts)
+    access = {n.id: n.access_count for n in landed}
+    nodes_before = len(ms.buffer.nodes)
+    if ms.query_scheduler is not None:
+        ms.query_scheduler.close()
+    del ms                               # dropped: no end_conversation, no close
+    gc.collect()
+    readbacks = []
+    inner = MemoryIndex._readback
+
+    def counted(self, packed):
+        readbacks.append(tuple(packed.shape))
+        return inner(self, packed)
+
+    before = (it.launches, it.launches_wgmma, dr.launches, mt.launches_stream)
+    MemoryIndex._readback = counted
+    try:
+        ms = MemorySystem(enable_async=False, verbose=False, db_dir=db)
+    finally:
+        MemoryIndex._readback = inner
+    replay = (it.launches - before[0], it.launches_wgmma - before[1],
+              dr.launches - before[2], mt.launches_stream - before[3])
+    recovered = [t["content"] for t in ms.short_term_memory]
+    counts = [sum(n.content == f["content"] for n in ms.buffer.nodes.values())
+              for f in facts]
+    touched = [ms.buffer.get_node(i).access_count - a
+               for i, a in access.items()]
+    replayed = ms.telemetry.counter_total("reliability.journal_replayed")
+    dispatches = ms.index.ingest_dispatch_count
+    if (recovered != turns or not ms.conversation_active
+            or counts != [1] * len(facts) or touched != [1] * len(landed)
+            or len(ms.buffer.nodes) != nodes_before + len(facts) - len(landed)
+            or replayed != len(facts) or ms._ingest_journal.pending_count
+            or replay[0] != 1 or replay[2] != 1 or dispatches != 1
+            or len(readbacks) != 1):
+        raise AssertionError(
+            f"crash recovery: turns {recovered}, fact counts {counts}, landed "
+            f"facts touched {touched}, nodes {len(ms.buffer.nodes)} from "
+            f"{nodes_before}, replayed {replayed}, (K1, K1 tensor-core, "
+            f"resolve, streaming probe) launches {replay}, dispatches "
+            f"{dispatches}, readbacks {readbacks}")
+    ms.end_conversation()                # consolidates the recovered turns
+    ms.close()
+    for name, n in (("ingest_topk", replay[0]), ("dedup_resolve", replay[2])):
+        path[name] += n
+    path["masked_topk"] += replay[3]
+    log(f"[default] crash: {len(turns)} turns recovered from the turn "
+        f"journal; the uncommitted batch of {len(facts)} facts ({len(landed)} "
+        f"already landed) replayed through the fused ingest on the card: "
+        f"{dispatches} dispatch, {replay[0]} K1 launch ({replay[1]} "
+        f"tensor-core), {replay[3]} streaming masked_topk probe, {replay[2]} "
+        f"resolve launch, {len(readbacks)} readback {readbacks}; the landed "
+        f"facts merged (access +1), the others ingested once: no fact lost, "
+        f"none doubled")
+    for name, n in path.items():
+        launches_out["default_" + name] = n
+
     both, probes = [], []
-    for flags in ({}, {"ingest_fused": False, "ingest_dedup_fused": False}):
+    for i, flags in enumerate(({}, {"ingest_fused": False,
+                                    "ingest_dedup_fused": False})):
         other = MemorySystem(enable_async=False, verbose=False,
-                             max_buffer_size=10_000, config=MemoryConfig(
-                                 dedup_similarity=0.99, **flags))
+                             max_buffer_size=10_000,
+                             db_dir=store_dir(f"default_{i}"),
+                             config=MemoryConfig(dedup_similarity=0.99, **flags))
         try:
             before = (mt.launches_stream, it.launches)
             drive(other)
@@ -1418,24 +1678,20 @@ def phase_default(launches_out: dict) -> dict:
     merged = sum(" | " in v for v in got[0].values())
     if not merged:
         raise AssertionError("default config: the dialogue merged no node")
-    out = {"conversations": DEFAULT_CONVS, "rows": rows, "default_nodes": nodes,
+    out = {"conversations": DEFAULT_CONVS, "rows": rows,
            "nodes": len(got[0]), "edges": len(got[1]), "merged_nodes": merged,
            "profile_domains": sum(bool(v) for v in got[2].values()),
            "k3_launches": k3[0], "k1_launches": k1[0],
-           "streamed_probes": k1[1],
-           "stream_and_k1_fused_classic": probes, "readbacks": len(readbacks),
-           "end_conversation_s": ends}
-    log(f"[default] MemorySystem() (f32 768-d, fused serving and ingest, "
-        f"auto_consolidate every 3): {DEFAULT_CONVS} conversations, {nodes} "
-        f"nodes at the buffer limit, {k3[0]} K3 launches (FMA route), "
-        f"{len(readbacks)} consolidation readbacks under sync debug mode "
-        f"error, {k1[0]} K1 launches (link lists) and {k1[1]} streaming "
-        f"masked_topk launches (dedup probes); end_conversation s "
-        f"{[round(x, 3) for x in ends]}. Without eviction and at a 0.99 dedup "
-        f"gate, fused and classic ingest equal: {len(got[0])} nodes ({merged} "
-        f"merged), {len(got[1])} edges, {out['profile_domains']} profile "
-        f"domains; (streaming masked_topk, K1) launches fused {probes[0]}, "
-        f"classic {probes[1]}")
+           "streamed_probes": k1[1], "copies": copies,
+           "stream_and_k1_fused_classic": probes,
+           "end_conversation_s": ends, "restart_s": restart_s,
+           "restart_missed_rows": missed, "crash_replay_launches": replay,
+           "crash_replay_readbacks": len(readbacks)}
+    log(f"[default] without eviction and at a 0.99 dedup gate, fused and "
+        f"classic ingest equal: {len(got[0])} nodes ({merged} merged), "
+        f"{len(got[1])} edges, {out['profile_domains']} profile domains; "
+        f"(streaming masked_topk, K1) launches fused {probes[0]}, classic "
+        f"{probes[1]}")
     return out
 
 
@@ -1736,6 +1992,7 @@ def phase_mesh(launches_out: dict, parity: dict, single: dict):
     torch.cuda.reset_peak_memory_stats()
     ms = MemorySystem(mesh=mesh, config=cfg, enable_async=False,
                       load_from_disk=False, max_buffer_size=2 * FILL,
+                      db_dir=store_dir("mesh"),
                       user_id=TENANTS[0], verbose=False, llm_provider=llm,
                       embedding_provider=CorpusEmbedder(corpus))
     try:
@@ -1805,7 +2062,10 @@ FUSED_FILL_STAGES = (("state", "_ingest_scan_core", "scan"),
                      ("index", "commit_ingest_dedup", "host_commit"),
                      ("index", "decay", "lifecycle"),
                      ("index", "prune_edges", "lifecycle"),
-                     ("embedder", "batch_embed", "embed"))
+                     ("embedder", "batch_embed", "embed"),
+                     ("ms", "_save_to_persistence", "store_save"),
+                     ("store", "add_nodes_columns", "store_save"),
+                     ("ms", "_load_from_persistence", "store_load"))
 # The same for a classic conversation end (the mesh phase's).
 FILL_STAGES = (("index", "search_batch", "dedup_probe"),
                ("index", "link_candidates_multi", "link_scan"),
@@ -1814,7 +2074,10 @@ FILL_STAGES = (("index", "search_batch", "dedup_probe"),
                ("index", "add_edges", "arena_writes"),
                ("index", "decay", "arena_writes"),
                ("index", "prune_edges", "arena_writes"),
-               ("embedder", "batch_embed", "embed"))
+               ("embedder", "batch_embed", "embed"),
+               ("ms", "_save_to_persistence", "store_save"),
+               ("store", "add_nodes_columns", "store_save"),
+               ("ms", "_load_from_persistence", "store_load"))
 
 
 def _count_probes(index, mt):
@@ -1888,8 +2151,7 @@ def parity_snapshot(ms, corpus):
               sm.launches)
     idx, cfg = ms.index, ms.config
     rows = len(idx)
-    supers = len(ms.super_nodes) + sum(len(g.super_nodes)
-                                       for g in ms._parked.values())
+    supers = sum(":super_" in q for q in idx.id_to_row)
     snap = {"nodes": rows, "edges": len(idx.edge_slots),
             "merged": MESH_CONVS * PER_CONV - (rows - supers),
             "links": {(_stable_id(a), _stable_id(b)): wc
@@ -1981,7 +2243,8 @@ def _drive(ms, llm, corpus, convs, fill, launches_out, mt, torch,
     tag = "[mesh]" if mesh is not None else "[main]"
     # ---- fill: one conversation per 8,192 facts, tenants alternating
     spent: dict = {}
-    owners = {"index": ms.index, "embedder": ms.embedder, "state": S}
+    owners = {"index": ms.index, "embedder": ms.embedder, "state": S,
+              "ms": ms, "store": ms.store}
     patched = []
     for owner, method, stage in (FUSED_FILL_STAGES if fused else FILL_STAGES):
         obj = owners[owner]
@@ -2010,24 +2273,26 @@ def _drive(ms, llm, corpus, convs, fill, launches_out, mt, torch,
     dispatches0 = ms.index.ingest_dispatch_count
     mt.launches = mt.launches_wgmma = mt.launches_stream = sm.launches = 0
     it.launches = it.launches_wgmma = dr.launches = 0
+    switches = 0
     t0 = time.perf_counter()
-    for c in range(convs):
+    for k, c in enumerate(fill_order(convs)):
         tenant = TENANTS[c % len(TENANTS)]
         if ms.user_id != tenant:
             ms.switch_user(tenant)
+            switches += 1
         llm.payloads.append(corpus.payload(range(c * PER_CONV, (c + 1) * PER_CONV)))
         ms.start_conversation()
         ms.add_to_short_term(f"conversation {c}", "episodic", 0.5)
         ms.end_conversation()
-        if snapshot is not None and c + 1 == MESH_CONVS:
+        if snapshot is not None and k + 1 == MESH_CONVS:
             torch.cuda.synchronize()
             t_snap = time.perf_counter()
             snapshot.update(parity_snapshot(ms, corpus))
             t0 += time.perf_counter() - t_snap     # not part of the fill
-        if (c + 1) % 16 == 0 or c + 1 == convs:
+        if (k + 1) % 16 == 0 or k + 1 == convs:
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
-            log(f"{tag} filled {(c + 1) * PER_CONV} facts in {dt:.1f} s "
+            log(f"{tag} filled {(k + 1) * PER_CONV} facts in {dt:.1f} s "
                 f"(rows {len(ms.index)}, edges {len(ms.index.edge_slots)})")
     torch.cuda.synchronize()
     fill_s = time.perf_counter() - t0
@@ -2044,7 +2309,12 @@ def _drive(ms, llm, corpus, convs, fill, launches_out, mt, torch,
     spent.pop("_open", None)
     spent["rest"] = fill_s - sum(spent.values())
     log(f"{tag} fill time by stage (s): "
-        + ", ".join(f"{k} {v:.1f}" for k, v in spent.items()))
+        + ", ".join(f"{k} {v:.1f}" for k, v in spent.items())
+        + f"; {convs + switches} saves (store_save), {switches} tenant "
+        f"switches (store_load)")
+    fill_disk = disk_bytes(ms.store.db_dir)
+    log(f"{tag} store on disk after the fill: {fill_disk} bytes in "
+        f"{sum(len(f) for _, _, f in os.walk(ms.store.db_dir))} files")
     if fused:
         # One dispatch, one ingest scan on the tensor cores (a bf16 arena),
         # one resolve and one device-to-host copy per mega-batch (a
@@ -2080,8 +2350,7 @@ def _drive(ms, llm, corpus, convs, fill, launches_out, mt, torch,
     floor = MIN_ROWS if n_shards == 1 else int(0.98 * fill)
     if rows < floor:
         raise AssertionError(f"arena holds {rows} rows, fewer than {floor}")
-    supers = len(ms.super_nodes) + sum(len(g.super_nodes)
-                                       for g in ms._parked.values())
+    supers = sum(":super_" in q for q in ms.index.id_to_row)
     merged = fill - (rows - supers)
     if merged <= 0:
         raise AssertionError("no near-duplicate was merged during the fill")
@@ -2095,8 +2364,11 @@ def _drive(ms, llm, corpus, convs, fill, launches_out, mt, torch,
             f"{parity_out['links']} edge keys equal (max weight diff "
             f"{parity_out['max_link_weight_diff']})")
 
+    # ---- reload: the switch to alice saves and reloads her from the store
+    reload = _reload_tenant(ms, corpus, convs, tag, torch)
+    reload["fill_disk_bytes"] = fill_disk
+
     # ---- serve: chat turns for facts whose answer is known
-    ms.switch_user(TENANTS[0])
     rng = np.random.default_rng(7)
     own = [c for c in range(convs) if c % len(TENANTS) == 0]
     targets = []
@@ -2168,15 +2440,16 @@ def _drive(ms, llm, corpus, convs, fill, launches_out, mt, torch,
         if not hits or hits[0].content != corpus.text(i):
             raise AssertionError(f"search_memories missed fact {i}")
 
-    # Tenant isolation: bob's searches see only bob's rows, and find his own.
-    ms.switch_user(TENANTS[1])
+    # Tenant isolation: bob's searches (at the index: a switch to bob would
+    # reload his half of the arena, as the switch above reloaded alice's)
+    # see only bob's rows, and find his own.
     for text in (corpus.text(targets[0]), corpus.text(bob_fact)):
-        ids, _ = ms.index.search(np.asarray(ms.embedder.embed(text), np.float32),
-                                 TENANTS[1], k=10, super_filter=-1)
+        ids, scores = ms.index.search(
+            np.asarray(ms.embedder.embed(text), np.float32), TENANTS[1], k=10,
+            super_filter=-1)
         if not ids or any(not q.startswith(TENANTS[1] + ":") for q in ids):
             raise AssertionError("a search of tenant bob returned another tenant's row")
-    hits = ms.search_memories(corpus.text(bob_fact))
-    if not hits or hits[0].content != corpus.text(bob_fact):
+    if scores[0] < 0.99:       # his own fact's row, scored against its text
         raise AssertionError("tenant bob missed his own fact")
     torch.cuda.synchronize()
     launches_out[prefix + "masked_topk"] = mt.launches
@@ -2207,7 +2480,7 @@ def _drive(ms, llm, corpus, convs, fill, launches_out, mt, torch,
         "launches_per_chat_turn": sorted(set(chat_launches)),
         "conversation_end_s": end_s,
         "launches_per_conversation_end": end_launches,
-        "launches": mt.launches, "peak_gib": peak_gb,
+        "launches": mt.launches, "peak_gib": peak_gb, "reload": reload,
     }
     if n_shards > 1:
         summary.update(parity=parity_out, fill_merges=fill_merges,
@@ -2244,6 +2517,141 @@ def _drive(ms, llm, corpus, convs, fill, launches_out, mt, torch,
     log(f"[main] kernel vs plain on the filled arena: max_abs_err {err}")
     summary["filled_arena_max_abs_err"] = err
     return summary, {"targets": targets, "new_ids": new_ids, "own": own}
+
+
+RELOAD_K = 10                      # top-k held across the reload
+
+
+def _alice_topk(ms, corpus, convs):
+    """Tenant alice's ``search_batch`` at k = ``RELOAD_K`` + 1 for
+    ``PARITY_FACTS`` of her facts, read at the index without counting
+    launches; and her rows' bf16 bits by node id."""
+    import torch
+
+    from lazzaro_tpu_torch.ops import masked_topk as mt
+    from lazzaro_tpu_torch.ops import sharded_merge as sm
+
+    counts = (mt.launches, mt.launches_wgmma, mt.launches_stream, sm.launches)
+    idx = ms.index
+    own = [c for c in range(convs) if c % len(TENANTS) == 0]
+    facts = [c * PER_CONV + (977 * j) % PER_CONV
+             for j, c in enumerate(own)][:PARITY_FACTS]
+    res = type(idx).search_batch(idx, corpus.vectors(facts), TENANTS[0],
+                                 k=RELOAD_K + 1)
+    (mt.launches, mt.launches_wgmma, mt.launches_stream, sm.launches) = counts
+    qids = sorted(q for q in idx.tenant_nodes.get(TENANTS[0], ()))
+    rows = [idx.id_to_row[q] for q in qids]
+    bits = torch.cat([idx._gather("emb", rows[i:i + 65536]).view(torch.int16)
+                      if idx.mesh is not None else
+                      idx.state.emb[torch.as_tensor(rows[i:i + 65536],
+                                                    device=idx.device)]
+                      .view(torch.int16)
+                      for i in range(0, len(rows), 65536)]).cpu().numpy()
+    return res, dict(zip(qids, bits))
+
+
+# A reload normalizes each stored f32 vector again, on a batch of another
+# size than the ingest's: the f32 norm may round the other way, which moves
+# an element of the bf16 row by at most one bf16 step (2**-8 relative), and
+# a score by at most the sum over such elements of |q_i| * 2**-8 * |x_i|:
+# with the corpus rows' elements (|x_i| < 0.2) and a few such elements, well
+# under RELOAD_TOL.
+RELOAD_TOL = 2e-5
+
+
+def _check_reload(before, after):
+    """The served top-k after the reload against the one before. Rows by
+    id: equal bits, or at most one bf16 step apart in any element. Scores
+    rank by rank within ``RELOAD_TOL``; ids equal rank by rank, except
+    among scores within ``RELOAD_TOL`` of each other, whose rows the reload
+    may have placed in another arena order (compared as sets; a group that
+    reaches past the k-th place is compared by its scores alone). Returns
+    (queries, rows changed, largest step, largest score difference, tie
+    slots)."""
+    (res0, bits0), (res1, bits1) = before, after
+    if bits0.keys() != bits1.keys():
+        raise AssertionError(f"reload: {len(bits0.keys() ^ bits1.keys())} "
+                             f"ids differ of {len(bits0)}")
+    changed, step = 0, 0
+    for q, b0 in bits0.items():
+        d = np.abs(b0.astype(np.int32) - bits1[q].astype(np.int32))
+        if d.any():
+            changed += 1
+            step = max(step, int(d.max()))
+    if step > 1:
+        raise AssertionError(f"reload: a row moved {step} bf16 steps")
+    worst, ties = 0.0, 0
+    for (i0, s0), (i1, s1) in zip(res0, res1):
+        if len(s0) != len(s1):
+            raise AssertionError("reload: a query found another number of rows")
+        diff = float(np.abs(np.subtract(s0, s1)).max()) if s0 else 0.0
+        worst = max(worst, diff)
+        if diff > RELOAD_TOL:
+            raise AssertionError(f"reload: scores differ by {diff}")
+        for pos in range(min(RELOAD_K, len(s0))):
+            group = [j for j, v in enumerate(s0) if abs(v - s0[pos]) <= RELOAD_TOL]
+            if len(group) == 1:
+                if i0[pos] != i1[pos]:
+                    raise AssertionError(f"reload: id {i1[pos]} where "
+                                         f"{i0[pos]} was at {pos}")
+                continue
+            ties += 1
+            if max(group) < RELOAD_K and (
+                    {i0[j] for j in group} != {i1[j] for j in group}):
+                raise AssertionError(f"reload: tied ids differ at {pos}")
+    return len(res0), changed, step, worst, ties
+
+
+def _timed_switch(ms, tenant, tag, torch):
+    """``ms.switch_user(tenant)`` with its seconds: the save of the tenant
+    it leaves, then each part of the reload from the system's own
+    ``store.load_ms`` spans (``drop`` the tenant's old rows, ``read`` the
+    store, ``host_graph``, ``arena`` upload, ``edges``); logged."""
+    tel = ms.telemetry
+    marks = {k: len(v) for k, v in tel.timers.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ms.switch_user(tenant)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    parts = _store_seconds(tel, "load", marks)
+    out = {"seconds": total, "load_s": parts,
+           "save_s": total - sum(parts.values()),
+           "rows": len(ms.index.tenant_nodes.get(tenant, ())),
+           "edges": len(ms.buffer.edges)}
+    log(f"{tag} switch_user({tenant}) reloaded {out['rows']} rows and "
+        f"{out['edges']} edges from the store in {total:.2f} s: save "
+        f"{out['save_s']:.2f}, "
+        + ", ".join(f"{k} {v:.2f}" for k, v in parts.items()))
+    return out
+
+
+def _reload_tenant(ms, corpus, convs, tag, torch):
+    """``switch_user(alice)`` after the fill: a save of the tenant the fill
+    ended on, then alice's rows and edges back from the store, the rows onto
+    the card in one upload. Seconds of the save and of each part of the
+    reload (the system's own ``store.load_ms`` spans: ``drop`` her old rows,
+    ``read`` the store, ``host_graph``, ``arena`` upload and ``edges``), the
+    device memory at its peak over what was held, and the served top-k held
+    against the one before (:func:`_check_reload`)."""
+    before = _alice_topk(ms, corpus, convs)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = _timed_switch(ms, TENANTS[0], tag, torch)
+    peak_gib = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    queries, changed, step, worst, ties = _check_reload(
+        before, _alice_topk(ms, corpus, convs))
+    out.update(peak_gib_over_held=peak_gib, held_gib=held / 2 ** 30,
+               topk_queries=queries, rows_changed=changed, max_bf16_step=step,
+               max_score_diff=worst, tie_slots=ties)
+    log(f"{tag} that reload's device memory at its peak: {peak_gib:.2f} GiB "
+        f"over the {held / 2 ** 30:.2f} GiB held; rows by id: "
+        f"{len(before[1]) - changed} bit-equal, {changed} at most {step} bf16 "
+        f"step apart; the top-{RELOAD_K} of {queries} queries equal, scores "
+        f"within {worst} (tolerance {RELOAD_TOL}; {ties} slots in near ties "
+        f"compared as sets)")
+    return out
 
 
 def _strict_dispatch(index, torch):
@@ -2294,7 +2702,8 @@ def _drive_fused(ms, corpus, served, launches_out, torch):
     tag = "[mesh]" if ms.index.mesh is not None else "[fused]"
     prefix = "mesh_" if ms.index.mesh is not None else ""
     targets, new_ids = served["targets"], served["new_ids"]
-    ms.switch_user(TENANTS[0])
+    if ms.user_id != TENANTS[0]:
+        raise AssertionError(f"the fused path starts on {ms.user_id}, not alice")
     rng = np.random.default_rng(11)
     own = served["own"]
     misses = []
@@ -2310,7 +2719,8 @@ def _drive_fused(ms, corpus, served, launches_out, torch):
                    for j, sn in enumerate(supers)]
     ms.embedder.warm(prompts + [corpus.text(i) for i in misses])
     for p, sn in zip(hit_prompts, supers):
-        ms.embedder._memo[p] = np.asarray(sn.embedding, np.float32)
+        # a reloaded node holds no vector on the host: the arena's row
+        ms.embedder._memo[p] = ms.index.get_embedding(ms._q(sn.id))
     everything = prompts + hit_prompts
     # The classic retrieval of the same queries, for the id check (it is
     # not part of the fused path and is run before its counts start).
@@ -2825,9 +3235,9 @@ def phase_lm(launches_out: dict):
     rec = RecordingLLM(OnDeviceLLM(lm, max_new_tokens=64,
                                    json_scaffold=EXTRACTION_SCAFFOLD))
     _strict_json_loop(lm, torch)
-    db = tempfile.mkdtemp(prefix="lm_phase_")
     ms = MemorySystem(device="cuda", llm_provider=rec, enable_async=False,
-                      load_from_disk=False, db_dir=db, verbose=False)
+                      load_from_disk=False, db_dir=store_dir("lm"),
+                      verbose=False)
     try:
         ms.start_conversation()
         chat_ms = []
@@ -3082,6 +3492,17 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    global STORE_ROOT
+    STORE_ROOT = tempfile.mkdtemp(prefix="lazzaro_smoke_store_")
+    try:
+        return _run(smi, name, device, torch)
+    finally:
+        shutil.rmtree(STORE_ROOT, ignore_errors=True)
+
+
+def _run(smi, name, device, torch) -> int:
+    log(f"[store] every MemorySystem's store and journals under {STORE_ROOT} "
+        f"(free {shutil.disk_usage(STORE_ROOT).free} bytes), removed at the end")
     t_start = time.perf_counter()
     phase_build()
     cases = phase_kernels(device) + ragged_cases(device)
@@ -3118,9 +3539,14 @@ def main() -> int:
     train_summary = phase_train(device, launches)
     log(f"[train] summary {json.dumps(train_summary)}")
     log(f"[smoke] {time.perf_counter() - t_start:.1f} s after the device phase")
-    # K1 launches on both paths: phase 4's fused ingest, phase 4b's link scans.
+    # K1 launches on every path: phase 4's fused ingest, phase 4c's default
+    # configuration (its dialogue and the crash replay), phase 4b's link
+    # scans; K3 on phase 4 and 4c; masked_topk on phase 4 and 4c.
     for kernel in ("ingest_topk", "dedup_resolve"):
         launches[kernel] += launches["mesh_" + kernel]
+    for kernel in ("ingest_topk", "dedup_resolve", "pairwise_topk",
+                   "masked_topk"):
+        launches[kernel] += launches["default_" + kernel]
 
     def entry(name, source, replaces, rows, head_case, extra_err=0.0):
         head = next(c for c in rows if c["case"] == head_case)

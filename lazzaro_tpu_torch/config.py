@@ -319,7 +319,7 @@ class MemoryConfig:
     # normal ingest, where the in-dispatch dedup probe makes the replay
     # idempotent. ingest_journal_fsync additionally fsyncs per append
     # (power-loss durability) at ~1 ms/batch cost.
-    ingest_journal: bool = False    # not ported yet (JAX default: True)
+    ingest_journal: bool = True
     ingest_journal_fsync: bool = False
 
     # --- tiered memory -------------------------------------------
@@ -419,7 +419,7 @@ class MemoryConfig:
     # to a CRC-framed WAL (native/) and replayed on restart. journal_fsync
     # additionally fsyncs per append (survives power loss, not just process
     # crash) at ~1ms/turn cost.
-    journal: bool = False    # not ported yet (JAX default: True)
+    journal: bool = True
     journal_fsync: bool = False
 
     # --- semantic thresholds (exact parity per SURVEY §7 "hard parts") -----
@@ -462,8 +462,6 @@ class MemoryConfig:
 
 # (field, "is switched on", ROADMAP item) for every path the port lacks.
 _UNPORTED = (
-    ("journal", bool, "Queue 1 item 9, journals"),
-    ("ingest_journal", bool, "Queue 1 item 9, journals"),
     ("lifecycle_fused", bool, "Queue 1 item 12, lifecycle sweep"),
     ("int8_serving", bool, "Queue 1 item 13, quantized serving"),
     ("ivf_serving", lambda v: v > 0, "Queue 1 item 14, IVF"),

@@ -175,15 +175,9 @@ class HostStage:
         return buf
 
     def upload(self, arrays: Sequence[np.ndarray]) -> List[torch.Tensor]:
-        arrays = [np.ascontiguousarray(a) for a in arrays]
-        offs, total = [], 0
-        for a in arrays:
-            offs.append(total)
-            total += -(-a.nbytes // self.ALIGN) * self.ALIGN
+        arrays, offs, total = _layout(arrays)
         buf = self._host_buffer(total)
-        host = buf[:total].numpy()
-        for a, off in zip(arrays, offs):
-            host[off:off + a.nbytes] = a.reshape(-1).view(np.uint8)
+        _pack(buf[:total].numpy(), arrays, offs)
         if self.device.type == "cuda":
             dev = buf[:total].to(self.device, non_blocking=True)
             if self._done is None:
@@ -191,8 +185,28 @@ class HostStage:
             self._done.record(torch.cuda.current_stream(self.device))
         else:
             dev = buf[:total]
-        return [dev[off:off + a.nbytes].view(_TORCH_DTYPES[a.dtype])
-                .view(a.shape) for a, off in zip(arrays, offs)]
+        return _views(dev, arrays, offs)
+
+
+def _layout(arrays: Sequence[np.ndarray]):
+    """The arrays made contiguous, their byte offsets in one buffer
+    (``HostStage.ALIGN``-aligned) and its size."""
+    arrays = [np.ascontiguousarray(a) for a in arrays]
+    offs, total = [], 0
+    for a in arrays:
+        offs.append(total)
+        total += -(-a.nbytes // HostStage.ALIGN) * HostStage.ALIGN
+    return arrays, offs, total
+
+
+def _pack(host: np.ndarray, arrays, offs) -> None:
+    for a, off in zip(arrays, offs):
+        host[off:off + a.nbytes] = a.reshape(-1).view(np.uint8)
+
+
+def _views(dev: torch.Tensor, arrays, offs) -> List[torch.Tensor]:
+    return [dev[off:off + a.nbytes].view(_TORCH_DTYPES[a.dtype]).view(a.shape)
+            for a, off in zip(arrays, offs)]
 
 
 class _EdgeSlotMap(dict):
@@ -227,6 +241,18 @@ class _EdgeSlotMap(dict):
     def clear(self) -> None:
         super().clear()
         self.by_slot.clear()
+
+
+def upload_once(arrays: Sequence[np.ndarray], device: torch.device
+                ) -> List[torch.Tensor]:
+    """``arrays`` on ``device`` through one host-to-device copy of one
+    pageable buffer that packs them (a tenant's reload moves its rows this
+    way, not through ``HostStage``'s kept pinned buffer); returns a device
+    view of each."""
+    arrays, offs, total = _layout(arrays)
+    host = np.empty((max(total, 1),), np.uint8)
+    _pack(host, arrays, offs)
+    return _views(torch.from_numpy(host).to(device), arrays, offs)
 
 
 class MemoryIndex:
@@ -477,18 +503,47 @@ class MemoryIndex:
                 out[:n] = vals
                 return out
 
-            emb = np.zeros((b, self.dim), np.float32)
-            emb[:n] = np.asarray(embeddings, np.float32).reshape(n, self.dim)
-            emb[n:, 0] = 1.0   # sentinel rows get a unit vector (normalizable)
-            S._arena_add(
-                self.state, torch.from_numpy(padded), torch.from_numpy(emb),
-                pad([float(s) for s in saliences]),
-                pad([float(t) - self.epoch for t in timestamps]),
+            cols = upload_once([
+                padded, np.asarray(embeddings, np.float32).reshape(n, self.dim),
+                pad(np.asarray(saliences, np.float32)),
+                pad(np.asarray(timestamps, np.float64) - self.epoch),
                 pad([S.TYPE_IDS.get(t, 0) for t in types], 0, np.int32),
-                pad([self.shard_id(k or "default") for k in shard_keys], -1, np.int32),
-                pad([tid] * n, -1, np.int32),
-                pad([bool(x) for x in is_super], False, bool))
+                pad([self.shard_id(k or "default") for k in shard_keys], -1,
+                    np.int32),
+                pad(np.full((n,), tid, np.int32), -1, np.int32),
+                pad(np.asarray(is_super, bool), False, bool)], self.device)
+            emb = torch.zeros((b, self.dim), dtype=torch.float32,
+                              device=self.device)
+            emb[:n] = cols[1]
+            emb[n:, 0] = 1.0   # sentinel rows get a unit vector (normalizable)
+            S._arena_add(self.state, cols[0], emb, *cols[2:])
             return rows
+
+    def restore_access(self, ids: Sequence[str], access_counts: Sequence[int],
+                       last_accessed: Sequence[float]) -> None:
+        """Put persisted access history back onto freshly added rows
+        (``add`` zeroes it), as a reload needs."""
+        with self._lock:
+            found = [self.id_to_row.get(i) for i in ids]
+            ok = [j for j, r in enumerate(found) if r is not None]
+            if not ok:
+                return
+            rows = [found[j] for j in ok]
+            acs = np.asarray(access_counts, np.int64)[ok].astype(np.int32)
+            las = (np.asarray(last_accessed, np.float64)[ok]
+                   - self.epoch).astype(np.float32)
+            if self.mesh is not None:
+                for st, sel, loc in self._routes(rows):
+                    S._arena_restore_access(st, loc, acs[sel], las[sel])
+                return
+            padded = S.pad_rows(np.asarray(rows, np.int32), self.capacity)
+            b = len(padded)
+            ac_arr = np.zeros((b,), np.int32)
+            ac_arr[:len(acs)] = acs
+            la_arr = np.zeros((b,), np.float32)
+            la_arr[:len(las)] = las
+            S._arena_restore_access(self.state, *upload_once(
+                [padded, ac_arr, la_arr], self.device))
 
     def _add_sharded(self, rows, embeddings, saliences, timestamps, types,
                      shard_keys, tid, is_super) -> None:
@@ -525,8 +580,11 @@ class MemoryIndex:
                     S._arena_delete(st, loc)
             S._edges_delete_for_nodes(self.edge_state, padded)
             self._free_rows.extend(rows)
+            # One pass over the keys (~0.6 s at 1.16M edges, a small part
+            # of a tenant's reload), freeing dead slots in the map's order.
+            id_to_row = self.id_to_row
             dead = [k for k in self.edge_slots
-                    if k[0] not in self.id_to_row or k[1] not in self.id_to_row]
+                    if k[0] not in id_to_row or k[1] not in id_to_row]
             for k in dead:
                 self._free_edge_slots.append(self.edge_slots.pop(k))
             self._csr_dirty = True
@@ -896,6 +954,13 @@ class MemoryIndex:
                 self._gather("emb", padded[live]).float()
             return S.normalize(embs.sum(0) / max(int(live.sum()), 1)
                                ).cpu().numpy()
+
+    def embeddings_of_rows(self, rows: Sequence[int]) -> np.ndarray:
+        """The arena's vectors at ``rows`` as f32, in one gather."""
+        if self.mesh is not None:
+            return self._gather("emb", rows).float().cpu().numpy()
+        r = torch.as_tensor(np.asarray(rows, np.int64), device=self.device)
+        return self.state.emb[r].float().cpu().numpy()
 
     def get_embedding(self, node_id: str) -> Optional[np.ndarray]:
         r = self.id_to_row.get(node_id)

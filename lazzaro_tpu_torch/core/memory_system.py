@@ -27,21 +27,30 @@ near-duplicate nodes (one launch of the pairwise scan kernel and one
 readback, ``MemoryIndex.merge_candidates``), profile extraction from the
 strong components of the graph, and a weak-edge prune.
 
-State lives in memory only in this slice: there is no store, no turn or
-fact journal and no snapshot. ``switch_user`` keeps each tenant's host graph
-in memory and leaves its arena rows in place. Unported paths raise
-``NotImplementedError`` naming their ROADMAP item.
+State is durable as in the JAX package. The default store is
+``ArrowStore(db_dir)`` (``core.store``, segmented parquet): every
+conversation end saves the rows and edges it dirtied (a full rewrite before
+the first sync), a construction with ``load_from_disk`` and every
+``switch_user`` reload the tenant from the store, its rows going to the
+device in one upload, and the decay sweeps a stored row missed are replayed
+bit-for-bit on the way. Under the store's ``db_dir`` two journals run on the
+port's write-ahead log (``native``): the turn journal holds the turns not yet
+durable in the store, and the ingest journal (``reliability.journal``) the
+extracted facts between their extraction and their landing in the arena; a
+restart recovers the turns and replays the facts through the fused ingest,
+where the dedup probe makes the replay idempotent. Snapshots and the
+lifecycle sweep are not ported: they raise ``NotImplementedError`` naming
+their ROADMAP item.
 """
 
 from __future__ import annotations
 
 import json
 import logging
-import os
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, List, Optional, Set, Tuple
+from typing import Any, Dict, List, Optional, Set, Tuple
 
 import numpy as np
 
@@ -53,6 +62,7 @@ from lazzaro_tpu_torch.core.profile import Profile
 from lazzaro_tpu_torch.core.providers import (HashingEmbedder, HeuristicLLM,
                                               _extract_json_object, infer_topic)
 from lazzaro_tpu_torch.core.query_cache import QueryCache
+from lazzaro_tpu_torch.core.store import ArrowStore
 from lazzaro_tpu_torch.models.graph import Edge, Node
 from lazzaro_tpu_torch.serve.scheduler import QueryScheduler, RetrievalRequest
 from lazzaro_tpu_torch.utils.batching import IngestCoalescer
@@ -60,7 +70,6 @@ from lazzaro_tpu_torch.utils.telemetry import Telemetry
 
 _logger = logging.getLogger("lazzaro_tpu_torch.memory_system")
 
-_STORE_ITEM = "Queue 1 item 7, persistent store"
 _SHARDED_INGEST_ITEM = "Queue 1 item 21, sharded fused ingest"
 _SHARDED_CONSOLIDATION_ITEM = "Queue 1 item 21, the all-pairs merge scan under a mesh"
 _CHECKPOINT_ITEM = "Queue 1 item 11, MemorySystem remainder and checkpoints"
@@ -77,19 +86,6 @@ def _ensure_log_handler() -> None:
     pkg.addHandler(handler)
     if pkg.level == logging.NOTSET:
         pkg.setLevel(logging.INFO)
-
-
-class _TenantGraph:
-    """One tenant's host graph, parked while another tenant is active."""
-
-    def __init__(self, shards, super_nodes, edge_shard, node_shard, profile,
-                 decay_pass):
-        self.shards = shards
-        self.super_nodes = super_nodes
-        self.edge_shard = edge_shard
-        self.node_shard = node_shard
-        self.profile = profile
-        self.decay_pass = decay_pass
 
 
 class MemorySystem:
@@ -160,13 +156,6 @@ class MemorySystem:
                 "MemorySystem(mesh=...) with auto_consolidate=True: not ported "
                 f"yet (ROADMAP {_SHARDED_CONSOLIDATION_ITEM}); pass "
                 "auto_consolidate=False")
-        if store is not None:
-            raise NotImplementedError(
-                f"MemorySystem(store=...): not ported yet (ROADMAP {_STORE_ITEM})")
-        if load_from_disk and os.path.isdir(db_dir) and os.listdir(db_dir):
-            raise NotImplementedError(
-                f"load_from_disk=True with data in {db_dir!r}: the port keeps "
-                f"state in memory only (ROADMAP {_STORE_ITEM})")
 
         self.llm = llm_provider if llm_provider is not None else HeuristicLLM()
         self.embedder = (embedding_provider if embedding_provider is not None
@@ -176,6 +165,9 @@ class MemorySystem:
             dim = len(self.embedder.embed("dimension probe"))
         self.embed_dim = dim
 
+        self.store = store if store is not None else ArrowStore(db_dir)
+        self.vector_store = self.store      # the JAX package's alias
+
         self.shards: Dict[str, MemoryShard] = {}
         self.super_nodes: Dict[str, Node] = {}
         # O(1) placement caches: edge_key -> shard_key and node_id ->
@@ -184,7 +176,6 @@ class MemorySystem:
         self._node_shard_cache: Dict[str, str] = {}
         self.buffer = BufferGraph(self.shards, self.super_nodes)
         self.profile = Profile()
-        self._parked: Dict[str, _TenantGraph] = {}
         self.telemetry = Telemetry(cfg.serve_telemetry_window,
                                    enabled=cfg.serve_telemetry)
         self.mesh = mesh
@@ -212,17 +203,139 @@ class MemorySystem:
         # Deferred boosts of query-cache-hit chat turns:
         # node_id -> [access_count, neighbor_count, latest_now].
         self._pending_boosts: Dict[str, List] = {}
+
+        # Incremental persistence: the node ids and edge keys changed since
+        # the last save, which then upserts only those rows as delta
+        # segments. Decay is never written per row: ``_decay_pass`` counts
+        # sweeps, each row is stamped with the pass it was written at, and
+        # a reload replays the passes it missed.
+        self._supports_incremental = (
+            hasattr(self.store, "save_sys_meta")
+            and hasattr(self.store, "get_nodes_columns"))
+        self._store_synced = False     # False: the next save rewrites all
         self._decay_pass = 0
-        # Nodes and edges a consolidation's merges changed on the device,
-        # refreshed from the arena where the JAX package saves them.
-        self._merged_nodes: Set[str] = set()
-        self._merged_edges: Set[Tuple[str, str]] = set()
+        self._dirty_nodes: Set[str] = set()
+        self._dirty_edges: Set[Tuple[str, str]] = set()
+        self._deleted_edge_ids: Set[str] = set()
 
         # Single-writer ingest: one worker thread + one mutation lock.
         self._mutex = threading.RLock()
         self.background_executor = (ThreadPoolExecutor(max_workers=1)
                                     if self.enable_async else None)
         self.metrics = {"embedding_calls": 0, "llm_calls": 0, "edges_linked": 0}
+        self._last_version = -1
+
+        if load_from_disk:
+            self._load_from_persistence()
+        self._journal = None
+        self._recovered_turns = False
+        self._setup_journal(replay=bool(load_from_disk))
+        # Extracted facts are appended before they enter the coalescer,
+        # committed after their dispatch lands, replayed here on startup.
+        self._ingest_journal = None
+        self._setup_ingest_journal(replay=bool(load_from_disk))
+
+    # --------------------------------------------------------------- journal
+    #
+    # The turn journal always holds exactly the turns not yet durable in
+    # the store: the queued and in-flight batches, the deferred ones, and
+    # the current short-term buffer. It is rewritten (not truncated) at
+    # every transition, so a background consolidation ending after a new
+    # conversation started cannot wipe fresh turns.
+
+    def _setup_journal(self, replay: bool = True) -> None:
+        """Open this user's turn journal; with ``replay``, recover the turns
+        a crashed process left: they return to short-term memory with the
+        conversation open, so the next ``end_conversation`` (or a
+        ``start_conversation``, which consolidates them first) persists
+        them. Journaling needs a store with a ``db_dir``."""
+        self._journal = None
+        self._recovered_turns = False
+        journal_dir = getattr(self.store, "db_dir", None)
+        if not self.config.journal or not journal_dir:
+            return
+        from urllib.parse import quote
+
+        from lazzaro_tpu_torch.native import WriteAheadLog
+
+        path = f"{journal_dir}/journal__{quote(self.user_id, safe='')}.wal"
+        self._journal = WriteAheadLog(path, fsync=self.config.journal_fsync)
+        if not replay:
+            return
+        recovered = []
+        for payload in self._journal.replay():
+            try:
+                turn = json.loads(payload.decode("utf-8"))
+            except (UnicodeDecodeError, json.JSONDecodeError):
+                continue
+            if isinstance(turn, dict) and turn.get("content"):
+                recovered.append(turn)
+        if recovered:
+            self.short_term_memory = recovered
+            self.conversation_active = True
+            self._recovered_turns = True
+            self._log(f"🛟 Recovered {len(recovered)} unconsolidated turn(s) "
+                      "from the journal")
+
+    def _journal_turn(self, turn: Dict) -> None:
+        if self._journal is not None:
+            try:
+                self._journal.append(json.dumps(turn).encode("utf-8"))
+            except OSError as e:
+                self._log(f"⚠ Journal append failed: {e}")
+
+    def _journal_sync(self) -> None:
+        """Rewrite the turn journal to the turns not yet durable (callers
+        hold ``self._mutex``). A failed rewrite is dropped, as in the JAX
+        package: the journal is a recovery aid, the store the record."""
+        if self._journal is None:
+            return
+        turns: List[Dict] = []
+        for batch in (self._deferred_batches + self._inflight_batches
+                      + self.consolidation_queue):
+            turns.extend(batch.get("memories", []))
+        if self.conversation_active:
+            turns.extend(self.short_term_memory)
+        try:
+            self._journal.reset()
+            for t in turns:
+                self._journal.append(json.dumps(t).encode("utf-8"))
+        except OSError:
+            pass
+
+    def _setup_ingest_journal(self, replay: bool = True) -> None:
+        """Open this user's fact journal; with ``replay``, ingest the fact
+        batches a crashed process left uncommitted. Facts that landed before
+        the crash resolve as duplicates in the ingest's dedup probe, so none
+        is lost and none is ingested twice."""
+        self._ingest_journal = None
+        journal_dir = getattr(self.store, "db_dir", None)
+        if not self.config.ingest_journal or not journal_dir:
+            return
+        from urllib.parse import quote
+
+        from lazzaro_tpu_torch.reliability.journal import IngestJournal
+
+        path = f"{journal_dir}/ingest__{quote(self.user_id, safe='')}.wal"
+        try:
+            self._ingest_journal = IngestJournal(
+                path, fsync=self.config.ingest_journal_fsync)
+        except OSError as e:
+            self._log(f"⚠ Ingest journal unavailable: {e}")
+            return
+        if not replay:
+            return
+        pending = self._ingest_journal.pending()
+        if not pending:
+            return
+        n_facts = sum(len(f) for _, f in pending)
+        self._log(f"🛟 Replaying {n_facts} journaled fact(s) from "
+                  f"{len(pending)} uncommitted ingest batch(es)")
+        for _seq, facts in pending:
+            self._ingest_facts(facts)
+        self.telemetry.bump("reliability.journal_replayed", n_facts)
+        self._ingest_journal.commit(self._ingest_journal.last_seq)
+        self._save_to_persistence()
 
     # ------------------------------------------------------------------ util
     def _log(self, msg: str) -> None:
@@ -306,6 +419,8 @@ class MemorySystem:
                     node.last_accessed = float(cols["last_accessed"][i])
                     node.access_count = int(cols["access_count"][i])
             keys = {(self._q(s), self._q(t)) for s, t in (edge_keys or set())}
+            if not keys:
+                return
             for (qsrc, qtgt), (w, co) in self.index.edge_weights_for(sorted(keys)).items():
                 edge = self._find_edge((qsrc.partition(":")[2],
                                         qtgt.partition(":")[2]))
@@ -332,6 +447,24 @@ class MemorySystem:
             if edge is not None:
                 edge.weight = w
                 edge.co_occurrence = co
+
+    # ------------------------------------------------------- dirty tracking
+    def _mark_dirty(self, *node_ids: str) -> None:
+        self._dirty_nodes.update(node_ids)
+
+    def _mark_edge_dirty(self, key: Tuple[str, str]) -> None:
+        # An edge deleted and re-created within one save interval needs no
+        # cancellation: the save writes tombstones before upserts.
+        self._dirty_edges.add(key)
+
+    @staticmethod
+    def _store_edge_id(edge: Edge) -> str:
+        """ArrowStore's edge id (``src|tgt|type``)."""
+        return f"{edge.source}|{edge.target}|{edge.edge_type}"
+
+    def _mark_edge_deleted(self, edge: Edge) -> None:
+        self._deleted_edge_ids.add(self._store_edge_id(edge))
+        self._dirty_edges.discard((edge.source, edge.target))
 
     def _shard_of_node(self, node_id: str) -> Optional[MemoryShard]:
         sk = self._node_shard_cache.get(node_id)
@@ -363,9 +496,16 @@ class MemorySystem:
 
     # --------------------------------------------------------- conversations
     def start_conversation(self) -> str:
+        if self._recovered_turns and self.conversation_active and self.short_term_memory:
+            # Turns recovered from the journal are consolidated, not dropped.
+            self._log("🛟 Consolidating recovered turns before new conversation...")
+            self.end_conversation()
+        self._recovered_turns = False
         self.conversation_active = True
         self.short_term_memory = []
         self.conversation_history = []
+        with self._mutex:
+            self._journal_sync()       # drops an abandoned conversation's turns
         return "✓ Conversation started"
 
     def add_to_short_term(self, content: str, memory_type: str = "semantic",
@@ -375,13 +515,17 @@ class MemorySystem:
         turn = {"content": content, "type": memory_type,
                 "salience": salience, "timestamp": time.time()}
         with self._mutex:
+            # One lock over the buffer and the journal append, so a
+            # concurrent _journal_sync cannot write the turn twice.
             self.short_term_memory.append(turn)
+            self._journal_turn(turn)
 
     def end_conversation(self) -> str:
         if not self.conversation_active:
             return "⚠ No active conversation to end."
         if not self.short_term_memory:
             self.conversation_active = False
+            self._recovered_turns = False
             return "✓ Conversation ended. No memories to consolidate."
 
         results = []
@@ -392,6 +536,7 @@ class MemorySystem:
                 "timestamp": time.time(),
             })
             self.conversation_active = False
+            self._recovered_turns = False
             self.short_term_memory = []
         if self.enable_async and self.background_executor:
             self._log(f"🔄 Queueing consolidation for {n_turns} exchanges...")
@@ -426,7 +571,7 @@ class MemorySystem:
 
         self.short_term_memory = []
         self.conversation_history = []
-        self._sync_merged()
+        self._save_to_persistence()
         return "\n".join(results)
 
     def _prune_weak_edges(self, threshold: float) -> int:
@@ -435,7 +580,9 @@ class MemorySystem:
         count = 0
         for qsrc, qtgt in removed:
             key = (qsrc.partition(":")[2], qtgt.partition(":")[2])
-            if self._find_edge(key) is not None:
+            edge = self._find_edge(key)
+            if edge is not None:
+                self._mark_edge_deleted(edge)
                 del self.shards[self._edge_shard.pop(key)].edges[key]
                 count += 1
         if self.query_cache:
@@ -495,6 +642,7 @@ class MemorySystem:
                         now = time.time()
                         for nid in access_ids:
                             self._queue_boost(nid, acc=1, now=now)
+                    self._mark_dirty(*access_ids)
                 for nid in access_ids:
                     self.buffer.update_access(nid, self.config.access_salience_boost)
             if memory_texts:
@@ -677,6 +825,7 @@ class MemorySystem:
             elif mode == "deferred":
                 for n in to_boost:
                     self._queue_boost(n, nbr=1, now=now)
+            self._mark_dirty(*to_boost)
         for nid in to_boost:
             node = self.buffer.get_node(nid)
             if node:
@@ -771,15 +920,31 @@ Return JSON: {"memories": [{"content": "...", "type": "semantic|episodic|procedu
 
         memories = [m for m in memories if isinstance(m, dict)]
         self._log(f"✓ Extracted {len(memories)} memory candidates")
+        # The facts are durable the moment extraction returns, before the
+        # coalescer buffers them. A failed append is logged and the ingest
+        # goes on, as in the JAX package: the turn journal still holds the
+        # source turns until the facts land.
+        if self._ingest_journal is not None and memories:
+            try:
+                self._ingest_journal.append(memories)
+            except OSError as e:
+                self._log(f"⚠ Ingest journal append failed: {e}")
         self._ingest_coalescer.add_conversation(memories)
         if not self._ingest_coalescer.should_flush():
+            # The source turns stay journaled until the facts land.
             with self._mutex:
                 self._deferred_batches.extend(self._inflight_batches)
                 self._inflight_batches.clear()
+                self._journal_sync()
             self._log(f"⏳ Ingest deferred: {len(self._ingest_coalescer)} "
                       "facts buffered by the flush policy")
             return
         coalesce_wait_ms = self._ingest_coalescer.oldest_age_s() * 1e3
+        # Every fact the drain pops is covered by the journal's sequences up
+        # to here; read before the drain, so a concurrent append is never
+        # committed by this pass.
+        commit_to = (self._ingest_journal.last_seq
+                     if self._ingest_journal is not None else 0)
         mega_batches = self._ingest_coalescer.drain()
         new_nodes: List[Tuple[str, str]] = []
         done = 0
@@ -788,14 +953,25 @@ Return JSON: {"memories": [{"content": "...", "type": "semantic|episodic|procedu
                 self.telemetry.record("ingest.coalesce_wait_ms", coalesce_wait_ms)
                 new_nodes.extend(self._ingest_facts(facts))
                 done += 1
-        except Exception:
-            # Un-ingested mega-batches go back to the front of the coalescer.
+        except Exception as e:      # noqa: BLE001 — ingest must not strand
+            # The un-ingested mega-batches go back to the front of the
+            # coalescer, their turns stay journaled, and the ingest journal
+            # keeps every fact uncommitted.
+            _logger.exception("ingest failed")
             self._ingest_coalescer.requeue(mega_batches[done:])
+            self.telemetry.bump("reliability.ingest_failures")
             with self._mutex:
                 self._deferred_batches.extend(self._inflight_batches)
                 self._inflight_batches.clear()
-            raise
+                self._journal_sync()
+            self._log(f"⚠ Ingest failed after {done}/{len(mega_batches)} "
+                      f"mega-batches ({e!r}); facts requeued, journal "
+                      f"retains them")
+            return
         self._finish_consolidation(new_nodes, start_time)
+        if self._ingest_journal is not None:
+            # Every drained fact is in the arena and the store now.
+            self._ingest_journal.commit(commit_to)
 
     def _ingest_facts(self, memories: List[Dict]) -> List[Tuple[str, str]]:
         """Stage, dedup and ingest one mega-batch of extracted facts; returns
@@ -853,6 +1029,7 @@ Return JSON: {"memories": [{"content": "...", "type": "semantic|episodic|procedu
             pos_in_probeable = {i: j for j, i in enumerate(probeable)}
 
             new_nodes: List[Tuple[str, str]] = []
+            irregular: List[Dict[str, Any]] = []
             created: List[Node] = []
             created_embs: List[np.ndarray] = []
             merge_ids: List[str] = []
@@ -884,6 +1061,7 @@ Return JSON: {"memories": [{"content": "...", "type": "semantic|episodic|procedu
                     existing_node.access_count += 1
                     merge_ids.append(existing_node.id)
                     merge_sals.append(cand_sal)
+                    self._mark_dirty(existing_node.id)
                     fact_target.append(existing_node.id)
                     self._log(f"   (Merged semantic duplicate into {existing_node.id})")
                     continue
@@ -902,6 +1080,15 @@ Return JSON: {"memories": [{"content": "...", "type": "semantic|episodic|procedu
                 created_embs.append(new_emb)
                 fact_target.append(node_id)
                 new_nodes.append((node_id, shard_key))
+                if new_emb.size != self.embed_dim:
+                    # A row without a vector of the arena's width is stored
+                    # without one (NULL) and never reaches the arena.
+                    irregular.append({
+                        "id": node_id, "content": content, "type": node.type,
+                        "salience": node.salience,
+                        "shard_key": node.shard_key,
+                        "timestamp": node.timestamp,
+                        "decay_pass": self._decay_pass})
 
             arena_new = [(n, e) for n, e in zip(created, created_embs)
                          if e.size == self.embed_dim]
@@ -930,6 +1117,7 @@ Return JSON: {"memories": [{"content": "...", "type": "semantic|episodic|procedu
                     link_scale=self.config.link_weight_scale,
                     shard_modes=(1, 0),
                     link_accept_hint=self.config.link_accept_hint)
+                self._persist_new_nodes(arena_new, irregular)
                 self._register_created(chain_edges, created_links)
                 return new_nodes
             if arena_new:
@@ -944,6 +1132,7 @@ Return JSON: {"memories": [{"content": "...", "type": "semantic|episodic|procedu
                     [n.is_super_node for n, _ in arena_new])
             if merge_ids:
                 self.index.merge_touch([self._q(i) for i in merge_ids], merge_sals)
+            self._persist_new_nodes(arena_new, irregular)
 
             # Both link scans (same-shard + any-shard) in one pass.
             link_cands = self.index.link_candidates_multi(
@@ -953,6 +1142,34 @@ Return JSON: {"memories": [{"content": "...", "type": "semantic|episodic|procedu
             self._link_within_shards(new_nodes, link_cands[1], chain=chain_edges)
             self._link_to_existing_memories(new_nodes, link_cands[0])
         return new_nodes
+
+    def _persist_new_nodes(self, regular: List[Tuple[Node, np.ndarray]],
+                           irregular: List[Dict[str, Any]] = ()) -> None:
+        """Write an ingest's new nodes to the store: ``regular`` (node, its
+        vector at the arena's width) in one columnar segment where the store
+        has the columnar writer, else as row dicts; ``irregular`` rows as
+        dicts without a vector."""
+        rows = list(irregular)
+        if regular:
+            if hasattr(self.store, "add_nodes_columns"):
+                self.store.add_nodes_columns(
+                    ids=[n.id for n, _ in regular],
+                    contents=[n.content for n, _ in regular],
+                    embeddings=np.stack([e for _, e in regular]),
+                    types=[n.type for n, _ in regular],
+                    saliences=[n.salience for n, _ in regular],
+                    timestamps=[n.timestamp for n, _ in regular],
+                    shard_keys=[n.shard_key or "" for n, _ in regular],
+                    decay_pass=self._decay_pass, user_id=self.user_id)
+            else:
+                rows.extend({
+                    "id": n.id, "content": n.content,
+                    "embedding": np.asarray(e, np.float32).tolist(),
+                    "type": n.type, "salience": n.salience,
+                    "shard_key": n.shard_key, "timestamp": n.timestamp,
+                    "decay_pass": self._decay_pass} for n, e in regular)
+        if rows:
+            self.store.add_nodes(rows, user_id=self.user_id)
 
     def _register_created(self, chain_edges: List[Edge], created: Dict) -> None:
         """Host bookkeeping of the edges a fused dispatch already inserted
@@ -1001,7 +1218,8 @@ Return JSON: {"memories": [{"content": "...", "type": "semantic|episodic|procedu
         _cands, created, merges, chains = self.index.commit_ingest_dedup(
             pending, ids)
         new_nodes: List[Tuple[str, str]] = []
-        for i, (_, content, _) in enumerate(staged):
+        survivors: List[Tuple[Node, np.ndarray]] = []
+        for i, (_, content, e) in enumerate(staged):
             if dup[i]:
                 continue
             node = Node(id=ids[i].partition(":")[2], content=content,
@@ -1009,6 +1227,7 @@ Return JSON: {"memories": [{"content": "...", "type": "semantic|episodic|procedu
                         type=types[i], salience=saliences[i], timestamp=now,
                         shard_key=shard_keys[i])
             self._get_or_create_shard(shard_keys[i]).add_node(node)
+            survivors.append((node, e))
             new_nodes.append((node.id, shard_keys[i]))
         # The device's merge touch, mirrored on the host copy.
         for i, target_qid in merges:
@@ -1019,7 +1238,9 @@ Return JSON: {"memories": [{"content": "...", "type": "semantic|episodic|procedu
             tgt.salience = max(tgt.salience, saliences[i])
             tgt.last_accessed = now
             tgt.access_count += 1
+            self._mark_dirty(tgt.id)
             self._log(f"   (Merged semantic duplicate into {tgt.id})")
+        self._persist_new_nodes(survivors)
         chain_edges = [Edge(source=a.partition(":")[2],
                             target=b.partition(":")[2],
                             weight=cfg.chain_link_weight) for a, b in chains]
@@ -1040,9 +1261,14 @@ Return JSON: {"memories": [{"content": "...", "type": "semantic|episodic|procedu
         elapsed = time.time() - start_time
         self.telemetry.record("consolidation.run_ms", elapsed * 1e3)
         self._log(f"✓ Background consolidation complete ({elapsed:.2f}s)")
+        self._save_to_persistence()
         with self._mutex:
+            # The consolidated batches are durable: the turn journal shrinks
+            # to what is still pending. A drain ingests every deferred fact,
+            # so the deferred batches retire with it.
             self._inflight_batches.clear()
             self._deferred_batches.clear()
+            self._journal_sync()
 
     def _requeue_inflight(self) -> None:
         """A consolidation attempt failed: its batches go back on the queue
@@ -1063,6 +1289,7 @@ Return JSON: {"memories": [{"content": "...", "type": "semantic|episodic|procedu
                     shard = self._get_or_create_shard("default")
             shard.add_edge(edge, reinforce=self.config.edge_reinforce)
             self._edge_shard[key] = shard.shard_key
+            self._mark_edge_dirty(key)
         self.metrics["edges_linked"] += len(edges)
 
     def _add_edge(self, edge: Edge) -> None:
@@ -1154,6 +1381,7 @@ Return JSON: {"memories": [{"content": "...", "type": "semantic|episodic|procedu
             node.parent_id = super_id
         self.super_nodes[super_id] = super_node
         self._index_add_node(super_node)
+        self._mark_dirty(super_id, *(n.id for n in nodes))
         self._log(f"  ✓ Created super-node {super_id} with {len(nodes)} children")
 
     def _enforce_buffer_limit(self) -> None:
@@ -1176,11 +1404,14 @@ Return JSON: {"memories": [{"content": "...", "type": "semantic|episodic|procedu
                     # cross-links live in the SOURCE node's shard: scan all
                     for s in self.shards.values():
                         for key in [k for k in s.edges if k[0] == nid or k[1] == nid]:
+                            self._mark_edge_deleted(s.edges[key])
                             del s.edges[key]
                             self._edge_shard.pop(key, None)
                     removed_ids.append(nid)
+                    self._dirty_nodes.discard(nid)
             if removed_ids:
                 self.index.delete([self._q(n) for n in removed_ids])
+                self.store.delete_nodes(removed_ids, user_id=self.user_id)
                 if self.query_cache:
                     self.query_cache.invalidate_results(self.user_id)
                 self._log(f"⚠ Buffer limit reached! Archived {len(removed_ids)} old nodes "
@@ -1194,35 +1425,26 @@ Return JSON: {"memories": [{"content": "...", "type": "semantic|episodic|procedu
             self.background_executor.submit(lambda: None).result()
 
     def switch_user(self, new_user_id: str) -> None:
+        """Save the current tenant, reload ``new_user_id`` from the store
+        (its rows back on the device in one upload) and open its journals,
+        replaying what a crash left in them."""
         if self.conversation_active:
-            self.end_conversation()
+            self.end_conversation()       # saves after the consolidation
             self._drain_background()
         else:
             self._drain_background()
-            self._flush_pending_boosts()
-        with self._mutex:
-            self._parked[self.user_id] = _TenantGraph(
-                dict(self.shards), dict(self.super_nodes), dict(self._edge_shard),
-                dict(self._node_shard_cache), self.profile, self._decay_pass)
-            self.user_id = new_user_id
-            graph = self._parked.pop(new_user_id, None)
-            # BufferGraph holds these dicts: refill them in place.
-            for live, parked in ((self.shards, "shards"),
-                                 (self.super_nodes, "super_nodes"),
-                                 (self._edge_shard, "edge_shard"),
-                                 (self._node_shard_cache, "node_shard")):
-                live.clear()
-                if graph is not None:
-                    live.update(getattr(graph, parked))
-            self.profile = graph.profile if graph is not None else Profile()
-            self._decay_pass = graph.decay_pass if graph is not None else 0
-            if self.query_cache:
-                self.query_cache.invalidate_results()
+            self._save_to_persistence()
+        self.user_id = new_user_id
+        self._load_from_persistence()
+        self._setup_journal()
+        self._setup_ingest_journal()
         self._log(f"👤 Switched context to user: {new_user_id}")
 
     def get_all_users(self) -> List[str]:
-        """Tenants with a graph in this process, current one included."""
-        return sorted(set(self._parked) | {self.user_id})
+        if hasattr(self.store, "get_all_users"):
+            users = self.store.get_all_users()
+            return users if users else [self.user_id]
+        return [self.user_id]
 
     # ----------------------------------------------------------------- search
     def search_memories(self, query: str, limit: int = 5) -> List[Node]:
@@ -1319,27 +1541,14 @@ Return JSON: {"memories": [{"content": "...", "type": "semantic|episodic|procedu
         if not results:
             self._status(results, "✓ No consolidation actions needed")
         elif persist:
-            # The JAX package saves here for standalone callers. The port
-            # has no store yet (ROADMAP Queue 1 item 7): the merged nodes and
-            # the profile stay in memory, and the host copies of the rows
-            # the merges touched are refreshed as that save refreshes them.
-            self._sync_merged()
+            # A standalone call saves the merges and the profile now; a
+            # conversation end passes persist=False and saves right after.
+            self._save_to_persistence()
         return "\n".join(results)
 
     def _stage(self, name: str):
         """A span of one consolidation stage (see :meth:`run_consolidation`)."""
         return self.telemetry.span("consolidation.stage_ms", {"stage": name})
-
-    def _sync_merged(self) -> None:
-        """Refresh the host copies of the nodes and edges the last merges
-        touched from the arena (the JAX package's save syncs its dirty rows
-        this way): the keepers' merge-touched numerics, the rewired edges'
-        weights."""
-        with self._mutex:
-            if self._merged_nodes or self._merged_edges:
-                self._sync_from_arena(self._merged_nodes, self._merged_edges)
-            self._merged_nodes.clear()
-            self._merged_edges.clear()
 
     def _component_weights(self, components: List[Set[str]]
                            ) -> Tuple[List[float], List[int]]:
@@ -1470,6 +1679,7 @@ Example: {"preferences": "User prefers Python for data science.", "knowledge_dom
                 for old_key, new_key in rewires:
                     edge = shard.edges.pop(old_key)
                     self._edge_shard.pop(old_key, None)
+                    self._mark_edge_deleted(edge)
                     edge.source, edge.target = new_key
                     if new_key[0] != new_key[1]:
                         shard.edges[new_key] = edge
@@ -1477,7 +1687,7 @@ Example: {"preferences": "User prefers Python for data science.", "knowledge_dom
                         self.index.add_edges(
                             [(self._q(new_key[0]), self._q(new_key[1]), edge.weight)],
                             self.user_id)
-                        self._merged_edges.add(new_key)
+                        self._mark_edge_dirty(new_key)
                 if merge_id in shard.nodes:
                     del shard.nodes[merge_id]
                     self._node_shard_cache.pop(merge_id, None)
@@ -1485,12 +1695,433 @@ Example: {"preferences": "User prefers Python for data science.", "knowledge_dom
             self.index.merge_touch([qkeep], [node1.salience])
             self.index.delete([qmerge])
             absorbed.add(merge_id)
-            self._merged_nodes.discard(merge_id)
-            self._merged_nodes.add(keep_id)
+            self._dirty_nodes.discard(merge_id)
             merged_count += 1
+            # The merged content and the arena's merge touch reach the store
+            # at the save after this consolidation.
+            self._mark_dirty(keep_id)
+        if absorbed:
+            self.store.delete_nodes(sorted(absorbed), user_id=self.user_id)
         if merged_count and self.query_cache:
             self.query_cache.invalidate_results(self.user_id)
         return merged_count
+
+    # ------------------------------------------------------------ persistence
+    def _store_stage(self, name: str):
+        """A span of one part of a save or a reload
+        (``store.save_ms`` / ``store.load_ms`` under ``part``)."""
+        kind, _, part = name.partition(".")
+        return self.telemetry.span(f"store.{kind}_ms", {"part": part})
+
+    def _bulk_fill_embeddings(self, dicts: List[Dict[str, Any]],
+                              node_ids: List[str]) -> None:
+        """Fill the missing ``embedding`` entries from the arena in one
+        gather."""
+        valid = []
+        for i, (d, nid) in enumerate(zip(dicts, node_ids)):
+            if not d.get("embedding"):
+                r = self.index.id_to_row.get(self._q(nid))
+                if r is not None:
+                    valid.append((i, r))
+        if not valid:
+            return
+        gathered = self.index.embeddings_of_rows([r for _, r in valid])
+        for (i, _), e in zip(valid, gathered):
+            dicts[i]["embedding"] = [float(x) for x in e]
+
+    def _save_to_persistence(self) -> None:
+        """Persist the tenant's durable rows. With a segmented store, once
+        synced: upsert only the rows dirtied since the last save, write the
+        edge tombstones and the decay-pass counter. Otherwise (an injected
+        store of the bare protocol, or before the first sync): delete all
+        and write everything."""
+        with self._mutex:
+            # Queued boosts land before the pull, or the boosted host
+            # copies would be overwritten with stale values.
+            self._flush_pending_boosts_locked()
+            if self._supports_incremental and self._store_synced:
+                self._save_incremental()
+            else:
+                self._save_full()
+            self._last_version = self.store.get_latest_version()
+
+    def _save_incremental(self) -> None:
+        with self._store_stage("save.sync"):
+            self._sync_from_arena(node_ids=set(self._dirty_nodes),
+                                  edge_keys=set(self._dirty_edges))
+        with self._store_stage("save.write"):
+            nodes = [n for n in (self.buffer.get_node(nid)
+                                 for nid in sorted(self._dirty_nodes))
+                     if n is not None]
+            # A row without a host vector upserts NULL, and the store keeps
+            # its stored f32 vector: no gather from the arena's dtype.
+            rows = [self._node_row(n) for n in nodes]
+            if rows:
+                self.store.add_nodes(rows, user_id=self.user_id)
+            # Tombstones go first: segments merge last-wins, so an edge
+            # deleted and re-created within one interval ends upserted.
+            if self._deleted_edge_ids:
+                self.store.delete_edges(sorted(self._deleted_edge_ids),
+                                        user_id=self.user_id)
+            edge_rows = [self._edge_row(e) for e in
+                         (self._find_edge(k) for k in sorted(self._dirty_edges))
+                         if e is not None]
+            if edge_rows:
+                self.store.add_edges(edge_rows, user_id=self.user_id)
+            self.store.save_profile(self.profile.to_dict(), user_id=self.user_id)
+            self.store.save_sys_meta({"decay_pass": self._decay_pass,
+                                      "node_counter": self.node_counter},
+                                     user_id=self.user_id)
+        self._dirty_nodes.clear()
+        self._dirty_edges.clear()
+        self._deleted_edge_ids.clear()
+        self._log(f"💾 Saved {len(rows)} nodes, {len(edge_rows)} edges (delta)")
+
+    def _save_full(self) -> None:
+        """Delete all and write everything. The stored rows are destroyed
+        first, so every vector is materialized before: the store's own f32
+        copy where it has one, else a gather from the arena."""
+        self._sync_from_arena()
+        all_nodes = list(self.buffer.nodes.values())
+        nodes_data = [self._node_row(n) for n in all_nodes]
+        self._preserve_stored_embeddings(nodes_data)
+        self._bulk_fill_embeddings(nodes_data, [n.id for n in all_nodes])
+        edges_data = [self._edge_row(edge)
+                      for shard in self.shards.values()
+                      for edge in shard.edges.values()]
+        self.store.delete_nodes([], user_id=self.user_id)
+        if nodes_data:
+            self.store.add_nodes(nodes_data, user_id=self.user_id)
+        self.store.delete_edges([], user_id=self.user_id)
+        if edges_data:
+            self.store.add_edges(edges_data, user_id=self.user_id)
+        self.store.save_profile(self.profile.to_dict(), user_id=self.user_id)
+        if self._supports_incremental:
+            self.store.save_sys_meta({"decay_pass": self._decay_pass,
+                                      "node_counter": self.node_counter},
+                                     user_id=self.user_id)
+            self._store_synced = True
+        self._dirty_nodes.clear()
+        self._dirty_edges.clear()
+        self._deleted_edge_ids.clear()
+        self._log(f"💾 Saved {len(nodes_data)} nodes, {len(edges_data)} edges")
+
+    def _preserve_stored_embeddings(self, rows: List[Dict[str, Any]]) -> None:
+        """Backfill empty ``embedding`` entries from the store's rows."""
+        missing = {r["id"] for r in rows if not r.get("embedding")}
+        if not missing or not hasattr(self.store, "get_nodes_columns"):
+            return
+        cols = self.store.get_nodes_columns(self.user_id)
+        if cols is None:
+            return
+        ragged = cols.get("ragged_embeddings", {})
+        byid: Dict[str, List[float]] = {}
+        for i, rid in enumerate(cols["id"]):
+            if rid not in missing:
+                continue
+            if cols["has_embedding"][i]:
+                byid[rid] = cols["embedding"][i].tolist()
+            elif i in ragged:
+                byid[rid] = ragged[i].tolist()
+        for r in rows:
+            if not r.get("embedding") and r["id"] in byid:
+                r["embedding"] = byid[r["id"]]
+
+    def _edge_row(self, edge: Edge) -> Dict[str, Any]:
+        return {
+            "source_id": edge.source,
+            "target_id": edge.target,
+            "weight": edge.weight,
+            "edge_type": edge.edge_type,
+            "co_occurrence": edge.co_occurrence,
+            "last_updated": edge.last_updated,
+            "decay_pass": self._decay_pass,
+        }
+
+    def _node_row(self, node: Node) -> Dict[str, Any]:
+        # embedding None: no new vector, the store keeps the stored one.
+        emb = node.embedding
+        return {
+            "id": node.id,
+            "content": node.content,
+            "embedding": None if emb is None else [float(x) for x in emb],
+            "type": node.type,
+            "timestamp": node.timestamp,
+            "access_count": node.access_count,
+            "last_accessed": node.last_accessed,
+            "salience": node.salience,
+            "is_super_node": node.is_super_node,
+            "child_ids": list(node.child_ids),
+            "parent_id": node.parent_id,
+            "shard_key": node.shard_key,
+            # The decay sweep these numbers are current as of: a reload
+            # replays the sweeps since.
+            "decay_pass": self._decay_pass,
+        }
+
+    def _load_from_persistence(self) -> None:
+        """Drop this tenant's rows from the arena, then rebuild its host
+        graph and its rows from the store. The seconds of each part go to
+        the ``store.load_ms`` timer under ``part``: ``read``, ``host_graph``,
+        ``arena``, ``edges``."""
+        with self._mutex:
+            stale = list(self.index.tenant_nodes.get(self.user_id, set()))
+            if stale:
+                with self._store_stage("load.drop"):
+                    self.index.delete(stale)
+            self.shards.clear()
+            self.super_nodes.clear()
+            self._edge_shard.clear()
+            self._node_shard_cache.clear()
+            self._dirty_nodes.clear()
+            self._dirty_edges.clear()
+            self._deleted_edge_ids.clear()
+            meta = (self.store.load_sys_meta(self.user_id)
+                    if self._supports_incremental else {})
+            self._decay_pass = int(meta.get("decay_pass", 0))
+
+            if self._supports_incremental:
+                self._load_columnar()
+            else:
+                self._load_rows()
+
+            prof = self.store.load_profile(user_id=self.user_id)
+            self.profile = Profile.from_dict(prof) if prof else Profile()
+
+            self.node_counter = max(self.node_counter,
+                                    int(meta.get("node_counter", 0)))
+            self._last_version = self.store.get_latest_version()
+            self._store_synced = True
+            if self.query_cache:
+                self.query_cache.invalidate_results()
+
+    def _restore_counter(self, node_id: str) -> None:
+        if node_id.startswith("node_"):
+            try:
+                self.node_counter = max(self.node_counter, int(node_id[5:]))
+            except ValueError:
+                pass
+
+    @staticmethod
+    def _replay_node_decay(stored: np.ndarray, missed: np.ndarray,
+                           rate: float, floor: float) -> np.ndarray:
+        """Replay the decay sweeps a stored row missed, bit-for-bit against
+        the arena's decay (``state._arena_decay``): each pass is the f32
+        difference, then the multiply-add in f64, rounded once to f32."""
+        sal = np.asarray(stored, np.float32).copy()
+        left = np.asarray(missed, np.int64).copy()
+        fl32 = np.float32(floor)
+        fl64, dec64 = np.float64(fl32), np.float64(np.float32(1.0)
+                                                   - np.float32(rate))
+        while True:
+            m = left > 0
+            if not m.any():
+                break
+            base = (sal[m] - fl32).astype(np.float64)
+            sal[m] = (fl64 + base * dec64).astype(np.float32)
+            left[m] -= 1
+        return sal
+
+    @staticmethod
+    def _replay_edge_decay(stored: np.ndarray, missed: np.ndarray,
+                           rate: float) -> np.ndarray:
+        """Edge twin of :meth:`_replay_node_decay`: ``w *= (1 - rate)`` per
+        missed pass, one f32 rounding per pass as ``state._edges_decay``."""
+        w = np.asarray(stored, np.float32).copy()
+        left = np.asarray(missed, np.int64).copy()
+        dec32 = np.float32(1.0) - np.float32(rate)
+        while True:
+            m = left > 0
+            if not m.any():
+                break
+            w[m] = w[m] * dec32
+            left[m] -= 1
+        return w
+
+    def _load_columnar(self) -> None:
+        """Columnar reload: the vectors go to the arena as one matrix in one
+        upload, the host nodes carry none, and each row's salience and edge
+        weight replay the decay sweeps missed since its stamp."""
+        with self._store_stage("load.read"):
+            cols = self.store.get_nodes_columns(self.user_id)
+        if cols is None:
+            return
+        rate = self.config.decay_rate
+        floor = self.config.salience_floor
+        with self._store_stage("load.host_graph"):
+            missed = np.maximum(self._decay_pass - cols["decay_pass"], 0)
+            sal = self._replay_node_decay(cols["salience"], missed, rate, floor)
+            ids = cols["id"]
+            types = cols["type"]
+            shard_keys = cols["shard_key"]
+            ts = cols["timestamp"]
+            la = cols["last_accessed"]
+            ac = cols["access_count"]
+            is_super = cols["is_super_node"]
+            ragged = cols.get("ragged_embeddings", {})
+            self._build_host_nodes(cols, sal, ragged)
+
+        with self._store_stage("load.arena"):
+            matrix = cols["embedding"]
+            if matrix.shape[1] != self.embed_dim:
+                # The store's modal width differs from the embedder's: only
+                # the rows at the embedder's width are served from the arena.
+                idx = np.asarray(sorted(i for i, v in ragged.items()
+                                        if v.size == self.embed_dim), np.int64)
+                emb_rows = (np.stack([ragged[int(i)] for i in idx]) if idx.size
+                            else np.zeros((0, self.embed_dim), np.float32))
+            else:
+                idx = np.nonzero(cols["has_embedding"])[0]
+                emb_rows = matrix[idx]
+            if idx.size:
+                qids = [self._q(ids[i]) for i in idx]
+                self.index.add(
+                    qids, emb_rows, sal[idx], ts[idx],
+                    [types[i] or "semantic" for i in idx],
+                    [shard_keys[i] or "default" for i in idx],
+                    self.user_id, is_super[idx])
+                self.index.restore_access(qids, ac[idx], la[idx])
+
+        with self._store_stage("load.read"):
+            ecols = self.store.get_edges_columns(self.user_id)
+        if ecols is None:
+            return
+        with self._store_stage("load.edges"):
+            missed_e = np.maximum(self._decay_pass - ecols["decay_pass"], 0)
+            weights = self._replay_edge_decay(ecols["weight"], missed_e, rate)
+            node_shard = {ids[i]: shard_keys[i] or "default"
+                          for i in range(len(ids)) if not is_super[i]}
+            srcs = ecols["source_id"]
+            tgts = ecols["target_id"]
+            ets = ecols["edge_type"]
+            cos = ecols["co_occurrence"].tolist()
+            lus = ecols["last_updated"].tolist()
+            wl = weights.tolist()
+            triples = []
+            for i in range(len(srcs)):
+                edge = Edge(source=srcs[i], target=tgts[i], weight=wl[i],
+                            edge_type=ets[i] or "relates_to",
+                            co_occurrence=int(cos[i]), last_updated=lus[i])
+                key = (edge.source, edge.target)
+                owner = self.shards.get(node_shard.get(edge.source, "default"))
+                if owner is None:
+                    owner = self._get_or_create_shard("default")
+                owner.edges[key] = edge
+                self._edge_shard[key] = owner.shard_key
+                triples.append((self._q(edge.source), self._q(edge.target),
+                                edge.weight))
+            if triples:
+                self.index.add_edges(triples, self.user_id)
+
+    def _build_host_nodes(self, cols: Dict[str, Any], sal: np.ndarray,
+                          ragged: Dict[int, np.ndarray]) -> None:
+        """The host nodes of a columnar reload, without vectors (the arena
+        holds them) except for rows stored at another width, whose host copy
+        keeps the vector a later upsert must not lose."""
+        ids, contents, types = cols["id"], cols["content"], cols["type"]
+        shard_keys, parents = cols["shard_key"], cols["parent_id"]
+        child_json = cols["child_ids"]
+        ts = cols["timestamp"].tolist()
+        la = cols["last_accessed"].tolist()
+        ac = cols["access_count"].tolist()
+        is_super = cols["is_super_node"].tolist()
+        sal = sal.astype(np.float64).tolist()
+        for i in range(len(ids)):
+            node = Node(
+                id=ids[i],
+                content=contents[i] or "",
+                embedding=(ragged[i].tolist() if i in ragged else None),
+                type=types[i] or "semantic",
+                timestamp=ts[i],
+                access_count=int(ac[i]),
+                last_accessed=la[i],
+                salience=sal[i],
+                is_super_node=bool(is_super[i]),
+                child_ids=(json.loads(child_json[i])
+                           if child_json[i] and child_json[i] != "[]" else []),
+                parent_id=parents[i] or None,
+                shard_key=shard_keys[i] or "default",
+            )
+            if node.is_super_node:
+                self.super_nodes[node.id] = node
+            else:
+                self._get_or_create_shard(node.shard_key).add_node(node)
+            self._restore_counter(node.id)
+
+    def _load_rows(self) -> None:
+        """Row-dict reload for a store of the bare protocol."""
+        rows = self.store.get_nodes(user_id=self.user_id)
+        batch: List[Node] = []
+        for r in rows:
+            node = Node(
+                id=r["id"],
+                content=r.get("content", ""),
+                embedding=r.get("embedding") or None,
+                type=r.get("type", "semantic"),
+                timestamp=r.get("timestamp", time.time()),
+                access_count=int(r.get("access_count", 0)),
+                last_accessed=r.get("last_accessed", time.time()),
+                salience=float(r.get("salience", 0.5)),
+                is_super_node=bool(r.get("is_super_node", False)),
+                child_ids=list(r.get("child_ids") or []),
+                parent_id=r.get("parent_id"),
+                shard_key=r.get("shard_key") or "default",
+            )
+            if node.is_super_node:
+                self.super_nodes[node.id] = node
+            else:
+                self._get_or_create_shard(node.shard_key).add_node(node)
+            if node.embedding is not None and len(node.embedding) == self.embed_dim:
+                batch.append(node)
+            self._restore_counter(node.id)
+
+        if batch:
+            qids = [self._q(n.id) for n in batch]
+            self.index.add(
+                qids,
+                np.asarray([n.embedding for n in batch], np.float32),
+                [n.salience for n in batch],
+                [n.timestamp for n in batch],
+                [n.type for n in batch],
+                [n.shard_key or "default" for n in batch],
+                self.user_id,
+                [n.is_super_node for n in batch])
+            self.index.restore_access(qids,
+                                      [n.access_count for n in batch],
+                                      [n.last_accessed for n in batch])
+
+        triples = []
+        for r in self.store.get_edges(user_id=self.user_id):
+            edge = Edge(
+                source=r.get("source_id") or r.get("source"),
+                target=r.get("target_id") or r.get("target"),
+                weight=float(r.get("weight", 0.5)),
+                edge_type=r.get("edge_type", "relates_to"),
+                co_occurrence=int(r.get("co_occurrence", 1)),
+                last_updated=r.get("last_updated", time.time()),
+            )
+            key = (edge.source, edge.target)
+            owner = self._shard_of_node(edge.source)
+            if owner is None:
+                owner = self._get_or_create_shard("default")
+            owner.edges[key] = edge
+            self._edge_shard[key] = owner.shard_key
+            triples.append((self._q(edge.source), self._q(edge.target), edge.weight))
+        if triples:
+            self.index.add_edges(triples, self.user_id)
+
+    def check_for_updates(self) -> bool:
+        """Reload the tenant when another process wrote the store since this
+        one last read or wrote it; True when it did."""
+        try:
+            current = self.store.get_latest_version()
+            if current > self._last_version:
+                self._log(f"🔄 Store updated (v{current}), reloading...")
+                self._load_from_persistence()
+                return True
+        except Exception:       # noqa: BLE001 — a poll never raises
+            _logger.warning("store poll failed", exc_info=True)
+        return False
 
     # ------------------------------------------------------------ unported
     def save_snapshot(self, snapshot_dir: str) -> str:
@@ -1521,10 +2152,10 @@ Example: {"preferences": "User prefers Python for data science.", "knowledge_dom
             "conversation_count": self.conversation_count,
             "profile_domains_filled": sum(1 for v in self.profile.data.values() if v),
             "auto_consolidate": self.auto_consolidate,
-            "vector_store": (f"device arena on {self.device} (in memory)"
-                             if self.mesh is None else
-                             f"device arena over a {self.mesh.size}-shard "
-                             f"mesh (in memory)"),
+            "vector_store": ((f"device arena on {self.device}"
+                              if self.mesh is None else
+                              f"device arena over a {self.mesh.size}-shard mesh")
+                             + f" + {type(self.store).__name__}"),
             "mesh_size": self.mesh.size if self.mesh is not None else 1,
             "performance": {
                 "avg_retrieval_ms": f"{float(np.mean(rt)) if rt else 0:.1f}",
@@ -1551,9 +2182,17 @@ Example: {"preferences": "User prefers Python for data science.", "knowledge_dom
         # Facts the flush policy deferred land now rather than never.
         if getattr(self, "_ingest_coalescer", None) and len(self._ingest_coalescer):
             start = time.time()
+            wait_ms = self._ingest_coalescer.oldest_age_s() * 1e3
+            commit_to = (self._ingest_journal.last_seq
+                         if self._ingest_journal is not None else 0)
             drained: List[Tuple[str, str]] = []
             for facts, _n_convs in self._ingest_coalescer.drain():
+                self.telemetry.record("ingest.coalesce_wait_ms", wait_ms)
                 drained.extend(self._ingest_facts(facts))
             self._finish_consolidation(drained, start)
+            if self._ingest_journal is not None:
+                self._ingest_journal.commit(commit_to)
         if getattr(self, "_pending_boosts", None):
             self._flush_pending_boosts()
+        if getattr(self, "store", None) is not None:
+            self.store.close()

@@ -309,12 +309,32 @@ def _arena_apply_boosts(state: ArenaState, rows, acc_cnt, nbr_cnt, now_vals,
     return state
 
 
+def _arena_restore_access(state: ArenaState, rows, access_count,
+                          last_accessed) -> ArenaState:
+    """Reload path: ``_arena_add`` zeroes the access history of a fresh
+    row; a restored row gets its persisted counters back, so eviction keeps
+    ranking by use across restarts."""
+    dev = state.emb.device
+    r = _rows(rows, dev)
+    state.access_count[r] = torch.as_tensor(access_count, dtype=torch.int32,
+                                            device=dev)
+    state.last_accessed[r] = torch.as_tensor(last_accessed,
+                                             dtype=torch.float32, device=dev)
+    return state
+
+
 def _arena_decay(state: ArenaState, tenant, rate, floor) -> ArenaState:
-    """s' = floor + (s - floor)(1 - rate) on the tenant's live rows."""
+    """s' = floor + (s - floor)(1 - rate) on the tenant's live rows, rounded
+    once as the JAX package's fused multiply-add rounds it: the f32
+    difference and the f32 ``1 - rate`` multiply and add in f64, which holds
+    their product exactly, and round to f32 at the end. Eager f32 ops would
+    round the product and the sum apart; a reload's replay of missed passes
+    (``MemorySystem._replay_node_decay``) rounds once too."""
     dev = state.emb.device
     rate, floor = _f32(rate, dev), _f32(floor, dev)
     s = state.salience
-    decayed = floor + (s - floor) * (1.0 - rate)
+    decayed = (floor.double() + (s - floor).double()
+               * (1.0 - rate).double()).float()
     mask = state.alive & (state.tenant_id == int(tenant))
     torch.where(mask, decayed, s, out=state.salience)
     return state

@@ -1,0 +1,185 @@
+"""Durable ingest journal: extracted facts survive any crash window.
+
+Counterpart of ``lazzaro_tpu/reliability/journal.py``, on the port's
+write-ahead log (``lazzaro_tpu_torch.native``), with the same records, so a
+journal written by either package replays in the other.
+
+The turn WAL of ``MemorySystem`` keeps raw conversation turns; between the
+LLM extraction and the fused ingest dispatch the extracted facts would
+otherwise live only in process memory. ``IngestJournal`` closes that window
+with append, dispatch, commit:
+
+- ``append(facts)`` logs one extraction's facts the moment it returns,
+  before the coalescer buffers them, under the next sequence number;
+- ``commit(seq)`` marks every batch up to ``seq`` as landed in the arena
+  (the coalescer drains everything, so one marker retires the drain), and
+  truncates the log once nothing is outstanding;
+- ``pending()`` replays the log (a torn tail is dropped by the framing) and
+  returns the uncommitted batches in append order. Startup feeds them
+  through the normal ingest, where the in-dispatch dedup probe makes the
+  replay idempotent: facts that landed before the crash resolve as
+  duplicates, the rest are ingested.
+
+``register_overlay`` records (``{"op": "overlay"}``) survive commits and
+restarts; ``lag`` and ``oldest_age`` measure a subscriber's backlog from
+in-memory append times, which are never persisted.
+"""
+
+from __future__ import annotations
+
+import json
+import threading
+import time
+from typing import Dict, List, Tuple
+
+from lazzaro_tpu_torch.native import WriteAheadLog
+
+
+class IngestJournal:
+    """Append/commit journal of extracted-fact batches (one per
+    conversation), built on the CRC-framed WAL."""
+
+    def __init__(self, path: str, fsync: bool = False):
+        self.path = path
+        self._wal = WriteAheadLog(path, fsync=fsync)
+        self._lock = threading.Lock()
+        self._pending: Dict[int, List[dict]] = {}
+        # seq -> append wall-time (in-memory only; staleness observability
+        # for replica subscribers — see the module docstring)
+        self._append_ts: Dict[int, float] = {}
+        # durable overlay-tenant registrations (survive commit/compaction)
+        self._overlays: set = set()
+        self._next_seq = 1
+        self._replay_into_memory()
+
+    # ------------------------------------------------------------- internal
+    def _replay_into_memory(self) -> None:
+        pending: Dict[int, List[dict]] = {}
+        committed = 0
+        for payload in self._wal.replay():
+            try:
+                rec = json.loads(payload.decode("utf-8"))
+            except (UnicodeDecodeError, json.JSONDecodeError):
+                continue                      # foreign/garbled record
+            if not isinstance(rec, dict):
+                continue
+            op = rec.get("op")
+            seq = int(rec.get("seq", 0))
+            if op == "add" and isinstance(rec.get("facts"), list):
+                pending[seq] = rec["facts"]
+            elif op == "commit":
+                committed = max(committed, seq)
+            elif op == "overlay" and isinstance(rec.get("tenant"), str):
+                self._overlays.add(rec["tenant"])
+        self._pending = {s: f for s, f in pending.items() if s > committed}
+        top = max(pending.keys(), default=0)
+        self._next_seq = max(top, committed) + 1
+
+    # ------------------------------------------------------------------ api
+    def append(self, facts: List[dict]) -> int:
+        """Durably log one conversation's extracted facts; returns the
+        assigned sequence number (0 when there is nothing to log)."""
+        facts = [f for f in facts if isinstance(f, dict)]
+        if not facts:
+            return 0
+        with self._lock:
+            seq = self._next_seq
+            self._next_seq += 1
+            self._wal.append(json.dumps(
+                {"op": "add", "seq": seq, "facts": facts}).encode("utf-8"))
+            self._pending[seq] = facts
+            self._append_ts[seq] = time.time()
+            return seq
+
+    def commit(self, seq: int) -> None:
+        """Mark every batch with sequence <= ``seq`` as durably ingested.
+        Compacts the log file when nothing is left outstanding."""
+        if seq <= 0:
+            return
+        with self._lock:
+            for s in [s for s in self._pending if s <= seq]:
+                del self._pending[s]
+            for s in [s for s in self._append_ts if s <= seq]:
+                del self._append_ts[s]
+            if not self._pending:
+                # everything retired: truncating IS the commit record —
+                # but overlay registrations must outlive compaction, so
+                # rewrite them into the fresh log
+                self._wal.reset()
+                for tenant in sorted(self._overlays):
+                    self._wal.append(json.dumps(
+                        {"op": "overlay",
+                         "tenant": tenant}).encode("utf-8"))
+            else:
+                self._wal.append(json.dumps(
+                    {"op": "commit", "seq": seq}).encode("utf-8"))
+
+    @property
+    def last_seq(self) -> int:
+        with self._lock:
+            return self._next_seq - 1
+
+    @property
+    def pending_count(self) -> int:
+        with self._lock:
+            return len(self._pending)
+
+    @property
+    def pending_facts(self) -> int:
+        with self._lock:
+            return sum(len(f) for f in self._pending.values())
+
+    def pending(self) -> List[Tuple[int, List[dict]]]:
+        """Uncommitted (seq, facts) batches in append order — the startup
+        replay set (and each replica subscriber's replay feed, filtered
+        past its applied-seq cursor)."""
+        with self._lock:
+            return sorted(self._pending.items())
+
+    # --------------------------------------------------- replica placement
+    def register_overlay(self, tenant: str) -> None:
+        """Durably mark ``tenant`` as overlay (partitioned, home-group
+        only). The registration survives commit/compaction and restarts,
+        so placement stays correct for the tenant's whole lifetime."""
+        with self._lock:
+            if tenant in self._overlays:
+                return
+            self._overlays.add(tenant)
+            self._wal.append(json.dumps(
+                {"op": "overlay", "tenant": tenant}).encode("utf-8"))
+
+    @property
+    def overlay_tenants(self) -> set:
+        """Copy of the durably-registered overlay tenants (rebuilt from
+        the log on startup)."""
+        with self._lock:
+            return set(self._overlays)
+
+    # ------------------------------------------------- replica observability
+    def lag(self, applied_seq: int) -> int:
+        """How many appended batches a subscriber at ``applied_seq`` has
+        not yet applied — the ``journal.replica_lag`` gauge per group."""
+        with self._lock:
+            return sum(1 for s in self._pending if s > applied_seq)
+
+    def oldest_age(self, applied_seq: int, now: float = None) -> float:
+        """Age (seconds) of the OLDEST appended batch a subscriber at
+        ``applied_seq`` has not yet applied — 0.0 when fully caught up.
+        This is the measured bounded-staleness window a replica group
+        exposes (compare against ``serve_replica_staleness_s``). Batches
+        appended before this process started carry no timestamp and
+        count as age 0 (they are replayed immediately on startup)."""
+        now = time.time() if now is None else now
+        with self._lock:
+            ts = [self._append_ts[s] for s in self._pending
+                  if s > applied_seq and s in self._append_ts]
+            if not ts:
+                return 0.0
+            return max(0.0, now - min(ts))
+
+    def reset(self) -> None:
+        with self._lock:
+            self._pending.clear()
+            self._append_ts.clear()
+            self._overlays.clear()
+            self._wal.reset()

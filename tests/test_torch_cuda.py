@@ -12,6 +12,8 @@ exact in f32 and the kernel must agree with the plain version bit for bit,
 exact ties included. Flash-attention tolerances are stated beside its tests.
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -1793,3 +1795,261 @@ def test_consolidation_merges_on_the_card_alike_on_both_ingests(cuda, tmp_path):
             ms.close()
     assert states[0] == states[1]
     assert sum(" | " in c for c, _ in states[0][1].values()) >= 4
+
+
+# ---------------------------------------------------------------------------
+# The persistent store and the journals on the card
+# ---------------------------------------------------------------------------
+
+
+def _stable(qid):
+    """A node id without the creation second a super-node id carries."""
+    head, _, tail = qid.rpartition("_")
+    return head if ":super_" in qid and tail.isdigit() else qid
+
+
+def _salience_bits(ms):
+    sal = ms.index.state.salience.view(torch.int32).cpu().numpy()
+    return {_stable(q): int(sal[r]) for q, r in ms.index.id_to_row.items()}
+
+
+def _ranked(ms, queries):
+    """Rankings as (score, ids at that score) groups: a reload may order
+    exact ties in other rows."""
+    out = []
+    for q in queries:
+        ids, scores = ms.index.search(np.asarray(ms.embedder.embed(q), np.float32),
+                                      ms.user_id, k=32, super_filter=-1)
+        groups = {}
+        for i, s in zip(ids, scores):
+            groups.setdefault(s, set()).add(_stable(i))
+        out.append(sorted(groups.items(), reverse=True))
+    return out
+
+
+def _talk(ms, convs, words, offset=0):
+    for c in range(offset, offset + convs):
+        ms.start_conversation()
+        for i in range(3):
+            ms.add_to_short_term(" ".join(words[(7 * c + i) % 300:][:12]),
+                                 "semantic", 0.6)
+        ms.chat(f"What about {words[7 * c % 300]}?")
+        ms.end_conversation()
+
+
+WORDS = [f"w{i}q{i % 7}" for i in range(320)]
+
+
+def test_restart_on_the_card_keeps_rankings_and_salience_bits(cuda, tmp_path):
+    """A system that restarts from its store on the card (f32 arena,
+    hashing embedder, boosts from chat turns) holds the same salience bits
+    in every row, the same rankings and the same profile as one that never
+    restarted, before and after two more conversations: the reload's replay
+    of the passes a row missed rounds as the arena's decay does."""
+    from lazzaro_tpu_torch import MemorySystem
+
+    kw = dict(enable_async=False, verbose=False, device="cuda",
+              auto_consolidate=False, max_buffer_size=10_000)
+    lived = MemorySystem(db_dir=str(tmp_path / "a"), load_from_disk=False, **kw)
+    ms = MemorySystem(db_dir=str(tmp_path / "b"), load_from_disk=False, **kw)
+    try:
+        for system in (lived, ms):
+            _talk(system, 5, WORDS)
+        ms.close()
+        ms = MemorySystem(db_dir=str(tmp_path / "b"), **kw)
+        stamps = ms.store.get_nodes_columns("default")["decay_pass"]
+        assert ms._decay_pass == 5 and (stamps < 5).any()
+        queries = [f"What about {w}?" for w in WORDS[:60:7]]
+        assert _salience_bits(ms) == _salience_bits(lived)
+        assert _ranked(ms, queries) == _ranked(lived, queries)
+        assert ms.profile.data == lived.profile.data
+        for system in (lived, ms):
+            _talk(system, 2, WORDS, offset=5)
+        assert _salience_bits(ms) == _salience_bits(lived)
+    finally:
+        lived.close()
+        ms.close()
+
+
+def test_ingest_journal_replay_on_the_card_is_idempotent(cuda, tmp_path):
+    """An uncommitted fact batch, half of it facts that already landed,
+    replays at the next start through one fused ingest dispatch on the card
+    (one K1 launch, one resolve, one readback): the landed facts merge, the
+    others land once; the turns of the dropped conversation come back."""
+    from lazzaro_tpu_torch import MemorySystem
+    from lazzaro_tpu_torch.core.index import MemoryIndex
+
+    db = str(tmp_path / "db")
+    kw = dict(enable_async=False, verbose=False, device="cuda", db_dir=db,
+              max_buffer_size=10_000)
+    ms = MemorySystem(**kw)
+    _talk(ms, 3, WORDS)
+    landed = [n for n in sorted(ms.buffer.nodes.values(), key=lambda n: n.id)
+              if not n.is_super_node and " | " not in n.content][:4]
+    facts = [{"content": n.content, "type": n.type, "salience": 0.5,
+              "topic": n.shard_key} for n in landed]
+    facts += [{"content": f"I sail past the harbour {w} at dawn",
+               "type": "episodic", "salience": 0.6, "topic": "travel"}
+              for w in WORDS[200:204]]
+    access = {n.id: n.access_count for n in landed}
+    nodes = len(ms.buffer.nodes)
+    ms.start_conversation()
+    ms.add_to_short_term("I moved to the lighthouse last week.", "episodic", 0.7)
+    ms._ingest_journal.append(facts)
+    ms.query_scheduler.close()
+    del ms                                   # dropped, no end_conversation
+    readbacks = []
+    inner = MemoryIndex._readback
+
+    def counted(self, packed):
+        readbacks.append(tuple(packed.shape))
+        return inner(self, packed)
+
+    before = (it.launches, dr.launches)
+    MemoryIndex._readback = counted
+    try:
+        ms = MemorySystem(**kw)
+    finally:
+        MemoryIndex._readback = inner
+    try:
+        torch.cuda.synchronize()
+        assert (it.launches - before[0], dr.launches - before[1]) == (1, 1)
+        assert len(readbacks) == 1 and ms.index.ingest_dispatch_count == 1
+        assert [t["content"] for t in ms.short_term_memory] == [
+            "I moved to the lighthouse last week."]
+        assert [sum(n.content == f["content"] for n in ms.buffer.nodes.values())
+                for f in facts] == [1] * len(facts)
+        assert [ms.buffer.get_node(i).access_count - a
+                for i, a in access.items()] == [1] * len(landed)
+        assert len(ms.buffer.nodes) == nodes + len(facts) - len(landed)
+        assert ms._ingest_journal.pending_count == 0
+    finally:
+        ms.close()
+
+
+def test_conversation_end_copies_with_its_save(cuda, tmp_path):
+    """Under ``set_sync_debug_mode("error")`` a default conversation end's
+    fused ingest waits on the card only in its one packed readback, and its
+    saves only in the pulls of the rows and edges they dirtied
+    (``pull_numeric_rows``, ``edge_weights_for``), once each where due: the
+    save in the ingest's finish pulls both after a chat turn boosted rows
+    and the ingest made edges."""
+    from lazzaro_tpu_torch import MemorySystem
+
+    ms = MemorySystem(enable_async=False, verbose=False, device="cuda",
+                      db_dir=str(tmp_path / "db"), auto_consolidate=False)
+    index = ms.index
+    copies, ctx, due = [], [], []
+
+    def strict(name, fn):
+        def run(*args, **kwargs):
+            ctx.append(name)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                ctx.pop()
+                torch.cuda.set_sync_debug_mode("error" if ctx else 0)
+        return run
+
+    def allowed(name, fn):
+        def run(*args, **kwargs):
+            if ctx:
+                copies.append((ctx[-1], name))
+            torch.cuda.set_sync_debug_mode(0)
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.set_sync_debug_mode("error" if ctx else 0)
+        return run
+
+    save = strict("save", ms._save_to_persistence)
+
+    def due_save():
+        due.extend(["pull_numeric_rows"] * any(
+            ms._q(n) in index.id_to_row for n in ms._dirty_nodes)
+            + ["edge_weights_for"] * bool(ms._dirty_edges))
+        return save()
+
+    index.ingest_batch_dedup = strict("ingest", index.ingest_batch_dedup)
+    ms._save_to_persistence = due_save
+    for name in ("_readback", "pull_numeric_rows", "edge_weights_for"):
+        setattr(index, name, allowed(name, getattr(index, name)))
+    try:
+        _talk(ms, 4, WORDS)
+        assert [c for c in copies if c[0] == "ingest"] == [
+            ("ingest", "_readback")] * 4
+        pulled = [name for what, name in copies if what == "save"]
+        assert pulled == due
+        assert pulled.count("pull_numeric_rows") >= 3
+        assert pulled.count("edge_weights_for") >= 3
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        ms.close()
+
+
+def test_reload_writes_the_ingested_bf16_rows(cuda, tmp_path):
+    """A tenant's rows reloaded from the store in one upload are the bf16
+    rows the fused ingest wrote, up to the rounding of the norm of a batch
+    of another size: each element at most one bf16 step apart, so scores
+    agree within 2e-5 (corpus elements under 0.2, a few elements moved by
+    2**-8 of themselves) and ids are equal but among near ties."""
+    from lazzaro_tpu_torch import MemoryConfig, MemorySystem
+
+    class Rows:
+        dim = 768
+
+        def batch_embed(self, texts):
+            return [np.random.default_rng(int(t.split()[1])).standard_normal(
+                768).astype(np.float32) for t in texts]
+
+        def embed(self, text):
+            return self.batch_embed([text])[0]
+
+    class Facts:
+        def __init__(self):
+            self.c = 0
+
+        def completion(self, messages, response_format=None):
+            self.c += 1
+            return json.dumps({"memories": [
+                {"content": f"fact {1000 * self.c + i} body", "salience": 0.6,
+                 "type": "semantic", "topic": ("work", "home")[i % 2]}
+                for i in range(700)]})
+
+    ms = MemorySystem(enable_async=False, verbose=False, device="cuda",
+                      db_dir=str(tmp_path / "db"), load_from_disk=False,
+                      embedding_provider=Rows(), llm_provider=Facts(),
+                      max_buffer_size=10_000, auto_consolidate=False,
+                      enable_caching=False,
+                      config=MemoryConfig(dtype="bfloat16"))
+
+    def snapshot():
+        ids = sorted(ms.index.tenant_nodes["default"])
+        rows = torch.as_tensor([ms.index.id_to_row[i] for i in ids], device=cuda)
+        bits = ms.index.state.emb[rows].view(torch.int16).cpu().numpy()
+        q = np.stack(Rows().batch_embed([f"fact {1000 + i} x" for i in range(0, 700, 37)]))
+        return dict(zip(ids, map(bytes, bits))), ms.index.search_batch(q, "default", k=10)
+
+    try:
+        for _ in range(3):
+            ms.start_conversation()
+            ms.add_to_short_term("a turn", "semantic", 0.5)
+            ms.end_conversation()
+        before_bits, before = snapshot()
+        ms.switch_user("bob")
+        ms.switch_user("default")
+        after_bits, after = snapshot()
+        assert after_bits.keys() == before_bits.keys()
+        for q, b in before_bits.items():
+            step = np.abs(np.frombuffer(b, np.int16).astype(np.int32)
+                          - np.frombuffer(after_bits[q], np.int16))
+            assert step.max() <= 1
+        for (i0, s0), (i1, s1) in zip(before, after):
+            assert np.abs(np.subtract(s1, s0)).max() <= 2e-5
+            for pos, s in enumerate(s0):
+                tied = [j for j, v in enumerate(s0) if abs(v - s) <= 2e-5]
+                if len(tied) == 1:
+                    assert i1[pos] == i0[pos]
+    finally:
+        ms.close()

@@ -192,3 +192,66 @@ def test_from_numpy_serves_the_same_topk(dtype):
     for index in (jidx, tidx):
         index.add(["a:new"], emb[:1], [0.5], [NOW], ["semantic"], ["work"], "a")
     assert tidx.id_to_row["a:new"] == jidx.id_to_row["a:new"]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tenant_reload_matches_jax(dtype):
+    """A reload's index calls on both packages: the whole tenant deleted
+    (its edges freed in the order a scan of every slot frees them), its
+    rows added back in one call and their access history restored; every
+    column, the row and slot maps and the free lists equal."""
+    jidx = JaxIndex(DIM, capacity=40, edge_capacity=16, epoch=EPOCH,
+                    dtype=jnp.dtype(dtype))
+    tidx = TorchIndex(DIM, capacity=40, edge_capacity=16, epoch=EPOCH,
+                      device="cpu", dtype=dtype)
+    emb = fill(jidx)
+    fill(tidx)
+    rng = np.random.default_rng(3)
+    pairs = [(f"a:n{i}", f"a:n{j}", float(rng.random()))
+             for i, j in rng.integers(0, 30, (40, 2)) if i != j]
+    pairs += [(f"b:n{i}", f"b:n{j}", 0.5) for i, j in ((31, 40), (45, 33))]
+    for index in (jidx, tidx):
+        index.add_edges(pairs, "a", now=NOW)
+        index.delete(sorted(index.tenant_nodes["a"]))
+    assert tidx.edge_slots == jidx.edge_slots
+    assert list(tidx.edge_slots) == list(jidx.edge_slots)
+    assert tidx._free_edge_slots == jidx._free_edge_slots
+    assert tidx._free_rows == jidx._free_rows
+    ids = [f"a:n{i}" for i in range(30)]
+    acs, las = rng.integers(0, 9, 30), NOW - 100 * rng.random(30)
+    for index in (jidx, tidx):
+        index.add(ids, emb[:30], rng.random(30) * 0 + 0.4, [NOW] * 30,
+                  ["semantic"] * 30, ["work"] * 30, "a", [False] * 30)
+        index.restore_access(ids, acs, las)
+        index.add_edges(pairs[:10], "a", now=NOW)
+    assert tidx.id_to_row == jidx.id_to_row
+    assert tidx.edge_slots == jidx.edge_slots
+    assert_columns(jidx, tidx)
+
+
+def test_delete_frees_the_slots_a_full_scan_frees():
+    """``delete`` finds the dead edges through the per-node key index: the
+    same keys, freed in the same order, as a scan of every slot, through
+    inserts, re-inserts, prunes and deletes."""
+    idx = TorchIndex(DIM, capacity=200, edge_capacity=64, epoch=EPOCH,
+                     device="cpu")
+    rng = np.random.default_rng(5)
+    ids = [f"t:n{i}" for i in range(150)]
+    idx.add(ids, unit(rng, 150), [0.5] * 150, [NOW] * 150, ["semantic"] * 150,
+            ["work"] * 150, "t")
+    live = set(ids)
+    for step in range(6):
+        pool = sorted(live)
+        pairs = [(pool[i], pool[j], float(w)) for (i, j), w in zip(
+            rng.integers(0, len(pool), (120, 2)), rng.random(120)) if i != j]
+        idx.add_edges(pairs, "t", now=NOW)
+        idx.prune_edges("t", 0.2)
+        gone = list(rng.choice(pool, 7, replace=False))
+        want_order = [k for k in idx.edge_slots if k[0] in gone or k[1] in gone]
+        want_slots = [idx.edge_slots[k] for k in want_order]
+        free_before = list(idx._free_edge_slots)
+        idx.delete(gone)
+        live -= set(gone)
+        assert idx._free_edge_slots == free_before + want_slots
+        assert all(a in live and b in live for a, b in idx.edge_slots)
+        assert set(idx.edge_slots.by_slot.values()) == set(idx.edge_slots)

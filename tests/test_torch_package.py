@@ -90,11 +90,6 @@ def test_unported_entry_points_raise(tmp_path):
               db_dir=str(tmp_path))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_mesh(("data", "model"), (4, 2), devices=["cpu"] * 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MemorySystem(load_from_disk=False, store=object(), **kw)
-    (tmp_path / "nodes.parquet").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MemorySystem(load_from_disk=True, **kw)
     ms = MemorySystem(load_from_disk=False, **kw)
     for call in (lambda: ms.save_snapshot(str(tmp_path / "s")),
                  lambda: ms.load_snapshot(str(tmp_path / "s")),
@@ -104,21 +99,24 @@ def test_unported_entry_points_raise(tmp_path):
     ms.close()
 
 
-def test_slice_defaults_are_the_classic_path():
-    """Defaults: the JAX defaults for serving, ingest and consolidation,
-    fused serving, the fused dedup ingest and ``auto_consolidate``, with the
-    classic lifecycle path, and they pass the ported-path check; a mesh with
-    the fused ingest on raises, naming its ROADMAP item, and takes the
-    classic ingest flags and ``auto_consolidate=False``."""
+def test_slice_defaults_are_the_classic_path(tmp_path):
+    """Defaults: the JAX defaults for serving, ingest, consolidation and
+    durability, fused serving, the fused dedup ingest, ``auto_consolidate``,
+    the store reloaded from disk and both journals, with the classic
+    lifecycle path, and they pass the ported-path check; a mesh with the
+    fused ingest on raises, naming its ROADMAP item, and takes the classic
+    ingest flags and ``auto_consolidate=False``."""
     cfg = MemoryConfig()
+    jax_cfg = JaxConfig()
     assert cfg.serve_fused is True and cfg.serve_ragged is True
     assert cfg.ingest_fused is True and cfg.ingest_dedup_fused is True
     assert cfg.auto_consolidate is True and cfg.consolidate_every == 3
-    for name in ("lifecycle_fused", "journal", "ingest_journal"):
-        assert getattr(cfg, name) is False, name
+    for name in ("journal", "ingest_journal", "load_from_disk"):
+        assert getattr(cfg, name) is True == getattr(jax_cfg, name), name
+    assert cfg.lifecycle_fused is False
     cfg.check_ported()
     kw = dict(enable_async=False, load_from_disk=False, verbose=False,
-              db_dir="unused", mesh=make_mesh(devices=["cpu"] * 2))
+              db_dir=str(tmp_path), mesh=make_mesh(devices=["cpu"] * 2))
     with pytest.raises(NotImplementedError,
                        match="Queue 1 item 21, sharded fused ingest"):
         MemorySystem(**kw)

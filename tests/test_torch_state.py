@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from lazzaro_tpu.core import state as JS
+from lazzaro_tpu.core.memory_system import MemorySystem as JaxMemorySystem
 from lazzaro_tpu_torch.core import state as TS
 
 CAP = 63          # 64 rows with the sentinel
@@ -154,6 +155,57 @@ def test_decay_fused(tenant):
     TS._decay_fused(ta, te, tenant, 0.01, 0.2)
     assert_same(ja, ta, TS.ARENA_FIELDS)
     assert_same(je, te, TS.EDGE_FIELDS)
+
+
+DECAY_ROWS = 131_072
+
+
+@pytest.mark.parametrize("rate,floor", [(0.05, 0.2), (0.01, 0.2),
+                                        (0.013, 0.1), (0.3, 0.05)])
+def test_decay_salience_bits_equal_jax(rate, floor):
+    """The decay of 131,072 saliences, half of them in the tenant, over
+    three passes: every salience bit equal to the JAX package's compiled
+    decay (one fused multiply-add, one rounding) and to the reload's replay
+    of the missed passes; the edge weights too."""
+    rng = np.random.default_rng(17)
+    n = DECAY_ROWS
+    sal = rng.uniform(floor, 1.0, n).astype(np.float32)
+    sal[:64] = np.float32(floor)                  # at the floor already
+    tenant = (rng.random(n) < 0.5).astype(np.int32)
+    alive = rng.random(n) > 0.1
+    weight = rng.random(n).astype(np.float32)
+    cols = {"emb": np.zeros((n, 1), np.float32), "salience": sal,
+            "timestamp": np.zeros(n, np.float32),
+            "last_accessed": np.zeros(n, np.float32),
+            "access_count": np.zeros(n, np.int32),
+            "type_id": np.zeros(n, np.int32), "shard_id": np.zeros(n, np.int32),
+            "tenant_id": tenant, "alive": alive,
+            "is_super": np.zeros(n, bool)}
+    ecols = {"src": np.zeros(n, np.int32), "tgt": np.zeros(n, np.int32),
+             "weight": weight, "co": np.ones(n, np.int32),
+             "last_updated": np.zeros(n, np.float32), "tenant_id": tenant,
+             "alive": alive}
+    ja = JS.ArenaState(**{k: jnp.asarray(v) for k, v in cols.items()})
+    je = JS.EdgeState(**{k: jnp.asarray(v) for k, v in ecols.items()})
+    ta, te = TS.arena_from_numpy(cols, "cpu"), TS.edges_from_numpy(ecols, "cpu")
+    for _ in range(3):
+        ja, je = JS.decay_fused_copy(ja, je, jnp.int32(1), jnp.float32(rate),
+                                     jnp.float32(floor))
+        TS._decay_fused(ta, te, 1, rate, floor)
+    want = np.asarray(ja.salience)
+    got = ta.salience.numpy()
+    assert (got.view(np.int32) != want.view(np.int32)).sum() == 0
+    assert np.array_equal(ta.salience.view(torch.int32).numpy(),
+                          want.view(np.int32))
+    live = alive & (tenant == 1)
+    replay = JaxMemorySystem._replay_node_decay(
+        sal, np.where(live, 3, 0), rate, floor)
+    assert np.array_equal(replay.view(np.int32), got.view(np.int32))
+    assert np.array_equal(te.weight.numpy().view(np.int32),
+                          np.asarray(je.weight).view(np.int32))
+    assert np.array_equal(
+        JaxMemorySystem._replay_edge_decay(weight, np.where(live, 3, 0), rate)
+        .view(np.int32), te.weight.numpy().view(np.int32))
 
 
 @pytest.mark.parametrize("modes", [(1, 0), (-1,), (0,)])
