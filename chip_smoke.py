@@ -49,7 +49,9 @@ Phases, each printing its own lines; any failure exits non-zero:
               rankings, profile and salience bits; a crash whose turns and
               uncommitted fact batch the next start replays through the
               fused ingest on the card; the fused and classic ingests held
-              equal on the same dialogue;
+              equal on the same dialogue; every K1 launch of the phase one
+              pass on the streaming stage, no ``masked_topk`` launch in
+              the fused ingest;
   4b. mesh    the same path on ``MemorySystem(mesh=...)``: the same arena
               row-sharded over 8 shards (one per card when the cards divide
               8, else all on ``cuda:0``), filled for 34 conversations
@@ -742,11 +744,15 @@ def phase_ingest_kernel(device):
     the default f32), against their plain versions; grid values, so rows,
     verdicts and scores must be equal. The arena has two tenants, one live
     sentinel row of tenant 0 (probe- and link-excluded), 12 shards; half of
-    each batch repeats arena rows (probe duplicates)."""
+    each batch repeats arena rows (probe duplicates). The f32 batches of a
+    conversation end (Q = 1, 8, 16) take the streaming stage in one launch
+    and no ``masked_topk`` launch; each is also timed with the FMA stage
+    forced."""
     import torch
 
     from lazzaro_tpu_torch.ops import dedup_resolve as dr
     from lazzaro_tpu_torch.ops import ingest_topk as it
+    from lazzaro_tpu_torch.ops import masked_topk as mt
 
     gen = torch.Generator(device=device).manual_seed(3)
     n = ARENA_ROWS
@@ -766,6 +772,8 @@ def phase_ingest_kernel(device):
             ("ingest_q16_k3_bf16", torch.bfloat16, 16, True),
             ("link_q8192_k3_bf16", torch.bfloat16, PER_CONV, False),
             ("ingest_q8192_k3_f32", torch.float32, PER_CONV, True),
+            ("ingest_q1_k3_f32", torch.float32, 1, True),
+            ("ingest_q8_k3_f32", torch.float32, 8, True),
             ("ingest_q16_k3_f32", torch.float32, 16, True)):
         if dtype == torch.float32 and emb32 is None:
             emb32 = emb16.float()
@@ -801,13 +809,32 @@ def phase_ingest_kernel(device):
                 torch.topk(torch.where(lmask, s, -1e30), 3)
 
         big = nq > 1024
+        route = it.route_for(dtype, nq, DIM)
         rows_out.append(_case_row(
-            "ingest_topk", "ingest" if with_probe else "link", label,
-            it.route_for(dtype, nq, DIM), n, nq, 3,
-            lambda args=args: it.ingest_topk(*args),
+            "ingest_topk", "ingest" if with_probe else "link", label, route, n,
+            nq, 3, lambda args=args: it.ingest_topk(*args),
             lambda args=args: it.ingest_topk_reference(*args), lib,
             ingest_bound(emb, nq, 3, 2, with_probe), err, 2 if big else 20,
             1 if big else 3, stage1="stage1"))
+        if route == "stream":
+            # One launch, no masked_topk launch; then the FMA stage forced,
+            # the route these batches took before the streaming ingest mode.
+            before = (it.launches, it.launches_stream, mt.launches)
+            it.ingest_topk(*args)
+            seen = (it.launches - before[0], it.launches_stream - before[1],
+                    mt.launches - before[2])
+            if seen != (1, 1, 0):
+                raise AssertionError(f"{label}: (K1, streamed, masked_topk) "
+                                     f"launches {seen}, not (1, 1, 0)")
+            forced = f"{label}_forced_fma"
+            err = _check_equal(forced, it._launch(*args, route="fma"),
+                               it.ingest_topk_reference(*args))
+            rows_out.append(_case_row(
+                "ingest_topk", "ingest", forced, "fma", n, nq, 3,
+                lambda args=args: it._launch(*args, route="fma"),
+                lambda args=args: it.ingest_topk_reference(*args), lib,
+                ingest_bound(emb, nq, 3, 2, with_probe), err, 20, 3,
+                stage1="stage1"))
     del emb32
     ingest_corners(device)
 
@@ -1467,11 +1494,14 @@ def phase_default(launches_out: dict) -> dict:
     among equal importances in their own row order) and the dedup gate at
     0.99, above the merge gate, so that the near-duplicates arrive as nodes
     and the consolidations merge them on the card; once on the fused ingest
-    (its probe on ``masked_topk``'s streaming route, its link lists in K1)
-    and once on the classic ingest (``ingest_fused=False,
-    ingest_dedup_fused=False``: the probe in ``search_batch``, on that route
-    too): nodes must merge, and node ids and contents, edge keys and the
-    profile must be equal."""
+    (its probe and link lists in one K1 launch on the streaming stage, no
+    ``masked_topk`` launch) and once on the classic ingest
+    (``ingest_fused=False, ingest_dedup_fused=False``: the probe in
+    ``search_batch``, ``masked_topk`` on the streaming stage's additive
+    mode, which scores every pair with K1's probe's bits): nodes must
+    merge, and node ids and contents, edge keys and the profile must be
+    equal. Every K1 launch of the phase streams and no ``masked_topk``
+    launch happens in the default dialogue or the crash replay."""
     import torch
 
     from lazzaro_tpu_torch import MemoryConfig, MemorySystem
@@ -1515,7 +1545,7 @@ def phase_default(launches_out: dict) -> dict:
     copies, saves = _strict_phase(ms, torch)
     gops.launches = gops.launches_wgmma = 0
     mt.launches = mt.launches_wgmma = mt.launches_stream = 0
-    it.launches = it.launches_wgmma = dr.launches = 0
+    it.launches = it.launches_wgmma = it.launches_stream = dr.launches = 0
     try:
         ends = drive(ms)
     finally:
@@ -1524,25 +1554,28 @@ def phase_default(launches_out: dict) -> dict:
     path = {"pairwise_topk": gops.launches, "ingest_topk": it.launches,
             "dedup_resolve": dr.launches, "masked_topk": mt.launches}
     k3 = (gops.launches, gops.launches_wgmma)
-    k1 = (it.launches, mt.launches_stream)
+    k1 = (it.launches, it.launches_stream, mt.launches)
     reads = {what: [c for c in copies if c[0] == what]
              for what in ("ingest", "merge", "save")}
     due = [["pull_numeric_rows"] * rows + ["edge_weights_for"] * edges
            for rows, edges in saves]
     pulled = [c[1] for c in reads["save"]]
-    if (k3 != (3, 0) or len(reads["merge"]) != 3
+    if (k3 != (3, 0) or not k1[0] or k1[1] != k1[0] or k1[2]
+            or len(reads["merge"]) != 3
             or len(reads["ingest"]) != DEFAULT_CONVS
             or pulled != [p for d in due for p in d]
             or not any(d == ["pull_numeric_rows", "edge_weights_for"]
                        for d in due)):
-        raise AssertionError(f"default config: K3 launches {k3}; copies "
+        raise AssertionError(f"default config: K3 launches {k3}; (K1, K1 "
+                             f"streamed, masked_topk) launches {k1}; copies "
                              f"{copies}; saves due {due}")
     log(f"[default] MemorySystem() (f32 768-d, fused serving and ingest, "
         f"auto_consolidate every 3, ArrowStore, both journals): "
         f"{DEFAULT_CONVS} conversations, {len(ms.buffer.nodes)} nodes at "
         f"the buffer limit, {k3[0]} K3 launches (FMA route), {k1[0]} K1 "
-        f"launches (link lists), {k1[1]} streaming masked_topk launches "
-        f"(dedup probes); under sync debug mode \"error\" the device-to-host "
+        f"launches ({k1[1]} on the streaming stage: probe and link lists in "
+        f"one pass), {k1[2]} masked_topk launches; under sync debug mode "
+        f"\"error\" the device-to-host "
         f"copies were {len(reads['ingest'])} ingest readbacks (one an end), "
         f"{len(reads['merge'])} merge-scan readbacks and, over "
         f"{len(saves)} saves (two an end), {pulled.count('pull_numeric_rows')} "
@@ -1607,14 +1640,16 @@ def phase_default(launches_out: dict) -> dict:
         readbacks.append(tuple(packed.shape))
         return inner(self, packed)
 
-    before = (it.launches, it.launches_wgmma, dr.launches, mt.launches_stream)
+    before = (it.launches, it.launches_wgmma, dr.launches, it.launches_stream,
+              mt.launches)
     MemoryIndex._readback = counted
     try:
         ms = MemorySystem(enable_async=False, verbose=False, db_dir=db)
     finally:
         MemoryIndex._readback = inner
     replay = (it.launches - before[0], it.launches_wgmma - before[1],
-              dr.launches - before[2], mt.launches_stream - before[3])
+              dr.launches - before[2], it.launches_stream - before[3],
+              mt.launches - before[4])
     recovered = [t["content"] for t in ms.short_term_memory]
     counts = [sum(n.content == f["content"] for n in ms.buffer.nodes.values())
               for f in facts]
@@ -1626,25 +1661,26 @@ def phase_default(launches_out: dict) -> dict:
             or counts != [1] * len(facts) or touched != [1] * len(landed)
             or len(ms.buffer.nodes) != nodes_before + len(facts) - len(landed)
             or replayed != len(facts) or ms._ingest_journal.pending_count
-            or replay[0] != 1 or replay[2] != 1 or dispatches != 1
+            or replay != (1, 0, 1, 1, 0) or dispatches != 1
             or len(readbacks) != 1):
         raise AssertionError(
             f"crash recovery: turns {recovered}, fact counts {counts}, landed "
             f"facts touched {touched}, nodes {len(ms.buffer.nodes)} from "
             f"{nodes_before}, replayed {replayed}, (K1, K1 tensor-core, "
-            f"resolve, streaming probe) launches {replay}, dispatches "
+            f"resolve, K1 streamed, masked_topk) launches {replay}, dispatches "
             f"{dispatches}, readbacks {readbacks}")
     ms.end_conversation()                # consolidates the recovered turns
     ms.close()
     for name, n in (("ingest_topk", replay[0]), ("dedup_resolve", replay[2])):
         path[name] += n
-    path["masked_topk"] += replay[3]
+    path["masked_topk"] += replay[4]
     log(f"[default] crash: {len(turns)} turns recovered from the turn "
         f"journal; the uncommitted batch of {len(facts)} facts ({len(landed)} "
         f"already landed) replayed through the fused ingest on the card: "
         f"{dispatches} dispatch, {replay[0]} K1 launch ({replay[1]} "
-        f"tensor-core), {replay[3]} streaming masked_topk probe, {replay[2]} "
-        f"resolve launch, {len(readbacks)} readback {readbacks}; the landed "
+        f"tensor-core, {replay[3]} streamed), {replay[4]} masked_topk "
+        f"launches, {replay[2]} resolve launch, {len(readbacks)} readback "
+        f"{readbacks}; the landed "
         f"facts merged (access +1), the others ingested once: no fact lost, "
         f"none doubled")
     for name, n in path.items():
@@ -1658,16 +1694,20 @@ def phase_default(launches_out: dict) -> dict:
                              db_dir=store_dir(f"default_{i}"),
                              config=MemoryConfig(dedup_similarity=0.99, **flags))
         try:
-            before = (mt.launches_stream, it.launches)
+            before = (mt.launches_stream, it.launches, it.launches_stream)
             drive(other)
             both.append(record(other))
             probes.append((mt.launches_stream - before[0],
-                           it.launches - before[1]))
+                           it.launches - before[1],
+                           it.launches_stream - before[2]))
         finally:
             other.close()
-    if not (probes[0][0] and probes[0][1] and probes[1][0]):
-        raise AssertionError(f"(streaming masked_topk, K1) launches: fused "
-                             f"{probes[0]}, classic {probes[1]}")
+    # The fused ingest probes in K1 on the streaming stage (no masked_topk
+    # launch), the classic one in masked_topk on that stage's additive mode.
+    if not (probes[0][0] == 0 and probes[0][1] and probes[0][2] == probes[0][1]
+            and probes[1][0]):
+        raise AssertionError(f"(streaming masked_topk, K1, K1 streamed) "
+                             f"launches: fused {probes[0]}, classic {probes[1]}")
     got, want = both
     if got != want:
         diff = set(got[0].items()) ^ set(want[0].items())
@@ -1682,16 +1722,16 @@ def phase_default(launches_out: dict) -> dict:
            "nodes": len(got[0]), "edges": len(got[1]), "merged_nodes": merged,
            "profile_domains": sum(bool(v) for v in got[2].values()),
            "k3_launches": k3[0], "k1_launches": k1[0],
-           "streamed_probes": k1[1], "copies": copies,
-           "stream_and_k1_fused_classic": probes,
+           "k1_streamed": k1[1], "masked_topk_launches": k1[2],
+           "copies": copies, "stream_mt_k1_k1stream_fused_classic": probes,
            "end_conversation_s": ends, "restart_s": restart_s,
            "restart_missed_rows": missed, "crash_replay_launches": replay,
            "crash_replay_readbacks": len(readbacks)}
     log(f"[default] without eviction and at a 0.99 dedup gate, fused and "
         f"classic ingest equal: {len(got[0])} nodes ({merged} merged), "
         f"{len(got[1])} edges, {out['profile_domains']} profile domains; "
-        f"(streaming masked_topk, K1) launches fused {probes[0]}, classic "
-        f"{probes[1]}")
+        f"(streaming masked_topk, K1, K1 streamed) launches fused "
+        f"{probes[0]}, classic {probes[1]}")
     return out
 
 
@@ -3557,6 +3597,7 @@ def _run(smi, name, device, torch) -> int:
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"], "shape": head["case"],
+            "stage1_routes": sorted({c["route"] for c in rows if "route" in c}),
             "forms": sorted({c["form"] for c in rows}), "cases": rows}
 
     kernels = [

@@ -11,10 +11,11 @@
 
 extern "C" {
 
-// Row splits of a scan of n rows and nq queries on `route` (0: FMA, 1:
-// tensor cores): the leading dimension of the scratch.
-int ingest_topk_splits(long long n, int nq, int route, int sms) {
-  return ingest_splits(n, nq, route, sms);
+// Row splits of a scan of n rows, nq queries of width d and `modes` lists of
+// k on `route` (0: FMA, 1: tensor cores, 2: streaming): the leading
+// dimension of the scratch.
+int ingest_topk_splits(long long n, int nq, int d, int k, int modes, int route, int sms) {
+  return ingest_splits(n, nq, d, k, modes, route, sms);
 }
 
 // emb [n, d] (bf16 when is_bf16, else f32), flags [n] u8 (bit 0 probe mask,
@@ -23,8 +24,9 @@ int ingest_topk_splits(long long n, int nq, int route, int sms) {
 // shards, 0 any); with_probe takes the probe. Scratch: probe_c* [splits,
 // nq], cand_* [modes, splits, nq, k]. Outputs: probe_s/probe_r [nq], out_s/
 // out_r [modes, nq, k] (f32, i32 rows). route 1 (tensor cores) takes bf16
-// only, route 0 (FMA) f32 only. Needs d % 8 == 0, 16-byte aligned rows, 1 <=
-// k <= min(128, n). Stage 1 and one stage 2 a mode (one when there is no
+// only, routes 0 (FMA) and 2 (streaming: nq <= 16 whose values fit a lane's
+// registers) f32 only. Needs d % 8 == 0, 16-byte aligned rows, 1 <= k <=
+// min(128, n). Stage 1 and one stage 2 a mode (one when there is no
 // mode), counted into *launched. Returns the CUDA error of the launches (0
 // on success).
 int ingest_topk(const void* emb, int is_bf16, const uint8_t* flags, const int* shard,

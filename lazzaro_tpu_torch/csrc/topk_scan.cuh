@@ -1,6 +1,8 @@
 // Masked cosine top-k scans of the embedding arena, for Hopper (sm_90a): one
 // templated scan, in two mask modes. masked_topk.cu exports the additive
-// mode and fused_topk.cu the keyed mode; each includes this file.
+// mode and fused_topk.cu the keyed mode; each includes this file. Two more
+// modes at the end of the file share its building blocks: the ingest mode
+// (ingest_topk.cu, K1) and the pairwise mode (pairwise_topk.cu, K3).
 //
 // Additive mode (masked_topk, masked_topk_ragged) replaces the TPU kernels
 // lazzaro_tpu/ops/pallas_topk.py:pallas_masked_topk (body _topk_block_kernel)
@@ -60,8 +62,9 @@
 //
 // Streaming route (scan_stage1_stream, f32, Q <= 16): see its section. At
 // Q <= 16 the scan reads every arena row once: the bound is HBM bytes,
-// N*d*itemsize (plus 4 B of madd or 6 B of row columns a row) over 3.35
-// TB/s, 0.96 ms for 1,048,576 x 768 f32 (0.48 ms in bf16).
+// N*d*itemsize (plus 4 B of madd, 6 B of row columns, or the ingest mode's
+// 5, a row) over 3.35 TB/s, 0.96 ms for 1,048,576 x 768 f32 (0.48 ms in
+// bf16).
 //
 // FMA route (scan_stage1; f32 scans the streaming route does not take,
 // past 16 queries or wider than its registers hold): a block of 4, 8, 16 or
@@ -1290,7 +1293,9 @@ int wg_splits(long long n, int shards, int nq, int kmax, int sms) {
 // ring is as deep as shared memory allows. A lane holds its slots of its
 // queries in registers, kStreamQregs values at most: that caps d at 3,072
 // up to 8 queries and 1,536 at 9 to 16 (the wrapper's rule sends wider
-// scans to the FMA route; the launch refuses them).
+// scans to the FMA route; the launch refuses them). The stage runs in the
+// additive and keyed modes and in K1's ingest mode (probe and up to two
+// shard-mode lists from one pass).
 
 constexpr int kRouteStream = 2;
 constexpr int kStreamMaxQ = 16;
@@ -1299,14 +1304,35 @@ constexpr int kStreamMaxRows = 128;        // rows of a chunk at most (a batch)
 constexpr int kStreamHead = 512;           // barriers, batch sizes, thresholds
 constexpr int kStreamMathWarps = 8;
 constexpr int kStreamQregs = 96;           // query values a lane holds
+constexpr int kStreamMaxLists = 2;         // lists a query keeps (K1's shard modes)
 
-// Layout of a streaming launch, fixed by d, the mode, the list length kc
-// and the query tile qt (nq rounded up to a power of two):
+// The modes of the streaming stage, by the row words a stage carries: madd
+// f32 (additive), tenant i32, alive u8 and is_super u8 (keyed; a bool kKeyed
+// converts to these two), or shard i32 and K1's flags u8 (ingest, below:
+// the entry's words and alive columns carry them).
+constexpr int kStreamAdd = 0, kStreamKeyed = 1, kStreamIngest = 2;
+
+__host__ __device__ constexpr int stream_word_bytes(int mode) {
+  return mode == kStreamAdd ? 4 : mode == kStreamKeyed ? 6 : 5;
+}
+
+// The head of the shared memory: barriers from 0, from 256 the batch sizes
+// [lists][2][16] i32 and then the thresholds [lists][16] f32, for the most
+// lists a query of the mode keeps.
+__host__ __device__ constexpr int stream_head(int mode) {
+  return mode == kStreamIngest ? 2 * kStreamHead : kStreamHead;
+}
+
+// Layout of a streaming launch, fixed by d, the mode, the list length kc,
+// the lists a query keeps nl (1 for a list of kc > 1 in the additive and
+// keyed modes, else 0; K1's shard modes in the ingest mode) and the query
+// tile qt (nq rounded up to a power of two):
 //   cr    rows a chunk (one ring stage): the rows in kStreamStageBytes of
 //         arena, rounded down to a multiple of 16 when there are 16 or
 //         more (then the row words come by bulk copies too), at most
-//         kStreamMaxRows; fewer than 16 are raised to one a math warp
-//         where two stages of them fit;
+//         kStreamMaxRows, halved while two stages do not fit beside the
+//         lists; fewer than 16 are raised to one a math warp where two
+//         stages of them fit;
 //   g     lanes sharing a row: its d / 8 slots of 8 elements rounded up to
 //         a power of two, at most 32; spl slots a lane (a row never spans
 //         two warps);
@@ -1315,27 +1341,36 @@ constexpr int kStreamQregs = 96;           // query values a lane holds
 //         <= g); ng = qt / qg groups, pr = kStreamMathWarps / ng warps a
 //         group (0 when the groups do not fit: the launch is refused);
 //   ns    ring stages, as many as shared memory holds (at most kMaxStages);
-//   bc    entries of each of a query's two batches: a batch takes the
+//   bc    entries of each of a list's two batches: a batch takes the
 //         candidates of every other chunk until it could not take another.
-// A stage holds cr arena rows, then their row words (madd f32, or tenant
-// i32, alive u8 and is_super u8, column by column), padded to 128 bytes.
+// A stage holds cr arena rows, then their row words column by column,
+// padded to 128 bytes.
 struct StreamShape {
   int cr, g, spl, qg, ng, pr, ns, lcap, bc, row_bytes, words_off, stage_bytes, fin;
-  size_t lists_off, fin_off, smem;
+  size_t head, lists_off, fin_off, smem;
 };
 
-template <bool kKeyed>
-inline StreamShape stream_shape(int d, int kc, int qt, int cr = 0) {
+template <int kMode>
+inline StreamShape stream_shape(int d, int kc, int qt, int nl, int cr = 0) {
   StreamShape sh{};
   sh.row_bytes = d * 4;
   if (cr == 0) {
     // Wide rows: one a math warp if two such stages fit, else what fits.
     const int fit = kStreamStageBytes / sh.row_bytes;
-    if (fit >= 16) return stream_shape<kKeyed>(d, kc, qt, fit / 16 * 16 > kStreamMaxRows
-                                                              ? kStreamMaxRows : fit / 16 * 16);
-    const StreamShape wide = stream_shape<kKeyed>(d, kc, qt, fit > kStreamMathWarps
-                                                               ? fit : kStreamMathWarps);
-    return wide.ns >= 2 ? wide : stream_shape<kKeyed>(d, kc, qt, fit < 1 ? 1 : fit);
+    if (fit >= 16) {
+      // Two lists of 128 and their batches (the ingest mode) can leave room
+      // for one stage of 128 narrow rows: halve the chunk until two fit.
+      int c = fit / 16 * 16 > kStreamMaxRows ? kStreamMaxRows : fit / 16 * 16;
+      StreamShape narrow = stream_shape<kMode>(d, kc, qt, nl, c);
+      while (narrow.ns < 2 && c >= 32) {
+        c /= 2;
+        narrow = stream_shape<kMode>(d, kc, qt, nl, c);
+      }
+      return narrow;
+    }
+    const StreamShape wide =
+        stream_shape<kMode>(d, kc, qt, nl, fit > kStreamMathWarps ? fit : kStreamMathWarps);
+    return wide.ns >= 2 ? wide : stream_shape<kMode>(d, kc, qt, nl, fit < 1 ? 1 : fit);
   }
   sh.cr = cr;
   const int slots = d / 8;
@@ -1348,16 +1383,17 @@ inline StreamShape stream_shape(int d, int kc, int qt, int cr = 0) {
   sh.ng = qt / sh.qg;
   sh.pr = kStreamMathWarps / sh.ng;
   sh.words_off = sh.cr * sh.row_bytes;
-  sh.stage_bytes = (sh.words_off + sh.cr * (kKeyed ? 6 : 4) + 127) / 128 * 128;
+  sh.stage_bytes = (sh.words_off + sh.cr * stream_word_bytes(kMode) + 127) / 128 * 128;
   sh.lcap = ((kc + 7) / 8) * 8;
   sh.bc = 2 * sh.cr + 32 < kSortN ? 2 * sh.cr + 32 : kSortN;
   sh.fin = sh.pr * (32 / sh.g);
-  const size_t lists = kc > 1 ? (size_t)16 * (sh.lcap + 2 * sh.bc) * 8 : 0;
-  const size_t fin = (size_t)qt * sh.fin * 8 * (kKeyed ? 2 : 1);
-  const size_t fixed = kStreamHead + lists + fin;
+  sh.head = stream_head(kMode);
+  const size_t lists = (size_t)nl * 16 * (sh.lcap + 2 * sh.bc) * 8;
+  const size_t fin = (size_t)qt * sh.fin * 8 * (kMode == kStreamKeyed ? 2 : 1);
+  const size_t fixed = sh.head + lists + fin;
   const size_t ns = fixed < (size_t)kSmemMax ? (kSmemMax - fixed) / sh.stage_bytes : 0;
   sh.ns = (int)(ns < kMaxStages ? ns : kMaxStages);
-  sh.lists_off = kStreamHead + (size_t)sh.ns * sh.stage_bytes;
+  sh.lists_off = sh.head + (size_t)sh.ns * sh.stage_bytes;
   sh.fin_off = sh.lists_off + lists;
   sh.smem = fixed + (size_t)sh.ns * sh.stage_bytes;
   return sh;
@@ -1365,18 +1401,21 @@ inline StreamShape stream_shape(int d, int kc, int qt, int cr = 0) {
 
 // n: rows of each shard entry; rows_per_split: a multiple of cr; words_bulk:
 // cr is a multiple of 16 and every entry's row-word columns are 16-byte
-// aligned (else the producer warp copies them with plain loads).
-template <bool kKeyed>
+// aligned (else the producer warp copies them with plain loads). The ingest
+// mode: q_tenant holds each fact's shard, with_gate takes the probe into
+// gate_c*, and list l (< nl) is shard mode mode[l]'s.
+template <int kMode>
 struct StreamArgs {
   ShardTable t;
   const void* qry;
   const int* q_tenant;
   long long n, rows_per_split;
-  int splits, d, nq, qt, kc, with_gate, ld_after, words_bulk;
-  int cr, g, spl, ng, pr, ns, lcap, bc, row_bytes, words_off, stage_bytes, fin, lists_off,
-      fin_off;
+  int splits, d, nq, qt, kc, nl, with_gate, ld_after, words_bulk;
+  int mode[kStreamMaxLists];
+  int cr, g, spl, ng, pr, ns, lcap, bc, row_bytes, words_off, stage_bytes, fin, head,
+      lists_off, fin_off;
   const float* after_s;
-  const RowT<kKeyed>* after_r;
+  const RowT<kMode != kStreamAdd>* after_r;
   float* gate_cs;
   int* gate_cr;
   float* cand_s;
@@ -1436,6 +1475,21 @@ __device__ __forceinline__ void row_reduce(float (&v)[QG], int g) {
   }
 }
 
+// A score of the ingest mode from a row's sum and its row words: past the
+// split's end -inf (never a candidate), a pair outside the mask NEG, a live
+// one the sum + 0.0f (-0 becomes +0, as masked_topk's madd of 0 makes it).
+// f is the row's flags with bit 2 set for a row in the split; the probe
+// takes bit 0, mode `mode` bit 1 and the shard match.
+__device__ __forceinline__ float ingest_probe_score(float acc, uint32_t f) {
+  return (f & 4u) ? ((f & 1u) ? acc + 0.0f : kNeg) : -INFINITY;
+}
+
+__device__ __forceinline__ float ingest_mode_score(float acc, uint32_t f, int sh, int qsh,
+                                                   int mode) {
+  const bool ok = (f & 2u) && (mode == 0 || (sh == qsh) == (mode == 1));
+  return (f & 4u) ? (ok ? acc + 0.0f : kNeg) : -INFINITY;
+}
+
 // Stage 1 on the streaming route. Block (split, entry) scans the rows of
 // split `split` of shard entry `entry` for all nq <= 16 queries, chunk by
 // chunk.
@@ -1447,22 +1501,26 @@ __device__ __forceinline__ void row_reduce(float (&v)[QG], int g) {
 //   registers, reads its slots of RU rows from the stage (16-byte reads),
 //   sums 8 FMAs a slot and query, and the g lanes of a row reduce-scatter
 //   the QG sums (row_reduce). The lane left with a query's full sum (its
-//   owner) adds madd, or applies the tiers, and folds the score: kc = 1 and
-//   the keyed gate into an arg-max in registers (replaced only on a
-//   strictly better score; its rows ascend), lists into the query's batch
-//   when the score beats the query's threshold (and, in a later pass, ranks
-//   after the previous pass's last pair), at a position from a shared
-//   atomic. A row's score is the same wherever it sits.
+//   owner) adds madd, or applies the tiers, or K1's masks, and folds the
+//   score: kc = 1, the keyed gate and K1's probe into an arg-max in
+//   registers (replaced only on a strictly better score; its rows ascend),
+//   each list into its batch when the score beats the list's threshold
+//   (and, in a later pass, ranks after the previous pass's last pair), at a
+//   position from a shared atomic. A row's score is the same wherever it
+//   sits, and in every mode: K1's probe is bit for bit the additive mode's
+//   k = 1 scan over the probe mask.
 // - Warp 1 keeps the lists, as a warp of the tensor-core route's consumers
-//   does (queries g and g + 8 of a quad). Chunks alternate between two
-//   batches a query; after each chunk it merges the chunk's batch into the
-//   sorted list (merge_pending) when the batch could not take another
-//   chunk or the list is not full, and publishes the list's last score as
-//   the threshold. At the end it merges what is left, reduces the owners'
-//   arg-maxes and writes the split's candidates.
-template <int QG, bool kList, bool kKeyed>
+//   does (queries g and g + 8 of a quad), the nl lists of a query in turn.
+//   Chunks alternate between two batches a list; after each chunk it merges
+//   the chunk's batch into the sorted list (merge_pending) when the batch
+//   could not take another chunk or the list is not full, and publishes the
+//   list's last score as the threshold. At the end it merges what is left,
+//   reduces the owners' arg-maxes and writes the split's candidates.
+template <int QG, bool kList, int kMode>
 __global__ void __launch_bounds__(64 + 32 * kStreamMathWarps, 1)
-scan_stage1_stream(const StreamArgs<kKeyed> a) {
+scan_stage1_stream(const StreamArgs<kMode> a) {
+  constexpr bool kKeyed = kMode == kStreamKeyed, kIngest = kMode == kStreamIngest;
+  constexpr int NL = kIngest ? kStreamMaxLists : 1;   // lists a query keeps at most
   constexpr int SPLMAX = kStreamQregs / (8 * QG);
   constexpr int RU = QG == 1 ? 4 : 2;        // rows a lane sums at once
   constexpr int MW = kStreamMathWarps;
@@ -1472,15 +1530,15 @@ scan_stage1_stream(const StreamArgs<kKeyed> a) {
   uint64_t* sfull = empty + kMaxStages;   // [2] batches written
   uint64_t* sempty = sfull + 2;           // [2] batches merged
   uint64_t* done = sempty + 2;            // the owners' arg-maxes written
-  int* cnt = reinterpret_cast<int*>(stream_smem + 256);         // [2][16] batch sizes
-  float* thrs = reinterpret_cast<float*>(stream_smem + 384);    // [16] thresholds
-  uint8_t* ring = stream_smem + kStreamHead;
+  int* cnt = reinterpret_cast<int*>(stream_smem + 256);   // [NL][2][16] batch sizes
+  float* thrs = reinterpret_cast<float*>(cnt + 32 * NL);  // [NL][16] thresholds
+  uint8_t* ring = stream_smem + a.head;
   uint64_t* lists = reinterpret_cast<uint64_t*>(stream_smem + a.lists_off);
   float* fin_s = reinterpret_cast<float*>(stream_smem + a.fin_off);   // [qt][fin]
   int* fin_r = reinterpret_cast<int*>(fin_s + a.qt * a.fin);
   float* gfin_s = reinterpret_cast<float*>(fin_r + a.qt * a.fin);     // keyed gate
   int* gfin_r = reinterpret_cast<int*>(gfin_s + a.qt * a.fin);
-  const int stride = a.lcap + 2 * a.bc;   // a query's list and two batches
+  const int stride = a.lcap + 2 * a.bc;   // a list and its two batches
 
   const int split = blockIdx.x, entry = blockIdx.y;
   const long long slot = (long long)entry * a.splits + split;
@@ -1502,9 +1560,9 @@ scan_stage1_stream(const StreamArgs<kKeyed> a) {
     hopper::mbar_init(done, 32 * MW);
     hopper::mbar_init_fence();
   }
-  if (threadIdx.x < 32) {
+  if (threadIdx.x < 32 * NL) {
     cnt[threadIdx.x] = 0;
-    if (threadIdx.x < 16) thrs[threadIdx.x] = -INFINITY;
+    if (threadIdx.x < 16 * NL) thrs[threadIdx.x] = -INFINITY;
   }
   __syncthreads();
 
@@ -1512,9 +1570,9 @@ scan_stage1_stream(const StreamArgs<kKeyed> a) {
     // ---- producer
     const uint8_t* emb = static_cast<const uint8_t*>(a.t.emb[entry]);
     const uint8_t* words = static_cast<const uint8_t*>(a.t.words[entry]);
-    const uint8_t* alive = a.t.alive[entry];
+    const uint8_t* alive = a.t.alive[entry];     // ingest: the flags
     const uint8_t* sup = a.t.is_super[entry];
-    const uint32_t wbytes = (uint32_t)a.cr * (kKeyed ? 6 : 4);
+    const uint32_t wbytes = (uint32_t)a.cr * stream_word_bytes(kMode);
     for (int j = 0; j < chunks; ++j) {
       const int s = j % a.ns;
       if (j >= a.ns) hopper::mbar_wait(empty + s, ((j / a.ns) - 1) & 1);
@@ -1528,10 +1586,8 @@ scan_stage1_stream(const StreamArgs<kKeyed> a) {
           const bool in = i < rows;
           reinterpret_cast<uint32_t*>(wst)[i] =
               in ? reinterpret_cast<const uint32_t*>(words)[r0 + i] : 0u;
-          if constexpr (kKeyed) {
-            wst[4 * a.cr + i] = in ? alive[r0 + i] : 0;
-            wst[5 * a.cr + i] = in ? sup[r0 + i] : 0;
-          }
+          if constexpr (kMode != kStreamAdd) wst[4 * a.cr + i] = in ? alive[r0 + i] : 0;
+          if constexpr (kKeyed) wst[5 * a.cr + i] = in ? sup[r0 + i] : 0;
         }
         __threadfence_block();
         __syncwarp();
@@ -1542,10 +1598,9 @@ scan_stage1_stream(const StreamArgs<kKeyed> a) {
         hopper::bulk_load(st, emb + r0 * a.row_bytes, eb, full + s);
         if (bulk_words) {
           hopper::bulk_load(wst, words + 4 * r0, 4 * a.cr, full + s);
-          if constexpr (kKeyed) {
+          if constexpr (kMode != kStreamAdd)
             hopper::bulk_load(wst + 4 * a.cr, alive + r0, a.cr, full + s);
-            hopper::bulk_load(wst + 5 * a.cr, sup + r0, a.cr, full + s);
-          }
+          if constexpr (kKeyed) hopper::bulk_load(wst + 5 * a.cr, sup + r0, a.cr, full + s);
         }
       }
     }
@@ -1558,42 +1613,58 @@ scan_stage1_stream(const StreamArgs<kKeyed> a) {
     const int qa = g8, qb = g8 + 8;
     const bool va = qa < a.nq, vb = qb < a.nq;
     if constexpr (kList) {
-      int m_a = 0, m_b = 0, nb_a = 0, nb_b = 0;
-      float thr_a = -INFINITY, thr_b = -INFINITY;
+      int m_a[NL], m_b[NL], nb_a[NL], nb_b[NL];
+      float thr_a[NL], thr_b[NL];
+#pragma unroll
+      for (int l = 0; l < NL; ++l) {
+        m_a[l] = m_b[l] = nb_a[l] = nb_b[l] = 0;
+        thr_a[l] = thr_b[l] = -INFINITY;
+      }
       for (int j = 0; j < chunks + 2; ++j) {
         // Chunk j's batch; past the last chunk, what is left in both.
         const int b = j & 1;
         const bool last = j >= chunks;
         if (!last) hopper::mbar_wait(sfull + b, (j >> 1) & 1);
-        nb_a = va ? cnt[16 * b + qa] : 0;
-        nb_b = vb ? cnt[16 * b + qb] : 0;
-        merge_pending(lists, a.lcap, 2 * a.bc, a.kc,
-                      nb_a > 0 && (last || nb_a > a.bc - a.cr || m_a < a.kc),
-                      nb_b > 0 && (last || nb_b > a.bc - a.cr || m_b < a.kc), m_a, m_b,
-                      nb_a, nb_b, thr_a, thr_b, b * a.bc);
-        if (tq == 0) {
-          if (va) { thrs[qa] = thr_a; cnt[16 * b + qa] = nb_a; }
-          if (vb) { thrs[qb] = thr_b; cnt[16 * b + qb] = nb_b; }
+#pragma unroll
+        for (int l = 0; l < NL; ++l) {
+          if (l >= a.nl) break;
+          int* c = cnt + 16 * (2 * l + b);
+          nb_a[l] = va ? c[qa] : 0;
+          nb_b[l] = vb ? c[qb] : 0;
+          merge_pending(lists + 16 * l * stride, a.lcap, 2 * a.bc, a.kc,
+                        nb_a[l] > 0 && (last || nb_a[l] > a.bc - a.cr || m_a[l] < a.kc),
+                        nb_b[l] > 0 && (last || nb_b[l] > a.bc - a.cr || m_b[l] < a.kc),
+                        m_a[l], m_b[l], nb_a[l], nb_b[l], thr_a[l], thr_b[l], b * a.bc);
+          if (tq == 0) {
+            if (va) { thrs[16 * l + qa] = thr_a[l]; c[qa] = nb_a[l]; }
+            if (vb) { thrs[16 * l + qb] = thr_b[l]; c[qb] = nb_b[l]; }
+          }
         }
         __syncwarp();
         if (!last) hopper::mbar_arrive(sempty + b);
       }
-      for (int i = 0; i < 16 && i < a.nq; ++i) {
-        const int m = __shfl_sync(kFull, i < 8 ? m_a : m_b, 4 * (i & 7));
-        const uint64_t* L = lists + i * stride;
-        const long long o = (slot * a.nq + i) * a.kc;
-        for (int idx = lane; idx < a.kc; idx += 32) {
-          const bool live = idx < m;
-          const uint64_t key = live ? L[idx] : 0ull;
-          a.cand_s[o + idx] = live ? key_score(key) : -INFINITY;
-          a.cand_r[o + idx] = live ? key_row(key) : INT32_MAX;
+      // List l of every slot: [nl][entries * splits][nq][kc].
+      const long long lslots = (long long)gridDim.y * a.splits;
+#pragma unroll
+      for (int l = 0; l < NL; ++l) {
+        if (l >= a.nl) break;
+        for (int i = 0; i < 16 && i < a.nq; ++i) {
+          const int m = __shfl_sync(kFull, i < 8 ? m_a[l] : m_b[l], 4 * (i & 7));
+          const uint64_t* L = lists + (16 * l + i) * stride;
+          const long long o = ((l * lslots + slot) * a.nq + i) * a.kc;
+          for (int idx = lane; idx < a.kc; idx += 32) {
+            const bool live = idx < m;
+            const uint64_t key = live ? L[idx] : 0ull;
+            a.cand_s[o + idx] = live ? key_score(key) : -INFINITY;
+            a.cand_r[o + idx] = live ? key_row(key) : INT32_MAX;
+          }
         }
       }
     }
-    if (!kList || (kKeyed && a.with_gate)) {
+    if (!kList || (kMode != kStreamAdd && a.with_gate)) {
       hopper::mbar_wait(done, 0);
       for (int q = lane; q < a.nq; q += 32) {
-        if constexpr (!kList) {
+        if constexpr (!kList && !kIngest) {
           float bs = -INFINITY;
           int br = INT32_MAX;
           for (int i = 0; i < a.fin; ++i) {
@@ -1604,13 +1675,16 @@ scan_stage1_stream(const StreamArgs<kKeyed> a) {
           a.cand_s[slot * a.nq + q] = bs;
           a.cand_r[slot * a.nq + q] = br;
         }
-        if constexpr (kKeyed) {
+        if constexpr (kMode != kStreamAdd) {
+          // The keyed gate, or K1's probe (in fin: K1 keeps no kc = 1 arg-max).
+          const float* src_s = kIngest ? fin_s : gfin_s;
+          const int* src_r = kIngest ? fin_r : gfin_r;
           if (a.with_gate) {
             float gs = -INFINITY;
             int gr = INT32_MAX;
             for (int i = 0; i < a.fin; ++i) {
-              const float s = gfin_s[q * a.fin + i];
-              const int r = gfin_r[q * a.fin + i];
+              const float s = src_s[q * a.fin + i];
+              const int r = src_r[q * a.fin + i];
               if (better(s, r, gs, gr)) { gs = s; gr = r; }
             }
             a.gate_cs[slot * a.nq + q] = gs;
@@ -1656,12 +1730,14 @@ scan_stage1_stream(const StreamArgs<kKeyed> a) {
     ta = (long long)a.after_r[(long long)q * a.ld_after];
   }
   const bool first_pass = a.after_s == nullptr;
+  // The query's tenant (keyed) or the fact's shard (ingest).
   int ten = 0;
-  if constexpr (kKeyed) ten = qlive ? a.q_tenant[q] : kNoTenant;
+  if constexpr (kMode != kStreamAdd) ten = qlive ? a.q_tenant[q] : kNoTenant;
   float bs = -INFINITY, gs = -INFINITY;
   int br = INT32_MAX, gr = INT32_MAX;
-  float thr = -INFINITY;
-  uint64_t* qlist = lists + (qlive ? q : 0) * stride + a.lcap;
+  float thr[NL];
+#pragma unroll
+  for (int l = 0; l < NL; ++l) thr[l] = -INFINITY;
   const int iters = (a.cr + P * RU - 1) / (P * RU);
 
   for (int j = 0; j < chunks; ++j) {
@@ -1669,7 +1745,8 @@ scan_stage1_stream(const StreamArgs<kKeyed> a) {
     hopper::mbar_wait(full + s, (j / a.ns) & 1);
     if constexpr (kList) {
       if (j >= 2) hopper::mbar_wait(sempty + b, ((j >> 1) - 1) & 1);
-      thr = qlive ? thrs[q] : INFINITY;
+#pragma unroll
+      for (int l = 0; l < NL; ++l) thr[l] = qlive ? thrs[16 * l + q] : INFINITY;
     }
     const long long r0 = r_begin + (long long)j * a.cr;
     const int rows = (int)min((long long)a.cr, r_end - r0);
@@ -1711,29 +1788,55 @@ scan_stage1_stream(const StreamArgs<kKeyed> a) {
           const int row = r_lane + (it * RU + u) * P;
           if (row < rows) {
             const int grow = g0 + row;
-            float sc;
-            if constexpr (kKeyed) {
-              const int key = wst[4 * a.cr + row]
-                                  ? reinterpret_cast<const int*>(wst)[row] : kNoTenant;
-              const bool sp = wst[5 * a.cr + row];
-              const uint32_t cc = __float_as_uint(kNeg);
-              sc = tier_score<true>(acc[u][0], (uint32_t)(sp ? kNoTenant : key), cc, ten);
+            // The row's score for each list the query keeps; -inf takes no
+            // place in any list (its threshold starts at -inf).
+            float sc[NL];
+            if constexpr (kIngest) {
+              // The probe as the additive mode's k = 1 scan scores it (its
+              // sum + madd, madd 0 or NEG); each list under its mode's mask.
+              const uint32_t f = (uint32_t)wst[4 * a.cr + row] | 4u;
               if (a.with_gate) {
-                const float sg = gate_score(acc[u][0], (uint32_t)(sp ? key : kNoTenant), cc,
-                                            ten);
-                gr = sg > gs ? grow : gr;
-                gs = sg > gs ? sg : gs;
+                const float sp = ingest_probe_score(acc[u][0], f);
+                br = sp > bs ? grow : br;
+                bs = sp > bs ? sp : bs;
               }
+              const int sh = reinterpret_cast<const int*>(wst)[row];
+#pragma unroll
+              for (int l = 0; l < NL; ++l)
+                sc[l] = ingest_mode_score(acc[u][0], f, sh, ten, a.mode[l]);
             } else {
-              sc = acc[u][0] + reinterpret_cast<const float*>(wst)[row];
-            }
-            if (first_pass || ranks_after(sc, grow, ts, ta)) {
+              float s;
+              if constexpr (kKeyed) {
+                const int key = wst[4 * a.cr + row]
+                                    ? reinterpret_cast<const int*>(wst)[row] : kNoTenant;
+                const bool sp = wst[5 * a.cr + row];
+                const uint32_t cc = __float_as_uint(kNeg);
+                s = tier_score<true>(acc[u][0], (uint32_t)(sp ? kNoTenant : key), cc, ten);
+                if (a.with_gate) {
+                  const float sg = gate_score(acc[u][0], (uint32_t)(sp ? key : kNoTenant), cc,
+                                              ten);
+                  gr = sg > gs ? grow : gr;
+                  gs = sg > gs ? sg : gs;
+                }
+              } else {
+                s = acc[u][0] + reinterpret_cast<const float*>(wst)[row];
+              }
+              // A row that does not rank after the previous pass's last.
+              sc[0] = first_pass || ranks_after(s, grow, ts, ta) ? s : -INFINITY;
               if constexpr (!kList) {
-                br = sc > bs ? grow : br;
-                bs = sc > bs ? sc : bs;
-              } else if (sc > thr) {
-                const int pos = atomicAdd(cnt + 16 * b + q, 1);
-                qlist[b * a.bc + pos] = list_key(sc, grow);
+                br = sc[0] > bs ? grow : br;
+                bs = sc[0] > bs ? sc[0] : bs;
+              }
+            }
+            if constexpr (kList) {
+#pragma unroll
+              for (int l = 0; l < NL; ++l) {
+                if (l >= a.nl) break;
+                if (sc[l] > thr[l]) {
+                  const int pos = atomicAdd(cnt + 16 * (2 * l + b) + q, 1);
+                  lists[(16 * l + q) * stride + a.lcap + b * a.bc + pos] =
+                      list_key(sc[l], grow);
+                }
               }
             }
           }
@@ -1745,7 +1848,7 @@ scan_stage1_stream(const StreamArgs<kKeyed> a) {
   }
   if (qlive) {
     const int i = q * a.fin + ph * rpw + sub;
-    if constexpr (!kList) { fin_s[i] = bs; fin_r[i] = br; }
+    if constexpr (!kList || kIngest) { fin_s[i] = bs; fin_r[i] = br; }
     if constexpr (kKeyed) {
       if (a.with_gate) { gfin_s[i] = gs; gfin_r[i] = gr; }
     }
@@ -1753,10 +1856,10 @@ scan_stage1_stream(const StreamArgs<kKeyed> a) {
   hopper::mbar_arrive(done);
 }
 
-template <int QG, bool kList, bool kKeyed>
-cudaError_t launch_stream(const StreamArgs<kKeyed>& w, size_t smem, int shards,
+template <int QG, bool kList, int kMode>
+cudaError_t launch_stream(const StreamArgs<kMode>& w, size_t smem, int shards,
                           cudaStream_t stream) {
-  auto kernel = scan_stage1_stream<QG, kList, kKeyed>;
+  auto kernel = scan_stage1_stream<QG, kList, kMode>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -1764,13 +1867,13 @@ cudaError_t launch_stream(const StreamArgs<kKeyed>& w, size_t smem, int shards,
   return cudaGetLastError();
 }
 
-template <bool kList, bool kKeyed>
-cudaError_t launch_stream_qg(int qg, const StreamArgs<kKeyed>& w, size_t smem, int shards,
+template <bool kList, int kMode>
+cudaError_t launch_stream_qg(int qg, const StreamArgs<kMode>& w, size_t smem, int shards,
                              cudaStream_t st) {
   switch (qg) {
-    case 1: return launch_stream<1, kList, kKeyed>(w, smem, shards, st);
-    case 2: return launch_stream<2, kList, kKeyed>(w, smem, shards, st);
-    default: return launch_stream<4, kList, kKeyed>(w, smem, shards, st);
+    case 1: return launch_stream<1, kList, kMode>(w, smem, shards, st);
+    case 2: return launch_stream<2, kList, kMode>(w, smem, shards, st);
+    default: return launch_stream<4, kList, kMode>(w, smem, shards, st);
   }
 }
 
@@ -1781,18 +1884,42 @@ inline int stream_tile(int nq) {
   return qt;
 }
 
-// Splits of each of `shards` entries of n rows on the streaming route: one
-// wave of blocks (the ring takes an SM's shared memory, so one block an
-// SM), no split shorter than four chunks.
-template <bool kKeyed>
-int stream_splits(long long n, int shards, int nq, int kmax, int sms, int d) {
-  const StreamShape sh = stream_shape<kKeyed>(d, kmax < kMaxK ? kmax : kMaxK, stream_tile(nq));
-  const long long chunks = (n + sh.cr - 1) / sh.cr;
+// Splits of each of `shards` entries of `chunks` chunks on the streaming
+// route: one wave of blocks (the ring takes an SM's shared memory, so one
+// block an SM), no split shorter than four chunks.
+inline int stream_wave_splits(long long chunks, int shards, int sms) {
   long long want = sms / shards;
   if (want > chunks / 4) want = chunks / 4;
   if (want > kMaxSplits / shards) want = kMaxSplits / shards;
   if (want < 1) want = 1;
   return (int)want;
+}
+
+template <bool kKeyed>
+int stream_splits(long long n, int shards, int nq, int kmax, int sms, int d) {
+  const int kc = kmax < kMaxK ? kmax : kMaxK;
+  const StreamShape sh = stream_shape<kKeyed>(d, kc, stream_tile(nq), kc > 1);
+  return stream_wave_splits((n + sh.cr - 1) / sh.cr, shards, sms);
+}
+
+// Whether a streaming launch of this shape runs: two ring stages, a math
+// warp a query group, the queries in a lane's registers.
+inline bool stream_ok(const StreamShape& sh) {
+  return sh.ns >= 2 && sh.pr >= 1 && sh.qg * sh.spl * 8 <= kStreamQregs;
+}
+
+// A streaming launch's arguments from its shape; rows_per_split a multiple
+// of cr covering n rows in `splits` splits.
+template <int kMode>
+void stream_layout(StreamArgs<kMode>& w, const StreamShape& sh, long long n, int splits) {
+  const long long chunks = (n + sh.cr - 1) / sh.cr;
+  w.n = n;
+  w.splits = splits;
+  w.rows_per_split = ((chunks + splits - 1) / splits) * sh.cr;
+  w.cr = sh.cr; w.g = sh.g; w.spl = sh.spl; w.ng = sh.ng; w.pr = sh.pr; w.ns = sh.ns;
+  w.lcap = sh.lcap; w.bc = sh.bc; w.row_bytes = sh.row_bytes; w.words_off = sh.words_off;
+  w.stage_bytes = sh.stage_bytes; w.fin = sh.fin; w.head = (int)sh.head;
+  w.lists_off = (int)sh.lists_off; w.fin_off = (int)sh.fin_off;
 }
 
 // Everything one scan needs: a table of `shards` arenas of n rows each
@@ -1887,16 +2014,13 @@ template <bool kKeyed>
 cudaError_t launch_stage1_stream(const Scan<kKeyed>& a, int kc, int k0, cudaStream_t st) {
   if (a.is_bf16 || a.nq > kStreamMaxQ) return cudaErrorInvalidValue;
   const int qt = stream_tile(a.nq);
-  const StreamShape sh = stream_shape<kKeyed>(a.d, kc, qt);
-  if (sh.ns < 2 || sh.pr < 1 || sh.qg * sh.spl * 8 > kStreamQregs)
-    return cudaErrorInvalidValue;
+  const StreamShape sh = stream_shape<kKeyed>(a.d, kc, qt, kc > 1);
+  if (!stream_ok(sh)) return cudaErrorInvalidValue;
   StreamArgs<kKeyed> w{};
   w.t = a.t;
   w.qry = a.qry; w.q_tenant = a.q_tenant;
-  w.n = a.n;
-  const long long chunks = (a.n + sh.cr - 1) / sh.cr;
-  w.rows_per_split = ((chunks + a.splits - 1) / a.splits) * sh.cr;
-  w.splits = a.splits; w.d = a.d; w.nq = a.nq; w.qt = qt; w.kc = kc;
+  stream_layout(w, sh, a.n, a.splits);
+  w.d = a.d; w.nq = a.nq; w.qt = qt; w.kc = kc; w.nl = kc > 1;
   w.with_gate = kKeyed && k0 == 0; w.ld_after = a.k_out;
   // Bulk copies of the row words need 16-byte aligned columns in the stage
   // and in memory.
@@ -1908,10 +2032,6 @@ cudaError_t launch_stage1_stream(const Scan<kKeyed>& a, int kc, int k0, cudaStre
                                    : 0);
     if (bits % 16) w.words_bulk = 0;
   }
-  w.cr = sh.cr; w.g = sh.g; w.spl = sh.spl; w.ng = sh.ng; w.pr = sh.pr; w.ns = sh.ns;
-  w.lcap = sh.lcap; w.bc = sh.bc; w.row_bytes = sh.row_bytes; w.words_off = sh.words_off;
-  w.stage_bytes = sh.stage_bytes; w.fin = sh.fin;
-  w.lists_off = (int)sh.lists_off; w.fin_off = (int)sh.fin_off;
   w.after_s = k0 ? a.out_s + k0 - 1 : nullptr;
   w.after_r = k0 ? a.out_r + k0 - 1 : nullptr;
   w.gate_cs = a.gate_cs; w.gate_cr = a.gate_cr; w.cand_s = a.cand_s; w.cand_r = a.cand_r;
@@ -1995,22 +2115,32 @@ int run_scan(const Scan<kKeyed>& a, int route, int* launched, cudaStream_t st) {
 //   (A first form held the tile's sums in shared memory and folded a query
 //   a warp, the FMA route's way: 517 ms at Q = 8,192 on an H100, its warps
 //   waiting on each dependent step; PERF.md.)
-// - f32: the FMA product (fma_tile) at every Q, in its 4/8/16/64-query
+// - f32 up to 16 facts whose values fit a lane's registers (the additive
+//   mode's streaming rule, stream_fits in the wrapper): the streaming stage
+//   1 in its ingest mode (scan_stage1_stream, kStreamIngest), whose stages
+//   carry each row's shard and flags beside it. The owner lane of a row's
+//   sum folds the probe into an arg-max in registers, scoring it as the
+//   additive mode's k = 1 scan does (the same row_reduce and query groups
+//   for the same Q and d, the sum + 0 or NEG), so the probe is bit for bit
+//   masked_topk's on that route; each mode's list takes the pairs above its
+//   own threshold into its own batches, which warp 1 merges list by list.
+//   One launch reads the arena once.
+// - other f32 scans: the FMA product (fma_tile) in its 4/8/16/64-query
 //   tiles of 128 rows, its sums to shared memory, then one warp a query
 //   folds its row (ingest_fold): the probe as a warp arg-max, each mode's
 //   list by warp_list_insert (the FMA route's list epilogue) under its own
-//   mask. The FMA product, not the fold, bounds this route. The streaming
-//   route, which masked_topk takes for f32 up to 16 queries, sums in
-//   another order: there an f32 probe matches masked_topk within rounding,
-//   not bit for bit.
+//   mask. The FMA product, not the fold, bounds this route; its probe sums
+//   as masked_topk's FMA route does.
 // Stage 2 is scan_merge, one launch a mode, the probe riding on the first.
 // What bounds it: at the fill's mega-batch (Q = 8,192 over 1,048,576 x 768
 // bf16) the product's 13.2 TFLOP, 13.3 ms at the bf16 tensor rate; at one
-// conversation end (Q = 16) the arena's 1.61 GB, 0.48 ms. The folds run on
-// the consumer warps between two products, so a tile pays both.
+// conversation end (Q = 16) the arena's bytes: 1.61 GB in bf16 (0.48 ms),
+// 3.2 GB in f32 (0.97 ms). The folds run on the consumer warps between two
+// products, so a tile pays both.
 
 constexpr int kIngestModes = 2;
-constexpr int kIngestBN = kBR;     // rows of a tile on both routes
+constexpr int kIngestBN = kBR;     // rows of a tile on the FMA and tensor-core routes
+static_assert(kIngestModes == kStreamMaxLists, "the streaming stage keeps every mode's list");
 
 struct IngestArgs {
   const void* emb;                 // [n, d] f32 or bf16
@@ -2165,20 +2295,6 @@ inline size_t ingest_wg_smem(int ns, int modes, int k) {
   const size_t stage = (size_t)(64 + kIngestBN) * kRowBytes;
   return 1024 + ns * (stage + 16) + 16 * (size_t)kIngestBN +
          (size_t)64 * (modes * ingest_lcap(k) + kIngestHalf) * 8;
-}
-
-// A score of the ingest mode from a tile's sum and its row words: past the
-// split's end -inf (never a candidate), a pair outside the mask NEG, a live
-// one the sum + 0.0f. f is the row's flags with bit 2 set for a row in the
-// split; the probe takes bit 0, mode `mode` bit 1 and the shard match.
-__device__ __forceinline__ float ingest_probe_score(float acc, uint32_t f) {
-  return (f & 4u) ? ((f & 1u) ? acc + 0.0f : kNeg) : -INFINITY;
-}
-
-__device__ __forceinline__ float ingest_mode_score(float acc, uint32_t f, int sh, int qsh,
-                                                   int mode) {
-  const bool ok = (f & 2u) && (mode == 0 || (sh == qsh) == (mode == 1));
-  return (f & 4u) ? (ok ? acc + 0.0f : kNeg) : -INFINITY;
 }
 
 // Stage 1 of the ingest mode on the tensor cores (bf16). Block (x, y) scores
@@ -2390,13 +2506,14 @@ ingest_stage1_wgmma(const __grid_constant__ CUtensorMap map_e,
   }
 }
 
-// Row splits of an ingest scan of n rows and nq queries on `route`. On the
-// tensor cores: one wave of blocks with the rows cut as little as that
-// allows (a single split past sms / 64 query tiles). Every split starts
-// its lists empty, and a short split merges and filters far more often
-// than a long one: at Q = 8,192 the 33 splits of wave_splits took 273 ms on
-// an H100 for the two modes, against 47 ms for the probe alone.
-inline int ingest_splits(long long n, int nq, int route, int sms) {
+// Row splits of an ingest scan of n rows, nq queries of width d, `modes`
+// lists of k on `route`. On the tensor cores: one wave of blocks with the
+// rows cut as little as that allows (a single split past sms / 64 query
+// tiles). Every split starts its lists empty, and a short split merges and
+// filters far more often than a long one: at Q = 8,192 the 33 splits of
+// wave_splits took 273 ms on an H100 for the two modes, against 47 ms for
+// the probe alone. Streaming: one wave, as the additive mode.
+inline int ingest_splits(long long n, int nq, int d, int k, int modes, int route, int sms) {
   if (n < 1 || nq < 1) return 1;
   if (route == kRouteWgmma) {
     const long long qtiles = (nq + 63) / 64, rtiles = (n + kIngestBN - 1) / kIngestBN;
@@ -2405,7 +2522,37 @@ inline int ingest_splits(long long n, int nq, int route, int sms) {
     if (s > kMaxSplits) s = kMaxSplits;
     return (int)s;
   }
+  if (route == kRouteStream) {
+    if (d < 8) return 1;
+    const StreamShape sh = stream_shape<kStreamIngest>(d, k < 1 ? 1 : k, stream_tile(nq), modes);
+    return stream_wave_splits((n + sh.cr - 1) / sh.cr, 1, sms);
+  }
   return fma_splits(n, 1, nq, sms);
+}
+
+// Stage 1 of the ingest mode on the streaming route (f32, nq <= 16): one
+// shard entry at base 0 whose words are the row shards and whose alive
+// column is the flags.
+inline cudaError_t launch_ingest_stream(const IngestArgs& a, cudaStream_t st) {
+  if (a.nq > kStreamMaxQ) return cudaErrorInvalidValue;
+  const int qt = stream_tile(a.nq);
+  const StreamShape sh = stream_shape<kStreamIngest>(a.d, a.k, qt, a.modes);
+  if (!stream_ok(sh)) return cudaErrorInvalidValue;
+  StreamArgs<kStreamIngest> w{};
+  w.t.emb[0] = a.emb;
+  w.t.words[0] = a.shard;
+  w.t.alive[0] = a.flags;
+  w.qry = a.qry; w.q_tenant = a.q_shard;
+  stream_layout(w, sh, a.n, a.splits);
+  w.d = a.d; w.nq = a.nq; w.qt = qt; w.kc = a.k; w.nl = a.modes;
+  w.mode[0] = a.mode[0]; w.mode[1] = a.mode[1];
+  w.with_gate = a.with_probe;
+  w.words_bulk = sh.cr % 16 == 0 &&
+                 (reinterpret_cast<uintptr_t>(a.shard) | reinterpret_cast<uintptr_t>(a.flags)) %
+                         16 == 0;
+  w.gate_cs = a.probe_cs; w.gate_cr = a.probe_cr; w.cand_s = a.cand_s; w.cand_r = a.cand_r;
+  return a.modes > 0 ? launch_stream_qg<true, kStreamIngest>(sh.qg, w, sh.smem, 1, st)
+                     : launch_stream_qg<false, kStreamIngest>(sh.qg, w, sh.smem, 1, st);
 }
 
 template <int BQ, int MQ, int MR>
@@ -2440,11 +2587,12 @@ cudaError_t launch_ingest_wg(IngestArgs a, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-// Stage 1 on `route` (the tensor cores for bf16, FMA for f32), then stage 2
-// (scan_merge) once a mode, the probe merged with the first (alone when
-// there is no mode): each launch the card takes adds one to *launched.
-// Outputs: probe_s/probe_r [nq], out_s/out_r [modes, nq, k]. A launch the
-// card refuses returns its error.
+// Stage 1 on `route` (the tensor cores for bf16, streaming or FMA for f32),
+// then stage 2 (scan_merge) once a mode, the probe merged with the first
+// (alone when there is no mode): each launch the card takes adds one to
+// *launched. Outputs: probe_s/probe_r [nq], out_s/out_r [modes, nq, k]. A
+// launch the card refuses returns its error: no route stands in for
+// another.
 template <int BN>
 int run_ingest(IngestArgs a, int is_bf16, int route, float* probe_s, int* probe_r,
                float* out_s, int* out_r, int* launched, cudaStream_t st) {
@@ -2452,7 +2600,8 @@ int run_ingest(IngestArgs a, int is_bf16, int route, float* probe_s, int* probe_
   for (int m = 0; m < a.modes && modes_ok; ++m) modes_ok = a.mode[m] >= -1 && a.mode[m] <= 1;
   if (a.d % 8 != 0 || a.k < 1 || a.k > kMaxK || a.k > a.n || a.nq < 1 || !modes_ok ||
       a.splits < 1 || a.splits > kMaxSplits ||
-      !(route == kRouteWgmma ? is_bf16 : route == kRouteFma && !is_bf16))
+      !(route == kRouteWgmma ? is_bf16
+                             : (route == kRouteFma || route == kRouteStream) && !is_bf16))
     return (int)cudaErrorInvalidValue;
   const long long rtiles = (a.n + BN - 1) / BN;
   a.rows_per_split = ((rtiles + a.splits - 1) / a.splits) * BN;
@@ -2460,6 +2609,8 @@ int run_ingest(IngestArgs a, int is_bf16, int route, float* probe_s, int* probe_
   cudaError_t err;
   if (route == kRouteWgmma) {
     err = launch_ingest_wg<BN>(a, st);
+  } else if (route == kRouteStream) {
+    err = launch_ingest_stream(a, st);
   } else {
     switch (query_tile(a.nq)) {
       case 4: err = launch_ingest_fma<4, 1, 2>(a, st); break;

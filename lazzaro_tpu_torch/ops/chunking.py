@@ -13,12 +13,41 @@ import torch
 # [QUERY_CHUNK, capacity+1] f32 is the transient high-water mark of every
 # plain arena scan: 2 GB at 1M rows.
 QUERY_CHUNK = 512
+# Elements of the [Q, rows, d] products the CPU form of nt_dot holds at once
+# (4 MB of f32: a chunk that stays in cache runs ~6x faster than 64 MB).
+CPU_DOT_ELEMS = 1 << 20
+# Rows a CPU nt_dot chunk takes at least; a batch whose products would pass
+# CPU_DOT_ELEMS at this many rows is split by queries instead.
+CPU_DOT_ROWS = 256
 
 
 def nt_dot(q: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     """``q @ rows.T`` with f32 sums: bf16 operands are widened first (their
-    products are exact in f32), matching ``preferred_element_type=f32``."""
-    return torch.matmul(q.float(), rows.float().t())
+    products are exact in f32), matching ``preferred_element_type=f32``.
+
+    On the CPU every score is a function of its query and its row alone:
+    the products of a pair, summed over d by one reduction whose order
+    depends on d only, never on the row's position, the number of rows or
+    of queries (a CPU ``torch.matmul`` picks its blocking from the shapes,
+    so the same pair could round differently in a shard than in the whole
+    arena, or in a batch than alone). Rows go in chunks of at least
+    ``CPU_DOT_ROWS``, queries in groups whose products fit ``CPU_DOT_ELEMS``
+    (one group where a row chunk fits them all). On a card it is
+    ``torch.matmul`` (no TF32): the plain versions there are references on
+    grid values, whose sums are exact in any order."""
+    q, rows = q.float(), rows.float()
+    if rows.device.type != "cpu":
+        return torch.matmul(q, rows.t())
+    nq, d = q.shape
+    n = rows.shape[0]
+    out = torch.empty((nq, n), dtype=torch.float32)
+    rstep = max(CPU_DOT_ROWS, CPU_DOT_ELEMS // max(1, nq * d))
+    qstep = max(1, CPU_DOT_ELEMS // (rstep * max(1, d)))
+    for i in range(0, n, rstep):
+        r = rows[None, i:i + rstep]
+        for j in range(0, nq, qstep):
+            out[j:j + qstep, i:i + rstep] = (q[j:j + qstep, None, :] * r).sum(-1)
+    return out
 
 
 def chunked_map(fn, xs: torch.Tensor, chunk: int = QUERY_CHUNK):

@@ -12,22 +12,19 @@ The kernel is the ingest mode of the templated scan in
 ``csrc/topk_scan.cuh`` (exported by ``csrc/ingest_topk.cu``, CUDA C++ for
 ``sm_90a``, built with ``nvcc`` on first use and bound through ``ctypes``):
 one pass over the arena feeds the probe and every mode from one score tile,
-so the ``[B, N]`` f32 scores never reach device memory. A bf16 arena takes
-the tensor-core stage 1 at every batch size, an f32 one the FMA stage 1
-(:func:`route_for`), except that up to 16 f32 facts whose values fit the
-streaming stage (``ops.masked_topk.stream_fits``) take their dedup probe
-there: the additive-mode streaming scan of ``csrc/masked_topk.cu`` at k = 1
-over the probe mask, then the ingest stage for the link lists alone. The
-classic ingest probes with ``masked_topk``, which takes that streaming
-route at those batch sizes, and the two stages sum a row in different
-orders: on an H100 the FMA probe differed from it in the last bit at Q = 8
-and 16 on hashed 768-d rows, so a verdict at the 0.95 gate could differ
-between the two ingests. This way both probes score every pair bit for
-bit alike. :func:`ingest_topk` launches the kernel for a CUDA arena and runs
+so the ``[B, N]`` f32 scores never reach device memory. Its stage 1 takes
+one of three routes (:func:`route_for`): the tensor cores for a bf16 arena;
+for an f32 one the streaming stage where ``masked_topk`` streams the same
+batch (up to 16 facts whose values fit a lane's registers,
+``ops.masked_topk.stream_fits``), else the FMA stage. On each route the
+probe sums a row as ``masked_topk``'s scan on that route does, so the fused
+ingest's probe and the classic ingest's (``masked_topk`` at k = 1) score
+every pair bit for bit alike and reach the same verdict at the 0.95 gate.
+:func:`ingest_topk` launches the kernel for a CUDA arena and runs
 :func:`ingest_topk_reference` only for a CPU arena. ``launches`` counts the
-launches of this kernel made through :func:`ingest_topk`, ``launches_wgmma``
-those on the tensor-core route; a streamed probe is a ``masked_topk``
-launch and counts there (``masked_topk.launches_stream``).
+launches of this kernel made through :func:`ingest_topk`,
+``launches_wgmma`` and ``launches_stream`` those on the tensor-core and the
+streaming route.
 """
 
 from __future__ import annotations
@@ -40,7 +37,7 @@ import torch
 from lazzaro_tpu_torch.ops.chunking import QUERY_CHUNK, chunked_map, nt_dot
 from lazzaro_tpu_torch.ops import masked_topk as mt
 from lazzaro_tpu_torch.ops.masked_topk import ROUTES, _sms, check_arena
-from lazzaro_tpu_torch.ops.topk import NEG_INF, additive_mask, stable_topk
+from lazzaro_tpu_torch.ops.topk import NEG_INF, stable_topk
 from lazzaro_tpu_torch.utils import cuda_build
 
 MAX_K = 128          # longest list the kernel keeps
@@ -48,6 +45,7 @@ MAX_MODES = 2        # shard modes one launch takes
 
 launches = 0
 launches_wgmma = 0
+launches_stream = 0
 
 _lib = None
 
@@ -57,7 +55,7 @@ def _library():
     if _lib is None:
         lib = cuda_build.load("ingest_topk")
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.ingest_topk_splits.argtypes = [i64, i32, i32, i32]
+        lib.ingest_topk_splits.argtypes = [i64, i32, i32, i32, i32, i32, i32]
         lib.ingest_topk_splits.restype = i32
         lib.ingest_topk.argtypes = [
             ptr, i32, ptr, ptr, ptr, ptr, i64, i32, i32, i32, i32, i32, i32, i32,
@@ -69,13 +67,25 @@ def _library():
 
 def route_for(dtype: torch.dtype, nq: int, d: int) -> str:
     """The stage-1 route of an ingest scan of ``nq`` facts of width ``d``:
-    the tensor cores for a bf16 arena; for an f32 one ``"stream"`` (the
-    dedup probe on ``masked_topk``'s streaming stage, the link lists on the
-    FMA stage) where ``masked_topk.route_for`` streams the same batch, else
-    the FMA stage."""
+    the tensor cores for a bf16 arena; for an f32 one ``"stream"`` where
+    ``masked_topk.route_for`` streams the same batch, else the FMA stage.
+    Like that rule it depends on the shape only, never on N."""
     if dtype == torch.bfloat16:
         return "wgmma"
     return "stream" if mt.route_for(dtype, nq, d) == "stream" else "fma"
+
+
+def check_route(route: str, dtype: torch.dtype, nq: int, d: int) -> None:
+    """Raises where a forced ``route`` cannot take the scan: the tensor
+    cores and the FMA stage are left to the card to refuse (by dtype), the
+    streaming stage takes only what :func:`route_for` streams."""
+    if route not in ROUTES:
+        raise ValueError(f"ingest_topk: no route {route!r}; routes {sorted(ROUTES)}")
+    if route == "stream" and route_for(dtype, nq, d) != "stream":
+        raise ValueError(
+            f"ingest_topk: the streaming route takes an f32 arena of up to "
+            f"{mt.STREAM_MAX_Q} facts whose values fit a lane's registers "
+            f"(ops.masked_topk.stream_fits), not {dtype} with Q={nq}, d={d}")
 
 
 def masks(alive, tenant_id, is_super, probe_excl, link_excl, tenant):
@@ -124,10 +134,10 @@ def ingest_topk_reference(emb: torch.Tensor, alive: torch.Tensor,
 def _launch(emb, alive, tenant_id, is_super, shard_id, probe_excl, link_excl,
             qd, q_shard, tenant, k, shard_modes, with_probe, route=None):
     """One scan on the card: a stage 1 and a stage 2 a mode. ``route``
-    forces a stage 1; the card refuses the tensor cores for an f32 arena
-    and the FMA route for a bf16 one, and the wrapper raises (``"stream"``
-    takes what ``masked_topk``'s streaming route takes)."""
-    global launches, launches_wgmma
+    forces a stage 1 (:func:`check_route`); the card refuses the tensor
+    cores for an f32 arena and the FMA route for a bf16 one, and the
+    wrapper raises."""
+    global launches, launches_wgmma, launches_stream
     check_arena(emb, "ingest_topk")
     n, d = emb.shape
     modes = tuple(int(m) for m in shard_modes)
@@ -139,11 +149,13 @@ def _launch(emb, alive, tenant_id, is_super, shard_id, probe_excl, link_excl,
     if not 1 <= k <= min(MAX_K, n):
         raise ValueError(f"ingest_topk needs 1 <= k <= min({MAX_K}, N); "
                          f"k={k}, N={n}")
+    nq = qd.shape[0] if qd.ndim == 2 else 0
+    if qd.ndim != 2 or qd.shape[1] != d or nq < 1:
+        raise ValueError("ingest_topk: queries must be [B, d] with B >= 1")
+    route = route or route_for(emb.dtype, nq, d)
+    check_route(route, emb.dtype, nq, d)
     dev = emb.device
     q = qd.to(device=dev, dtype=emb.dtype).contiguous()
-    nq = q.shape[0]
-    if q.ndim != 2 or q.shape[1] != d or nq < 1:
-        raise ValueError("ingest_topk: queries must be [B, d] with B >= 1")
     pmask, lmask = masks(alive, tenant_id, is_super, probe_excl, link_excl,
                          tenant)
     flags = (pmask.to(torch.uint8) | (lmask.to(torch.uint8) << 1)).contiguous()
@@ -151,21 +163,9 @@ def _launch(emb, alive, tenant_id, is_super, shard_id, probe_excl, link_excl,
     qs = q_shard.to(device=dev, dtype=torch.int32).contiguous()
     if flags.shape != (n,) or shard.shape != (n,) or qs.shape != (nq,):
         raise ValueError("ingest_topk: row columns must be [N], q_shard [B]")
-    route = route or route_for(emb.dtype, nq, d)
-    streamed = None
-    if route == "stream":
-        if not with_probe:
-            route = "fma"
-        else:
-            # The probe as masked_topk probes: its streaming scan at k = 1.
-            streamed = mt._launch_table([emb], [additive_mask(pmask)], [0], q,
-                                        1, None, "stream")
-            if not modes:
-                return streamed[0], streamed[1].int()
-            with_probe, route = False, "fma"
     lib = _library()
-    splits = lib.ingest_topk_splits(n, nq, ROUTES[route], _sms(dev))
     nm = len(modes)
+    splits = lib.ingest_topk_splits(n, nq, d, k, nm, ROUTES[route], _sms(dev))
     f32, i32 = torch.float32, torch.int32
     probe_cs = torch.empty((splits, nq), dtype=f32, device=dev)
     probe_cr = torch.empty((splits, nq), dtype=i32, device=dev)
@@ -191,9 +191,8 @@ def _launch(emb, alive, tenant_id, is_super, shard_id, probe_excl, link_excl,
                            f"CUDA error {rc}")
     launches += 1
     launches_wgmma += route == "wgmma"
+    launches_stream += route == "stream"
     outs = []
-    if streamed is not None:
-        outs.extend((streamed[0], streamed[1].int()))
     if with_probe:
         outs.extend((probe_s[:, None], probe_r[:, None]))
     for m in range(nm):

@@ -1327,9 +1327,10 @@ def ingest_both(cols, qd, qs, probe_excl, link_excl, tenant, k, modes,
 @pytest.mark.parametrize("nq", [1, 3, 16, 17, 512])
 @pytest.mark.parametrize("k", [1, 3, 128])
 def test_ingest_scan_matches_plain_version(cuda, dtype, nq, k):
-    """K1 on the route the wrapper takes (tensor cores for bf16, FMA for
-    f32): the probe and both modes' lists bit for bit, ties included; the
-    batch's own rows excluded from the lists, the sentinel from both."""
+    """K1 on the route the wrapper takes (tensor cores for bf16; for f32
+    streaming up to 16 facts, FMA past them): the probe and both modes'
+    lists bit for bit, ties included; the batch's own rows excluded from
+    the lists, the sentinel from both."""
     gen = torch.Generator(device=cuda).manual_seed(nq * 7 + k)
     n, d = 5003, 72
     cols = ingest_arena(gen, n, d, dtype, cuda)
@@ -1338,10 +1339,48 @@ def test_ingest_scan_matches_plain_version(cuda, dtype, nq, k):
     probe_excl = torch.arange(n, device=cuda) == n - 1
     link_excl = probe_excl.clone()
     link_excl[torch.randint(0, n, (nq,), generator=gen, device=cuda)] = True
-    before = (it.launches, it.launches_wgmma)
+    before = (it.launches, it.launches_wgmma, it.launches_stream)
     ingest_both(cols, qd, qs, probe_excl, link_excl, 0, k, (1, 0))
     wg = int(dtype == torch.bfloat16)
-    assert (it.launches - before[0], it.launches_wgmma - before[1]) == (1, wg)
+    st = int(dtype == torch.float32 and nq <= 16)
+    assert (it.launches - before[0], it.launches_wgmma - before[1],
+            it.launches_stream - before[2]) == (1, wg, st)
+    assert it.route_for(dtype, nq, d) == ("wgmma", "stream", "fma")[
+        0 if wg else (1 if st else 2)]
+
+
+@pytest.mark.parametrize("d", [64, 768, 1536])
+@pytest.mark.parametrize("nq", [1, 3, 8, 13, 16])
+@pytest.mark.parametrize("k", [1, 3, 10, 128])
+def test_ingest_f32_small_batch_on_the_route_the_rule_picks(cuda, d, nq, k):
+    """f32 K1 at Q <= 16, where the query tile rounds up and the query
+    groups change (Q = 1, 3, 8, 13, 16), at 64, 768 and 1,536 dimensions:
+    one launch on the streaming stage where ``stream_fits`` (every case but
+    d = 1,536 past 8 facts, which the rule sends to the FMA stage), every
+    shard-mode set with and without the probe bit for bit against the
+    plain version on grid values, ties included, the arena read once (one
+    stage 1 and one stage 2 a mode)."""
+    gen = torch.Generator(device=cuda).manual_seed(d + 17 * nq + k)
+    n = 5003
+    cols = ingest_arena(gen, n, d, torch.float32, cuda)
+    qd = torch.cat([cols[0][:nq // 2], grid(gen, (nq - nq // 2, d), torch.float32, cuda)])
+    qs = torch.randint(0, 3, (nq,), generator=gen, device=cuda).int()
+    probe_excl = torch.arange(n, device=cuda) == n - 1
+    link_excl = probe_excl.clone()
+    link_excl[torch.randint(0, n, (nq,), generator=gen, device=cuda)] = True
+    route = "stream" if mt.stream_fits(d, nq) else "fma"
+    assert it.route_for(torch.float32, nq, d) == route
+    assert route == "stream" or (d == 1536 and nq > 8)
+    for modes in ((), (1,), (-1,), (1, 0)):
+        for with_probe in (True, False):
+            if not modes and not with_probe:
+                continue
+            before = (it.launches, it.launches_stream, mt.launches)
+            out = ingest_both(cols, qd, qs, probe_excl, link_excl, 0, k, modes,
+                              with_probe)
+            assert len(out) == 2 * len(modes) + 2 * with_probe
+            assert (it.launches - before[0], it.launches_stream - before[1],
+                    mt.launches - before[2]) == (1, int(route == "stream"), 0)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1448,21 +1487,26 @@ def test_ingest_f32_probe_equals_streaming_masked_topk_probe(cuda, nq):
     none = torch.zeros(n, dtype=torch.bool, device=cuda)
     args = (emb, alive, ten, sup, shard, none, none, q,
             torch.zeros(nq, dtype=torch.int32, device=cuda), 0, 3, (1, 0))
-    before = (it.launches, mt.launches, mt.launches_stream)
+    before = (it.launches, it.launches_stream, mt.launches)
     out = it.ingest_topk(*args)
-    # One streaming masked_topk launch for the probe, one K1 launch for
-    # the link lists; each wrapper counts its own.
-    assert (it.launches - before[0], mt.launches - before[1],
-            mt.launches_stream - before[2]) == (1, 1, 1)
+    # One K1 launch on the streaming stage, probe and link lists in one
+    # pass; no masked_topk launch.
+    assert (it.launches - before[0], it.launches_stream - before[1],
+            mt.launches - before[2]) == (1, 1, 0)
     assert mt.route_for(torch.float32, nq, d) == "stream"
     s, r = mt.masked_topk(emb, alive, q, 1)
     torch.cuda.synchronize()
     assert torch.equal(out[1].long(), r)
     assert torch.equal(out[0], s), (out[0] - s).abs().max().item()
-    # The link lists stay on the FMA stage: equal to the FMA route forced.
-    fma = it._launch(*args, True, route="fma")
-    for got, want in zip(out[2:], fma[2:]):
-        assert torch.equal(got, want)
+    # Signed zeros included: +0 where masked_topk adds its madd of 0.
+    assert torch.equal(torch.signbit(out[0]), torch.signbit(s))
+    # One shard and no exclusion: both modes list what masked_topk's
+    # streaming scan lists at k = 3, bit for bit.
+    s3, r3 = mt.masked_topk(emb, alive, q, 3)
+    torch.cuda.synchronize()
+    for m in range(2):
+        assert torch.equal(out[2 + 2 * m], s3)
+        assert torch.equal(out[3 + 2 * m].long(), r3)
 
 
 def test_ingest_scan_refuses_what_the_kernel_does_not_take(cuda):
@@ -1477,6 +1521,9 @@ def test_ingest_scan_refuses_what_the_kernel_does_not_take(cuda):
     with pytest.raises(RuntimeError, match="fma"):         # bf16 on the FMA route
         it._launch(cols[0].bfloat16(), *cols[1:], none, none, q.bfloat16(), qs,
                    0, 3, (1, 0), True, route="fma")
+    with pytest.raises(ValueError, match="streaming"):     # bf16 streamed
+        it._launch(cols[0].bfloat16(), *cols[1:], none, none, q.bfloat16(), qs,
+                   0, 3, (1, 0), True, route="stream")
     with pytest.raises(ValueError):
         it.ingest_topk(*cols, none, none, q, qs, 0, 129, (1, 0))
     with pytest.raises(ValueError):
@@ -1768,8 +1815,22 @@ def test_consolidation_merges_on_the_card_alike_on_both_ingests(cuda, tmp_path):
     (``add_edges``, ``merge_touch``, ``delete``), the refresh of the host
     copies after it, and chat turns over the merged graph. The fused and
     the classic ingest end with the same nodes, contents, edges, saliences
-    and profile."""
+    and profile. A super node's id ends in its creation second, which the
+    two runs need not share: it is named by its topic and its rank among
+    that topic's super nodes, oldest first, and no two ids may share a
+    name."""
     from lazzaro_tpu_torch import MemoryConfig, MemorySystem
+
+    def names(ids):
+        supers = sorted((nid.rpartition("_")[0], int(nid.rpartition("_")[2]), nid)
+                        for nid in ids if nid.startswith("super_")
+                        and nid.rpartition("_")[2].isdigit())
+        name = {nid: nid for nid in ids}
+        for i, (head, _, nid) in enumerate(supers):
+            rank = sum(h == head for h, _, _ in supers[:i])
+            name[nid] = f"{head}#{rank}"
+        assert len(set(name.values())) == len(name)
+        return name
 
     words = [f"zq{i}x" for i in range(400)]
     states = []
@@ -1786,11 +1847,15 @@ def test_consolidation_merges_on_the_card_alike_on_both_ingests(cuda, tmp_path):
             near_duplicate_dialogue(ms, words)
             assert len(results) == 2 and all("Merged" in r for r in results)
             assert gops.launches - before == 2
+            name = names(set(ms.buffer.nodes).union(*ms.buffer.edges))
             states.append((results,
-                           {nid: (n.content, round(n.salience, 6))
+                           {name[nid]: (n.content, round(n.salience, 6))
                             for nid, n in ms.buffer.nodes.items()},
-                           {k: round(e.weight, 6) for k, e in ms.buffer.edges.items()},
+                           {tuple(name[i] for i in k): round(e.weight, 6)
+                            for k, e in ms.buffer.edges.items()},
                            dict(ms.profile.data)))
+            assert (len(states[-1][1]), len(states[-1][2])) == (
+                len(ms.buffer.nodes), len(ms.buffer.edges))
         finally:
             ms.close()
     assert states[0] == states[1]

@@ -31,6 +31,7 @@ from lazzaro_tpu_torch.core import index as TI
 from lazzaro_tpu_torch.core import state as TS
 from lazzaro_tpu_torch.ops import dedup_resolve as dr
 from lazzaro_tpu_torch.ops import ingest_topk as it
+from lazzaro_tpu_torch.ops import masked_topk as mt
 from lazzaro_tpu_torch.utils.batching import IngestCoalescer
 from tests.test_torch_memory_system import (CLASSIC, JaxConfig, JaxEmbedder,
                                             JaxLLM, JaxSystem, TorchConfig,
@@ -828,13 +829,44 @@ def test_fused_ingest_dialogue_equals_the_classic_run(both_fused_ingest,
 
 
 def test_ingest_route_rule():
-    """K1's stage-1 route: the tensor cores for bf16; for f32 the dedup
-    probe streams where ``masked_topk`` streams the same batch (so the
-    fused and the classic ingest's probes score alike), else the FMA
-    stage."""
+    """K1's stage-1 route: the tensor cores for bf16; for f32 the whole
+    scan (probe and link lists, one launch) streams where ``masked_topk``
+    streams the same batch (so the fused and the classic ingest's probes
+    score alike), else the FMA stage; by shape alone, never by N."""
     assert it.route_for(torch.bfloat16, 8, 768) == "wgmma"
     assert it.route_for(torch.bfloat16, 8192, 768) == "wgmma"
     for nq, d in ((1, 768), (8, 768), (16, 768), (4, 3072), (8, 1536)):
         assert it.route_for(torch.float32, nq, d) == "stream"
     for nq, d in ((17, 768), (8192, 768), (8, 3072), (16, 1536)):
         assert it.route_for(torch.float32, nq, d) == "fma"
+    for nq in range(1, 33):
+        for d in (8, 64, 72, 768, 1536, 3072, 4096):
+            want = "stream" if mt.stream_fits(d, nq) else "fma"
+            assert it.route_for(torch.float32, nq, d) == want
+            assert mt.route_for(torch.float32, nq, d) == want
+
+
+@pytest.mark.parametrize("dtype,nq,d", [
+    (torch.float32, 16, 3072),      # the queries do not fit a lane's registers
+    (torch.float32, 16, 1536),      # nor past 8 facts at 1,536
+    (torch.float32, 17, 64),        # past STREAM_MAX_Q
+    (torch.bfloat16, 8, 768)])      # bf16 takes the tensor cores
+def test_ingest_refuses_a_forced_stream_route_the_shape_cannot_take(dtype, nq, d):
+    """A forced ``route="stream"`` is refused before any launch where the
+    shape rule would not stream the batch (the streaming stage holds a
+    lane's queries in registers and reads f32 rows only); so is a route
+    that does not exist. No launch is counted."""
+    n = 64
+    emb = torch.zeros((n, d), dtype=dtype)
+    alive = torch.ones(n, dtype=torch.bool)
+    zeros = torch.zeros(n, dtype=torch.int32)
+    none = torch.zeros(n, dtype=torch.bool)
+    q = torch.zeros((nq, d), dtype=dtype)
+    args = (emb, alive, zeros, none, zeros, none, none, q,
+            torch.zeros(nq, dtype=torch.int32), 0, 3, (1, 0), True)
+    before = (it.launches, it.launches_stream)
+    with pytest.raises(ValueError, match="streaming route"):
+        it._launch(*args, route="stream")
+    with pytest.raises(ValueError, match="no route"):
+        it._launch(*args, route="tiles")
+    assert (it.launches, it.launches_stream) == before
