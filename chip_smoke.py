@@ -41,7 +41,13 @@ Phases, each printing its own lines; any failure exits non-zero:
               from 0 over that path alone. After its 34th conversation the
               phase records, without boosting or counting, what the mesh
               phase must reproduce. Every dedup probe of the fill must
-              scan on the tensor-core route;
+              scan on the tensor-core route. Then one ``run_consolidation``,
+              one all-tenant ``lifecycle_sweep`` (one dispatch, one copy)
+              held bit-equal to the classic per-tenant loop on a twin of
+              the states, with its kernels, copies, device ms and bytes
+              bound beside the loop's, and ``save_index`` / ``load_index``
+              of the filled index: every column bit-equal, the same
+              classic and fused reads, seconds, bytes and peak memory;
   4c. default ``MemorySystem()`` as configured by default (f32, the store and
               both journals): nine conversations consolidating three times,
               each conversation end's ingest, merge scan and saves under
@@ -51,7 +57,9 @@ Phases, each printing its own lines; any failure exits non-zero:
               fused ingest on the card; the fused and classic ingests held
               equal on the same dialogue; every K1 launch of the phase one
               pass on the streaming stage, no ``masked_topk`` launch in
-              the fused ingest;
+              the fused ingest; ``save_snapshot`` / ``load_snapshot`` into
+              a ``lifecycle_fused=False`` system that must serve the same,
+              then two ``lifecycle_tick(force=True)`` on each, equal;
   4b. mesh    the same path on ``MemorySystem(mesh=...)``: the same arena
               row-sharded over 8 shards (one per card when the cards divide
               8, else all on ``cuda:0``), filled for 34 conversations
@@ -63,7 +71,8 @@ Phases, each printing its own lines; any failure exits non-zero:
               grouped two-tier scan per card and one device-to-host copy,
               the routes taken printed; ``make_sharded_topk`` on the filled
               arena against one scan of the whole arena and its plain
-              version;
+              version; one mesh ``lifecycle_sweep`` (one merge launch)
+              against a one-device sweep of the same rows;
   5. lm       the decoder LM at full width (``LMConfig()``: 18 layers, hidden
               2048, 8 query and 2 kv heads of 256, ~1.1 B parameters, bf16,
               random weights from a seed): ``logits_for`` on a 2,047-token
@@ -1172,6 +1181,8 @@ def phase_main(launches_out: dict, parity: dict):
         summary["fused"] = _drive_fused(ms, corpus, served, launches_out,
                                         torch)
         summary["consolidation"] = _consolidate_filled(ms, launches_out, torch)
+        summary["lifecycle"] = _lifecycle_filled(ms, torch)
+        summary["checkpoint"] = _checkpoint_filled(ms, corpus, summary, torch)
         return summary
     finally:
         ms.close()
@@ -1344,6 +1355,281 @@ def _consolidate_filled(ms, launches_out, torch):
         f"{k3_ms:.2f} ms by CUDA events (bound {b_ms:.2f}, {b_by}); library "
         f"form {lib_8192:.2f} ms on {q_rows.shape[0]} query rows, scaled to "
         f"the tenant's rows {lib_scaled:.1f} ms (scaled, not run)")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The all-tenant lifecycle sweep and the index checkpoint on the filled arena
+# ---------------------------------------------------------------------------
+
+LIFECYCLE_K = 8                    # MemoryConfig.lifecycle_archive_k
+
+
+def _lifecycle_kw(ms) -> dict:
+    cfg = ms.config
+    return dict(rate=cfg.decay_rate, salience_floor=cfg.salience_floor,
+                prune_threshold=cfg.prune_threshold,
+                weights=(cfg.importance_w_salience, cfg.importance_w_access,
+                         cfg.importance_w_recency),
+                archive_k=LIFECYCLE_K)
+
+
+def _unstrict_index(index) -> None:
+    """Drop the serving phase's strict wrappers (:func:`_strict_dispatch`)
+    from ``index``: the checks after it wait on the device by design."""
+    for name in ("_readback", "search_fused_requests"):
+        index.__dict__.pop(name, None)
+
+
+def _classic_twin(index):
+    """A second view of ``index`` for the classic loop: the columns the
+    lifecycle writes (salience, edge weight and alive) cloned on the card,
+    the edge bookkeeping copied, everything else shared and only read."""
+    import copy
+    import dataclasses
+
+    from lazzaro_tpu_torch.core.index import _EdgeSlotMap
+
+    twin = copy.copy(index)
+    twin.state = dataclasses.replace(index.state,
+                                     salience=index.state.salience.clone())
+    es = index.edge_state
+    twin.edge_state = dataclasses.replace(es, weight=es.weight.clone(),
+                                          alive=es.alive.clone())
+    twin.edge_slots = _EdgeSlotMap(dict(index.edge_slots))
+    twin._free_edge_slots = list(index._free_edge_slots)
+    return twin
+
+
+def _classic_loop(index, tenants, kw, now):
+    """decay, prune_edges and evict_candidates per tenant (the classic
+    loop of ``MemorySystem._lifecycle_classic``)."""
+    removed, verdicts = [], {}
+    for t in tenants:
+        index.decay(t, kw["rate"], kw["salience_floor"])
+        removed.extend(index.prune_edges(t, kw["prune_threshold"]))
+        verdicts[t] = index.evict_candidates(t, kw["archive_k"], now=now,
+                                             weights=kw["weights"])
+    return removed, verdicts
+
+
+def _profile_once(fn, torch):
+    """One call of ``fn`` under ``torch.profiler``: its kernels (count and
+    device ms) and its device-to-host copies, as the trace shows them
+    (None where the profiler recorded no device event)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages() if e.device_type == cuda]
+    kernels = [e for e in evs if not e.key.startswith(("Memcpy", "Memset"))]
+    if not sum(e.self_device_time_total for e in kernels):
+        return {"kernels": None, "device_ms": None, "dtoh_copies": None}
+    return {"kernels": sum(e.count for e in kernels),
+            "device_ms": sum(e.self_device_time_total for e in kernels) / 1e3,
+            "dtoh_copies": sum(e.count for e in evs if "DtoH" in e.key)}
+
+
+def lifecycle_bound(rows: int, edges: int):
+    """The sweep's least time: each column it reads once (salience, alive,
+    tenant id, last access, access count, super bit of every row; weight,
+    alive and tenant id of every edge slot) and each it writes once
+    (salience; weight, alive) over the HBM rate. Its operations are a few
+    per element, far under the bytes."""
+    read = rows * (4 + 1 + 4 + 4 + 4 + 1) + edges * (4 + 1 + 4)
+    written = rows * 4 + edges * (4 + 1)
+    return (read + written) / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def _lifecycle_filled(ms, torch) -> dict:
+    """One ``MemoryIndex.lifecycle_sweep`` over both tenants of the filled
+    arena against the classic loop on a twin of its states: the same
+    salience, edge weight and edge alive bits, removed edges and verdicts.
+    Then each path's kernels, device ms and device-to-host copies by one
+    profiled call on the twin, the sweep program's device ms over three
+    calls and its bytes bound."""
+    from lazzaro_tpu_torch.core import state as S
+
+    index = ms.index
+    _unstrict_index(index)
+    kw = _lifecycle_kw(ms)
+    tenants = [t for t in TENANTS if t in index._tenants]
+    passes = {t: 1 for t in tenants}
+    now = time.time()
+    twin = _classic_twin(index)
+    reads = []
+    inner = index._readback
+
+    def counted(packed):
+        reads.append(tuple(packed.shape))
+        return inner(packed)
+
+    index._readback = counted
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        fused = index.lifecycle_sweep(passes, now=now, **kw)
+    finally:
+        del index._readback
+    fused_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    removed, verdicts = _classic_loop(twin, tenants, kw, now)
+    torch.cuda.synchronize()
+    classic_ms = (time.perf_counter() - t0) * 1e3
+    same = {
+        "salience": torch.equal(index.state.salience.view(torch.int32),
+                                twin.state.salience.view(torch.int32)),
+        "edge_weight": torch.equal(index.edge_state.weight.view(torch.int32),
+                                   twin.edge_state.weight.view(torch.int32)),
+        "edge_alive": torch.equal(index.edge_state.alive, twin.edge_state.alive),
+        "removed_edges": sorted(fused["removed_edges"]) == sorted(removed),
+        "verdicts": all([(n, i) for n, i, _ in fused["verdicts"][t]]
+                        == verdicts[t] for t in tenants)}
+    if not all(same.values()) or len(reads) != 1 or fused["dispatches"] != 1 \
+            or not all(fused["verdicts"][t] for t in tenants):
+        raise AssertionError(f"lifecycle sweep vs the classic loop: {same}, "
+                             f"readbacks {reads}, dispatches "
+                             f"{fused['dispatches']}")
+    rows, edges = index.state.salience.shape[0], index.edge_state.src.shape[0]
+    prof_f = _profile_once(lambda: twin.lifecycle_sweep(passes, now=now, **kw),
+                           torch)
+    prof_c = _profile_once(lambda: _classic_loop(twin, tenants, kw, now), torch)
+    dev = index.device
+    pt = torch.zeros((8,), dtype=torch.int32, device=dev)
+    for t in tenants:
+        pt[index._tenants[t]] = 1
+    tids = torch.tensor([index._tenants[t] for t in tenants]
+                        + [-1] * (8 - len(tenants)), dtype=torch.int32,
+                        device=dev)
+    args = (pt, tids, kw["rate"], kw["salience_floor"], kw["prune_threshold"],
+            now - index.epoch, *kw["weights"])
+    cap = index._prune_cap()
+    sweep_dev = device_ms(lambda: S.lifecycle_sweep(
+        twin.state, twin.edge_state, *args, prune_cap=cap,
+        archive_k=LIFECYCLE_K), 3)
+    b_ms, b_by = lifecycle_bound(rows, edges)
+    out = {"rows": rows, "edge_slots": edges, "live_edges": len(twin.edge_slots),
+           "decayed_rows": fused["decayed_rows"],
+           "decayed_edges": fused["decayed_edges"],
+           "pruned_edges": fused["pruned_edges"], "wall_ms": fused_ms,
+           "classic_wall_ms": classic_ms, "readbacks": len(reads),
+           "profiled": prof_f, "classic_profiled": prof_c,
+           "sweep_device_ms_3_calls": sweep_dev, "bound_ms": b_ms,
+           "bound_by": b_by, "prune_cap": cap}
+    log(f"[main] lifecycle sweep over {len(tenants)} tenants of the filled "
+        f"arena ({rows} rows, {edges} edge slots, {out['live_edges']} live "
+        f"edges): {fused['decayed_rows']} rows and {fused['decayed_edges']} "
+        f"edges decayed, {fused['pruned_edges']} pruned; salience, edge "
+        f"weight and alive bits, removed edges and verdicts equal to the "
+        f"classic loop; wall {fused_ms:.2f} ms (classic loop {classic_ms:.2f} "
+        f"ms); one profiled call: sweep {prof_f}, classic loop {prof_c}; "
+        f"the sweep program {sweep_dev:.3f} device ms a call over 3 calls, "
+        f"bound {b_ms:.3f} ms ({b_by}); {len(reads)} readback")
+    return out
+
+
+def _searches_equal(a, b, corpus, torch) -> dict:
+    """Classic ``search_batch`` and fused reads of both tenants on two
+    indexes: the same rows and the same score bits. Kernel launch counts
+    are restored after (a check, not the main path)."""
+    from lazzaro_tpu_torch.ops import fused_topk as ft
+    from lazzaro_tpu_torch.ops import masked_topk as mt
+    from lazzaro_tpu_torch.ops import sharded_merge as sm
+    from lazzaro_tpu_torch.serve.scheduler import RetrievalRequest
+
+    counts = [(m, n, getattr(m, n)) for m in (mt, ft, sm)
+              for n in ("launches", "launches_wgmma", "launches_stream",
+                        "stage_launches") if hasattr(m, n)]
+    facts = [c * PER_CONV + (331 * c) % PER_CONV for c in range(8)]
+    q = corpus.vectors(facts)
+    kw = dict(cap_take=5, max_nbr=8, super_gate=0.4, acc_boost=0.05,
+              nbr_boost=0.02, now=time.time())
+    out = {}
+    try:
+        for t in TENANTS:
+            classic = [idx.search_batch(q, t, k=10) for idx in (a, b)]
+            reqs = [RetrievalRequest(query=x, tenant=t, k=10, boost=False)
+                    for x in q]
+            fused = [[(r.ids, np.float32(r.scores).view(np.int32).tolist())
+                      for r in idx.search_fused_requests(reqs, **kw)]
+                     for idx in (a, b)]
+            out[t] = {"classic": classic[0] == classic[1],
+                      "fused": fused[0] == fused[1],
+                      "nonempty": all(ids for ids, _ in classic[0])}
+    finally:
+        for m, n, v in counts:
+            setattr(m, n, v)
+    return out
+
+
+def _checkpoint_filled(ms, corpus, single, torch) -> dict:
+    """``save_index`` of the filled index under the smoke's temporary
+    directory and ``load_index`` of it onto the card: every column and the
+    bookkeeping equal, the same classic and fused results; the seconds of
+    each, the bytes on disk and the load's peak device memory beside the
+    store reload's."""
+    from lazzaro_tpu_torch.core import checkpoint as ckpt
+
+    index = ms.index
+    path = os.path.join(STORE_ROOT, "checkpoint")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ckpt.save_index(index, path)
+    save_s = time.perf_counter() - t0
+    size = disk_bytes(path)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    back = ckpt.load_index(path, device=index.device,
+                           serve_ragged=index.serve_ragged,
+                           serve_k_max=index.serve_k_max,
+                           serve_pad_granularity=index.serve_pad_granularity)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    peak_gib = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    cols = {}
+    for kind, names, sa, sb in (("arena", ckpt._ARENA_COLS, index.state, back.state),
+                                ("edge", ckpt._EDGE_COLS, index.edge_state,
+                                 back.edge_state)):
+        for c in names:
+            x, y = getattr(sa, c), getattr(sb, c)
+            if x.is_floating_point():
+                view = torch.int16 if x.dtype == torch.bfloat16 else torch.int32
+                x, y = x.view(view), y.view(view)
+            cols[f"{kind}_{c}"] = x.dtype == y.dtype and torch.equal(x, y)
+    books = {"id_to_row": back.id_to_row == index.id_to_row,
+             "edge_slots": dict(back.edge_slots) == dict(index.edge_slots),
+             # a load keys every tenant, the live index those given rows
+             "tenant_nodes": ({t: v for t, v in back.tenant_nodes.items() if v}
+                              == {t: v for t, v in index.tenant_nodes.items()
+                                  if v}),
+             "tenants": back._tenants == index._tenants}
+    served = _searches_equal(index, back, corpus, torch)
+    del back
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(path, ignore_errors=True)
+    ok = (all(cols.values()) and all(books.values())
+          and all(all(v.values()) for v in served.values()))
+    reload_s = round(sum(single["reload"]["load_s"].values()), 2)
+    out = {"save_s": save_s, "load_s": load_s, "bytes_on_disk": size,
+           "load_peak_gib_over_held": peak_gib, "held_gib": held / 2 ** 30,
+           "columns_equal": all(cols.values()), "bookkeeping": books,
+           "served": served, "store_reload_s": reload_s}
+    if not ok:
+        raise AssertionError(f"checkpoint round trip: columns {cols}, "
+                             f"bookkeeping {books}, served {served}")
+    log(f"[main] index checkpoint of the filled arena ({len(index)} rows, "
+        f"{len(index.edge_slots)} edges): save {save_s:.2f} s, load "
+        f"{load_s:.2f} s, {size} bytes on disk, the load's peak device "
+        f"memory {peak_gib:.2f} GiB over the {held / 2 ** 30:.2f} GiB held "
+        f"(the store's reload of tenant {TENANTS[0]}'s rows took "
+        f"{reload_s} s); every column bit-equal, id map, edge slots and "
+        f"tenants equal, classic and fused reads of both tenants equal "
+        f"(rows and score bits)")
     return out
 
 
@@ -1670,7 +1956,10 @@ def phase_default(launches_out: dict) -> dict:
             f"resolve, K1 streamed, masked_topk) launches {replay}, dispatches "
             f"{dispatches}, readbacks {readbacks}")
     ms.end_conversation()                # consolidates the recovered turns
-    ms.close()
+    try:
+        lifecycle = _lifecycle_default(ms, queries, torch)
+    finally:
+        ms.close()
     for name, n in (("ingest_topk", replay[0]), ("dedup_resolve", replay[2])):
         path[name] += n
     path["masked_topk"] += replay[4]
@@ -1726,7 +2015,7 @@ def phase_default(launches_out: dict) -> dict:
            "copies": copies, "stream_mt_k1_k1stream_fused_classic": probes,
            "end_conversation_s": ends, "restart_s": restart_s,
            "restart_missed_rows": missed, "crash_replay_launches": replay,
-           "crash_replay_readbacks": len(readbacks)}
+           "crash_replay_readbacks": len(readbacks), "lifecycle": lifecycle}
     log(f"[default] without eviction and at a 0.99 dedup gate, fused and "
         f"classic ingest equal: {len(got[0])} nodes ({merged} merged), "
         f"{len(got[1])} edges, {out['profile_domains']} profile domains; "
@@ -1739,6 +2028,79 @@ def phase_default(launches_out: dict) -> dict:
 # The row-sharded arena: the merge kernel, make_sharded_topk, and phase 4's
 # path on a mesh
 # ---------------------------------------------------------------------------
+
+
+def _lifecycle_default(ms, queries, torch) -> dict:
+    """The default system (``lifecycle_fused=True``, as in JAX) saved with
+    ``save_snapshot`` and restored with ``load_snapshot`` into a second
+    ``MemorySystem`` configured ``lifecycle_fused=False``: the restored one
+    must serve the same rankings and fused reads and hold the same salience
+    bits; then two ``lifecycle_tick(force=True)`` on each, one dispatch a
+    tick against the classic loop, must leave the same salience, edge
+    weight and alive bits, removed edges and verdicts."""
+    from lazzaro_tpu_torch import MemoryConfig, MemorySystem
+
+    snap = os.path.join(STORE_ROOT, "default_snapshot")
+    t0 = time.perf_counter()
+    ms.save_snapshot(snap)
+    save_s = time.perf_counter() - t0
+    classic = MemorySystem(enable_async=False, verbose=False,
+                           load_from_disk=False,
+                           db_dir=store_dir("default_classic"),
+                           config=MemoryConfig(lifecycle_fused=False))
+    try:
+        t0 = time.perf_counter()
+        msg = classic.load_snapshot(snap)
+        load_s = time.perf_counter() - t0
+        fused_reads = [[n.id for n in m.search_memories(q)]
+                       for m in (ms, classic) for q in queries]
+        half = len(queries)
+        served = {"loaded": "loaded" in msg and classic.user_id == ms.user_id,
+                  "rankings": _ranked(ms, queries) == _ranked(classic, queries),
+                  "fused_reads": fused_reads[:half] == fused_reads[half:],
+                  "salience": _salience_bits(ms, torch)
+                  == _salience_bits(classic, torch)}
+        ticks = []
+        now = time.time()
+        for i in range(2):
+            d0 = ms.index.lifecycle_dispatch_count
+            a = ms.lifecycle_tick(now=now + 3600.0 * i, force=True)
+            b = classic.lifecycle_tick(now=now + 3600.0 * i, force=True)
+            es_a, es_b = ms.index.edge_state, classic.index.edge_state
+            ticks.append({
+                "dispatches": (ms.index.lifecycle_dispatch_count - d0,
+                               a["dispatches"], b["dispatches"]),
+                "verdicts": a["verdicts"] == b["verdicts"],
+                "removed_edges": sorted(a["removed_edges"])
+                == sorted(b["removed_edges"]),
+                "pruned_hosts": a["pruned_hosts"] == b["pruned_hosts"],
+                "salience": _salience_bits(ms, torch)
+                == _salience_bits(classic, torch),
+                "edges": torch.equal(es_a.weight.view(torch.int32),
+                                     es_b.weight.view(torch.int32))
+                and torch.equal(es_a.alive, es_b.alive),
+                "archived": (a["archived"], b["archived"]),
+                "decayed_rows": a["decayed_rows"]})
+    finally:
+        classic.close()
+        shutil.rmtree(snap, ignore_errors=True)
+    ok = (all(served.values())
+          and all(t["dispatches"][:2] == (1, 1) and t["archived"] == (0, 0)
+                  and all(v for k, v in t.items()
+                          if k not in ("dispatches", "archived", "decayed_rows"))
+                  for t in ticks))
+    if not ok or not ms.config.lifecycle_fused:
+        raise AssertionError(f"default config lifecycle: served {served}, "
+                             f"ticks {ticks}")
+    log(f"[default] save_snapshot {save_s:.3f} s, load_snapshot into a "
+        f"lifecycle_fused=False system {load_s:.3f} s: rankings, fused reads "
+        f"and salience bits equal; two lifecycle_tick(force=True) each, one "
+        f"dispatch a fused tick against {ticks[0]['dispatches'][2]} device "
+        f"calls of the classic loop: salience, edge and verdict bits equal "
+        f"({ticks[0]['decayed_rows']} rows decayed a tick, nothing archived: "
+        f"no tiering)")
+    return {"snapshot_save_s": save_s, "snapshot_load_s": load_s,
+            "served": served, "ticks": ticks}
 
 
 def mesh_devices(torch):
@@ -2041,6 +2403,7 @@ def phase_mesh(launches_out: dict, parity: dict, single: dict):
         summary["fused"] = _drive_fused(ms, corpus, served, launches_out,
                                         torch)
         rows = sharded_topk_filled(ms, corpus, served, torch)
+        summary["lifecycle"] = _lifecycle_mesh(ms, launches_out, torch)
     finally:
         ms.close()
     f, sf = summary["fused"], single["fused"]
@@ -2066,8 +2429,86 @@ def phase_mesh(launches_out: dict, parity: dict, single: dict):
     launches_out["sharded_topk"] = (launches_out["mesh_masked_topk"]
                                     + launches_out["mesh_fused_topk"])
     launches_out["sharded_merge"] = (launches_out["mesh_sharded_merge"]
-                                     + launches_out["mesh_sharded_merge_on_fused_path"])
+                                     + launches_out["mesh_sharded_merge_on_fused_path"]
+                                     + launches_out["mesh_sharded_merge_on_lifecycle"])
     return summary, rows
+
+
+def _lifecycle_mesh(ms, launches_out, torch) -> dict:
+    """One lifecycle sweep of the mesh's index against a one-device sweep of
+    the same rows: a one-device twin of the index (every shard's rows
+    concatenated on the first card, the edge arena cloned, the edge
+    bookkeeping copied). Both sweep both tenants at one pass: verdicts,
+    removed edges, salience, edge weight and alive equal; the mesh sweep
+    is one dispatch, one readback and exactly one launch of the merge
+    kernel (counted from 0 over the sweep)."""
+    import copy
+    import dataclasses
+
+    from lazzaro_tpu_torch.core import state as S
+    from lazzaro_tpu_torch.core.index import _EdgeSlotMap
+    from lazzaro_tpu_torch.ops import sharded_merge as sm
+
+    index = ms.index
+    _unstrict_index(index)
+    one = copy.copy(index)
+    one.mesh = None
+    one.state = S.ArenaState(**{f: index._column(f) for f in S.ARENA_FIELDS})
+    es = index.edge_state
+    one.edge_state = dataclasses.replace(es, weight=es.weight.clone(),
+                                         alive=es.alive.clone())
+    one.edge_slots = _EdgeSlotMap(dict(index.edge_slots))
+    one._free_edge_slots = list(index._free_edge_slots)
+    kw = _lifecycle_kw(ms)
+    passes = {t: 1 for t in TENANTS if t in index._tenants}
+    now = time.time()
+    reads = []
+    inner = index._readback
+
+    def counted(packed):
+        reads.append(tuple(packed.shape))
+        return inner(packed)
+
+    index._readback = counted
+    saved = sm.launches
+    sm.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        meshed = index.lifecycle_sweep(passes, now=now, **kw)
+        torch.cuda.synchronize()
+        sweep_ms = (time.perf_counter() - t0) * 1e3
+        merges = sm.launches
+    finally:
+        del index._readback
+        sm.launches = saved
+    single = one.lifecycle_sweep(passes, now=now, **kw)
+    cap = one.capacity
+    same = {
+        "verdicts": meshed["verdicts"] == single["verdicts"],
+        "removed_edges": sorted(meshed["removed_edges"])
+        == sorted(single["removed_edges"]),
+        "salience": torch.equal(index._column("salience")[:cap].view(torch.int32),
+                                one.state.salience[:cap].view(torch.int32)),
+        "edge_weight": torch.equal(index.edge_state.weight.view(torch.int32),
+                                   one.edge_state.weight.view(torch.int32)),
+        "edge_alive": torch.equal(index.edge_state.alive, one.edge_state.alive)}
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not all(same.values()) or merges != 1 or len(reads) != 1 \
+            or meshed["dispatches"] != 1:
+        raise AssertionError(f"mesh lifecycle sweep vs one device: {same}, "
+                             f"merge launches {merges}, readbacks {reads}")
+    launches_out["mesh_sharded_merge_on_lifecycle"] = merges
+    log(f"[mesh] lifecycle sweep over {len(index.shards)} shards: "
+        f"{meshed['decayed_rows']} rows and {meshed['decayed_edges']} edges "
+        f"decayed, {meshed['pruned_edges']} pruned, verdicts, removed edges "
+        f"and every bit equal to one device's sweep of the same rows; "
+        f"{merges} merge launch, {len(reads)} readback, wall {sweep_ms:.2f} ms")
+    return {"wall_ms": sweep_ms, "merge_launches": merges,
+            "readbacks": len(reads), "decayed_rows": meshed["decayed_rows"],
+            "pruned_edges": meshed["pruned_edges"]}
 
 
 def _timed(spent: dict, key: str, fn, torch):

@@ -357,12 +357,12 @@ class MemoryConfig:
 
     # --- device-side lifecycle ----------------------------------
     # ``MemorySystem.lifecycle_tick`` runs decay + weak-edge prune +
-    # importance-ranked archive verdicts for ALL tenants as ONE donated
-    # dispatch + ONE packed readback; "archived" means demoted-to-cold
-    # (verdicts feed the TierPump queue), never deleted. False falls back
+    # importance-ranked archive verdicts for ALL tenants as ONE dispatch
+    # + ONE packed readback; "archived" means demoted-to-cold (verdicts
+    # feed the TierPump queue), never deleted. False falls back
     # to the classic host-driven per-tenant loop (the A/B + bit-parity
     # oracle).
-    lifecycle_fused: bool = False    # not ported yet (JAX default: True)
+    lifecycle_fused: bool = True
     # Background tick cadence; 0 disables the thread (call
     # ``lifecycle_tick()`` manually — tests and bench do).
     lifecycle_interval_s: float = 0.0
@@ -462,7 +462,6 @@ class MemoryConfig:
 
 # (field, "is switched on", ROADMAP item) for every path the port lacks.
 _UNPORTED = (
-    ("lifecycle_fused", bool, "Queue 1 item 12, lifecycle sweep"),
     ("int8_serving", bool, "Queue 1 item 13, quantized serving"),
     ("ivf_serving", lambda v: v > 0, "Queue 1 item 14, IVF"),
     ("pq_serving", bool, "Queue 1 item 15, PQ"),

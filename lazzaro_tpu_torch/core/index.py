@@ -322,6 +322,12 @@ class MemoryIndex:
         self._shards: Dict[str, int] = {}
         self.tenant_nodes: Dict[str, set] = {}
         self._prune_cap_hwm = 0
+        self.lifecycle_dispatch_count = 0
+        # Rows holding a super node, from host bookkeeping (``add`` and
+        # ``ingest_batch`` flags, ``delete``); the frozen tuple changes only
+        # with the set.
+        self._super_rows: set = set()
+        self._super_rows_frozen: tuple = ()
         # Fused ingest: dispatches (one per batch; tests and the smoke count
         # them), batches whose accepted links overflowed the hinted pool, and
         # the batch upload's own staging buffer.
@@ -491,6 +497,7 @@ class MemoryIndex:
             rows = self._assign_rows(ids)
             tid = self.tenant_id(tenant)
             self.tenant_nodes.setdefault(tenant, set()).update(ids)
+            self._note_super(rows, [bool(x) for x in is_super])
             if self.mesh is not None:
                 self._add_sharded(rows, embeddings, saliences, timestamps,
                                   types, shard_keys, tid, is_super)
@@ -518,6 +525,21 @@ class MemoryIndex:
             emb[n:, 0] = 1.0   # sentinel rows get a unit vector (normalizable)
             S._arena_add(self.state, cols[0], emb, *cols[2:])
             return rows
+
+    def _note_super(self, rows: Sequence[int], flags: Sequence[bool]) -> None:
+        """Track the rows that hold a super node
+        (``lazzaro_tpu/core/index.py:_note_super``)."""
+        changed = False
+        for r, f in zip(rows, flags):
+            if f:
+                if r not in self._super_rows:
+                    self._super_rows.add(r)
+                    changed = True
+            elif r in self._super_rows:
+                self._super_rows.discard(r)
+                changed = True
+        if changed:
+            self._super_rows_frozen = tuple(sorted(self._super_rows))
 
     def restore_access(self, ids: Sequence[str], access_counts: Sequence[int],
                        last_accessed: Sequence[float]) -> None:
@@ -580,6 +602,8 @@ class MemoryIndex:
                     S._arena_delete(st, loc)
             S._edges_delete_for_nodes(self.edge_state, padded)
             self._free_rows.extend(rows)
+            if self._super_rows:
+                self._note_super(rows, [False] * len(rows))
             # One pass over the keys (~0.6 s at 1.16M edges, a small part
             # of a tenant's reload), freeing dead slots in the map's order.
             id_to_row = self.id_to_row
@@ -802,11 +826,12 @@ class MemoryIndex:
 
     def _reclaim_pruned_slots(self, pruned_slots: np.ndarray
                               ) -> List[Tuple[str, str]]:
+        """Decode a compacted pruned-slot vector (ascending, -1 padded)
+        through the ``by_slot`` reverse index: O(pruned) host cleanup."""
         removed = []
         by_slot = self.edge_slots.by_slot
-        for slot in pruned_slots.tolist():
-            if slot < 0:
-                break                      # the compacted prefix ends here
+        end = np.flatnonzero(pruned_slots < 0)     # the compacted prefix ends
+        for slot in pruned_slots[:end[0] if len(end) else None].tolist():
             key = by_slot.get(int(slot))
             if key is None:
                 continue
@@ -815,6 +840,89 @@ class MemoryIndex:
         if removed:
             self._csr_dirty = True
         return removed
+
+    # ------------------------------------------------------------ lifecycle
+    def _lifecycle_dispatch(self, fn, *args, **kwargs):
+        """The device program every lifecycle sweep goes through: tests and
+        the smoke wrap it to count dispatches (one call, one dispatch, on
+        one device or a mesh)."""
+        self.lifecycle_dispatch_count += 1
+        return fn(*args, **kwargs)
+
+    def lifecycle_sweep(self, passes: Dict[str, int], *, rate: float,
+                        salience_floor: float, prune_threshold: float,
+                        weights: Tuple[float, float, float] = (0.5, 0.3, 0.2),
+                        archive_k: int = 8,
+                        now: Optional[float] = None) -> Dict[str, object]:
+        """Decay, prune and archive verdicts for ALL tenants in ONE dispatch
+        and ONE packed readback (``lazzaro_tpu/core/index.py:
+        lifecycle_sweep``). ``passes`` maps tenant name -> owed decay passes
+        (0 or missing: skip); one pass per tenant is bit-equal to the
+        classic per-tenant loop (``decay``, ``prune_edges``,
+        ``evict_candidates``), more take the closed form. Returns::
+
+            {"verdicts": {tenant: [(node_id, importance, row), ...]},
+             "removed_edges": [(qsrc, qtgt), ...],
+             "decayed_rows": n, "decayed_edges": n, "pruned_edges": n,
+             "prune_total": n, "prune_overflow": 0/1, "dispatches": 1}
+
+        Verdicts are each tenant's bottom-``archive_k`` live non-super rows
+        by importance; removed edges are already reclaimed from the host
+        mirror."""
+        swept = {t: int(p) for t, p in passes.items()
+                 if int(p) > 0 and t in self._tenants}
+        if not swept:
+            return {"verdicts": {}, "removed_edges": [], "decayed_rows": 0,
+                    "decayed_edges": 0, "pruned_edges": 0, "prune_total": 0,
+                    "prune_overflow": 0, "dispatches": 0}
+        now_rel = self._now(now)
+        # dense owed-pass table by tenant id, pow2-bucketed as the JAX one
+        tc = max(8, next_pow2(max(self._tenants.values()) + 1))
+        passes_arr = np.zeros((tc,), np.int32)
+        for t, p in swept.items():
+            passes_arr[self._tenants[t]] = p
+        v_list = sorted(self._tenants[t] for t in swept)
+        v_tids = S.pad_rows(np.asarray(v_list, np.int32), -1)
+        k_bucket = min(self.capacity, max(8, next_pow2(max(1, archive_k))))
+        with self._lock:
+            prune_cap = self._prune_cap()
+            args = (*upload_once([passes_arr, v_tids], self.device), rate,
+                    salience_floor, prune_threshold, now_rel, *weights)
+            if self.mesh is None:
+                _, _, payload = self._lifecycle_dispatch(
+                    S.lifecycle_sweep, self.state, self.edge_state, *args,
+                    prune_cap=prune_cap, archive_k=k_bucket)
+            else:
+                payload = self._lifecycle_dispatch(
+                    S.lifecycle_sweep_sharded, self.shards, self.edge_state,
+                    *args, prune_cap=prune_cap, archive_k=k_bucket)
+            host = self._readback(payload)      # the ONE packed readback
+            tv, off = len(v_tids), len(v_tids) * k_bucket
+            v_imps = host[:off].reshape(tv, k_bucket)
+            v_rows = host[off:2 * off].view(np.int32).reshape(tv, k_bucket)
+            tail = host[2 * off + prune_cap:].view(np.int32)
+            removed = self._reclaim_pruned_slots(
+                host[2 * off:2 * off + prune_cap].view(np.int32))
+        by_tid = {tid: name for name, tid in self._tenants.items()}
+        verdicts: Dict[str, List[Tuple[str, float, int]]] = {}
+        for vi, tid in enumerate(v_list):
+            out = []
+            for imp, r in zip(v_imps[vi], v_rows[vi]):
+                if not np.isfinite(imp):
+                    continue
+                node_id = self.row_to_id.get(int(r))
+                if node_id is not None:
+                    out.append((node_id, float(imp), int(r)))
+            verdicts[by_tid[tid]] = out[:archive_k]
+        self.telemetry.bump("lifecycle.decayed_rows", int(tail[0]))
+        self.telemetry.bump("lifecycle.decayed_edges", int(tail[1]))
+        self.telemetry.bump("lifecycle.pruned_edges", int(tail[2]))
+        if tail[4]:
+            self.telemetry.bump("lifecycle.prune_overflow")
+        return {"verdicts": verdicts, "removed_edges": removed,
+                "decayed_rows": int(tail[0]), "decayed_edges": int(tail[1]),
+                "pruned_edges": int(tail[2]), "prune_total": int(tail[3]),
+                "prune_overflow": int(tail[4]), "dispatches": 1}
 
     # ---------------------------------------------------------------- links
     def link_candidates_multi(self, new_ids: Sequence[str], tenant: str,
@@ -1222,6 +1330,7 @@ class MemoryIndex:
             rows = self._assign_rows(ids)
             tid = self.tenant_id(tenant)
             self.tenant_nodes.setdefault(tenant, set()).update(ids)
+            self._note_super(rows, [bool(x) for x in is_super])
             t_rows, t_sals = [], []
             for mid, msal in zip(merge_ids, merge_saliences):
                 r = self.id_to_row.get(mid)

@@ -38,15 +38,24 @@ port's write-ahead log (``native``): the turn journal holds the turns not yet
 durable in the store, and the ingest journal (``reliability.journal``) the
 extracted facts between their extraction and their landing in the arena; a
 restart recovers the turns and replays the facts through the fused ingest,
-where the dedup probe makes the replay idempotent. Snapshots and the
-lifecycle sweep are not ported: they raise ``NotImplementedError`` naming
-their ROADMAP item.
+where the dedup probe makes the replay idempotent. ``save_snapshot`` /
+``load_snapshot`` write and restore the index checkpoint of every tenant
+(``core.checkpoint``) with the current user's host graph, ``save_state`` /
+``load_state`` the user's graph as JSON.
+
+``lifecycle_tick`` (called by hand, or every ``lifecycle_interval_s`` from
+a background pump) runs the maintenance of every tenant, salience and edge
+decay, the weak-edge prune and the archive verdicts, as ONE dispatch and
+one packed readback (``MemoryIndex.lifecycle_sweep``;
+``lifecycle_fused=False``: the classic per-tenant loop). The conversation
+end keeps its own per-tenant decay, prune and eviction, as in JAX.
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import os
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -64,6 +73,7 @@ from lazzaro_tpu_torch.core.providers import (HashingEmbedder, HeuristicLLM,
 from lazzaro_tpu_torch.core.query_cache import QueryCache
 from lazzaro_tpu_torch.core.store import ArrowStore
 from lazzaro_tpu_torch.models.graph import Edge, Node
+from lazzaro_tpu_torch.reliability import faults
 from lazzaro_tpu_torch.serve.scheduler import QueryScheduler, RetrievalRequest
 from lazzaro_tpu_torch.utils.batching import IngestCoalescer
 from lazzaro_tpu_torch.utils.telemetry import Telemetry
@@ -72,7 +82,35 @@ _logger = logging.getLogger("lazzaro_tpu_torch.memory_system")
 
 _SHARDED_INGEST_ITEM = "Queue 1 item 21, sharded fused ingest"
 _SHARDED_CONSOLIDATION_ITEM = "Queue 1 item 21, the all-pairs merge scan under a mesh"
-_CHECKPOINT_ITEM = "Queue 1 item 11, MemorySystem remainder and checkpoints"
+
+
+class _LifecyclePump:
+    """Background maintenance thread: calls ``system.lifecycle_tick()``
+    every ``interval_s`` (``lazzaro_tpu/core/memory_system.py:
+    _LifecyclePump``). The tick defers itself while serving load is queued,
+    so the pump is a plain metronome."""
+
+    def __init__(self, system: "MemorySystem", interval_s: float):
+        self._system = system
+        self.interval_s = float(interval_s)
+        self._stop = threading.Event()
+        self._thread = threading.Thread(
+            target=self._run, name="lifecycle-pump", daemon=True)
+
+    def start(self) -> "_LifecyclePump":
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._thread.join(timeout=5.0)
+
+    def _run(self) -> None:
+        while not self._stop.wait(self.interval_s):
+            try:
+                self._system.lifecycle_tick()
+            except Exception:                            # pragma: no cover
+                _logger.exception("lifecycle tick failed")
 
 
 def _ensure_log_handler() -> None:
@@ -234,6 +272,12 @@ class MemorySystem:
         # committed after their dispatch lands, replayed here on startup.
         self._ingest_journal = None
         self._setup_ingest_journal(replay=bool(load_from_disk))
+        # Periodic all-tenant maintenance (decay, prune, archive verdicts in
+        # one dispatch); a 0 interval leaves the ticks to the caller.
+        self.lifecycle_pump = None
+        if cfg.lifecycle_interval_s > 0 and self.enable_async:
+            self.lifecycle_pump = _LifecyclePump(
+                self, cfg.lifecycle_interval_s).start()
 
     # --------------------------------------------------------------- journal
     #
@@ -589,6 +633,109 @@ class MemorySystem:
             self.query_cache.invalidate_results(self.user_id)
         return count
 
+    # ------------------------------------------------------------ lifecycle
+    def lifecycle_tick(self, now: Optional[float] = None,
+                       force: bool = False) -> Dict[str, object]:
+        """ONE all-tenant maintenance sweep: salience decay, edge decay and
+        weak-edge prune, and importance-ranked archive verdicts (bottom-k
+        per tenant), in one dispatch and one packed readback
+        (``MemoryIndex.lifecycle_sweep``; ``lazzaro_tpu/core/
+        memory_system.py:lifecycle_tick``). While the serving scheduler
+        reports more than ``lifecycle_busy_load`` queued requests the tick
+        defers (``lifecycle.deferred_busy``) unless ``force``.
+        ``config.lifecycle_fused = False`` runs the classic per-tenant loop
+        instead, the parity oracle. Verdicts feed the tiering demote queue
+        where the index has tiering (ROADMAP Queue 1 item 17); without it
+        ``archived`` is 0."""
+        sched = self.query_scheduler
+        if (not force and sched is not None and not sched.closed
+                and sched.load() > self.config.lifecycle_busy_load):
+            self.telemetry.bump("lifecycle.deferred_busy")
+            return {"deferred": True}
+        cfg = self.config
+        t0 = time.perf_counter()
+        with self._mutex:
+            passes = {t: 1 for t in self.index._tenants}
+            if cfg.lifecycle_fused:
+                out = self.index.lifecycle_sweep(
+                    passes, rate=cfg.decay_rate,
+                    salience_floor=cfg.salience_floor,
+                    prune_threshold=cfg.prune_threshold,
+                    weights=(cfg.importance_w_salience,
+                             cfg.importance_w_access,
+                             cfg.importance_w_recency),
+                    archive_k=cfg.lifecycle_archive_k, now=now)
+            else:
+                out = self._lifecycle_classic(passes, now=now)
+            self._decay_pass += 1
+            out["pruned_hosts"] = self._lifecycle_cleanup(out)
+            if len(self.index) <= self._SYNC_FULL_MAX:
+                self._sync_from_arena()
+        tiering = getattr(self.index, "tiering", None)
+        out["archived"] = 0
+        if tiering is not None and cfg.lifecycle_archive_k:
+            rows = [row for pairs in out["verdicts"].values()
+                    for (_nid, _imp, row) in pairs]
+            out["archived"] = tiering.queue_demotions(rows)
+        out["deferred"] = False
+        self.telemetry.record("lifecycle.sweep_ms",
+                              (time.perf_counter() - t0) * 1e3)
+        self.telemetry.bump("lifecycle.ticks")
+        self.telemetry.bump("lifecycle.archive_verdicts",
+                            sum(len(v) for v in out["verdicts"].values()))
+        return out
+
+    def _lifecycle_classic(self, passes: Dict[str, int],
+                           now: Optional[float] = None) -> Dict[str, object]:
+        """The per-tenant loop the fused sweep replaces, kept as the parity
+        oracle: the same decay, prune and verdict arithmetic, three device
+        round trips per tenant per pass."""
+        cfg = self.config
+        removed: List[Tuple[str, str]] = []
+        verdicts: Dict[str, List[Tuple[str, float, int]]] = {}
+        dispatches = 0
+        for tenant, owed in passes.items():
+            for _ in range(max(0, int(owed))):
+                self.index.decay(tenant, cfg.decay_rate, cfg.salience_floor)
+                removed.extend(self.index.prune_edges(tenant,
+                                                      cfg.prune_threshold))
+                dispatches += 2
+            if cfg.lifecycle_archive_k:
+                cand = self.index.evict_candidates(
+                    tenant, cfg.lifecycle_archive_k, now=now,
+                    weights=(cfg.importance_w_salience,
+                             cfg.importance_w_access,
+                             cfg.importance_w_recency))
+                verdicts[tenant] = [
+                    (nid, imp, self.index.id_to_row.get(nid, -1))
+                    for nid, imp in cand]
+                dispatches += 1
+        return {"verdicts": verdicts, "removed_edges": removed,
+                "pruned_edges": len(removed), "dispatches": dispatches}
+
+    def _lifecycle_cleanup(self, out: Dict[str, object]) -> int:
+        """Host cleanup after a sweep: the current user's pruned edges leave
+        the host mirror (other tenants have none loaded; their edge slots
+        are already reclaimed), and the query cache is flushed for each
+        tenant that pruned, only for it."""
+        touched: Set[str] = set()
+        count = 0
+        for qsrc, qtgt in out.get("removed_edges", ()):
+            tenant = qsrc.partition(":")[0]
+            touched.add(tenant)
+            key = (qsrc.partition(":")[2], qtgt.partition(":")[2])
+            if key not in self._edge_shard:
+                continue
+            edge = self._find_edge(key)
+            if edge is not None:
+                self._mark_edge_deleted(edge)
+                del self.shards[self._edge_shard.pop(key)].edges[key]
+                count += 1
+        if self.query_cache:
+            for tenant in touched:
+                self.query_cache.invalidate_results(tenant)
+        return count
+
     def chat(self, user_message: str) -> str:
         if not self.conversation_active:
             self._log(self.start_conversation())
@@ -929,6 +1076,9 @@ Return JSON: {"memories": [{"content": "...", "type": "semantic|episodic|procedu
                 self._ingest_journal.append(memories)
             except OSError as e:
                 self._log(f"⚠ Ingest journal append failed: {e}")
+        # Fault point: a raise here is the worker dying between the
+        # extraction and the ingest.
+        faults.fire("ingest.worker", facts=len(memories))
         self._ingest_coalescer.add_conversation(memories)
         if not self._ingest_coalescer.should_flush():
             # The source turns stay journaled until the facts land.
@@ -2123,18 +2273,235 @@ Example: {"preferences": "User prefers Python for data science.", "knowledge_dom
             _logger.warning("store poll failed", exc_info=True)
         return False
 
-    # ------------------------------------------------------------ unported
+    # ------------------------------------------------------------ snapshots
+    def _host_graph(self, node_dict) -> Dict[str, Any]:
+        """The current user's host graph, profile, counters and settings:
+        the JSON of both snapshot kinds, nodes through ``node_dict``."""
+        return {
+            "shards": {
+                k: {"nodes": node_dict(list(v.nodes.values())),
+                    "edges": [e.to_dict() for e in v.edges.values()]}
+                for k, v in self.shards.items()},
+            "super_nodes": node_dict(list(self.super_nodes.values())),
+            "profile": self.profile.to_dict(),
+            "node_counter": self.node_counter,
+            "conversation_count": self.conversation_count,
+            "settings": {
+                "auto_consolidate": self.auto_consolidate,
+                "consolidate_every": self.consolidate_every,
+                "auto_prune": self.auto_prune,
+                "prune_threshold": self.prune_threshold,
+                "max_buffer_size": self.max_buffer_size,
+            },
+        }
+
+    def _restore_host_counters(self, saved: Dict[str, Any]) -> None:
+        profile_data = saved.get("profile", {})
+        self.profile.data = profile_data.get("data", self.profile.data)
+        self.profile.last_updated = profile_data.get("last_updated", time.time())
+        self.node_counter = saved.get("node_counter", 0)
+        self.conversation_count = saved.get("conversation_count", 0)
+        for key, val in saved.get("settings", {}).items():
+            if hasattr(self, key):
+                setattr(self, key, val)
+        # The restored graph no longer matches the store's rows: the next
+        # save is a full rewrite.
+        self._store_synced = False
+        self._dirty_nodes.clear()
+        self._dirty_edges.clear()
+        self._deleted_edge_ids.clear()
+
     def save_snapshot(self, snapshot_dir: str) -> str:
-        raise NotImplementedError(f"snapshots are not ported yet (ROADMAP {_CHECKPOINT_ITEM})")
+        """Binary system snapshot (``lazzaro_tpu/core/memory_system.py:
+        save_snapshot``): the index checkpoint of every tenant's rows
+        (``core.checkpoint``) plus ``host.json``, the current user's host
+        graph without embeddings. Both halves carry one ``snapshot_id``."""
+        import uuid
+
+        from lazzaro_tpu_torch.core import checkpoint as ckpt
+        from lazzaro_tpu_torch.core.store import _atomic_write
+
+        # Drain before the mutex: the worker takes it to consolidate.
+        self._drain_background()
+        with self._mutex:
+            self._sync_from_arena()
+
+            def slim(nodes: List[Node]) -> List[Dict[str, Any]]:
+                out = []
+                for n in nodes:
+                    d = n.to_dict()
+                    d.pop("embedding", None)
+                    out.append(d)
+                return out
+
+            # The halves are written apart (never atomic as a pair): a crash
+            # between them pairs a fresh half with a stale one, which
+            # load_snapshot detects by this id.
+            snapshot_id = uuid.uuid4().hex
+            host = {"snapshot_id": snapshot_id, "user_id": self.user_id,
+                    **self._host_graph(slim)}
+            os.makedirs(snapshot_dir, exist_ok=True)
+            _atomic_write(os.path.join(snapshot_dir, "host.json"),
+                          json.dumps(host).encode())
+            ckpt.save_index(self.index, os.path.join(snapshot_dir, "index"),
+                            extra_meta={"snapshot_id": snapshot_id})
+        return f"✓ Snapshot saved to {snapshot_dir}"
 
     def load_snapshot(self, snapshot_dir: str) -> str:
-        raise NotImplementedError(f"snapshots are not ported yet (ROADMAP {_CHECKPOINT_ITEM})")
+        """Restore from :meth:`save_snapshot` output. Host nodes come back
+        with ``embedding=None`` (the arena owns the vectors). An in-flight
+        conversation is discarded, and the journals reopen for the
+        snapshot's user. A missing or corrupt snapshot leaves the system as
+        it was and returns a warning."""
+        from lazzaro_tpu_torch.core import checkpoint as ckpt
+
+        try:
+            with open(os.path.join(snapshot_dir, "host.json")) as f:
+                host = json.load(f)
+        except FileNotFoundError:
+            return f"⚠ No snapshot at {snapshot_dir}"
+        except json.JSONDecodeError as e:
+            return f"⚠ Corrupt snapshot at {snapshot_dir}: {e}"
+        if not isinstance(host, dict):
+            return f"⚠ Corrupt snapshot at {snapshot_dir}: host.json is not an object"
+
+        # Everything fallible is staged before live state is touched.
+        pair_warning = ""
+        index_dir = os.path.join(snapshot_dir, "index")
+        cfg = self.config
+        try:
+            new_index = ckpt.load_index(
+                index_dir, mesh=self.mesh,
+                device=self.device if self.mesh is None else None,
+                telemetry=self.telemetry, serve_ragged=cfg.serve_ragged,
+                serve_k_max=cfg.serve_k_max,
+                serve_pad_granularity=cfg.serve_pad_granularity)
+            sid_host = host.get("snapshot_id")
+            sid_index = ckpt.read_meta(index_dir).get("snapshot_id")
+            if sid_host and sid_index and sid_host != sid_index:
+                pair_warning = (" ⚠ host.json and index checkpoint carry "
+                                "different snapshot ids — one half is stale "
+                                "(crash between the two writes?)")
+                self._log(f"⚠ snapshot pair mismatch in {snapshot_dir}: "
+                          f"host={sid_host[:8]} index={sid_index[:8]}")
+            staged_shards: Dict[str, Tuple[List[Node], List[Edge]]] = {}
+            for shard_key, sd in host.get("shards", {}).items():
+                staged_shards[shard_key] = (
+                    [Node.from_dict(nd) for nd in sd.get("nodes", [])],
+                    [Edge.from_dict(ed) for ed in sd.get("edges", [])])
+            staged_supers = [Node.from_dict(nd)
+                             for nd in host.get("super_nodes", [])]
+        except (OSError, ValueError, KeyError, TypeError) as e:
+            return f"⚠ Corrupt snapshot at {snapshot_dir}: {e}"
+
+        self._drain_background()   # outside the mutex: the worker needs it
+        with self._mutex:
+            self.index = new_index
+            self.user_id = host.get("user_id", self.user_id)
+            self.shards.clear()
+            self.super_nodes.clear()
+            self._edge_shard.clear()
+            self._node_shard_cache.clear()
+            self.conversation_active = False
+            self.short_term_memory.clear()
+            self.conversation_history.clear()
+            self.consolidation_queue.clear()
+            self._inflight_batches.clear()
+            # The old user's turn journal: the discarded turns must not
+            # replay as crashed ones.
+            self._journal_sync()
+            for shard_key, (nodes, edges) in staged_shards.items():
+                shard = self._get_or_create_shard(shard_key)
+                for node in nodes:
+                    shard.add_node(node)
+                for edge in edges:
+                    key = (edge.source, edge.target)
+                    shard.edges[key] = edge
+                    self._edge_shard[key] = shard_key
+            for node in staged_supers:
+                self.super_nodes[node.id] = node
+            self._restore_host_counters(host)
+            if self.query_cache:
+                self.query_cache.invalidate_results()
+        # Reopen the journals for the restored user, as switch_user does.
+        self._setup_journal()
+        self._setup_ingest_journal()
+        return f"✓ Snapshot loaded from {snapshot_dir}{pair_warning}"
 
     def save_state(self, filename: str = "memory_state.json") -> str:
-        raise NotImplementedError(f"snapshots are not ported yet (ROADMAP {_CHECKPOINT_ITEM})")
+        """The current user's graph as human-readable JSON, embeddings
+        included (filled from the arena where a host node has none)."""
+        with self._mutex:
+            self._sync_from_arena()
+
+            def with_embeddings(nodes: List[Node]) -> List[Dict[str, Any]]:
+                out = [n.to_dict() for n in nodes]
+                self._bulk_fill_embeddings(out, [n.id for n in nodes])
+                return out
+
+            state = self._host_graph(with_embeddings)
+        with open(filename, "w") as f:
+            json.dump(state, f, indent=2)
+        return f"✓ State saved to {filename}"
 
     def load_state(self, filename: str = "memory_state.json") -> str:
-        raise NotImplementedError(f"snapshots are not ported yet (ROADMAP {_CHECKPOINT_ITEM})")
+        """Replace the current user's graph with a :meth:`save_state` file;
+        its nodes with an embedding of the arena's width go to the arena in
+        one ``add``."""
+        try:
+            with open(filename) as f:
+                state = json.load(f)
+        except FileNotFoundError:
+            return f"⚠ File {filename} not found"
+
+        with self._mutex:
+            stale = list(self.index.tenant_nodes.get(self.user_id, set()))
+            if stale:
+                self.index.delete(stale)
+            self.shards.clear()
+            self.super_nodes.clear()
+            self._edge_shard.clear()
+            self._node_shard_cache.clear()
+
+            def arena_ready(node: Node) -> bool:
+                return (node.embedding is not None
+                        and len(node.embedding) == self.embed_dim)
+
+            batch: List[Node] = []
+            for shard_key, shard_data in state.get("shards", {}).items():
+                shard = self._get_or_create_shard(shard_key)
+                for nd in shard_data.get("nodes", []):
+                    node = Node.from_dict(nd)
+                    shard.add_node(node)
+                    if arena_ready(node):
+                        batch.append(node)
+                for ed in shard_data.get("edges", []):
+                    edge = Edge.from_dict(ed)
+                    key = (edge.source, edge.target)
+                    shard.edges[key] = edge
+                    self._edge_shard[key] = shard_key
+            for nd in state.get("super_nodes", []):
+                node = Node.from_dict(nd)
+                self.super_nodes[node.id] = node
+                if arena_ready(node):
+                    batch.append(node)
+
+            if batch:
+                self.index.add(
+                    [self._q(n.id) for n in batch],
+                    np.asarray([n.embedding for n in batch], np.float32),
+                    [n.salience for n in batch],
+                    [n.timestamp for n in batch],
+                    [n.type for n in batch],
+                    [n.shard_key or "default" for n in batch],
+                    self.user_id,
+                    [n.is_super_node for n in batch])
+            triples = [(self._q(e.source), self._q(e.target), e.weight)
+                       for sh in self.shards.values() for e in sh.edges.values()]
+            if triples:
+                self.index.add_edges(triples, self.user_id)
+            self._restore_host_counters(state)
+        return f"✓ State loaded from {filename}"
 
     # ------------------------------------------------------------------ stats
     def get_stats(self) -> Dict:
@@ -2174,6 +2541,9 @@ Example: {"preferences": "User prefers Python for data science.", "knowledge_dom
 
     # ------------------------------------------------------------------ close
     def close(self) -> None:
+        lpump = getattr(self, "lifecycle_pump", None)
+        if lpump is not None:
+            lpump.stop()
         sched = getattr(self, "query_scheduler", None)
         if sched is not None:
             sched.close()

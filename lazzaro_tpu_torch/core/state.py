@@ -30,7 +30,7 @@ shards (``state.py:make_fused_sharded``, exact mode).
 
 from __future__ import annotations
 
-from dataclasses import dataclass, fields
+from dataclasses import dataclass, fields, replace
 from typing import Dict, List, Tuple
 
 import numpy as np
@@ -333,11 +333,36 @@ def _arena_decay(state: ArenaState, tenant, rate, floor) -> ArenaState:
     dev = state.emb.device
     rate, floor = _f32(rate, dev), _f32(floor, dev)
     s = state.salience
-    decayed = (floor.double() + (s - floor).double()
-               * (1.0 - rate).double()).float()
     mask = state.alive & (state.tenant_id == int(tenant))
-    torch.where(mask, decayed, s, out=state.salience)
+    torch.where(mask, _decay_step(s, floor, 1.0 - rate), s, out=state.salience)
     return state
+
+
+def _decay_step(s: torch.Tensor, floor: torch.Tensor, factor: torch.Tensor
+                ) -> torch.Tensor:
+    """One decay pass, ``floor + (s - floor) * factor`` rounded once: the
+    f32 difference and the f32 factor multiply and add in f64 and round to
+    f32 at the end (:func:`_arena_decay`)."""
+    return (floor.double() + (s - floor).double() * factor.double()).float()
+
+
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` for f32 operands with one rounding, as a fused
+    multiply-add rounds it (XLA's CPU backend contracts the JAX package's
+    multiply-adds into them). The product is exact in f64; the f64 sum is
+    rounded to odd (its error from a two-sum, the last bit made odd where
+    the sum was inexact), so rounding it to f32 gives the correctly rounded
+    result with no double rounding."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    inf = torch.full((), float("inf"), dtype=torch.float64, device=s.device)
+    s = torch.where((err != 0) & even,
+                    torch.nextafter(s, torch.where(err > 0, inf, -inf)), s)
+    return s.float()
 
 
 # ---------------------------------------------------------------------------
@@ -431,13 +456,17 @@ def best_earlier_match(m: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def arena_importance(state: ArenaState, now, w_sal, w_acc, w_rec) -> torch.Tensor:
     """importance = salience*w1 + min(1, access/10)*w2 + 1/(1+days_old)*w3,
-    +inf for dead rows."""
+    +inf for dead rows, to the JAX program's bits: its compiled form
+    divides by multiplying with the f32 reciprocals of 86,400 and 10 and
+    fuses three multiply-adds, ``1 + days_old = fma(age, 1/86400, 1)`` and
+    ``fma(1/(1 + days_old), w3, fma(salience, w1, min(1, access/10)*w2))``
+    (:func:`_fma`)."""
     dev = state.emb.device
     now, w_sal, w_acc, w_rec = (_f32(v, dev) for v in (now, w_sal, w_acc, w_rec))
-    days_old = torch.clamp(now - state.last_accessed, min=0.0) / 86400.0
-    imp = (state.salience * w_sal
-           + torch.clamp(state.access_count.float() / 10.0, max=1.0) * w_acc
-           + 1.0 / (1.0 + days_old) * w_rec)
+    age = torch.clamp(now - state.last_accessed, min=0.0)
+    recency = 1.0 / _fma(age, _f32(1.0 / 86400.0, dev), _f32(1.0, dev))
+    access = torch.clamp(state.access_count.float() * _f32(0.1, dev), max=1.0)
+    imp = _fma(recency, w_rec, _fma(state.salience, w_sal, access * w_acc))
     return torch.where(state.alive, imp, _f32(float("inf"), dev))
 
 
@@ -542,6 +571,153 @@ def _edges_delete_for_nodes(state: EdgeState, node_rows) -> EdgeState:
     r = torch.as_tensor(node_rows, device=state.src.device).int()
     state.alive &= ~(torch.isin(state.src, r) | torch.isin(state.tgt, r))
     return state
+
+
+# ---------------------------------------------------------------------------
+# Lifecycle: decay, weak-edge prune and archive verdicts of every tenant as
+# one run of device work with one packed readback (``state.py:
+# _lifecycle_core`` / ``_lifecycle_sweep`` / ``make_lifecycle_sharded``),
+# plain torch in place: XLA computes it outside any Pallas kernel, once per
+# maintenance tick.
+# ---------------------------------------------------------------------------
+
+# Counters at the payload's tail: decayed arena rows, decayed edges, pruned
+# edges, weak edges (past the cap too), the prune overflow flag.
+LIFECYCLE_TAIL = 5
+
+# Entries of one [tenants, rows] importance tile of the verdict bottom-k: a
+# sweep of many tenants over a large arena takes its tenants in groups.
+_VERDICT_TILE = 1 << 26
+
+
+def _owed(passes: torch.Tensor, tid: torch.Tensor) -> torch.Tensor:
+    """Each row's owed decay passes, gathered from the dense ``[Tc]`` table
+    by its tenant id (0 for ids outside it, the free rows' -1 among them)."""
+    tc = passes.shape[0]
+    inb = (tid >= 0) & (tid < tc)
+    return torch.where(inb, passes[torch.clamp(tid, 0, tc - 1).long()], 0)
+
+
+def _lifecycle_arena(arena: ArenaState, passes, verdict_tids, rate, floor,
+                     now, w_sal, w_acc, w_rec, archive_k: int):
+    """The arena half of the sweep, in place: the owed salience decay of
+    every swept tenant's live rows (one pass: :func:`_decay_step`, the
+    classic decay's bits; ``p > 1`` passes: the closed form ``floor + (s -
+    floor) * (1 - rate) ** p``), then each verdict tenant's ``archive_k``
+    live non-super rows of least importance on the decayed salience
+    (ties to the lower row; a -1 tenant id pads and yields +inf). Returns
+    ``(importance [Tv, k], rows [Tv, k] i64, decayed rows 0-d i32)``."""
+    dev = arena.emb.device
+    rate, floor = _f32(rate, dev), _f32(floor, dev)
+    factor = 1.0 - rate
+    p = _owed(passes, arena.tenant_id)
+    d_mask = arena.alive & (p > 0)
+    s = arena.salience
+    closed = _fma(s - floor, torch.pow(factor, p.float()), floor)
+    torch.where(d_mask, torch.where(p == 1, _decay_step(s, floor, factor),
+                                    closed), s, out=arena.salience)
+    imp = arena_importance(arena, now, w_sal, w_acc, w_rec)
+    live = arena.alive & ~arena.is_super
+    inf = _f32(float("inf"), dev)
+    step = max(1, _VERDICT_TILE // imp.shape[0])
+    neg, rows = [], []
+    for t in verdict_tids.split(step):
+        mask = (live[None, :] & (arena.tenant_id[None, :] == t[:, None])
+                & (t[:, None] >= 0))
+        n_t, r_t = stable_topk(-torch.where(mask, imp[None, :], inf), archive_k)
+        neg.append(n_t)
+        rows.append(r_t)
+    return -torch.cat(neg), torch.cat(rows), d_mask.sum(dtype=torch.int32)
+
+
+def _lifecycle_edges(edges: EdgeState, passes, rate, threshold,
+                     prune_cap: int):
+    """The edge half, in place: the owed weight decay (``w * (1 - rate)``,
+    ``(1 - rate) ** p`` for ``p > 1``), then the weak-edge prune on the
+    decayed weights (:func:`_prune_compact`). Returns ``(pruned slots
+    [prune_cap] i32, counters [4] i32)``: decayed edges, pruned edges, weak
+    edges, overflow."""
+    dev = edges.src.device
+    factor = 1.0 - _f32(rate, dev)
+    ep = _owed(passes, edges.tenant_id)
+    e_mask = edges.alive & (ep > 0)
+    w = edges.weight
+    w_new = torch.where(e_mask, torch.where(
+        ep == 1, w * factor, w * torch.pow(factor, ep.float())), w)
+    weak = e_mask & (w_new < _f32(threshold, dev))
+    ok, slots = _prune_compact(weak, prune_cap)
+    edges.weight.copy_(w_new)
+    edges.alive &= ~ok
+    counts = torch.stack([e_mask.sum(dtype=torch.int32),
+                          ok.sum(dtype=torch.int32),
+                          weak.sum(dtype=torch.int32),
+                          (weak & ~ok).any().int()])
+    return slots, counts
+
+
+def _lifecycle_payload(v_imps, v_rows, pruned_slots, counters) -> torch.Tensor:
+    """The sweep's ONE flat f32 readback: ``[Tv * k]`` verdict importances
+    | ``[Tv * k]`` verdict rows | ``[prune_cap]`` pruned slots |
+    ``[LIFECYCLE_TAIL]`` counters, the int sections bit-cast."""
+    return torch.cat([v_imps.float().reshape(-1), _bitcast(v_rows).reshape(-1),
+                      _bitcast(pruned_slots), _bitcast(counters)])
+
+
+def lifecycle_sweep(arena: ArenaState, edges: EdgeState, passes,
+                    verdict_tids, rate, floor, threshold, now, w_sal, w_acc,
+                    w_rec, prune_cap: int, archive_k: int):
+    """Salience decay, edge decay and weak-edge prune, and each verdict
+    tenant's bottom-``archive_k`` importance verdicts over the whole arena
+    and edge pool, in place (``state.py:lifecycle_sweep``; the JAX donated
+    and copy twins are one function here). ``passes [Tc]`` i32 is the owed
+    passes by tenant id, ``verdict_tids [Tv]`` the verdict tenants (-1
+    padded). Returns ``(arena, edges, payload)`` (:func:`_lifecycle_payload`)."""
+    v_imps, v_rows, n_rows = _lifecycle_arena(
+        arena, passes, verdict_tids, rate, floor, now, w_sal, w_acc, w_rec,
+        archive_k)
+    slots, counts = _lifecycle_edges(edges, passes, rate, threshold, prune_cap)
+    return arena, edges, _lifecycle_payload(v_imps, v_rows, slots,
+                                            torch.cat([n_rows[None], counts]))
+
+
+def lifecycle_sweep_read(arena: ArenaState, edges: EdgeState, passes,
+                         verdict_tids, rate, floor, threshold, now, w_sal,
+                         w_acc, w_rec, prune_cap: int, archive_k: int
+                         ) -> torch.Tensor:
+    """Read-only twin: the payload of :func:`lifecycle_sweep` run on copies
+    of the columns it writes; the states are untouched."""
+    arena = replace(arena, salience=arena.salience.clone())
+    edges = replace(edges, weight=edges.weight.clone(),
+                    alive=edges.alive.clone())
+    return lifecycle_sweep(arena, edges, passes, verdict_tids, rate, floor,
+                           threshold, now, w_sal, w_acc, w_rec, prune_cap,
+                           archive_k)[2]
+
+
+def lifecycle_sweep_sharded(shards: List[ArenaState], edges: EdgeState,
+                            passes, verdict_tids, rate, floor, threshold, now,
+                            w_sal, w_acc, w_rec, prune_cap: int,
+                            archive_k: int) -> torch.Tensor:
+    """:func:`lifecycle_sweep` over the row-sharded arena
+    (``state.py:make_lifecycle_sharded``), in place: each shard decays its
+    rows and takes its local bottom-``archive_k`` (``min(archive_k, L)``),
+    and ONE :func:`sharded_merge` over the negated importances joins them
+    (global rows ``local + p * L``, ties to the lower shard, masked entries
+    on the global sentinel); the edge arena, whole on the first shard's
+    device, decays and prunes once. Returns the payload of the
+    single-device sweep on that device."""
+    local_n = shards[0].salience.shape[0]
+    dev0 = edges.src.device
+    k_l = min(archive_k, local_n)
+    parts = [_lifecycle_arena(st, passes.to(st.emb.device),
+                              verdict_tids.to(st.emb.device), rate, floor,
+                              now, w_sal, w_acc, w_rec, k_l) for st in shards]
+    neg, rows = sharded_merge([-imp for imp, _, _ in parts],
+                              [r for _, r, _ in parts], local_n, archive_k,
+                              sentinel=len(shards) * local_n - 1, device=dev0)
+    n_rows = torch.stack([c.to(dev0) for _, _, c in parts]).sum(dtype=torch.int32)
+    slots, counts = _lifecycle_edges(edges, passes, rate, threshold, prune_cap)
+    return _lifecycle_payload(-neg, rows, slots, torch.cat([n_rows[None], counts]))
 
 
 # ---------------------------------------------------------------------------

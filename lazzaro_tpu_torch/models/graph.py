@@ -9,6 +9,7 @@ all math runs. Strings (content, ids, shard keys) never leave the host.
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence
@@ -47,6 +48,18 @@ class Node:
     shard_key: Optional[str] = None
     metadata: Dict[str, Any] = field(default_factory=dict)
 
+    def to_dict(self) -> Dict[str, Any]:
+        d = dataclasses.asdict(self)
+        if d.get("embedding") is not None:
+            d["embedding"] = [float(x) for x in d["embedding"]]
+        return d
+
+    @classmethod
+    def from_dict(cls, data: Dict[str, Any]) -> "Node":
+        # unknown keys are dropped, so snapshots of other versions load
+        known = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in data.items() if k in known})
+
 
 @dataclass(slots=True)
 class Edge:
@@ -59,3 +72,11 @@ class Edge:
     co_occurrence: int = 1
     last_updated: float = field(default_factory=_now)
     metadata: Dict[str, Any] = field(default_factory=dict)
+
+    def to_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, data: Dict[str, Any]) -> "Edge":
+        known = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in data.items() if k in known})

@@ -1,6 +1,6 @@
-"""Typed failures of the serving path, the subset of
-``lazzaro_tpu/reliability/errors.py`` that the query scheduler raises: a
-request future resolves with a result or one of these, never by hanging."""
+"""Typed failures, the subset of ``lazzaro_tpu/reliability/errors.py`` that
+the port raises: the query scheduler's (a request future resolves with a
+result or one of these, never by hanging) and the index checkpoint's."""
 
 from __future__ import annotations
 
@@ -20,3 +20,7 @@ class LoadShed(ReliabilityError):
 class WorkerCrashed(ReliabilityError):
     """The owning worker thread died; the request was failed rather than
     left to block forever. The worker restarts automatically."""
+
+
+class CheckpointCorrupt(ReliabilityError):
+    """Checkpoint payload failed checksum/decoding — refusing to load."""

@@ -2118,3 +2118,151 @@ def test_reload_writes_the_ingested_bf16_rows(cuda, tmp_path):
                     assert i1[pos] == i0[pos]
     finally:
         ms.close()
+
+
+# ---------------------------------------------- lifecycle sweep, checkpoint
+def _lifecycle_states(seed, n, e, tenants, device):
+    """The same random arena and edge pool from numpy, on ``device``."""
+    from lazzaro_tpu_torch.core import state as S
+
+    rng = np.random.default_rng(seed)
+    arena = {
+        "emb": rng.standard_normal((n, 16)).astype(np.float32),
+        "salience": rng.random(n).astype(np.float32),
+        "timestamp": np.zeros(n, np.float32),
+        "last_accessed": (rng.random(n) * 4e5).astype(np.float32),
+        "access_count": rng.integers(0, 25, n).astype(np.int32),
+        "type_id": np.zeros(n, np.int32), "shard_id": np.zeros(n, np.int32),
+        "tenant_id": rng.integers(-1, tenants, n).astype(np.int32),
+        "alive": rng.random(n) < 0.9, "is_super": rng.random(n) < 0.05}
+    edges = {
+        "src": rng.integers(0, n, e).astype(np.int32),
+        "tgt": rng.integers(0, n, e).astype(np.int32),
+        "weight": rng.random(e).astype(np.float32),
+        "co": np.ones(e, np.int32), "last_updated": np.zeros(e, np.float32),
+        "alive": rng.random(e) < 0.85,
+        "tenant_id": rng.integers(-1, tenants, e).astype(np.int32)}
+    return S.arena_from_numpy(arena, device), S.edges_from_numpy(edges, device)
+
+
+@pytest.mark.parametrize("owed", [1, 3])
+def test_lifecycle_sweep_on_the_card_equals_the_plain_sweep(cuda, owed):
+    """The sweep on the card against the same sweep on the CPU from the same
+    numpy state: payload (verdict importances and rows, pruned slots,
+    counters), salience, weight and alive bit-equal at one owed pass; at
+    three the closed form's ``pow`` may differ by 1 ulp."""
+    from lazzaro_tpu_torch.core import state as S
+
+    out = []
+    for dev in (torch.device("cpu"), cuda):
+        a, e = _lifecycle_states(5, 300_000, 600_000, 12, dev)
+        passes = torch.tensor([owed] * 6 + [1] * 6 + [0] * 4, dtype=torch.int32,
+                              device=dev)
+        tids = torch.tensor(list(range(12)) + [-1] * 4, dtype=torch.int32,
+                            device=dev)
+        _, _, payload = S.lifecycle_sweep(a, e, passes, tids, 0.05, 0.2, 0.4,
+                                          3.5e5, 0.37, 0.41, 0.22,
+                                          prune_cap=262_144, archive_k=16)
+        out.append([t.cpu() for t in (payload, a.salience, e.weight, e.alive)])
+    (cp, cs, cw, ca), (gp, gs, gw, ga) = out
+    assert torch.equal(ca, ga)
+    k = 16 * 16
+    assert torch.equal(cp[k:].view(torch.int32), gp[k:].view(torch.int32))
+    if owed == 1:
+        for x, y in ((cp, gp), (cs, gs), (cw, gw)):
+            assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+    else:
+        for x, y in ((cs, gs), (cw, gw)):
+            assert (x.view(torch.int32).long() - y.view(torch.int32).long()
+                    ).abs().max() <= 1
+        torch.testing.assert_close(gp[:k], cp[:k], rtol=1e-6, atol=0)
+
+
+def _lifecycle_index(mesh=None, device=None):
+    from lazzaro_tpu_torch import MemoryIndex
+
+    idx = MemoryIndex(dim=32, capacity=8 * 4096 - 1, edge_capacity=40_000,
+                      mesh=mesh, device=device, epoch=0.0)
+    rng = np.random.default_rng(9)
+    for t, n in (("alice", 9000), ("bob", 6000), ("carol", 3)):
+        ids = [f"{t}:n{i}" for i in range(n)]
+        idx.add(ids, rng.standard_normal((n, 32)).astype(np.float32),
+                rng.random(n).astype(np.float32).tolist(),
+                (rng.random(n) * 1e5).tolist(), ["episodic"] * n, ["s0"] * n,
+                t, is_super=(rng.random(n) < 0.02).tolist())
+        m = min(n - 1, 12_000)
+        a = rng.integers(0, n, m)
+        b = rng.integers(0, n, m)
+        idx.add_edges([(ids[x], ids[y], float(w)) for x, y, w in
+                       zip(a, b, rng.random(m) * 0.8)], t, now=10.0)
+    return idx
+
+
+def test_mesh_lifecycle_sweep_on_the_card_is_one_merge(cuda):
+    """8 shards on one card: the sweep merges its verdicts in ONE launch of
+    the merge kernel and equals the one-device sweep (columns, removed
+    edges, verdicts)."""
+    from lazzaro_tpu_torch.ops import sharded_merge as smod
+    from lazzaro_tpu_torch.parallel import make_mesh
+
+    one = _lifecycle_index(device=cuda)
+    meshed = _lifecycle_index(mesh=make_mesh(devices=[cuda] * 8))
+    kw = dict(rate=0.01, salience_floor=0.2, prune_threshold=0.5,
+              weights=(0.5, 0.3, 0.2), archive_k=8)
+    for now in (2e5, 9e5):
+        passes = {t: 1 for t in ("alice", "bob", "carol")}
+        o1 = one.lifecycle_sweep(passes, now=now, **kw)
+        before = smod.launches
+        om = meshed.lifecycle_sweep(passes, now=now, **kw)
+        torch.cuda.synchronize()
+        assert smod.launches == before + 1
+        assert o1["verdicts"] == om["verdicts"]
+        assert sorted(o1["removed_edges"]) == sorted(om["removed_edges"])
+        assert o1["removed_edges"] and o1["pruned_edges"] == om["pruned_edges"]
+        cap, ecap = one.capacity, one.edge_state.capacity   # sentinels aside
+        for col in ("salience", "alive"):
+            assert torch.equal(one._column(col)[:cap].cpu(),
+                               meshed._column(col)[:cap].cpu())
+        for col in ("weight", "alive"):
+            assert torch.equal(getattr(one.edge_state, col)[:ecap].cpu(),
+                               getattr(meshed.edge_state, col)[:ecap].cpu())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_checkpoint_round_trip_on_the_card(cuda, dtype, tmp_path):
+    """save_index / load_index of a CUDA index: every column bit-equal, the
+    bookkeeping equal, the same classic and fused results."""
+    from lazzaro_tpu_torch import MemoryIndex
+    from lazzaro_tpu_torch.core.checkpoint import (_ARENA_COLS, _EDGE_COLS,
+                                                   load_index, save_index)
+    from lazzaro_tpu_torch.serve.scheduler import RetrievalRequest
+
+    idx = MemoryIndex(dim=64, capacity=20_000, edge_capacity=4096,
+                      dtype=dtype, device=cuda)
+    rng = np.random.default_rng(2)
+    ids = [f"n{i}" for i in range(15_000)]
+    emb = rng.standard_normal((15_000, 64)).astype(np.float32)
+    idx.add(ids, emb, [0.5] * 15_000, [0.0] * 15_000, ["semantic"] * 15_000,
+            ["s"] * 15_000, "t", is_super=[i % 500 == 0 for i in range(15_000)])
+    idx.add_edges([(ids[i], ids[i + 1], 0.7) for i in range(0, 3000, 3)], "t")
+    save_index(idx, str(tmp_path / "ck"))
+    back = load_index(str(tmp_path / "ck"), device=cuda)
+    for col in _ARENA_COLS:
+        a, b = getattr(idx.state, col), getattr(back.state, col)
+        assert a.dtype == b.dtype and b.device == idx.state.emb.device
+        if a.is_floating_point():
+            a, b = a.view(torch.int16 if a.dtype == torch.bfloat16 else torch.int32), \
+                b.view(torch.int16 if b.dtype == torch.bfloat16 else torch.int32)
+        assert torch.equal(a, b), col
+    for col in _EDGE_COLS:
+        assert torch.equal(getattr(idx.edge_state, col), getattr(back.edge_state, col))
+    assert back.id_to_row == idx.id_to_row and dict(back.edge_slots) == dict(idx.edge_slots)
+    q = emb[::1000]
+    assert back.search_batch(q, "t", k=10) == idx.search_batch(q, "t", k=10)
+    reqs = [RetrievalRequest(query=x, tenant="t", k=10, boost=False) for x in q]
+    kw = dict(cap_take=5, max_nbr=8, super_gate=0.4, acc_boost=0.05,
+              nbr_boost=0.02, now=1.0)
+    r1 = idx.search_fused_requests(reqs, **kw)
+    r2 = back.search_fused_requests(reqs, **kw)
+    for a, b in zip(r1, r2):
+        assert a.ids == b.ids and a.scores == b.scores

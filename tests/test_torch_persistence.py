@@ -1,6 +1,6 @@
 """The persistent store and the turn journal of the port's ``MemorySystem``
 against the JAX package's: the cases of ``tests/test_persistence.py`` (but
-``save_state``, ROADMAP Queue 1 item 11), ``tests/test_crash_recovery.py``
+``save_state``, in ``tests/test_torch_snapshot.py``), ``tests/test_crash_recovery.py``
 and ``tests/test_multi_tenant.py``'s thousand-user switch, each run on both
 packages with the same fakes and required to give the same results;
 ``db_dir``s written by either package loaded by the other; a restart's
