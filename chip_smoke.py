@@ -17,10 +17,16 @@ Phases, each printing its own lines; any failure exits non-zero:
               ``make_sharded_topk`` and the keyed grouped scan over 8
               shards with their launches a call, the flash-attention
               forward and its dQ and dK/dV backward kernels at the decoder's
-              shapes; times are device times from ``torch.profiler``, the
+              shapes, K4 (the int8 scan of quantized serving) in its keyed
+              and additive forms over the int8 shadow of the 1,048,576-row
+              arena; times are device times from ``torch.profiler``, the
               top-k scans' split into stage 1 and the merge, event times of
               back-to-back calls beside them, the flash kernels' achieved
-              TFLOP/s and share of the bound);
+              TFLOP/s and share of the bound); then the state dispatch
+              guard on two twin 20,000-row indexes (a transient fault
+              retried to bit-parity, a poisoned index raising
+              ``ArenaPoisoned`` on every touch and recovered by
+              ``load_index``);
   4. main     ``MemorySystem`` on a bf16 768-d arena of 1,048,576 rows, its
               ``ArrowStore`` and journals under a temporary directory
               (every phase's are; removed at the end). The
@@ -47,7 +53,13 @@ Phases, each printing its own lines; any failure exits non-zero:
               the states, with its kernels, copies, device ms and bytes
               bound beside the loop's, and ``save_index`` / ``load_index``
               of the filled index: every column bit-equal, the same
-              classic and fused reads, seconds, bytes and peak memory;
+              classic and fused reads, seconds, bytes and peak memory; then
+              that checkpoint loaded again with ``int8_serving=True`` in the
+              system's place: 8 chat turns, 8 searches, a 64-query batch and
+              a 64-request fleet, each dispatch one K4 keyed launch and one
+              copy, one transient ``index.dispatch`` fault retried, a
+              classic search on K4's additive form, recall@10 and scores
+              against the exact reads, p50s beside the exact ones;
   4c. default ``MemorySystem()`` as configured by default (f32, the store and
               both journals): nine conversations consolidating three times,
               each conversation end's ingest, merge scan and saves under
@@ -59,7 +71,10 @@ Phases, each printing its own lines; any failure exits non-zero:
               pass on the streaming stage, no ``masked_topk`` launch in
               the fused ingest; ``save_snapshot`` / ``load_snapshot`` into
               a ``lifecycle_fused=False`` system that must serve the same,
-              then two ``lifecycle_tick(force=True)`` on each, equal;
+              then two ``lifecycle_tick(force=True)`` on each, equal; then
+              the nine-conversation dialogue with ``int8_serving=True``,
+              every chat turn one K4 launch, the shadow equal to
+              ``quantize_rows`` of the arena at every conversation end;
   4b. mesh    the same path on ``MemorySystem(mesh=...)``: the same arena
               row-sharded over 8 shards (one per card when the cards divide
               8, else all on ``cuda:0``), filled for 34 conversations
@@ -112,7 +127,8 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_OPS = {"bfloat16": 989e12,    # dense bf16 tensor-core rate
-            "float32": 67e12}      # f32 outside the tensor cores
+            "float32": 67e12,      # f32 outside the tensor cores
+            "int8": 1979e12}       # dense int8 tensor-core rate
 
 ARENA_ROWS = 1_048_576             # capacity + 1, 256 x TOPK_BLOCK
 DIM = 768
@@ -479,15 +495,15 @@ def _case_row(kernel, form, label, route, n, q, k, fn, plain_fn, lib_fn, b,
     split = device_split(fn, reps, stage1)
     ms = split["all"]
     plain = device_ms(plain_fn, plain_reps)
-    lib = device_ms(lib_fn, reps)
+    lib = device_ms(lib_fn, reps) if lib_fn is not None else None
     event = cuda_ms(fn, reps)
-    lib_event = cuda_ms(lib_fn, reps)
+    lib_event = cuda_ms(lib_fn, reps) if lib_fn is not None else None
     b_ms, b_by = b
     log(f"[kernels] {kernel} {label} ({route} route): rows equal, max_abs_err "
         f"{err}, device ms {ms:.4f} (stage 1 {split['stage1']:.4f}, merge "
         f"{split['merge']:.4f}, rest {split['rest']:.4f}), plain_ms {plain:.4f}, "
-        f"library_ms {lib:.4f}, bound_ms {b_ms:.4f} ({b_by}); events of "
-        f"back-to-back calls: kernel {event:.4f}, library {lib_event:.4f}")
+        f"library_ms {lib}, bound_ms {b_ms:.4f} ({b_by}); events of "
+        f"back-to-back calls: kernel {event:.4f}, library {lib_event}")
     return {"kernel": kernel, "form": form, "case": label, "route": route,
             "n": n, "q": q, "k": k, "ms": ms, "stage1_ms": split["stage1"],
             "merge_ms": split["merge"], "scan_kernels": split["scan_kernels"],
@@ -688,6 +704,127 @@ def phase_fused_kernel(device):
             lambda emb=emb, q=q, q_ten=q_ten, k_q=k_q: ft.fused_topk_reference(
                 emb, alive, tenant, sup, q, q_ten, k_q, k),
             lib, fused_bound(emb, q, k), err, 20, 3))
+    return rows_out
+
+
+INT8_K = 128 + 8                   # serve_k_max + coarse_fetch_slack
+INT8_G = 1 + 8                     # the gate's coarse list
+
+
+def int8_bound(n, d, nq, k, g, keyed):
+    """(bound_ms, bound_by) of K4: the shadow's codes and scales and the row
+    columns (tenant, alive, is_super: 6 bytes a row; the additive form's
+    madd: 4) and the f32 queries (with their tenant) read once, the lists
+    written once; 2*N*d*Q int8 operations at the int8 tensor rate."""
+    moved = (n * (d + 4) + (6 if keyed else 4) * n + nq * (4 * d + 4)
+             + nq * 8 * (k + g))
+    ops = 2.0 * n * d * nq
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S, ops / PEAK_OPS["int8"]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def int8_library(codes, scale, q, cols, q_ten, k, g):
+    """The library yardstick of K4 (timed here, never called by the port):
+    ``torch._int_mm`` of the quantized queries (padded to 32 rows, its least
+    M) against the codes, the two scales, the tier masks and ``torch.topk``;
+    None where ``_int_mm`` refuses the shape."""
+    import torch
+
+    from lazzaro_tpu_torch.ops.quant import quantize_rows
+
+    nq = q.shape[0]
+    pad = max(32, -(-nq // 8) * 8)
+
+    def run():
+        qq, qs = quantize_rows(q)
+        qp = torch.zeros((pad, qq.shape[1]), dtype=torch.int8, device=q.device)
+        qp[:nq] = qq
+        dots = torch._int_mm(qp, codes.t())[:nq]
+        s = (dots.float() * qs[:, None]) * scale[None, :]
+        if cols is None:
+            return torch.topk(s, k)
+        alive, tenant, sup = cols
+        ok = alive[None, :] & (tenant[None, :] == q_ten[:, None])
+        torch.topk(torch.where(ok & sup[None, :], s, -1e30), g)
+        return torch.topk(torch.where(ok & ~sup[None, :], s, -1e30), k)
+
+    try:
+        run()
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        log(f"[kernels] int8_topk library form refused ({e}); library_ms null")
+        return None
+    return run
+
+
+def phase_int8_kernel(device):
+    """K4 against its plain version on the card, bit-equal: the keyed form
+    over the shadow of the 1,048,576 x 768 bf16 arena of the two-tier cases
+    at the chat turn's Q = 1 and a fleet's Q = 64 (k = 128 + 8, g = 1 + 8)
+    and at the corners (an empty gate, a tenant of three rows, pad
+    queries), and the additive form at a classic search's Q = 1, k = 10."""
+    import torch
+
+    from lazzaro_tpu_torch.ops import int8_topk as k4
+    from lazzaro_tpu_torch.ops.quant import quantize_rows
+
+    (emb16, alive, tenant, sup), _ = fused_cases(device)
+    codes, scale = quantize_rows(emb16)
+    del emb16
+    gen = torch.Generator(device=device).manual_seed(4)
+    n = codes.shape[0]
+
+    def queries(nq):
+        x = grid_values(gen, (nq, DIM), torch.float32, device)
+        return x / x.norm(dim=1, keepdim=True)
+
+    def ten(ts):
+        return torch.tensor(ts, dtype=torch.int32, device=device)
+
+    # The last case keeps lists of one: its time beside the fleet's is the
+    # products' share, the rest the lists' (k + slack = 136 per query).
+    fleet = ten([i % 2 for i in range(64)])
+    cases = [("chat_keyed_q1_k136_g9", queries(1), ten([0]), INT8_K, INT8_G),
+             ("fleet_keyed_q64_k136_g9", queries(64), fleet, INT8_K, INT8_G),
+             ("corners_keyed_q8_k136_g9", queries(8),
+              ten([2, 3, 0, 1, 2, 3, -1, -1]), INT8_K, INT8_G),
+             ("fleet_keyed_q64_k1_g1", queries(64), fleet, 1, 1)]
+    rows_out = []
+    cols = (alive, tenant, sup)
+    for label, q, q_ten, k, g in cases:
+        def run(q=q, q_ten=q_ten, k=k, g=g):
+            return k4.int8_topk_keyed(codes, scale, *cols, q, q_ten, k, g)
+
+        def plain(q=q, q_ten=q_ten, k=k, g=g):
+            return k4.int8_topk_keyed_reference(codes, scale, *cols, q, q_ten,
+                                                k, g)
+
+        got = run()
+        err = _check_equal(label, got, plain())
+        if label.startswith("corners"):
+            if not (got[0][0] == -1e30).all() or got[1][0].tolist() != list(range(INT8_G)):
+                raise AssertionError("K4: an empty gate list is not NEG_INF "
+                                     "over rows 0, 1, ...")
+            if not ((got[2][1, :3] > -1e29).all() and (got[2][1, 3:] == -1e30).all()):
+                raise AssertionError("K4: the short tenant's list is not its 3 rows")
+        lib = int8_library(codes, scale, q, cols, q_ten, k, g)
+        rows_out.append(_case_row(
+            "int8_topk", "keyed", label, "dp4a", n, q.shape[0], k, run,
+            plain, lib, int8_bound(n, DIM, q.shape[0], k, g, True),
+            err, 20, 3, stage1="i8_stage1"))
+    q = queries(1)
+
+    def run_add(q=q):
+        return k4.int8_topk(codes, scale, alive, q, 10)
+
+    def plain_add(q=q):
+        return k4.int8_topk_reference(codes, scale, alive, q, 10)
+
+    err = _check_equal("search_additive_q1_k10", run_add(), plain_add())
+    rows_out.append(_case_row(
+        "int8_topk", "additive", "search_additive_q1_k10", "dp4a", n, 1, 10,
+        run_add, plain_add, int8_library(codes, scale, q, None, None, 10, 0),
+        int8_bound(n, DIM, 1, 10, 0, False), err, 20, 3, stage1="i8_stage1"))
     return rows_out
 
 
@@ -1183,8 +1320,12 @@ def phase_main(launches_out: dict, parity: dict):
         summary["consolidation"] = _consolidate_filled(ms, launches_out, torch)
         summary["lifecycle"] = _lifecycle_filled(ms, torch)
         summary["checkpoint"] = _checkpoint_filled(ms, corpus, summary, torch)
+        summary["quant"] = _quant_filled(ms, corpus, served, summary["fused"],
+                                         launches_out, torch)
         return summary
     finally:
+        shutil.rmtree(os.path.join(STORE_ROOT, "checkpoint"),
+                      ignore_errors=True)
         ms.close()
 
 
@@ -1611,7 +1752,6 @@ def _checkpoint_filled(ms, corpus, single, torch) -> dict:
     del back
     gc.collect()
     torch.cuda.empty_cache()
-    shutil.rmtree(path, ignore_errors=True)
     ok = (all(cols.values()) and all(books.values())
           and all(all(v.values()) for v in served.values()))
     reload_s = round(sum(single["reload"]["load_s"].values()), 2)
@@ -1631,6 +1771,335 @@ def _checkpoint_filled(ms, corpus, single, torch) -> dict:
         f"tenants equal, classic and fused reads of both tenants equal "
         f"(rows and score bits)")
     return out
+
+
+QUANT_TURNS = 8                    # chat turns and searches of the quant phase
+QUANT_SCORE_TOL = 1e-5             # a rescore against the exact scan (bf16)
+
+
+def _recall_and_scores(exact_res, quant_res) -> dict:
+    """recall@10 of the quantized reads against the exact reads of the same
+    queries, the largest |score| difference over the rows both return, and
+    the gate verdicts and gate ids that differ."""
+    hits = total = 0
+    err = 0.0
+    gates = 0
+    for e, q in zip(exact_res, quant_res):
+        e_ids = e.ids[:10]
+        hits += len(set(e_ids) & set(q.ids[:10]))
+        total += len(e_ids)
+        es = dict(zip(e.ids, e.scores))
+        for qid, sc in zip(q.ids, q.scores):
+            if qid in es:
+                err = max(err, abs(float(sc) - float(es[qid])))
+        gates += (e.fast, e.gate_id) != (q.fast, q.gate_id)
+    return {"recall_at_10": hits / max(total, 1), "max_abs_err": err,
+            "gate_differs": gates, "queries": len(exact_res)}
+
+
+def _quant_filled(ms, corpus, served, exact_fused, launches_out, torch) -> dict:
+    """Quantized serving on the filled arena: the checkpoint of
+    :func:`_checkpoint_filled` loaded a second time with ``int8_serving``,
+    put in the system's place, and driven through the entry points the
+    exact fused phase drives, on fewer turns: 8 chat turns, 8
+    ``search_memories``, a 64-query ``search_memories_batch`` and a
+    64-request two-tenant fleet, every dispatch one K4 keyed launch, no
+    two-tier or classic launch, and one copy (sync debug mode "error"); a
+    classic ``search_batch`` through K4's additive form; one transient
+    ``index.dispatch`` fault on a chat turn, retried by the guard. Before
+    any boost, read batches of the same queries on the exact and the
+    quantized index give recall@10 of the quantized path, and every score
+    the quantized path returns is held to the exact scan's score for the
+    same row within ``QUANT_SCORE_TOL``."""
+    from lazzaro_tpu_torch.core import checkpoint as ckpt
+    from lazzaro_tpu_torch.ops import fused_topk as ft
+    from lazzaro_tpu_torch.ops import int8_topk as k4
+    from lazzaro_tpu_torch.ops import masked_topk as mt
+    from lazzaro_tpu_torch.reliability.faults import INJECTOR
+    from lazzaro_tpu_torch.serve import RetrievalRequest
+
+    exact = ms.index
+    path = os.path.join(STORE_ROOT, "checkpoint")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qidx = ckpt.load_index(path, device=exact.device, telemetry=ms.telemetry,
+                           serve_ragged=exact.serve_ragged,
+                           serve_k_max=exact.serve_k_max,
+                           serve_pad_granularity=exact.serve_pad_granularity,
+                           int8_serving=True,
+                           coarse_slack=ms.config.coarse_fetch_slack)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    rng = np.random.default_rng(13)
+    own, targets = served["own"], served["targets"]
+    facts = []
+    while len(facts) < 2 * QUANT_TURNS:
+        i = int(rng.choice(own)) * PER_CONV + int(rng.integers(PER_CONV))
+        if not corpus.is_dup(i) and i not in facts and i not in targets:
+            facts.append(i)
+    chats, searches = facts[:QUANT_TURNS], facts[QUANT_TURNS:]
+    prompts = [f"{corpus.text(i)}. Anything new about it?" for i in chats]
+    batch_facts = (targets + facts)[:64]
+    texts = [corpus.text(i) for i in batch_facts]
+    ms.embedder.warm(prompts + texts)
+    kw = dict(cap_take=5, max_nbr=8, super_gate=0.4, acc_boost=0.05,
+              nbr_boost=0.02, now=time.time())
+    vecs = np.stack([np.asarray(ms._get_embedding(p), np.float32)
+                     for p in prompts] + [corpus.vectors([i])[0] for i in facts]
+                    + list(corpus.vectors(batch_facts)))
+
+    t0 = time.perf_counter()
+    qidx._int8_shadow_for(qidx.state)
+    torch.cuda.synchronize()
+    shadow_s = time.perf_counter() - t0
+    reads = [RetrievalRequest(query=v, tenant=TENANTS[0], k=10, boost=False)
+             for v in vecs]
+    counts = [(m, n, getattr(m, n)) for m in (mt, ft)
+              for n in ("launches", "launches_wgmma", "launches_stream",
+                        "stage_launches")]
+    exact_res = exact.search_fused_requests(reads, **kw)
+    for m, n, v in counts:                   # a check, not the main path
+        setattr(m, n, v)
+    quant_res = qidx.search_fused_requests(reads, **kw)
+    check = _recall_and_scores(exact_res, quant_res)
+    if (check["max_abs_err"] > QUANT_SCORE_TOL or check["gate_differs"]
+            or check["recall_at_10"] < 0.95):
+        raise AssertionError(f"quantized reads against the exact ones: {check}")
+
+    ms.index = qidx
+    ms.config.int8_serving = True
+    ms.query_cache.invalidate_results()
+    retries0 = ms.telemetry.counter_total("serve.dispatch_retries")
+    try:
+        warm = ms.warmup_serving((1, 64))
+        readbacks = _strict_dispatch(qidx, torch)
+        k4.launches = k4.launches_keyed = k4.launches_dp4a = 0
+        k4.stage_launches = ft.launches = mt.launches = 0
+        want = (1, 0, 0, 1)
+        chat_ms, search_ms = [], []
+        for j, p in enumerate(prompts):
+            if j == QUANT_TURNS // 2:
+                INJECTOR.clear()
+                INJECTOR.arm("index.dispatch", times=1)
+            before = (k4.launches_keyed, ft.launches, mt.launches,
+                      len(readbacks))
+            t1 = time.perf_counter()
+            ms.chat(p)
+            chat_ms.append(1e3 * (time.perf_counter() - t1))
+            got = tuple(a - b for a, b in zip(
+                (k4.launches_keyed, ft.launches, mt.launches, len(readbacks)),
+                before))
+            if got != want:
+                raise AssertionError(f"quant chat turn made (K4 keyed, "
+                                     f"two-tier, classic, copies) = {got}")
+        fired = INJECTOR.fired("index.dispatch")
+        INJECTOR.clear()
+        retries = ms.telemetry.counter_total("serve.dispatch_retries") - retries0
+        if fired != 1 or retries != 1:
+            raise AssertionError(f"the transient fault fired {fired} times "
+                                 f"and was retried {retries} times, not 1")
+        for i in searches:
+            before = (k4.launches_keyed, len(readbacks))
+            t1 = time.perf_counter()
+            hits = ms.search_memories(corpus.text(i))
+            search_ms.append(1e3 * (time.perf_counter() - t1))
+            if (k4.launches_keyed - before[0], len(readbacks) - before[1]) != (1, 1):
+                raise AssertionError("quant search_memories is not one dispatch")
+            if not hits or hits[0].content != corpus.text(i):
+                raise AssertionError(f"quant search_memories missed fact {i}")
+
+        def one_launch_p50(fn, what):
+            runs = []
+            for _ in range(3):
+                before = k4.launches_keyed
+                t1 = time.perf_counter()
+                out = fn()
+                runs.append(1e3 * (time.perf_counter() - t1))
+                if k4.launches_keyed - before != 1:
+                    raise AssertionError(f"quant {what} is not one dispatch")
+            return p50(runs), out
+
+        batch_ms, res = one_launch_p50(
+            lambda: ms.search_memories_batch(texts, limit=10),
+            "search_memories_batch(64)")
+        for text, hits in zip(texts, res):
+            if not hits or hits[0].content != text:
+                raise AssertionError(f"quant batch search missed {text!r}")
+        bob = [PER_CONV + 5 + 7 * j for j in range(32)]
+        fleet = [RetrievalRequest(
+            query=corpus.vectors([batch_facts[j // 2] if j % 2 == 0
+                                  else bob[j // 2]])[0],
+            tenant=TENANTS[j % 2], k=(5, 10, 128)[j % 3]) for j in range(64)]
+        sched = ms._ensure_scheduler()
+        fleet_ms, out = one_launch_p50(
+            lambda: [f.result() for f in sched.submit_many(fleet)],
+            "64-request fleet")
+        for req, r in zip(fleet, out):
+            if len(r.ids) != req.k or any(
+                    not q.startswith(req.tenant + ":") for q in r.ids):
+                raise AssertionError(f"quant fleet request of {req.tenant} "
+                                     f"k={req.k} got {len(r.ids)} ids")
+        torch.cuda.synchronize()
+    finally:
+        INJECTOR.clear()
+        vars(qidx).pop("search_fused_requests", None)
+        vars(qidx).pop("_readback", None)
+        torch.cuda.set_sync_debug_mode(0)
+        ms.index = exact
+        ms.config.int8_serving = False
+        ms.query_cache.invalidate_results()
+    fused_launches = k4.launches
+    before = k4.launches
+    classic = qidx.search_batch(corpus.vectors(searches), TENANTS[0], k=10)
+    torch.cuda.synchronize()
+    if k4.launches - before != 1 or k4.launches_keyed != fused_launches:
+        raise AssertionError("the classic int8 search is not one additive K4 launch")
+    for i, (ids, _) in zip(searches, classic):
+        node = ms.buffer.get_node(ids[0].partition(":")[2]) if ids else None
+        if node is None or node.content != corpus.text(i):
+            raise AssertionError(f"the classic int8 search missed fact {i}")
+    launches_out["int8_topk"] = k4.launches
+    del qidx
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {
+        "load_s": load_s, "shadow_build_s": shadow_s,
+        "warmup_ms": {str(k): v for k, v in warm.items()},
+        "chat_p50_ms": p50(chat_ms), "search_p50_ms": p50(search_ms),
+        "batch64_p50_ms": batch_ms, "fleet64_mixed_k_p50_ms": fleet_ms,
+        "exact_chat_miss_p50_ms": exact_fused["chat_miss_p50_ms"],
+        "exact_search_p50_ms": exact_fused["search_p50_ms"],
+        "exact_batch64_p50_ms": exact_fused["batch64_p50_ms"],
+        "exact_fleet64_mixed_k_p50_ms": exact_fused["fleet64_mixed_k_p50_ms"],
+        "k4_launches": k4.launches, "k4_keyed_launches": k4.launches_keyed,
+        "k4_kernels": k4.stage_launches, "dispatches_per_turn": 1,
+        "copies_per_turn": 1, "readbacks": len(readbacks),
+        "transient_fault_retries": retries, "reads_vs_exact": check}
+    log(f"[quant] int8 serving on the filled arena (load {load_s:.2f} s, "
+        f"shadow of {len(exact)} rows built in {shadow_s:.3f} s): chat p50 "
+        f"{out['chat_p50_ms']:.2f} ms (exact {out['exact_chat_miss_p50_ms']:.2f}), "
+        f"search_memories p50 {out['search_p50_ms']:.2f} ms (exact "
+        f"{out['exact_search_p50_ms']:.2f}), search_memories_batch(64) p50 "
+        f"{batch_ms:.2f} ms (exact {out['exact_batch64_p50_ms']:.2f}), mixed-k "
+        f"fleet(64) p50 {fleet_ms:.2f} ms (exact "
+        f"{out['exact_fleet64_mixed_k_p50_ms']:.2f}); {k4.launches} K4 launches "
+        f"({k4.launches_keyed} keyed, {k4.stage_launches} kernels), one launch "
+        f"and one copy a dispatch, 0 two-tier or classic launches; one "
+        f"transient index.dispatch fault retried once; reads of "
+        f"{check['queries']} queries against the exact path: recall@10 "
+        f"{check['recall_at_10']:.4f}, max |score - exact score| "
+        f"{check['max_abs_err']:.3g}, {check['gate_differs']} gate verdicts differ")
+    return out
+
+
+def phase_guard(device) -> dict:
+    """The state dispatch guard on the card (``reliability.guard``): two
+    twin bf16 indexes of 20,000 rows with int8 serving; a transient
+    ``index.dispatch`` fault on a boosting fused dispatch of one is retried,
+    and every arena, edge and shadow column of the two stays bit-equal;
+    then a mutation that fails after its first write (the poison hook)
+    raises ``ArenaPoisoned``, every later touch raises it too, and
+    ``load_index`` of a checkpoint taken before gives an index bit-equal to
+    the twin that never failed, serving the same."""
+    import torch
+
+    from lazzaro_tpu_torch import MemoryIndex
+    from lazzaro_tpu_torch.core import checkpoint as ckpt
+    from lazzaro_tpu_torch.core import state as S
+    from lazzaro_tpu_torch.reliability.errors import ArenaPoisoned
+    from lazzaro_tpu_torch.reliability.faults import (INJECTOR,
+                                                      poison_states_hook)
+    from lazzaro_tpu_torch.serve.scheduler import RetrievalRequest
+    from lazzaro_tpu_torch.utils.telemetry import Telemetry
+
+    n = 20_000
+    emb = np.random.default_rng(21).standard_normal((n, DIM)).astype(np.float32)
+    ids = [f"g{i}" for i in range(n)]
+
+    def build():
+        idx = MemoryIndex(DIM, capacity=n + 64, dtype="bfloat16", device=device,
+                          int8_serving=True, epoch=0.0, telemetry=Telemetry())
+        idx.add(ids, emb, [0.5] * n, [0.0] * n, ["semantic"] * n, ["s"] * n,
+                "t", is_super=[i % 500 == 0 for i in range(n)])
+        idx.add_edges([(ids[i], ids[i + 1], 0.7) for i in range(0, 4000, 2)],
+                      "t", now=1.0)
+        return idx
+
+    def reqs(boost):
+        return [RetrievalRequest(query=emb[i * 97] + 0.01, tenant="t", k=10,
+                                 boost=boost) for i in range(8)]
+
+    def equal(x, y):
+        for fields, sx, sy in ((S.ARENA_FIELDS, x.state, y.state),
+                               (S.EDGE_FIELDS, x.edge_state, y.edge_state)):
+            for c in fields:
+                u, v = getattr(sx, c), getattr(sy, c)
+                if u.is_floating_point():
+                    view = torch.int16 if u.dtype == torch.bfloat16 else torch.int32
+                    u, v = u.view(view), v.view(view)
+                if not torch.equal(u, v):
+                    return False
+        return (x._int8_shadow is None or y._int8_shadow is None
+                or all(torch.equal(u, v) for u, v in zip(x._int8_shadow,
+                                                        y._int8_shadow)))
+
+    kw = dict(cap_take=5, max_nbr=8, super_gate=0.4, acc_boost=0.05,
+              nbr_boost=0.02, now=50.0)
+    a, b = build(), build()
+    path = os.path.join(STORE_ROOT, "guard_checkpoint")
+    INJECTOR.clear()
+    try:
+        INJECTOR.arm("index.dispatch", times=1)
+        ra = a.search_fused_requests(reqs(True), **kw)
+        rb = b.search_fused_requests(reqs(True), **kw)
+        torch.cuda.synchronize()
+        fired = INJECTOR.fired("index.dispatch")
+        retried = a.telemetry.counter_total("serve.dispatch_retries")
+        same = [x.ids == y.ids and x.scores == y.scores for x, y in zip(ra, rb)]
+        parity = equal(a, b)
+        if fired != 1 or retried != 1 or not all(same) or not parity:
+            raise AssertionError(f"transient fault: fired {fired}, retried "
+                                 f"{retried}, results equal {same}, state "
+                                 f"bit-equal {parity}")
+        ckpt.save_index(a, path)
+        INJECTOR.arm("index.dispatch", times=1, hook=poison_states_hook)
+        touches = []
+        for what, fn in (
+                ("update_access", lambda: a.update_access(["g1"], now=60.0)),
+                ("search_fused_requests",
+                 lambda: a.search_fused_requests(reqs(False), **kw)),
+                ("search_batch", lambda: a.search_batch(emb[:2], "t", k=3)),
+                ("add", lambda: a.add(["x"], emb[:1], [0.5], [0.0],
+                                      ["semantic"], ["s"], "t"))):
+            try:
+                fn()
+                touches.append((what, "no error"))
+            except ArenaPoisoned:
+                touches.append((what, "ArenaPoisoned"))
+        if not a.poisoned or any(t != "ArenaPoisoned" for _, t in touches):
+            raise AssertionError(f"poisoned index: {touches}")
+        t0 = time.perf_counter()
+        back = ckpt.load_index(path, device=device, int8_serving=True,
+                               telemetry=Telemetry())
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        back_r = back.search_fused_requests(reqs(False), **kw)
+        b_r = b.search_fused_requests(reqs(False), **kw)
+        back._int8_shadow_for(back.state)
+        recovered = equal(back, b) and all(
+            x.ids == y.ids and x.scores == y.scores for x, y in zip(back_r, b_r))
+        if not recovered:
+            raise AssertionError("load_index did not recover the twin's state")
+    finally:
+        INJECTOR.clear()
+        shutil.rmtree(path, ignore_errors=True)
+    log(f"[guard] transient index.dispatch fault on a fused boosting dispatch: "
+        f"fired once, retried once, results and every arena, edge and shadow "
+        f"column bit-equal to the twin's; a mutation failing after its first "
+        f"write raised ArenaPoisoned, and so did {[w for w, _ in touches[1:]]}; "
+        f"load_index ({load_s:.2f} s) gave the twin's columns and reads")
+    return {"transient_retries": retried, "poisoned_touches": touches,
+            "recovered": recovered, "load_s": load_s}
 
 
 DEFAULT_CONVS = 9                  # consolidates at conversations 3, 6 and 9
@@ -2028,6 +2497,68 @@ def phase_default(launches_out: dict) -> dict:
 # The row-sharded arena: the merge kernel, make_sharded_topk, and phase 4's
 # path on a mesh
 # ---------------------------------------------------------------------------
+
+
+def phase_default_int8(launches_out: dict) -> dict:
+    """Phase 4c once more with ``MemoryConfig(int8_serving=True)``, the
+    rest default: the nine-conversation dialogue, every chat turn one K4
+    keyed launch once the arena holds rows. After each conversation end the
+    shadow, where no write since its last build left it stale, must equal
+    ``quantize_rows`` of the arena bit for bit; an end whose fused ingest
+    kept it fresh (the same tensors, no requantize) counts as maintained."""
+    import torch
+
+    from lazzaro_tpu_torch import MemoryConfig, MemorySystem
+    from lazzaro_tpu_torch.ops import int8_topk as k4
+    from lazzaro_tpu_torch.ops.quant import quantize_rows
+
+    ms = MemorySystem(enable_async=False, verbose=False,
+                      db_dir=store_dir("default_int8"),
+                      config=MemoryConfig(int8_serving=True))
+    k4.launches = k4.launches_keyed = 0
+    checked = maintained = chats = 0
+    try:
+        for c in range(DEFAULT_CONVS):
+            ms.start_conversation()
+            for turn in default_turns(c):
+                ms.add_to_short_term(turn, "semantic", 0.6)
+            before = k4.launches_keyed
+            had_rows = bool(ms.index.id_to_row)
+            ms.chat(f"What do I remember about the {('project', 'family')[c % 2]}?")
+            if had_rows:
+                chats += 1
+                if k4.launches_keyed - before != 1:
+                    raise AssertionError("an int8 chat turn is not one K4 "
+                                         "keyed launch")
+            idx = ms.index
+            fresh = not idx._int8_dirty and idx._int8_shadow is not None
+            held = idx._int8_shadow[0] if fresh else None
+            ms.end_conversation()
+            torch.cuda.synchronize()
+            idx = ms.index
+            if idx._int8_dirty or idx._int8_shadow is None:
+                continue
+            q8, sc = quantize_rows(idx.state.emb)
+            if not (torch.equal(idx._int8_shadow[0], q8)
+                    and torch.equal(idx._int8_shadow[1], sc)):
+                raise AssertionError(f"conversation {c}: the int8 shadow "
+                                     f"differs from quantize_rows of the arena")
+            checked += 1
+            maintained += held is not None and idx._int8_shadow[0] is held
+        if chats < DEFAULT_CONVS - 1 or maintained < 1:
+            raise AssertionError(f"int8 dialogue: {chats} K4 chat turns, "
+                                 f"{maintained} maintained shadows")
+        hits = ms.search_memories("What do I remember about the project?")
+    finally:
+        ms.close()
+    launches_out["default_int8_topk"] = k4.launches
+    log(f"[default-int8] MemorySystem(int8_serving=True): {DEFAULT_CONVS} "
+        f"conversations, {chats} chat turns each one K4 keyed launch, "
+        f"{k4.launches} K4 launches; the shadow equal to quantize_rows of the "
+        f"arena at {checked} conversation ends, kept in place by the fused "
+        f"ingest at {maintained}; search_memories found {len(hits)} nodes")
+    return {"conversations": DEFAULT_CONVS, "k4_launches": k4.launches,
+            "shadow_checked": checked, "shadow_maintained": maintained}
 
 
 def _lifecycle_default(ms, queries, torch) -> dict:
@@ -3990,6 +4521,11 @@ def _run(smi, name, device, torch) -> int:
     torch.cuda.empty_cache()
     fused_rows = phase_fused_kernel(device)
     torch.cuda.empty_cache()
+    int8_rows = phase_int8_kernel(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    guard_summary = phase_guard(device)
+    torch.cuda.empty_cache()
     ingest_rows, resolve_rows = phase_ingest_kernel(device)
     gc.collect()
     torch.cuda.empty_cache()
@@ -4009,6 +4545,9 @@ def _run(smi, name, device, torch) -> int:
     torch.cuda.empty_cache()
     default_summary = phase_default(launches)
     log(f"[default] summary {json.dumps(default_summary)}")
+    default_int8 = phase_default_int8(launches)
+    log(f"[default-int8] summary {json.dumps(default_int8)}")
+    log(f"[guard] summary {json.dumps(guard_summary)}")
     mesh_summary, filled_rows = phase_mesh(launches, parity, summary)
     log(f"[mesh] summary {json.dumps(mesh_summary)}")
     gc.collect()                       # and the mesh's before the LM
@@ -4026,7 +4565,7 @@ def _run(smi, name, device, torch) -> int:
     for kernel in ("ingest_topk", "dedup_resolve"):
         launches[kernel] += launches["mesh_" + kernel]
     for kernel in ("ingest_topk", "dedup_resolve", "pairwise_topk",
-                   "masked_topk"):
+                   "masked_topk", "int8_topk"):
         launches[kernel] += launches["default_" + kernel]
 
     def entry(name, source, replaces, rows, head_case, extra_err=0.0):
@@ -4054,6 +4593,9 @@ def _run(smi, name, device, torch) -> int:
         entry("dedup_resolve", "lazzaro_tpu_torch/csrc/dedup_resolve.cu",
               "lazzaro_tpu/core/state.py:1532", resolve_rows,
               "dedup_resolve_b8192"),
+        entry("int8_topk", "lazzaro_tpu_torch/csrc/int8_topk.cu",
+              "lazzaro_tpu/core/state.py:2701",
+              int8_rows, "chat_keyed_q1_k136_g9"),
         entry("pairwise_topk", "lazzaro_tpu_torch/csrc/pairwise_topk.cu",
               "lazzaro_tpu/ops/graphops.py:82", pairwise_rows,
               f"pairwise_{PAIR_ROWS}_bf16",

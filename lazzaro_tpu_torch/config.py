@@ -462,7 +462,6 @@ class MemoryConfig:
 
 # (field, "is switched on", ROADMAP item) for every path the port lacks.
 _UNPORTED = (
-    ("int8_serving", bool, "Queue 1 item 13, quantized serving"),
     ("ivf_serving", lambda v: v > 0, "Queue 1 item 14, IVF"),
     ("pq_serving", bool, "Queue 1 item 15, PQ"),
     ("paged_arena", bool, "Queue 1 item 16, paged arena"),

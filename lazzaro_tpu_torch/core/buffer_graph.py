@@ -93,3 +93,24 @@ class BufferGraph:
         nodes = sum(len(s.nodes) for s in self.shards.values())
         edges = sum(len(s.edges) for s in self.shards.values())
         return nodes, edges
+
+    def get_all_nodes_summary(self, truncate: int = 100) -> List[Dict]:
+        """Timestamp-descending summaries, content truncated
+        (``lazzaro_tpu/core/buffer_graph.py:get_all_nodes_summary``)."""
+        rows = []
+        for shard in self.shards.values():
+            for node in shard.nodes.values():
+                content = node.content
+                if len(content) > truncate:
+                    content = content[:truncate] + "..."
+                rows.append({
+                    "id": node.id,
+                    "content": content,
+                    "type": node.type,
+                    "shard": node.shard_key,
+                    "salience": node.salience,
+                    "access_count": node.access_count,
+                    "timestamp": node.timestamp,
+                })
+        rows.sort(key=lambda r: r["timestamp"], reverse=True)
+        return rows

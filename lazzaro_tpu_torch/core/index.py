@@ -32,7 +32,12 @@ import torch
 
 from lazzaro_tpu_torch.core import state as S
 from lazzaro_tpu_torch.ops import graphops
+from lazzaro_tpu_torch.ops.int8_topk import int8_topk
+from lazzaro_tpu_torch.ops.quant import quantize_rows
 from lazzaro_tpu_torch.ops.sharded_merge import sharded_merge
+from lazzaro_tpu_torch.reliability.errors import ArenaPoisoned
+from lazzaro_tpu_torch.reliability.guard import (check_not_poisoned,
+                                                 run_guarded)
 from lazzaro_tpu_torch.ops.topk import make_sharded_topk
 from lazzaro_tpu_torch.serve.scheduler import RetrievalRequest, RetrievalResult
 from lazzaro_tpu_torch.utils.batching import (bucket_size, decode_topk,
@@ -135,6 +140,11 @@ def link_pool_dev(pool: Sequence[int], padded_len: int, ecap: int) -> np.ndarray
 _CONSOLIDATION_MESH = ("MemoryIndex(mesh=...).merge_candidates: the all-pairs "
                        "merge scan under a mesh is not ported yet (ROADMAP "
                        "Queue 1 item 21)")
+
+_INT8_MESH = ("MemoryIndex(mesh=..., int8_serving=True): the int8 serving "
+              "shadow under a mesh (make_sharded_int8_topk and the fused "
+              "program's sharded_quant mode) is not ported yet (ROADMAP Queue "
+              "1 item 21)")
 
 _FUSED_INGEST_MESH = ("MemoryIndex(mesh=...): the fused ingest under a mesh is "
                       "not ported yet (ROADMAP Queue 1 item 21, sharded fused "
@@ -268,7 +278,11 @@ class MemoryIndex:
                  dtype=torch.float32, epoch: Optional[float] = None,
                  device=None, telemetry=None, serve_ragged: bool = True,
                  serve_k_max: int = 128, serve_pad_granularity: int = 8,
-                 mesh=None):
+                 mesh=None, int8_serving: bool = False, coarse_slack: int = 8,
+                 dispatch_retry_max: int = 2,
+                 dispatch_retry_backoff_s: float = 0.005):
+        if mesh is not None and int8_serving:
+            raise NotImplementedError(_INT8_MESH)
         self.mesh = mesh
         self.shard_axis = mesh.axis_names[0] if mesh is not None else None
         self._n_parts = mesh.size if mesh is not None else 1
@@ -334,6 +348,23 @@ class MemoryIndex:
         self.ingest_dispatch_count = 0
         self.link_pool_overflows = 0
         self._ingest_stage = HostStage(self.device)
+        # Int8 serving (ops/quant.py): the shadow (codes [cap+1, d] i8,
+        # scales [cap+1] f32) that quantized serving scans, rebuilt lazily
+        # from the arena only after a write that did not maintain it (add,
+        # growth, an ingest without the shadow); metadata writes leave the
+        # vectors alone and the mask is read fresh at every search. The
+        # fused programs fetch k + coarse_slack coarse candidates before
+        # the exact rescore.
+        self.int8_serving = bool(int8_serving)
+        self.coarse_slack = max(0, int(coarse_slack))
+        self._int8_shadow: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+        self._int8_dirty = True
+        # The state dispatch guard (reliability.guard): retries of a program
+        # that failed before its first write, and the poisoned flag of one
+        # that failed after it.
+        self.dispatch_retry_max = max(0, int(dispatch_retry_max))
+        self.dispatch_retry_backoff_s = float(dispatch_retry_backoff_s)
+        self._poisoned = False
 
     @classmethod
     def from_numpy(cls, arena: Dict[str, np.ndarray],
@@ -372,6 +403,58 @@ class MemoryIndex:
             if name is not None:
                 idx.tenant_nodes.setdefault(name, set()).add(qid)
         return idx
+
+    # ---------------------------------------------------------------- guard
+    @property
+    def poisoned(self) -> bool:
+        """True once a state program failed after its first in-place write:
+        the device state is torn. Reload the last checkpoint and replay the
+        ingest journal."""
+        return self._poisoned
+
+    def _guarded(self, call, states, mode: str):
+        """Run one state program through ``reliability.guard.run_guarded``
+        (``lazzaro_tpu/core/index.py:_guarded``): a failure before its first
+        write is retried, an allocation failure raises ``DeviceOom``, a torn
+        state poisons the index and raises ``ArenaPoisoned``."""
+        check_not_poisoned(self._poisoned)
+        try:
+            return run_guarded(call, states, telemetry=self.telemetry,
+                               mode=mode, retries=self.dispatch_retry_max,
+                               backoff_s=self.dispatch_retry_backoff_s)
+        except ArenaPoisoned:
+            self._poisoned = True
+            raise
+
+    def _arena_states(self):
+        return (self.state,) if self.mesh is None else (self.shards,)
+
+    # ------------------------------------------------------------- int8
+    def _int8_shadow_for(self, st: S.ArenaState):
+        """The int8 shadow of ``st``, (re)built from that one arena snapshot
+        when no maintained one matches it
+        (``lazzaro_tpu/core/index.py:_int8_shadow_for``). Called under the
+        state lock."""
+        shadow = self._int8_shadow
+        if (not self._int8_dirty and shadow is not None
+                and shadow[0].shape[0] == st.salience.shape[0]):
+            return shadow
+        shadow = quantize_rows(st.emb)
+        self._int8_shadow = shadow
+        if self.state is st:
+            self._int8_dirty = False
+        return shadow
+
+    def _ingest_shadow_arg(self):
+        """The shadow the fused ingest maintains in place, or None when there
+        is nothing valid to maintain (int8 off, shadow absent or stale, or
+        the arena grew since it was built): the ingest then marks it
+        dirty."""
+        shadow = self._int8_shadow
+        if (not self.int8_serving or self._int8_dirty or shadow is None
+                or shadow[0].shape[0] != self.state.salience.shape[0]):
+            return None
+        return shadow
 
     # ------------------------------------------------------------ capacity
     def _round_capacity(self, capacity: int, block: bool = True) -> int:
@@ -460,6 +543,7 @@ class MemoryIndex:
         while len(self._free_rows) < n:
             old_cap = self.capacity
             new_cap = self._grown_capacity(old_cap)
+            self._int8_dirty = True          # the shadow no longer fits
             if self.mesh is None:
                 self.state = S.grow_arena(self.state, new_cap)
             else:                    # L changes: the rows split anew
@@ -499,8 +583,9 @@ class MemoryIndex:
             self.tenant_nodes.setdefault(tenant, set()).update(ids)
             self._note_super(rows, [bool(x) for x in is_super])
             if self.mesh is not None:
-                self._add_sharded(rows, embeddings, saliences, timestamps,
-                                  types, shard_keys, tid, is_super)
+                self._guarded(lambda: self._add_sharded(
+                    rows, embeddings, saliences, timestamps, types,
+                    shard_keys, tid, is_super), (self.shards,), "arena")
                 return rows
             padded = S.pad_rows(np.asarray(rows, np.int32), self.capacity)
             b = len(padded)
@@ -523,7 +608,10 @@ class MemoryIndex:
                               device=self.device)
             emb[:n] = cols[1]
             emb[n:, 0] = 1.0   # sentinel rows get a unit vector (normalizable)
-            S._arena_add(self.state, cols[0], emb, *cols[2:])
+            self._guarded(lambda: S._arena_add(self.state, cols[0], emb,
+                                               *cols[2:]),
+                          (self.state,), "arena")
+            self._int8_dirty = True              # embedding rows written
             return rows
 
     def _note_super(self, rows: Sequence[int], flags: Sequence[bool]) -> None:
@@ -555,8 +643,10 @@ class MemoryIndex:
             las = (np.asarray(last_accessed, np.float64)[ok]
                    - self.epoch).astype(np.float32)
             if self.mesh is not None:
-                for st, sel, loc in self._routes(rows):
-                    S._arena_restore_access(st, loc, acs[sel], las[sel])
+                def run():
+                    for st, sel, loc in self._routes(rows):
+                        S._arena_restore_access(st, loc, acs[sel], las[sel])
+                self._guarded(run, (self.shards,), "arena")
                 return
             padded = S.pad_rows(np.asarray(rows, np.int32), self.capacity)
             b = len(padded)
@@ -564,8 +654,9 @@ class MemoryIndex:
             ac_arr[:len(acs)] = acs
             la_arr = np.zeros((b,), np.float32)
             la_arr[:len(las)] = las
-            S._arena_restore_access(self.state, *upload_once(
-                [padded, ac_arr, la_arr], self.device))
+            cols = upload_once([padded, ac_arr, la_arr], self.device)
+            self._guarded(lambda: S._arena_restore_access(self.state, *cols),
+                          (self.state,), "arena")
 
     def _add_sharded(self, rows, embeddings, saliences, timestamps, types,
                      shard_keys, tid, is_super) -> None:
@@ -595,12 +686,17 @@ class MemoryIndex:
             for r in rows:
                 self.row_to_id.pop(r, None)
             padded = S.pad_rows(np.asarray(rows, np.int32), self.capacity)
-            if self.mesh is None:
-                S._arena_delete(self.state, padded)
-            else:
-                for st, _, loc in self._routes(rows):
-                    S._arena_delete(st, loc)
-            S._edges_delete_for_nodes(self.edge_state, padded)
+
+            def run():
+                if self.mesh is None:
+                    S._arena_delete(self.state, padded)
+                else:
+                    for st, _, loc in self._routes(rows):
+                        S._arena_delete(st, loc)
+                S._edges_delete_for_nodes(self.edge_state, padded)
+
+            self._guarded(run, (*self._arena_states(), self.edge_state),
+                          "arena")
             self._free_rows.extend(rows)
             if self._super_rows:
                 self._note_super(rows, [False] * len(rows))
@@ -625,9 +721,12 @@ class MemoryIndex:
                      super_filter: int = 0, exact: bool = False
                      ) -> List[Tuple[List[str], List[float]]]:
         """Multi-query masked top-k: one kernel launch for the whole batch,
-        padded to a power of two as the JAX index pads it. Every search of
-        this slice is exact (the master arena), so ``exact`` changes
-        nothing."""
+        padded to a power of two as the JAX index pads it. With int8 serving
+        on, the scan reads the int8 shadow (K4's additive form,
+        ``ops.int8_topk.int8_topk``, as ``quantized_topk``); ``exact=True``
+        keeps it on the master arena, as consolidation's dedup and merge
+        gates need (their thresholds sit inside the int8 error band)."""
+        check_not_poisoned(self._poisoned)
         queries = np.asarray(queries, np.float32)
         if queries.ndim == 1:
             queries = queries[None, :]
@@ -640,7 +739,14 @@ class MemoryIndex:
         q_pad = torch.from_numpy(pad_to_pow2(queries)).to(self.device)
         with self._lock:
             k_eff = min(k, self.capacity)
-            if self.mesh is None:
+            if self.mesh is None and self.int8_serving and not exact:
+                # one arena snapshot feeds the shadow and the mask
+                st = self.state
+                q8, qscale = self._int8_shadow_for(st)
+                scores, rows = int8_topk(
+                    q8, qscale, S.arena_mask(st, tid, super_filter),
+                    S.normalize(q_pad.float()), k_eff)
+            elif self.mesh is None:
                 scores, rows = S.arena_search(self.state, q_pad, tid, k_eff,
                                               super_filter)
             else:
@@ -695,11 +801,16 @@ class MemoryIndex:
         if self.mesh is None:
             padded = self._padded_rows(ids)
             if padded is not None:
-                op(self.state, padded, *args)
+                self._guarded(lambda: op(self.state, padded, *args),
+                              (self.state,), "arena")
             return
         rows = [self.id_to_row[i] for i in ids if i in self.id_to_row]
-        for st, _, loc in self._routes(rows):
-            op(st, loc, *args)
+
+        def run():
+            for st, _, loc in self._routes(rows):
+                op(st, loc, *args)
+
+        self._guarded(run, (self.shards,), "arena")
 
     def update_access(self, ids: Sequence[str], boost: float = 0.05,
                       now: Optional[float] = None) -> None:
@@ -731,9 +842,11 @@ class MemoryIndex:
             if self.mesh is not None:
                 cols = (np.asarray(accs, np.int32), np.asarray(nbrs, np.int32),
                         np.asarray(nows, np.float32))
-                for st, sel, loc in self._routes(rows):
-                    S._arena_apply_boosts(st, loc, *(c[sel] for c in cols),
-                                          acc_boost, nbr_boost)
+                def run():
+                    for st, sel, loc in self._routes(rows):
+                        S._arena_apply_boosts(st, loc, *(c[sel] for c in cols),
+                                              acc_boost, nbr_boost)
+                self._guarded(run, (self.shards,), "arena")
                 return
             padded = S.pad_rows(np.asarray(rows, np.int32), self.capacity)
             b = len(padded)
@@ -743,8 +856,9 @@ class MemoryIndex:
             nbr_arr[:len(nbrs)] = nbrs
             now_arr = np.full((b,), S.NEG_INF, np.float32)   # pad: max no-op
             now_arr[:len(nows)] = nows
-            S._arena_apply_boosts(self.state, padded, acc_arr, nbr_arr, now_arr,
-                                  acc_boost, nbr_boost)
+            self._guarded(lambda: S._arena_apply_boosts(
+                self.state, padded, acc_arr, nbr_arr, now_arr, acc_boost,
+                nbr_boost), (self.state,), "arena")
 
     def merge_touch(self, ids: Sequence[str], candidate_saliences: Sequence[float],
                     now: Optional[float] = None) -> None:
@@ -759,20 +873,26 @@ class MemoryIndex:
                 return
             if self.mesh is not None:
                 sal = np.asarray(sals, np.float32)
-                for st, sel, loc in self._routes(rows):
-                    S._arena_merge_touch(st, loc, sal[sel], self._now(now))
+
+                def run():
+                    for st, sel, loc in self._routes(rows):
+                        S._arena_merge_touch(st, loc, sal[sel], self._now(now))
+
+                self._guarded(run, (self.shards,), "arena")
                 return
             padded = S.pad_rows(np.asarray(rows, np.int32), self.capacity)
             sal = np.zeros((len(padded),), np.float32)
             sal[:len(sals)] = sals
-            S._arena_merge_touch(self.state, padded, sal, self._now(now))
+            self._guarded(lambda: S._arena_merge_touch(
+                self.state, padded, sal, self._now(now)), (self.state,),
+                "arena")
 
     def decay(self, tenant: str, rate: float, salience_floor: float = 0.2) -> None:
         """Per-tenant decay tick: arena salience and edge weights."""
         tid = self._tenants.get(tenant)
         if tid is None:
             return
-        with self._lock:
+        def run():
             if self.mesh is None:
                 S._decay_fused(self.state, self.edge_state, tid, rate,
                                salience_floor)
@@ -780,6 +900,10 @@ class MemoryIndex:
             for st in self.shards:
                 S._arena_decay(st, tid, rate, salience_floor)
             S._edges_decay(self.edge_state, tid, rate)
+
+        with self._lock:
+            self._guarded(run, (*self._arena_states(), self.edge_state),
+                          "decay")
 
     def evict_candidates(self, tenant: str, k: int, now: Optional[float] = None,
                          weights: Tuple[float, float, float] = (0.5, 0.3, 0.2)
@@ -843,11 +967,13 @@ class MemoryIndex:
 
     # ------------------------------------------------------------ lifecycle
     def _lifecycle_dispatch(self, fn, *args, **kwargs):
-        """The device program every lifecycle sweep goes through: tests and
-        the smoke wrap it to count dispatches (one call, one dispatch, on
-        one device or a mesh)."""
+        """The device program every lifecycle sweep goes through, under the
+        guard: tests and the smoke wrap it to count dispatches (one call,
+        one dispatch, on one device or a mesh)."""
         self.lifecycle_dispatch_count += 1
-        return fn(*args, **kwargs)
+        return self._guarded(lambda: fn(*args, **kwargs),
+                             (*self._arena_states(), self.edge_state),
+                             "lifecycle")
 
     def lifecycle_sweep(self, passes: Dict[str, int], *, rate: float,
                         salience_floor: float, prune_threshold: float,
@@ -869,6 +995,7 @@ class MemoryIndex:
         Verdicts are each tenant's bottom-``archive_k`` live non-super rows
         by importance; removed edges are already reclaimed from the host
         mirror."""
+        check_not_poisoned(self._poisoned)
         swept = {t: int(p) for t, p in passes.items()
                  if int(p) > 0 and t in self._tenants}
         if not swept:
@@ -1161,15 +1288,19 @@ class MemoryIndex:
                     tgt_r[i] = self.id_to_row[t_id]
                     w[i] = wt
                     live[i] = True
-                S._edges_add(self.edge_state, padded, src_r, tgt_r, w,
-                             np.ones((b,), np.int32), now,
-                             self.tenant_id(tenant), live)
+                tid = self.tenant_id(tenant)
+                self._guarded(lambda: S._edges_add(
+                    self.edge_state, padded, src_r, tgt_r, w,
+                    np.ones((b,), np.int32), now, tid, live),
+                    (self.edge_state,), "edges")
             if existing:
                 slots = [self.edge_slots[s] if isinstance(s, tuple) else s
                          for s in existing]
-                padded = S.pad_rows(np.asarray(slots, np.int32),
-                                    self.edge_state.capacity)
-                S._edges_reinforce(self.edge_state, padded, reinforce, now)
+                padded_r = S.pad_rows(np.asarray(slots, np.int32),
+                                      self.edge_state.capacity)
+                self._guarded(lambda: S._edges_reinforce(
+                    self.edge_state, padded_r, reinforce, now),
+                    (self.edge_state,), "edges")
 
     def prune_edges(self, tenant: str, threshold: float) -> List[Tuple[str, str]]:
         """Drop the tenant's edges under ``threshold``; returns their keys."""
@@ -1177,15 +1308,17 @@ class MemoryIndex:
         if tid is None:
             return []
         with self._lock:
-            _, slots = S._edges_prune(self.edge_state, tid, threshold,
-                                      self._prune_cap())
+            prune_cap = self._prune_cap()
+            _, slots = self._guarded(lambda: S._edges_prune(
+                self.edge_state, tid, threshold, prune_cap),
+                (self.edge_state,), "edges")
             return self._reclaim_pruned_slots(slots.cpu().numpy())
 
     # --------------------------------------------------------- fused ingest
     def _ingest_dispatch(self, fn, *args, **kwargs):
         """The device program every fused ingest goes through: tests and the
         smoke wrap it to count dispatches per batch (one call, one
-        dispatch)."""
+        dispatch; a retry of the guard is another)."""
         self.ingest_dispatch_count += 1
         return fn(*args, **kwargs)
 
@@ -1276,8 +1409,13 @@ class MemoryIndex:
         leaves."""
         t0 = time.perf_counter()
         with torch.profiler.record_function(f"lz.ingest.{kind}"):
-            _, _, outs = self._ingest_dispatch(fn, self.state, self.edge_state,
-                                               *up, **kwargs)
+            shadow = self._ingest_shadow_arg()
+            _, _, outs = self._guarded(
+                lambda: self._ingest_dispatch(fn, self.state, self.edge_state,
+                                              *up, shadow=shadow, **kwargs),
+                (self.state, self.edge_state), "ingest")
+            if shadow is None:
+                self._int8_dirty = True      # rows written, shadow not kept
             n_modes = len(kwargs["shard_modes"])
             wide = 3 if kind == "dedup_fused" else 0
             is_float = ([False] * wide + [True, False, False] * n_modes
@@ -1318,6 +1456,7 @@ class MemoryIndex:
         in ``edge_slots``."""
         if self.mesh is not None:
             raise NotImplementedError(_FUSED_INGEST_MESH)
+        check_not_poisoned(self._poisoned)
         n = len(ids)
         shard_modes = tuple(shard_modes)
         if n == 0:
@@ -1417,6 +1556,7 @@ class MemoryIndex:
         :meth:`commit_ingest_dedup` finishes, or None for no facts."""
         if self.mesh is not None:
             raise NotImplementedError(_FUSED_INGEST_MESH)
+        check_not_poisoned(self._poisoned)
         n = len(saliences)
         shard_modes = tuple(shard_modes)
         if n == 0:
@@ -1460,10 +1600,20 @@ class MemoryIndex:
                 (now_abs - self.epoch, chain_weight, link_gate, link_scale))
             pool_len = torch.full((), len(pool), dtype=torch.int32,
                                   device=self.device)
-            host = self._run_ingest(
-                "dedup_fused", S.ingest_dedup_fused,
-                [*dev, pool_len, now_d, tid, float(dedup_gate), chain_w,
-                 gate_d, scale_d], k=k_eff, shard_modes=shard_modes)
+            try:
+                host = self._run_ingest(
+                    "dedup_fused", S.ingest_dedup_fused,
+                    [*dev, pool_len, now_d, tid, float(dedup_gate), chain_w,
+                     gate_d, scale_d], k=k_eff, shard_modes=shard_modes)
+            except ArenaPoisoned:
+                raise
+            except Exception:
+                # Nothing was written: the rows and slots go back where the
+                # allocation took them from, so a retry of the same facts
+                # lands exactly where this batch would have.
+                self._free_rows.extend(reversed(rows))
+                self._free_edge_slots.extend(reversed(slots))
+                raise
         ctr = host[3 + 3 * n_modes:]
         dup = host[0][:n, 0] > 0
         self.telemetry.bump("ingest.dedup_hits", int(dup.sum()))
@@ -1615,8 +1765,13 @@ class MemoryIndex:
         planner off, which is ``_search_fused_once`` in exact mode): gate,
         ANN top-k, CSR neighbor gather and, for every request that asked,
         both boosts applied in place under the state lock. A batch where no
-        request boosts takes the read twin. Every host decision is made
-        from host arrays, so the only wait on the device is the readback."""
+        request boosts takes the read twin. With int8 serving on (one
+        device) the program is the quantized one (``quant`` mode,
+        ``state.search_fused_quant*``): K4's keyed coarse scan of the
+        shadow, the exact rescore, the same tail. Every host decision is
+        made from host arrays, so the only wait on the device is the
+        readback. A boosting dispatch runs under the guard."""
+        check_not_poisoned(self._poisoned)
         nq = len(reqs)
         results = [RetrievalResult() for _ in range(nq)]
         if nq == 0 or not self.id_to_row:
@@ -1669,7 +1824,8 @@ class MemoryIndex:
             return out
 
         t0 = time.perf_counter()
-        mode = "exact" if self.mesh is None else "sharded_exact"
+        mode = ("sharded_exact" if self.mesh is not None
+                else "quant" if self.int8_serving else "exact")
         dispatch = (self._dispatch_one if self.mesh is None
                     else self._dispatch_sharded)
         with torch.profiler.record_function(f"lz.serve.{mode}"):
@@ -1739,6 +1895,9 @@ class MemoryIndex:
         boost = bool(boost_on.any())
         st = self.state
         indptr, nbr = self._csr_for(st)
+        quant = ()
+        if self.int8_serving:
+            quant = self._int8_shadow_for(st)
         cols = {"q": qp, "valid": padb(valid),
                 "tenant": padb(tenants, -1, np.int32), "gate": padb(gate_on)}
         if ragged:
@@ -1748,23 +1907,34 @@ class MemoryIndex:
             if ragged:
                 cols["cap_q"] = padb(cap_arr, 0, np.int32)
         up = dict(zip(cols, self._stage.upload(list(cols.values()))))
-        args = (indptr, nbr, up["q"], up["valid"], up["tenant"], up["gate"])
+        args = (*quant, indptr, nbr, up["q"], up["valid"], up["tenant"],
+                up["gate"])
         statics = dict(k=k_bucket, cap_take=cap_take, max_nbr=max_nbr)
-        if ragged:
-            statics["k_live"] = int(k_arr.max())
+        if quant:
+            statics["slack"] = self.coarse_slack
+            fused, fused_r = S.search_fused_quant_ragged, S.search_fused_quant
+            read, read_r = (S.search_fused_quant_ragged_read,
+                            S.search_fused_quant_read)
+        else:
+            fused, fused_r = S.search_fused_ragged, S.search_fused
+            read, read_r = S.search_fused_ragged_read, S.search_fused_read
+            if ragged:
+                statics["k_live"] = int(k_arr.max())
         if boost:
             now_rel = (now if now is not None else time.time()) - self.epoch
             scalars = (now_rel, super_gate, acc_boost, nbr_boost)
-            if ragged:
-                return S.search_fused_ragged(
-                    st, *args, up["boost"], up["k_q"], up["cap_q"], *scalars,
-                    **statics)[1]
-            return S.search_fused(st, *args, up["boost"], *scalars,
-                                  **statics)[1]
+
+            def call():
+                if ragged:
+                    return fused(st, *args, up["boost"], up["k_q"],
+                                 up["cap_q"], *scalars, **statics)[1]
+                return fused_r(st, *args, up["boost"], *scalars, **statics)[1]
+
+            return self._guarded(call, (st,),
+                                 "serve_quant" if quant else "serve_exact")
         if ragged:
-            return S.search_fused_ragged_read(st, *args, up["k_q"],
-                                              super_gate, **statics)
-        return S.search_fused_read(st, *args, super_gate, **statics)
+            return read(st, *args, up["k_q"], super_gate, **statics)
+        return read_r(st, *args, super_gate, **statics)
 
     def _demux_fused(self, reqs, results, valid, boost_on, gate_s, gate_r,
                      ann_s, ann_r, fast, cap, lengths=None):
@@ -1825,7 +1995,8 @@ class MemoryIndex:
             finally:
                 tel.enabled = prev
             ms = (time.perf_counter() - t0) * 1e3
+            mode = "quant" if self.int8_serving else "exact"
             tel.record("kernel.warmup_ms", ms,
-                       labels={"mode": "exact", "batch": str(g)})
-            out[("exact", g)] = ms
+                       labels={"mode": mode, "batch": str(g)})
+            out[(mode, g)] = ms
         return out

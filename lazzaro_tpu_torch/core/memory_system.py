@@ -59,7 +59,7 @@ import os
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Dict, List, Optional, Set, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Set, Tuple
 
 import numpy as np
 
@@ -223,7 +223,8 @@ class MemorySystem:
                                  telemetry=self.telemetry,
                                  serve_ragged=cfg.serve_ragged,
                                  serve_k_max=cfg.serve_k_max,
-                                 serve_pad_granularity=cfg.serve_pad_granularity)
+                                 serve_pad_granularity=cfg.serve_pad_granularity,
+                                 **self._index_reliability_kwargs())
         self.device = self.index.device
         self.query_scheduler: Optional[QueryScheduler] = None
         self.query_cache = QueryCache(cfg.cache_size) if self.enable_caching else None
@@ -278,6 +279,15 @@ class MemorySystem:
         if cfg.lifecycle_interval_s > 0 and self.enable_async:
             self.lifecycle_pump = _LifecyclePump(
                 self, cfg.lifecycle_interval_s).start()
+
+    def _index_reliability_kwargs(self) -> Dict[str, Any]:
+        """The index settings of int8 serving and the dispatch guard, from
+        the config (``lazzaro_tpu/core/memory_system.py:188-207``)."""
+        cfg = self.config
+        return dict(int8_serving=cfg.int8_serving,
+                    coarse_slack=cfg.coarse_fetch_slack,
+                    dispatch_retry_max=cfg.dispatch_retry_max,
+                    dispatch_retry_backoff_s=cfg.dispatch_retry_backoff_s)
 
     # --------------------------------------------------------------- journal
     #
@@ -760,6 +770,47 @@ class MemorySystem:
         self._log(f"[{Telemetry.tier(retrieval_time)} Retrieval: "
                   f"{retrieval_time:.0f}ms, Retrieved: {len(retrieved_ids)} nodes]")
         return response
+
+    def chat_stream(self, user_message: str) -> Iterator[Dict[str, str]]:
+        """:meth:`chat` as a stream (``lazzaro_tpu/core/memory_system.py:
+        chat_stream``): yields ``{"type": "info" | "token", "content":
+        ...}``, the retrieval line first, then the provider's chunks
+        (``completion_stream`` where it has one, else one token of the whole
+        completion)."""
+        if not self.conversation_active:
+            self.start_conversation()
+            yield {"type": "info", "content": "✓ Conversation started"}
+
+        start_time = time.time()
+        self.add_to_short_term(user_message, "episodic", salience=0.7)
+        self.conversation_history.append({"role": "user", "content": user_message})
+
+        query_emb = self._get_embedding(user_message)
+        retrieved_ids, boost_mode = self._retrieve_for_chat(query_emb, user_message)
+        self._boost_neighbors(retrieved_ids, mode=boost_mode)
+
+        retrieval_time = (time.time() - start_time) * 1000
+        self.telemetry.record("chat.retrieval_ms", retrieval_time,
+                              labels={"tenant": self.user_id})
+        yield {"type": "info",
+               "content": f"[{Telemetry.tier(retrieval_time)} Retrieval: "
+                          f"{retrieval_time:.0f}ms, Retrieved: "
+                          f"{len(retrieved_ids)} nodes]"}
+
+        messages = self._assemble_messages(retrieved_ids, mode=boost_mode)
+        self.metrics["llm_calls"] += 1
+        if hasattr(self.llm, "completion_stream"):
+            chunks: List[str] = []
+            for chunk in self.llm.completion_stream(messages):
+                chunks.append(chunk)
+                yield {"type": "token", "content": chunk}
+            response = "".join(chunks)
+        else:
+            response = self.llm.completion(messages)
+            yield {"type": "token", "content": response}
+
+        self.add_to_short_term(response, "semantic", salience=0.5)
+        self.conversation_history.append({"role": "assistant", "content": response})
 
     def _assemble_messages(self, retrieved_ids: List[str],
                            mode: str = "classic") -> List[Dict[str, str]]:
@@ -1642,6 +1693,17 @@ Return JSON: {"memories": [{"content": "...", "type": "semantic|episodic|procedu
             results.append(nodes)
         return results
 
+    def get_connected_memories(self, node_id: str) -> List[Node]:
+        """The nodes one edge away from ``node_id``, either direction."""
+        connected: Set[str] = set()
+        for shard in self.shards.values():
+            for (src, tgt) in shard.edges:
+                if src == node_id:
+                    connected.add(tgt)
+                elif tgt == node_id:
+                    connected.add(src)
+        return [n for n in (self.buffer.get_node(c) for c in connected) if n]
+
     # ------------------------------------------------------ deep consolidation
     def run_consolidation(self, weight_threshold: float = 0.6,
                           merge_similar: bool = True,
@@ -2375,7 +2437,8 @@ Example: {"preferences": "User prefers Python for data science.", "knowledge_dom
                 device=self.device if self.mesh is None else None,
                 telemetry=self.telemetry, serve_ragged=cfg.serve_ragged,
                 serve_k_max=cfg.serve_k_max,
-                serve_pad_granularity=cfg.serve_pad_granularity)
+                serve_pad_granularity=cfg.serve_pad_granularity,
+                **self._index_reliability_kwargs())
             sid_host = host.get("snapshot_id")
             sid_index = ckpt.read_meta(index_dir).get("snapshot_id")
             if sid_host and sid_index and sid_host != sid_index:
@@ -2503,6 +2566,49 @@ Example: {"preferences": "User prefers Python for data science.", "knowledge_dom
             self._restore_host_counters(state)
         return f"✓ State loaded from {filename}"
 
+    # ------------------------------------------------------ export/insights
+    def export_observations(self, format: str = "markdown") -> str:
+        """The ``export_top_n`` most salient (then most recently used)
+        non-super memories, as markdown or JSON, after a sync from the
+        arena."""
+        with self._mutex:
+            self._sync_from_arena()
+            nodes = [n for s in self.shards.values() for n in s.nodes.values()
+                     if not n.is_super_node]
+        nodes.sort(key=lambda n: (n.salience, n.last_accessed), reverse=True)
+        top = nodes[:self.config.export_top_n]
+
+        if format == "json":
+            return json.dumps([n.to_dict() for n in top], indent=2)
+
+        lines = [f"# Memory Observations for {self.user_id}", ""]
+        for n in top:
+            lines.append(f"### {n.type.capitalize()} Memory ({n.shard_key})")
+            lines.append(f"- **Content**: {n.content}")
+            lines.append(f"- **Salience**: {n.salience:.2f}")
+            lines.append(f"- **Last Accessed**: {time.ctime(n.last_accessed)}")
+            lines.append("")
+        return "\n".join(lines)
+
+    def get_insights(self) -> str:
+        """One LLM call over the exported observations: a profile of the
+        user's traits, interests, patterns and recent focus."""
+        observations = self.export_observations(format="json")
+        system_prompt = f"""Analyze these atomic memories for user '{self.user_id}' and provide a comprehensive psychological and knowledge profile.
+Identify long-term patterns, core beliefs, persistent interests, and significant life events reflected in the data.
+
+Structure your response as:
+1. **Personality Traits**: Key characteristics detected.
+2. **Core Interests & Knowledge**: What the user knows and cares about.
+3. **Behavioral Patterns**: How the user typically interacts or works.
+4. **Recent Focus**: Most salient topics from recent memories.
+
+Be clinical yet insightful. Do not include conversational filler."""
+        return self._call_llm([
+            {"role": "system", "content": system_prompt},
+            {"role": "user", "content": f"User Observations:\n{observations}"},
+        ])
+
     # ------------------------------------------------------------------ stats
     def get_stats(self) -> Dict:
         nodes, edges = self.buffer.size()
@@ -2538,6 +2644,54 @@ Example: {"preferences": "User prefers Python for data science.", "knowledge_dom
             "providers": {"llm": type(self.llm).__name__,
                           "embedder": type(self.embedder).__name__},
         }
+
+    def display_stats(self) -> str:
+        stats = self.get_stats()
+        next_consolidation = self.consolidate_every - (
+            self.conversation_count % self.consolidate_every)
+        return f"""
+📊 SCALABLE MEMORY SYSTEM STATS:
+STORAGE:
+  • Buffer nodes: {stats["buffer_nodes"]} / {self.max_buffer_size} max
+  • Buffer edges: {stats["buffer_edges"]}
+  • Shards: {stats["num_shards"]}
+  • Super-nodes: {stats["num_super_nodes"]}
+  • STM: {stats["short_term_memories"]}
+  • Conversations: {stats["conversation_count"]}
+  • Profile domains: {stats["profile_domains_filled"]}/5
+
+⚡ PERFORMANCE:
+  • Avg retrieval: {stats["performance"]["avg_retrieval_ms"]}ms
+  • P95 retrieval: {stats["performance"]["p95_retrieval_ms"]}ms
+  • Avg consolidation: {stats["performance"]["avg_consolidation_s"]}s
+  • Cache hit rate: {stats["performance"]["cache_hit_rate"]}
+  • LLM calls: {stats["performance"]["llm_calls"]}
+  • Embedding calls: {stats["performance"]["embedding_calls"]}
+
+⚙️ AUTO-MANAGEMENT:
+  • Auto-consolidate: {"ON" if stats["auto_consolidate"] else "OFF"} (every {self.consolidate_every})
+    → Next in: {next_consolidation} conversation(s)
+  • Auto-prune: {"ON" if self.auto_prune else "OFF"} (threshold: {self.prune_threshold})
+  • Max buffer: {self.max_buffer_size} nodes
+  • Sharding: {"ON" if self.enable_sharding else "OFF"}
+  • Hierarchy: {"ON" if self.enable_hierarchy else "OFF"}
+  • Caching: {"ON" if self.enable_caching else "OFF"}
+  • Async: {"ON" if self.enable_async else "OFF"}
+"""
+
+    def display_memories(self, limit: int = 10) -> str:
+        if not self.buffer.nodes:
+            return "No memories stored yet."
+        nodes = self.buffer.get_all_nodes_summary()
+        out = [f"\n💭 Stored Memories (showing {min(limit, len(nodes))} of {len(nodes)}):"]
+        for i, node in enumerate(nodes[:limit], 1):
+            out.append(f"\n{i}. [{node['type']}] 📦 {node['shard']} "
+                       f"(salience: {node['salience']:.2f}, accessed: {node['access_count']}x)")
+            out.append(f"   {node['content']}")
+        return "\n".join(out)
+
+    def display_profile(self) -> str:
+        return f"\n👤 User Profile:\n{self.profile.get_context()}\n"
 
     # ------------------------------------------------------------------ close
     def close(self) -> None:

@@ -30,8 +30,9 @@ shards (``state.py:make_fused_sharded``, exact mode).
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, fields, replace
-from typing import Dict, List, Tuple
+from typing import ClassVar, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -40,9 +41,11 @@ from lazzaro_tpu_torch.ops.chunking import nt_dot
 from lazzaro_tpu_torch.ops.dedup_resolve import dedup_resolve
 from lazzaro_tpu_torch.ops.fused_topk import fused_topk, fused_topk_grouped
 from lazzaro_tpu_torch.ops.ingest_topk import ingest_topk
+from lazzaro_tpu_torch.ops.int8_topk import int8_topk_keyed
 from lazzaro_tpu_torch.ops.masked_topk import masked_topk
+from lazzaro_tpu_torch.ops.quant import quantize_rows
 from lazzaro_tpu_torch.ops.sharded_merge import sharded_merge
-from lazzaro_tpu_torch.ops.topk import shard_groups, stable_topk
+from lazzaro_tpu_torch.ops.topk import ragged_mask, shard_groups, stable_topk
 
 NEG_INF = -1e30
 
@@ -69,6 +72,9 @@ class ArenaState:
     tenant_id: torch.Tensor      # [cap+1] i32
     alive: torch.Tensor          # [cap+1] bool
     is_super: torch.Tensor       # [cap+1] bool
+    # Set by an in-place write; the dispatch guard clears it around each
+    # program and reads it after a failure (reliability.guard).
+    written: ClassVar[bool] = False
 
     @property
     def capacity(self) -> int:
@@ -90,6 +96,7 @@ class EdgeState:
     last_updated: torch.Tensor   # [E+1] f32
     alive: torch.Tensor          # [E+1] bool
     tenant_id: torch.Tensor      # [E+1] i32 tenant of the owning graph
+    written: ClassVar[bool] = False
 
     @property
     def capacity(self) -> int:
@@ -98,6 +105,20 @@ class EdgeState:
 
 ARENA_FIELDS = tuple(f.name for f in fields(ArenaState))
 EDGE_FIELDS = tuple(f.name for f in fields(EdgeState))
+
+
+def _writes(fn):
+    """A program step that writes its state arguments in place: it marks
+    every ``ArenaState`` / ``EdgeState`` it is given as written before it
+    runs, so a failure from here on reads as a torn state
+    (``reliability.guard``)."""
+    @functools.wraps(fn)
+    def step(*args, **kwargs):
+        for a in args:
+            if isinstance(a, (ArenaState, EdgeState)):
+                a.written = True
+        return fn(*args, **kwargs)
+    return step
 
 
 def _f32(x, device) -> torch.Tensor:
@@ -210,6 +231,7 @@ def _rows(rows, device) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+@_writes
 def _arena_add(state: ArenaState, rows, emb, salience, timestamp, type_id,
                shard_id, tenant_id, is_super) -> ArenaState:
     dev = state.emb.device
@@ -229,6 +251,7 @@ def _arena_add(state: ArenaState, rows, emb, salience, timestamp, type_id,
     return state
 
 
+@_writes
 def _arena_delete(state: ArenaState, rows) -> ArenaState:
     r = _rows(rows, state.emb.device)
     state.alive[r] = False
@@ -236,6 +259,7 @@ def _arena_delete(state: ArenaState, rows) -> ArenaState:
     return state
 
 
+@_writes
 def _arena_update_access(state: ArenaState, rows, now, boost,
                          cap_salience: float = 1.0) -> ArenaState:
     """access_count += 1, salience += boost (capped), last_accessed = now."""
@@ -250,6 +274,7 @@ def _arena_update_access(state: ArenaState, rows, now, boost,
     return state
 
 
+@_writes
 def _arena_boost(state: ArenaState, rows, now, boost) -> ArenaState:
     """Neighbor boost: salience += boost (cap 1.0), last_accessed = now, no
     access_count bump."""
@@ -262,6 +287,7 @@ def _arena_boost(state: ArenaState, rows, now, boost) -> ArenaState:
     return state
 
 
+@_writes
 def _arena_merge_touch(state: ArenaState, rows, candidate_salience,
                        now) -> ArenaState:
     """Dedup merge: salience = max(salience, candidate), access_count += 1,
@@ -277,6 +303,7 @@ def _arena_merge_touch(state: ArenaState, rows, candidate_salience,
     return state
 
 
+@_writes
 def _arena_set_salience(state: ArenaState, rows, values) -> ArenaState:
     dev = state.emb.device
     state.salience[_rows(rows, dev)] = torch.as_tensor(
@@ -284,6 +311,7 @@ def _arena_set_salience(state: ArenaState, rows, values) -> ArenaState:
     return state
 
 
+@_writes
 def _arena_set_parentage(state: ArenaState, rows, is_super) -> ArenaState:
     dev = state.emb.device
     state.is_super[_rows(rows, dev)] = torch.as_tensor(
@@ -291,6 +319,7 @@ def _arena_set_parentage(state: ArenaState, rows, is_super) -> ArenaState:
     return state
 
 
+@_writes
 def _arena_apply_boosts(state: ArenaState, rows, acc_cnt, nbr_cnt, now_vals,
                         acc_boost, nbr_boost) -> ArenaState:
     """Deferred boost flush: summed (access, neighbor) counts of many
@@ -309,6 +338,7 @@ def _arena_apply_boosts(state: ArenaState, rows, acc_cnt, nbr_cnt, now_vals,
     return state
 
 
+@_writes
 def _arena_restore_access(state: ArenaState, rows, access_count,
                           last_accessed) -> ArenaState:
     """Reload path: ``_arena_add`` zeroes the access history of a fresh
@@ -323,6 +353,7 @@ def _arena_restore_access(state: ArenaState, rows, access_count,
     return state
 
 
+@_writes
 def _arena_decay(state: ArenaState, tenant, rate, floor) -> ArenaState:
     """s' = floor + (s - floor)(1 - rate) on the tenant's live rows, rounded
     once as the JAX package's fused multiply-add rounds it: the f32
@@ -495,6 +526,7 @@ def arena_mean_embedding(state: ArenaState, rows) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+@_writes
 def _edges_add(state: EdgeState, slots, src, tgt, weight, co, now, tenant,
                live) -> EdgeState:
     """``live`` is False on sentinel-padded positions, so the scratch slot
@@ -512,6 +544,7 @@ def _edges_add(state: EdgeState, slots, src, tgt, weight, co, now, tenant,
     return state
 
 
+@_writes
 def _edges_reinforce(state: EdgeState, slots, bump, now) -> EdgeState:
     """weight += bump (cap 1.0), co += 1, last_updated = now."""
     dev = state.src.device
@@ -525,6 +558,7 @@ def _edges_reinforce(state: EdgeState, slots, bump, now) -> EdgeState:
     return state
 
 
+@_writes
 def _edges_decay(state: EdgeState, tenant, rate) -> EdgeState:
     """weight *= (1 - rate) on the tenant's live edges."""
     rate = _f32(rate, state.src.device)
@@ -548,6 +582,7 @@ def _prune_compact(weak: torch.Tensor, prune_cap: int
     return ok, buf[:prune_cap]
 
 
+@_writes
 def _edges_prune(state: EdgeState, tenant, threshold, prune_cap: int
                  ) -> Tuple[EdgeState, torch.Tensor]:
     """Kill the tenant's live edges with weight < threshold; returns
@@ -566,6 +601,7 @@ def _decay_fused(arena: ArenaState, edges: EdgeState, tenant, rate, floor
             _edges_decay(edges, tenant, rate))
 
 
+@_writes
 def _edges_delete_for_nodes(state: EdgeState, node_rows) -> EdgeState:
     """Kill every edge touching one of ``node_rows`` (eviction cleanup)."""
     r = torch.as_tensor(node_rows, device=state.src.device).int()
@@ -598,6 +634,7 @@ def _owed(passes: torch.Tensor, tid: torch.Tensor) -> torch.Tensor:
     return torch.where(inb, passes[torch.clamp(tid, 0, tc - 1).long()], 0)
 
 
+@_writes
 def _lifecycle_arena(arena: ArenaState, passes, verdict_tids, rate, floor,
                      now, w_sal, w_acc, w_rec, archive_k: int):
     """The arena half of the sweep, in place: the owed salience decay of
@@ -630,6 +667,7 @@ def _lifecycle_arena(arena: ArenaState, passes, verdict_tids, rate, floor,
     return -torch.cat(neg), torch.cat(rows), d_mask.sum(dtype=torch.int32)
 
 
+@_writes
 def _lifecycle_edges(edges: EdgeState, passes, rate, threshold,
                      prune_cap: int):
     """The edge half, in place: the owed weight decay (``w * (1 - rate)``,
@@ -752,6 +790,7 @@ def _dedup_resolve(qf: torch.Tensor, rows: torch.Tensor, valid: torch.Tensor,
                          dedup_gate, cap)
 
 
+@_writes
 def _gated_link_insert(edges: EdgeState, link_flat, link_pool: torch.Tensor,
                        pool_len: torch.Tensor, src_rows: torch.Tensor,
                        valid_q: torch.Tensor, now, tenant: int, link_gate,
@@ -813,10 +852,12 @@ def ingest_fused(arena: ArenaState, edges: EdgeState, rows, emb, salience,
                  timestamp, type_id, shard_id, tenant_id, is_super, touch_rows,
                  touch_sal, chain_slots, chain_src, chain_tgt, chain_w,
                  link_pool, pool_len, now, tenant: int, link_gate, link_scale,
-                 k: int, shard_modes: Tuple[int, ...] = (1, 0)):
+                 k: int, shard_modes: Tuple[int, ...] = (1, 0), shadow=None):
     """The per-conversation ingest sequence (``state.py:_ingest_fused``):
     node scatter, merge touch, the link scan of the new rows (the batch's
-    rows excluded), the chain edges and the gated link insert, in place.
+    rows excluded), the chain edges and the gated link insert, in place;
+    with the int8 serving ``shadow`` (``(codes, scales)``) the written rows'
+    codes too (:func:`_shadow_scatter`).
     Every argument but ``tenant`` (a host int) and the statics is device
     data: ``rows [B]`` sentinel-padded, ``emb [B, d]``, the ``[B]`` columns,
     ``touch_rows/touch_sal [M]``, the chain ``[C]`` columns (``chain_src``
@@ -826,6 +867,7 @@ def ingest_fused(arena: ArenaState, edges: EdgeState, rows, emb, salience,
     valid_q = rows < arena.capacity        # sentinel padding makes no edges
     _arena_add(arena, rows, emb, salience, timestamp, type_id, shard_id,
                tenant_id, is_super)
+    _shadow_scatter(shadow, arena, rows)
     _arena_merge_touch(arena, touch_rows, touch_sal, now)
     link_flat = arena_link_candidates_multi(arena, rows, rows, tenant, k,
                                             shard_modes)
@@ -842,7 +884,7 @@ def ingest_dedup_fused(arena: ArenaState, edges: EdgeState, rows, emb,
                        is_super, chain_gid, chain_slots, link_pool, pool_len,
                        now, tenant: int, dedup_gate: float, chain_w,
                        link_gate, link_scale, k: int,
-                       shard_modes: Tuple[int, ...] = (1, 0)):
+                       shard_modes: Tuple[int, ...] = (1, 0), shadow=None):
     """:func:`ingest_fused` with the dedup probe inside
     (``state.py:_ingest_dedup_fused``): one ingest scan of the PRE-add arena
     gives each fact's probe top-1 (sentinel row excluded) and its link
@@ -869,8 +911,10 @@ def ingest_dedup_fused(arena: ArenaState, edges: EdgeState, rows, emb,
     target, dup, chain_src = _dedup_resolve(qf, rows, valid, chain_gid, p_s,
                                             p_r, dedup_gate, cap)
     live_new = valid & ~dup
-    _arena_add(arena, torch.where(live_new, rows, cap), emb, salience,
-               timestamp, type_id, shard_id, tenant_id, is_super)
+    add_rows = torch.where(live_new, rows, cap)
+    _arena_add(arena, add_rows, emb, salience, timestamp, type_id, shard_id,
+               tenant_id, is_super)
+    _shadow_scatter(shadow, arena, add_rows)
     # The duplicates' scatter lands on the sentinel row (alive, their
     # tenant): its tenant goes back to -1, so that no scan of a tenant
     # lists it. (The JAX program leaves it there, where serving then lists
@@ -884,6 +928,24 @@ def ingest_dedup_fused(arena: ArenaState, edges: EdgeState, rows, emb,
                                      link_scale, shard_modes)
     wide = tuple(x[:, None].expand(b, k) for x in (dup.int(), target, chain_src))
     return arena, edges, wide + outs
+
+
+def _shadow_scatter(shadow, arena: ArenaState, rows) -> None:
+    """Keep the int8 serving shadow fresh inside the fused ingest
+    (``state.py:_shadow_scatter``): quantize exactly the rows the node
+    scatter wrote, as the arena now stores them, and write their codes and
+    scales in place. Quantizing the stored rows (not the batch) keeps a
+    row that the padding scatters to more than once equal to
+    ``quantize_rows`` of the arena. ``shadow`` is ``(codes [cap+1, d] i8,
+    scales [cap+1] f32)`` or None (int8 serving off, or no shadow to
+    maintain)."""
+    if shadow is None:
+        return
+    codes, scales = shadow
+    r = _rows(rows, codes.device)
+    q_new, s_new = quantize_rows(arena.emb[r])
+    codes[r] = q_new
+    scales[r] = s_new
 
 
 def pack_leaves(leaves) -> torch.Tensor:
@@ -991,6 +1053,7 @@ def _search_fused_scan(state: ArenaState, csr_indptr, csr_nbr, q, q_valid,
     return gate_s, gate_r, ann_s, ann_r, fast, acc_rows, nbr_rows
 
 
+@_writes
 def _boost_scatter(state: ArenaState, acc_rows: torch.Tensor,
                    nbr_rows: torch.Tensor, now, acc_boost,
                    nbr_boost, zero_last: bool = True) -> ArenaState:
@@ -1123,6 +1186,131 @@ def search_fused_ragged_read(state: ArenaState, csr_indptr, csr_nbr, q,
     res = _search_fused_scan(state, csr_indptr, csr_nbr, q, q_valid, tenant,
                              gate_on, None, sg, k, cap_take, max_nbr,
                              k_q=k_q, k_live=k_live, read_only=True)
+    return _sem_finish_read(res)
+
+
+# ---------------------------------------------------------------------------
+# Quantized fused serving: the same one-dispatch chat-turn program, whose
+# whole-arena scan reads the int8 shadow (K4's keyed form, half the bytes
+# of a bf16 arena) for a coarse top-(k + slack) of each tier, then rescores
+# the survivors exactly from the master arena before the unchanged gate,
+# CSR gather and boost tail (``state.py:_quant_two_tier`` and the
+# ``search_fused_quant*`` programs).
+# ---------------------------------------------------------------------------
+
+
+def _quant_two_tier(state: ArenaState, q8a: torch.Tensor,
+                    scale_a: torch.Tensor, q: torch.Tensor,
+                    tenant: torch.Tensor, k: int, slack: int):
+    """The two-stage two-tier core (``state.py:_quant_two_tier``): one K4
+    launch gives each query's coarse top-``(1 + slack)`` super rows and
+    top-``(k + slack)`` non-super rows of its tenant over the shadow
+    (``q8a`` codes, ``scale_a`` scales); the survivors are rescored exactly
+    (the arena's rows and the query in the arena dtype, f32 products summed
+    over d), a survivor whose coarse score was ``NEG_INF`` staying at
+    ``NEG_INF``, and the exact top-``k`` and top-1 taken in coarse-position
+    order on ties. Returns ``(gate_s [Q], gate_r [Q], ann_s [Q, k], ann_r
+    [Q, k])``, rows i32: returned scores and the gate's verdict carry no
+    quantization error."""
+    n = state.salience.shape[0]
+    k_fetch = min(k + slack, n)
+    g_fetch = min(1 + slack, n)
+    qn = normalize(q.float())
+    cg_s, cg_r, ca_s, ca_r = int8_topk_keyed(
+        q8a, scale_a, state.alive, state.tenant_id, state.is_super, qn,
+        tenant, k_fetch, g_fetch)
+    qd = qn.to(state.emb.dtype).float()
+    neg = torch.full((), NEG_INF, dtype=torch.float32, device=qn.device)
+
+    def rescore(rows_c, coarse_s):
+        g = state.emb[rows_c.long()].float()               # [Q, kf, d]
+        ex = (g * qd[:, None, :]).sum(-1)
+        return torch.where(coarse_s > NEG_INF / 2, ex, neg)
+
+    ann_s, sel = stable_topk(rescore(ca_r, ca_s), k)
+    ann_r = torch.gather(ca_r, 1, sel)
+    g_s, g_sel = stable_topk(rescore(cg_r, cg_s), 1)
+    g_r = torch.gather(cg_r, 1, g_sel)
+    return g_s[:, 0], g_r[:, 0], ann_s, ann_r
+
+
+def _search_fused_quant_scan(state: ArenaState, q8a, scale_a, csr_indptr,
+                             csr_nbr, q, q_valid, tenant, gate_on, boost_on,
+                             super_gate, k: int, slack: int, cap_take: int,
+                             max_nbr: int, k_q=None, cap_q=None,
+                             read_only: bool = False):
+    """The quantized compute phase (``state.py:_search_fused_quant_scan``,
+    ``sem=None``): the coarse scan and exact rescore, the ragged tail
+    (``k_q``/``cap_q`` make ``k`` and ``cap_take`` ceilings), then the gate
+    verdict and, for a batch that boosts, the boost rows. The read twin
+    stops after the verdict."""
+    gate_s, gate_r, ann_s, ann_r = _quant_two_tier(state, q8a, scale_a, q,
+                                                   tenant, k, slack)
+    if k_q is not None:
+        ann_s, ann_r = ragged_mask(ann_s, ann_r, k_q, state.capacity)
+    if read_only:
+        return gate_s, gate_r, ann_s, ann_r, gate_on & (gate_s > super_gate)
+    fast, acc_rows, nbr_rows = _gate_and_boost_rows(
+        state, csr_indptr, csr_nbr, gate_s, ann_s, ann_r, q_valid, tenant,
+        gate_on, boost_on, super_gate, cap_take, max_nbr, cap_c=cap_q)
+    return gate_s, gate_r, ann_s, ann_r, fast, acc_rows, nbr_rows
+
+
+def search_fused_quant(state: ArenaState, q8a, scale_a, csr_indptr, csr_nbr,
+                       q, q_valid, tenant, gate_on, boost_on, now, super_gate,
+                       acc_boost, nbr_boost, k: int, slack: int,
+                       cap_take: int, max_nbr: int):
+    """:func:`search_fused` with the int8 coarse scan and exact rescore
+    (``state.py:search_fused_quant``): one dispatch, one packed readback;
+    the boosts write salience, access counts and freshness, never the
+    embeddings, so the shadow stays valid. Returns ``(state, packed)``."""
+    sg = _scalar(super_gate, state.emb.device)
+    res = _search_fused_quant_scan(state, q8a, scale_a, csr_indptr, csr_nbr,
+                                   q, q_valid, tenant, gate_on, boost_on, sg,
+                                   k, slack, cap_take, max_nbr)
+    return _sem_finish(state, res, now, acc_boost, nbr_boost)
+
+
+def search_fused_quant_read(state: ArenaState, q8a, scale_a, csr_indptr,
+                            csr_nbr, q, q_valid, tenant, gate_on, super_gate,
+                            k: int, slack: int, cap_take: int,
+                            max_nbr: int) -> torch.Tensor:
+    """Read-only twin of :func:`search_fused_quant`
+    (``state.py:search_fused_quant_read``). Returns the packed array."""
+    sg = _scalar(super_gate, state.emb.device)
+    res = _search_fused_quant_scan(state, q8a, scale_a, csr_indptr, csr_nbr,
+                                   q, q_valid, tenant, gate_on, None, sg, k,
+                                   slack, cap_take, max_nbr, read_only=True)
+    return _sem_finish_read(res)
+
+
+def search_fused_quant_ragged(state: ArenaState, q8a, scale_a, csr_indptr,
+                              csr_nbr, q, q_valid, tenant, gate_on, boost_on,
+                              k_q, cap_q, now, super_gate, acc_boost,
+                              nbr_boost, k: int, slack: int, cap_take: int,
+                              max_nbr: int):
+    """:func:`search_fused_quant` with the per-query ``k_q``/``cap_q``
+    sidecars (``state.py:search_fused_quant_ragged``): the coarse fetch and
+    the rescore run to the ceiling ``k``. Returns ``(state, packed)``."""
+    sg = _scalar(super_gate, state.emb.device)
+    res = _search_fused_quant_scan(state, q8a, scale_a, csr_indptr, csr_nbr,
+                                   q, q_valid, tenant, gate_on, boost_on, sg,
+                                   k, slack, cap_take, max_nbr, k_q=k_q,
+                                   cap_q=cap_q)
+    return _sem_finish(state, res, now, acc_boost, nbr_boost)
+
+
+def search_fused_quant_ragged_read(state: ArenaState, q8a, scale_a,
+                                   csr_indptr, csr_nbr, q, q_valid, tenant,
+                                   gate_on, k_q, super_gate, k: int,
+                                   slack: int, cap_take: int,
+                                   max_nbr: int) -> torch.Tensor:
+    """Read-only ragged twin (``state.py:search_fused_quant_ragged_read``)."""
+    sg = _scalar(super_gate, state.emb.device)
+    res = _search_fused_quant_scan(state, q8a, scale_a, csr_indptr, csr_nbr,
+                                   q, q_valid, tenant, gate_on, None, sg, k,
+                                   slack, cap_take, max_nbr, k_q=k_q,
+                                   read_only=True)
     return _sem_finish_read(res)
 
 

@@ -255,7 +255,9 @@ __device__ __forceinline__ void fma_tile(float (&acc)[MQ][MR], float* qs, float*
 // row row0 + l, where ok) into one query's sorted list (lsq, lrq) of k
 // entries, in lane order: each candidate that beats the list's last goes
 // after every entry scoring >= it. Rows reach a list in ascending order, so
-// equal scores keep the lower row first.
+// equal scores keep the lower row first. KM bounds k (the int8 mode's
+// lists reach 256).
+template <int KM = kMaxK>
 __device__ __forceinline__ void warp_list_insert(float* lsq, int* lrq, int k, float s,
                                                  int row0, bool ok) {
   const int lane = threadIdx.x & 31;
@@ -270,16 +272,16 @@ __device__ __forceinline__ void warp_list_insert(float* lsq, int* lrq, int k, fl
     for (int e = lane; e < k; e += 32) cnt += lsq[e] >= sn;
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) cnt += __shfl_xor_sync(kFull, cnt, o);
-    float vs[kMaxK / 32];
-    int vr[kMaxK / 32];
+    float vs[KM / 32];
+    int vr[KM / 32];
 #pragma unroll
-    for (int m = 0; m < kMaxK / 32; ++m) {
+    for (int m = 0; m < KM / 32; ++m) {
       const int e = cnt + lane + 32 * m;
       if (e < k - 1) { vs[m] = lsq[e]; vr[m] = lrq[e]; }
     }
     __syncwarp();
 #pragma unroll
-    for (int m = 0; m < kMaxK / 32; ++m) {
+    for (int m = 0; m < KM / 32; ++m) {
       const int e = cnt + lane + 32 * m;
       if (e < k - 1) { lsq[e + 1] = vs[m]; lrq[e + 1] = vr[m]; }
     }
@@ -2902,6 +2904,364 @@ inline int run_pairwise(PairArgs a, int is_bf16, int route, const uint8_t* mask,
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   if (launched) ++*launched;
+  return 0;
+}
+
+
+// ---------------------------------------------------------------------------
+// Int8 mode (exported by int8_topk.cu, K4): the coarse scan of quantized
+// serving over the int8 shadow
+// ---------------------------------------------------------------------------
+//
+// Replaces no TPU kernel: the JAX package computes this scan in XLA, an
+// int8 dot_general with an int32 result and lax.top_k, in
+// lazzaro_tpu/ops/quant.py:quantized_topk (the classic int8 search) and the
+// coarse stage of lazzaro_tpu/core/state.py:_quant_two_tier (the quantized
+// fused serving program). It is a mode of this scan so that the [Q, N] int32
+// score tile never reaches device memory. With codes [N, d] i8 and scale
+// [N] f32 the shadow (ops/quant.py:quantize_rows of the arena), the f32
+// queries quantized the same way into (qq [Q, d] i8, qs [Q] f32), for every
+// query q and row r:
+//     s[q, r] = (float(dot_i32(qq[q], codes[r])) * qs[q]) * scale[r]
+// the int32 dot exact and the two f32 products in JAX's order (no fused
+// multiply-add: there is no add). For d <= 1,040 every |dot| <= 127 * 127 *
+// d < 2^24, so its conversion is exact and the scores are bit for bit those
+// of the plain version in ops/int8_topk.py.
+//   additive form (one list): list[q, :] = top-k of s + madd[r] (madd 0 for
+//       live rows, -1e30 for masked ones, which rounds to exactly -1e30, the
+//       jnp.where of quantized_topk);
+//   keyed form (two lists): with t_q the query's tenant,
+//       gate[q, :] = top-g of s over rows with alive & tenant == t_q &  is_super
+//       ann[q, :]  = top-k of s over rows with alive & tenant == t_q & ~is_super
+//       a row outside a tier scoring exactly NEG (g = 1 + slack, k = k +
+//       slack: the two lax.top_k calls of _quant_two_tier).
+// Order: score descending, ties to the lowest row. Rows are i32. k, g <= 256.
+//
+// Design (a first form, right before fast). Stage 1, grid (query tiles) x
+// (row splits): a block quantizes its 4, 8, 16 or 64 queries once into
+// shared memory (one warp a query: the f32 max of |x|, scale = amax *
+// f32(1/127), inv = 1 / scale, rint and clip, as quantize_rows computes
+// them), then walks its row range in tiles of 128 rows: 64-byte slices of
+// the tile's codes are staged in shared memory, each thread keeps MQ x MR
+// int32 sums with __dp4a (four int8 products a instruction), the scaled
+// scores of the tile go to shared memory and one warp a query inserts the
+// candidates that beat its list's last (warp_list_insert, the FMA route's
+// list epilogue), into one list (additive) or two (keyed). Stage 2 is
+// scan_merge, one launch a list. The query tile is the largest of the FMA
+// route's that covers Q and whose lists fit shared memory.
+// What bounds it: the shadow's bytes, N * (d + 4) plus the row columns (4 B
+// of madd, or 6 B of tenant, alive and is_super), read once: 0.245 ms for
+// 1,048,576 x 768 at 3.35 TB/s (the bf16 arena's scan reads twice that).
+// The dp4a products (Q * N * d / 4 instructions) pass that at large Q: at Q
+// = 64, 12.9 G instructions.
+
+constexpr int kI8MaxK = 256;
+constexpr int kI8DW = 16;                  // code words (4 B) of a staged slice
+constexpr int kI8LD = kI8DW + 1;           // padded row stride of the staged slices
+constexpr float kRecip127 = 0x1.0204080000000p-7f;   // f32(1 / 127)
+
+struct I8Args {
+  const int8_t* codes;             // [n, d]
+  const float* scale;              // [n]
+  const float* madd;               // additive form: [n]
+  const int* row_tenant;           // keyed form: [n] with alive, is_super [n] u8
+  const uint8_t* alive;
+  const uint8_t* is_super;
+  const float* qry;                // [nq, d] f32
+  const int* q_tenant;             // keyed form: [nq]
+  long long n, rows_per_split;
+  int d, nq, k, g, splits, qstride;
+  float* cand_s;                   // [splits, nq, k] split lists
+  int* cand_r;
+  float* gcand_s;                  // keyed: [splits, nq, g]
+  int* gcand_r;
+};
+
+// Dynamic shared memory of an int8 stage 1 for a query tile of bq.
+inline size_t i8_smem(int bq, int qstride, int k, int g) {
+  return sizeof(int) * ((size_t)bq * qstride + (size_t)kBR * kI8LD) +
+         sizeof(float) * (size_t)bq * (kBR + 1) +
+         (sizeof(float) + sizeof(int)) * (size_t)bq * (k + g) +
+         (sizeof(float) + sizeof(int)) * bq + 3 * sizeof(int) * kBR;
+}
+
+template <int BQ, int MQ, int MR, bool kKeyed>
+__global__ void __launch_bounds__(kThreads) i8_stage1(const I8Args a) {
+  constexpr int TQ = BQ / MQ;
+  constexpr int TR = kThreads / TQ;
+  static_assert(TR * MR == kBR, "thread grid must cover one row tile");
+
+  extern __shared__ int ismem[];
+  const int k = a.k, g = a.g, qstride = a.qstride;
+  int* qw = ismem;                           // [BQ][qstride] query code words
+  int* rw = qw + BQ * qstride;               // [kBR][kI8LD] row code words
+  float* sc = reinterpret_cast<float*>(rw + kBR * kI8LD);   // [BQ][kBR + 1]
+  float* ls = sc + BQ * (kBR + 1);           // [BQ][k] list scores
+  float* gls = ls + BQ * k;                  // keyed: [BQ][g] gate list scores
+  float* qsc = gls + BQ * g;                 // [BQ] query scales
+  float* rsc = qsc + BQ;                     // [kBR] row scales
+  float* rmadd = rsc + kBR;                  // additive: [kBR] row madd
+  int* lr = reinterpret_cast<int*>(rmadd + kBR);   // [BQ][k] list rows
+  int* glr = lr + BQ * k;                    // keyed: [BQ][g]
+  int* qt = glr + BQ * g;                    // keyed: [BQ] query tenant
+  int* rkey = qt + BQ;                       // keyed: [kBR] row tenant or none
+  int* rsup = reinterpret_cast<int*>(rmadd); // keyed: [kBR] row is a super node
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int tq = tid / TR;
+  const int tr = tid % TR;
+  const int q0 = blockIdx.x * BQ;
+  const int split = blockIdx.y;
+  const int d = a.d, dw = d / 4;
+  const long long r_begin = (long long)split * a.rows_per_split;
+  long long r_end = r_begin + a.rows_per_split;
+  if (r_end > a.n) r_end = a.n;
+
+  // Quantize the tile's queries, one warp a query (zeros past nq).
+  for (int qi = warp; qi < BQ; qi += kWarps) {
+    const int q = q0 + qi;
+    const float* x = a.qry + (long long)(q < a.nq ? q : 0) * d;
+    float amax = 0.f;
+    if (q < a.nq)
+      for (int j = lane; j < d; j += 32) amax = fmaxf(amax, fabsf(x[j]));
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(kFull, amax, o));
+    const float scale = amax > 0.f ? __fmul_rn(amax, kRecip127) : 0.f;
+    const float inv = scale > 0.f ? __fdiv_rn(1.f, scale) : 0.f;
+    for (int w = lane; w < qstride; w += 32) {
+      unsigned word = 0;
+      if (q < a.nq && w < dw) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float v = fminf(fmaxf(rintf(__fmul_rn(x[4 * w + e], inv)), -127.f), 127.f);
+          word |= ((unsigned)(int)v & 0xffu) << (8 * e);
+        }
+      }
+      qw[qi * qstride + w] = (int)word;
+    }
+    if (lane == 0) {
+      qsc[qi] = scale;
+      if constexpr (kKeyed) qt[qi] = q < a.nq ? a.q_tenant[q] : kNoTenant;
+    }
+  }
+  for (int e = tid; e < BQ * k; e += kThreads) {
+    ls[e] = -INFINITY;
+    lr[e] = INT32_MAX;
+  }
+  for (int e = tid; e < BQ * g; e += kThreads) {
+    gls[e] = -INFINITY;
+    glr[e] = INT32_MAX;
+  }
+  __syncthreads();
+
+  for (long long r0 = r_begin; r0 < r_end; r0 += kBR) {
+    if (tid < kBR) {
+      const long long r = r0 + tid;
+      const bool in = r < r_end;
+      rsc[tid] = in ? a.scale[r] : 0.f;
+      if constexpr (kKeyed) {
+        rkey[tid] = in && a.alive[r] ? a.row_tenant[r] : kNoTenant;
+        rsup[tid] = in ? (int)a.is_super[r] : 0;
+      } else {
+        rmadd[tid] = in ? a.madd[r] : 0.f;
+      }
+    }
+    int acc[MQ][MR];
+#pragma unroll
+    for (int i = 0; i < MQ; ++i)
+#pragma unroll
+      for (int j = 0; j < MR; ++j) acc[i][j] = 0;
+    for (int w0 = 0; w0 < dw; w0 += kI8DW) {
+      // Stage the slice, two code words (8 bytes) a load; dw is even.
+      for (int e = tid; e < kBR * (kI8DW / 2); e += kThreads) {
+        const int row = e / (kI8DW / 2);
+        const int c = (e % (kI8DW / 2)) * 2;
+        const long long r = r0 + row;
+        uint2 v = make_uint2(0u, 0u);
+        if (r < r_end && w0 + c < dw)
+          v = *reinterpret_cast<const uint2*>(a.codes + r * d + 4 * (w0 + c));
+        rw[row * kI8LD + c] = (int)v.x;
+        rw[row * kI8LD + c + 1] = (int)v.y;
+      }
+      __syncthreads();
+#pragma unroll 4
+      for (int kk = 0; kk < kI8DW; ++kk) {
+        int qa[MQ], rb[MR];
+#pragma unroll
+        for (int i = 0; i < MQ; ++i) qa[i] = qw[(tq + i * TQ) * qstride + w0 + kk];
+#pragma unroll
+        for (int j = 0; j < MR; ++j) rb[j] = rw[(tr + j * TR) * kI8LD + kk];
+#pragma unroll
+        for (int i = 0; i < MQ; ++i)
+#pragma unroll
+          for (int j = 0; j < MR; ++j) acc[i][j] = __dp4a(qa[i], rb[j], acc[i][j]);
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int j = 0; j < MR; ++j) {
+      const int ri = tr + j * TR;
+#pragma unroll
+      for (int i = 0; i < MQ; ++i) {
+        const int qi = tq + i * TQ;
+        float s = __fmul_rn(__fmul_rn(__int2float_rn(acc[i][j]), qsc[qi]), rsc[ri]);
+        if constexpr (!kKeyed) s = __fadd_rn(s, rmadd[ri]);
+        sc[qi * (kBR + 1) + ri] = s;
+      }
+    }
+    __syncthreads();
+
+    // One warp a query: fold the tile into its list(s).
+    for (int qi = warp; qi < BQ; qi += kWarps) {
+      if (q0 + qi >= a.nq) break;
+      const float* scq = sc + qi * (kBR + 1);
+      const int ten = kKeyed ? qt[qi] : 0;
+      for (int c = 0; c < kBR; c += 32) {
+        const long long r = r0 + c + lane;
+        const bool in = r < r_end;
+        const float s = scq[c + lane];
+        if constexpr (kKeyed) {
+          const bool mine = rkey[c + lane] == ten;
+          const bool sup = rsup[c + lane] != 0;
+          warp_list_insert<kI8MaxK>(ls + qi * k, lr + qi * k, k, mine && !sup ? s : kNeg,
+                                    (int)(r0 + c), in);
+          if (g > 0)
+            warp_list_insert<kI8MaxK>(gls + qi * g, glr + qi * g, g, mine && sup ? s : kNeg,
+                                      (int)(r0 + c), in);
+        } else {
+          warp_list_insert<kI8MaxK>(ls + qi * k, lr + qi * k, k, s, (int)(r0 + c), in);
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  for (int e = tid; e < BQ * k; e += kThreads) {
+    const int q = q0 + e / k;
+    if (q < a.nq) {
+      const long long o = ((long long)split * a.nq + q) * k + e % k;
+      a.cand_s[o] = ls[e];
+      a.cand_r[o] = lr[e];
+    }
+  }
+  for (int e = tid; e < BQ * g; e += kThreads) {
+    const int q = q0 + e / g;
+    if (q < a.nq) {
+      const long long o = ((long long)split * a.nq + q) * g + e % g;
+      a.gcand_s[o] = gls[e];
+      a.gcand_r[o] = glr[e];
+    }
+  }
+}
+
+// Code words a query keeps in shared memory: d / 4 rounded up to a slice.
+inline int i8_qstride(int d) { return ((d / 4 + kI8DW - 1) / kI8DW) * kI8DW; }
+
+// The query tile of an int8 stage 1: the FMA route's for nq, halved while
+// the block's shared memory would not fit.
+inline int i8_query_tile(int nq, int d, int k, int g) {
+  int bq = query_tile(nq);
+  while (bq > 4 && i8_smem(bq, i8_qstride(d), k, g) > (size_t)kSmemMax)
+    bq = bq == 64 ? 16 : bq / 2;
+  return bq;
+}
+
+// Blocks of one int8 stage 1 that an SM holds at once (registers and
+// shared memory), at least 1.
+template <int BQ, int MQ, int MR, bool kKeyed>
+int i8_resident(int qstride, int k, int g) {
+  auto kernel = i8_stage1<BQ, MQ, MR, kKeyed>;
+  const size_t smem = i8_smem(BQ, qstride, k, g);
+  int blocks = 0;
+  if (smem > (size_t)kSmemMax ||
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, smem) !=
+          cudaSuccess)
+    return 1;
+  return blocks > 0 ? blocks : 1;
+}
+
+template <bool kKeyed>
+int i8_resident_for(int bq, int qstride, int k, int g) {
+  switch (bq) {
+    case 4: return i8_resident<4, 1, 2, kKeyed>(qstride, k, g);
+    case 8: return i8_resident<8, 1, 4, kKeyed>(qstride, k, g);
+    case 16: return i8_resident<16, 1, 8, kKeyed>(qstride, k, g);
+    default: return i8_resident<64, 4, 8, kKeyed>(qstride, k, g);
+  }
+}
+
+// Row splits of an int8 scan: one wave of the blocks the SMs hold at once
+// (at most four an SM). Each split restarts its lists, whose early rows
+// nearly all enter, so more splits than one wave would only add list work:
+// at Q = 64 (one 167 KB block an SM) 528 splits took 9.9 ms, four waves.
+int i8_splits(long long n, int nq, int k, int g, int d, int sms) {
+  const int bq = i8_query_tile(nq, d, k, g);
+  const int qstride = i8_qstride(d);
+  int per_sm = g > 0 ? i8_resident_for<true>(bq, qstride, k, g)
+                     : i8_resident_for<false>(bq, qstride, k, g);
+  if (per_sm > 4) per_sm = 4;
+  const long long qtiles = (nq + bq - 1) / bq;
+  const long long rtiles = (n + kBR - 1) / kBR;
+  long long want = ((long long)per_sm * sms + qtiles - 1) / qtiles;
+  if (want > rtiles) want = rtiles;
+  if (want > kMaxSplits) want = kMaxSplits;
+  if (want < 1) want = 1;
+  return (int)want;
+}
+
+template <int BQ, int MQ, int MR, bool kKeyed>
+cudaError_t launch_i8(const I8Args& a, cudaStream_t st) {
+  auto kernel = i8_stage1<BQ, MQ, MR, kKeyed>;
+  const size_t smem = i8_smem(BQ, a.qstride, a.k, a.g);
+  if (smem > (size_t)kSmemMax) return cudaErrorInvalidValue;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((a.nq + BQ - 1) / BQ, a.splits);
+  kernel<<<grid, kThreads, smem, st>>>(a);
+  return cudaGetLastError();
+}
+
+template <bool kKeyed>
+cudaError_t launch_i8_for(const I8Args& a, cudaStream_t st) {
+  switch (i8_query_tile(a.nq, a.d, a.k, a.g)) {
+    case 4: return launch_i8<4, 1, 2, kKeyed>(a, st);
+    case 8: return launch_i8<8, 1, 4, kKeyed>(a, st);
+    case 16: return launch_i8<16, 1, 8, kKeyed>(a, st);
+    default: return launch_i8<64, 4, 8, kKeyed>(a, st);
+  }
+}
+
+// Stage 1 and one stage 2 a list; each launch the card takes is added to
+// *launched. Keyed when a.row_tenant is set.
+int run_i8(I8Args a, float* out_s, int* out_r, float* gout_s, int* gout_r, int* launched,
+           cudaStream_t st) {
+  const bool keyed = a.row_tenant != nullptr;
+  if (a.d % 8 != 0 || a.d > 1040 || a.k < 1 || a.k > kI8MaxK || a.k > a.n ||
+      a.g < 0 || a.g > kI8MaxK || a.g > a.n || (a.g > 0) != keyed || a.nq < 1 ||
+      a.splits < 1 || a.splits > kMaxSplits ||
+      (keyed ? !a.alive || !a.is_super || !a.q_tenant : !a.madd))
+    return (int)cudaErrorInvalidValue;
+  const long long rtiles = (a.n + kBR - 1) / kBR;
+  a.rows_per_split = ((rtiles + a.splits - 1) / a.splits) * kBR;
+  a.qstride = i8_qstride(a.d);
+  cudaError_t err = keyed ? launch_i8_for<true>(a, st) : launch_i8_for<false>(a, st);
+  if (err != cudaSuccess) return (int)err;
+  if (launched) ++*launched;
+  for (int l = 0; l < (keyed ? 2 : 1); ++l) {
+    const int kc = l ? a.g : a.k;
+    scan_merge<int><<<a.nq, kThreads, 0, st>>>(
+        nullptr, nullptr, l ? a.gcand_s : a.cand_s, l ? a.gcand_r : a.cand_r, a.splits, a.nq,
+        kc, 0, kc, nullptr, 0, 0, 0, nullptr, nullptr, l ? gout_s : out_s, l ? gout_r : out_r,
+        kc);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    if (launched) ++*launched;
+  }
   return 0;
 }
 

@@ -73,6 +73,10 @@ class Edge:
     last_updated: float = field(default_factory=_now)
     metadata: Dict[str, Any] = field(default_factory=dict)
 
+    @property
+    def key(self) -> tuple:
+        return (self.source, self.target)
+
     def to_dict(self) -> Dict[str, Any]:
         return dataclasses.asdict(self)
 

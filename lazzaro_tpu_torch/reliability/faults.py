@@ -11,6 +11,12 @@ times.
 Injection points of the port (grep for ``faults.fire`` to find the sites):
 
 ====================  =====================================================
+``index.dispatch``    inside the state dispatch guard
+                      (``reliability.guard.run_guarded``), per attempt,
+                      just before the program runs
+``scheduler.worker``  QueryScheduler worker loop, after batch admission,
+                      outside the demuxed executor try — a raise here is a
+                      worker-thread death, not an executor error
 ``ingest.worker``     MemorySystem._consolidate_once, between the ingest
                       journal's append and the fused ingest dispatches
 ``checkpoint.torn``   core.checkpoint._write_versioned, after the CURRENT
@@ -18,10 +24,9 @@ Injection points of the port (grep for ``faults.fire`` to find the sites):
                       model a torn write the filesystem lied about
 ====================  =====================================================
 
-The JAX package's other points (``index.dispatch``, ``plan.oom``,
-``scheduler.worker``, ``pump.mid_chunk``, ``coldstore.read``,
-``replica.mid_replay``) sit in code the port does not have yet (ROADMAP
-Queue 1 items 11, 17, 19 and 21).
+The JAX package's other points (``plan.oom``, ``pump.mid_chunk``,
+``coldstore.read``, ``replica.mid_replay``) sit in code the port does not
+have yet (ROADMAP Queue 1 items 19, 17 and 21).
 
 Arming is process-global (the injected sites live on background threads),
 guarded by a lock, and always bounded: a plan fires ``times`` times then
@@ -138,6 +143,26 @@ def fire(point: str, **ctx) -> None:
     """Module-level fast path (the one production sites call)."""
     if INJECTOR.active:
         INJECTOR.fire(point, **ctx)
+
+
+def oom_error() -> BaseException:
+    """Exception factory for arming ``index.dispatch``: a plain RuntimeError
+    carrying the allocator's RESOURCE_EXHAUSTED marker, so
+    ``guard.is_resource_exhausted`` classifies it as a real device
+    allocation failure."""
+    return RuntimeError(
+        "RESOURCE_EXHAUSTED: Out of memory allocating 1073741824 bytes "
+        "(injected by reliability.faults.oom_error)")
+
+
+def poison_states_hook(ctx: dict) -> None:
+    """Hook for ``index.dispatch``: mark the dispatch's states written before
+    the raise, so the failure models a program that died after its first
+    in-place write (the poisoned-arena case)."""
+    for st in ctx.get("states", ()):
+        for s in (st if isinstance(st, (list, tuple)) else (st,)):
+            if s is not None:
+                s.written = True
 
 
 def torn_write_hook(keep_bytes: int = 256) -> Callable[[dict], None]:

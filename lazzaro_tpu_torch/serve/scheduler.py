@@ -43,6 +43,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from lazzaro_tpu_torch.reliability import faults
 from lazzaro_tpu_torch.reliability.errors import (DispatchTimeout, LoadShed,
                                                   WorkerCrashed)
 from lazzaro_tpu_torch.reliability.watchdog import CircuitBreaker
@@ -236,7 +237,10 @@ class QueryScheduler:
                 batch = self._admit_locked()
                 self._inflight += 1
             try:
+                # Fault point "scheduler.worker": a raise here models the
+                # worker dying outside the demuxed executor call.
                 try:
+                    faults.fire("scheduler.worker", batch=len(batch))
                     self._execute(batch)
                 except BaseException as e:
                     err = WorkerCrashed(

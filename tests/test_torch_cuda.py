@@ -2266,3 +2266,187 @@ def test_checkpoint_round_trip_on_the_card(cuda, dtype, tmp_path):
     r2 = back.search_fused_requests(reqs, **kw)
     for a, b in zip(r1, r2):
         assert a.ids == b.ids and a.scores == b.scores
+
+
+# ---------------------------------------------------------------- K4
+def _int8_case(cuda, dtype, n, nq, d, seed):
+    """A shadow of n rows (40 duplicated: exact ties), tenants 0-2 with
+    super rows, tenant 2 holding 5 live rows (fewer than a list), ~10% dead
+    rows, and queries of tenants 0-3 (tenant 3 owns no row)."""
+    from lazzaro_tpu_torch.ops.quant import quantize_rows
+
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    emb = torch.randn((n, d), generator=gen, device=cuda)
+    emb = (emb / emb.norm(dim=1, keepdim=True)).to(dtype)
+    emb[n // 2:n // 2 + 40] = emb[:40]
+    codes, scale = quantize_rows(emb)
+    tenant = torch.randint(0, 2, (n,), generator=gen, device=cuda,
+                           dtype=torch.int32)
+    few = torch.arange(5, device=cuda) * (n // 6)
+    tenant[few] = 2
+    alive = torch.rand(n, generator=gen, device=cuda) > 0.1
+    alive[few] = True
+    is_super = torch.rand(n, generator=gen, device=cuda) < 0.03
+    is_super[few] = False
+    q = torch.randn((nq, d), generator=gen, device=cuda)
+    q[:min(nq, 8)] = emb[:min(nq, 8)].float()        # self-hits and ties
+    q = q / q.norm(dim=1, keepdim=True)
+    qt = torch.arange(nq, device=cuda, dtype=torch.int32) % 4
+    return codes, scale, alive, tenant, is_super, q, qt
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 768, 1024])
+@pytest.mark.parametrize("nq", [1, 8, 16, 64])
+def test_int8_keyed_kernel_matches_plain_version(cuda, dtype, d, nq):
+    """K4's keyed form bit-equal to its plain version: both lists, exact
+    ties in row order, an empty tenant, k + slack past a tenant's live
+    rows (its tail at NEG_INF in row order)."""
+    from lazzaro_tpu_torch.ops import int8_topk as k4
+
+    codes, scale, alive, tenant, sup, q, qt = _int8_case(cuda, dtype, 5003,
+                                                         nq, d, d + nq)
+    before = (k4.launches, k4.launches_keyed)
+    got = k4.int8_topk_keyed(codes, scale, alive, tenant, sup, q, qt, 136, 9)
+    want = k4.int8_topk_keyed_reference(codes, scale, alive, tenant, sup, q,
+                                        qt, 136, 9)
+    torch.cuda.synchronize()
+    assert (k4.launches, k4.launches_keyed) == (before[0] + 1, before[1] + 1)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    if nq > 3:
+        assert (got[2][3] == -1e30).all()                 # tenant 3: nothing
+        assert (got[2][2][:5] > -1e29).all() and (got[2][2][5:] == -1e30).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 768, 1024])
+@pytest.mark.parametrize("nq", [1, 8, 16, 64])
+def test_int8_additive_kernel_matches_plain_version(cuda, dtype, d, nq):
+    from lazzaro_tpu_torch.ops import int8_topk as k4
+
+    codes, scale, alive, _, _, q, _ = _int8_case(cuda, dtype, 5003, nq, d,
+                                                 7 * d + nq)
+    for k in (1, 10, 256):
+        s, r = k4.int8_topk(codes, scale, alive, q, k)
+        ps, pr = k4.int8_topk_reference(codes, scale, alive, q, k)
+        torch.cuda.synchronize()
+        assert torch.equal(r, pr) and torch.equal(s, ps), k
+
+
+def test_int8_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    from lazzaro_tpu_torch.ops import int8_topk as k4
+
+    codes, scale, alive, *_ = _int8_case(cuda, torch.float32, 300, 1, 64, 1)
+    q = torch.randn((1, 64), device=cuda)
+    with pytest.raises(ValueError):
+        k4.int8_topk(codes, scale, alive, q, 257)         # list past 256
+    with pytest.raises(ValueError):
+        k4.int8_topk(codes[:, :60].contiguous(), scale, alive, q[:, :60], 3)
+    with pytest.raises(TypeError):
+        k4.int8_topk(codes.float(), scale, alive, q, 3)
+
+
+def test_quant_chat_turn_is_one_dispatch_and_one_copy(cuda, tmp_path):
+    """int8 serving on the card: a chat turn is one K4 keyed launch (no
+    two-tier or classic scan launch) and one packed copy, the host waiting
+    on nothing else; the classic search takes K4's additive form; the fused
+    ingest keeps the shadow equal to quantize_rows of the arena."""
+    from lazzaro_tpu_torch import MemorySystem
+    from lazzaro_tpu_torch.config import MemoryConfig
+    from lazzaro_tpu_torch.ops import int8_topk as k4
+    from lazzaro_tpu_torch.ops.quant import quantize_rows
+
+    ms = MemorySystem(enable_async=False, load_from_disk=False,
+                      db_dir=str(tmp_path), verbose=False, device="cuda",
+                      config=MemoryConfig(int8_serving=True))
+    try:
+        for c in range(2):
+            ms.start_conversation()
+            for i in range(6):
+                ms.add_to_short_term(f"I like topic {c} number {i} a lot.",
+                                     "semantic", 0.6)
+            ms.end_conversation()
+        ms.start_conversation()
+        ms.chat("Which topic number do I like?")          # builds the shadow
+        index = ms.index
+        serve, readback = index.search_fused_requests, index._readback
+        readbacks = []
+
+        def read_once(packed):
+            torch.cuda.set_sync_debug_mode(0)
+            try:
+                readbacks.append(packed.shape)
+                return readback(packed)
+            finally:
+                torch.cuda.set_sync_debug_mode("error")
+
+        def strict(*args, **kwargs):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return serve(*args, **kwargs)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+
+        index.search_fused_requests, index._readback = strict, read_once
+        before = (k4.launches_keyed, ft.launches, mt.launches)
+        ms.chat("Tell me about topic 1 number 3 please.")
+        torch.cuda.synchronize()
+        assert (k4.launches_keyed - before[0], ft.launches - before[1],
+                mt.launches - before[2]) == (1, 0, 0)
+        assert len(readbacks) == 1
+        index.search_fused_requests, index._readback = serve, readback
+        before = k4.launches - k4.launches_keyed
+        assert index.search_batch(np.ones((2, ms.embed_dim), np.float32),
+                                  ms.user_id, k=3)
+        assert k4.launches - k4.launches_keyed == before + 1
+        ms.end_conversation()
+        q8, sc = quantize_rows(index.state.emb)
+        assert not index._int8_dirty
+        assert torch.equal(index._int8_shadow[0], q8)
+        assert torch.equal(index._int8_shadow[1], sc)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        ms.close()
+
+
+def test_guard_poisons_a_cuda_index_and_recovers_by_checkpoint(cuda, tmp_path):
+    """The guard on the card: a transient fault before a write retries to
+    parity; a fault after the first write poisons the index (every touch
+    raises ArenaPoisoned) and load_index brings it back."""
+    from lazzaro_tpu_torch import MemoryIndex
+    from lazzaro_tpu_torch.core.checkpoint import load_index, save_index
+    from lazzaro_tpu_torch.reliability.errors import ArenaPoisoned
+    from lazzaro_tpu_torch.reliability.faults import (INJECTOR,
+                                                      poison_states_hook)
+
+    def build():
+        idx = MemoryIndex(dim=64, capacity=4000, device=cuda,
+                          int8_serving=True)
+        rng = np.random.default_rng(3)
+        idx.add([f"n{i}" for i in range(3000)],
+                rng.standard_normal((3000, 64)).astype(np.float32),
+                [0.5] * 3000, [0.0] * 3000, ["semantic"] * 3000,
+                ["s"] * 3000, "t")
+        return idx
+
+    a, b = build(), build()
+    INJECTOR.clear()
+    try:
+        INJECTOR.arm("index.dispatch", times=1)
+        a.update_access(["n1", "n2"], now=5.0)
+        b.update_access(["n1", "n2"], now=5.0)
+        assert INJECTOR.fired("index.dispatch") == 1
+        for col in ("salience", "access_count", "last_accessed"):
+            assert torch.equal(getattr(a.state, col), getattr(b.state, col))
+        save_index(a, str(tmp_path / "ck"))
+        INJECTOR.arm("index.dispatch", times=1, hook=poison_states_hook)
+        with pytest.raises(ArenaPoisoned):
+            a.update_access(["n3"], now=6.0)
+        with pytest.raises(ArenaPoisoned):
+            a.search_batch(np.ones((1, 64), np.float32), "t", k=3)
+        back = load_index(str(tmp_path / "ck"), device=cuda, int8_serving=True)
+        q = np.random.default_rng(4).standard_normal((4, 64)).astype(np.float32)
+        assert back.search_batch(q, "t", k=5) == b.search_batch(q, "t", k=5)
+    finally:
+        INJECTOR.clear()
