@@ -19,7 +19,9 @@ Phases, each printing its own lines; any failure exits non-zero:
               forward and its dQ and dK/dV backward kernels at the decoder's
               shapes, K4 (the int8 scan of quantized serving) in its keyed
               and additive forms over the int8 shadow of the 1,048,576-row
-              arena; times are device times from ``torch.profiler``, the
+              arena (a list past 256 too), over a 131,072 x 1,536 shadow,
+              and on the dp4a stage forced, each row naming the route its
+              launch took; times are device times from ``torch.profiler``, the
               top-k scans' split into stage 1 and the merge, event times of
               back-to-back calls beside them, the flash kernels' achieved
               TFLOP/s and share of the bound); then the state dispatch
@@ -31,10 +33,10 @@ Phases, each printing its own lines; any failure exits non-zero:
               ``ArrowStore`` and journals under a temporary directory
               (every phase's are; removed at the end). The
               classic path: fill it through ``end_conversation`` with
-              ``FILL`` facts (8,192 per conversation, two tenants in
-              blocks, each conversation end saving to the store, a
-              near-duplicate every 101 facts), then ``switch_user`` back to
-              the first tenant, which reloads her ~519k rows from the store
+              ``FILL`` facts (half the arena: 8,192 per conversation, two
+              tenants in blocks, each conversation end saving to the store,
+              a near-duplicate every 101 facts), then ``switch_user`` back to
+              the first tenant, which reloads her ~260k rows from the store
               onto the card (seconds by part, the served top-k held to the
               one before), then chat turns, one more
               conversation end and ``search_memories`` for facts whose answer
@@ -56,8 +58,8 @@ Phases, each printing its own lines; any failure exits non-zero:
               classic and fused reads, seconds, bytes and peak memory; then
               that checkpoint loaded again with ``int8_serving=True`` in the
               system's place: 8 chat turns, 8 searches, a 64-query batch and
-              a 64-request fleet, each dispatch one K4 keyed launch and one
-              copy, one transient ``index.dispatch`` fault retried, a
+              a 64-request fleet, each dispatch one K4 keyed launch (on the
+              tensor cores) and one copy, one transient ``index.dispatch`` fault retried, a
               classic search on K4's additive form, recall@10 and scores
               against the exact reads, p50s beside the exact ones;
   4c. default ``MemorySystem()`` as configured by default (f32, the store and
@@ -133,7 +135,10 @@ PEAK_OPS = {"bfloat16": 989e12,    # dense bf16 tensor-core rate
 ARENA_ROWS = 1_048_576             # capacity + 1, 256 x TOPK_BLOCK
 DIM = 768
 PER_CONV = 8_192                   # facts per conversation (ingest_coalesce_max)
-FILL = ARENA_ROWS - PER_CONV       # facts the fill ingests, a PER_CONV multiple
+# Phase 4's fill: half the arena, 64 conversations, 32 a tenant. Filling
+# the whole arena took ~500 s of host work (the store's parquet writes
+# ~300 s of it), more than the 1,200 s run can hold beside the rest.
+FILL = ARENA_ROWS // 2             # facts the fill ingests, a PER_CONV multiple
 MIN_ROWS = 262_144                 # the least fill worth a run (PALLAS_TOPK_MIN_ROWS)
 # The mesh phase's fill: 34 conversations (278,528 facts). A conversation
 # shares its group directions with the tenant's conversation 32 before it
@@ -359,13 +364,15 @@ def device_ms(fn, calls: int) -> float:
     return sum(e.self_device_time_total for e in kernels) / 1e3 / calls
 
 
-def device_split(fn, calls: int, stage1: str = "scan_stage1") -> dict:
+def device_split(fn, calls: int, stage1: str = "scan_stage1",
+                 merge: str = "scan_merge") -> dict:
     """Device ms per call of ``fn`` under ``torch.profiler`` (as
     :func:`device_ms`), with the top-k scan's two stages apart: stage 1
     (kernels named ``stage1*``: ``scan_stage1``, or ``ingest_stage1`` for
-    the ingest mode), the merge (``scan_merge``) and the rest (casts and
-    masks around the launch), and the launches of the two stages a call
-    that the trace shows."""
+    the ingest mode, ``i8_stage1`` for K4), the merge (``scan_merge``, or
+    K4's ``i8_select``) and the rest (casts, masks and K4's query
+    quantization around the launch), and the launches of the two stages a
+    call that the trace shows."""
     kernels = _device_kernels(fn, calls)
 
     def total(needle):
@@ -373,9 +380,9 @@ def device_split(fn, calls: int, stage1: str = "scan_stage1") -> dict:
                    if needle in e.key) / 1e3 / calls
 
     out = {"all": total(""), "stage1": total(stage1),
-           "merge": total("scan_merge"),
+           "merge": total(merge),
            "scan_kernels": sum(e.count for e in kernels if stage1 in e.key
-                               or "scan_merge" in e.key) / calls}
+                               or merge in e.key) / calls}
     out["rest"] = out["all"] - out["stage1"] - out["merge"]
     return out
 
@@ -487,12 +494,12 @@ def _check_equal(label, got, want):
 
 
 def _case_row(kernel, form, label, route, n, q, k, fn, plain_fn, lib_fn, b,
-              err, reps, plain_reps, stage1="scan_stage1"):
+              err, reps, plain_reps, stage1="scan_stage1", merge="scan_merge"):
     """One timed case: device times under ``torch.profiler`` of the kernel
     (stage 1 and the merge apart), its plain version and the library call;
     CUDA-event times of back-to-back calls of the kernel and the library
     beside them (they include the wrapper's host work)."""
-    split = device_split(fn, reps, stage1)
+    split = device_split(fn, reps, stage1, merge)
     ms = split["all"]
     plain = device_ms(plain_fn, plain_reps)
     lib = device_ms(lib_fn, reps) if lib_fn is not None else None
@@ -757,12 +764,20 @@ def int8_library(codes, scale, q, cols, q_ten, k, g):
     return run
 
 
+INT8_WIDE = (131_072, 1536)         # the wide shadow: rows, d
+
+
 def phase_int8_kernel(device):
     """K4 against its plain version on the card, bit-equal: the keyed form
     over the shadow of the 1,048,576 x 768 bf16 arena of the two-tier cases
-    at the chat turn's Q = 1 and a fleet's Q = 64 (k = 128 + 8, g = 1 + 8)
-    and at the corners (an empty gate, a tenant of three rows, pad
-    queries), and the additive form at a classic search's Q = 1, k = 10."""
+    at the chat turn's Q = 1 and a fleet's Q = 64 (k = 128 + 8, g = 1 + 8),
+    at the corners (an empty gate, a tenant of three rows, pad queries) and
+    with a list past 256 (k = 300: two passes); the keyed chat turn over a
+    131,072 x 1,536 shadow (past the first form's 1,040); the additive form
+    at a classic search's Q = 1, k = 10; and the two chat-turn shapes on the
+    dp4a stage forced (the first form's route, a record beside the tensor
+    cores'). Each row names the route the launch took (the wrapper's
+    counters), its stage 1 and stage 2 timed apart."""
     import torch
 
     from lazzaro_tpu_torch.ops import int8_topk as k4
@@ -773,33 +788,53 @@ def phase_int8_kernel(device):
     del emb16
     gen = torch.Generator(device=device).manual_seed(4)
     n = codes.shape[0]
+    wn, wd = INT8_WIDE
+    wcodes, wscale = quantize_rows(grid_values(gen, (wn, wd), torch.bfloat16,
+                                               device))
+    wide_cols = (alive[:wn], tenant[:wn], sup[:wn])
 
-    def queries(nq):
-        x = grid_values(gen, (nq, DIM), torch.float32, device)
+    def queries(nq, d=DIM):
+        x = grid_values(gen, (nq, d), torch.float32, device)
         return x / x.norm(dim=1, keepdim=True)
 
     def ten(ts):
         return torch.tensor(ts, dtype=torch.int32, device=device)
 
-    # The last case keeps lists of one: its time beside the fleet's is the
-    # products' share, the rest the lists' (k + slack = 136 per query).
+    def taken(fn):
+        """The result of one call and the route its launch took."""
+        before = (k4.launches_wgmma, k4.launches_dp4a)
+        out = fn()
+        return out, ("wgmma" if k4.launches_wgmma > before[0] else "dp4a")
+
+    # The fleet's k = 1 case keeps lists of one: its time beside the
+    # fleet's is the products' share, the rest the lists'.
     fleet = ten([i % 2 for i in range(64)])
-    cases = [("chat_keyed_q1_k136_g9", queries(1), ten([0]), INT8_K, INT8_G),
-             ("fleet_keyed_q64_k136_g9", queries(64), fleet, INT8_K, INT8_G),
-             ("corners_keyed_q8_k136_g9", queries(8),
-              ten([2, 3, 0, 1, 2, 3, -1, -1]), INT8_K, INT8_G),
-             ("fleet_keyed_q64_k1_g1", queries(64), fleet, 1, 1)]
+    full = (codes, scale, (alive, tenant, sup))
+    cases = [("chat_keyed_q1_k136_g9", full, queries(1), ten([0]), INT8_K,
+              INT8_G, None),
+             ("fleet_keyed_q64_k136_g9", full, queries(64), fleet, INT8_K,
+              INT8_G, None),
+             ("corners_keyed_q8_k136_g9", full, queries(8),
+              ten([2, 3, 0, 1, 2, 3, -1, -1]), INT8_K, INT8_G, None),
+             ("fleet_keyed_q64_k1_g1", full, queries(64), fleet, 1, 1, None),
+             ("chat_keyed_q1_k300_g9", full, queries(1), ten([0]), 300,
+              INT8_G, None),
+             (f"chat_keyed_q1_k136_g9_d{wd}", (wcodes, wscale, wide_cols),
+              queries(1, wd), ten([0]), INT8_K, INT8_G, None),
+             ("chat_keyed_q1_k136_g9_dp4a_forced", full, queries(1), ten([0]),
+              INT8_K, INT8_G, "dp4a")]
     rows_out = []
-    cols = (alive, tenant, sup)
-    for label, q, q_ten, k, g in cases:
-        def run(q=q, q_ten=q_ten, k=k, g=g):
-            return k4.int8_topk_keyed(codes, scale, *cols, q, q_ten, k, g)
+    for label, (cd, sc, cols), q, q_ten, k, g, force in cases:
+        def run(cd=cd, sc=sc, cols=cols, q=q, q_ten=q_ten, k=k, g=g, force=force):
+            if force:
+                return k4._launch(cd, sc, q, k, g, cols=cols, tenant=q_ten,
+                                  route=force)
+            return k4.int8_topk_keyed(cd, sc, *cols, q, q_ten, k, g)
 
-        def plain(q=q, q_ten=q_ten, k=k, g=g):
-            return k4.int8_topk_keyed_reference(codes, scale, *cols, q, q_ten,
-                                                k, g)
+        def plain(cd=cd, sc=sc, cols=cols, q=q, q_ten=q_ten, k=k, g=g):
+            return k4.int8_topk_keyed_reference(cd, sc, *cols, q, q_ten, k, g)
 
-        got = run()
+        got, route = taken(run)
         err = _check_equal(label, got, plain())
         if label.startswith("corners"):
             if not (got[0][0] == -1e30).all() or got[1][0].tolist() != list(range(INT8_G)):
@@ -807,24 +842,31 @@ def phase_int8_kernel(device):
                                      "over rows 0, 1, ...")
             if not ((got[2][1, :3] > -1e29).all() and (got[2][1, 3:] == -1e30).all()):
                 raise AssertionError("K4: the short tenant's list is not its 3 rows")
-        lib = int8_library(codes, scale, q, cols, q_ten, k, g)
+        lib = int8_library(cd, sc, q, cols, q_ten, k, g)
         rows_out.append(_case_row(
-            "int8_topk", "keyed", label, "dp4a", n, q.shape[0], k, run,
-            plain, lib, int8_bound(n, DIM, q.shape[0], k, g, True),
-            err, 20, 3, stage1="i8_stage1"))
+            "int8_topk", "keyed", label, route, cd.shape[0], q.shape[0], k,
+            run, plain, lib, int8_bound(cd.shape[0], cd.shape[1], q.shape[0],
+                                        k, g, True),
+            err, 20, 3, stage1="i8_stage1", merge="i8_select"))
     q = queries(1)
+    madd = torch.where(alive, 0.0, -1e30).float()
+    for label, force in (("search_additive_q1_k10", None),
+                         ("search_additive_q1_k10_dp4a_forced", "dp4a")):
+        def run_add(q=q, force=force):
+            if force:
+                return k4._launch(codes, scale, q, 10, madd=madd, route=force)
+            return k4.int8_topk(codes, scale, alive, q, 10)
 
-    def run_add(q=q):
-        return k4.int8_topk(codes, scale, alive, q, 10)
+        def plain_add(q=q):
+            return k4.int8_topk_reference(codes, scale, alive, q, 10)
 
-    def plain_add(q=q):
-        return k4.int8_topk_reference(codes, scale, alive, q, 10)
-
-    err = _check_equal("search_additive_q1_k10", run_add(), plain_add())
-    rows_out.append(_case_row(
-        "int8_topk", "additive", "search_additive_q1_k10", "dp4a", n, 1, 10,
-        run_add, plain_add, int8_library(codes, scale, q, None, None, 10, 0),
-        int8_bound(n, DIM, 1, 10, 0, False), err, 20, 3, stage1="i8_stage1"))
+        got, route = taken(run_add)
+        err = _check_equal(label, got, plain_add())
+        rows_out.append(_case_row(
+            "int8_topk", "additive", label, route, n, 1, 10, run_add,
+            plain_add, int8_library(codes, scale, q, None, None, 10, 0),
+            int8_bound(n, DIM, 1, 10, 0, False), err, 20, 3,
+            stage1="i8_stage1", merge="i8_select"))
     return rows_out
 
 
@@ -1302,7 +1344,7 @@ def phase_main(launches_out: dict, parity: dict):
 
     fill = FILL
     convs = fill // PER_CONV
-    corpus = Corpus(fill + PER_CONV)
+    corpus = Corpus(ARENA_ROWS)
     llm = PayloadLLM()
     cfg = MemoryConfig(**FUSED_INGEST, dtype="bfloat16", embed_dim=DIM,
                        initial_capacity=ARENA_ROWS - 1, max_edges=4 * fill)
@@ -1319,9 +1361,10 @@ def phase_main(launches_out: dict, parity: dict):
                                         torch)
         summary["consolidation"] = _consolidate_filled(ms, launches_out, torch)
         summary["lifecycle"] = _lifecycle_filled(ms, torch)
-        summary["checkpoint"] = _checkpoint_filled(ms, corpus, summary, torch)
-        summary["quant"] = _quant_filled(ms, corpus, served, summary["fused"],
-                                         launches_out, torch)
+        summary["checkpoint"], back = _checkpoint_filled(ms, corpus, summary,
+                                                         torch)
+        summary["quant"] = _quant_filled(ms, back, corpus, served,
+                                         summary["fused"], launches_out, torch)
         return summary
     finally:
         shutil.rmtree(os.path.join(STORE_ROOT, "checkpoint"),
@@ -1417,8 +1460,8 @@ def _stage_seconds(tel, marks):
 
 def _consolidate_filled(ms, launches_out, torch):
     """One ``run_consolidation`` of the current tenant on the filled
-    1,048,576-row bf16 arena (the fill itself runs with
-    ``auto_consolidate=False``: 127 conversations would consolidate 42
+    1,048,576-row bf16 arena, half full (the fill itself runs with
+    ``auto_consolidate=False``: 64 conversations would consolidate 21
     times). First K3 is held against its plain version on this arena
     (:func:`_check_k3_filled`). Then the consolidation: its seconds by stage
     from the system's own ``consolidation.stage_ms`` spans (host wall time;
@@ -1705,12 +1748,13 @@ def _searches_equal(a, b, corpus, torch) -> dict:
     return out
 
 
-def _checkpoint_filled(ms, corpus, single, torch) -> dict:
+def _checkpoint_filled(ms, corpus, single, torch):
     """``save_index`` of the filled index under the smoke's temporary
     directory and ``load_index`` of it onto the card: every column and the
     bookkeeping equal, the same classic and fused results; the seconds of
     each, the bytes on disk and the load's peak device memory beside the
-    store reload's."""
+    store reload's. Returns them and the loaded index (the quantized
+    phase serves it next)."""
     from lazzaro_tpu_torch.core import checkpoint as ckpt
 
     index = ms.index
@@ -1724,7 +1768,7 @@ def _checkpoint_filled(ms, corpus, single, torch) -> dict:
     held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    back = ckpt.load_index(path, device=index.device,
+    back = ckpt.load_index(path, device=index.device, telemetry=ms.telemetry,
                            serve_ragged=index.serve_ragged,
                            serve_k_max=index.serve_k_max,
                            serve_pad_granularity=index.serve_pad_granularity)
@@ -1749,9 +1793,6 @@ def _checkpoint_filled(ms, corpus, single, torch) -> dict:
                                   if v}),
              "tenants": back._tenants == index._tenants}
     served = _searches_equal(index, back, corpus, torch)
-    del back
-    gc.collect()
-    torch.cuda.empty_cache()
     ok = (all(cols.values()) and all(books.values())
           and all(all(v.values()) for v in served.values()))
     reload_s = round(sum(single["reload"]["load_s"].values()), 2)
@@ -1770,7 +1811,7 @@ def _checkpoint_filled(ms, corpus, single, torch) -> dict:
         f"{reload_s} s); every column bit-equal, id map, edge slots and "
         f"tenants equal, classic and fused reads of both tenants equal "
         f"(rows and score bits)")
-    return out
+    return out, back
 
 
 QUANT_TURNS = 8                    # chat turns and searches of the quant phase
@@ -1797,10 +1838,11 @@ def _recall_and_scores(exact_res, quant_res) -> dict:
             "gate_differs": gates, "queries": len(exact_res)}
 
 
-def _quant_filled(ms, corpus, served, exact_fused, launches_out, torch) -> dict:
-    """Quantized serving on the filled arena: the checkpoint of
-    :func:`_checkpoint_filled` loaded a second time with ``int8_serving``,
-    put in the system's place, and driven through the entry points the
+def _quant_filled(ms, qidx, corpus, served, exact_fused, launches_out,
+                  torch) -> dict:
+    """Quantized serving on the filled arena: the index that
+    :func:`_checkpoint_filled` loaded from its checkpoint, switched to
+    ``int8_serving``, put in the system's place, and driven through the entry points the
     exact fused phase drives, on fewer turns: 8 chat turns, 8
     ``search_memories``, a 64-query ``search_memories_batch`` and a
     64-request two-tenant fleet, every dispatch one K4 keyed launch, no
@@ -1811,7 +1853,6 @@ def _quant_filled(ms, corpus, served, exact_fused, launches_out, torch) -> dict:
     quantized index give recall@10 of the quantized path, and every score
     the quantized path returns is held to the exact scan's score for the
     same row within ``QUANT_SCORE_TOL``."""
-    from lazzaro_tpu_torch.core import checkpoint as ckpt
     from lazzaro_tpu_torch.ops import fused_topk as ft
     from lazzaro_tpu_torch.ops import int8_topk as k4
     from lazzaro_tpu_torch.ops import masked_topk as mt
@@ -1819,17 +1860,8 @@ def _quant_filled(ms, corpus, served, exact_fused, launches_out, torch) -> dict:
     from lazzaro_tpu_torch.serve import RetrievalRequest
 
     exact = ms.index
-    path = os.path.join(STORE_ROOT, "checkpoint")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    qidx = ckpt.load_index(path, device=exact.device, telemetry=ms.telemetry,
-                           serve_ragged=exact.serve_ragged,
-                           serve_k_max=exact.serve_k_max,
-                           serve_pad_granularity=exact.serve_pad_granularity,
-                           int8_serving=True,
-                           coarse_slack=ms.config.coarse_fetch_slack)
-    torch.cuda.synchronize()
-    load_s = time.perf_counter() - t0
+    qidx.int8_serving = True
+    qidx.coarse_slack = ms.config.coarse_fetch_slack
     rng = np.random.default_rng(13)
     own, targets = served["own"], served["targets"]
     facts = []
@@ -1874,6 +1906,7 @@ def _quant_filled(ms, corpus, served, exact_fused, launches_out, torch) -> dict:
         warm = ms.warmup_serving((1, 64))
         readbacks = _strict_dispatch(qidx, torch)
         k4.launches = k4.launches_keyed = k4.launches_dp4a = 0
+        k4.launches_wgmma = 0
         k4.stage_launches = ft.launches = mt.launches = 0
         want = (1, 0, 0, 1)
         chat_ms, search_ms = [], []
@@ -1959,11 +1992,16 @@ def _quant_filled(ms, corpus, served, exact_fused, launches_out, torch) -> dict:
         if node is None or node.content != corpus.text(i):
             raise AssertionError(f"the classic int8 search missed fact {i}")
     launches_out["int8_topk"] = k4.launches
+    launches_out["int8_topk_wgmma"] = k4.launches_wgmma
+    launches_out["int8_topk_dp4a"] = k4.launches_dp4a
+    if k4.launches_wgmma != k4.launches:
+        raise AssertionError(f"{k4.launches_dp4a} K4 launches of the 768-wide "
+                             f"shadow left the tensor cores")
     del qidx
     gc.collect()
     torch.cuda.empty_cache()
     out = {
-        "load_s": load_s, "shadow_build_s": shadow_s,
+        "shadow_build_s": shadow_s,
         "warmup_ms": {str(k): v for k, v in warm.items()},
         "chat_p50_ms": p50(chat_ms), "search_p50_ms": p50(search_ms),
         "batch64_p50_ms": batch_ms, "fleet64_mixed_k_p50_ms": fleet_ms,
@@ -1972,10 +2010,11 @@ def _quant_filled(ms, corpus, served, exact_fused, launches_out, torch) -> dict:
         "exact_batch64_p50_ms": exact_fused["batch64_p50_ms"],
         "exact_fleet64_mixed_k_p50_ms": exact_fused["fleet64_mixed_k_p50_ms"],
         "k4_launches": k4.launches, "k4_keyed_launches": k4.launches_keyed,
+        "k4_wgmma_launches": k4.launches_wgmma,
         "k4_kernels": k4.stage_launches, "dispatches_per_turn": 1,
         "copies_per_turn": 1, "readbacks": len(readbacks),
         "transient_fault_retries": retries, "reads_vs_exact": check}
-    log(f"[quant] int8 serving on the filled arena (load {load_s:.2f} s, "
+    log(f"[quant] int8 serving on the filled arena (the checkpoint's index, "
         f"shadow of {len(exact)} rows built in {shadow_s:.3f} s): chat p50 "
         f"{out['chat_p50_ms']:.2f} ms (exact {out['exact_chat_miss_p50_ms']:.2f}), "
         f"search_memories p50 {out['search_p50_ms']:.2f} ms (exact "
@@ -1983,7 +2022,8 @@ def _quant_filled(ms, corpus, served, exact_fused, launches_out, torch) -> dict:
         f"{batch_ms:.2f} ms (exact {out['exact_batch64_p50_ms']:.2f}), mixed-k "
         f"fleet(64) p50 {fleet_ms:.2f} ms (exact "
         f"{out['exact_fleet64_mixed_k_p50_ms']:.2f}); {k4.launches} K4 launches "
-        f"({k4.launches_keyed} keyed, {k4.stage_launches} kernels), one launch "
+        f"({k4.launches_keyed} keyed, {k4.launches_wgmma} on the tensor cores, "
+        f"{k4.stage_launches} kernels), one launch "
         f"and one copy a dispatch, 0 two-tier or classic launches; one "
         f"transient index.dispatch fault retried once; reads of "
         f"{check['queries']} queries against the exact path: recall@10 "
@@ -2515,7 +2555,7 @@ def phase_default_int8(launches_out: dict) -> dict:
     ms = MemorySystem(enable_async=False, verbose=False,
                       db_dir=store_dir("default_int8"),
                       config=MemoryConfig(int8_serving=True))
-    k4.launches = k4.launches_keyed = 0
+    k4.launches = k4.launches_keyed = k4.launches_wgmma = k4.launches_dp4a = 0
     checked = maintained = chats = 0
     try:
         for c in range(DEFAULT_CONVS):
@@ -2552,9 +2592,15 @@ def phase_default_int8(launches_out: dict) -> dict:
     finally:
         ms.close()
     launches_out["default_int8_topk"] = k4.launches
+    launches_out["int8_topk_wgmma"] += k4.launches_wgmma
+    launches_out["int8_topk_dp4a"] += k4.launches_dp4a
+    if k4.launches_wgmma != k4.launches:
+        raise AssertionError(f"{k4.launches_dp4a} K4 launches of the 768-wide "
+                             f"shadow left the tensor cores")
     log(f"[default-int8] MemorySystem(int8_serving=True): {DEFAULT_CONVS} "
         f"conversations, {chats} chat turns each one K4 keyed launch, "
-        f"{k4.launches} K4 launches; the shadow equal to quantize_rows of the "
+        f"{k4.launches} K4 launches (all on the tensor cores); the shadow "
+        f"equal to quantize_rows of the "
         f"arena at {checked} conversation ends, kept in place by the fused "
         f"ingest at {maintained}; search_memories found {len(hits)} nodes")
     return {"conversations": DEFAULT_CONVS, "k4_launches": k4.launches,
@@ -2918,7 +2964,7 @@ def phase_mesh(launches_out: dict, parity: dict, single: dict):
         f"{', '.join(sorted({str(d) for d in mesh.devices}))}, "
         f"{ARENA_ROWS // mesh.size} rows each")
     fill = MESH_CONVS * PER_CONV
-    corpus = Corpus(FILL + PER_CONV)              # phase 4's corpus
+    corpus = Corpus(ARENA_ROWS)                   # phase 4's corpus
     llm = PayloadLLM()
     cfg = MemoryConfig(**SLICE, dtype="bfloat16", embed_dim=DIM,
                        initial_capacity=ARENA_ROWS - 1, max_edges=4 * FILL)
@@ -4516,7 +4562,16 @@ def _run(smi, name, device, torch) -> int:
     log(f"[store] every MemorySystem's store and journals under {STORE_ROOT} "
         f"(free {shutil.disk_usage(STORE_ROOT).free} bytes), removed at the end")
     t_start = time.perf_counter()
+    phase_s: dict = {}             # seconds by phase, for the closing line
+    marks = [t_start]
+
+    def lap(phase):
+        now = time.perf_counter()
+        phase_s[phase] = round(now - marks[0], 1)
+        marks[0] = now
+
     phase_build()
+    lap("build")
     cases = phase_kernels(device) + ragged_cases(device)
     torch.cuda.empty_cache()
     fused_rows = phase_fused_kernel(device)
@@ -4537,28 +4592,35 @@ def _run(smi, name, device, torch) -> int:
     torch.cuda.empty_cache()
     flash_rows = phase_flash(device)
     bwd_rows = phase_flash_bwd(device)
+    lap("kernels")
     launches: dict = {}
     parity: dict = {}
     summary = phase_main(launches, parity)
     log(f"[main] summary {json.dumps(summary)}")
     gc.collect()                       # the phase-4 arena goes before the mesh's
     torch.cuda.empty_cache()
+    lap("main")
     default_summary = phase_default(launches)
     log(f"[default] summary {json.dumps(default_summary)}")
     default_int8 = phase_default_int8(launches)
     log(f"[default-int8] summary {json.dumps(default_int8)}")
     log(f"[guard] summary {json.dumps(guard_summary)}")
+    lap("default")
     mesh_summary, filled_rows = phase_mesh(launches, parity, summary)
     log(f"[mesh] summary {json.dumps(mesh_summary)}")
     gc.collect()                       # and the mesh's before the LM
     torch.cuda.empty_cache()
+    lap("mesh")
     lm_summary = phase_lm(launches)
     log(f"[lm] summary {json.dumps(lm_summary)}")
     gc.collect()                       # the LM phase's model goes before training
     torch.cuda.empty_cache()
+    lap("lm")
     train_summary = phase_train(device, launches)
     log(f"[train] summary {json.dumps(train_summary)}")
-    log(f"[smoke] {time.perf_counter() - t_start:.1f} s after the device phase")
+    lap("train")
+    log(f"[smoke] {time.perf_counter() - t_start:.1f} s after the device "
+        f"phase; seconds by phase {json.dumps(phase_s)}")
     # K1 launches on every path: phase 4's fused ingest, phase 4c's default
     # configuration (its dialogue and the crash replay), phase 4b's link
     # scans; K3 on phase 4 and 4c; masked_topk on phase 4 and 4c.
@@ -4568,9 +4630,9 @@ def _run(smi, name, device, torch) -> int:
                    "masked_topk", "int8_topk"):
         launches[kernel] += launches["default_" + kernel]
 
-    def entry(name, source, replaces, rows, head_case, extra_err=0.0):
+    def entry(name, source, replaces, rows, head_case, extra_err=0.0, **extra):
         head = next(c for c in rows if c["case"] == head_case)
-        return {
+        return extra | {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": max([c["max_abs_err"] for c in rows] + [extra_err]),
@@ -4595,7 +4657,9 @@ def _run(smi, name, device, torch) -> int:
               "dedup_resolve_b8192"),
         entry("int8_topk", "lazzaro_tpu_torch/csrc/int8_topk.cu",
               "lazzaro_tpu/core/state.py:2701",
-              int8_rows, "chat_keyed_q1_k136_g9"),
+              int8_rows, "chat_keyed_q1_k136_g9",
+              launches_by_route={r: launches[f"int8_topk_{r}"]
+                                 for r in ("wgmma", "dp4a")}),
         entry("pairwise_topk", "lazzaro_tpu_torch/csrc/pairwise_topk.cu",
               "lazzaro_tpu/ops/graphops.py:82", pairwise_rows,
               f"pairwise_{PAIR_ROWS}_bf16",

@@ -1,8 +1,9 @@
 // Masked cosine top-k scans of the embedding arena, for Hopper (sm_90a): one
 // templated scan, in two mask modes. masked_topk.cu exports the additive
-// mode and fused_topk.cu the keyed mode; each includes this file. Two more
+// mode and fused_topk.cu the keyed mode; each includes this file. Three more
 // modes at the end of the file share its building blocks: the ingest mode
-// (ingest_topk.cu, K1) and the pairwise mode (pairwise_topk.cu, K3).
+// (ingest_topk.cu, K1), the pairwise mode (pairwise_topk.cu, K3) and the
+// int8 mode (int8_topk.cu, K4).
 //
 // Additive mode (masked_topk, masked_topk_ragged) replaces the TPU kernels
 // lazzaro_tpu/ops/pallas_topk.py:pallas_masked_topk (body _topk_block_kernel)
@@ -735,8 +736,8 @@ __device__ __forceinline__ int count_greater(const uint64_t* arr, int len, uint6
 // nb keys) and written back, then every key's place in the merged order is
 // its own index plus the keys of the other array above it (no two keys are
 // equal), found by binary search; all reads end before the writes. Returns
-// the new list length.
-template <int S>
+// the new list length. KM bounds kc (the int8 mode's lists reach 256).
+template <int S, int KM = kMaxK>
 __device__ __forceinline__ int merge_batch(uint64_t* L, int m, uint64_t* B, int nb, int kc) {
   const int lane = threadIdx.x & 31;
   uint64_t key[S / 32];
@@ -745,19 +746,19 @@ __device__ __forceinline__ int merge_batch(uint64_t* L, int m, uint64_t* B, int 
 #pragma unroll
   for (int j = 0; j < S / 32; ++j)
     if (32 * j + lane < nb) B[32 * j + lane] = key[j];
-  uint64_t lv[kMaxK / 32];
+  uint64_t lv[KM / 32];
 #pragma unroll
-  for (int t = 0; t < kMaxK / 32; ++t)
+  for (int t = 0; t < KM / 32; ++t)
     lv[t] = lane + 32 * t < m ? L[lane + 32 * t] : 0ull;
   __syncwarp();
-  int pb[S / 32], pl[kMaxK / 32];
+  int pb[S / 32], pl[KM / 32];
 #pragma unroll
   for (int j = 0; j < S / 32; ++j) {
     const int i = 32 * j + lane;
     pb[j] = i < nb ? i + count_greater(L, m, key[j]) : kc;
   }
 #pragma unroll
-  for (int t = 0; t < kMaxK / 32; ++t) {
+  for (int t = 0; t < KM / 32; ++t) {
     const int i = lane + 32 * t;
     pl[t] = i < m ? i + count_greater(B, nb, lv[t]) : kc;
   }
@@ -766,7 +767,7 @@ __device__ __forceinline__ int merge_batch(uint64_t* L, int m, uint64_t* B, int 
   for (int j = 0; j < S / 32; ++j)
     if (pb[j] < kc) L[pb[j]] = key[j];
 #pragma unroll
-  for (int t = 0; t < kMaxK / 32; ++t)
+  for (int t = 0; t < KM / 32; ++t)
     if (pl[t] < kc) L[pl[t]] = lv[t];
   __syncwarp();
   return m + nb < kc ? m + nb : kc;
@@ -811,7 +812,8 @@ __device__ __forceinline__ int select_small(uint64_t* L, int m, const uint64_t* 
 // up to 32 by select_small, longer ones by merge_batch with a network sized
 // to the batch. Raises the query's threshold to the list's last key once
 // the list holds kc. Query row i of the warp keeps its list at lists + i *
-// (lcap + bcap) and its batch lcap + boff entries on.
+// (lcap + bcap) and its batch lcap + boff entries on. KM bounds kc.
+template <int KM = kMaxK>
 __device__ __forceinline__ void merge_pending(uint64_t* lists, int lcap, int bcap,
                                               int kc, bool need_a, bool need_b, int& m_a,
                                               int& m_b, int& nb_a, int& nb_b,
@@ -836,10 +838,10 @@ __device__ __forceinline__ void merge_pending(uint64_t* lists, int lcap, int bca
       else if (nb <= 128) m2 = select_small<4>(L, m, B, nb, kc);
       else m2 = select_small<8>(L, m, B, nb, kc);
     } else {
-      if (nb <= 32) m2 = merge_batch<32>(L, m, B, nb, kc);
-      else if (nb <= 64) m2 = merge_batch<64>(L, m, B, nb, kc);
-      else if (nb <= 128) m2 = merge_batch<128>(L, m, B, nb, kc);
-      else m2 = merge_batch<256>(L, m, B, nb, kc);
+      if (nb <= 32) m2 = merge_batch<32, KM>(L, m, B, nb, kc);
+      else if (nb <= 64) m2 = merge_batch<64, KM>(L, m, B, nb, kc);
+      else if (nb <= 128) m2 = merge_batch<128, KM>(L, m, B, nb, kc);
+      else m2 = merge_batch<256, KM>(L, m, B, nb, kc);
     }
     const float t = m2 == kc ? key_score(L[kc - 1]) : -INFINITY;
     if (g == src / 4) {
@@ -907,11 +909,12 @@ __device__ __forceinline__ void wg_produce(const CUtensorMap* map_q, const CUten
 }
 
 // Warpgroup wg's scores of tile t, S = Q.E^T over d as a chain of SS wgmma
-// m64nBNk16 into acc: panel p's four products go out behind panel p - 1's,
-// whose stage is released once they retire (wait<1>), the last after the
-// chain. tid is the thread's index in its warpgroup.
-template <int WGS, int BN>
-__device__ __forceinline__ void wg_product(float (&acc)[BN / 2], uint8_t* ring, uint64_t* full,
+// m64nBNk16 into acc (bf16 panels, f32 sums; int8 panels with int acc:
+// m64n128k32, int32 sums): panel p's four products go out behind panel p -
+// 1's, whose stage is released once they retire (wait<1>), the last after
+// the chain. tid is the thread's index in its warpgroup.
+template <int WGS, int BN, typename Acc>
+__device__ __forceinline__ void wg_product(Acc (&acc)[BN / 2], uint8_t* ring, uint64_t* full,
                                            uint64_t* empty, int ns, int t, int panels, int wg,
                                            int tid) {
   constexpr int QB = WGS * 64 * kRowBytes;
@@ -928,8 +931,14 @@ __device__ __forceinline__ void wg_product(float (&acc)[BN / 2], uint8_t* ring, 
     for (int kk = 0; kk < 4; ++kk) {
       const uint64_t da = hopper::sw128_desc(qs + 32 * kk, 16, 1024);
       const uint64_t db = hopper::sw128_desc(es + 32 * kk, 16, 1024);
-      if constexpr (BN == 128) hopper::wgmma_ss_m64n128k16(acc, da, db, p > 0 || kk > 0);
-      if constexpr (BN == 256) hopper::wgmma_ss_m64n256k16(acc, da, db, p > 0 || kk > 0);
+      if constexpr (std::is_same<Acc, int>::value) {
+        static_assert(BN == 128, "the int8 product takes 128-row tiles");
+        hopper::wgmma_ss_m64n128k32_s8(acc, da, db, p > 0 || kk > 0);
+      } else if constexpr (BN == 128) {
+        hopper::wgmma_ss_m64n128k16(acc, da, db, p > 0 || kk > 0);
+      } else {
+        hopper::wgmma_ss_m64n256k16(acc, da, db, p > 0 || kk > 0);
+      }
     }
     hopper::wgmma_commit();
     hopper::wgmma_wait<1>();
@@ -2907,7 +2916,6 @@ inline int run_pairwise(PairArgs a, int is_bf16, int route, const uint8_t* mask,
   return 0;
 }
 
-
 // ---------------------------------------------------------------------------
 // Int8 mode (exported by int8_topk.cu, K4): the coarse scan of quantized
 // serving over the int8 shadow
@@ -2923,10 +2931,11 @@ inline int run_pairwise(PairArgs a, int is_bf16, int route, const uint8_t* mask,
 // queries quantized the same way into (qq [Q, d] i8, qs [Q] f32), for every
 // query q and row r:
 //     s[q, r] = (float(dot_i32(qq[q], codes[r])) * qs[q]) * scale[r]
-// the int32 dot exact and the two f32 products in JAX's order (no fused
-// multiply-add: there is no add). For d <= 1,040 every |dot| <= 127 * 127 *
-// d < 2^24, so its conversion is exact and the scores are bit for bit those
-// of the plain version in ops/int8_topk.py.
+// the int32 dot exact in any order (|dot| <= 127 * 127 * d < 2^31 for d <=
+// 133,144) and converted to f32 once, to nearest (XLA's convert), then the
+// two f32 products in JAX's order (no fused multiply-add: there is no add).
+// So the scores, and with them the lists, are bit for bit those of the plain
+// version in ops/int8_topk.py at every width.
 //   additive form (one list): list[q, :] = top-k of s + madd[r] (madd 0 for
 //       live rows, -1e30 for masked ones, which rounds to exactly -1e30, the
 //       jnp.where of quantized_topk);
@@ -2935,29 +2944,83 @@ inline int run_pairwise(PairArgs a, int is_bf16, int route, const uint8_t* mask,
 //       ann[q, :]  = top-k of s over rows with alive & tenant == t_q & ~is_super
 //       a row outside a tier scoring exactly NEG (g = 1 + slack, k = k +
 //       slack: the two lax.top_k calls of _quant_two_tier).
-// Order: score descending, ties to the lowest row. Rows are i32. k, g <= 256.
+// Order: score descending, ties to the lowest row. Rows are i32; lists of
+// any length up to N.
 //
-// Design (a first form, right before fast). Stage 1, grid (query tiles) x
-// (row splits): a block quantizes its 4, 8, 16 or 64 queries once into
-// shared memory (one warp a query: the f32 max of |x|, scale = amax *
-// f32(1/127), inv = 1 / scale, rint and clip, as quantize_rows computes
-// them), then walks its row range in tiles of 128 rows: 64-byte slices of
-// the tile's codes are staged in shared memory, each thread keeps MQ x MR
-// int32 sums with __dp4a (four int8 products a instruction), the scaled
-// scores of the tile go to shared memory and one warp a query inserts the
-// candidates that beat its list's last (warp_list_insert, the FMA route's
-// list epilogue), into one list (additive) or two (keyed). Stage 2 is
-// scan_merge, one launch a list. The query tile is the largest of the FMA
-// route's that covers Q and whose lists fit shared memory.
+// Design. A scan quantizes its queries, then runs passes of a stage 1 and a
+// stage 2 (one pass unless a list is longer than a pass holds).
+// - i8_quantize, one block a row of the query panels: qq and qs as
+//   quantize_rows computes them (the f32 max of |x|, scale = amax *
+//   f32(1/127), inv = 1 / scale, rint and clip), laid out for the
+//   tensor-core stage 1's TMA loads: a tile's queries spread over the four
+//   consumer warps (i8_slot_of_row), and up to 16 queries in 4 or 2 copies.
+// - Stage 1 on the tensor cores (i8_stage1_wgmma; d % 16 == 0, the 16-byte
+//   row stride TMA needs): grid (query tiles) x (row splits), one wave of
+//   one block an SM (more waves would only restart lists). One producer
+//   thread keeps TMA loads of (query panel, shadow panel) pairs, 128 code
+//   bytes of 64 query slots and of 128 rows each in the 128-byte swizzle
+//   (wg_produce: rows past N and bytes past d arrive as zeros), in an
+//   mbarrier ring; the shadow is read as it lies, K-major, the only layout
+//   wgmma takes for 8-bit operands. One consumer warpgroup runs S = Q.C^T
+//   as a chain of SS wgmma m64n128k32 s8 over d with the int32 sums in
+//   registers (wg_product), stages them thread-private in shared memory
+//   and folds the tile into its slots' lists in rolled loops: the score
+//   (__int2float_rn, * qs, * scale, the tier's mask), a threshold filter
+//   (and, in a later pass, the admission rule), the survivors to the slot's
+//   batch at positions from a quad prefix sum, and the batch merged into
+//   the sorted list of exact 64-bit keys (merge_pending: a bitonic sort and
+//   a merge by rank, lists of up to kI8MaxK) when the next tile might not
+//   fit it, and while the list is not full. The tile's row words (scale,
+//   and madd or the two tier keys and the fill) are loaded a tile ahead
+//   and pass through shared memory. (Folded from the registers, unrolled
+//   over all 64 elements, the copies below ran no faster than one warp on
+//   an H100: PERF.md.) The keyed form's first pass masks both lists in one
+//   walk. Copies: at up to 8
+//   queries each query has 4 slots, one a warp (2 up to 16), and copy r
+//   folds the chunks of 8 columns c with c % rep == r, so the chat turn's
+//   one query is folded by four warps, not one; a query's copies are
+//   merged by rank at the end of the split. The keyed form keeps two lists
+//   a slot, the ANN list and the gate list, each with its own batch, or one
+//   batch shared where shared memory is short. The lists take live slots x
+//   (lists + batches) x 8 bytes; past 32 queries, tiles of 32 where 64
+//   slots' lists would take shorter passes (PERF.md).
+// - Stage 1 on the dp4a route (i8_stage1; shadows whose width is no
+//   multiple of 16, or forced): a block of 4 to 64 queries quantizes them
+//   into shared memory and walks its rows in tiles of 128, code slices
+//   staged in shared memory, int32 sums by __dp4a, and one warp a query
+//   inserts the candidates into its sorted list(s) (warp_list_insert).
+// - Stage 2 (i8_select, both routes): one block a (query, list) takes the
+//   kc best of the splits' kc-entry lists. Every key (list_key: score bits
+//   over the complement of the row) is unique, so these are the kc keys at
+//   or above the kc-th largest: a radix select finds it (digits of 8 bits
+//   from the top, a 256-bin histogram each, one shared atomic a run of
+//   equal digits, as a split's list is sorted; the keys held in shared
+//   memory where they fit; once a digit's bin holds at most 2,048 keys it
+//   is gathered and the later digits read it alone), then the survivors are
+//   gathered and one warp sorts them with a bitonic network. No loop of kc
+//   rounds over the splits.
+// A list longer than a pass holds (kI8MaxK, or less where the lists would
+// not fit beside a 3-stage ring) runs in passes: pass p admits only pairs
+// ranking after pass p - 1's last pair of that list, as the other modes'
+// passes of 128 do.
 // What bounds it: the shadow's bytes, N * (d + 4) plus the row columns (4 B
 // of madd, or 6 B of tenant, alive and is_super), read once: 0.245 ms for
 // 1,048,576 x 768 at 3.35 TB/s (the bf16 arena's scan reads twice that).
-// The dp4a products (Q * N * d / 4 instructions) pass that at large Q: at Q
-// = 64, 12.9 G instructions.
+// The product, 2 * Q * N * d int8 operations, is 0.05 ms at Q = 64 at the
+// int8 tensor rate. The folds run on the consumer warpgroup between two
+// products: at one query they are near the bytes' time a tile, and at 64
+// the lists' merges, not the bytes, set the time (PERF.md).
 
-constexpr int kI8MaxK = 256;
-constexpr int kI8DW = 16;                  // code words (4 B) of a staged slice
+constexpr int kI8MaxK = 256;               // list entries of one pass
+constexpr int kI8DW = 16;                  // code words (4 B) of a staged slice (dp4a)
 constexpr int kI8LD = kI8DW + 1;           // padded row stride of the staged slices
+constexpr int kI8BN = 128;                 // shadow rows of a tensor-core tile
+constexpr int kI8SelThreads = 1024;        // threads of a stage-2 block
+constexpr int kI8SelCache = 24576;         // keys a stage-2 block holds in shared memory
+constexpr int kI8SelBin = 2048;            // keys of a bin stage 2 gathers
+constexpr long long kI8MaxD = 133144;      // widest row whose int32 dot cannot overflow
+constexpr int kI8Wgmma = 0;                // routes of stage 1
+constexpr int kI8Dp4a = 1;
 constexpr float kRecip127 = 0x1.0204080000000p-7f;   // f32(1 / 127)
 
 struct I8Args {
@@ -2969,15 +3032,74 @@ struct I8Args {
   const uint8_t* is_super;
   const float* qry;                // [nq, d] f32
   const int* q_tenant;             // keyed form: [nq]
+  const int8_t* qq;                // tensor-core route: [nq, d] quantized queries
+  const float* qsc;                //   and their scales [nq]
   long long n, rows_per_split;
-  int d, nq, k, g, splits, qstride;
-  float* cand_s;                   // [splits, nq, k] split lists
-  int* cand_r;
-  float* gcand_s;                  // keyed: [splits, nq, g]
-  int* gcand_r;
+  int d, nq, k, g, splits;
+  int kc, gc;                      // this pass's list entries (0: that list is done)
+  const float* after_s;            // a later pass: the ANN list's last pair so far,
+  const int* after_r;              //   [nq] at stride k (null in the first pass)
+  const float* gafter_s;           //   and the gate list's, at stride g
+  const int* gafter_r;
+  uint64_t* cand;                  // [splits, nq, kc] split lists as keys (0: empty)
+  uint64_t* gcand;                 // keyed: [splits, nq, gc]
+  int qstride;                     // dp4a: code words a query keeps
+  int qt;                          // tensor cores: queries a block (64 / rep, or 32)
+  int rep;                         //   copies of each query in a block (1, 2 or 4)
+  int ns, lcap, glcap, bcap, gbcap, panels, live;   // tensor-core shape
 };
 
-// Dynamic shared memory of an int8 stage 1 for a query tile of bq.
+// Which of the 64 slots of a tile the row of the tensor-core route's query
+// panel holds: slot v sits at row 16 (v % 4) + v / 4, so that a tile's
+// slots spread over the consumer warpgroup's four warps (warp w holds rows
+// 16 w .. 16 w + 15; v = 4 s + w is its row 16 w + s), whose list work
+// runs apart. Slot v holds copy v % rep of query v / rep: with rep copies
+// (a tile of 64 / rep queries, for a few queries) copy r of a query lies in
+// warp r and folds the tile's columns of chunks c with c % rep == r. A tile
+// of 32 queries (rep 1) fills the first 8 rows of each warp.
+__host__ __device__ __forceinline__ int i8_slot_of_row(int row) {
+  return 4 * (row % 16) + row / 16;
+}
+
+// The queries quantized as ops/quant.py:quantize_rows does, one block a row
+// of qq [tiles * 64, d] i8 (rows in i8_slot_of_row's order, zeros where no
+// query sits), and qs [nq] f32.
+__global__ void __launch_bounds__(kThreads)
+i8_quantize(const float* __restrict__ qry, int d, int nq, int qt, int rep,
+            int8_t* __restrict__ qq, float* __restrict__ qs) {
+  __shared__ float red[kWarps];
+  const int row = blockIdx.x, tid = threadIdx.x;
+  const int v = i8_slot_of_row(row % 64);
+  const int q = row / 64 * qt + v / rep;
+  int8_t* out = qq + (long long)row * d;
+  if (v >= qt * rep || q >= nq) {
+    for (int c = tid; c < d; c += kThreads) out[c] = 0;
+    return;
+  }
+  const float* x = qry + (long long)q * d;
+  float amax = 0.f;
+  for (int j = tid; j < d; j += kThreads) amax = fmaxf(amax, fabsf(x[j]));
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(kFull, amax, o));
+  if ((tid & 31) == 0) red[tid >> 5] = amax;
+  __syncthreads();
+  amax = red[0];
+  for (int w = 1; w < kWarps; ++w) amax = fmaxf(amax, red[w]);
+  const float scale = amax > 0.f ? __fmul_rn(amax, kRecip127) : 0.f;
+  const float inv = scale > 0.f ? __fdiv_rn(1.f, scale) : 0.f;
+  for (int c = tid; c < d; c += kThreads)
+    out[c] = (int8_t)(int)fminf(fmaxf(rintf(__fmul_rn(x[c], inv)), -127.f), 127.f);
+  if (tid == 0 && v % rep == 0) qs[q] = scale;
+}
+
+// The key of a list entry, 0 for an empty one (row INT32_MAX).
+__device__ __forceinline__ uint64_t entry_key(float s, int r) {
+  return r == INT32_MAX ? 0ull : list_key(s, r);
+}
+
+// ---- stage 1, dp4a route
+
+// Dynamic shared memory of a dp4a stage 1 for a query tile of bq.
 inline size_t i8_smem(int bq, int qstride, int k, int g) {
   return sizeof(int) * ((size_t)bq * qstride + (size_t)kBR * kI8LD) +
          sizeof(float) * (size_t)bq * (kBR + 1) +
@@ -2992,7 +3114,7 @@ __global__ void __launch_bounds__(kThreads) i8_stage1(const I8Args a) {
   static_assert(TR * MR == kBR, "thread grid must cover one row tile");
 
   extern __shared__ int ismem[];
-  const int k = a.k, g = a.g, qstride = a.qstride;
+  const int k = a.kc, g = a.gc, qstride = a.qstride;
   int* qw = ismem;                           // [BQ][qstride] query code words
   int* rw = qw + BQ * qstride;               // [kBR][kI8LD] row code words
   float* sc = reinterpret_cast<float*>(rw + kBR * kI8LD);   // [BQ][kBR + 1]
@@ -3014,12 +3136,13 @@ __global__ void __launch_bounds__(kThreads) i8_stage1(const I8Args a) {
   const int tr = tid % TR;
   const int q0 = blockIdx.x * BQ;
   const int split = blockIdx.y;
-  const int d = a.d, dw = d / 4;
+  const int d = a.d, dw = (d + 3) / 4;       // code words of a row, the last partial
+  const bool aligned = d % 8 == 0;           // rows 8-byte aligned: 8-byte loads
   const long long r_begin = (long long)split * a.rows_per_split;
   long long r_end = r_begin + a.rows_per_split;
   if (r_end > a.n) r_end = a.n;
 
-  // Quantize the tile's queries, one warp a query (zeros past nq).
+  // Quantize the tile's queries, one warp a query (zeros past nq and d).
   for (int qi = warp; qi < BQ; qi += kWarps) {
     const int q = q0 + qi;
     const float* x = a.qry + (long long)(q < a.nq ? q : 0) * d;
@@ -3035,8 +3158,10 @@ __global__ void __launch_bounds__(kThreads) i8_stage1(const I8Args a) {
       if (q < a.nq && w < dw) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const float v = fminf(fmaxf(rintf(__fmul_rn(x[4 * w + e], inv)), -127.f), 127.f);
-          word |= ((unsigned)(int)v & 0xffu) << (8 * e);
+          if (4 * w + e < d) {
+            const float v = fminf(fmaxf(rintf(__fmul_rn(x[4 * w + e], inv)), -127.f), 127.f);
+            word |= ((unsigned)(int)v & 0xffu) << (8 * e);
+          }
         }
       }
       qw[qi * qstride + w] = (int)word;
@@ -3074,14 +3199,27 @@ __global__ void __launch_bounds__(kThreads) i8_stage1(const I8Args a) {
 #pragma unroll
       for (int j = 0; j < MR; ++j) acc[i][j] = 0;
     for (int w0 = 0; w0 < dw; w0 += kI8DW) {
-      // Stage the slice, two code words (8 bytes) a load; dw is even.
+      // Stage the slice, two code words (8 bytes) at a time; bytes past d
+      // are zeros.
       for (int e = tid; e < kBR * (kI8DW / 2); e += kThreads) {
         const int row = e / (kI8DW / 2);
         const int c = (e % (kI8DW / 2)) * 2;
         const long long r = r0 + row;
         uint2 v = make_uint2(0u, 0u);
-        if (r < r_end && w0 + c < dw)
-          v = *reinterpret_cast<const uint2*>(a.codes + r * d + 4 * (w0 + c));
+        if (r < r_end && w0 + c < dw) {
+          const int8_t* src = a.codes + r * d + 4 * (w0 + c);
+          if (aligned) {
+            v = *reinterpret_cast<const uint2*>(src);
+          } else {
+#pragma unroll
+            for (int b = 0; b < 8; ++b) {
+              const unsigned byte =
+                  4 * (w0 + c) + b < d ? (unsigned)(uint8_t)src[b] : 0u;
+              if (b < 4) v.x |= byte << (8 * b);
+              else v.y |= byte << (8 * (b - 4));
+            }
+          }
+        }
         rw[row * kI8LD + c] = (int)v.x;
         rw[row * kI8LD + c + 1] = (int)v.y;
       }
@@ -3113,11 +3251,23 @@ __global__ void __launch_bounds__(kThreads) i8_stage1(const I8Args a) {
     }
     __syncthreads();
 
-    // One warp a query: fold the tile into its list(s).
+    // One warp a query: fold the tile into its list(s); a later pass admits
+    // only pairs ranking after the previous pass's last.
     for (int qi = warp; qi < BQ; qi += kWarps) {
-      if (q0 + qi >= a.nq) break;
+      const int q = q0 + qi;
+      if (q >= a.nq) break;
       const float* scq = sc + qi * (kBR + 1);
       const int ten = kKeyed ? qt[qi] : 0;
+      const float ts = a.after_s ? a.after_s[(long long)q * a.k] : INFINITY;
+      const long long ta = a.after_s ? (long long)a.after_r[(long long)q * a.k] : -1;
+      float gts = INFINITY;
+      long long gta = -1;
+      if constexpr (kKeyed) {
+        if (a.gafter_s) {
+          gts = a.gafter_s[(long long)q * a.g];
+          gta = a.gafter_r[(long long)q * a.g];
+        }
+      }
       for (int c = 0; c < kBR; c += 32) {
         const long long r = r0 + c + lane;
         const bool in = r < r_end;
@@ -3125,13 +3275,19 @@ __global__ void __launch_bounds__(kThreads) i8_stage1(const I8Args a) {
         if constexpr (kKeyed) {
           const bool mine = rkey[c + lane] == ten;
           const bool sup = rsup[c + lane] != 0;
-          warp_list_insert<kI8MaxK>(ls + qi * k, lr + qi * k, k, mine && !sup ? s : kNeg,
-                                    (int)(r0 + c), in);
-          if (g > 0)
-            warp_list_insert<kI8MaxK>(gls + qi * g, glr + qi * g, g, mine && sup ? s : kNeg,
-                                      (int)(r0 + c), in);
+          if (k > 0) {
+            const float sa = mine && !sup ? s : kNeg;
+            warp_list_insert<kI8MaxK>(ls + qi * k, lr + qi * k, k, sa, (int)(r0 + c),
+                                      in && ranks_after(sa, r, ts, ta));
+          }
+          if (g > 0) {
+            const float sg = mine && sup ? s : kNeg;
+            warp_list_insert<kI8MaxK>(gls + qi * g, glr + qi * g, g, sg, (int)(r0 + c),
+                                      in && ranks_after(sg, r, gts, gta));
+          }
         } else {
-          warp_list_insert<kI8MaxK>(ls + qi * k, lr + qi * k, k, s, (int)(r0 + c), in);
+          warp_list_insert<kI8MaxK>(ls + qi * k, lr + qi * k, k, s, (int)(r0 + c),
+                                    in && ranks_after(s, r, ts, ta));
         }
       }
     }
@@ -3140,26 +3296,20 @@ __global__ void __launch_bounds__(kThreads) i8_stage1(const I8Args a) {
 
   for (int e = tid; e < BQ * k; e += kThreads) {
     const int q = q0 + e / k;
-    if (q < a.nq) {
-      const long long o = ((long long)split * a.nq + q) * k + e % k;
-      a.cand_s[o] = ls[e];
-      a.cand_r[o] = lr[e];
-    }
+    if (q < a.nq)
+      a.cand[((long long)split * a.nq + q) * k + e % k] = entry_key(ls[e], lr[e]);
   }
   for (int e = tid; e < BQ * g; e += kThreads) {
     const int q = q0 + e / g;
-    if (q < a.nq) {
-      const long long o = ((long long)split * a.nq + q) * g + e % g;
-      a.gcand_s[o] = gls[e];
-      a.gcand_r[o] = glr[e];
-    }
+    if (q < a.nq)
+      a.gcand[((long long)split * a.nq + q) * g + e % g] = entry_key(gls[e], glr[e]);
   }
 }
 
 // Code words a query keeps in shared memory: d / 4 rounded up to a slice.
-inline int i8_qstride(int d) { return ((d / 4 + kI8DW - 1) / kI8DW) * kI8DW; }
+inline int i8_qstride(int d) { return (((d + 3) / 4 + kI8DW - 1) / kI8DW) * kI8DW; }
 
-// The query tile of an int8 stage 1: the FMA route's for nq, halved while
+// The query tile of a dp4a stage 1: the FMA route's for nq, halved while
 // the block's shared memory would not fit.
 inline int i8_query_tile(int nq, int d, int k, int g) {
   int bq = query_tile(nq);
@@ -3168,7 +3318,7 @@ inline int i8_query_tile(int nq, int d, int k, int g) {
   return bq;
 }
 
-// Blocks of one int8 stage 1 that an SM holds at once (registers and
+// Blocks of one dp4a stage 1 that an SM holds at once (registers and
 // shared memory), at least 1.
 template <int BQ, int MQ, int MR, bool kKeyed>
 int i8_resident(int qstride, int k, int g) {
@@ -3194,7 +3344,7 @@ int i8_resident_for(int bq, int qstride, int k, int g) {
   }
 }
 
-// Row splits of an int8 scan: one wave of the blocks the SMs hold at once
+// Row splits of a dp4a scan: one wave of the blocks the SMs hold at once
 // (at most four an SM). Each split restarts its lists, whose early rows
 // nearly all enter, so more splits than one wave would only add list work:
 // at Q = 64 (one 167 KB block an SM) 528 splits took 9.9 ms, four waves.
@@ -3216,7 +3366,7 @@ int i8_splits(long long n, int nq, int k, int g, int d, int sms) {
 template <int BQ, int MQ, int MR, bool kKeyed>
 cudaError_t launch_i8(const I8Args& a, cudaStream_t st) {
   auto kernel = i8_stage1<BQ, MQ, MR, kKeyed>;
-  const size_t smem = i8_smem(BQ, a.qstride, a.k, a.g);
+  const size_t smem = i8_smem(BQ, a.qstride, a.kc, a.gc);
   if (smem > (size_t)kSmemMax) return cudaErrorInvalidValue;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -3226,9 +3376,11 @@ cudaError_t launch_i8(const I8Args& a, cudaStream_t st) {
   return cudaGetLastError();
 }
 
+// The tile is picked for the first pass's lists (the longest), so every
+// pass of a scan runs the same tile.
 template <bool kKeyed>
-cudaError_t launch_i8_for(const I8Args& a, cudaStream_t st) {
-  switch (i8_query_tile(a.nq, a.d, a.k, a.g)) {
+cudaError_t launch_i8_for(const I8Args& a, int bq, cudaStream_t st) {
+  switch (bq) {
     case 4: return launch_i8<4, 1, 2, kKeyed>(a, st);
     case 8: return launch_i8<8, 1, 4, kKeyed>(a, st);
     case 16: return launch_i8<16, 1, 8, kKeyed>(a, st);
@@ -3236,31 +3388,725 @@ cudaError_t launch_i8_for(const I8Args& a, cudaStream_t st) {
   }
 }
 
-// Stage 1 and one stage 2 a list; each launch the card takes is added to
-// *launched. Keyed when a.row_tenant is set.
-int run_i8(I8Args a, float* out_s, int* out_r, float* gout_s, int* gout_r, int* launched,
-           cudaStream_t st) {
+// ---- stage 1, tensor cores
+
+// Lists, batches and ring of a tensor-core stage 1 (entries of 8 bytes a
+// query: lcap and glcap of sorted list, bcap and gbcap of batch; gbcap 0 in
+// the keyed form: the gate shares the ANN list's batch).
+struct I8WgShape {
+  int ns, lcap, glcap, bcap, gbcap;
+};
+
+// The staged sums of a tile: 16 B a consumer thread and chunk of 8 columns.
+constexpr int kI8SumBytes = (kI8BN / 8) * 128 * 16;
+
+// 1 KB of alignment slack, the ring and its barriers, two buffers of a
+// tile's four row words, the staged sums, and per live slot its lists and
+// batches.
+inline size_t i8_wg_smem(int live, const I8WgShape& s) {
+  return 1024 + (size_t)s.ns * ((size_t)(64 + kI8BN) * kRowBytes + 16) +
+         8 * sizeof(uint32_t) * kI8BN + kI8SumBytes +
+         (size_t)live * (s.lcap + s.glcap + s.bcap + s.gbcap) * 8;
+}
+
+inline int i8_cap8(int c) { return (c + 7) / 8 * 8; }
+
+// The shape for lists of kc and gc (0: none) at `live` queries a block: the
+// largest batches that leave at least 3 stages (256 a list, 128 a list, or
+// one shared batch of 128: a batch takes any tile's survivors once it has
+// been merged), then the deepest ring; ns 0 if none fits.
+inline I8WgShape i8_wg_shape(int live, int kc, int gc) {
+  const int opts[3][2] = {{kSortN, kSortN}, {kI8BN, kI8BN}, {kI8BN, 0}};
+  for (const auto& o : opts) {
+    I8WgShape s{kMaxStages, i8_cap8(kc), gc ? i8_cap8(gc) : 0, o[0], gc ? o[1] : 0};
+    while (s.ns >= 3 && i8_wg_smem(live, s) > (size_t)kSmemMax) --s.ns;
+    if (s.ns >= 3) return s;
+  }
+  return I8WgShape{0, 0, 0, 0, 0};
+}
+
+// The entries a pass takes of lists of k and g on the tensor cores: both
+// capped at kI8MaxK, the longer cut by 8 until a shape fits.
+inline void i8_wg_caps(int live, int k, int g, int& kc, int& gc) {
+  kc = k < kI8MaxK ? k : kI8MaxK;
+  gc = g < kI8MaxK ? g : kI8MaxK;
+  while (i8_wg_shape(live, kc, gc).ns == 0) {
+    if (kc >= gc && kc > 8) kc -= 8;
+    else if (gc > 8) gc -= 8;
+    else break;
+  }
+}
+
+// The score of a tier from the scaled sum s and its row words. Additive
+// form: s + madd (w: madd's bits, -inf past the split's end). Keyed form: s
+// where the row's tier key w (the ANN key, or the gate key) is the query's
+// tenant, else the row's fill wc (NEG, or -inf past the split's end).
+template <bool kKeyed>
+__device__ __forceinline__ float i8_tier(float s, uint32_t w, uint32_t wc, int ten) {
+  if constexpr (kKeyed) return (int)w == ten ? s : __uint_as_float(wc);
+  return __fadd_rn(s, __uint_as_float(w));
+}
+
+// A pair's score from its int32 sum: (float(dot) * qs) * scale, no FMA.
+__device__ __forceinline__ float i8_score(int dot, float qs, uint32_t scale_bits) {
+  return __fmul_rn(__fmul_rn(__int2float_rn(dot), qs), __uint_as_float(scale_bits));
+}
+
+// Stage 1 on the tensor cores (see the section's note). Block (x, y)
+// scores queries x * 64 .. + 63 against the rows of split y in tiles of
+// kI8BN rows; warpgroup 1's one thread produces, warpgroup 0 computes and
+// folds.
+template <bool kKeyed>
+__global__ void __launch_bounds__(256, 1)
+i8_stage1_wgmma(const __grid_constant__ CUtensorMap map_e,
+                const __grid_constant__ CUtensorMap map_q, const I8Args a) {
+  constexpr int BN = kI8BN;
+  constexpr int NF = BN / 2;                  // accumulator registers a thread
+  constexpr int STAGE = (64 + BN) * kRowBytes;
+  constexpr int NL = kKeyed ? 2 : 1;          // lists a query keeps
+  extern __shared__ uint8_t smem_raw[];
+  // Aligned by an offset from smem_raw (not through an integer), so that
+  // every pointer below stays in the shared space: ld.shared, not generic
+  // loads, in the epilogue and the merges.
+  uint8_t* ring = smem_raw + ((1024u - (hopper::smem_u32(smem_raw) & 1023u)) & 1023u);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + a.ns * STAGE);
+  uint64_t* empty = full + a.ns;
+  uint32_t* cols = reinterpret_cast<uint32_t*>(empty + a.ns);    // [2][scale, A, B, C][BN]
+  int4* sums = reinterpret_cast<int4*>(cols + 8 * BN);           // [BN / 8][128]
+  uint64_t* lists = reinterpret_cast<uint64_t*>(sums + (BN / 8) * 128);  // [live][stride]
+  // A query's region: ANN list, gate list, ANN batch, gate batch.
+  const int stride = a.lcap + a.glcap + a.bcap + a.gbcap;
+  const bool shared_batch = kKeyed && a.gbcap == 0;
+
+  const int q0 = blockIdx.x * a.qt;            // the tile's first query
+  const int split = blockIdx.y;
+  const long long r_begin = (long long)split * a.rows_per_split;
+  const long long r_end = min(r_begin + a.rows_per_split, a.n);
+  const int tiles = r_end > r_begin ? (int)((r_end - r_begin + BN - 1) / BN) : 0;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < a.ns; ++s) {
+      hopper::mbar_init(full + s, 1);
+      hopper::mbar_init(empty + s, 1);
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {
+    if (threadIdx.x == 128)
+      wg_produce<1, BN>(&map_q, &map_e, ring, full, empty, a.ns, tiles, a.panels,
+                        blockIdx.x * 64, r_begin);
+    return;
+  }
+
+  // ---- consumers: this thread's query rows a and b of the accumulator,
+  // slots xa and xb of the tile (i8_slot_of_row), copies part of queries
+  // qa and qb
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int rep = a.rep, part = warp % rep;
+  const int xa = 4 * g + warp, xb = xa + 32;
+  const int qa = q0 + xa / rep, qb = q0 + xb / rep;
+  const bool va = xa < a.qt * rep && qa < a.nq, vb = xb < a.qt * rep && qb < a.nq;
+  const bool warp_live = __any_sync(kFull, va || vb);   // a warp of no query skips the folds
+  const float qs_a = va ? a.qsc[qa] : 0.f, qs_b = vb ? a.qsc[qb] : 0.f;
+  int ten_a = 0, ten_b = 0;
+  if constexpr (kKeyed) {
+    ten_a = va ? a.q_tenant[qa] : kNoTenant;
+    ten_b = vb ? a.q_tenant[qb] : kNoTenant;
+  }
+  // Per list: its entries this pass, where it and its batch lie, the
+  // admission rule of a later pass, the sorted list's and the batch's
+  // lengths, and the score a candidate must beat (the list's last once it
+  // holds cnt; +inf for a query past nq).
+  const int cnt[2] = {a.kc, kKeyed ? a.gc : 0};
+  const int lcap[2] = {a.lcap, a.glcap};
+  const int loff[2] = {0, a.lcap};
+  const int boff[2] = {a.glcap, shared_batch ? 0 : a.bcap};
+  const int bcap[2] = {a.bcap, shared_batch ? a.bcap : a.gbcap};
+  const int bpos[2] = {0, shared_batch ? 0 : a.bcap};
+  const float* after_s[2] = {a.after_s, a.gafter_s};
+  const int* after_r[2] = {a.after_r, a.gafter_r};
+  const long long ld[2] = {a.k, a.g};
+  bool first[2];
+  float ts_a[2], ts_b[2], thr_a[2], thr_b[2];
+  long long ta_a[2], ta_b[2];
+  int m_a[2], m_b[2], nb_a[2], nb_b[2];
+#pragma unroll
+  for (int l = 0; l < 2; ++l) {
+    first[l] = after_s[l] == nullptr;
+    ts_a[l] = ts_b[l] = INFINITY;
+    ta_a[l] = ta_b[l] = -1;
+    if (!first[l] && l < NL) {
+      if (va) { ts_a[l] = after_s[l][qa * ld[l]]; ta_a[l] = after_r[l][qa * ld[l]]; }
+      if (vb) { ts_b[l] = after_s[l][qb * ld[l]]; ta_b[l] = after_r[l][qb * ld[l]]; }
+    }
+    thr_a[l] = va ? -INFINITY : INFINITY;
+    thr_b[l] = vb ? -INFINITY : INFINITY;
+    m_a[l] = m_b[l] = nb_a[l] = nb_b[l] = 0;
+  }
+  // Slot v's region is v's; the warp's row i holds slot 4 i + warp, so its
+  // merges see regions 4 strides apart.
+  uint64_t* wlists = lists + warp * stride;
+  const int wstride = 4 * stride;
+  uint64_t* Ba = lists + xa * stride + a.lcap + a.glcap;
+  uint64_t* Bb = lists + xb * stride + a.lcap + a.glcap;
+  // List l's merges where a lane of the warp needs one.
+  auto merge = [&](int l, bool need_a, bool need_b) {
+    if (!__any_sync(kFull, need_a || need_b)) return;
+    merge_pending<kI8MaxK>(wlists + loff[l], lcap[l], wstride - lcap[l], cnt[l], need_a, need_b,
+                           m_a[l], m_b[l], nb_a[l], nb_b[l], thr_a[l], thr_b[l], boff[l]);
+  };
+
+  // This thread's row of a tile: its scale, and madd or its tenant,
+  // alive and is_super, loaded a whole tile ahead (independent loads: a
+  // tile's product is too short to hide a round trip to HBM).
+  uint32_t n_scale = 0u, n_word = 0u;
+  uint8_t n_alive = 0, n_super = 0;
+  auto prefetch = [&](int t) {
+    const long long r = r_begin + (long long)t * BN + tid;
+    if (t < tiles && r < r_end) {
+      n_scale = __float_as_uint(a.scale[r]);
+      if constexpr (kKeyed) {
+        n_word = (uint32_t)a.row_tenant[r];
+        n_alive = a.alive[r];
+        n_super = a.is_super[r];
+      } else {
+        n_word = __float_as_uint(a.madd[r]);
+      }
+    }
+  };
+  prefetch(0);
+  int acc[NF];
+#pragma unroll
+  for (int i = 0; i < NF; ++i) acc[i] = 0;
+  for (int t = 0; t < tiles; ++t) {
+    const long long r0 = r_begin + (long long)t * BN;
+    const int g0 = (int)r0;                      // row of column 0
+    const bool in = r0 + tid < r_end;
+    const uint32_t ws = in ? n_scale : 0u;
+    uint32_t wa, wb = 0u, wc = 0u;
+    if constexpr (kKeyed) {
+      const int key = in && n_alive ? (int)n_word : kNoTenant;
+      const bool sup = in && n_super;
+      wa = (uint32_t)(sup ? kNoTenant : key);
+      wb = (uint32_t)(sup ? key : kNoTenant);
+      wc = __float_as_uint(in ? kNeg : -INFINITY);
+    } else {
+      wa = in ? n_word : __float_as_uint(-INFINITY);
+    }
+    prefetch(t + 1);
+    wg_product<1, BN>(acc, ring, full, empty, a.ns, t, a.panels, 0, tid);
+    // Buffer t % 2 was last read in tile t - 2's epilogue, which every
+    // thread finished before tile t - 1's barrier.
+    uint32_t* colS = cols + (t & 1) * 4 * BN;
+    uint32_t* colW[2] = {colS + BN, colS + 2 * BN};
+    const uint32_t* colC = colS + 3 * BN;
+    colS[tid] = ws;
+    colW[0][tid] = wa;
+    colW[1][tid] = wb;
+    colS[3 * BN + tid] = wc;
+    hopper::named_sync(1, 128);
+    if (!warp_live) continue;
+
+    // The tile's int32 sums, staged thread-private: chunk c of this thread
+    // (fragment elements 4c .. 4c + 3: rows a and b, columns 8c + 2tq + {0,
+    // 1}) at sums[c * 128 + tid], which the folds walk in rolled loops.
+#pragma unroll
+    for (int c = 0; c < BN / 8; ++c)
+      sums[c * 128 + tid] = make_int4(acc[4 * c], acc[4 * c + 1], acc[4 * c + 2], acc[4 * c + 3]);
+
+    // The keyed form's first pass masks both lists in one walk, one score
+    // an element for both tiers.
+    uint32_t mla[2] = {0u, 0u}, mlb[2] = {0u, 0u};
+    bool both = false;
+    if constexpr (kKeyed) {
+      both = cnt[0] > 0 && cnt[1] > 0 && first[0] && first[1];
+      if (both) {
+#pragma unroll 2
+        for (int c = part; c < BN / 8; c += rep) {
+          const int4 v = sums[c * 128 + tid];
+          const uint2 sw = *reinterpret_cast<const uint2*>(colS + 8 * c + 2 * tq);
+          const uint2 ka = *reinterpret_cast<const uint2*>(colW[0] + 8 * c + 2 * tq);
+          const uint2 kb = *reinterpret_cast<const uint2*>(colW[1] + 8 * c + 2 * tq);
+          const uint2 kf = *reinterpret_cast<const uint2*>(colC + 8 * c + 2 * tq);
+          const float s0 = i8_score(v.x, qs_a, sw.x), s1 = i8_score(v.y, qs_a, sw.y);
+          const float s2 = i8_score(v.z, qs_b, sw.x), s3 = i8_score(v.w, qs_b, sw.y);
+          const float f0 = __uint_as_float(kf.x), f1 = __uint_as_float(kf.y);
+          const uint32_t a0 = ((int)ka.x == ten_a ? s0 : f0) > thr_a[0] ? 1u : 0u;
+          const uint32_t a1 = ((int)ka.y == ten_a ? s1 : f1) > thr_a[0] ? 2u : 0u;
+          const uint32_t b0 = ((int)ka.x == ten_b ? s2 : f0) > thr_b[0] ? 1u : 0u;
+          const uint32_t b1 = ((int)ka.y == ten_b ? s3 : f1) > thr_b[0] ? 2u : 0u;
+          const uint32_t ga0 = ((int)kb.x == ten_a ? s0 : f0) > thr_a[1] ? 1u : 0u;
+          const uint32_t ga1 = ((int)kb.y == ten_a ? s1 : f1) > thr_a[1] ? 2u : 0u;
+          const uint32_t gb0 = ((int)kb.x == ten_b ? s2 : f0) > thr_b[1] ? 1u : 0u;
+          const uint32_t gb1 = ((int)kb.y == ten_b ? s3 : f1) > thr_b[1] ? 2u : 0u;
+          mla[0] |= (a0 | a1) << (2 * c);
+          mlb[0] |= (b0 | b1) << (2 * c);
+          mla[1] |= (ga0 | ga1) << (2 * c);
+          mlb[1] |= (gb0 | gb1) << (2 * c);
+        }
+      }
+    }
+#pragma unroll
+    for (int l = 0; l < NL; ++l) {
+      if (cnt[l] == 0) continue;
+      const uint32_t* cw = colW[l];
+      // A mask of the scores above the threshold (and after the previous
+      // pass's last pair), this warp's copy's chunks; then the few
+      // survivors, their scores computed again the same way.
+      uint32_t ma = mla[l], mb = mlb[l];
+#pragma unroll 4
+      for (int c = both ? BN / 8 : part; c < BN / 8; c += rep) {
+        const int4 v = sums[c * 128 + tid];
+        const uint2 sw = *reinterpret_cast<const uint2*>(colS + 8 * c + 2 * tq);
+        const uint2 kw = *reinterpret_cast<const uint2*>(cw + 8 * c + 2 * tq);
+        uint2 kf = make_uint2(0u, 0u);
+        if constexpr (kKeyed) kf = *reinterpret_cast<const uint2*>(colC + 8 * c + 2 * tq);
+        const int row = g0 + 8 * c + 2 * tq;
+        const float s0 = i8_tier<kKeyed>(i8_score(v.x, qs_a, sw.x), kw.x, kf.x, ten_a);
+        const float s1 = i8_tier<kKeyed>(i8_score(v.y, qs_a, sw.y), kw.y, kf.y, ten_a);
+        const float s2 = i8_tier<kKeyed>(i8_score(v.z, qs_b, sw.x), kw.x, kf.x, ten_b);
+        const float s3 = i8_tier<kKeyed>(i8_score(v.w, qs_b, sw.y), kw.y, kf.y, ten_b);
+        const bool u0 = s0 > thr_a[l] && (first[l] || ranks_after(s0, row, ts_a[l], ta_a[l]));
+        const bool u1 = s1 > thr_a[l] && (first[l] || ranks_after(s1, row + 1, ts_a[l], ta_a[l]));
+        const bool u2 = s2 > thr_b[l] && (first[l] || ranks_after(s2, row, ts_b[l], ta_b[l]));
+        const bool u3 = s3 > thr_b[l] && (first[l] || ranks_after(s3, row + 1, ts_b[l], ta_b[l]));
+        ma |= ((u0 ? 1u : 0u) | (u1 ? 2u : 0u)) << (2 * c);
+        mb |= ((u2 ? 1u : 0u) | (u3 ? 2u : 0u)) << (2 * c);
+      }
+      int off_a, tot_a, off_b, tot_b;
+      quad_scan(__popc(ma), off_a, tot_a);
+      quad_scan(__popc(mb), off_b, tot_b);
+      // A batch that could not take the survivors is merged first.
+      merge(l, nb_a[l] > 0 && nb_a[l] + tot_a > bcap[l], nb_b[l] > 0 && nb_b[l] + tot_b > bcap[l]);
+      if (ma | mb) {
+        uint64_t* ba = Ba + bpos[l] + nb_a[l] + off_a;
+        uint64_t* bb = Bb + bpos[l] + nb_b[l] + off_b;
+        for (uint32_t m = ma; m; m &= m - 1) {
+          const int bit = __ffs(m) - 1, c = bit >> 1, col = 8 * c + 2 * tq + (bit & 1);
+          const int4 v = sums[c * 128 + tid];
+          *ba++ = list_key(i8_tier<kKeyed>(i8_score(bit & 1 ? v.y : v.x, qs_a, colS[col]),
+                                           cw[col], kKeyed ? colC[col] : 0u, ten_a),
+                           g0 + col);
+        }
+        for (uint32_t m = mb; m; m &= m - 1) {
+          const int bit = __ffs(m) - 1, c = bit >> 1, col = 8 * c + 2 * tq + (bit & 1);
+          const int4 v = sums[c * 128 + tid];
+          *bb++ = list_key(i8_tier<kKeyed>(i8_score(bit & 1 ? v.w : v.z, qs_b, colS[col]),
+                                           cw[col], kKeyed ? colC[col] : 0u, ten_b),
+                           g0 + col);
+        }
+      }
+      nb_a[l] += tot_a;
+      nb_b[l] += tot_b;
+      // While the list is not full its threshold is -inf: merge now to
+      // raise it; a shared batch is emptied before the other list's turn.
+      merge(l, nb_a[l] > 0 && (shared_batch || m_a[l] < cnt[l]),
+            nb_b[l] > 0 && (shared_batch || m_b[l] < cnt[l]));
+    }
+  }
+
+  // ---- the split's lists: the last merges, then keys out (0: empty)
+#pragma unroll
+  for (int l = 0; l < NL; ++l)
+    if (cnt[l] > 0) merge(l, nb_a[l] > 0, nb_b[l] > 0);
+  if (rep == 1) {
+#pragma unroll
+    for (int l = 0; l < NL; ++l) {
+      if (cnt[l] == 0) continue;
+      uint64_t* out = l ? a.gcand : a.cand;
+      for (int i = 0; i < 16; ++i) {
+        const int len = __shfl_sync(kFull, i < 8 ? m_a[l] : m_b[l], 4 * (i & 7));
+        const int j = 4 * i + warp, q = q0 + j;
+        if (j >= a.qt || q >= a.nq) continue;
+        const uint64_t* L = wlists + loff[l] + i * wstride;
+        const long long o = ((long long)split * a.nq + q) * cnt[l];
+        for (int idx = lane; idx < cnt[l]; idx += 32) out[o + idx] = idx < len ? L[idx] : 0ull;
+      }
+    }
+    return;
+  }
+  // A query's copies: each key's place in the split's list is its index in
+  // its copy's list plus the keys of the other copies above it (no two keys
+  // are equal), by binary search. The lists' lengths go through the row
+  // words' buffers, which every warp is done with.
+  int* mlen = reinterpret_cast<int*>(cols);          // [list][slot]
+  hopper::named_sync(1, 128);
+  if (tq == 0) {
+#pragma unroll
+    for (int l = 0; l < NL; ++l) {
+      mlen[64 * l + xa] = m_a[l];
+      mlen[64 * l + xb] = m_b[l];
+    }
+  }
+  hopper::named_sync(1, 128);
+  for (int j = warp; j < a.qt; j += 4) {
+    const int q = q0 + j;
+    if (q >= a.nq) break;
+#pragma unroll
+    for (int l = 0; l < NL; ++l) {
+      if (cnt[l] == 0) continue;
+      uint64_t* out = (l ? a.gcand : a.cand) + ((long long)split * a.nq + q) * cnt[l];
+      const int* ml = mlen + 64 * l + j * rep;
+      int total = 0;
+      for (int r = 0; r < rep; ++r) total += ml[r];
+      for (int idx = total + lane; idx < cnt[l]; idx += 32) out[idx] = 0ull;
+      for (int r = 0; r < rep; ++r) {
+        const uint64_t* L = lists + (j * rep + r) * stride + loff[l];
+        for (int idx = lane; idx < ml[r]; idx += 32) {
+          const uint64_t key = L[idx];
+          int rank = idx;
+          for (int r2 = 0; r2 < rep; ++r2)
+            if (r2 != r) rank += count_greater(lists + (j * rep + r2) * stride + loff[l], ml[r2], key);
+          if (rank < cnt[l]) out[rank] = key;
+        }
+      }
+    }
+  }
+}
+
+template <bool kKeyed>
+cudaError_t launch_i8_wg(const I8Args& a, const CUtensorMap& map_e, const CUtensorMap& map_q,
+                         cudaStream_t st) {
+  auto kernel = i8_stage1_wgmma<kKeyed>;
+  const size_t smem = i8_wg_smem(a.live, I8WgShape{a.ns, a.lcap, a.glcap, a.bcap, a.gbcap});
+  if (smem > (size_t)kSmemMax) return cudaErrorInvalidValue;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((a.nq + a.qt - 1) / a.qt, a.splits), 256, smem, st>>>(map_e, map_q, a);
+  return cudaGetLastError();
+}
+
+// ---- stage 2
+
+// Block (q, l) writes columns [c0, c0 + c) of list l of query q (0: the ANN
+// or additive list, out [nq, ldk] from column k0; 1: the gate, gout [nq,
+// ldg] from column g0), c = kc or gc (a block of a list with nothing left
+// this pass returns), from the splits' c-entry lists of keys, split-major:
+// the c largest keys (see the section's note). `cache` is the number of
+// keys the launch's dynamic shared memory holds. The radix passes walk the
+// keys a split at a time, a warp a split, so a warp's keys are one sorted
+// run. Once the digit found so far leaves at most kI8SelBin keys in its
+// bin, one pass gathers the bin (and the keys above it, which are in), and
+// the later digits are found in the bin alone.
+__global__ void __launch_bounds__(kI8SelThreads)
+i8_select(const uint64_t* __restrict__ cand, const uint64_t* __restrict__ gcand, int splits,
+          int nq, int kc, int gc, int k0, int g0, int ldk, int ldg, int cache,
+          float* __restrict__ out_s, int* __restrict__ out_r, float* __restrict__ gout_s,
+          int* __restrict__ gout_r) {
+  constexpr int T = kI8SelThreads;
+  constexpr int W = T / 32;
+  extern __shared__ uint64_t held_keys[];    // [cache]
+  __shared__ int hist[256];
+  __shared__ uint64_t sel[kI8MaxK];
+  __shared__ uint64_t bin[kI8SelBin];
+  __shared__ int s_digit, s_need, s_size, s_count, s_nbin;
+  const bool gate = blockIdx.y == 1;
+  const int c = gate ? gc : kc;
+  if (c == 0) return;
+  const int q = blockIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const uint64_t* src = gate ? gcand : cand;
+  const bool held = splits * c <= cache;
+  auto key = [&](int sp, int j) -> uint64_t {
+    return held ? held_keys[sp * c + j] : src[((long long)sp * nq + q) * c + j];
+  };
+  if (held) {
+    for (int i = tid; i < splits * c; i += T) {
+      const int sp = i / c;
+      held_keys[i] = src[((long long)sp * nq + q) * c + (i - sp * c)];
+    }
+  }
+  if (tid == 0) s_count = s_nbin = 0;
+  __syncthreads();
+
+  // The c-th largest key, a digit of 8 bits a pass from the top: each pass
+  // counts the keys that share the digits found so far, by their next
+  // digit, and one warp finds the digit where the count from the top
+  // reaches what is needed.
+  uint64_t prefix = 0ull;
+  int need = c, shift = 56;
+  bool narrowed = false;
+  while (true) {
+    const uint64_t hmask = shift == 56 ? 0ull : ~0ull << (shift + 8);
+    for (int i = tid; i < 256; i += T) hist[i] = 0;
+    __syncthreads();
+    if (!narrowed) {
+      // The keys of a warp that share the prefix come in runs of equal
+      // digits: one shared atomic a run, its length from the ballot of run
+      // starts (a new digit, or the first hit after a miss).
+      for (int sp = warp; sp < splits; sp += W) {
+        for (int j0 = 0; j0 < c; j0 += 32) {
+          const int j = j0 + lane;
+          const uint64_t x = j < c ? key(sp, j) : 0ull;
+          const bool hit = x != 0ull && (x & hmask) == prefix;
+          const int dg = (int)((x >> shift) & 255u);
+          const int pdg = __shfl_up_sync(kFull, dg, 1);
+          const bool phit = __shfl_up_sync(kFull, hit, 1);
+          const bool start = hit && (lane == 0 || !phit || pdg != dg);
+          const unsigned ends = __ballot_sync(kFull, start) | ~__ballot_sync(kFull, hit);
+          if (start) {
+            const unsigned after = lane == 31 ? 0u : ends >> (lane + 1);
+            atomicAdd(&hist[dg], after ? __ffs(after) : 32 - lane);
+          }
+        }
+      }
+    } else {
+      for (int i = tid; i < s_nbin; i += T)
+        if ((bin[i] & hmask) == prefix) atomicAdd(&hist[(int)((bin[i] >> shift) & 255u)], 1);
+    }
+    __syncthreads();
+    if (warp == 0) {
+      // Lane l holds digits 255 - 8l down to 248 - 8l.
+      int h[8], sum = 0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        h[j] = hist[255 - 8 * lane - j];
+        sum += h[j];
+      }
+      int inc = sum;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(kFull, inc, o);
+        if (lane >= o) inc += y;
+      }
+      const int before = inc - sum;
+      const bool mine = before < need && need <= inc;
+      if (mine) {
+        int run = before;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          if (run + h[j] >= need) {
+            s_digit = 255 - 8 * lane - j;
+            s_need = need - run;
+            s_size = h[j];
+            break;
+          }
+          run += h[j];
+        }
+      }
+      // Fewer keys than c (never, for lists of at most N rows): take all.
+      if (__ballot_sync(kFull, mine) == 0u && lane == 0) {
+        s_digit = 0;
+        s_need = need;
+        s_size = 0;
+      }
+    }
+    __syncthreads();
+    prefix |= (uint64_t)s_digit << shift;
+    need = s_need;
+    if (shift == 0) break;
+    if (!narrowed && s_size <= kI8SelBin) {
+      // Gather the bin, and the keys above it (c - need of them) into sel.
+      const uint64_t mask = ~0ull << shift;
+      for (int sp = warp; sp < splits; sp += W) {
+        for (int j0 = 0; j0 < c; j0 += 32) {
+          const int j = j0 + lane;
+          const uint64_t x = j < c ? key(sp, j) : 0ull;
+          const bool in_bin = x != 0ull && (x & mask) == prefix;
+          const bool above = x != 0ull && (x & mask) > prefix;
+          const unsigned bb = __ballot_sync(kFull, in_bin), ba = __ballot_sync(kFull, above);
+          int pb = 0, pa = 0;
+          if (lane == 0) {
+            if (bb) pb = atomicAdd(&s_nbin, __popc(bb));
+            if (ba) pa = atomicAdd(&s_count, __popc(ba));
+          }
+          pb = __shfl_sync(kFull, pb, 0);
+          pa = __shfl_sync(kFull, pa, 0);
+          const unsigned below = (1u << lane) - 1u;
+          if (in_bin) bin[pb + __popc(bb & below)] = x;
+          if (above && pa + __popc(ba & below) < c) sel[pa + __popc(ba & below)] = x;
+        }
+      }
+      narrowed = true;
+      __syncthreads();
+    }
+    shift -= 8;
+  }
+
+  // The keys at or above it: exactly c of them, gathered, then sorted by
+  // one warp.
+  if (narrowed) {
+    for (int i = tid; i < s_nbin; i += T) {
+      if (bin[i] >= prefix) {
+        const int p = atomicAdd(&s_count, 1);
+        if (p < c) sel[p] = bin[i];
+      }
+    }
+  } else {
+    for (int sp = warp; sp < splits; sp += W) {
+      for (int j0 = 0; j0 < c; j0 += 32) {
+        const int j = j0 + lane;
+        const uint64_t x = j < c ? key(sp, j) : 0ull;
+        const bool take = x != 0ull && x >= prefix;
+        const unsigned b = __ballot_sync(kFull, take);
+        if (b) {
+          int base = 0;
+          if (lane == 0) base = atomicAdd(&s_count, __popc(b));
+          base = __shfl_sync(kFull, base, 0);
+          const int p = base + __popc(b & ((1u << lane) - 1u));
+          if (take && p < c) sel[p] = x;
+        }
+      }
+    }
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const int n = s_count < c ? s_count : c;
+    uint64_t k8[kI8MaxK / 32];
+    warp_sort_desc<kI8MaxK>(sel, n, k8);
+    float* os = gate ? gout_s : out_s;
+    int* orow = gate ? gout_r : out_r;
+    const long long o = (long long)q * (gate ? ldg : ldk) + (gate ? g0 : k0);
+#pragma unroll
+    for (int j = 0; j < kI8MaxK / 32; ++j) {
+      const int idx = 32 * j + lane;
+      if (idx < c) {
+        os[o + idx] = k8[j] ? key_score(k8[j]) : -INFINITY;
+        orow[o + idx] = k8[j] ? key_row(k8[j]) : INT32_MAX;
+      }
+    }
+  }
+}
+
+// ---- host
+
+// Route, row splits and the list entries one pass takes (kc; gc for the
+// keyed form's gate) of an int8 scan. The route is the tensor cores where
+// d % 16 == 0 (TMA's row stride), else dp4a, unless `route` (>= 0) forces
+// one.
+struct I8Plan {
+  int route, splits, kc, gc, qt, rep;
+};
+
+// False where the card takes no such scan: d past kI8MaxD, lists longer
+// than the shadow, the tensor cores forced at d % 16 != 0, or a dp4a query
+// tile of 4 that shared memory cannot hold (d past ~50,000).
+inline bool i8_plan(long long n, int nq, int k, int g, int d, int sms, int route, I8Plan& p) {
+  if (n < 1 || nq < 1 || d < 1 || d > kI8MaxD || k < 1 || k > n || g < 0 || g > n ||
+      route > kI8Dp4a || sms < 1)
+    return false;
+  if (route < 0) route = d % 16 == 0 ? kI8Wgmma : kI8Dp4a;
+  if (route == kI8Wgmma && d % 16 != 0) return false;
+  p.route = route;
+  p.qt = 64;
+  p.rep = 1;
+  if (route == kI8Wgmma) {
+    // Past 32 queries, tiles of 32 where 64 queries' lists would take
+    // shorter passes (each pass streams the shadow again): the keyed form's
+    // 136 + 9 at 64 queries.
+    int kc64, gc64, kc32, gc32;
+    i8_wg_caps(nq < 64 ? nq : 64, k, g, kc64, gc64);
+    i8_wg_caps(nq < 32 ? nq : 32, k, g, kc32, gc32);
+    if (nq > 32 && (kc64 < kc32 || gc64 < gc32)) p.qt = 32;
+    // Up to 16 queries, 4 or 2 copies of each (one warp a copy), where
+    // their lists take the whole lists in one pass with batches of their
+    // own: at the chat turn's Q = 1 the four warps fold a quarter of each
+    // tile each, where one warp would fold it all.
+    for (int r = nq <= 8 ? 4 : (nq <= 16 ? 2 : 1); r > 1; r /= 2) {
+      int kcr, gcr;
+      i8_wg_caps(nq * r, k, g, kcr, gcr);
+      const I8WgShape sr = i8_wg_shape(nq * r, kcr, gcr);
+      if (sr.ns > 0 && kcr >= kc64 && gcr >= gc64 && (gcr == 0 || sr.gbcap > 0)) {
+        p.rep = r;
+        p.qt = 64 / r;
+        break;
+      }
+    }
+    const int live = (nq < p.qt ? nq : p.qt) * p.rep;
+    i8_wg_caps(live, k, g, p.kc, p.gc);
+    if (i8_wg_shape(live, p.kc, p.gc).ns == 0) return false;
+    const long long qtiles = (nq + p.qt - 1) / p.qt, rtiles = (n + kI8BN - 1) / kI8BN;
+    long long s = qtiles < sms ? sms / qtiles : 1;
+    if (s > rtiles) s = rtiles;
+    if (s > kMaxSplits) s = kMaxSplits;
+    p.splits = s < 1 ? 1 : (int)s;
+  } else {
+    p.kc = k < kI8MaxK ? k : kI8MaxK;
+    p.gc = g < kI8MaxK ? g : kI8MaxK;
+    if (i8_smem(4, i8_qstride(d), p.kc, p.gc) > (size_t)kSmemMax) return false;
+    p.splits = i8_splits(n, nq, p.kc, p.gc, d, sms);
+  }
+  return true;
+}
+
+// The quantization (tensor-core route), then a stage 1 and a stage 2 a
+// pass until both lists are full; each launch the card takes is added to
+// *launched. a.kc and a.gc are the plan's entries a pass; the keyed form
+// is the one with a.row_tenant. A launch the card refuses returns its
+// error: no route stands in for another.
+int run_i8(I8Args a, int route, float* out_s, int* out_r, float* gout_s, int* gout_r,
+           int* launched, cudaStream_t st) {
   const bool keyed = a.row_tenant != nullptr;
-  if (a.d % 8 != 0 || a.d > 1040 || a.k < 1 || a.k > kI8MaxK || a.k > a.n ||
-      a.g < 0 || a.g > kI8MaxK || a.g > a.n || (a.g > 0) != keyed || a.nq < 1 ||
-      a.splits < 1 || a.splits > kMaxSplits ||
-      (keyed ? !a.alive || !a.is_super || !a.q_tenant : !a.madd))
+  if (a.n < 1 || a.d < 1 || a.d > kI8MaxD || a.k < 1 || a.k > a.n || a.g < 0 || a.g > a.n ||
+      (a.g > 0) != keyed || a.nq < 1 || a.splits < 1 || a.splits > kMaxSplits || a.kc < 1 ||
+      a.kc > kI8MaxK || a.kc > a.k || a.gc < 0 || a.gc > kI8MaxK || a.gc > a.g ||
+      (keyed && a.gc < 1) || (keyed ? !a.alive || !a.is_super || !a.q_tenant : !a.madd) ||
+      (route != kI8Wgmma && route != kI8Dp4a) ||
+      (route == kI8Wgmma && (a.d % 16 != 0 || !a.qq || !a.qsc ||
+                             (a.rep != 1 && a.rep != 2 && a.rep != 4) ||
+                             (a.rep == 1 ? a.qt != 32 && a.qt != 64 : a.qt * a.rep != 64))))
     return (int)cudaErrorInvalidValue;
-  const long long rtiles = (a.n + kBR - 1) / kBR;
-  a.rows_per_split = ((rtiles + a.splits - 1) / a.splits) * kBR;
-  a.qstride = i8_qstride(a.d);
-  cudaError_t err = keyed ? launch_i8_for<true>(a, st) : launch_i8_for<false>(a, st);
-  if (err != cudaSuccess) return (int)err;
-  if (launched) ++*launched;
-  for (int l = 0; l < (keyed ? 2 : 1); ++l) {
-    const int kc = l ? a.g : a.k;
-    scan_merge<int><<<a.nq, kThreads, 0, st>>>(
-        nullptr, nullptr, l ? a.gcand_s : a.cand_s, l ? a.gcand_r : a.cand_r, a.splits, a.nq,
-        kc, 0, kc, nullptr, 0, 0, 0, nullptr, nullptr, l ? gout_s : out_s, l ? gout_r : out_r,
-        kc);
+  CUtensorMap map_e, map_q;
+  int bq = 0;
+  cudaError_t err;
+  if (route == kI8Wgmma) {
+    a.live = (a.nq < a.qt ? a.nq : a.qt) * a.rep;
+    const I8WgShape sh = i8_wg_shape(a.live, a.kc, a.gc);
+    if (sh.ns == 0) return (int)cudaErrorInvalidValue;
+    a.ns = sh.ns; a.lcap = sh.lcap; a.glcap = sh.glcap; a.bcap = sh.bcap; a.gbcap = sh.gbcap;
+    a.panels = (a.d + 127) / 128;
+    const long long rtiles = (a.n + kI8BN - 1) / kI8BN;
+    a.rows_per_split = ((rtiles + a.splits - 1) / a.splits) * kI8BN;
+    // The codes as rows of d / 2 two-byte elements: a 64-element box is 128
+    // code bytes; rows past n and bytes past d arrive as zeros.
+    const int qrows = (a.nq + a.qt - 1) / a.qt * 64;
+    if (!hopper::encode_rows_map(&map_e, a.codes, a.d / 2, a.n, 1, 1, a.d / 2, 0, 0, kI8BN) ||
+        !hopper::encode_rows_map(&map_q, a.qq, a.d / 2, qrows, 1, 1, a.d / 2, 0, 0, 64))
+      return (int)cudaErrorNotSupported;
+    i8_quantize<<<qrows, kThreads, 0, st>>>(a.qry, a.d, a.nq, a.qt, a.rep,
+                                            const_cast<int8_t*>(a.qq), const_cast<float*>(a.qsc));
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     if (launched) ++*launched;
+  } else {
+    a.qstride = i8_qstride(a.d);
+    bq = i8_query_tile(a.nq, a.d, a.kc, a.gc);
+    const long long rtiles = (a.n + kBR - 1) / kBR;
+    a.rows_per_split = ((rtiles + a.splits - 1) / a.splits) * kBR;
+  }
+  const int kcap = a.kc, gcap = a.gc;
+  const long long mmax = (long long)a.splits * (kcap > gcap ? kcap : gcap);
+  const int cache = (int)(mmax < kI8SelCache ? mmax : kI8SelCache);
+  const size_t sel_smem = (size_t)cache * sizeof(uint64_t);
+  err = cudaFuncSetAttribute(i8_select, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)sel_smem);
+  if (err != cudaSuccess) return (int)err;
+  for (int k0 = 0, g0 = 0; k0 < a.k || g0 < a.g;) {
+    I8Args p = a;
+    p.kc = a.k - k0 < kcap ? a.k - k0 : kcap;
+    p.gc = a.g - g0 < gcap ? a.g - g0 : gcap;
+    p.after_s = k0 ? out_s + k0 - 1 : nullptr;
+    p.after_r = k0 ? out_r + k0 - 1 : nullptr;
+    p.gafter_s = g0 ? gout_s + g0 - 1 : nullptr;
+    p.gafter_r = g0 ? gout_r + g0 - 1 : nullptr;
+    if (route == kI8Wgmma)
+      err = keyed ? launch_i8_wg<true>(p, map_e, map_q, st) : launch_i8_wg<false>(p, map_e, map_q, st);
+    else
+      err = keyed ? launch_i8_for<true>(p, bq, st) : launch_i8_for<false>(p, bq, st);
+    if (err != cudaSuccess) return (int)err;
+    if (launched) ++*launched;
+    i8_select<<<dim3(a.nq, keyed ? 2 : 1), kI8SelThreads, sel_smem, st>>>(
+        p.cand, p.gcand, a.splits, a.nq, p.kc, p.gc, k0, g0, a.k, a.g, cache, out_s, out_r,
+        gout_s, gout_r);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    if (launched) ++*launched;
+    k0 += p.kc;
+    g0 += p.gc;
   }
   return 0;
 }

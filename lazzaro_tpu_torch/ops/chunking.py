@@ -21,9 +21,12 @@ CPU_DOT_ELEMS = 1 << 20
 CPU_DOT_ROWS = 256
 
 
-def nt_dot(q: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+def nt_dot(q: torch.Tensor, rows: torch.Tensor,
+           dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """``q @ rows.T`` with f32 sums: bf16 operands are widened first (their
     products are exact in f32), matching ``preferred_element_type=f32``.
+    ``dtype=torch.float64`` sums in f64 instead (the int8 scan's exact dots
+    past 2^24).
 
     On the CPU every score is a function of its query and its row alone:
     the products of a pair, summed over d by one reduction whose order
@@ -35,12 +38,12 @@ def nt_dot(q: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     (one group where a row chunk fits them all). On a card it is
     ``torch.matmul`` (no TF32): the plain versions there are references on
     grid values, whose sums are exact in any order."""
-    q, rows = q.float(), rows.float()
+    q, rows = q.to(dtype), rows.to(dtype)
     if rows.device.type != "cpu":
         return torch.matmul(q, rows.t())
     nq, d = q.shape
     n = rows.shape[0]
-    out = torch.empty((nq, n), dtype=torch.float32)
+    out = torch.empty((nq, n), dtype=dtype)
     rstep = max(CPU_DOT_ROWS, CPU_DOT_ELEMS // max(1, nq * d))
     qstep = max(1, CPU_DOT_ELEMS // (rstep * max(1, d)))
     for i in range(0, n, rstep):

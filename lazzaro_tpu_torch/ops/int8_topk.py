@@ -17,14 +17,19 @@ The kernel is the int8 mode of the templated scan (``csrc/int8_topk.cu`` in
 first use and bound through ``ctypes``), so the ``[Q, N]`` int32 scores
 never reach device memory; the header's note gives its design and its
 bound (the shadow's bytes read once). Both forms quantize the f32 queries
-inside the kernel as ``ops.quant.quantize_rows`` does and score a pair
+on the card as ``ops.quant.quantize_rows`` does and score a pair
 ``(float(dot_i32) * qs[q]) * scale[r]``, so their lists are bit for bit
-those of the plain versions here. A CUDA tensor launches the kernel; only
-a CPU tensor runs the plain version. ``launches`` counts the kernel
-launches of both forms, ``launches_dp4a`` those on its one route (the
-``__dp4a`` products; every launch today), ``launches_keyed`` those of the
+those of the plain versions here. Stage 1 has two routes, picked by the
+shadow's width alone (:func:`route_for`): the tensor cores (``wgmma`` on
+s8 fed by a TMA ring) where ``d % 16 == 0``, the ``__dp4a`` stage
+otherwise; stage 2 selects each list's best keys across the splits
+without k rounds. Lists of any length run in passes. A CUDA tensor
+launches the kernel; only a CPU tensor runs the plain version.
+``launches`` counts the kernel launches of both forms, ``launches_wgmma``
+and ``launches_dp4a`` those of each route, ``launches_keyed`` those of the
 keyed form and ``stage_launches`` the CUDA kernels as the C entry point
-reports them (a stage 1 and a stage 2 a list).
+reports them (the quantization on the tensor-core route, then a stage 1
+and a stage 2 a pass).
 """
 
 from __future__ import annotations
@@ -40,12 +45,14 @@ from lazzaro_tpu_torch.ops.quant import quantize_rows
 from lazzaro_tpu_torch.ops.topk import NEG_INF, additive_mask, stable_topk
 from lazzaro_tpu_torch.utils import cuda_build
 
-# Longest list the kernel keeps (kI8MaxK); widest row whose int32 dot stays
-# exact in f32 (127 * 127 * d < 2^24).
-MAX_K = 256
-MAX_D = 1040
+# Widest row whose int32 dot cannot overflow (127 * 127 * d < 2^31), and
+# the widest whose dot an f32 sum keeps exact (127 * 127 * d < 2^24).
+MAX_D = 133_144
+EXACT_F32_D = 1040
+ROUTES = ("wgmma", "dp4a")
 
 launches = 0
+launches_wgmma = 0
 launches_dp4a = 0
 launches_keyed = 0
 stage_launches = 0
@@ -58,25 +65,33 @@ def _library():
     if _lib is None:
         lib = cuda_build.load("int8_topk")
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.int8_topk_splits.argtypes = [i64, i32, i32, i32, i32, i32]
-        lib.int8_topk_splits.restype = i32
-        lib.int8_topk.argtypes = [ptr] * 8 + [i64, i32, i32, i32, i32, i32] \
-            + [ptr] * 10
+        lib.int8_topk_plan.argtypes = [i64, i32, i32, i32, i32, i32, i32, ptr]
+        lib.int8_topk_plan.restype = i32
+        lib.int8_topk.argtypes = [ptr] * 8 + [i64] + [i32] * 10 + [ptr] * 10
         lib.int8_topk.restype = i32
         _lib = lib
     return _lib
 
 
+def route_for(d: int) -> str:
+    """Stage 1's route for a shadow of width ``d``: the tensor cores where
+    its rows are a multiple of 16 bytes (TMA's row stride), else the
+    ``__dp4a`` stage."""
+    return "wgmma" if d % 16 == 0 else "dp4a"
+
+
 def _scores(codes: torch.Tensor, scale: torch.Tensor, queries: torch.Tensor):
     """The plain scores of every query against every row: ``(float(dot) *
-    qs) * scale``, the int32 dot as an f32 product of the codes (exact: every
-    partial sum is an integer below 2^24), per chunk of queries by the
-    caller."""
+    qs) * scale``, the int32 dot exact and rounded to f32 once (XLA's
+    convert of ``dot_general``'s int32 result): summed in f32 while every
+    partial sum stays below 2^24 (d <= ``EXACT_F32_D``), in f64 past that
+    (integers below 2^53); per chunk of queries by the caller."""
     qq, qs = quantize_rows(queries)
-    rows = codes.float()
+    dtype = torch.float32 if codes.shape[1] <= EXACT_F32_D else torch.float64
+    rows = codes.to(dtype)
 
     def score(idx):
-        dots = nt_dot(qq[idx].float(), rows)
+        dots = nt_dot(qq[idx], rows, dtype=dtype).float()
         return ((dots * qs[idx][:, None]) * scale[None, :],)
 
     return score
@@ -127,25 +142,31 @@ def _check(codes, scale, queries, k, g):
     if codes.dtype != torch.int8 or codes.ndim != 2 or not codes.is_contiguous():
         raise TypeError("int8_topk needs contiguous [N, d] int8 codes")
     n, d = codes.shape
-    if d % 8 or d > MAX_D or codes.data_ptr() % 16:
-        raise ValueError(f"int8_topk needs d % 8 == 0, d <= {MAX_D} and 16-byte "
-                         f"aligned codes; d={d}")
+    if d > MAX_D:
+        raise ValueError(f"int8_topk: d={d} is past {MAX_D}, where an int32 "
+                         f"dot of int8 codes can overflow")
+    if codes.data_ptr() % 16:
+        raise ValueError("int8_topk needs 16-byte aligned codes (a slice of a "
+                         "shadow that starts mid-row is not taken)")
     if scale.dtype != torch.float32 or scale.shape != (n,) \
             or scale.device != codes.device:
         raise ValueError("int8_topk: scale must be [N] f32 on the codes' device")
-    if not 1 <= k <= min(n, MAX_K) or not 0 <= g <= min(n, MAX_K):
-        raise ValueError(f"int8_topk keeps lists of 1 to min(N, {MAX_K}) rows; "
-                         f"k={k}, g={g}, N={n}")
+    if not 1 <= k <= n or not 0 <= g <= n:
+        raise ValueError(f"int8_topk keeps lists of 1 to N rows; k={k}, g={g}, "
+                         f"N={n}")
     q = queries.to(device=codes.device, dtype=torch.float32).contiguous()
     if q.ndim != 2 or q.shape[1] != d or q.shape[0] < 1:
         raise ValueError("int8_topk: queries must be [Q, d]")
     return q
 
 
-def _launch(codes, scale, queries, k, g=0, madd=None, cols=None, tenant=None):
+def _launch(codes, scale, queries, k, g=0, madd=None, cols=None, tenant=None,
+            route=None):
     """One scan on the card: the additive form with ``madd``, the keyed form
-    with ``cols = (alive, tenant_id, is_super)`` and ``tenant``."""
-    global launches, launches_dp4a, launches_keyed, stage_launches
+    with ``cols = (alive, tenant_id, is_super)`` and ``tenant``. ``route``
+    forces stage 1's route (a record and a test of the other route; the
+    card refuses the tensor cores where ``d % 16 != 0``)."""
+    global launches, launches_wgmma, launches_dp4a, launches_keyed, stage_launches
     q = _check(codes, scale, queries, k, g)
     n, d = codes.shape
     nq = q.shape[0]
@@ -170,17 +191,28 @@ def _launch(codes, scale, queries, k, g=0, madd=None, cols=None, tenant=None):
         madd = madd.to(device=dev, dtype=torch.float32).contiguous()
         if madd.shape != (n,):
             raise ValueError("int8_topk: mask must be [N]")
+    if route is not None and route not in ROUTES:
+        raise ValueError(f"int8_topk: route must be one of {ROUTES}")
     lib = _library()
-    splits = lib.int8_topk_splits(n, nq, k, g, d, _sms(dev))
-    f32, i32 = torch.float32, torch.int32
-    cand_s = torch.empty((splits, nq, k), dtype=f32, device=dev)
-    cand_r = torch.empty((splits, nq, k), dtype=i32, device=dev)
+    plan = (ctypes.c_int * 6)()
+    if lib.int8_topk_plan(n, nq, k, g, d, _sms(dev),
+                          -1 if route is None else ROUTES.index(route), plan):
+        raise ValueError(
+            f"int8_topk: the card takes no such scan (d={d}, route {route}): "
+            "the tensor cores need d % 16 == 0, and the dp4a stage holds its "
+            "queries in shared memory (d up to ~50,000)")
+    rc_route, splits, kc, gc, qt, rep = plan
+    f32, i32, i64 = torch.float32, torch.int32, torch.int64
+    qq = qsc = None
+    if rc_route == 0:
+        qq = torch.empty((-(-nq // qt) * 64, d), dtype=torch.int8, device=dev)
+        qsc = torch.empty((nq,), dtype=f32, device=dev)
+    cand = torch.empty((splits, nq, kc), dtype=i64, device=dev)
     out_s = torch.empty((nq, k), dtype=f32, device=dev)
     out_r = torch.empty((nq, k), dtype=i32, device=dev)
-    gcand_s = gcand_r = gout_s = gout_r = None
+    gcand = gout_s = gout_r = None
     if keyed:
-        gcand_s = torch.empty((splits, nq, g), dtype=f32, device=dev)
-        gcand_r = torch.empty((splits, nq, g), dtype=i32, device=dev)
+        gcand = torch.empty((splits, nq, gc), dtype=i64, device=dev)
         gout_s = torch.empty((nq, g), dtype=f32, device=dev)
         gout_r = torch.empty((nq, g), dtype=i32, device=dev)
 
@@ -193,14 +225,17 @@ def _launch(codes, scale, queries, k, g=0, madd=None, cols=None, tenant=None):
         alive, tenant_id, is_super = cols or (None, None, None)
         rc = lib.int8_topk(
             p(codes), p(scale), p(madd), p(tenant_id), p(alive), p(is_super),
-            p(q), p(ten), n, d, nq, k, g, splits,
-            p(cand_s), p(cand_r), p(gcand_s), p(gcand_r), p(out_s), p(out_r),
-            p(gout_s), p(gout_r), ctypes.byref(launched), stream)
+            p(q), p(ten), n, d, nq, k, g, rc_route, splits, kc, gc, qt, rep, p(qq),
+            p(qsc), p(cand), p(gcand), p(out_s), p(out_r), p(gout_s),
+            p(gout_r), ctypes.byref(launched), stream)
     stage_launches += launched.value
     if rc != 0:
         raise RuntimeError(f"int8_topk kernel launch failed: CUDA error {rc}")
     launches += 1
-    launches_dp4a += 1
+    if rc_route == 0:
+        launches_wgmma += 1
+    else:
+        launches_dp4a += 1
     launches_keyed += keyed
     if keyed:
         return gout_s, gout_r, out_s, out_r

@@ -2295,56 +2295,158 @@ def _int8_case(cuda, dtype, n, nq, d, seed):
     return codes, scale, alive, tenant, is_super, q, qt
 
 
+# Widths on the tensor cores (d % 16 == 0, past 1,040 too), query counts
+# over one and several 64-query tiles, lists within a pass and past one.
+INT8_DS = [64, 768, 1024, 1536]
+INT8_QS = [1, 8, 16, 64, 65, 200]
+INT8_KS = [1, 10, 136, 256, 300]
+
+
+def _int8_counts():
+    from lazzaro_tpu_torch.ops import int8_topk as k4
+
+    return (k4.launches, k4.launches_keyed, k4.launches_wgmma, k4.launches_dp4a)
+
+
+def _int8_route_delta(before, keyed, route):
+    after = _int8_counts()
+    assert after[0] - before[0] == 1 and after[1] - before[1] == int(keyed)
+    assert (after[2] - before[2], after[3] - before[3]) == \
+        ((1, 0) if route == "wgmma" else (0, 1))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [64, 768, 1024])
-@pytest.mark.parametrize("nq", [1, 8, 16, 64])
+@pytest.mark.parametrize("d", INT8_DS)
+@pytest.mark.parametrize("nq", INT8_QS)
 def test_int8_keyed_kernel_matches_plain_version(cuda, dtype, d, nq):
-    """K4's keyed form bit-equal to its plain version: both lists, exact
-    ties in row order, an empty tenant, k + slack past a tenant's live
-    rows (its tail at NEG_INF in row order)."""
+    """K4's keyed form bit-equal to its plain version on the tensor cores:
+    both lists, exact ties in row order, an empty tenant, k + slack past a
+    tenant's live rows (its tail at NEG_INF in row order), lists past a
+    pass (k = 300; a gate of 300), N = 5,003 (no multiple of a tile)."""
     from lazzaro_tpu_torch.ops import int8_topk as k4
 
     codes, scale, alive, tenant, sup, q, qt = _int8_case(cuda, dtype, 5003,
                                                          nq, d, d + nq)
-    before = (k4.launches, k4.launches_keyed)
-    got = k4.int8_topk_keyed(codes, scale, alive, tenant, sup, q, qt, 136, 9)
-    want = k4.int8_topk_keyed_reference(codes, scale, alive, tenant, sup, q,
-                                        qt, 136, 9)
-    torch.cuda.synchronize()
-    assert (k4.launches, k4.launches_keyed) == (before[0] + 1, before[1] + 1)
-    for a, b in zip(got, want):
-        assert a.dtype == b.dtype and torch.equal(a, b)
-    if nq > 3:
-        assert (got[2][3] == -1e30).all()                 # tenant 3: nothing
-        assert (got[2][2][:5] > -1e29).all() and (got[2][2][5:] == -1e30).all()
+    for k, g in ((136, 9), (300, 9), (10, 300)):
+        before = _int8_counts()
+        got = k4.int8_topk_keyed(codes, scale, alive, tenant, sup, q, qt, k, g)
+        want = k4.int8_topk_keyed_reference(codes, scale, alive, tenant, sup,
+                                            q, qt, k, g)
+        torch.cuda.synchronize()
+        _int8_route_delta(before, True, "wgmma")
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and torch.equal(a, b), (k, g)
+        if nq > 3:
+            assert (got[2][3] == -1e30).all()             # tenant 3: nothing
+            assert (got[2][2][:5] > -1e29).all() and (got[2][2][5:] == -1e30).all()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [64, 768, 1024])
-@pytest.mark.parametrize("nq", [1, 8, 16, 64])
+@pytest.mark.parametrize("d", INT8_DS)
+@pytest.mark.parametrize("nq", INT8_QS)
 def test_int8_additive_kernel_matches_plain_version(cuda, dtype, d, nq):
     from lazzaro_tpu_torch.ops import int8_topk as k4
 
     codes, scale, alive, _, _, q, _ = _int8_case(cuda, dtype, 5003, nq, d,
                                                  7 * d + nq)
-    for k in (1, 10, 256):
+    for k in INT8_KS:
+        before = _int8_counts()
         s, r = k4.int8_topk(codes, scale, alive, q, k)
         ps, pr = k4.int8_topk_reference(codes, scale, alive, q, k)
         torch.cuda.synchronize()
+        _int8_route_delta(before, False, "wgmma")
         assert torch.equal(r, pr) and torch.equal(s, ps), k
 
 
+@pytest.mark.parametrize("d", [24, 100, 776, 768])
+@pytest.mark.parametrize("nq", [1, 16, 65])
+def test_int8_dp4a_route_matches_plain_version(cuda, d, nq):
+    """The dp4a stage, which takes the widths the tensor cores cannot (d %
+    16 != 0: rows of whole 8-byte words, and d = 100, whose rows end mid-
+    word) and d = 768 forced: both forms bit-equal, lists past a pass."""
+    from lazzaro_tpu_torch.ops import int8_topk as k4
+
+    codes, scale, alive, tenant, sup, q, qt = _int8_case(
+        cuda, torch.float32, 5003, nq, d, 3 * d + nq)
+    force = "dp4a" if d % 16 == 0 else None
+    for k, g in ((136, 9), (300, 9)):
+        before = _int8_counts()
+        got = k4._launch(codes, scale, q, k, g, cols=(alive, tenant, sup),
+                         tenant=qt, route=force)
+        _int8_route_delta(before, True, "dp4a")
+        want = k4.int8_topk_keyed_reference(codes, scale, alive, tenant, sup,
+                                            q, qt, k, g)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), (k, g)
+    for k in (1, 10, 300):
+        before = _int8_counts()
+        got = k4._launch(codes, scale, q, k, madd=tk.additive_mask(alive),
+                         route=force)
+        _int8_route_delta(before, False, "dp4a")
+        want = k4.int8_topk_reference(codes, scale, alive, q, k)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), k
+
+
+def test_int8_lifted_shapes_match_plain_version(cuda):
+    """What the first form refused now matches the plain version: lists
+    past 256 (k = 257 and 300 of 300 rows: every row listed), widths past
+    1,040 on the tensor cores, a width no multiple of 8 (on the dp4a
+    stage), and a dot past 2^24 (rows of +-127 at d = 2,048, where an f32
+    sum would round) scored exactly."""
+    from lazzaro_tpu_torch.ops import int8_topk as k4
+    from lazzaro_tpu_torch.ops.quant import quantize_rows
+
+    codes, scale, alive, *_ = _int8_case(cuda, torch.float32, 300, 1, 64, 1)
+    q = torch.randn((3, 64), generator=torch.Generator(device=cuda).manual_seed(2),
+                    device=cuda)
+    for k in (257, 300):
+        got = k4.int8_topk(codes, scale, alive, q, k)
+        assert all(torch.equal(a, b) for a, b in
+                   zip(got, k4.int8_topk_reference(codes, scale, alive, q, k)))
+    for d in (60, 2048, 4096):
+        codes, scale, alive, tenant, sup, q, qt = _int8_case(
+            cuda, torch.float32, 3001, 5, d, d)
+        got = k4.int8_topk_keyed(codes, scale, alive, tenant, sup, q, qt, 20, 3)
+        want = k4.int8_topk_keyed_reference(codes, scale, alive, tenant, sup,
+                                            q, qt, 20, 3)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), d
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    signs = torch.randint(0, 2, (257, 2048), generator=gen, device=cuda) * 2 - 1
+    x = signs.float()
+    x[:, ::7] *= 0.5                              # codes 64 and 127 mixed
+    codes, scale = quantize_rows(x)
+    assert (codes.abs().int().pow(2).sum(1) > 2 ** 24).all()
+    mask = torch.ones(257, dtype=torch.bool, device=cuda)
+    got = k4.int8_topk(codes, scale, mask, x[:4], 257)
+    want = k4.int8_topk_reference(codes, scale, mask, x[:4], 257)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
 def test_int8_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    """What stays refused, each by a named error: lists longer than the
+    shadow, a width past 133,144 (an int32 dot of int8 codes could
+    overflow), codes that are not 16-byte aligned, codes that are not int8,
+    and the tensor cores forced on a width that is no multiple of 16."""
     from lazzaro_tpu_torch.ops import int8_topk as k4
 
     codes, scale, alive, *_ = _int8_case(cuda, torch.float32, 300, 1, 64, 1)
     q = torch.randn((1, 64), device=cuda)
-    with pytest.raises(ValueError):
-        k4.int8_topk(codes, scale, alive, q, 257)         # list past 256
-    with pytest.raises(ValueError):
-        k4.int8_topk(codes[:, :60].contiguous(), scale, alive, q[:, :60], 3)
+    with pytest.raises(ValueError, match="lists of 1 to N"):
+        k4.int8_topk(codes, scale, alive, q, 301)
+    wide = torch.zeros((2, k4.MAX_D + 16), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="overflow"):
+        k4.int8_topk(wide, torch.ones(2, device=cuda), alive[:2],
+                     torch.ones((1, k4.MAX_D + 16), device=cuda), 1)
+    buf = torch.zeros(300 * 64 + 16, dtype=torch.int8, device=cuda)
+    shifted = buf[8:8 + 300 * 64].view(300, 64)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        k4.int8_topk(shifted, scale, alive, q, 3)
     with pytest.raises(TypeError):
         k4.int8_topk(codes.float(), scale, alive, q, 3)
+    narrow, nscale, nalive, *_ = _int8_case(cuda, torch.float32, 300, 1, 24, 1)
+    with pytest.raises(ValueError, match="d % 16"):
+        k4._launch(narrow, nscale, torch.randn((1, 24), device=cuda), 3,
+                   madd=tk.additive_mask(nalive), route="wgmma")
 
 
 def test_quant_chat_turn_is_one_dispatch_and_one_copy(cuda, tmp_path):

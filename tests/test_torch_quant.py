@@ -121,6 +121,62 @@ def test_quantized_topk_matches_exact_ranking():
     assert not (rows == 7).any()
 
 
+def test_quantized_topk_wide_long_lists_bit_equal_to_jax():
+    """The additive plain form at d = 1,536 (past 1,040, where the plain dot
+    sums in f64) with lists of 300 (past the first form's 256) is JAX's
+    ``quantized_topk`` bit for bit, masked rows at NEG_INF in row order."""
+    n, d, nq, k = 1500, 1536, 6, 300
+    emb, queries = _rows(n, d, seed=3), _rows(nq, d, seed=4)
+    queries[:2] = emb[[10, 900]]                  # self-hits
+    mask = np.random.default_rng(5).random(n) > 0.85   # fewer live rows than k
+    q8, s = quantize_rows(torch.from_numpy(emb))
+    scores, rows = K4.int8_topk(q8, s, torch.from_numpy(mask),
+                                torch.from_numpy(queries), k)
+    jq8, js = jax_quantize_rows(jnp.asarray(emb))
+    jscores, jrows = jax_quantized_topk(jq8, js, jnp.asarray(mask),
+                                        jnp.asarray(queries), k)
+    np.testing.assert_array_equal(rows.numpy(), np.asarray(jrows))
+    np.testing.assert_array_equal(scores.numpy().view(np.int32),
+                                  np.asarray(jscores).view(np.int32))
+    assert mask.sum() < k and (scores.numpy()[:, -1] == -1e30).all()
+
+
+def test_plain_int8_dot_is_exact_past_2_24():
+    """Rows of +-127 and +-64 at d = 2,048 whose dots pass 2^24: the plain
+    scores are the exact int32 dot rounded to f32 once, then the two scale
+    products, as XLA's convert of the int32 ``dot_general`` (JAX's
+    ``quantized_topk``, bit-equal here); an f32 sum of the products rounds
+    some of these dots otherwise."""
+    from lazzaro_tpu_torch.ops.chunking import nt_dot
+
+    rng = np.random.default_rng(11)
+    d, n = 2048, 64
+    base = rng.choice([-1.0, 1.0], size=d).astype(np.float32)
+    x = np.repeat(base[None], n, axis=0)
+    flips = rng.random((n, d)) < 0.02
+    x[flips] *= -1.0
+    x[:, ::7] *= 0.5
+    q8, sc = quantize_rows(torch.from_numpy(x))
+    exact = q8.numpy().astype(np.int64) @ q8.numpy().astype(np.int64).T
+    assert (np.abs(exact) > 2 ** 24).all()
+    f32 = nt_dot(q8[:8].float(), q8.float()).numpy()
+    assert (f32 != exact[:8].astype(np.float32)).any()
+    mask = torch.ones(n, dtype=torch.bool)
+    scores, rows = K4.int8_topk(q8, sc, mask, torch.from_numpy(x[:8]), n)
+    want = (exact[:8].astype(np.float32) * sc.numpy()[:8, None]) \
+        * sc.numpy()[None, :]
+    got_at = np.take_along_axis(want, rows.numpy().astype(np.int64), axis=1)
+    np.testing.assert_array_equal(scores.numpy().view(np.int32),
+                                  got_at.view(np.int32))
+    jscores, jrows = jax_quantized_topk(jnp.asarray(q8.numpy()),
+                                        jnp.asarray(sc.numpy()),
+                                        jnp.asarray(mask.numpy()),
+                                        jnp.asarray(x[:8]), n)
+    np.testing.assert_array_equal(rows.numpy(), np.asarray(jrows))
+    np.testing.assert_array_equal(scores.numpy().view(np.int32),
+                                  np.asarray(jscores).view(np.int32))
+
+
 @jax.jit
 def _jax_coarse(q8a, scale_a, alive, tenant_id, is_super, qn, tenant):
     """The coarse stage of ``_quant_two_tier`` (``state.py:2719-2738``),
@@ -295,6 +351,49 @@ def test_quant_programs_match_jax(twin, dtype):
                                        rtol=0, atol=1e-6, err_msg=name)
         np.testing.assert_array_equal(tstate.access_count.numpy(),
                                       np.asarray(jstate2.access_count))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, ml_dtypes.bfloat16])
+def test_quant_fused_read_matches_jax_at_d1536(dtype):
+    """``search_fused_quant_read`` of both packages at d = 1,536 (past the
+    width where the coarse scan's plain dot sums in f32), on one seeded
+    fixture: rows, gate rows, verdicts and counters equal, scores within the
+    tolerance ``test_quant_programs_match_jax`` states."""
+    d, k = 1536, 16
+    tol = SCORE_TOL[dtype]
+    cols = arena(8)
+    _, valid, tenant, gate_on, _, _, _ = batch(cols, 8)
+    rng = np.random.default_rng(18)
+    emb = rng.standard_normal((N, d)).astype(np.float32)
+    emb /= np.linalg.norm(emb, axis=1, keepdims=True)
+    cols["emb"] = emb.astype(dtype)
+    q = rng.standard_normal((len(tenant), d)).astype(np.float32)
+    sup = {t: np.nonzero(cols["is_super"] & (cols["tenant_id"] == t))[0]
+           for t in (0, 1)}
+    q[0] = emb[sup[0][0]] + 0.01 * q[0]               # gate hits
+    q[1] = emb[sup[1][1]] + 0.01 * q[1]
+    q[4] = emb[sup[0][2]] + 0.01 * q[4]
+    keys, id_to_row = graph(cols, 8)
+    indptr, nbr = jax_build_host_csr(keys, id_to_row, N)
+    jstate = JS.ArenaState(**{c: jnp.asarray(v) for c, v in cols.items()})
+    tstate = TS.arena_from_numpy(cols, "cpu")
+    jsh, tsh = jax_quantize_rows(jstate.emb), quantize_rows(tstate.emb)
+    st = dict(cap_take=CAP_TAKE, max_nbr=MAX_NBR, slack=8)
+    jp = JS.search_fused_quant_read(
+        jstate, *jsh, jnp.asarray(indptr), jnp.asarray(nbr),
+        *_args(q, valid, tenant, gate_on, True),
+        jnp.float32(BOOSTS["super_gate"]), k=k, **st)
+    tp = TS.search_fused_quant_read(
+        tstate, *tsh, torch.from_numpy(indptr), torch.from_numpy(nbr),
+        *_args(q, valid, tenant, gate_on, False), BOOSTS["super_gate"], k=k,
+        **st)
+    j = jax_unpack(np.asarray(jp), k)
+    t = unpack_retrieval(tp.numpy(), k)
+    for i in (1, 3, 4, 5):                    # gate rows, rows, verdicts, counters
+        np.testing.assert_array_equal(t[i], j[i])
+    np.testing.assert_allclose(t[0], j[0], rtol=0, atol=tol)
+    np.testing.assert_allclose(t[2], j[2], rtol=0, atol=tol)
+    assert t[4][[0, 1, 4]].all() and not t[4][2:4].any()   # hits and misses
 
 
 def test_rescored_scores_are_the_exact_scans():
