@@ -21,9 +21,14 @@ Phases, each printing its own lines; any failure exits non-zero:
               and additive forms over the int8 shadow of the 1,048,576-row
               arena (a list past 256 too), over a 131,072 x 1,536 shadow,
               and on the dp4a stage forced, each row naming the route its
-              launch took; times are device times from ``torch.profiler``, the
-              top-k scans' split into stage 1 and the merge, event times of
-              back-to-back calls beside them, the flash kernels' achieved
+              launch took; K5 (the IVF candidate scan) in its exact form over
+              bf16 and f32 arenas at Q = 1 and 64 with per-query nprobe
+              (1, 4, 8), its int8 form and its classic form, on member
+              tables of phase 4's build geometry (1,024 clusters of 2,048
+              slots) and Gaussian queries; times are device times from
+              ``torch.profiler``, the top-k scans' split into stage 1 and
+              the merge, event times of back-to-back calls beside them,
+              the flash kernels' achieved
               TFLOP/s and share of the bound); then the state dispatch
               guard on two twin 20,000-row indexes (a transient fault
               retried to bit-parity, a poisoned index raising
@@ -33,10 +38,10 @@ Phases, each printing its own lines; any failure exits non-zero:
               ``ArrowStore`` and journals under a temporary directory
               (every phase's are; removed at the end). The
               classic path: fill it through ``end_conversation`` with
-              ``FILL`` facts (half the arena: 8,192 per conversation, two
+              ``FILL`` facts (3/8 of the arena: 8,192 per conversation, two
               tenants in blocks, each conversation end saving to the store,
               a near-duplicate every 101 facts), then ``switch_user`` back to
-              the first tenant, which reloads her ~260k rows from the store
+              the first tenant, which reloads her ~195k rows from the store
               onto the card (seconds by part, the served top-k held to the
               one before), then chat turns, one more
               conversation end and ``search_memories`` for facts whose answer
@@ -61,7 +66,16 @@ Phases, each printing its own lines; any failure exits non-zero:
               a 64-request fleet, each dispatch one K4 keyed launch (on the
               tensor cores) and one copy, one transient ``index.dispatch`` fault retried, a
               classic search on K4's additive form, recall@10 and scores
-              against the exact reads, p50s beside the exact ones;
+              against the exact reads, p50s beside the exact ones; then the
+              same index with ``ivf_serving = 8``: ``ivf_maintenance``
+              (timed), recall@10 against the exact reads, ``nprobe = C``
+              against exact, the fused reads against the classic
+              ``ivf_search``, 8 chat turns, 8 searches, a 64-query batch
+              and a 64-request fleet with per-request nprobe, each
+              dispatch one K5 launch and one copy, one conversation end
+              through the fused dedup ingest with online IVF (one
+              dispatch, one copy, appends and overflows), 4 chat turns
+              with int8 serving composed;
   4c. default ``MemorySystem()`` as configured by default (f32, the store and
               both journals): nine conversations consolidating three times,
               each conversation end's ingest, merge scan and saves under
@@ -116,6 +130,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -135,10 +150,11 @@ PEAK_OPS = {"bfloat16": 989e12,    # dense bf16 tensor-core rate
 ARENA_ROWS = 1_048_576             # capacity + 1, 256 x TOPK_BLOCK
 DIM = 768
 PER_CONV = 8_192                   # facts per conversation (ingest_coalesce_max)
-# Phase 4's fill: half the arena, 64 conversations, 32 a tenant. Filling
+# Phase 4's fill: 3/8 of the arena, 48 conversations, 24 a tenant. Filling
 # the whole arena took ~500 s of host work (the store's parquet writes
-# ~300 s of it), more than the 1,200 s run can hold beside the rest.
-FILL = ARENA_ROWS // 2             # facts the fill ingests, a PER_CONV multiple
+# ~300 s of it), more than the 1,200 s run can hold beside the rest; half
+# of it left the run near 800 s once the IVF drive joined it.
+FILL = 3 * ARENA_ROWS // 8         # facts the fill ingests, a PER_CONV multiple
 MIN_ROWS = 262_144                 # the least fill worth a run (PALLAS_TOPK_MIN_ROWS)
 # The mesh phase's fill: 34 conversations (278,528 facts). A conversation
 # shares its group directions with the tenant's conversation 32 before it
@@ -870,6 +886,225 @@ def phase_int8_kernel(device):
     return rows_out
 
 
+def _pow2(n: int) -> int:
+    return 1 << max(0, n - 1).bit_length()
+
+
+# Phase 4's build over about FILL live rows (the fill less its duplicates):
+IVF_C = _pow2(math.isqrt(FILL))    # C = pow2(sqrt(N))
+IVF_M = _pow2(4 * (FILL // IVF_C))  # M = pow2(4 N / C)
+IVF_LIVE = FILL // IVF_C           # live member rows a cluster holds there
+IVF_E = 1024                       # the extras: residual, fresh and super rows
+IVF_P = 8                          # MemoryConfig.ivf_serving of the IVF drive
+IVF_K = 128 + 8                    # serve_k_max + coarse_fetch_slack
+IVF_G = 1 + 8                      # the int8 form's gate list
+IVF_NPROBES = (1, 4, 8)            # the fleet's per-request nprobe
+
+
+def ivf_tables(alive, sup, device):
+    """Member tables of phase 4's build geometry over the kernel arena:
+    ``IVF_C`` clusters of ``IVF_M`` slots holding ``IVF_C * IVF_LIVE``
+    random live rows (a dense prefix each, -1 after), extras of ``IVF_E``
+    rows (super rows among them, a few member rows again: a reused slot)."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(9)
+    live = torch.nonzero(alive).flatten()
+    pick = torch.randperm(len(live), generator=gen, device=device)
+    rows = live[pick[:IVF_C * IVF_LIVE]]
+    c = torch.randint(0, IVF_C, (len(rows),), generator=gen, device=device)
+    order = torch.sort(c, stable=True).indices
+    sc = c[order]
+    rank = torch.arange(len(sc), device=device) - torch.searchsorted(sc, sc)
+    if int(rank.max()) >= IVF_M:
+        raise AssertionError("ivf_tables: a cluster outgrew its slots")
+    members = torch.full((IVF_C, IVF_M), -1, dtype=torch.int32, device=device)
+    members[sc, rank] = rows[order].int()
+    sup_rows = torch.nonzero(sup & alive).flatten()[:IVF_E // 4].int()
+    rest = live[pick[IVF_C * IVF_LIVE:IVF_C * IVF_LIVE + IVF_E // 2]].int()
+    extras = torch.full((IVF_E,), -1, dtype=torch.int32, device=device)
+    fill = torch.cat([members[:4, :16].flatten(), sup_rows, rest])[:IVF_E]
+    extras[:len(fill)] = fill
+    return members, extras
+
+
+def ivf_valid(members, extras, cids, ok_rows, npq):
+    """The candidate slots K5 loads a row for: ``[Q]`` counts of slots that
+    hold a row of a probed cluster (``npq`` per query) and pass
+    ``ok_rows [Q, N]``-style masks (a callable of the candidate rows)."""
+    import torch
+
+    from lazzaro_tpu_torch.ops.ivf_topk import ivf_candidates
+
+    cand = ivf_candidates(members, extras, cids)
+    pm = cids.shape[1] * members.shape[1]
+    pos = torch.arange(cand.shape[1], device=cand.device)
+    probed = (pos >= pm)[None, :] | ((pos // members.shape[1])[None, :]
+                                     < npq[:, None])
+    return ((cand >= 0) & probed & ok_rows(cand)).sum(dim=1)
+
+
+def ivf_bound(n_valid, d, item, nq, slots, k, g, extra_row_bytes):
+    """(bound_ms, bound_by) of K5: the live candidate rows (``n_valid`` of
+    them over the batch, ``item`` bytes an element, plus their row columns)
+    and every probed slot and extra (4 bytes) read once, the queries and
+    their columns read once, the lists written once; 2 * d operations a
+    loaded row. The centroid table is not K5's to read: the coarse stage
+    that picks ``cids`` is a launch of the masked top-k (#1), not timed
+    here."""
+    moved = (n_valid * (d * item + extra_row_bytes) + nq * slots * 4
+             + nq * (d * 4 + 8) + nq * 12 * (k + g))
+    ops = 2.0 * n_valid * d
+    peak = PEAK_OPS["bfloat16" if item == 2 else
+                    "int8" if item == 1 else "float32"]
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S, ops / peak
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def ivf_library(rows, members, extras, cids, q, k, g, cols, q_ten, npq, mask):
+    """The library yardstick of K5 (timed here, never called by the port):
+    per chunk of 8 queries the candidate rows gathered by ``index_select``,
+    scored by ``bmm`` (the int8 form's codes widened to f32, then the two
+    scales) and cut by ``torch.topk`` per tier."""
+    import torch
+
+    from lazzaro_tpu_torch.ops.ivf_topk import ivf_candidates
+    from lazzaro_tpu_torch.ops.quant import quantize_rows
+
+    int8 = isinstance(rows, tuple)
+    if int8:
+        codes, scale = rows
+        qq, qs = quantize_rows(q)
+        qv = qq.float()
+    else:
+        qv = q.to(rows.dtype)
+    nq, d = q.shape
+    m_w = members.shape[1]
+    pm = cids.shape[1] * m_w
+
+    def run():
+        out = []
+        for i in range(0, nq, 8):
+            cand = ivf_candidates(members, extras, cids[i:i + 8])
+            safe = torch.clamp(cand, min=0).long()
+            c, length = cand.shape
+            if int8:
+                vecs = codes.index_select(0, safe.flatten()).view(c, length, d)
+                s = torch.bmm(vecs.float(), qv[i:i + 8, :, None])[:, :, 0]
+                s = (s * qs[i:i + 8, None]) * scale[safe]
+            else:
+                vecs = rows.index_select(0, safe.flatten()).view(c, length, d)
+                s = torch.bmm(vecs, qv[i:i + 8, :, None])[:, :, 0].float()
+            if mask is not None:
+                out.append(torch.topk(torch.where((cand >= 0) & mask[safe], s,
+                                                  -1e30), k))
+                continue
+            alive, tenant, sup = cols
+            pos = torch.arange(length, device=cand.device)
+            ok = ((cand >= 0) & alive[safe]
+                  & (tenant[safe] == q_ten[i:i + 8, None])
+                  & ((pos >= pm)[None, :]
+                     | ((pos // m_w)[None, :] < npq[i:i + 8, None])))
+            out.append(torch.topk(torch.where(ok & ~sup[safe], s, -1e30), k))
+            out.append(torch.topk(torch.where(ok & sup[safe], s, -1e30), g))
+        return out
+
+    return run
+
+
+def phase_ivf_kernel(device):
+    """K5 against its plain version on the card, bit-equal, at the IVF
+    drive's shapes: tables of phase 4's build geometry (``ivf_tables``)
+    over the 1,048,576 x 768 arena of the two-tier cases, bf16 and f32;
+    the exact form at the chat turn's Q = 1 (nprobe 8) and a fleet's Q =
+    64 (per-request nprobe 1, 4, 8), k = 128 + 8 and a top-1 gate; the int8
+    form over the arena's shadow (g = 1 + 8); the classic form at a
+    search's Q = 1 and a batch's Q = 64 (k = 10 + 8). The queries are
+    Gaussian, so the f32 sums round and the two agree only because both
+    sum in one order (``ivf_topk.lane_dot``). Each row's bound counts the
+    rows this case's queries load."""
+    import torch
+
+    from lazzaro_tpu_torch.ops import ivf_topk as k5
+    from lazzaro_tpu_torch.ops.quant import quantize_rows
+
+    (emb16, alive, tenant, sup), _ = fused_cases(device)
+    members, extras = ivf_tables(alive, sup, device)
+    gen = torch.Generator(device=device).manual_seed(10)
+    cols = (alive, tenant, sup)
+
+    def batch(nq):
+        cids = torch.argsort(torch.rand((nq, IVF_C), generator=gen,
+                                        device=device), dim=1)[:, :IVF_P].int()
+        q = torch.randn((nq, DIM), generator=gen, device=device)
+        q_ten = torch.tensor([i % 2 for i in range(nq)], dtype=torch.int32,
+                             device=device)
+        npq = torch.tensor([IVF_P] if nq == 1 else
+                           [IVF_NPROBES[i % 3] for i in range(nq)],
+                           dtype=torch.int32, device=device)
+        return cids, q, q_ten, npq
+
+    chat, fleet = batch(1), batch(64)
+    shadow = quantize_rows(emb16)
+    classic_mask = alive & (tenant == 0)
+    slots = IVF_P * IVF_M + IVF_E
+    rows_out = []
+    for dtype in (torch.bfloat16, torch.float32):
+        emb = emb16 if dtype == torch.bfloat16 else emb16.float()
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        cases = [(f"chat_q1_np8_{tag}", "exact", emb, chat, IVF_K, 1),
+                 (f"fleet_q64_np1-4-8_{tag}", "exact", emb, fleet, IVF_K, 1)]
+        if dtype == torch.bfloat16:
+            cases += [("chat_int8_q1_np8", "int8", shadow, chat, IVF_K, IVF_G),
+                      ("fleet_int8_q64_np1-4-8", "int8", shadow, fleet, IVF_K,
+                       IVF_G),
+                      ("search_classic_q1_k18_bf16", "classic", emb, chat, 18, 0),
+                      ("batch_classic_q64_k18_bf16", "classic", emb, fleet, 18,
+                       0)]
+        for label, form, rows, (cids, q, q_ten, npq), k, g in cases:
+            nq = q.shape[0]
+            if form == "classic":
+                kw = dict(mask=classic_mask)
+                qv = q
+                n_valid = ivf_valid(members, extras, cids,
+                                    lambda c: classic_mask[c.clamp(min=0).long()],
+                                    torch.full_like(npq, IVF_P))
+            else:
+                kw = dict(g=g, cols=cols, q_tenant=q_ten, nprobe_q=npq)
+                qv = (q / q.norm(dim=1, keepdim=True) if form == "int8"
+                      else q.to(dtype).float())
+                n_valid = ivf_valid(
+                    members, extras, cids,
+                    lambda c, q_ten=q_ten: (alive[c.clamp(min=0).long()]
+                                            & (tenant[c.clamp(min=0).long()]
+                                               == q_ten[:, None])), npq)
+
+            def run(rows=rows, cids=cids, qv=qv, k=k, kw=kw):
+                return k5.ivf_topk(rows, members, extras, cids, qv, k, **kw)
+
+            def plain(rows=rows, cids=cids, qv=qv, k=k, kw=kw):
+                return k5.ivf_topk_reference(rows, members, extras, cids, qv,
+                                             k, **kw)
+
+            got = run()
+            err = _check_equal(label, [t for t in got if t is not None],
+                               [t for t in plain() if t is not None])
+            item = 1 if form == "int8" else emb.element_size()
+            b = ivf_bound(int(n_valid.sum()), DIM, item, nq, slots, k, g,
+                          10 if form == "int8" else 6)
+            lib = ivf_library(rows, members, extras, cids, qv, k, g, cols,
+                              q_ten, npq,
+                              classic_mask if form == "classic" else None)
+            row = _case_row("ivf_topk", form, label, k5.route_for(form),
+                            emb.shape[0], nq, k, run, plain, lib, b, err, 20,
+                            2, stage1="gv_stage1", merge="i8_select")
+            row["live_rows_loaded"] = int(n_valid.sum())
+            row["candidates_per_query"] = slots
+            rows_out.append(row)
+        del emb
+    return rows_out
+
+
 def ingest_bound(emb, nq, k, modes, with_probe=True):
     """(bound_ms, bound_by) of the ingest scan: the arena and its row
     columns (alive, tenant, is_super, shard, the two exclusion masks: 12
@@ -1365,6 +1600,9 @@ def phase_main(launches_out: dict, parity: dict):
                                                          torch)
         summary["quant"] = _quant_filled(ms, back, corpus, served,
                                          summary["fused"], launches_out, torch)
+        summary["ivf"] = _ivf_filled(ms, back, corpus, served,
+                                     summary["fused"], summary["quant"],
+                                     launches_out, torch)
         return summary
     finally:
         shutil.rmtree(os.path.join(STORE_ROOT, "checkpoint"),
@@ -1838,6 +2076,47 @@ def _recall_and_scores(exact_res, quant_res) -> dict:
             "gate_differs": gates, "queries": len(exact_res)}
 
 
+def _drive_facts(corpus, served, seed, turns, suffix):
+    """The facts a drive of the checkpoint's index serves: ``turns`` chat
+    facts and ``turns`` search facts of the served tenant (none a duplicate
+    or a target), the chat prompts (each fact, then ``suffix``), the 64
+    batch facts (the targets first) and their texts. Returns ``(chats,
+    searches, prompts, batch_facts, texts)``."""
+    rng = np.random.default_rng(seed)
+    own, targets = served["own"], served["targets"]
+    facts = []
+    while len(targets) + len(facts) < 64 or len(facts) < 2 * turns:
+        i = int(rng.choice(own)) * PER_CONV + int(rng.integers(PER_CONV))
+        if not corpus.is_dup(i) and i not in facts and i not in targets:
+            facts.append(i)
+    chats, searches = facts[:turns], facts[turns:2 * turns]
+    prompts = [f"{corpus.text(i)}. {suffix}" for i in chats]
+    batch_facts = (targets + facts)[:64]
+    return (chats, searches, prompts, batch_facts,
+            [corpus.text(i) for i in batch_facts])
+
+
+def _drive_vectors(ms, corpus, prompts, facts, batch_facts):
+    """The read batch of a drive's checks: the prompts' embeddings, then
+    the vectors of ``facts`` and of the batch facts."""
+    return np.stack([np.asarray(ms._get_embedding(p), np.float32)
+                     for p in prompts] + list(corpus.vectors(facts))
+                    + list(corpus.vectors(batch_facts)))
+
+
+def _fleet_requests(corpus, batch_facts, nprobes=None):
+    """A 64-request fleet of two tenants: alice's batch facts and bob's
+    rows in turn, k = 5, 10 and 128 in turn (and ``nprobes`` in turn)."""
+    from lazzaro_tpu_torch.serve import RetrievalRequest
+
+    bob = [PER_CONV + 5 + 7 * j for j in range(32)]
+    return [RetrievalRequest(
+        query=corpus.vectors([batch_facts[j // 2] if j % 2 == 0
+                              else bob[j // 2]])[0],
+        tenant=TENANTS[j % 2], k=(5, 10, 128)[j % 3],
+        nprobe=None if nprobes is None else nprobes[j % 3]) for j in range(64)]
+
+
 def _quant_filled(ms, qidx, corpus, served, exact_fused, launches_out,
                   torch) -> dict:
     """Quantized serving on the filled arena: the index that
@@ -1862,23 +2141,12 @@ def _quant_filled(ms, qidx, corpus, served, exact_fused, launches_out,
     exact = ms.index
     qidx.int8_serving = True
     qidx.coarse_slack = ms.config.coarse_fetch_slack
-    rng = np.random.default_rng(13)
-    own, targets = served["own"], served["targets"]
-    facts = []
-    while len(facts) < 2 * QUANT_TURNS:
-        i = int(rng.choice(own)) * PER_CONV + int(rng.integers(PER_CONV))
-        if not corpus.is_dup(i) and i not in facts and i not in targets:
-            facts.append(i)
-    chats, searches = facts[:QUANT_TURNS], facts[QUANT_TURNS:]
-    prompts = [f"{corpus.text(i)}. Anything new about it?" for i in chats]
-    batch_facts = (targets + facts)[:64]
-    texts = [corpus.text(i) for i in batch_facts]
+    chats, searches, prompts, batch_facts, texts = _drive_facts(
+        corpus, served, 13, QUANT_TURNS, "Anything new about it?")
     ms.embedder.warm(prompts + texts)
     kw = dict(cap_take=5, max_nbr=8, super_gate=0.4, acc_boost=0.05,
               nbr_boost=0.02, now=time.time())
-    vecs = np.stack([np.asarray(ms._get_embedding(p), np.float32)
-                     for p in prompts] + [corpus.vectors([i])[0] for i in facts]
-                    + list(corpus.vectors(batch_facts)))
+    vecs = _drive_vectors(ms, corpus, prompts, chats + searches, batch_facts)
 
     t0 = time.perf_counter()
     qidx._int8_shadow_for(qidx.state)
@@ -1958,11 +2226,7 @@ def _quant_filled(ms, qidx, corpus, served, exact_fused, launches_out,
         for text, hits in zip(texts, res):
             if not hits or hits[0].content != text:
                 raise AssertionError(f"quant batch search missed {text!r}")
-        bob = [PER_CONV + 5 + 7 * j for j in range(32)]
-        fleet = [RetrievalRequest(
-            query=corpus.vectors([batch_facts[j // 2] if j % 2 == 0
-                                  else bob[j // 2]])[0],
-            tenant=TENANTS[j % 2], k=(5, 10, 128)[j % 3]) for j in range(64)]
+        fleet = _fleet_requests(corpus, batch_facts)
         sched = ms._ensure_scheduler()
         fleet_ms, out = one_launch_p50(
             lambda: [f.result() for f in sched.submit_many(fleet)],
@@ -2029,6 +2293,274 @@ def _quant_filled(ms, qidx, corpus, served, exact_fused, launches_out,
         f"{check['queries']} queries against the exact path: recall@10 "
         f"{check['recall_at_10']:.4f}, max |score - exact score| "
         f"{check['max_abs_err']:.3g}, {check['gate_differs']} gate verdicts differ")
+    return out
+
+
+IVF_TURNS = 8                      # chat turns and searches of the IVF drive
+IVF_INT8_TURNS = 4                 # chat turns with int8 serving composed
+# Fused IVF reads against the classic IVF search of the same queries: the
+# classic form scores the f32 query against the bf16 rows widened to f32
+# (lazzaro_tpu/ops/ivf.py:ivf_search), the fused form the query rounded to
+# bf16 (core/state.py:_ivf_two_tier), so scores at each rank agree within
+# 2^-9 * |q| * |x| (a cosine: 2^-9) and rows may swap inside that band.
+IVF_FORM_TOL = 2.0 ** -9
+
+
+def _rank_scores_agree(ref, got, tol) -> dict:
+    """Two runs of the same reads: per query the same ids, or lists whose
+    scores at every rank agree within ``tol`` (rows swapped inside a near
+    tie); raises otherwise. Returns the counts and the largest difference
+    of the scores at one rank."""
+    swaps, err = 0, 0.0
+    for a, b in zip(ref, got):
+        a_ids, a_s = (a.ids, a.scores) if hasattr(a, "ids") else a
+        b_ids, b_s = (b.ids, b.scores) if hasattr(b, "ids") else b
+        if len(a_ids) != len(b_ids):
+            raise AssertionError(f"{len(a_ids)} ids against {len(b_ids)}")
+        diff = max([abs(float(x) - float(y)) for x, y in zip(a_s, b_s)],
+                   default=0.0)
+        err = max(err, diff)
+        if a_ids != b_ids:
+            if diff > tol:
+                raise AssertionError(f"ids differ past a near tie: {a_ids} "
+                                     f"{a_s} against {b_ids} {b_s}")
+            swaps += 1
+    return {"queries": len(ref), "near_tie_swaps": swaps,
+            "max_rank_score_diff": err}
+
+
+def _ivf_filled(ms, qidx, corpus, served, exact_fused, quant, launches_out,
+                torch) -> dict:
+    """IVF serving on the filled arena: the index that
+    :func:`_checkpoint_filled` loaded (after the quantized phase), with
+    ``ivf_serving = IVF_P``: ``ivf_maintenance`` builds the coarse index
+    (timed); reads of the same queries give recall@10 against the exact
+    index, ``nprobe = C`` gives the exact rows, and the fused reads agree
+    with the classic ``ivf_search`` of the same queries. Then, in the
+    system's place: 8 chat turns, 8 ``search_memories``, a 64-query batch
+    and a 64-request fleet with per-request ``nprobe`` (1, 4, 8), every
+    dispatch one K5 launch (its coarse stage one masked top-k launch), no
+    two-tier or K4 launch and one copy (sync debug mode "error"); one
+    conversation end through the fused dedup ingest, whose one dispatch
+    and one copy append the new rows to their clusters (appends and
+    overflows counted); then 4 chat turns with ``int8_serving`` composed,
+    each one K5 launch of the int8 form."""
+    from lazzaro_tpu_torch.ops import fused_topk as ft
+    from lazzaro_tpu_torch.ops import int8_topk as k4
+    from lazzaro_tpu_torch.ops import ivf_topk as k5
+    from lazzaro_tpu_torch.ops import masked_topk as mt
+    from lazzaro_tpu_torch.serve import RetrievalRequest
+
+    t_drive = time.perf_counter()
+    exact = ms.index
+    qidx.int8_serving = False
+    qidx.ivf_nprobe = IVF_P
+    qidx.ivf_online = True
+    tel = ms.telemetry
+    t0 = time.perf_counter()
+    if not qidx.ivf_maintenance():
+        raise AssertionError("ivf_maintenance built nothing")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    ivf = qidx._ivf
+    n_c, m_w = ivf.n_clusters, ivf.members.shape[1]
+    occupied = int((ivf.members >= 0).sum())
+    log(f"[ivf] ivf_maintenance over {len(qidx)} rows: {n_c} clusters of "
+        f"{m_w} slots ({occupied} rows in clusters, "
+        f"{int((ivf.residual >= 0).sum())} in the residual) in {build_s:.2f} s")
+
+    _, searches, prompts, batch_facts, texts = _drive_facts(
+        corpus, served, 17, IVF_TURNS, "What else?")
+    int8_prompts = [p + " Int8?" for p in prompts[:IVF_INT8_TURNS]]
+    ms.embedder.warm(prompts + int8_prompts + texts)
+    kw = dict(cap_take=5, max_nbr=8, super_gate=0.4, acc_boost=0.05,
+              nbr_boost=0.02, now=time.time())
+    vecs = _drive_vectors(ms, corpus, prompts, searches, batch_facts)
+    reads = [RetrievalRequest(query=v, tenant=TENANTS[0], k=10, boost=False)
+             for v in vecs]
+    counts = [(m, n, getattr(m, n)) for m in (mt, ft, k5)
+              for n in ("launches", "launches_wgmma", "launches_stream",
+                        "launches_int8", "launches_classic", "stage_launches")
+              if hasattr(m, n)]
+    try:                                     # checks, not the main path
+        exact_res = exact.search_fused_requests(reads, **kw)
+        ivf_res = qidx.search_fused_requests(reads, **kw)
+        check = _recall_and_scores(exact_res, ivf_res)
+        qidx.ivf_nprobe = n_c
+        full = _rank_scores_agree(exact_res,
+                                  qidx.search_fused_requests(reads, **kw),
+                                  QUANT_SCORE_TOL)
+        qidx.ivf_nprobe = IVF_P
+        classic = qidx.search_batch(vecs, TENANTS[0], k=10, super_filter=-1)
+        forms = _rank_scores_agree(classic, ivf_res, IVF_FORM_TOL)
+    finally:
+        for m, n, v in counts:
+            setattr(m, n, v)
+    if check["max_abs_err"] > QUANT_SCORE_TOL or check["recall_at_10"] <= 0:
+        raise AssertionError(f"IVF reads against the exact ones: {check}")
+    log(f"[ivf] reads of {check['queries']} queries: recall@10 "
+        f"{check['recall_at_10']:.4f} against the exact index at nprobe "
+        f"{IVF_P}, max |score - exact score| {check['max_abs_err']:.3g}, "
+        f"{check['gate_differs']} gate verdicts differ; nprobe = C ({n_c}) "
+        f"against exact: {full}; fused against classic ivf_search: {forms}")
+
+    ms.index = qidx
+    ms.config.ivf_serving = IVF_P
+    ms.query_cache.invalidate_results()
+    try:
+        warm = ms.warmup_serving((1, 64))
+        readbacks = _strict_dispatch(qidx, torch)
+        for m, n in ((k5, "launches"), (k5, "launches_int8"),
+                     (k5, "launches_classic"), (k5, "stage_launches"),
+                     (mt, "launches"), (ft, "launches"), (k4, "launches")):
+            setattr(m, n, 0)
+
+        def made():
+            return (k5.launches, mt.launches, ft.launches, k4.launches,
+                    len(readbacks))
+
+        def one_dispatch(fn, what):
+            before = made()
+            t1 = time.perf_counter()
+            out = fn()
+            ms_ = 1e3 * (time.perf_counter() - t1)
+            got = tuple(a - b for a, b in zip(made(), before))
+            if got != (1, 1, 0, 0, 1):
+                raise AssertionError(f"IVF {what} made (K5, coarse masked "
+                                     f"top-k, two-tier, K4, copies) = {got}")
+            return ms_, out
+
+        chat_ms = [one_dispatch(lambda p=p: ms.chat(p), "chat turn")[0]
+                   for p in prompts]
+        search_ms = []
+        for i in searches:
+            t, hits = one_dispatch(lambda i=i: ms.search_memories(corpus.text(i)),
+                                   "search_memories")
+            search_ms.append(t)
+            if not hits or hits[0].content != corpus.text(i):
+                raise AssertionError(f"IVF search_memories missed fact {i}")
+        runs = [one_dispatch(lambda: ms.search_memories_batch(texts, limit=10),
+                             f"search_memories_batch({len(texts)})")
+                for _ in range(3)]
+        hit = sum(bool(h) and h[0].content == t
+                  for t, h in zip(texts, runs[-1][1]))
+        fleet = _fleet_requests(corpus, batch_facts, IVF_NPROBES)
+        sched = ms._ensure_scheduler()
+        fleet_runs = [one_dispatch(
+            lambda: [f.result() for f in sched.submit_many(fleet)],
+            "64-request fleet") for _ in range(3)]
+        for req, r in zip(fleet, fleet_runs[-1][1]):
+            if not r.ids or any(not q.startswith(req.tenant + ":")
+                                for q in r.ids):
+                raise AssertionError(f"IVF fleet request of {req.tenant} "
+                                     f"k={req.k} got {r.ids[:3]}")
+        serve_k5 = k5.launches
+        torch.cuda.synchronize()
+        for name in ("search_fused_requests", "_readback"):
+            vars(qidx).pop(name, None)
+        torch.cuda.set_sync_debug_mode(0)
+
+        # one conversation end through the fused dedup ingest, online IVF
+        c = FILL // PER_CONV
+        if TENANTS[c % len(TENANTS)] != ms.user_id:
+            c += 1
+        ingest_reads = _strict_ingest(qidx, torch)
+        d0 = qidx.ingest_dispatch_count
+        app0 = tel.counter_total("ivf.appends")
+        ovf0 = tel.counter_total("ivf.member_overflows")
+        fresh0 = len(qidx._ivf_fresh)
+        occ0 = int(qidx._ivf_dev[2].sum())
+        ms.llm.payloads.append(corpus.payload(range(c * PER_CONV,
+                                                    (c + 1) * PER_CONV)))
+        t1 = time.perf_counter()
+        ms.start_conversation()
+        ms.add_to_short_term(f"conversation {c}", "episodic", 0.5)
+        ms.end_conversation()
+        torch.cuda.synchronize()
+        conv_s = time.perf_counter() - t1
+        for name in ("ingest_batch_dedup", "_readback"):
+            vars(qidx).pop(name, None)
+        torch.cuda.set_sync_debug_mode(0)
+        dispatches = qidx.ingest_dispatch_count - d0
+        appends = tel.counter_total("ivf.appends") - app0
+        overflows = tel.counter_total("ivf.member_overflows") - ovf0
+        if dispatches != 1 or len(ingest_reads) != 1:
+            raise AssertionError(f"the IVF conversation end made {dispatches} "
+                                 f"dispatches and {len(ingest_reads)} copies")
+        if appends <= 0 or int(qidx._ivf_dev[2].sum()) != occ0 + appends or (
+                len(qidx._ivf_fresh) - fresh0 != overflows):
+            raise AssertionError(f"online IVF: {appends} appends, "
+                                 f"{overflows} overflows, fresh rows "
+                                 f"{fresh0} -> {len(qidx._ivf_fresh)}")
+        got = ms.search_memories(corpus.text(c * PER_CONV + 17))
+        if not got or got[0].content != corpus.text(c * PER_CONV + 17):
+            raise AssertionError("a fact of the IVF conversation end is not "
+                                 "served")
+
+        # int8 serving composed on the IVF program
+        qidx.int8_serving = True
+        qidx.coarse_slack = ms.config.coarse_fetch_slack
+        qidx._int8_shadow_for(qidx.state)
+        torch.cuda.synchronize()
+        readbacks = _strict_dispatch(qidx, torch)
+        i8_0, k5_0 = k5.launches_int8, k5.launches
+        int8_ms = [one_dispatch(lambda p=p: ms.chat(p), "int8 chat turn")[0]
+                   for p in int8_prompts]
+        if (k5.launches_int8 - i8_0, k5.launches - k5_0) != (IVF_INT8_TURNS,
+                                                             IVF_INT8_TURNS):
+            raise AssertionError("an int8 IVF chat turn is not one K5 launch "
+                                 "of the int8 form")
+        torch.cuda.synchronize()
+    finally:
+        for name in ("search_fused_requests", "_readback",
+                     "ingest_batch_dedup"):
+            vars(qidx).pop(name, None)
+        torch.cuda.set_sync_debug_mode(0)
+        ms.index = exact
+        ms.config.ivf_serving = 0
+        ms.query_cache.invalidate_results()
+    launches_out["ivf_topk"] = k5.launches
+    launches_out["ivf_topk_by_route"] = {
+        "fma": k5.launches - k5.launches_int8, "dp4a": k5.launches_int8}
+    out = {
+        "build_s": build_s, "clusters": n_c, "member_slots": m_w,
+        "rows_in_clusters": occupied,
+        "warmup_ms": {str(k): v for k, v in warm.items()},
+        "chat_p50_ms": p50(chat_ms), "search_p50_ms": p50(search_ms),
+        "batch64_p50_ms": p50([t for t, _ in runs]),
+        "batch64_self_hits": hit,
+        "fleet64_nprobe_1_4_8_p50_ms": p50([t for t, _ in fleet_runs]),
+        "int8_chat_p50_ms": p50(int8_ms),
+        "exact_chat_miss_p50_ms": exact_fused["chat_miss_p50_ms"],
+        "exact_search_p50_ms": exact_fused["search_p50_ms"],
+        "exact_batch64_p50_ms": exact_fused["batch64_p50_ms"],
+        "exact_fleet64_mixed_k_p50_ms": exact_fused["fleet64_mixed_k_p50_ms"],
+        "quant_chat_p50_ms": quant["chat_p50_ms"],
+        "quant_batch64_p50_ms": quant["batch64_p50_ms"],
+        "reads_vs_exact": check, "nprobe_c_vs_exact": full,
+        "fused_vs_classic": forms, "conversation_end_s": conv_s,
+        "ingest_dispatches": dispatches, "ingest_copies": len(ingest_reads),
+        "online_appends": appends, "online_overflows": overflows,
+        "drive_s": time.perf_counter() - t_drive,
+        "k5_launches": k5.launches, "k5_serving_launches": serve_k5,
+        "k5_int8_launches": k5.launches_int8, "k5_kernels": k5.stage_launches,
+        "dispatches_per_turn": 1, "copies_per_turn": 1}
+    log(f"[ivf] IVF serving on the filled arena (nprobe {IVF_P} of {n_c}): "
+        f"chat p50 {out['chat_p50_ms']:.2f} ms (exact "
+        f"{out['exact_chat_miss_p50_ms']:.2f}, int8 {quant['chat_p50_ms']:.2f}, "
+        f"IVF with int8 {out['int8_chat_p50_ms']:.2f}), search_memories p50 "
+        f"{out['search_p50_ms']:.2f} ms (exact {out['exact_search_p50_ms']:.2f}), "
+        f"search_memories_batch({len(texts)}) p50 {out['batch64_p50_ms']:.2f} "
+        f"ms (exact {out['exact_batch64_p50_ms']:.2f}, {hit}/{len(texts)} self "
+        f"hits), fleet(64, "
+        f"nprobe 1/4/8) p50 {out['fleet64_nprobe_1_4_8_p50_ms']:.2f} ms (exact "
+        f"mixed-k {out['exact_fleet64_mixed_k_p50_ms']:.2f}); one K5 launch, "
+        f"one coarse masked top-k launch and one copy a dispatch; the "
+        f"conversation end ({PER_CONV} facts) one dispatch and one copy in "
+        f"{conv_s:.2f} s, {appends} online appends, {overflows} overflows "
+        f"into the extras; {k5.launches} K5 launches ({k5.launches_int8} of "
+        f"the int8 form, {k5.stage_launches} kernels); the IVF drive took "
+        f"{out['drive_s']:.1f} s")
     return out
 
 
@@ -4579,6 +5111,11 @@ def _run(smi, name, device, torch) -> int:
     int8_rows = phase_int8_kernel(device)
     gc.collect()
     torch.cuda.empty_cache()
+    t_ivf = time.perf_counter()
+    ivf_rows = phase_ivf_kernel(device)
+    log(f"[kernels] ivf_topk (K5) cases took {time.perf_counter() - t_ivf:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
     guard_summary = phase_guard(device)
     torch.cuda.empty_cache()
     ingest_rows, resolve_rows = phase_ingest_kernel(device)
@@ -4660,6 +5197,9 @@ def _run(smi, name, device, torch) -> int:
               int8_rows, "chat_keyed_q1_k136_g9",
               launches_by_route={r: launches[f"int8_topk_{r}"]
                                  for r in ("wgmma", "dp4a")}),
+        entry("ivf_topk", "lazzaro_tpu_torch/csrc/ivf_topk.cu",
+              "lazzaro_tpu/core/state.py:3340", ivf_rows, "chat_q1_np8_bf16",
+              launches_by_route=launches["ivf_topk_by_route"]),
         entry("pairwise_topk", "lazzaro_tpu_torch/csrc/pairwise_topk.cu",
               "lazzaro_tpu/ops/graphops.py:82", pairwise_rows,
               f"pairwise_{PAIR_ROWS}_bf16",

@@ -256,9 +256,12 @@ def load_index(ckpt_dir: str, mesh=None, shard_axis: str = "data",
                **index_kwargs) -> MemoryIndex:
     """Rebuild a ``MemoryIndex`` from the snapshot ``CURRENT`` points at.
     ``index_kwargs`` go to the constructor (``device``, the serving
-    settings, ``int8_serving`` and ``coarse_slack``, ``telemetry``): the
-    int8 shadow is never saved, and an index loaded with ``int8_serving``
-    rebuilds it from the loaded arena at its first search. With ``mesh`` the rows are split over its
+    settings, ``int8_serving``, ``ivf_nprobe`` and ``coarse_slack``,
+    ``telemetry``): the int8 shadow is never saved, and an index loaded
+    with ``int8_serving`` rebuilds it from the loaded arena at its first
+    search; no IVF build is saved either (``lazzaro_tpu/core/
+    checkpoint.py:369-410``), so an index loaded with ``ivf_nprobe`` serves
+    the exact path until its next ``ivf_maintenance`` builds one. With ``mesh`` the rows are split over its
     devices (the saved row count must divide by the mesh size, as a
     mesh-created index guarantees); ``shard_axis`` must be its axis."""
     if mesh is not None and mesh.axis_names[0] != shard_axis:

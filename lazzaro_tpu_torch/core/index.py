@@ -24,6 +24,7 @@ from __future__ import annotations
 import math
 import threading
 import time
+import warnings
 from collections import OrderedDict
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
@@ -33,6 +34,8 @@ import torch
 from lazzaro_tpu_torch.core import state as S
 from lazzaro_tpu_torch.ops import graphops
 from lazzaro_tpu_torch.ops.int8_topk import int8_topk
+from lazzaro_tpu_torch.ops.ivf import (assignment_staleness, build_ivf,
+                                       ivf_search, online_counts, pack_extras)
 from lazzaro_tpu_torch.ops.quant import quantize_rows
 from lazzaro_tpu_torch.ops.sharded_merge import sharded_merge
 from lazzaro_tpu_torch.reliability.errors import ArenaPoisoned
@@ -279,6 +282,8 @@ class MemoryIndex:
                  device=None, telemetry=None, serve_ragged: bool = True,
                  serve_k_max: int = 128, serve_pad_granularity: int = 8,
                  mesh=None, int8_serving: bool = False, coarse_slack: int = 8,
+                 ivf_nprobe: int = 0, ivf_online: bool = True,
+                 ivf_member_cap_factor: int = 4, ivf_online_eta: float = 1.0,
                  dispatch_retry_max: int = 2,
                  dispatch_retry_backoff_s: float = 0.005):
         if mesh is not None and int8_serving:
@@ -359,6 +364,39 @@ class MemoryIndex:
         self.coarse_slack = max(0, int(coarse_slack))
         self._int8_shadow: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
         self._int8_dirty = True
+        # IVF serving (ops/ivf.py, ``lazzaro_tpu/core/index.py:460-502``):
+        # ivf_nprobe > 0 serves searches through the centroid prefilter and
+        # K5's member scan once ``ivf_maintenance`` has published a build.
+        # Rows written after a build serve exactly from the fresh residual
+        # (or, with online IVF, append to their clusters inside the fused
+        # ingest); delete un-routes freed member slots, so a reused slot
+        # joins the fresh residual. The (build, fresh rows) pair is one
+        # tuple; ``_ivf_routed`` / ``_ivf_in_residual`` / ``_ivf_stale`` are
+        # the writer's bookkeeping. One device only: a mesh warns and
+        # serves the exact sharded path, as the JAX index does.
+        if ivf_nprobe and mesh is not None:
+            warnings.warn(
+                "ivf_serving is single-device only (the mesh path searches "
+                "the exact sharded arena); the flag is ignored under a mesh",
+                stacklevel=3)
+        self.ivf_nprobe = int(ivf_nprobe) if mesh is None else 0
+        self._ivf_pack: Optional[tuple] = None   # (IvfIndex, fresh rows tuple)
+        self._ivf_routed: Optional[np.ndarray] = None
+        self._ivf_in_residual: Optional[np.ndarray] = None
+        self._ivf_stale = 0
+        self._ivf_res_cache = None
+        self._ivf_serve_cache = None
+        self._ivf_res_host = None          # (residual tensor, its host copy)
+        # Rows added or deleted while a build runs outside the state lock
+        # (ivf_maintenance); None when no build is running.
+        self._ivf_touched: Optional[set] = None
+        # Online IVF: the live (cent [C, d] f32, members [C, M] i32, counts
+        # [C] i32) that both fused ingests update in place in their one
+        # dispatch, and serving reads.
+        self.ivf_online = bool(ivf_online) and self.ivf_nprobe > 0
+        self.ivf_member_cap_factor = max(1, int(ivf_member_cap_factor))
+        self.ivf_online_eta = float(ivf_online_eta)
+        self._ivf_dev: Optional[Tuple[torch.Tensor, ...]] = None
         # The state dispatch guard (reliability.guard): retries of a program
         # that failed before its first write, and the poisoned flag of one
         # that failed after it.
@@ -456,6 +494,351 @@ class MemoryIndex:
             return None
         return shadow
 
+    # ------------------------------------------------------------------ ivf
+    @property
+    def _ivf(self):
+        pack = self._ivf_pack
+        return pack[0] if pack is not None else None
+
+    @_ivf.setter
+    def _ivf(self, v) -> None:
+        """Publish a build (or drop it with None) with its routed bitmaps
+        and online tables, every per-build cache cleared
+        (``lazzaro_tpu/core/index.py:_ivf``)."""
+        self._ivf_res_cache = None
+        self._ivf_serve_cache = None
+        self._ivf_stale = 0
+        if v is None:
+            self._ivf_routed = self._ivf_in_residual = None
+            self._ivf_pack = None
+            self._ivf_dev = None
+            return
+        self._ivf_routed, self._ivf_in_residual = self._routed_bitmaps(v)
+        self._ivf_pack = (v, ())
+        self._publish_online_tables(v)
+
+    def _publish_online_tables(self, ivf) -> None:
+        """Seed the live online tables from a build: copies of its centroids
+        and members, and each cluster's occupancy as its append cursor."""
+        if not self.ivf_online:
+            self._ivf_dev = None
+            return
+        self._ivf_dev = (ivf.centroids.float().clone(),
+                         ivf.members.int().clone(), online_counts(ivf.members))
+
+    def _routed_bitmaps(self, ivf) -> Tuple[np.ndarray, np.ndarray]:
+        """``(routed, in_sealed_residual)`` bool bitmaps over the arena's
+        rows for a build."""
+        n = self.state.salience.shape[0]
+        routed = np.zeros((n,), bool)
+        m = ivf.members.cpu().numpy().ravel()
+        routed[m[(m >= 0) & (m < n)]] = True
+        r = self._residual_host(ivf)
+        in_res = np.zeros((n,), bool)
+        in_res[r[(r >= 0) & (r < n)]] = True
+        routed |= in_res
+        return routed, in_res
+
+    def _residual_host(self, ivf) -> np.ndarray:
+        """The build's residual on the host, copied once per residual
+        buffer (at publish time), so that serving never waits on a copy."""
+        cached = self._ivf_res_host
+        if cached is None or cached[0] is not ivf.residual:
+            cached = (ivf.residual, ivf.residual.cpu().numpy())
+            self._ivf_res_host = cached
+        return cached[1]
+
+    @property
+    def _ivf_fresh(self) -> List[int]:
+        pack = self._ivf_pack
+        return list(pack[1]) if pack is not None else []
+
+    def _ivf_online_arg(self):
+        """The live online tables the fused ingest updates in place, or None
+        (online IVF off, or no build yet). Called under the state lock."""
+        return self._ivf_dev if self.ivf_online else None
+
+    def _routed_grown(self) -> Optional[np.ndarray]:
+        """The routed bitmap, extended to the arena's rows once it grew."""
+        routed = self._ivf_routed
+        n = self.state.salience.shape[0]
+        if routed is not None and len(routed) < n:
+            grown = np.zeros((n,), bool)
+            grown[:len(routed)] = routed
+            self._ivf_routed = routed = grown
+        return routed
+
+    def _ivf_note_added(self, rows: Sequence[int]) -> None:
+        """Rows just written join the fresh residual, each once
+        (``lazzaro_tpu/core/index.py:_ivf_note_added``)."""
+        self._ivf_touch(rows)
+        pack = self._ivf_pack
+        if not self.ivf_nprobe or pack is None:
+            return
+        ivf, fresh = pack
+        routed = self._routed_grown()
+        appended = []
+        for r in rows:
+            if routed is None or not routed[r]:
+                appended.append(r)
+                if routed is not None:
+                    routed[r] = True
+        if appended:
+            self._ivf_pack = (ivf, fresh + tuple(appended))
+
+    def _ivf_note_online(self, rows: Sequence[int], live: Sequence[bool],
+                         ivf_host) -> None:
+        """Host bookkeeping of the online update a fused ingest ran
+        (``lazzaro_tpu/core/index.py:_ivf_note_online``): appended rows are
+        routed, rows whose cluster was full (slot -1) go to the exact-scan
+        extras (``ivf.member_overflows``); the counters of the readback's
+        IVF leaves go to telemetry."""
+        self._ivf_touch([r for r, lv in zip(rows, live) if lv])
+        pos_w = ivf_host[1]
+        appended, spilled = [], []
+        for i, (r, lv) in enumerate(zip(rows, live)):
+            if lv:
+                (appended if int(pos_w[i, 0]) >= 0 else spilled).append(r)
+        if appended:
+            routed = self._routed_grown()
+            if routed is not None:
+                routed[appended] = True
+        tel = self.telemetry
+        if spilled:
+            tel.bump("ivf.member_overflows", len(spilled))
+            self._ivf_note_added(spilled)
+        dev = self._ivf_dev
+        if dev is not None:
+            slots = int(dev[1].shape[0]) * int(dev[1].shape[1])
+            tel.gauge("ivf.member_pool_occupancy",
+                      float(ivf_host[3][0, 0]) / max(slots, 1))
+        tel.bump("ivf.appends", int(ivf_host[4][0, 0]))
+        tel.bump("ivf.centroid_shift_ppm", int(ivf_host[5][0, 0]))
+
+    def _ivf_note_deleted(self, rows: Sequence[int]) -> None:
+        """Un-route freed rows (``lazzaro_tpu/core/index.py:delete``): a
+        fresh-residual row leaves the fresh tuple, a sealed-residual row
+        stays (the residual scans the slot's current vector), a member row
+        is un-routed and counts toward the re-seed trigger."""
+        self._ivf_touch(rows)
+        routed = self._ivf_routed
+        if routed is None:
+            return
+        pack = self._ivf_pack
+        fresh_set = set(pack[1]) if pack is not None else set()
+        in_res = self._ivf_in_residual
+        dropped = set()
+        for r in rows:
+            if r >= len(routed) or not routed[r]:
+                continue
+            if r in fresh_set:
+                routed[r] = False
+                dropped.add(r)
+            elif in_res is not None and r < len(in_res) and in_res[r]:
+                pass
+            else:
+                routed[r] = False
+                self._ivf_stale += 1
+        if dropped:
+            self._ivf_pack = (pack[0], tuple(x for x in pack[1]
+                                             if x not in dropped))
+
+    def _ivf_touch(self, rows: Sequence[int]) -> None:
+        """Record rows written or freed while a build runs."""
+        touched = self._ivf_touched
+        if touched is not None:
+            touched.update(int(r) for r in rows)
+
+    # Below this many live rows an exact scan is cheap and a k-means build
+    # pure overhead.
+    _IVF_MIN_ROWS = 4096
+
+    def ivf_maintenance(self, iters: int = 8) -> bool:
+        """Build or re-seed the coarse index (``lazzaro_tpu/core/index.py:
+        ivf_maintenance``); True if a (re)build ran. The only place the
+        k-means runs: the consolidation's maintenance calls it, never a
+        serving query. Without online IVF it rebuilds once the fresh rows
+        and the deleted member slots pass a quarter of the build. With
+        online IVF the ingests keep the assignments, so it re-seeds only
+        when the ideal cluster count (sqrt of the live rows) drifted 2x
+        from the live table's, or churn passed that quarter; otherwise it
+        compacts the tables' holes (:meth:`ivf_member_repack`).
+
+        The build runs outside the state lock, so serving and ingests go on
+        meanwhile: it clusters the rows alive when it starts, and the rows
+        added or freed while it ran are replayed onto it as it is published
+        (freed member rows un-routed, added rows in the fresh residual), as
+        the JAX index builds from an immutable snapshot."""
+        if not self.ivf_nprobe:
+            return False
+        n_alive = len(self.id_to_row)
+        if n_alive < self._IVF_MIN_ROWS:
+            return False
+        pack = self._ivf_pack
+        if pack is not None:
+            churn = len(pack[1]) + self._ivf_stale
+            if self.ivf_online and self._ivf_dev is not None:
+                cur_c = max(1, int(self._ivf_dev[0].shape[0]))
+                want_raw = max(4, int(np.sqrt(n_alive)))
+                count_changed = want_raw >= 2 * cur_c or 4 * want_raw <= cur_c
+                if not count_changed and churn <= pack[0].built_rows // 4:
+                    self.ivf_member_repack()
+                    return False
+            elif churn <= pack[0].built_rows // 4:
+                return False
+        with self._lock:
+            if self._ivf_touched is not None:
+                return False                    # a build is running
+            st = self.state
+            mask = st.alive.cpu().numpy().copy()   # not a view of the column
+            self._ivf_touched = set()
+        try:
+            ivf = build_ivf(st.emb, mask, iters=iters,
+                            member_cap_factor=self.ivf_member_cap_factor)
+        except BaseException:
+            with self._lock:
+                self._ivf_touched = None
+            raise
+        with self._lock:
+            touched = sorted(self._ivf_touched)
+            self._ivf_touched = None
+            self._ivf = ivf
+            alive = self.state.alive.cpu().numpy()
+            self._ivf_note_deleted(touched)
+            self._ivf_note_added([r for r in touched if alive[r]])
+        return True
+
+    def ivf_member_repack(self, hole_frac: float = 0.25) -> bool:
+        """Compact the holes out of the live member tables
+        (``lazzaro_tpu/core/index.py:ivf_member_repack``): slots of deleted
+        rows move behind each cluster's live rows and the append cursors
+        reset to the live counts, once holes pass ``hole_frac`` of the
+        occupied slots. True if it ran (``ivf.member_repacks``,
+        ``ivf.member_holes_reclaimed``)."""
+        with self._lock:
+            dev = self._ivf_dev
+            if dev is None:
+                return False
+            members = dev[1].cpu().numpy()
+            counts = dev[2].cpu().numpy()
+            alive = self.state.alive.cpu().numpy()
+            idx = np.arange(members.shape[1])[None, :]
+            occ = idx < counts[:, None]
+            row_ok = np.take(alive, np.clip(members, 0, len(alive) - 1))
+            live = (members >= 0) & occ & row_ok
+            n_occ = int(occ.sum())
+            holes = n_occ - int(live.sum())
+            if holes <= 0 or holes < hole_frac * max(1, n_occ):
+                return False
+            order = np.argsort(~live, axis=1, kind="stable")
+            packed = np.take_along_axis(members, order, axis=1)
+            new_counts = live.sum(axis=1).astype(counts.dtype)
+            packed[idx >= new_counts[:, None]] = -1
+            self._ivf_dev = (dev[0], torch.from_numpy(packed).to(self.device),
+                             torch.from_numpy(new_counts).to(self.device))
+        self.telemetry.bump("ivf.member_repacks")
+        self.telemetry.bump("ivf.member_holes_reclaimed", holes)
+        return True
+
+    def ivf_staleness_probe(self) -> Optional[float]:
+        """The fraction of live member slots whose row now picks another
+        centroid (``lazzaro_tpu/core/index.py:ivf_staleness_probe``; the
+        ``ivf.assignment_staleness`` gauge), or None without live tables.
+        O(N * C): a diagnostic."""
+        with self._lock:
+            dev = self._ivf_dev
+            if dev is None:
+                return None
+            st = self.state
+            frac = assignment_staleness(st.emb, st.alive.cpu().numpy(),
+                                        dev[0], dev[1])
+        self.telemetry.gauge("ivf.assignment_staleness", frac)
+        return frac
+
+    def _ivf_residual_dev(self, ivf, fresh) -> torch.Tensor:
+        """The sealed residual and the fresh rows as one padded device array
+        (the classic search's extras), uploaded again only when the build,
+        the fresh tuple or the residual buffer changed (identity keys,
+        ``lazzaro_tpu/core/index.py:_ivf_residual_dev``)."""
+        cache = self._ivf_res_cache
+        if (cache is not None and cache[0] is ivf and cache[1] is fresh
+                and cache[2] is ivf.residual):
+            return cache[3]
+        dev, = HostStage(self.device).upload([pack_extras(
+            self._residual_host(ivf), fresh, ())])
+        self._ivf_res_cache = (ivf, fresh, ivf.residual, dev)
+        return dev
+
+    def _ivf_extras_dev(self, ivf, fresh) -> torch.Tensor:
+        """Fused serving's exact-scan extras: the sealed residual, the fresh
+        rows and every super row (``ops.ivf.pack_extras``), cached on the
+        same identities plus the super tuple's."""
+        supers = self._super_rows_frozen
+        cache = self._ivf_serve_cache
+        if (cache is not None and cache[0] is ivf and cache[1] is fresh
+                and cache[2] is ivf.residual and cache[3] is supers):
+            return cache[4]
+        n = self.state.salience.shape[0]
+        dev, = HostStage(self.device).upload([pack_extras(
+            self._residual_host(ivf), fresh, [r for r in supers if r < n])])
+        self._ivf_serve_cache = (ivf, fresh, ivf.residual, supers, dev)
+        return dev
+
+    def _ivf_live_tables(self, ivf):
+        """``(centroids, members)`` the scans read: the live online tables,
+        else the sealed build's."""
+        dev = self._ivf_dev
+        if self.ivf_online and dev is not None:
+            return dev[0], dev[1]
+        return ivf.centroids, ivf.members
+
+    def _ivf_fused_pack(self, k_kernel: int):
+        """``(centroids, members, extras, nprobe)`` for fused IVF serving, or
+        None to serve the dense fused path: IVF off, no build published,
+        or fewer candidates than the kernel's k
+        (``lazzaro_tpu/core/index.py:_ivf_fused_pack``)."""
+        if not self.ivf_nprobe or self.mesh is not None:
+            return None
+        pack = self._ivf_pack
+        if pack is None:
+            return None
+        ivf, fresh = pack
+        extras = self._ivf_extras_dev(ivf, fresh)
+        cent, members = self._ivf_live_tables(ivf)
+        nprobe = min(self.ivf_nprobe, int(cent.shape[0]))
+        if nprobe * members.shape[1] + extras.shape[0] < k_kernel:
+            return None
+        return cent, members, extras, nprobe
+
+    def _ivf_search(self, q_pad: torch.Tensor, tid: int, k_eff: int,
+                    super_filter: int):
+        """The classic IVF search (``lazzaro_tpu/core/index.py:_ivf_search``):
+        the coarse stage and K5's classic form over the members and the
+        residual with the tenant mask, ``k + coarse_slack`` fetched (the
+        decode drops repeats and trims); host ``(scores, rows)`` from one
+        copy, or None to fall through to the exact scan (no build yet, the
+        super-node filter, or fewer candidates than k). Called under the
+        state lock."""
+        pack = self._ivf_pack
+        if pack is None or super_filter == 1:
+            return None
+        ivf, fresh = pack
+        st = self.state
+        residual = self._ivf_residual_dev(ivf, fresh)
+        cent, members = self._ivf_live_tables(ivf)
+        n_cand = (min(self.ivf_nprobe, ivf.n_clusters) * members.shape[1]
+                  + residual.shape[0])
+        if n_cand < k_eff:
+            return None
+        k_fetch = min(k_eff + self.coarse_slack, n_cand)
+        scores, rows = ivf_search(cent, members, residual, st.emb,
+                                  S.arena_mask(st, tid, super_filter),
+                                  S.normalize(q_pad.float()), k_fetch,
+                                  nprobe=self.ivf_nprobe)
+        host = torch.cat([scores, rows.contiguous().view(torch.float32)],
+                         dim=1).cpu().numpy()
+        return host[:, :k_fetch], host[:, k_fetch:].view(np.int32)
+
     # ------------------------------------------------------------ capacity
     def _round_capacity(self, capacity: int, block: bool = True) -> int:
         """capacity + 1 rounds up to a TOPK_BLOCK multiple once it reaches a
@@ -536,6 +919,11 @@ class MemoryIndex:
             "device": str(self.device),
             "mesh": (f"{self._n_parts}x {self.shard_axis}"
                      if self.mesh is not None else None),
+            "ivf": (f"nprobe={self.ivf_nprobe}, "
+                    f"{'built' if self._ivf is not None else 'pending'}"
+                    + (", online" if self.ivf_online
+                       and self._ivf_dev is not None else "")
+                    if self.ivf_nprobe else None),
         }
 
     # ---------------------------------------------------------------- nodes
@@ -612,6 +1000,7 @@ class MemoryIndex:
                                                *cols[2:]),
                           (self.state,), "arena")
             self._int8_dirty = True              # embedding rows written
+            self._ivf_note_added(rows)
             return rows
 
     def _note_super(self, rows: Sequence[int], flags: Sequence[bool]) -> None:
@@ -700,6 +1089,7 @@ class MemoryIndex:
             self._free_rows.extend(rows)
             if self._super_rows:
                 self._note_super(rows, [False] * len(rows))
+            self._ivf_note_deleted(rows)
             # One pass over the keys (~0.6 s at 1.16M edges, a small part
             # of a tenant's reload), freeing dead slots in the map's order.
             id_to_row = self.id_to_row
@@ -721,8 +1111,10 @@ class MemoryIndex:
                      super_filter: int = 0, exact: bool = False
                      ) -> List[Tuple[List[str], List[float]]]:
         """Multi-query masked top-k: one kernel launch for the whole batch,
-        padded to a power of two as the JAX index pads it. With int8 serving
-        on, the scan reads the int8 shadow (K4's additive form,
+        padded to a power of two as the JAX index pads it. With a published
+        IVF build (``ivf_nprobe > 0``) the classic IVF search serves it
+        (:meth:`_ivf_search`, K5's classic form). With int8 serving on, the
+        scan reads the int8 shadow (K4's additive form,
         ``ops.int8_topk.int8_topk``, as ``quantized_topk``); ``exact=True``
         keeps it on the master arena, as consolidation's dedup and merge
         gates need (their thresholds sit inside the int8 error band)."""
@@ -739,6 +1131,13 @@ class MemoryIndex:
         q_pad = torch.from_numpy(pad_to_pow2(queries)).to(self.device)
         with self._lock:
             k_eff = min(k, self.capacity)
+            got = (self._ivf_search(q_pad, tid, k_eff, super_filter)
+                   if self.mesh is None and self.ivf_nprobe and not exact
+                   else None)
+            if got is not None:
+                # k + slack fetched: the decode drops repeats, then trims
+                return decode_topk(got[0][:nq], got[1][:nq], self.row_to_id,
+                                   S.NEG_INF, limit=k_eff)
             if self.mesh is None and self.int8_serving and not exact:
                 # one arena snapshot feeds the shadow and the mask
                 st = self.state
@@ -1403,30 +1802,36 @@ class MemoryIndex:
             self.telemetry.bump("ingest.link_pool_overflows")
             self.add_edges(overflowed, tenant, now=now)
 
-    def _run_ingest(self, kind: str, fn, up, **kwargs) -> List[np.ndarray]:
+    def _run_ingest(self, kind: str, fn, up, **kwargs):
         """One fused ingest dispatch and its one packed readback; records
-        ``ingest.dispatch_ms`` and ``ingest.dispatches``. Returns the host
-        leaves."""
+        ``ingest.dispatch_ms`` and ``ingest.dispatches``. With online IVF
+        tables the dispatch also updates them in place and the readback
+        ends in their ``IVF_INGEST_TAIL`` leaves. Returns ``(host leaves,
+        whether the tables were maintained)``."""
         t0 = time.perf_counter()
         with torch.profiler.record_function(f"lz.ingest.{kind}"):
             shadow = self._ingest_shadow_arg()
+            ivf = self._ivf_online_arg()
             _, _, outs = self._guarded(
                 lambda: self._ingest_dispatch(fn, self.state, self.edge_state,
-                                              *up, shadow=shadow, **kwargs),
+                                              *up, shadow=shadow, ivf=ivf,
+                                              ivf_eta=self.ivf_online_eta,
+                                              **kwargs),
                 (self.state, self.edge_state), "ingest")
             if shadow is None:
                 self._int8_dirty = True      # rows written, shadow not kept
             n_modes = len(kwargs["shard_modes"])
             wide = 3 if kind == "dedup_fused" else 0
             is_float = ([False] * wide + [True, False, False] * n_modes
-                        + [False] * 3)
+                        + [False] * 3
+                        + [False] * (S.IVF_INGEST_TAIL if ivf is not None else 0))
             host = S.unpack_leaves(self._readback(S.pack_leaves(outs)),
                                    is_float)
         self.telemetry.record("ingest.dispatch_ms",
                               (time.perf_counter() - t0) * 1e3,
                               labels={"kind": kind})
         self.telemetry.bump("ingest.dispatches", labels={"kind": kind})
-        return host
+        return host, ivf is not None
 
     def ingest_batch(self, ids: Sequence[str], embeddings: np.ndarray,
                      saliences: Sequence[float], timestamps: Sequence[float],
@@ -1516,13 +1921,17 @@ class MemoryIndex:
                     for x in (now_rel, link_gate, link_scale)]
             pool_len = torch.full((), len(pool), dtype=torch.int32,
                                   device=self.device)
-            host = self._run_ingest(
+            host, ivf_fresh = self._run_ingest(
                 "fused", S.ingest_fused,
                 [*dev, pool_len, scal[0], tid, scal[1], scal[2]],
                 k=k_eff, shard_modes=shard_modes)
             ctr = host[3 * n_modes:]
             self.telemetry.bump("ingest.links_accepted", int(ctr[1][0, 0]))
             self.telemetry.bump("ingest.pool_slots_used", int(ctr[2][0, 0]))
+            if ivf_fresh:
+                self._ivf_note_online(rows, [True] * n, ctr[3:])
+            else:
+                self._ivf_note_added(rows)
             candidates, created, reclaim, overflowed, consumed = \
                 self._decode_links(host, list(ids), n, k_eff, shard_modes,
                                    pool, link_scale, [False] * n)
@@ -1601,7 +2010,7 @@ class MemoryIndex:
             pool_len = torch.full((), len(pool), dtype=torch.int32,
                                   device=self.device)
             try:
-                host = self._run_ingest(
+                host, ivf_fresh = self._run_ingest(
                     "dedup_fused", S.ingest_dedup_fused,
                     [*dev, pool_len, now_d, tid, float(dedup_gate), chain_w,
                      gate_d, scale_d], k=k_eff, shard_modes=shard_modes)
@@ -1624,7 +2033,8 @@ class MemoryIndex:
                 "tenant": tenant, "now": now_abs, "dup": dup,
                 "target_rows": host[1][:n, 0], "chain_src": host[2][:n, 0],
                 "chain_slots": chain_list, "link_pool": pool,
-                "link_host": host[3:]}
+                "link_host": host[3:],
+                "ivf_host": ctr[3:] if ivf_fresh else None}
 
     def commit_ingest_dedup(self, pending: dict, ids: Sequence[Optional[str]]
                             ) -> Tuple[Dict, Dict, List, List]:
@@ -1666,6 +2076,13 @@ class MemoryIndex:
             candidates, created, more, overflowed, consumed = self._decode_links(
                 pending["link_host"], ids, n, pending["k_eff"],
                 pending["shard_modes"], pool, pending["link_scale"], dup)
+            if pending.get("ivf_host") is not None:
+                # in-dispatch appends are routed; full clusters spill to the
+                # exact-scan extras
+                self._ivf_note_online(rows, [not d for d in dup],
+                                      pending["ivf_host"])
+            else:
+                self._ivf_note_added([rows[i] for i in range(n) if not dup[i]])
             self._finish_links(pool, consumed, reclaim + more, overflowed,
                                tenant, pending["now"])
         return candidates, created, merges, chains
@@ -1765,8 +2182,13 @@ class MemoryIndex:
         planner off, which is ``_search_fused_once`` in exact mode): gate,
         ANN top-k, CSR neighbor gather and, for every request that asked,
         both boosts applied in place under the state lock. A batch where no
-        request boosts takes the read twin. With int8 serving on (one
-        device) the program is the quantized one (``quant`` mode,
+        request boosts takes the read twin. With a published IVF build (one
+        device) the program is the IVF one (``ivf`` mode,
+        ``state.search_fused_ivf*``): the centroid prefilter and K5 over the
+        probed clusters' members and the extras, each request's own
+        ``nprobe`` as data, composed with int8 serving when it is on;
+        without a build the dense program serves. With int8 serving on and
+        no build the program is the quantized one (``quant`` mode,
         ``state.search_fused_quant*``): K4's keyed coarse scan of the
         shadow, the exact rescore, the same tail. Every host decision is
         made from host arrays, so the only wait on the device is the
@@ -1824,8 +2246,22 @@ class MemoryIndex:
             return out
 
         t0 = time.perf_counter()
+        with self._lock:
+            ivf_tabs = self._ivf_fused_pack(k_bucket)
         mode = ("sharded_exact" if self.mesh is not None
+                else "ivf" if ivf_tabs is not None
                 else "quant" if self.int8_serving else "exact")
+        extra = {}
+        if ivf_tabs is not None:
+            # the per-request probe width: the build's nprobe by default,
+            # clamped to [1, nprobe]; 0 for padding
+            ceil_np = ivf_tabs[3]
+            np_arr = np.zeros((nq,), np.int32)
+            for i, r in enumerate(reqs):
+                rn = r.nprobe
+                np_arr[i] = min(max(int(rn), 1), ceil_np) if rn else ceil_np
+            np_arr[~valid] = 0
+            extra = {"ivf_tabs": ivf_tabs, "np_arr": np_arr}
         dispatch = (self._dispatch_one if self.mesh is None
                     else self._dispatch_sharded)
         with torch.profiler.record_function(f"lz.serve.{mode}"):
@@ -1833,7 +2269,8 @@ class MemoryIndex:
                 packed = dispatch(qp, padb, valid, tenants, gate_on, boost_on,
                                   k_arr, cap_arr, k_bucket,
                                   min(cap_take, k_bucket), max_nbr,
-                                  super_gate, acc_boost, nbr_boost, now)
+                                  super_gate, acc_boost, nbr_boost, now,
+                                  **extra)
             host = self._readback(packed)
         tel.record("serve.dispatch_ms", (time.perf_counter() - t0) * 1e3,
                    labels={"mode": mode})
@@ -1887,10 +2324,11 @@ class MemoryIndex:
 
     def _dispatch_one(self, qp, padb, valid, tenants, gate_on, boost_on,
                       k_arr, cap_arr, k_bucket, cap_take, max_nbr,
-                      super_gate, acc_boost, nbr_boost, now):
+                      super_gate, acc_boost, nbr_boost, now, ivf_tabs=None,
+                      np_arr=None):
         """The single-device fused dispatch: one upload, one two-tier launch
-        and the tail; returns the packed array. Called under the state
-        lock."""
+        (or, with ``ivf_tabs``, the coarse stage and one K5 launch) and the
+        tail; returns the packed array. Called under the state lock."""
         ragged = self.serve_ragged
         boost = bool(boost_on.any())
         st = self.state
@@ -1902,11 +2340,17 @@ class MemoryIndex:
                 "tenant": padb(tenants, -1, np.int32), "gate": padb(gate_on)}
         if ragged:
             cols["k_q"] = padb(k_arr, 0, np.int32)
+            if ivf_tabs is not None:
+                cols["np_q"] = padb(np_arr, 0, np.int32)
         if boost:
             cols["boost"] = padb(boost_on)
             if ragged:
                 cols["cap_q"] = padb(cap_arr, 0, np.int32)
         up = dict(zip(cols, self._stage.upload(list(cols.values()))))
+        if ivf_tabs is not None:
+            return self._dispatch_ivf(st, quant or None, ivf_tabs, indptr, nbr,
+                                      up, boost, k_bucket, cap_take, max_nbr,
+                                      super_gate, acc_boost, nbr_boost, now)
         args = (*quant, indptr, nbr, up["q"], up["valid"], up["tenant"],
                 up["gate"])
         statics = dict(k=k_bucket, cap_take=cap_take, max_nbr=max_nbr)
@@ -1935,6 +2379,37 @@ class MemoryIndex:
         if ragged:
             return read(st, *args, up["k_q"], super_gate, **statics)
         return read_r(st, *args, super_gate, **statics)
+
+    def _dispatch_ivf(self, st, shadow, ivf_tabs, indptr, nbr, up, boost,
+                      k_bucket, cap_take, max_nbr, super_gate, acc_boost,
+                      nbr_boost, now):
+        """The fused IVF dispatch (``ivf`` mode of ``lazzaro_tpu/core/
+        index.py:_search_fused_once``): ``state.search_fused_ivf*`` over the
+        live tables and the extras, with the int8 ``shadow`` when int8
+        serving is on; the ragged forms take the per-query ``nprobe_q``."""
+        cent, members, extras, nprobe = ivf_tabs
+        ragged = self.serve_ragged
+        pre = (shadow, cent, members, extras, indptr, nbr, up["q"],
+               up["valid"], up["tenant"], up["gate"])
+        statics = dict(k=k_bucket, nprobe=nprobe, slack=self.coarse_slack,
+                       cap_take=cap_take, max_nbr=max_nbr)
+        if boost:
+            now_rel = (now if now is not None else time.time()) - self.epoch
+            scalars = (now_rel, super_gate, acc_boost, nbr_boost)
+
+            def call():
+                if ragged:
+                    return S.search_fused_ivf_ragged(
+                        st, *pre, up["boost"], up["k_q"], up["cap_q"],
+                        up["np_q"], *scalars, **statics)[1]
+                return S.search_fused_ivf(st, *pre, up["boost"], *scalars,
+                                          **statics)[1]
+
+            return self._guarded(call, (st,), "serve_ivf")
+        if ragged:
+            return S.search_fused_ivf_ragged_read(
+                st, *pre, up["k_q"], up["np_q"], super_gate, **statics)
+        return S.search_fused_ivf_read(st, *pre, super_gate, **statics)
 
     def _demux_fused(self, reqs, results, valid, boost_on, gate_s, gate_r,
                      ann_s, ann_r, fast, cap, lengths=None):
@@ -1995,7 +2470,8 @@ class MemoryIndex:
             finally:
                 tel.enabled = prev
             ms = (time.perf_counter() - t0) * 1e3
-            mode = "quant" if self.int8_serving else "exact"
+            mode = ("ivf" if self._ivf_fused_pack(kk) is not None
+                    else "quant" if self.int8_serving else "exact")
             tel.record("kernel.warmup_ms", ms,
                        labels={"mode": mode, "batch": str(g)})
             out[(mode, g)] = ms

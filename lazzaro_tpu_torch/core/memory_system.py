@@ -281,10 +281,14 @@ class MemorySystem:
                 self, cfg.lifecycle_interval_s).start()
 
     def _index_reliability_kwargs(self) -> Dict[str, Any]:
-        """The index settings of int8 serving and the dispatch guard, from
-        the config (``lazzaro_tpu/core/memory_system.py:188-207``)."""
+        """The index settings of int8 serving, IVF serving and the dispatch
+        guard, from the config (``lazzaro_tpu/core/memory_system.py:
+        188-207``)."""
         cfg = self.config
         return dict(int8_serving=cfg.int8_serving,
+                    ivf_nprobe=cfg.ivf_serving, ivf_online=cfg.ivf_online,
+                    ivf_member_cap_factor=cfg.ivf_member_cap_factor,
+                    ivf_online_eta=cfg.ivf_online_eta,
                     coarse_slack=cfg.coarse_fetch_slack,
                     dispatch_retry_max=cfg.dispatch_retry_max,
                     dispatch_retry_backoff_s=cfg.dispatch_retry_backoff_s)
@@ -887,6 +891,7 @@ class MemorySystem:
                     shed_depth=cfg.serve_shed_depth,
                     shed_bytes=cfg.serve_shed_bytes,
                     degrade_cap_take=cfg.serve_degrade_cap_take,
+                    degrade_nprobe=cfg.serve_degrade_nprobe,
                     device=self.device)
                 self.query_scheduler = sched
         return sched
@@ -1459,6 +1464,13 @@ Return JSON: {"memories": [{"content": "...", "type": "semantic|episodic|procedu
                         self._create_super_nodes_for_shard(shard_key)
         if self.query_cache:
             self.query_cache.invalidate_results(self.user_id)
+        # The IVF coarse index's upkeep belongs here, on the consolidation
+        # side, never on a serving query (a k-means over 1M rows takes
+        # seconds).
+        if self.index.ivf_nprobe:
+            with self._mutex:
+                if self.index.ivf_maintenance():
+                    self._log("🧭 IVF coarse index rebuilt")
         elapsed = time.time() - start_time
         self.telemetry.record("consolidation.run_ms", elapsed * 1e3)
         self._log(f"✓ Background consolidation complete ({elapsed:.2f}s)")
@@ -2639,6 +2651,10 @@ Be clinical yet insightful. Do not include conversational filler."""
                 "embedding_calls": self.metrics["embedding_calls"],
             },
             "index": self.index.stats(),
+            # Rows a non-fused write spilled into the IVF extras (the pod
+            # index's add path counts them; 0 on one device).
+            "ivf_add_extras_spills": self.telemetry.counter_total(
+                "ivf.add_extras_spills"),
             "serving": (self.query_scheduler.stats()
                         if self.query_scheduler is not None else None),
             "providers": {"llm": type(self.llm).__name__,

@@ -42,6 +42,8 @@ from lazzaro_tpu_torch.ops.dedup_resolve import dedup_resolve
 from lazzaro_tpu_torch.ops.fused_topk import fused_topk, fused_topk_grouped
 from lazzaro_tpu_torch.ops.ingest_topk import ingest_topk
 from lazzaro_tpu_torch.ops.int8_topk import int8_topk_keyed
+from lazzaro_tpu_torch.ops.ivf import coarse_clusters, segment_sum
+from lazzaro_tpu_torch.ops.ivf_topk import ivf_topk
 from lazzaro_tpu_torch.ops.masked_topk import masked_topk
 from lazzaro_tpu_torch.ops.quant import quantize_rows
 from lazzaro_tpu_torch.ops.sharded_merge import sharded_merge
@@ -761,11 +763,12 @@ def lifecycle_sweep_sharded(shards: List[ArenaState], edges: EdgeState,
 # ---------------------------------------------------------------------------
 # Fused ingest: a conversation's (or a mega-batch's) whole mutation sequence
 # as one run of device work with one packed readback
-# (``state.py:_ingest_fused`` / ``_ingest_dedup_fused``, dense arena; the
-# int8 shadow, IVF, PQ and paged arguments are not ported). The scan is the
-# ingest kernel (ops.ingest_topk), the resolve the dedup kernel
-# (ops.dedup_resolve); the rest is plain torch on the device, no step reads
-# a device value back to the host, and the state is updated in place.
+# (``state.py:_ingest_fused`` / ``_ingest_dedup_fused``, dense arena, with
+# the int8 shadow and the online IVF tables; the PQ and paged arguments are
+# not ported). The scan is the ingest kernel (ops.ingest_topk), the resolve
+# the dedup kernel (ops.dedup_resolve); the rest is plain torch on the
+# device, no step reads a device value back to the host, and the state is
+# updated in place.
 # ---------------------------------------------------------------------------
 
 
@@ -848,16 +851,102 @@ def _gated_link_insert(edges: EdgeState, link_flat, link_pool: torch.Tensor,
     return edges, tuple(outs)
 
 
+# Leaves the online IVF update appends to a fused ingest's readback, in
+# order: assign, member slot, overflow flag, occupancy, appends, shift ppm
+# (``state.py:IVF_INGEST_TAIL``).
+IVF_INGEST_TAIL = 6
+
+
+def _ivf_online_assign(cent: torch.Tensor, qf: torch.Tensor,
+                       live: torch.Tensor) -> torch.Tensor:
+    """Each accepted fact's nearest centroid (``state.py:_ivf_online_assign``):
+    the arg-max of its f32 scores, ties to the lowest id; a dead or padded
+    fact goes to bucket C, one past the end. ``[B]`` i64."""
+    assign = torch.argmax(nt_dot(qf, cent), dim=1)
+    return torch.where(live, assign, cent.shape[0])
+
+
+def _ivf_online_update(ivf, rows: torch.Tensor, qf: torch.Tensor,
+                       live: torch.Tensor, eta_scale):
+    """Online IVF upkeep inside a fused ingest (``state.py:
+    _ivf_online_update``), in place on ``ivf = (cent [C, d] f32, members [C,
+    M] i32, counts [C] i32)``: each live fact's cluster, its append slot
+    (the cluster's occupancy plus its rank among the batch's earlier facts
+    of that cluster; a slot past the cluster's capacity writes nothing and
+    reports -1, so the host puts the row in the exact-scan extras), the
+    member writes and the counts, then one mini-batch spherical k-means
+    step, ``cent_c <- normalize((1 - eta_c) cent_c + eta_c mean_c)`` with
+    ``eta_c = eta_scale * b_c / max(count_c + b_c, 1)``. The rank is a
+    stable sort by cluster, the batch's prefix count of equal clusters
+    without the ``[B, B]`` tile; the cluster sums are :func:`ops.ivf.
+    segment_sum`, in row order. Returns ``(assign [B] (-1 dead), pos [B]
+    (-1 overflowed or dead), tail)``, ``tail`` the overflow flag, the
+    occupancy, the appends and the centroids' drift in parts per million
+    of cosine, as 0-d i32."""
+    cent, members, counts = ivf
+    n_c, m_w = members.shape
+    b = rows.shape[0]
+    dev = qf.device
+    a = _ivf_online_assign(cent, qf, live)
+    assign = torch.where(live, a, -1)
+    order = torch.sort(a, stable=True).indices
+    sa = a[order]
+    rank = torch.empty_like(a)
+    rank[order] = (torch.arange(b, device=dev)
+                   - torch.searchsorted(sa, sa, right=False))
+    counts_pre = counts.clone()
+    pos = torch.where(live, counts_pre[torch.where(live, a, 0)] + rank, -1)
+    ok = live & (pos >= 0) & (pos < m_w)
+    # An append slot is empty (-1) until written, so the row is its max; a
+    # rejected fact writes -1, which changes nothing.
+    members.view(-1).scatter_reduce_(
+        0, torch.where(ok, a * m_w + pos, 0),
+        torch.where(ok, rows.int(), -1), reduce="amax")
+    counts.index_add_(0, torch.where(ok, a, 0), ok.int())
+    # Overflowed facts still count toward the mean: they are cluster mass.
+    sums = segment_sum(n_c + 1, a, torch.where(live[:, None], qf, 0.0))[:n_c]
+    bc = segment_sum(n_c + 1, a, live.float())[:n_c]
+    tot = counts_pre.float()
+    eta = torch.clamp(eta_scale * bc / torch.clamp(tot + bc, min=1.0), 0.0, 1.0)
+    mean = sums / torch.clamp(bc[:, None], min=1.0)
+    prop = cent * (1.0 - eta[:, None]) + mean * eta[:, None]
+    nrm = torch.linalg.vector_norm(prop, dim=1, keepdim=True)
+    moved = (bc[:, None] > 0) & (nrm > 1e-9)
+    new_cent = torch.where(moved, prop / torch.clamp(nrm, min=1e-9), cent)
+    shift = torch.where(bc > 0, 1.0 - (new_cent * cent).sum(dim=1), 0.0)
+    cent.copy_(new_cent)
+    tail = ((live & ~ok).any().int(),
+            torch.clamp(counts.sum(), max=n_c * m_w).int(),
+            ok.sum().int(),
+            torch.clamp(torch.round(shift.sum() * 1e6), 0, 2 ** 30).int())
+    return assign.int(), torch.where(ok, pos, -1).int(), tail
+
+
+def _ivf_tail(ivf, rows, emb, live, eta, leaf) -> tuple:
+    """The online update of the ingest's written rows and its readback
+    leaves broadcast to ``leaf`` (``()`` without tables)."""
+    if ivf is None:
+        return ()
+    a_rb, p_rb, tail = _ivf_online_update(ivf, rows, normalize(emb.float()),
+                                          live, eta)
+    return (tuple(x[:, None].expand(leaf) for x in (a_rb, p_rb))
+            + tuple(t.expand(leaf) for t in tail))
+
+
 def ingest_fused(arena: ArenaState, edges: EdgeState, rows, emb, salience,
                  timestamp, type_id, shard_id, tenant_id, is_super, touch_rows,
                  touch_sal, chain_slots, chain_src, chain_tgt, chain_w,
                  link_pool, pool_len, now, tenant: int, link_gate, link_scale,
-                 k: int, shard_modes: Tuple[int, ...] = (1, 0), shadow=None):
+                 k: int, shard_modes: Tuple[int, ...] = (1, 0), shadow=None,
+                 ivf=None, ivf_eta=1.0):
     """The per-conversation ingest sequence (``state.py:_ingest_fused``):
     node scatter, merge touch, the link scan of the new rows (the batch's
     rows excluded), the chain edges and the gated link insert, in place;
     with the int8 serving ``shadow`` (``(codes, scales)``) the written rows'
-    codes too (:func:`_shadow_scatter`).
+    codes too (:func:`_shadow_scatter`), and with the online IVF tables
+    ``ivf`` (``(cent, members, counts)``) the rows' cluster appends and the
+    centroid step (:func:`_ivf_online_update`, scale ``ivf_eta``), whose
+    ``IVF_INGEST_TAIL`` leaves trail the outputs.
     Every argument but ``tenant`` (a host int) and the statics is device
     data: ``rows [B]`` sentinel-padded, ``emb [B, d]``, the ``[B]`` columns,
     ``touch_rows/touch_sal [M]``, the chain ``[C]`` columns (``chain_src``
@@ -876,6 +965,7 @@ def ingest_fused(arena: ArenaState, edges: EdgeState, rows, emb, salience,
     edges, outs = _gated_link_insert(edges, link_flat, link_pool, pool_len,
                                      rows, valid_q, now, tenant, link_gate,
                                      link_scale, shard_modes)
+    outs = outs + _ivf_tail(ivf, rows, emb, valid_q, ivf_eta, outs[0].shape)
     return arena, edges, outs
 
 
@@ -884,7 +974,8 @@ def ingest_dedup_fused(arena: ArenaState, edges: EdgeState, rows, emb,
                        is_super, chain_gid, chain_slots, link_pool, pool_len,
                        now, tenant: int, dedup_gate: float, chain_w,
                        link_gate, link_scale, k: int,
-                       shard_modes: Tuple[int, ...] = (1, 0), shadow=None):
+                       shard_modes: Tuple[int, ...] = (1, 0), shadow=None,
+                       ivf=None, ivf_eta=1.0):
     """:func:`ingest_fused` with the dedup probe inside
     (``state.py:_ingest_dedup_fused``): one ingest scan of the PRE-add arena
     gives each fact's probe top-1 (sentinel row excluded) and its link
@@ -894,9 +985,11 @@ def ingest_dedup_fused(arena: ArenaState, edges: EdgeState, rows, emb,
     their targets take the merge touch, and chain edges link consecutive
     LIVE facts of each shard group ``chain_gid [B]`` (-1 padding) through
     ``chain_slots [B]``. ``dedup_gate`` is a host float (> 1 disables
-    dedup). Returns ``(arena, edges, outs)``: ``(dup, target, chain_src)``
-    broadcast to ``[B, k]``, then the outputs of
-    :func:`_gated_link_insert`."""
+    dedup). With the online IVF tables ``ivf`` the surviving facts append to
+    their clusters (duplicates never do). Returns ``(arena, edges, outs)``:
+    ``(dup, target, chain_src)`` broadcast to ``[B, k]``, then the outputs
+    of :func:`_gated_link_insert`, then the ``IVF_INGEST_TAIL`` leaves
+    when ``ivf`` is given."""
     cap = arena.capacity
     b = rows.shape[0]
     dev = arena.emb.device
@@ -926,6 +1019,7 @@ def ingest_dedup_fused(arena: ArenaState, edges: EdgeState, rows, emb,
     edges, outs = _gated_link_insert(edges, flat[2:], link_pool, pool_len,
                                      rows, live_new, now, tenant, link_gate,
                                      link_scale, shard_modes)
+    outs = outs + _ivf_tail(ivf, rows, emb, live_new, ivf_eta, (b, k))
     wide = tuple(x[:, None].expand(b, k) for x in (dup.int(), target, chain_src))
     return arena, edges, wide + outs
 
@@ -1100,42 +1194,45 @@ def _bitcast(a: torch.Tensor) -> torch.Tensor:
     return a.to(torch.int32).contiguous().view(torch.float32)
 
 
-def _pack_retrieval(gate_s, gate_r, ann_s, ann_r, fast, acc=None,
+def _pack_retrieval(gate_s, gate_r, ann_s, ann_r, fast, dup=None, acc=None,
                     nbr=None) -> torch.Tensor:
     """The one ``[Q, 3 + 2k + 5]`` f32 readback array
     (``state.py:_pack_retrieval``): gate score, gate row, ANN scores, ANN
     rows, the fast bit, then the five counters of
-    ``utils.batching.RETRIEVAL_COUNTERS`` (dedup and semantic are always 0
-    on the dense path).
+    ``utils.batching.RETRIEVAL_COUNTERS``: live hits, the duplicates the
+    IVF dedup dropped (``dup``; 0 on the dense paths), the two boost row
+    counts, and the semantic verdict (always 0: no semantic cache).
     Int columns are bit-cast, not converted; the host undoes it with
     ``.view(np.int32)`` (``utils.batching.unpack_retrieval``)."""
     zeros = torch.zeros(gate_s.shape, dtype=torch.int32, device=gate_s.device)
     n_live = (ann_s > NEG_INF / 2).sum(-1)
+    dup = zeros if dup is None else dup
     acc = zeros if acc is None else acc
     nbr = zeros if nbr is None else nbr
     return torch.cat([
         gate_s[:, None], _bitcast(gate_r)[:, None], ann_s, _bitcast(ann_r),
         fast.float()[:, None], _bitcast(n_live)[:, None],
-        _bitcast(zeros)[:, None], _bitcast(acc)[:, None],
+        _bitcast(dup)[:, None], _bitcast(acc)[:, None],
         _bitcast(nbr)[:, None], _bitcast(zeros)[:, None]], dim=1)
 
 
-def _sem_finish(state: ArenaState, res, now, acc_boost, nbr_boost):
+def _sem_finish(state: ArenaState, res, now, acc_boost, nbr_boost, dup=None):
     """Serve tail (the ``sem=None`` branch of ``state.py:_sem_finish``):
-    boost-row counters, the in-place boost scatter, the packed readback."""
+    boost-row counters, the in-place boost scatter, the packed readback
+    (``dup``: the IVF dedup's per-query count)."""
     gate_s, gate_r, ann_s, ann_r, fast, acc_rows, nbr_rows = res
     n_acc, n_nbr = _boost_row_counts(state.capacity, acc_rows, nbr_rows)
     dev = state.salience.device
     _boost_scatter(state, acc_rows, nbr_rows, _scalar(now, dev),
                    _scalar(acc_boost, dev), _scalar(nbr_boost, dev))
-    return state, _pack_retrieval(gate_s, gate_r, ann_s, ann_r, fast,
+    return state, _pack_retrieval(gate_s, gate_r, ann_s, ann_r, fast, dup=dup,
                                   acc=n_acc, nbr=n_nbr)
 
 
-def _sem_finish_read(res):
+def _sem_finish_read(res, dup=None):
     """Read tail (the ``sem=None`` branch of ``state.py:_sem_finish_read``):
     no scatter; the boost counters are 0."""
-    return _pack_retrieval(*res[:5])
+    return _pack_retrieval(*res[:5], dup=dup)
 
 
 def search_fused(state: ArenaState, csr_indptr, csr_nbr, q, q_valid, tenant,
@@ -1220,18 +1317,24 @@ def _quant_two_tier(state: ArenaState, q8a: torch.Tensor,
         q8a, scale_a, state.alive, state.tenant_id, state.is_super, qn,
         tenant, k_fetch, g_fetch)
     qd = qn.to(state.emb.dtype).float()
-    neg = torch.full((), NEG_INF, dtype=torch.float32, device=qn.device)
-
-    def rescore(rows_c, coarse_s):
-        g = state.emb[rows_c.long()].float()               # [Q, kf, d]
-        ex = (g * qd[:, None, :]).sum(-1)
-        return torch.where(coarse_s > NEG_INF / 2, ex, neg)
-
-    ann_s, sel = stable_topk(rescore(ca_r, ca_s), k)
+    ann_s, sel = stable_topk(_rescore(state, qd, ca_r, ca_s), k)
     ann_r = torch.gather(ca_r, 1, sel)
-    g_s, g_sel = stable_topk(rescore(cg_r, cg_s), 1)
+    g_s, g_sel = stable_topk(_rescore(state, qd, cg_r, cg_s), 1)
     g_r = torch.gather(cg_r, 1, g_sel)
     return g_s[:, 0], g_r[:, 0], ann_s, ann_r
+
+
+def _rescore(state: ArenaState, qd: torch.Tensor, rows: torch.Tensor,
+             coarse_s: torch.Tensor) -> torch.Tensor:
+    """The exact scores of coarse survivors (the ``rescore`` of
+    ``state.py:_quant_two_tier`` and ``_ivf_two_tier``): each query ``qd``
+    (the arena dtype's values, as f32) against its rows ``[Q, kf]``, f32
+    products summed over d; a survivor whose coarse score was ``NEG_INF``
+    stays at ``NEG_INF``."""
+    g = state.emb[rows.long()].float()                     # [Q, kf, d]
+    ex = (g * qd[:, None, :]).sum(-1)
+    neg = torch.full((), NEG_INF, dtype=torch.float32, device=ex.device)
+    return torch.where(coarse_s > NEG_INF / 2, ex, neg)
 
 
 def _search_fused_quant_scan(state: ArenaState, q8a, scale_a, csr_indptr,
@@ -1312,6 +1415,165 @@ def search_fused_quant_ragged_read(state: ArenaState, q8a, scale_a,
                                    slack, cap_take, max_nbr, k_q=k_q,
                                    read_only=True)
     return _sem_finish_read(res)
+
+
+# ---------------------------------------------------------------------------
+# Fused IVF serving: the same one-dispatch chat-turn program, whose coarse
+# stage is the centroid prefilter (the masked top-k kernel over the
+# centroid table) and whose candidate scan is K5 over the probed clusters'
+# member rows and the exact-scan extras (``state.py:_ivf_two_tier`` and the
+# ``search_fused_ivf*`` programs). With the int8 shadow on, K5 scores the
+# gathered codes and the survivors are rescored exactly from the master.
+# ---------------------------------------------------------------------------
+
+
+def _dedup_topk(scores: torch.Tensor, rows: torch.Tensor, sentinel: int,
+                k: int):
+    """Top-``k`` of a score-sorted over-fetched list keeping only the FIRST
+    occurrence of each row (``state.py:_dedup_topk``): entries at or below
+    ``NEG_INF / 2`` become the sentinel first, a repeat scores ``NEG_INF``,
+    and ``n_dup`` counts the repeats of real rows. Returns ``(scores [Q,
+    k], rows [Q, k] i32, n_dup [Q] i32)``."""
+    r = torch.where(scores > NEG_INF / 2, rows, sentinel)
+    m = r.shape[1]
+    earlier = torch.ones((m, m), dtype=torch.bool, device=r.device).tril(-1)
+    dup = ((r[:, :, None] == r[:, None, :]) & earlier[None]).any(-1)
+    n_dup = (dup & (r != sentinel)).sum(-1).int()
+    neg = torch.full((), NEG_INF, dtype=torch.float32, device=scores.device)
+    top_s, sel = stable_topk(torch.where(dup, neg, scores), k)
+    top_r = torch.gather(r, 1, sel)
+    return top_s, torch.where(top_s > NEG_INF / 2, top_r, sentinel).int(), n_dup
+
+
+def _ivf_two_tier(state: ArenaState, shadow, centroids: torch.Tensor,
+                  members: torch.Tensor, extras: torch.Tensor, q: torch.Tensor,
+                  tenant: torch.Tensor, k: int, nprobe: int, slack: int,
+                  nprobe_q=None):
+    """The IVF two-tier core (``state.py:_ivf_two_tier``): the coarse stage
+    (each query's ``nprobe`` nearest clusters), then one K5 launch over the
+    L = nprobe * M + E candidates, with the tenant mask and, where
+    ``nprobe_q`` is given, each query's own probe width: exact (the query in
+    the arena dtype) for the top-(k + slack) non-super and top-1 super
+    candidates, or with the int8 ``shadow`` a coarse top-(k + slack) and
+    top-(1 + slack) rescored exactly from the master. Then the first
+    occurrence of each row (:func:`_dedup_topk`). Returns ``(gate_s [Q],
+    gate_r [Q], ann_s [Q, k], ann_r [Q, k], n_dup [Q])``, rows i32 and the
+    sentinel (``state.capacity``) where invalid."""
+    cap = state.capacity
+    length = nprobe * members.shape[1] + extras.shape[0]
+    k_fetch = min(k + slack, length)
+    g_fetch = min(1 + slack, length)
+    qn = normalize(q.float())
+    cids = coarse_clusters(centroids, qn, nprobe)
+    cols = (state.alive, state.tenant_id, state.is_super)
+    qd = qn.to(state.emb.dtype).float()
+    if shadow is None:
+        ann_ex, _, ann_rows, g_s, _, g_r = ivf_topk(
+            state.emb, members, extras, cids, qd, k_fetch, g=1, cols=cols,
+            q_tenant=tenant, nprobe_q=nprobe_q)
+        gate_s, gate_r0 = g_s[:, 0], g_r[:, 0]
+    else:
+        a_s0, _, a_r0, g_s0, _, g_r0 = ivf_topk(
+            shadow, members, extras, cids, qn, k_fetch, g=g_fetch, cols=cols,
+            q_tenant=tenant, nprobe_q=nprobe_q)
+        ann_rows = torch.where(a_s0 > NEG_INF / 2, a_r0, cap)
+        ann_ex = _rescore(state, qd, ann_rows, a_s0)
+        g_rows = torch.where(g_s0 > NEG_INF / 2, g_r0, cap)
+        g_s, g_sel = stable_topk(_rescore(state, qd, g_rows, g_s0), 1)
+        gate_s = g_s[:, 0]
+        gate_r0 = torch.gather(g_rows, 1, g_sel)[:, 0]
+    ann_s, ann_r, n_dup = _dedup_topk(ann_ex, ann_rows, cap, k)
+    gate_r = torch.where(gate_s > NEG_INF / 2, gate_r0, cap).int()
+    return gate_s, gate_r, ann_s, ann_r, n_dup
+
+
+def _search_fused_ivf_scan(state: ArenaState, shadow, centroids, members,
+                           extras, csr_indptr, csr_nbr, q, q_valid, tenant,
+                           gate_on, boost_on, super_gate, k: int, nprobe: int,
+                           slack: int, cap_take: int, max_nbr: int, k_q=None,
+                           cap_q=None, nprobe_q=None, read_only: bool = False):
+    """The IVF compute phase (``state.py:_search_fused_ivf_scan``,
+    ``sem=None``): the two-tier core, the ragged tail (``k_q`` / ``cap_q``
+    / ``nprobe_q`` make ``k``, ``cap_take`` and ``nprobe`` ceilings), then
+    the gate verdict and, for a batch that boosts, the boost rows; the
+    dedup count last. The read twin stops after the verdict."""
+    gate_s, gate_r, ann_s, ann_r, n_dup = _ivf_two_tier(
+        state, shadow, centroids, members, extras, q, tenant, k, nprobe,
+        slack, nprobe_q=nprobe_q)
+    if k_q is not None:
+        ann_s, ann_r = ragged_mask(ann_s, ann_r, k_q, state.capacity)
+    if read_only:
+        return (gate_s, gate_r, ann_s, ann_r, gate_on & (gate_s > super_gate)), n_dup
+    fast, acc_rows, nbr_rows = _gate_and_boost_rows(
+        state, csr_indptr, csr_nbr, gate_s, ann_s, ann_r, q_valid, tenant,
+        gate_on, boost_on, super_gate, cap_take, max_nbr, cap_c=cap_q)
+    return (gate_s, gate_r, ann_s, ann_r, fast, acc_rows, nbr_rows), n_dup
+
+
+def search_fused_ivf(state: ArenaState, shadow, centroids, members, extras,
+                     csr_indptr, csr_nbr, q, q_valid, tenant, gate_on,
+                     boost_on, now, super_gate, acc_boost, nbr_boost, k: int,
+                     nprobe: int, slack: int, cap_take: int, max_nbr: int):
+    """:func:`search_fused` with the IVF coarse stage and candidate scan
+    (``state.py:search_fused_ivf``): ``shadow`` None or the int8 shadow's
+    ``(codes, scales)``, ``centroids [C, d]`` f32, ``members [C, M]`` and
+    ``extras [E]`` i32 (the tables are read, never written; the boosts
+    write salience, access counts and freshness). One dispatch, one packed
+    readback whose ``dedup`` counter is the IVF dedup's. Returns ``(state,
+    packed)``."""
+    sg = _scalar(super_gate, state.emb.device)
+    res, n_dup = _search_fused_ivf_scan(
+        state, shadow, centroids, members, extras, csr_indptr, csr_nbr, q,
+        q_valid, tenant, gate_on, boost_on, sg, k, nprobe, slack, cap_take,
+        max_nbr)
+    return _sem_finish(state, res, now, acc_boost, nbr_boost, dup=n_dup)
+
+
+def search_fused_ivf_read(state: ArenaState, shadow, centroids, members,
+                          extras, csr_indptr, csr_nbr, q, q_valid, tenant,
+                          gate_on, super_gate, k: int, nprobe: int, slack: int,
+                          cap_take: int, max_nbr: int) -> torch.Tensor:
+    """Read-only twin of :func:`search_fused_ivf`
+    (``state.py:search_fused_ivf_read``). Returns the packed array."""
+    sg = _scalar(super_gate, state.emb.device)
+    res, n_dup = _search_fused_ivf_scan(
+        state, shadow, centroids, members, extras, csr_indptr, csr_nbr, q,
+        q_valid, tenant, gate_on, None, sg, k, nprobe, slack, cap_take,
+        max_nbr, read_only=True)
+    return _sem_finish_read(res, dup=n_dup)
+
+
+def search_fused_ivf_ragged(state: ArenaState, shadow, centroids, members,
+                            extras, csr_indptr, csr_nbr, q, q_valid, tenant,
+                            gate_on, boost_on, k_q, cap_q, nprobe_q, now,
+                            super_gate, acc_boost, nbr_boost, k: int,
+                            nprobe: int, slack: int, cap_take: int,
+                            max_nbr: int):
+    """:func:`search_fused_ivf` with the per-query ``k_q`` / ``cap_q`` /
+    ``nprobe_q`` sidecars (``state.py:search_fused_ivf_ragged``): the scan
+    visits the ceiling ``nprobe`` clusters and each query masks the members
+    of clusters ranked at or past its own width. Returns ``(state,
+    packed)``."""
+    sg = _scalar(super_gate, state.emb.device)
+    res, n_dup = _search_fused_ivf_scan(
+        state, shadow, centroids, members, extras, csr_indptr, csr_nbr, q,
+        q_valid, tenant, gate_on, boost_on, sg, k, nprobe, slack, cap_take,
+        max_nbr, k_q=k_q, cap_q=cap_q, nprobe_q=nprobe_q)
+    return _sem_finish(state, res, now, acc_boost, nbr_boost, dup=n_dup)
+
+
+def search_fused_ivf_ragged_read(state: ArenaState, shadow, centroids,
+                                 members, extras, csr_indptr, csr_nbr, q,
+                                 q_valid, tenant, gate_on, k_q, nprobe_q,
+                                 super_gate, k: int, nprobe: int, slack: int,
+                                 cap_take: int, max_nbr: int) -> torch.Tensor:
+    """Read-only ragged twin (``state.py:search_fused_ivf_ragged_read``)."""
+    sg = _scalar(super_gate, state.emb.device)
+    res, n_dup = _search_fused_ivf_scan(
+        state, shadow, centroids, members, extras, csr_indptr, csr_nbr, q,
+        q_valid, tenant, gate_on, None, sg, k, nprobe, slack, cap_take,
+        max_nbr, k_q=k_q, nprobe_q=nprobe_q, read_only=True)
+    return _sem_finish_read(res, dup=n_dup)
 
 
 # ---------------------------------------------------------------------------

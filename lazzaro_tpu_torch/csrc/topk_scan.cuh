@@ -1,9 +1,9 @@
 // Masked cosine top-k scans of the embedding arena, for Hopper (sm_90a): one
 // templated scan, in two mask modes. masked_topk.cu exports the additive
-// mode and fused_topk.cu the keyed mode; each includes this file. Three more
+// mode and fused_topk.cu the keyed mode; each includes this file. Four more
 // modes at the end of the file share its building blocks: the ingest mode
-// (ingest_topk.cu, K1), the pairwise mode (pairwise_topk.cu, K3) and the
-// int8 mode (int8_topk.cu, K4).
+// (ingest_topk.cu, K1), the pairwise mode (pairwise_topk.cu, K3), the
+// int8 mode (int8_topk.cu, K4) and the gather mode (ivf_topk.cu, K5).
 //
 // Additive mode (masked_topk, masked_topk_ragged) replaces the TPU kernels
 // lazzaro_tpu/ops/pallas_topk.py:pallas_masked_topk (body _topk_block_kernel)
@@ -4107,6 +4107,405 @@ int run_i8(I8Args a, int route, float* out_s, int* out_r, float* gout_s, int* go
     if (launched) ++*launched;
     k0 += p.kc;
     g0 += p.gc;
+  }
+  return 0;
+}
+
+
+// ---------------------------------------------------------------------------
+// Gather mode (exported by ivf_topk.cu, K5): the IVF candidate scan
+// ---------------------------------------------------------------------------
+//
+// Replaces no TPU kernel: the JAX package computes this scan in XLA, as a
+// gather of the candidate rows into a [Q, L, d] tensor and an einsum, then
+// lax.top_k, in lazzaro_tpu/core/state.py:_ivf_two_tier (the fused IVF
+// serving programs: the exact form and the int8 form's gathered coarse
+// scan) and lazzaro_tpu/ops/ivf.py:ivf_search (the classic one-list form).
+// It is a mode of this scan so that neither the [Q, L] candidate rows nor
+// the [Q, L, d] gathered vectors reach device memory: a block reads the
+// member table through the query's cluster ids itself and loads a row only
+// for a live slot of a probed cluster.
+//
+// Candidates. With cids [Q, P] a query's P nearest clusters (the coarse
+// stage, a masked top-k over the centroid table), members [C, M] and
+// extras [E] (i32, -1 padded), query q's L = P * M + E candidate positions
+// are the member slots of its clusters in rank order, then the extras:
+//     cand[q, j] = members[cids[q, j / M], j % M]   for j < P * M,
+//                  extras[j - P * M]                 otherwise.
+// Candidate j is valid when cand >= 0 and
+//   keyed forms: alive[cand] & row_tenant[cand] == q_tenant[q], and for a
+//                member slot j / M < nprobe_q[q] (when given);
+//   classic form: mask[cand] (the [N] alive-and-tenant mask).
+// Scores:
+//   exact forms: s = dot_f32(qry[q], row[cand]), qry the f32 values the
+//                caller scores (the query cast to the arena dtype and back
+//                in the fused form, the f32 query in the classic form);
+//   int8 form:   s = (float(dot_i32(qq[q], codes[cand])) * qs[q]) *
+//                scale[cand] (K4's score, exact whatever the order).
+// Lists, each over all L positions, a position outside the list's tier
+// scoring exactly NEG (jnp.where):
+//   keyed forms: ann[q, :k] over valid & ~is_super, gate[q, :g] over valid &
+//                is_super (g = 1 exact, 1 + slack int8);
+//   classic:     one list over valid.
+// Order: score descending, ties to the lower POSITION (lax.top_k over the
+// [Q, L] tile), so a list with fewer valid candidates than its length
+// fills with the lowest other positions at NEG. The outputs are positions
+// and the candidate rows there (whatever cand holds: -1 padding, another
+// tenant's row).
+//
+// Design. grid = (splits of L) x (queries), a block of 8 warps a (split,
+// query). The query's values sit in shared memory. The block walks its
+// positions in tiles of 256, one a thread: each thread reads its slot
+// (cids, members or extras) and the row's columns, the valid ones are
+// compacted, and each warp scores 4 rows at a time (16-byte loads of 8
+// elements, a sum a lane in column order whose products round before they
+// are added, a butterfly across the warp; __dp4a for the int8 form). Each score becomes an exact 64-bit key
+// (list_key over the position); a key above the list's last one (once
+// full) goes to the tile's batch, which one warp a list merges into the
+// block's sorted list (merge_batch). Stage 2 is the int8 mode's i8_select
+// over the splits' lists of keys, then gv_rows maps positions to rows.
+// Lists past kI8MaxK entries run in passes, each admitting only keys below
+// the previous pass's last, as the other modes do.
+// What bounds it: the bytes of the live member rows and the extras read
+// once (at nprobe 8 over an index of ~390k rows in 1,024 clusters, ~8 x 380
+// rows of 768 bf16 a query: ~4.7 MB, ~1.4 us at 3.35 TB/s), plus the slot
+// and row columns.
+// The rows are gathered, not streamed, so the loads are 1.5 to 3 KB runs
+// at random addresses; the tensor cores and TMA wait for a later design.
+
+constexpr int kGvTile = 256;               // positions a block classifies at once
+constexpr int kGvRows = 4;                 // rows a warp scores at once
+constexpr int kGvExact = 0;                // forms
+constexpr int kGvInt8 = 1;
+constexpr int kGvClassic = 2;
+
+struct GvArgs {
+  const void* rows;                // exact forms: [n, d] f32 or bf16; int8: codes [n, d] i8
+  const float* scale;              // int8 form: [n]
+  const int* members;              // [c, m]
+  const int* extras;               // [e]
+  const int* cids;                 // [nq, p]
+  const uint8_t* alive;            // keyed forms: [n], with row_tenant [n] and is_super [n]
+  const int* row_tenant;
+  const uint8_t* is_super;
+  const uint8_t* mask;             // classic form: [n]
+  const float* qry;                // exact forms: [nq, d]
+  const int8_t* qq;                // int8 form: [nq, d] and qs [nq]
+  const float* qs;
+  const int* q_tenant;             // keyed forms: [nq]
+  const int* nprobe_q;             // keyed forms, optional: [nq]
+  int d, nq, m, p, e, splits, span, l;
+  int kc, gc;                      // this pass's list entries (0: that list is done)
+  int ldk, ldg;                    // full list lengths (the stride of the outputs)
+  const float* after_s;            // a later pass: each list's last pair so far
+  const int* after_p;
+  const float* gafter_s;
+  const int* gafter_p;
+  uint64_t* cand;                  // [splits, nq, kc] split lists as keys (0: empty)
+  uint64_t* gcand;                 // keyed forms: [splits, nq, gc]
+};
+
+// The candidate row at position j of query q (cand above).
+__device__ __forceinline__ int gv_cand(const GvArgs& a, int q, int j, int& rank) {
+  const int pm = a.p * a.m;
+  if (j < pm) {
+    rank = j / a.m;
+    return a.members[(long long)a.cids[q * a.p + rank] * a.m + (j - rank * a.m)];
+  }
+  rank = -1;
+  return a.extras[j - pm];
+}
+
+// The sums of one warp's kGvRows rows (rp[r] where on[r]) against the
+// query in shared memory: each lane sums its 8-element chunks lane, lane +
+// 32, ... in column order, then a butterfly; every lane gets the totals.
+// Each product is rounded to f32 before it is added (__fmul_rn, never
+// contracted into a fused multiply-add), so the plain version
+// (ops/ivf_topk.py:lane_dot) repeats every rounding on any data.
+template <typename T>
+__device__ __forceinline__ void gv_dots(const float* qv, const T* const (&rp)[kGvRows],
+                                        const bool (&on)[kGvRows], int d,
+                                        float (&acc)[kGvRows]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int r = 0; r < kGvRows; ++r) acc[r] = 0.f;
+  for (int c = lane; c < d / 8; c += 32) {
+    float x[kGvRows][8];
+#pragma unroll
+    for (int r = 0; r < kGvRows; ++r)
+      if (on[r]) load8(rp[r] + 8 * c, x[r]);
+    const float4 q0 = *reinterpret_cast<const float4*>(qv + 8 * c);
+    const float4 q1 = *reinterpret_cast<const float4*>(qv + 8 * c + 4);
+    const float qc[8] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w};
+#pragma unroll
+    for (int r = 0; r < kGvRows; ++r) {
+      if (!on[r]) continue;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) acc[r] = __fadd_rn(acc[r], __fmul_rn(qc[i], x[r][i]));
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kGvRows; ++r)
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) acc[r] += __shfl_xor_sync(kFull, acc[r], o);
+}
+
+// The int8 form's int32 dots: 4-byte words of codes, lane, lane + 32, ...
+__device__ __forceinline__ void gv_dots_i8(const int* qw, const int8_t* const (&rp)[kGvRows],
+                                           const bool (&on)[kGvRows], int d,
+                                           int (&acc)[kGvRows]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int r = 0; r < kGvRows; ++r) acc[r] = 0;
+  for (int c = lane; c < d / 4; c += 32) {
+    const int qc = qw[c];
+#pragma unroll
+    for (int r = 0; r < kGvRows; ++r)
+      if (on[r]) acc[r] = __dp4a(qc, reinterpret_cast<const int*>(rp[r])[c], acc[r]);
+  }
+#pragma unroll
+  for (int r = 0; r < kGvRows; ++r)
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) acc[r] += __shfl_xor_sync(kFull, acc[r], o);
+}
+
+// Stage 1: block (split, q) keeps the best kc (and gc) keys of positions
+// [split * span, (split + 1) * span) of query q. T: float, uint16_t (bf16
+// bits) or int8_t (the int8 form).
+template <typename T, int kForm>
+__global__ void __launch_bounds__(kThreads) gv_stage1(const GvArgs a) {
+  constexpr bool kKeyed = kForm != kGvClassic;
+  extern __shared__ __align__(16) unsigned char gv_query[];   // f32 [d] or i8 [d]
+  __shared__ uint64_t L[kI8MaxK], B[kGvTile], GL[kI8MaxK], GB[kGvTile];
+  __shared__ int trow[kGvTile], vidx[kGvTile], wcount[kWarps];
+  __shared__ float tsc[kGvTile];
+  __shared__ int s_m, s_nb, s_gm, s_gnb;
+  __shared__ uint64_t s_thr, s_gthr;
+  const int split = blockIdx.x, q = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int d = a.d;
+  if constexpr (kForm == kGvInt8) {
+    const int* src = reinterpret_cast<const int*>(a.qq + (long long)q * d);
+    for (int i = tid; i < d / 4; i += kThreads) reinterpret_cast<int*>(gv_query)[i] = src[i];
+  } else {
+    for (int i = tid; i < d; i += kThreads)
+      reinterpret_cast<float*>(gv_query)[i] = a.qry[(long long)q * d + i];
+  }
+  const uint64_t after = a.after_s ? list_key(a.after_s[(long long)q * a.ldk],
+                                              a.after_p[(long long)q * a.ldk]) : ~0ull;
+  const uint64_t gafter = (kKeyed && a.gafter_s)
+                              ? list_key(a.gafter_s[(long long)q * a.ldg],
+                                         a.gafter_p[(long long)q * a.ldg]) : ~0ull;
+  const int tenant = kKeyed ? a.q_tenant[q] : 0;
+  const int probes = (kKeyed && a.nprobe_q) ? a.nprobe_q[q] : a.p;
+  const float qscale = kForm == kGvInt8 ? a.qs[q] : 0.f;
+  if (tid == 0) {
+    s_m = s_gm = s_nb = s_gnb = 0;
+    s_thr = s_gthr = 0ull;
+  }
+  const int lo = split * a.span;
+  const int hi = lo + a.span < a.l ? lo + a.span : a.l;
+  for (int t0 = lo; t0 < hi; t0 += kGvTile) {
+    // Classify: the slot, its row and the row's columns.
+    const int j = t0 + tid;
+    int row = -1, rank = -1;
+    unsigned flag = 0;                    // 1 in range, 2 valid, 4 super
+    if (j < hi) {
+      flag = 1;
+      row = gv_cand(a, q, j, rank);
+      bool ok = row >= 0;
+      if (kKeyed) {
+        ok = ok && rank < probes && a.alive[row] && a.row_tenant[row] == tenant;
+        if (ok && a.is_super[row]) flag |= 4;
+      } else {
+        ok = ok && a.mask[row];
+      }
+      if (ok) flag |= 2;
+    }
+    trow[tid] = row;
+    const unsigned bal = __ballot_sync(kFull, (flag & 2) != 0);
+    if (lane == 0) wcount[warp] = __popc(bal);
+    __syncthreads();
+    int off = 0, tot = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const int c = wcount[w];
+      off += w < warp ? c : 0;
+      tot += c;
+    }
+    if (flag & 2) vidx[off + __popc(bal & ((1u << lane) - 1u))] = tid;
+    __syncthreads();
+    // Score the valid slots, kGvRows a warp at a time.
+    for (int base = warp * kGvRows; base < tot; base += kWarps * kGvRows) {
+      int ti[kGvRows];
+      bool on[kGvRows];
+      const T* rp[kGvRows];
+#pragma unroll
+      for (int r = 0; r < kGvRows; ++r) {
+        on[r] = base + r < tot;
+        ti[r] = on[r] ? vidx[base + r] : 0;
+        rp[r] = reinterpret_cast<const T*>(a.rows) + (long long)(on[r] ? trow[ti[r]] : 0) * d;
+      }
+      if constexpr (kForm == kGvInt8) {
+        int acc[kGvRows];
+        gv_dots_i8(reinterpret_cast<const int*>(gv_query), rp, on, d, acc);
+        if (lane == 0) {
+#pragma unroll
+          for (int r = 0; r < kGvRows; ++r)
+            if (on[r])
+              tsc[ti[r]] = __fmul_rn(__fmul_rn(__int2float_rn(acc[r]), qscale),
+                                     a.scale[trow[ti[r]]]);
+        }
+      } else {
+        float acc[kGvRows];
+        gv_dots<T>(reinterpret_cast<const float*>(gv_query), rp, on, d, acc);
+        if (lane == 0) {
+#pragma unroll
+          for (int r = 0; r < kGvRows; ++r)
+            if (on[r]) tsc[ti[r]] = acc[r];
+        }
+      }
+    }
+    __syncthreads();
+    // Keys above each list's last (once full) join the tile's batch.
+    if (flag & 1) {
+      const float s = (flag & 2) ? tsc[tid] : kNeg;
+      if (a.kc) {
+        const bool in = kKeyed ? (flag & 6) == 2 : (flag & 2) != 0;
+        const uint64_t key = list_key(in ? s : kNeg, j);
+        if (key < after && key > s_thr) B[atomicAdd(&s_nb, 1)] = key;
+      }
+      if (kKeyed && a.gc) {
+        const uint64_t key = list_key((flag & 6) == 6 ? s : kNeg, j);
+        if (key < gafter && key > s_gthr) GB[atomicAdd(&s_gnb, 1)] = key;
+      }
+    }
+    __syncthreads();
+    if (warp == 0 && s_nb > 0) {
+      const int m2 = merge_batch<kGvTile, kI8MaxK>(L, s_m, B, s_nb, a.kc);
+      if (lane == 0) {
+        s_m = m2;
+        s_nb = 0;
+        s_thr = m2 == a.kc ? L[a.kc - 1] : 0ull;
+      }
+    } else if (kKeyed && warp == 1 && s_gnb > 0) {
+      const int m2 = merge_batch<kGvTile, kI8MaxK>(GL, s_gm, GB, s_gnb, a.gc);
+      if (lane == 0) {
+        s_gm = m2;
+        s_gnb = 0;
+        s_gthr = m2 == a.gc ? GL[a.gc - 1] : 0ull;
+      }
+    }
+    __syncthreads();
+  }
+  uint64_t* dst = a.cand + ((long long)split * a.nq + q) * a.kc;
+  for (int i = tid; i < a.kc; i += kThreads) dst[i] = i < s_m ? L[i] : 0ull;
+  if (kKeyed && a.gc) {
+    uint64_t* gdst = a.gcand + ((long long)split * a.nq + q) * a.gc;
+    for (int i = tid; i < a.gc; i += kThreads) gdst[i] = i < s_gm ? GL[i] : 0ull;
+  }
+}
+
+// The candidate rows at the positions of one list ([nq, k] i32).
+__global__ void __launch_bounds__(kThreads)
+gv_rows(const GvArgs a, const int* __restrict__ pos, int k, int* __restrict__ out_r) {
+  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (i >= (long long)a.nq * k) return;
+  const int q = (int)(i / k), j = pos[i];
+  int rank;
+  out_r[i] = (j >= 0 && j < a.l) ? gv_cand(a, q, j, rank) : -1;
+}
+
+// Splits of L a launch of nq queries takes on a card of `sms`
+// multiprocessors (about two blocks an SM), and the positions of a split
+// (a multiple of kGvTile).
+inline void gv_plan(int l, int nq, int sms, int& splits, int& span) {
+  const int tiles = (l + kGvTile - 1) / kGvTile;
+  int s = (2 * sms + nq - 1) / nq;
+  if (s > tiles) s = tiles;
+  if (s > kMaxSplits) s = kMaxSplits;
+  if (s < 1) s = 1;
+  const int per = (tiles + s - 1) / s;
+  splits = (tiles + per - 1) / per;
+  span = per * kGvTile;
+}
+
+template <typename T, int kForm>
+cudaError_t launch_gv(const GvArgs& a, size_t smem, cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(gv_stage1<T, kForm>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return err;
+  gv_stage1<T, kForm><<<dim3(a.splits, a.nq), kThreads, smem, st>>>(a);
+  return cudaGetLastError();
+}
+
+// A stage 1 and a stage 2 a pass until both lists hold k (and g) entries,
+// then gv_rows for each list; each launch the card takes is added to
+// *launched. form: kGvExact, kGvInt8 or kGvClassic; bf16 picks the exact
+// forms' element type. Returns the CUDA error of the launches.
+int run_gv(GvArgs a, int form, int bf16, int k, int g, float* out_s, int* out_p, int* out_r,
+           float* gout_s, int* gout_p, int* gout_r, int* launched, cudaStream_t st) {
+  const bool keyed = form != kGvClassic;
+  const long long lmax = (long long)a.p * a.m + a.e;
+  if (form < kGvExact || form > kGvClassic || a.nq < 1 || a.d < 1 || a.p < 1 || a.m < 1 ||
+      a.e < 0 || lmax != a.l || lmax > INT32_MAX - 1 || k < 1 || k > a.l || g < 0 ||
+      g > a.l || (g > 0) != keyed || a.splits < 1 || a.splits > kMaxSplits ||
+      (long long)a.splits * a.span < a.l || a.span % kGvTile != 0 ||
+      a.kc < 1 || a.kc > kI8MaxK || (keyed && (a.gc < 1 || a.gc > kI8MaxK)) ||
+      !a.rows || !a.members || !a.cids || (a.e > 0 && !a.extras) ||
+      (form == kGvInt8 ? (a.d % 4 != 0 || a.d > kI8MaxD || !a.qq || !a.qs || !a.scale)
+                       : (a.d % 8 != 0 || !a.qry)) ||
+      (keyed ? (!a.alive || !a.row_tenant || !a.is_super || !a.q_tenant) : !a.mask))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = form == kGvInt8 ? ((size_t)a.d + 15) / 16 * 16 : (size_t)a.d * 4;
+  const int kcap = a.kc, gcap = keyed ? a.gc : 0;
+  const long long mmax = (long long)a.splits * (kcap > gcap ? kcap : gcap);
+  const int cache = (int)(mmax < kI8SelCache ? mmax : kI8SelCache);
+  const size_t sel_smem = (size_t)cache * sizeof(uint64_t);
+  cudaError_t err = cudaFuncSetAttribute(i8_select, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)sel_smem);
+  if (err != cudaSuccess) return (int)err;
+  a.ldk = k;
+  a.ldg = g;
+  for (int k0 = 0, g0 = 0; k0 < k || g0 < g;) {
+    // A list that is done takes 0 entries: stage 1 skips it and stage 2's
+    // blocks of it return.
+    GvArgs p = a;
+    p.kc = k - k0 < kcap ? k - k0 : kcap;
+    p.gc = g - g0 < gcap ? g - g0 : gcap;
+    p.after_s = k0 ? out_s + k0 - 1 : nullptr;
+    p.after_p = k0 ? out_p + k0 - 1 : nullptr;
+    p.gafter_s = g0 ? gout_s + g0 - 1 : nullptr;
+    p.gafter_p = g0 ? gout_p + g0 - 1 : nullptr;
+    if (form == kGvInt8) err = launch_gv<int8_t, kGvInt8>(p, smem, st);
+    else if (form == kGvClassic)
+      err = bf16 ? launch_gv<uint16_t, kGvClassic>(p, smem, st)
+                 : launch_gv<float, kGvClassic>(p, smem, st);
+    else
+      err = bf16 ? launch_gv<uint16_t, kGvExact>(p, smem, st)
+                 : launch_gv<float, kGvExact>(p, smem, st);
+    if (err != cudaSuccess) return (int)err;
+    if (launched) ++*launched;
+    i8_select<<<dim3(a.nq, keyed ? 2 : 1), kI8SelThreads, sel_smem, st>>>(
+        p.cand, p.gcand, a.splits, a.nq, p.kc, p.gc, k0, g0, k, g, cache, out_s, out_p,
+        gout_s, gout_p);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    if (launched) ++*launched;
+    k0 += p.kc;
+    g0 += p.gc;
+  }
+  const long long nk = (long long)a.nq * k, ng = (long long)a.nq * g;
+  gv_rows<<<(int)((nk + kThreads - 1) / kThreads), kThreads, 0, st>>>(a, out_p, k, out_r);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  if (launched) ++*launched;
+  if (ng > 0) {
+    gv_rows<<<(int)((ng + kThreads - 1) / kThreads), kThreads, 0, st>>>(a, gout_p, g, gout_r);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    if (launched) ++*launched;
   }
   return 0;
 }

@@ -22,7 +22,8 @@ breaker failure; a worker death elsewhere fails the batch with
 :class:`WorkerCrashed` and the worker restarts; a dispatch deadline
 (``dispatch_timeout_s``) fails the batch with :class:`DispatchTimeout` and
 discards the late result; consecutive failures open the circuit breaker,
-under which batches run degraded (per-request ``cap_take`` clamped); an
+under which batches run degraded (per-request ``cap_take`` and IVF
+``nprobe`` clamped); an
 over-full queue (``shed_depth``/``shed_bytes``) fails new submissions at
 once with :class:`LoadShed`.
 
@@ -59,8 +60,9 @@ class RetrievalRequest:
     apply the access boost to the returned rows and the neighbor boost to
     their CSR neighbors in the same dispatch (chat); ``boost=False`` is a
     pure read (``search_memories``). ``gate_enabled`` turns the super-node
-    top-1 gate on. ``cap_take`` is a per-request knob (None: the index's
-    default)."""
+    top-1 gate on. ``cap_take`` and ``nprobe`` (the IVF probe width) are
+    per-request knobs (None: the index's default, the retrieval cap and the
+    build's nprobe)."""
 
     query: np.ndarray
     tenant: str
@@ -68,6 +70,7 @@ class RetrievalRequest:
     gate_enabled: bool = False
     boost: bool = False
     cap_take: Optional[int] = None
+    nprobe: Optional[int] = None
 
 
 @dataclass
@@ -114,7 +117,8 @@ class QueryScheduler:
                  breaker_threshold: int = 5,
                  breaker_cooldown_s: float = 5.0,
                  shed_depth: int = 0, shed_bytes: int = 0,
-                 degrade_cap_take: int = 1, device=None):
+                 degrade_cap_take: int = 1, degrade_nprobe: int = 1,
+                 device=None):
         self._executor = executor
         self.telemetry = telemetry if telemetry is not None \
             else default_registry()
@@ -125,6 +129,7 @@ class QueryScheduler:
         self.shed_depth = max(0, int(shed_depth))
         self.shed_bytes = max(0, int(shed_bytes))
         self.degrade_cap_take = max(1, int(degrade_cap_take))
+        self.degrade_nprobe = max(1, int(degrade_nprobe))
         self.device = torch.device(device) if device is not None else None
         self.breaker: Optional[CircuitBreaker] = (
             CircuitBreaker(breaker_threshold, breaker_cooldown_s,
@@ -292,10 +297,13 @@ class QueryScheduler:
 
     def _degrade(self, req: RetrievalRequest) -> RetrievalRequest:
         """The breaker's cheap rung: a copy of the request with a smaller
-        ``cap_take`` (same k results, fewer rows boosted)."""
+        ``cap_take`` (same k results, fewer rows boosted) and a smaller IVF
+        ``nprobe`` (fewer clusters scanned)."""
         cap = (self.degrade_cap_take if req.cap_take is None
                else min(req.cap_take, self.degrade_cap_take))
-        return dataclasses.replace(req, cap_take=cap)
+        npr = (self.degrade_nprobe if req.nprobe is None
+               else min(req.nprobe, self.degrade_nprobe))
+        return dataclasses.replace(req, cap_take=cap, nprobe=npr)
 
     def _execute(self, batch) -> None:
         reqs = [req for req, _, _ in batch]

@@ -1,7 +1,8 @@
 """The port's recovery matrix: ``tests/test_fault_injection.py``'s cases
 that need the state dispatch guard (``reliability.guard``) or the
-``scheduler.worker`` fault point, in the one-device modes ``exact`` and
-``quant``.
+``scheduler.worker`` fault point, in the one-device modes ``exact``,
+``quant`` and ``ivf`` (the fused IVF program over a published build with
+every cluster probed, int8 composed, as the JAX matrix builds it).
 
 The port writes its state in place, so the guard tells a failure before a
 program's first write (retried: the index ends bit-equal to a run that
@@ -10,9 +11,9 @@ raises, recovery is ``load_index``). ``faults.poison_states_hook`` models
 the second by marking the states written before the injected raise.
 
 The JAX matrix's other modes and points are cases here too, skipped with
-the ROADMAP item that brings them: ``ivf`` (Queue 1 item 14), ``tiered``
-and the ``pump.*`` / ``coldstore.*`` points (item 17), ``mesh2`` (item
-21), ``plan.oom`` (item 19).
+the ROADMAP item that brings them: ``tiered`` and the ``pump.*`` /
+``coldstore.*`` points (item 17), ``mesh2`` (item 21), ``plan.oom`` (item
+19).
 
 Parity: arena, edge and int8 shadow columns bit-equal; result rows, gate
 ids and verdicts equal and scores within 2e-6, as the JAX matrix holds
@@ -37,11 +38,10 @@ D = 32
 EPOCH = 1000.0
 KW = dict(cap_take=5, max_nbr=8, super_gate=0.4, acc_boost=0.05,
           nbr_boost=0.02, now=1234.5)
-_UNPORTED_MODES = {"ivf": "ROADMAP Queue 1 item 14, IVF",
-                   "tiered": "ROADMAP Queue 1 item 17, tiering",
+_UNPORTED_MODES = {"tiered": "ROADMAP Queue 1 item 17, tiering",
                    "mesh2": "ROADMAP Queue 1 item 21, the sharded int8 "
                             "and fused programs"}
-MODES = ["exact", "quant"] + [
+MODES = ["exact", "quant", "ivf"] + [
     pytest.param(m, marks=pytest.mark.skip(reason=f"not ported: {item}"))
     for m, item in _UNPORTED_MODES.items()]
 _PLAN = "not ported: ROADMAP Queue 1 item 19, the HBM planner (plan.oom)"
@@ -80,6 +80,18 @@ def _reqs(emb, nq=8, k=10, boost=True, seed=9):
 
 
 def _build_mode(mode):
+    if mode == "ivf":
+        n = 4500
+        idx = MemoryIndex(dim=D, capacity=5000, int8_serving=True,
+                          coarse_slack=5001, ivf_nprobe=4096, epoch=EPOCH,
+                          device="cpu", telemetry=Telemetry())
+        emb = _vecs(n, 0)
+        idx.add([f"n{i}" for i in range(n)], emb, [0.5] * n, [0.0] * n,
+                ["semantic"] * n, ["default"] * n, "u0")
+        idx.add_edges([(f"n{j}", f"n{j + 1}", 0.7) for j in range(200)],
+                      "u0", now=EPOCH)
+        assert idx.ivf_maintenance(iters=2)
+        return idx, emb
     idx = MemoryIndex(dim=D, capacity=255, epoch=EPOCH, device="cpu",
                       int8_serving=(mode == "quant"),
                       coarse_slack=(8 if mode == "exact" else 512),
@@ -313,14 +325,16 @@ def test_coldstore_read_error_on_promote_recovers():
 
 
 # --------------------------------- the fault-free path: one dispatch
-@pytest.mark.parametrize("mode", ["exact", "quant"])
+@pytest.mark.parametrize("mode", ["exact", "quant", "ivf"])
 def test_fault_free_serve_still_one_dispatch(monkeypatch, mode):
     """The guard wraps the same one dispatch and one packed copy: no probe,
     no retry, no second program on the healthy path."""
     counted = ("search_fused_ragged", "search_fused_ragged_read",
                "search_fused", "search_fused_read", "search_fused_quant",
                "search_fused_quant_read", "search_fused_quant_ragged",
-               "search_fused_quant_ragged_read", "arena_search")
+               "search_fused_quant_ragged_read", "search_fused_ivf",
+               "search_fused_ivf_read", "search_fused_ivf_ragged",
+               "search_fused_ivf_ragged_read", "arena_search")
     calls = {name: 0 for name in counted}
     for name in counted:
         orig = getattr(S, name)
@@ -336,8 +350,8 @@ def test_fault_free_serve_still_one_dispatch(monkeypatch, mode):
     monkeypatch.setattr(idx, "_readback",
                         lambda p: copies.append(1) or orig_rb(p))
     idx.search_fused_requests(_reqs(emb, nq=4), **KW)
-    want = ("search_fused_quant_ragged" if mode == "quant"
-            else "search_fused_ragged")
+    want = {"quant": "search_fused_quant_ragged",
+            "ivf": "search_fused_ivf_ragged"}.get(mode, "search_fused_ragged")
     assert calls[want] == 1
     for name in counted:
         if name != want:

@@ -2,9 +2,10 @@
 ``load_snapshot`` (the index checkpoint of every tenant plus the current
 user's host graph) and the JSON ``save_state`` / ``load_state``.
 
-The cases of ``tests/test_snapshot.py`` on the port, all but
-``test_restore_preserves_ivf_serving_config`` (IVF serving, ROADMAP Queue 1
-item 14), and ``tests/test_persistence.py::test_save_load_state_json`` run
+The cases of ``tests/test_snapshot.py`` on the port (its
+``test_restore_preserves_ivf_serving_config`` runs with the IVF tests, in
+``tests/test_torch_ivf.py``), and
+``tests/test_persistence.py::test_save_load_state_json`` run
 on both packages with the same fakes, and each package loading the other's
 JSON; a snapshot restored into a system serves what the saved one served
 (ids and score bits).
