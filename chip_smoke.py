@@ -1270,38 +1270,137 @@ def phase_ingest_kernel(device):
     p_s = torch.where(p_s > -1e29, p_s / norms.clamp(min=1e-9), p_s)
     b = qf.shape[0]
     gram = qf @ qf.t()
-    earlier = torch.ones((b, b), dtype=torch.bool, device=device).tril(-1)
-    gram.masked_fill_(~earlier, -1e30)
-    g_j = torch.argmax(gram, dim=1)
-    g_s = torch.gather(gram, 1, g_j[:, None])[:, 0]
-    del gram, earlier
+    del qf
     valid = torch.ones(b, dtype=torch.bool, device=device)
-    rows = batch.int()
     gid = torch.randint(0, len(TOPICS), (b,), generator=gen, device=device).int()
-    cols = (g_s, g_j, p_s, p_r, valid, rows, gid)
-    got = dr.dedup_resolve(*cols, 0.95, n - 1)
-    t0 = time.perf_counter()
-    want = dr.dedup_resolve_reference(*[c.cpu() for c in cols], 0.95, n - 1)
-    plain = 1e3 * (time.perf_counter() - t0)
-    for g, w in zip(got, want):
-        if not torch.equal(g.cpu(), w):
-            raise AssertionError("dedup_resolve: kernel disagrees with the plain loop")
-    dups = int(want[1].sum())
+    cols = (p_s.contiguous(), p_r.contiguous(), valid, batch.int(), gid)
+    resolve_rows = resolve_cases(gram, cols, n - 1)
+    return rows_out, resolve_rows
+
+
+RESOLVE_GATE = 0.95                # MemoryConfig.dedup_similarity
+
+
+def resolve_bound(valid, gram_form):
+    """(bound_ms, "bytes") of one resolve call: the gram's strict lower
+    triangle at the valid columns (4 bytes a float, the gram form only),
+    then a fact's columns read once (p_s, p_r, rows, chain_gid 4 bytes,
+    valid 1; g_s and g_j 4 more in the walk form) and its outputs written
+    once (target and chain_src 4 bytes, dup 1). The arg-max and the walk do
+    no arithmetic worth the card's peak."""
+    import torch
+
+    b = valid.shape[0]
+    later = (b - 1 - torch.arange(b, device=valid.device)) * valid
+    moved = (4 * int(later.sum()) if gram_form else 8 * b) + 17 * b + 9 * b
+    return 1e3 * moved / HBM_BYTES_PER_S, "bytes"
+
+
+def resolve_cases(gram, cols, cap):
+    """The dedup resolve at the fill's mega-batch (B = 8,192) against its
+    plain version, bit for bit: the gram form (stage A, the arg-max over the
+    triangle, and stage B, the walk, timed apart), the walk form on the
+    composition's (g_s, g_j), and the deepest chain (each fact a duplicate
+    of the one before). Prints the composition the gram form replaced (the
+    ``[B, B]`` mask, ``masked_fill``, ``argmax``, ``gather``) timed on the
+    card. ``plain_ms`` is the plain version on the card tensors: the
+    composition on the card, then the loop on the host."""
+    import torch
+
+    from lazzaro_tpu_torch.ops import dedup_resolve as dr
+
+    p_s, p_r, valid, rows, gid = cols
+    b = rows.shape[0]
+
+    def host_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0)
+
+    def case(label, form, fn, plain_fn, want, with_gram):
+        got = fn()
+        for g, w in zip(got, want):
+            if not torch.equal(g.cpu(), w):
+                raise AssertionError(f"dedup_resolve {label}: the kernel "
+                                     f"disagrees with the plain version")
+        plain = host_ms(plain_fn)
+        # Each stage's mean over the events the trace shows: a window can
+        # miss an event, and a sum over the calls would then read low.
+        kernels = _device_kernels(fn, 20)
+        seen = {}
+        for stage, name in (("A", "resolve_gram_argmax"), ("B", "resolve_walk")):
+            evs = [e for e in kernels if name in e.key]
+            n = sum(e.count for e in evs)
+            ms = sum(e.self_device_time_total for e in evs) / 1e3
+            seen[stage] = (ms / n if n else 0.0, n)
+        ms = seen["A"][0] + seen["B"][0]
+        bms, by = resolve_bound(valid, with_gram)
+        dups = int(want[1].sum())
+        log(f"[kernels] dedup_resolve {label}: target, dup, chain_src equal "
+            f"({dups} duplicates), device ms {ms:.4f} (stage A "
+            f"{seen['A'][0]:.4f}, stage B {seen['B'][0]:.4f}; the trace shows "
+            f"{seen['A'][1]} and {seen['B'][1]} of 20 calls' launches), plain "
+            f"ms {plain:.1f}, library_ms none, bound_ms {bms:.6f} ({by}), "
+            f"{bms / ms:.3f} of it")
+        return dups, {"kernel": "dedup_resolve", "form": form, "case": label,
+                      "route": "cuda", "n": b, "q": b, "k": 0, "ms": ms,
+                      "stage_a_ms": seen["A"][0], "stage_b_ms": seen["B"][0],
+                      "plain_ms": plain, "library_ms": None, "bound_ms": bms,
+                      "bound_by": by, "max_abs_err": 0.0}
+
+    out = []
+    cpu = [c.cpu() for c in cols]
+    want = dr.dedup_resolve_gram_reference(gram.cpu(), *cpu, RESOLVE_GATE, cap)
+    dups, row = case(
+        f"dedup_resolve_gram_b{b}", "gram",
+        lambda: dr.dedup_resolve_gram(gram, *cols, RESOLVE_GATE, cap),
+        lambda: dr.dedup_resolve_gram_reference(gram, *cols, RESOLVE_GATE, cap),
+        want, True)
     if not 0 < dups < b:
         raise AssertionError(f"dedup_resolve case has {dups} duplicates of {b}")
-    ms = device_ms(lambda: dr.dedup_resolve(*cols, 0.95, n - 1), 20)
-    moved = b * (4 * 6 + 1) + b * 12
-    bms = 1e3 * moved / HBM_BYTES_PER_S
-    log(f"[kernels] dedup_resolve dedup_resolve_b8192: target, dup, chain_src "
-        f"equal ({dups} duplicates), device ms {ms:.4f}, plain (host loop) ms "
-        f"{plain:.1f}, library_ms none, bound_ms {bms:.6f} (bytes; the walk is "
-        f"sequential)")
-    resolve_rows = [{"kernel": "dedup_resolve", "form": "resolve",
-                     "case": "dedup_resolve_b8192", "route": "cuda", "n": b,
-                     "q": b, "k": 0, "ms": ms, "plain_ms": plain,
-                     "library_ms": None, "bound_ms": bms, "bound_by": "bytes",
-                     "max_abs_err": 0.0}]
-    return rows_out, resolve_rows
+    out.append(row)
+
+    # What the gram form replaced: the composition on the card.
+    removed = device_ms(lambda: dr.gram_argmax_reference(gram, valid), 10)
+    log(f"[kernels] dedup_resolve: the composition the gram form replaced "
+        f"(the [B, B] earlier mask, masked_fill, argmax, gather) device ms "
+        f"{removed:.4f} at B = {b}; the gram form {row['ms']:.4f}; the walk "
+        f"form's kernel alone below")
+    row["replaced_composition_ms"] = removed
+
+    g_s, g_j = dr.gram_argmax_reference(gram, valid)
+    walk_in = (g_s, g_j.int()) + tuple(cols)
+    want_walk = dr.dedup_resolve_reference(*[c.cpu() for c in walk_in],
+                                           RESOLVE_GATE, cap)
+    for g, w in zip(want_walk, want):
+        if not torch.equal(g, w):
+            raise AssertionError("dedup_resolve: the walk form's plain version "
+                                 "disagrees with the gram form's")
+    out.append(case(
+        f"dedup_resolve_walk_b{b}", "walk",
+        lambda: dr.dedup_resolve(*walk_in, RESOLVE_GATE, cap),
+        lambda: dr.dedup_resolve_reference(*walk_in, RESOLVE_GATE, cap),
+        want_walk, False)[1])
+    del g_s, g_j, walk_in
+
+    # The deepest chain: gram[i, i - 1] over the gate, 0.5 elsewhere.
+    chain = torch.full_like(gram, 0.5)
+    del gram
+    idx = torch.arange(1, b, device=chain.device)
+    chain[idx, idx - 1] = 0.99
+    low = (torch.full_like(p_s, -1e30),) + tuple(cols[1:])
+    want = dr.dedup_resolve_gram_reference(chain.cpu(), *[c.cpu() for c in low],
+                                           RESOLVE_GATE, cap)
+    if int(want[1].sum()) != b - 1 or not (want[0] == rows[0].cpu()).all():
+        raise AssertionError("dedup_resolve: the chain case is not one chain")
+    out.append(case(
+        f"dedup_resolve_chain_b{b}", "gram",
+        lambda: dr.dedup_resolve_gram(chain, *low, RESOLVE_GATE, cap),
+        lambda: dr.dedup_resolve_gram_reference(chain, *low, RESOLVE_GATE, cap),
+        want, True)[1])
+    return out
 
 
 PAIR_ROWS = 131_072                # arena rows of the K3 kernel cases
@@ -2873,6 +2972,7 @@ def phase_default(launches_out: dict) -> dict:
     gops.launches = gops.launches_wgmma = 0
     mt.launches = mt.launches_wgmma = mt.launches_stream = 0
     it.launches = it.launches_wgmma = it.launches_stream = dr.launches = 0
+    dr.launches_card = 0
     try:
         ends = drive(ms)
     finally:
@@ -2887,21 +2987,26 @@ def phase_default(launches_out: dict) -> dict:
     due = [["pull_numeric_rows"] * rows + ["edge_weights_for"] * edges
            for rows, edges in saves]
     pulled = [c[1] for c in reads["save"]]
+    resolve = (dr.launches, dr.launches_card)
     if (k3 != (3, 0) or not k1[0] or k1[1] != k1[0] or k1[2]
+            or resolve != (DEFAULT_CONVS, 2 * DEFAULT_CONVS)
             or len(reads["merge"]) != 3
             or len(reads["ingest"]) != DEFAULT_CONVS
             or pulled != [p for d in due for p in d]
             or not any(d == ["pull_numeric_rows", "edge_weights_for"]
                        for d in due)):
         raise AssertionError(f"default config: K3 launches {k3}; (K1, K1 "
-                             f"streamed, masked_topk) launches {k1}; copies "
-                             f"{copies}; saves due {due}")
+                             f"streamed, masked_topk) launches {k1}; "
+                             f"(resolve calls, launches_card) {resolve}; "
+                             f"copies {copies}; saves due {due}")
     log(f"[default] MemorySystem() (f32 768-d, fused serving and ingest, "
         f"auto_consolidate every 3, ArrowStore, both journals): "
         f"{DEFAULT_CONVS} conversations, {len(ms.buffer.nodes)} nodes at "
         f"the buffer limit, {k3[0]} K3 launches (FMA route), {k1[0]} K1 "
         f"launches ({k1[1]} on the streaming stage: probe and link lists in "
-        f"one pass), {k1[2]} masked_topk launches; under sync debug mode "
+        f"one pass), {k1[2]} masked_topk launches, {resolve[0]} "
+        f"dedup_resolve calls (one an end; launches_card {resolve[1]}); "
+        f"under sync debug mode "
         f"\"error\" the device-to-host "
         f"copies were {len(reads['ingest'])} ingest readbacks (one an end), "
         f"{len(reads['merge'])} merge-scan readbacks and, over "
@@ -3862,7 +3967,7 @@ def _drive(ms, llm, corpus, convs, fill, launches_out, mt, torch,
         ms.index.ingest_batch_dedup = count_ingest
     dispatches0 = ms.index.ingest_dispatch_count
     mt.launches = mt.launches_wgmma = mt.launches_stream = sm.launches = 0
-    it.launches = it.launches_wgmma = dr.launches = 0
+    it.launches = it.launches_wgmma = dr.launches = dr.launches_card = 0
     switches = 0
     t0 = time.perf_counter()
     for k, c in enumerate(fill_order(convs)):
@@ -3888,7 +3993,7 @@ def _drive(ms, llm, corpus, convs, fill, launches_out, mt, torch,
     fill_s = time.perf_counter() - t0
     fill_launches, fill_merges = mt.launches, sm.launches
     fill_wgmma, fill_stream = mt.launches_wgmma, mt.launches_stream
-    fill_k1 = (it.launches, it.launches_wgmma, dr.launches)
+    fill_k1 = (it.launches, it.launches_wgmma, dr.launches, dr.launches_card)
     fill_dispatches = ms.index.ingest_dispatch_count - dispatches0
     for obj, method, orig in reversed(patched):
         if obj is S:
@@ -3913,12 +4018,14 @@ def _drive(ms, llm, corpus, convs, fill, launches_out, mt, torch,
             f"dispatches, {len(copies)} device-to-host copies, {fill_k1[0]} "
             f"ingest_topk launches ({fill_k1[1]} tensor-core, "
             f"{fill_k1[0] - fill_k1[1]} FMA), {fill_k1[2]} dedup_resolve "
-            f"launches, {fill_launches} masked_topk launches")
+            f"calls (launches_card {fill_k1[3]}: the gram's arg-max and the "
+            f"walk a call), {fill_launches} masked_topk launches")
         if not (fill_dispatches == len(copies) == fill_k1[0] == fill_k1[1]
-                == fill_k1[2] == convs) or fill_launches:
+                == fill_k1[2] == convs) or fill_launches \
+                or fill_k1[3] != 2 * fill_k1[2]:
             raise AssertionError("the fused fill is not one dispatch, one "
-                                 "tensor-core ingest scan, one resolve and one "
-                                 "copy per mega-batch")
+                                 "tensor-core ingest scan, one resolve (two "
+                                 "card launches) and one copy per mega-batch")
     else:
         # Every dedup probe (a power-of-two batch) scans the bf16 arena on
         # the tensor cores, one grouped scan per card. A probe of a tenant
@@ -4047,7 +4154,8 @@ def _drive(ms, llm, corpus, convs, fill, launches_out, mt, torch,
     launches_out[prefix + "ingest_topk"] = it.launches
     launches_out[prefix + "dedup_resolve"] = dr.launches
     log(f"{tag} ingest_topk launches over the path: {it.launches} "
-        f"({it.launches_wgmma} tensor-core), dedup_resolve {dr.launches}")
+        f"({it.launches_wgmma} tensor-core), dedup_resolve {dr.launches} "
+        f"(launches_card {dr.launches_card})")
     log(f"{tag} classic path routes: {mt.launches_stream} streaming, "
         f"{mt.launches_wgmma} tensor-core, "
         f"{mt.launches - mt.launches_stream - mt.launches_wgmma} FMA of "
@@ -4065,7 +4173,8 @@ def _drive(ms, llm, corpus, convs, fill, launches_out, mt, torch,
         "fill_launches_wgmma": fill_wgmma, "fill_dedup_probes": len(probes),
         "fill_dispatches": fill_dispatches, "fill_copies": len(copies),
         "fill_ingest_topk": fill_k1[0], "fill_ingest_topk_wgmma": fill_k1[1],
-        "fill_dedup_resolve": fill_k1[2], "fill_stage_s": spent,
+        "fill_dedup_resolve": fill_k1[2],
+        "fill_dedup_resolve_launches_card": fill_k1[3], "fill_stage_s": spent,
         "chat_p50_ms": p50(chat_ms), "search_p50_ms": p50(search_ms),
         "launches_per_chat_turn": sorted(set(chat_launches)),
         "conversation_end_s": end_s,
@@ -5191,7 +5300,7 @@ def _run(smi, name, device, torch) -> int:
               "ingest_q8192_k3_bf16"),
         entry("dedup_resolve", "lazzaro_tpu_torch/csrc/dedup_resolve.cu",
               "lazzaro_tpu/core/state.py:1532", resolve_rows,
-              "dedup_resolve_b8192"),
+              "dedup_resolve_gram_b8192"),
         entry("int8_topk", "lazzaro_tpu_torch/csrc/int8_topk.cu",
               "lazzaro_tpu/core/state.py:2701",
               int8_rows, "chat_keyed_q1_k136_g9",

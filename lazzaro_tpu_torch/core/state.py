@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from lazzaro_tpu_torch.ops.chunking import nt_dot
-from lazzaro_tpu_torch.ops.dedup_resolve import dedup_resolve
+from lazzaro_tpu_torch.ops.dedup_resolve import dedup_resolve_gram
 from lazzaro_tpu_torch.ops.fused_topk import fused_topk, fused_topk_grouped
 from lazzaro_tpu_torch.ops.ingest_topk import ingest_topk
 from lazzaro_tpu_torch.ops.int8_topk import int8_topk_keyed
@@ -776,21 +776,16 @@ def _dedup_resolve(qf: torch.Tensor, rows: torch.Tensor, valid: torch.Tensor,
                    chain_gid: torch.Tensor, p_s: torch.Tensor,
                    p_r: torch.Tensor, dedup_gate: float, cap: int):
     """Duplicate resolution of a fact batch (``state.py:_dedup_resolve``):
-    the intra-batch gram ``qf @ qf.T`` (f32, no TF32) picks each fact's best
-    EARLIER valid fact (sentinel padding rows share one unit vector and
-    never match: ``NEG_INF`` elsewhere, the first column on ties), then the
-    sequential scan (``ops.dedup_resolve``) blends it with the pre-add probe
-    ``(p_s, p_r)``, chains targets and finds each live fact's chain
-    predecessor. Returns ``(target [B] i32, dup [B] bool, chain_src [B]
-    i32)``."""
-    b = rows.shape[0]
-    gram = nt_dot(qf, qf)
-    earlier = torch.ones((b, b), dtype=torch.bool, device=qf.device).tril(-1)
-    gram.masked_fill_(~(earlier & valid[None, :]), NEG_INF)
-    g_j = torch.argmax(gram, dim=1)
-    g_s = torch.gather(gram, 1, g_j[:, None])[:, 0]
-    return dedup_resolve(g_s, g_j, p_s, p_r, valid, rows, chain_gid,
-                         dedup_gate, cap)
+    the intra-batch gram ``qf @ qf.T`` (f32, no TF32), then the resolve
+    (``ops.dedup_resolve.dedup_resolve_gram``): each fact's best EARLIER
+    valid fact in the gram (sentinel padding rows share one unit vector and
+    never match; the first column on ties) blended with the pre-add probe
+    ``(p_s, p_r)``, targets chained, each live fact's chain predecessor
+    found. On a card that is the kernel's two launches over the gram, with
+    no ``[B, B]`` mask. Returns ``(target [B] i32, dup [B] bool, chain_src
+    [B] i32)``."""
+    return dedup_resolve_gram(nt_dot(qf, qf), p_s, p_r, valid, rows,
+                              chain_gid, dedup_gate, cap)
 
 
 @_writes

@@ -1558,6 +1558,184 @@ def test_dedup_resolve_matches_plain_version(cuda, b):
         assert 0 < int(got[1].sum()) < b
 
 
+def resolve_columns(g, b, valid_share=7 / 8):
+    """``(p_s, p_r, valid, rows, gid)`` of a batch of ``b`` facts: the last
+    eighth is padding (invalid, group -1, the cap as its row), shard groups
+    of ~50 facts, probe scores over the gate now and then."""
+    n = max(1, int(b * valid_share))
+    p_s = g.uniform(-0.5, 0.97, b).astype(np.float32)
+    p_s[g.random(b) < 0.05] = -1e30
+    rows = np.where(np.arange(b) < n, g.permutation(10 * b)[:b], 10 * b)
+    gid = np.where(np.arange(b) < n, g.integers(0, max(1, b // 50), b), -1)
+    return [p_s, g.integers(0, 10 * b, b).astype(np.int32), rows < 10 * b,
+            rows.astype(np.int32), gid.astype(np.int32)]
+
+
+def check_resolve(cuda, cols, gram=None):
+    """The kernel (the gram form where ``gram`` is given, else the walk
+    form) against its plain version on the same inputs, with ``torch.equal``
+    on target, dup and chain_src and the launch counts; returns the plain
+    version's outputs."""
+    gate, cap = 0.95, 10 * cols[-1].shape[0]
+    dev = [torch.from_numpy(np.asarray(c)).to(cuda) for c in cols]
+    before = (dr.launches, dr.launches_card)
+    if gram is None:
+        got = dr.dedup_resolve(*dev, gate, cap)
+        want = dr.dedup_resolve_reference(*[c.cpu() for c in dev], gate, cap)
+    else:
+        got = dr.dedup_resolve_gram(gram, *dev, gate, cap)
+        want = dr.dedup_resolve_gram_reference(gram.cpu(), *[c.cpu() for c in dev],
+                                               gate, cap)
+    torch.cuda.synchronize()
+    assert (dr.launches, dr.launches_card) == (before[0] + 1,
+                                               before[1] + (1 if gram is None else 2))
+    for x, y in zip(got, want):
+        assert x.dtype == y.dtype and torch.equal(x.cpu(), y)
+    return want
+
+
+def planted_gram(g, b, cuda):
+    """The f32 gram (card ``matmul``, no TF32) of ``b`` Gaussian unit facts,
+    a third of them near copies of an earlier fact and a twentieth exact
+    copies (exact ties between the copies in later rows)."""
+    qf = g.standard_normal((b, 64)).astype(np.float32)
+    for i in range(1, b):
+        u = g.random()
+        if u < 0.05:
+            qf[i] = qf[g.integers(0, i)]
+        elif u < 0.35:
+            qf[i] = qf[g.integers(0, i)] + 0.05 * g.standard_normal(64)
+    qf /= np.linalg.norm(qf, axis=1, keepdims=True)
+    q = torch.from_numpy(qf).to(cuda)
+    return torch.matmul(q, q.t())
+
+
+@pytest.mark.parametrize("b", [1, 2, 7, 1000, 1001, 8192, 12_289])
+def test_dedup_resolve_gram_matches_plain_version(cuda, b):
+    """The gram form (stage A's arg-max over the lower triangle, then the
+    walk) against the mask, ``argmax``, ``gather`` and the loop: planted
+    duplicates, exact copies, padding; 1,001 and 12,289 start rows off a
+    16-byte boundary, and 12,289 keeps the walk's tables in device memory
+    and sorts two tiles."""
+    g = np.random.default_rng(b + 1)
+    want = check_resolve(cuda, resolve_columns(g, b), planted_gram(g, b, cuda))
+    if b >= 1000:
+        assert 0 < int(want[1].sum()) < b
+
+
+def test_dedup_resolve_gram_ties_and_masks(cuda):
+    """Stage A's choice shows in every target of the second half: the first
+    half is live (nothing above the gate), each later row's maximum (over
+    the gate) sits at a first-half column, a third of them at two columns
+    with one f32 value (the first must win), over higher values at invalid
+    columns and above the diagonal, which must be ignored. b = 1,003 puts
+    row starts at every offset from a 16-byte boundary."""
+    b, half = 1003, 501
+    g = np.random.default_rng(3)
+    gram = g.uniform(-1.0, 0.9, (b, b)).astype(np.float32)
+    gram[np.triu_indices(b)] = 0.999                  # never read
+    cols = resolve_columns(g, b, valid_share=1.0)
+    cols[0][:] = -1e30                                 # no probe duplicate
+    invalid = g.choice(half, 40, replace=False)
+    cols[2][invalid] = False
+    gram[:, invalid] = 0.998                           # masked out
+    pick = {}
+    for i in range(half, b):
+        c1, c2 = np.sort(g.choice(np.setdiff1d(np.arange(half), invalid), 2,
+                                  replace=False))
+        gram[i, c1] = 0.96 + 0.03 * g.random()
+        if i % 3 == 0:
+            gram[i, c2] = gram[i, c1]
+        pick[i] = c1
+    want = check_resolve(cuda, cols, torch.from_numpy(gram).to(cuda))
+    target = want[0].numpy()
+    assert all(target[i] == cols[3][c] for i, c in pick.items())
+    assert not want[1][:half].any() and want[1][half:].all()
+
+
+def test_dedup_resolve_gram_every_fact_invalid(cuda):
+    b = 1000
+    g = np.random.default_rng(4)
+    cols = resolve_columns(g, b)
+    cols[2][:] = False
+    want = check_resolve(cuda, cols, planted_gram(g, b, cuda))
+    assert not want[1].any() and (want[2] == -1).all()
+    assert torch.equal(want[0], torch.from_numpy(cols[3]))
+
+
+def test_dedup_resolve_gram_deepest_chain(cuda):
+    """Each fact a duplicate of the one before: a chain of b - 1 targets,
+    the old single-thread walk's worst case and the pointer jumping's
+    deepest forest (13 rounds at 8,192), cut once by a probe duplicate."""
+    b = 8192
+    g = np.random.default_rng(5)
+    gram = np.full((b, b), 0.5, np.float32)
+    gram[np.arange(1, b), np.arange(b - 1)] = 0.99
+    cols = resolve_columns(g, b, valid_share=1.0)
+    cols[0][:] = -1e30
+    cols[0][b // 2] = 0.999
+    want = check_resolve(cuda, cols, torch.from_numpy(gram).to(cuda))
+    target = want[0].numpy()
+    assert want[1][1:].all() and not want[1][0]
+    assert (target[:b // 2] == cols[3][0]).all()
+    assert (target[b // 2:] == cols[1][b // 2]).all()
+
+
+@pytest.mark.parametrize("groups", ["one", "each_its_own"])
+@pytest.mark.parametrize("form", ["gram", "walk"])
+def test_dedup_resolve_group_extremes(cuda, groups, form):
+    """One shard group for every fact (each live fact's predecessor is the
+    live fact before it, over three tiles in the walk form), and a group of
+    its own for every fact (no predecessor at all)."""
+    b = 8192 if form == "gram" else 20_000
+    g = np.random.default_rng(6)
+    cols = resolve_columns(g, b, valid_share=1.0)
+    cols[4] = (np.zeros(b) if groups == "one" else np.arange(b)).astype(np.int32)
+    if form == "gram":
+        want = check_resolve(cuda, cols, planted_gram(g, b, cuda))
+    else:
+        gs = g.uniform(-0.5, 1.0, b).astype(np.float32)
+        gj = np.minimum(g.integers(0, b, b), np.maximum(np.arange(b) - 1, 0))
+        want = check_resolve(cuda, [gs, gj.astype(np.int32)] + cols)
+    dup, chain = want[1].numpy(), want[2].numpy()
+    live = np.nonzero(~dup)[0]
+    if groups == "one":
+        assert (chain[live[1:]] == cols[3][live[:-1]]).all() and chain[live[0]] == -1
+    else:
+        assert (chain == -1).all()
+
+
+@pytest.mark.parametrize("b", [7, 9000])
+def test_dedup_resolve_walk_live_fact_of_group_minus_one(cuda, b):
+    """A live fact with ``chain_gid = -1`` moves group 0's last row (and
+    gets -1 itself), in the first tile and past it."""
+    g = np.random.default_rng(b + 7)
+    gs = np.full(b, -0.5, np.float32)
+    gj = np.zeros(b, np.int32)
+    cols = resolve_columns(g, b, valid_share=1.0)
+    cols[0][:] = -1e30
+    at = b - 3
+    cols[4][:] = 0
+    cols[4][at] = -1
+    want = check_resolve(cuda, [gs, gj] + cols)
+    chain = want[2].numpy()
+    assert chain[at] == -1 and chain[at + 1] == cols[3][at]
+
+
+def test_dedup_resolve_refuses_a_malformed_gram_on_the_card(cuda):
+    """A gram that is not ``[B, B]`` f32 on the rows' device raises before
+    any launch."""
+    b = 64
+    cols = [torch.from_numpy(np.asarray(c)).to(cuda)
+            for c in resolve_columns(np.random.default_rng(8), b)]
+    before = (dr.launches, dr.launches_card)
+    for gram in (torch.zeros(b, b, dtype=torch.float64, device=cuda),
+                 torch.zeros(b, b + 1, device=cuda), torch.zeros(b, b)):
+        with pytest.raises(ValueError, match="the gram must be"):
+            dr.dedup_resolve_gram(gram, *cols, 0.95, 10 * b)
+    assert (dr.launches, dr.launches_card) == before
+
+
 def test_fused_ingest_syncs_only_at_the_readback(cuda, tmp_path):
     """A conversation end on the card: one fused dispatch (one ingest scan
     on the tensor cores, one resolve) and, under

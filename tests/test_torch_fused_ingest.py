@@ -295,6 +295,136 @@ def test_dedup_resolve_matches_jax():
     assert chain[6] == rows[1]        # group 1 bridges the duplicate 3
 
 
+RESOLVE_B, RESOLVE_DIM = 48, 64
+CHAIN = range(3, 27)                  # each fact a duplicate of the one before
+
+
+def resolve_case(case):
+    """``(qf, rows, valid, gid, p_s, p_r)`` of a batch of ``RESOLVE_B``
+    facts for one corner of the resolve: Gaussian facts (no two within the
+    gate) with the corner planted."""
+    rng = np.random.default_rng(11)
+    b, d = RESOLVE_B, RESOLVE_DIM
+    qf = rng.standard_normal((b, d)).astype(np.float32)
+    rows = np.arange(40, 40 + b, dtype=np.int32)
+    gid = rng.integers(0, 4, b).astype(np.int32)
+    p_s = rng.uniform(-0.2, 0.9, b).astype(np.float32)
+    p_r = rng.integers(0, 40, b).astype(np.int32)
+    if case in ("deep_chain", "probe_mid_chain"):
+        # a step along a new axis: cos ~0.989 to the fact before, ~0.978 to
+        # the one before that, so every gram arg-max is the predecessor
+        u = qf[2] / np.linalg.norm(qf[2])
+        for i in CHAIN:
+            u = u + 0.15 * np.eye(d, dtype=np.float32)[i]
+            u /= np.linalg.norm(u)
+            qf[i] = u
+        if case == "probe_mid_chain":
+            p_s[14] = 0.999           # the probe beats the gram mid-chain
+    elif case == "tied_maxima":
+        qf[[1, 3, 5]] = 0.0
+        qf[1, :2] = (0.98, 0.199)     # facts 1 and 3 are 0.92 apart, and
+        qf[3, :2] = (0.98, -0.199)    # equally near (one f32 value) to 5
+        qf[5, 0] = 1.0
+    elif case == "ungrouped_live_fact":
+        gid[:4] = (-1, 0, 1, 0)       # a live fact of group -1 moves group 0
+    elif case == "invalid_between":
+        rows[[5, 6, 20]] = CAP        # invalid facts mid-batch ...
+        gid[[5, 6, 20]] = -1
+        qf[21] = qf[20] + 1e-3        # ... that a later copy never matches
+        qf[8] = qf[7] + 1e-3          # while a copy of a valid fact does
+        p_s[[5, 20]] = 0.99           # and the probe cannot make them dups
+    qf /= np.linalg.norm(qf, axis=1, keepdims=True)
+    return qf, rows, rows < CAP, gid, p_s, p_r
+
+
+@pytest.mark.parametrize("case", ["deep_chain", "probe_mid_chain",
+                                  "tied_maxima", "ungrouped_live_fact",
+                                  "invalid_between"])
+def test_dedup_resolve_cases_match_jax(case):
+    """The resolve's corners, the port (the gram form's plain version on
+    the CPU) leaf for leaf against JAX's ``_dedup_resolve``."""
+    qf, rows, valid, gid, p_s, p_r = resolve_case(case)
+    want = JS._dedup_resolve(jnp.asarray(qf), jnp.asarray(rows),
+                             jnp.asarray(valid), jnp.asarray(gid),
+                             jnp.asarray(p_s), jnp.asarray(p_r),
+                             jnp.float32(GATE), CAP)
+    got = TS._dedup_resolve(*(torch.from_numpy(x) for x in (
+        qf, rows, valid, gid, p_s, p_r)), GATE, CAP)
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    target, dup, chain = (g.numpy() for g in got)
+    qt = torch.from_numpy(qf)
+    gram = TS.nt_dot(qt, qt)
+    _, g_j = dr.gram_argmax_reference(gram, torch.from_numpy(valid))
+    if case == "deep_chain":
+        assert [int(g_j[i]) for i in CHAIN] == [i - 1 for i in CHAIN]
+        assert dup[list(CHAIN)].all() and (target[list(CHAIN)] == rows[2]).all()
+    elif case == "probe_mid_chain":
+        assert (target[3:14] == rows[2]).all() and (target[14:27] == p_r[14]).all()
+    elif case == "tied_maxima":
+        assert gram[5, 1] == gram[5, 3] and gram[5, 1] > GATE
+        assert int(g_j[5]) == 1 and dup[5] and target[5] == rows[1]
+    elif case == "ungrouped_live_fact":
+        assert not dup[:4].any()
+        assert chain[0] == -1 and chain[1] == rows[0] and chain[3] == rows[1]
+    else:
+        assert not dup[[5, 6, 20, 21]].any() and (target[[5, 6, 20]] == CAP).all()
+        assert dup[8] and target[8] == rows[7]
+
+
+def test_dedup_resolve_gram_on_cpu_is_the_old_composition():
+    """On CPU tensors the gram form launches nothing, leaves the gram as it
+    was and equals the composition the ingest ran before it: the ``[B, B]``
+    mask, ``masked_fill_``, ``argmax`` and ``gather``, then the loop."""
+    qf, rows, valid, gid, p_s, p_r = (torch.from_numpy(x) for x in
+                                      resolve_case("invalid_between"))
+    gram = TS.nt_dot(qf, qf)
+    kept = gram.clone()
+    old = gram.clone()
+    b = old.shape[0]
+    earlier = torch.ones((b, b), dtype=torch.bool).tril(-1)
+    old.masked_fill_(~(earlier & valid[None, :]), TS.NEG_INF)
+    g_j = torch.argmax(old, dim=1)
+    g_s = torch.gather(old, 1, g_j[:, None])[:, 0]
+    want = dr.dedup_resolve_reference(g_s, g_j, p_s, p_r, valid, rows, gid,
+                                      GATE, CAP)
+    before = (dr.launches, dr.launches_card)
+    got = dr.dedup_resolve_gram(gram, p_s, p_r, valid, rows, gid, GATE, CAP)
+    assert (dr.launches, dr.launches_card) == before
+    assert torch.equal(gram, kept)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+def test_dedup_resolve_refuses_malformed_inputs_before_any_launch(monkeypatch):
+    """A gram that is not ``[B, B]`` f32 on the rows' device, or a column
+    that is not ``[B]``, raises ``ValueError`` before the library is loaded,
+    on any device; an unsupported device raises too."""
+    def no_library():
+        raise AssertionError("the library was loaded")
+
+    monkeypatch.setattr(dr, "_library", no_library)
+    b = 6
+    cols = [torch.zeros(b), torch.zeros(b, dtype=torch.int32),
+            torch.ones(b, dtype=torch.bool), torch.arange(b, dtype=torch.int32),
+            torch.zeros(b, dtype=torch.int32)]
+    before = (dr.launches, dr.launches_card)
+    for gram in (torch.zeros(b, b + 1), torch.zeros(b * b), torch.zeros(b - 1, b - 1),
+                 torch.zeros(b, b, dtype=torch.float64), torch.zeros(b, b, device="meta")):
+        with pytest.raises(ValueError, match="the gram must be"):
+            dr.dedup_resolve_gram(gram, *cols, GATE, CAP)
+    with pytest.raises(ValueError, match="every column must be"):
+        dr.dedup_resolve_gram(torch.zeros(b, b), cols[0][:-1], *cols[1:], GATE, CAP)
+    with pytest.raises(ValueError, match="every column must be"):
+        dr.dedup_resolve(torch.zeros(b, 1), cols[1], *cols, GATE, CAP)
+    meta = [c.to("meta") for c in cols]
+    with pytest.raises(ValueError, match="unsupported device"):
+        dr.dedup_resolve_gram(torch.zeros(b, b, device="meta"), *meta, GATE, CAP)
+    with pytest.raises(ValueError, match="unsupported device"):
+        dr.dedup_resolve(meta[0], meta[1], *meta, GATE, CAP)
+    assert (dr.launches, dr.launches_card) == before
+
+
 @pytest.mark.parametrize("pool_len", [2, 40])
 def test_gated_link_insert_matches_jax(pool_len):
     """With ``link_accept_hint`` < 1 the pool is short: the accepted edges
