@@ -1443,8 +1443,8 @@ def pairwise_arena(gen, n, dtype, device):
     with planted near-duplicates of unit norm, exact in any summation
     order: 64 groups of a base and six rows that each move one entry of it
     (a full list of 4 for the base), 64 triples of identical rows (exact
-    ties) and identical pairs at every offset 1 .. 130 across the diagonal
-    of a 64 x 128 tile."""
+    ties) and identical pairs at every offset 1 .. 258 across the diagonal
+    of a 128 x 256 tile."""
     import torch
 
     emb = grid_values(gen, (n, DIM), dtype, device)
@@ -1465,7 +1465,7 @@ def pairwise_arena(gen, n, dtype, device):
         v = torch.zeros(DIM, device=device)
         v[[(t + o) % DIM for o in (0, 64, 128, 192)]] = 0.5
         planted += [(rows.pop(), v) for _ in range(3)]
-    for delta in range(1, 131):
+    for delta in range(1, 259):
         i = (delta * 977) % (n - delta)
         v = torch.zeros(DIM, device=device)
         v[(300 + delta) % DIM] = 1.0
@@ -1497,7 +1497,7 @@ def phase_pairwise_kernel(device):
         err = _check_equal(label, got, want)
         hits = int((got[1] >= 0).sum())
         full = int((got[1] >= 0).all(dim=1).sum())
-        if hits < 130 + 64 * 3 or full < 64:
+        if hits < 258 + 64 * 3 or full < 64:
             raise AssertionError(f"{label}: {hits} pairs, {full} full lists")
         n_live = int(mask.sum())
         b_ms, b_by = pairwise_bound(n_live, PAIR_ROWS, DIM, emb.element_size())
@@ -1804,8 +1804,11 @@ def _consolidate_filled(ms, launches_out, torch):
     from the system's own ``consolidation.stage_ms`` spans (host wall time;
     ``pairs`` is the K3 launch, its one readback and the decode), its
     counts, the device memory it took at its peak; then K3's time at this
-    shape beside its bound, and the library form timed on 8,192 query rows
-    and scaled to the tenant's rows."""
+    shape beside its bound, twice: on the arena as the consolidation calls
+    it (the mask over every row) and on the tenant's rows alone (gathered
+    beforehand, an all-true mask), so the share of the arena's rows past
+    the live ones is measured; and the library form timed on 8,192 query
+    rows and scaled to the tenant's rows."""
     from lazzaro_tpu_torch.ops import graphops as gops
 
     # The serving phase's strict readback (sync debug mode "error" after
@@ -1847,15 +1850,26 @@ def _consolidate_filled(ms, launches_out, torch):
     # profiler window has missed this kernel's events (0.94 of ~665 ms).
     k3_ms = cuda_ms(lambda: gops.pairwise_merge_candidates(st.emb, mask,
                                                            MERGE_SIM), 1)
-    b_ms, b_by = pairwise_bound(n_live, st.emb.shape[0], DIM,
+    # Both bounds count the rows the timed calls scan (the tenant's after
+    # the merge).
+    emb_live = st.emb[mask]
+    n_timed = emb_live.shape[0]
+    b_ms, b_by = pairwise_bound(n_timed, st.emb.shape[0], DIM,
                                 st.emb.element_size())
+    all_live = torch.ones(n_timed, dtype=torch.bool, device=emb_live.device)
+    k3_live_ms = cuda_ms(lambda: gops.pairwise_merge_candidates(
+        emb_live, all_live, MERGE_SIM), 1)
+    live_b_ms, _ = pairwise_bound(n_timed, n_timed, DIM, st.emb.element_size())
+    del emb_live, all_live
     q_rows = mask.nonzero().view(-1)[:8192]
     lib_8192 = cuda_ms(lambda: pairwise_library(st.emb, mask, q_rows,
                                                 MERGE_SIM), 1)
     lib_scaled = lib_8192 * n_live / q_rows.shape[0]
     merged = nodes_before - ms.buffer.size()[0]
     out = {"seconds": total, "stage_s": spans, "k3_event_ms": k3_ms,
-           "k3_bound_ms": b_ms, "k3_bound_by": b_by, "n_live": n_live,
+           "k3_bound_ms": b_ms, "k3_bound_by": b_by,
+           "k3_live_rows_event_ms": k3_live_ms, "k3_live_rows_bound_ms": live_b_ms,
+           "k3_timed_rows": n_timed, "n_live": n_live,
            "pairs": pairs, "merged": merged, "components": comps,
            "nodes_before": nodes_before, "peak_gib_over_held": peak_gib,
            "held_gib": held / 2 ** 30, "k3_check": check,
@@ -1873,7 +1887,9 @@ def _consolidate_filled(ms, launches_out, torch):
         f"{ {k: round(v, 3) for k, v in spans.items()} }; {pairs} pairs, "
         f"{merged} merged, {comps} components; device memory at its peak "
         f"{peak_gib:.2f} GiB over the {held / 2 ** 30:.2f} GiB held; K3 "
-        f"{k3_ms:.2f} ms by CUDA events (bound {b_ms:.2f}, {b_by}); library "
+        f"{k3_ms:.2f} ms by CUDA events on the arena (bound {b_ms:.2f}, "
+        f"{b_by}), {k3_live_ms:.2f} ms on the tenant's rows alone (bound "
+        f"{live_b_ms:.2f}); library "
         f"form {lib_8192:.2f} ms on {q_rows.shape[0]} query rows, scaled to "
         f"the tenant's rows {lib_scaled:.1f} ms (scaled, not run)")
     return out

@@ -13,11 +13,12 @@ extern "C" {
 // emb_c [n, d] (bf16 when is_bf16, else f32): the mask's rows gathered in
 // ascending order, *n_live (on the device) of them live; mask [n] u8 over
 // the arena rows, pos [n] i32 each row's place in the gather, comp [n] i32
-// the arena row of each place. Scratch: keys [n, k] u64. Outputs: out_s /
-// out_r [n, k] (f32, i32 arena rows; (-1e30, -1) past a row's list). route
-// 1 (tensor cores) takes bf16 only, route 0 (FMA) f32 only. Needs d % 8 ==
-// 0, 16-byte aligned rows, 1 <= k <= 8. Stage 1 and the decode, counted
-// into *launched. Returns the CUDA error of the launches (0 on success).
+// the arena row of each place. Scratch: keys [n * k + 1] u64 (the lists,
+// then the FMA route's ticket). Outputs: out_s / out_r [n, k] (f32, i32
+// arena rows; (-1e30, -1) past a row's list). route 1 (tensor cores) takes
+// bf16 only, route 0 (FMA) f32 only. Needs d % 8 == 0, 16-byte aligned
+// rows, 1 <= k <= 8. Stage 1 and the decode, counted into *launched.
+// Returns the CUDA error of the launches (0 on success).
 int pairwise_topk(const void* emb_c, int is_bf16, const int* n_live, const uint8_t* mask,
                   const int* pos, const int* comp, long long n, int d, float threshold, int k,
                   int route, unsigned long long* keys, float* out_s, int* out_r, int* launched,

@@ -888,17 +888,18 @@ __device__ __forceinline__ float gate_score(float acc, uint32_t cb, uint32_t cc,
 // BN rows from r_begin, in a ring of ns stages. Item j uses stage j % ns;
 // its full barrier waits for completion j / ns, the producer's empty wait
 // for completion j / ns - 1 (hopper::Ring with a stage count known at
-// launch).
+// launch). j0 items went through the ring before (a persistent block's
+// earlier work items); the consumers pass the same count to wg_product.
 template <int WGS, int BN>
 __device__ __forceinline__ void wg_produce(const CUtensorMap* map_q, const CUtensorMap* map_e,
                                            uint8_t* ring, uint64_t* full, uint64_t* empty,
                                            int ns, int tiles, int panels, int q0,
-                                           long long r_begin) {
+                                           long long r_begin, int j0 = 0) {
   constexpr int QB = WGS * 64 * kRowBytes;   // query panel of a stage
   constexpr int STAGE = QB + BN * kRowBytes;
   const int items = tiles * panels;
-  for (int j = 0; j < items; ++j) {
-    const int s = j % ns, t = j / panels, p = j - t * panels;
+  for (int i = 0; i < items; ++i) {
+    const int j = j0 + i, s = j % ns, t = i / panels, p = i - t * panels;
     if (j >= ns) hopper::mbar_wait(empty + s, ((j / ns) - 1) & 1);
     hopper::mbar_arrive_expect_tx(full + s, STAGE);
     uint8_t* st = ring + s * STAGE;
@@ -912,14 +913,15 @@ __device__ __forceinline__ void wg_produce(const CUtensorMap* map_q, const CUten
 // m64nBNk16 into acc (bf16 panels, f32 sums; int8 panels with int acc:
 // m64n128k32, int32 sums): panel p's four products go out behind panel p -
 // 1's, whose stage is released once they retire (wait<1>), the last after
-// the chain. tid is the thread's index in its warpgroup.
+// the chain. tid is the thread's index in its warpgroup; j_base is
+// wg_produce's j0.
 template <int WGS, int BN, typename Acc>
 __device__ __forceinline__ void wg_product(Acc (&acc)[BN / 2], uint8_t* ring, uint64_t* full,
                                            uint64_t* empty, int ns, int t, int panels, int wg,
-                                           int tid) {
+                                           int tid, int j_base = 0) {
   constexpr int QB = WGS * 64 * kRowBytes;
   constexpr int STAGE = QB + BN * kRowBytes;
-  const int j0 = t * panels;
+  const int j0 = j_base + t * panels;
   for (int p = 0; p < panels; ++p) {
     const int j = j0 + p, s = j % ns;
     hopper::mbar_wait(full + s, (j / ns) & 1);
@@ -2667,73 +2669,98 @@ int run_ingest(IngestArgs a, int is_bf16, int route, float* probe_s, int* probe_
 // list[pos[r], p] as (score, comp[b]), or (NEG, -1) where the list is
 // shorter or r takes no part. k <= kPairMaxK.
 //
-// Design. Block (x, c) scores the 64 queries of query tile x against the row
-// tiles (kBR rows) of chunk c (kPairTiles tiles) that hold a b > a for one of
-// them: a tile wholly at or below the diagonal is never loaded, and the b > a
-// test runs only on a tile that crosses it. The blocks are numbered chunk by
-// chunk, chunk c listing the query tiles that reach it (the first 2 (c + 1)
-// kPairTiles), so every block off the diagonal does the same work and the
-// triangle fills whole waves evenly. bf16 rows take the tensor-core product
-// (wg_produce / wg_product: one consumer warpgroup, m64n128k16 from a TMA
-// ring), f32 rows the FMA product (fma_tile, 64 queries x 128 rows); the sums
-// stay in registers. A warp none of whose sums beats the threshold skips the
-// tile's list work (at 0.95 nearly every warp). A sum that beats it and the
-// query's last list key goes into the query's list in device memory by a
-// cascade of 64-bit atomicMax over its k slots, the key being list_key's
-// (exact, one a pair): a slot that takes the key hands its old key on to the
-// next slot, so in whatever order the blocks insert, slot p ends holding
-// the p-th best key. Lists start at 0, below every key; a decode kernel
-// writes the outputs. The grid is sized from the arena's rows (n_live stays
-// on the device, so the launch never waits for it); blocks past n_live end
-// at once.
+// Design. Stage 1 is a persistent grid: as many blocks as the card holds at
+// once (on the tensor cores one an SM, whose ring takes the shared memory;
+// four an SM on the FMA route), whatever the arena's size. Each block reads
+// n_live on the device and walks the live triangle's work items: no block
+// exists for rows past n_live, and the launch never waits for n_live on the
+// host. On the tensor cores with a static stride (item blockIdx.x, then +
+// gridDim.x, ...); on the FMA route each block takes its next item from a
+// ticket in device memory, since its four blocks an SM share the FMA pipes
+// unevenly and a static stride let them drift apart (on an H100 the
+// 131,072-row f32 scan took 103 ms so, 93 with the ticket).
+// Query tiles have QT rows and row tiles 2 QT, so the first row tile that
+// holds a b > a for query tile x is x / 2, and it is the only one that
+// crosses the diagonal: a tile wholly at or below it is never loaded, and
+// the b > a test runs on that one tile alone. The row tiles form chunks of
+// RUN tiles, and a work item is one query tile's tiles of one chunk that
+// hold a b > a: all RUN of them, or fewer on the diagonal. Items are
+// numbered chunk by chunk (chunk c: every query tile that reaches it,
+// ascending), so the blocks in flight share the chunk's rows in L2 and each
+// reloads only its own query tile; a block finds its next item by moving a
+// cursor forward (PairWalk), never by a search from the start. (Numbered
+// run by run instead, x fastest, the blocks in flight held ~54 MB of tiles,
+// more than the L2, and on an H100 a scan of 194,726 bf16 rows took 86 ms,
+// not 47.)
+// bf16 rows take the tensor cores: 128 queries x 256-row tiles in chunks of
+// 2,048 rows (the blocks in flight hold ~25 MB of query tiles and 3 MB of
+// rows), two consumer warpgroups of 64 queries on wgmma m64n256k16 (128 f32
+// sums a thread) and a producer warpgroup whose one thread keeps a ring of
+// four 48 KB TMA stages, (128-query panel, 256-row panel) (wg_produce /
+// wg_product; the ring runs on from one item to the next), so a pair and
+// 64-column panel moves 1.5 bytes from L2. f32 rows take the FMA product
+// (fma_tile, 64 queries x 128 rows) in chunks of 4,096 rows. The sums stay
+// in registers, and each is the chain of its 64-column panels in ascending
+// order. A warp none of whose
+// sums beats the threshold skips the tile's list work (at 0.95 nearly every
+// warp). A sum that beats it and the query's last list key goes into the
+// query's list in device memory by a cascade of 64-bit atomicMax over its k
+// slots, the key being list_key's (exact, one a pair): a slot that takes
+// the key hands its old key on to the next slot, so in whatever order the
+// blocks insert, slot p ends holding the p-th best key. Lists start at 0,
+// below every key; a decode kernel writes the outputs.
 // What bounds it: the product, 2 d n_live (n_live - 1) / 2 FLOP on the tensor
-// cores for bf16 and on the FMA units for f32, and each live row read once.
+// cores for bf16 and on the FMA units for f32, and each live row read once;
+// on the tensor cores also the L2's rate for the stages' bytes.
 
 constexpr int kPairMaxK = 8;
-constexpr int kPairBQ = 64;                          // queries a block
-constexpr int kPairTiles = 32;                       // row tiles a chunk
-constexpr int kPairPerChunk = kBR * kPairTiles / kPairBQ;   // query tiles a chunk adds
 
 struct PairArgs {
   const void* emb;                 // [n_rows, d] compact rows, the first *n_live live
   const int* n_live;               // [1] on the device
-  long long n_rows, qtiles;        // rows of the copy; query tiles of the grid
+  long long n_rows;                // rows of the copy
   int d, k, panels, ns;
   float thr;
-  unsigned long long* keys;        // [n_rows, k] lists, zeroed
+  unsigned long long* keys;        // [n_rows * k + 1]: the lists, then the ticket; zeroed
 };
 
-// Blocks of a pairwise launch over n rows: chunk c holds min(qtiles, (c + 1)
-// kPairPerChunk) query tiles.
-inline long long pair_blocks(long long n) {
-  const long long qt = (n + kPairBQ - 1) / kPairBQ;
-  const long long chunks = (n + (long long)kBR * kPairTiles - 1) / ((long long)kBR * kPairTiles);
-  long long b = 0;
-  for (long long c = 0; c < chunks; ++c) {
-    const long long cnt = (c + 1) * kPairPerChunk;
-    b += cnt < qt ? cnt : qt;
-  }
-  return b;
-}
+// The work items of the live triangle over n rows, for query tiles of QT
+// rows, row tiles of 2 QT and chunks of RUN row tiles (see the design
+// note). item() takes ascending item numbers and moves its cursor (chunk c,
+// the items before it, the items of chunk c) forward, so over a block's
+// life it steps over each chunk once. Trivially constructible, so that a
+// block can keep one in shared memory: init() starts it.
+template <int QT, int RUN>
+struct PairWalk {
+  long long x_tiles, r_tiles, c, before, count;
 
-// Block b's query tile x and row tiles [t0, t1); false when it has none (its
-// queries or its chunk past n_live, or its tiles at or below the diagonal).
-__device__ __forceinline__ bool pair_block(long long b, int n, long long qtiles, int& x,
-                                           long long& t0, long long& t1) {
-  long long c = 0;
-  for (;; ++c) {
-    const long long cnt = min(qtiles, (c + 1) * kPairPerChunk);
-    if (b < cnt) break;
-    b -= cnt;
+  __device__ void init(int n) {
+    x_tiles = (n + QT - 1) / QT;
+    r_tiles = (n + 2 * QT - 1) / (2 * QT);
+    c = before = 0;
+    count = items_of(0);
   }
-  x = (int)b;
-  const long long q0 = (long long)x * kPairBQ;
-  if (q0 >= n) return false;
-  const long long first = (q0 + 1) / kBR, last = ((long long)n + kBR - 1) / kBR;
-  t0 = max(c * kPairTiles, first);
-  t1 = min((c + 1) * kPairTiles, last);
-  return t0 < t1;
-}
+
+  // Query tiles that reach chunk cc: those x with x / 2 < (cc + 1) RUN.
+  __device__ long long items_of(long long cc) const {
+    if (cc * RUN >= r_tiles) return 0;
+    const long long m = 2 * (cc + 1) * RUN;
+    return m < x_tiles ? m : x_tiles;
+  }
+
+  // Item i's query tile x and row tiles [t0, t1); false past the last item.
+  __device__ bool item(long long i, int& x, long long& t0, long long& t1) {
+    while (i >= before + count) {
+      if (count == 0) return false;
+      before += count;
+      count = items_of(++c);
+    }
+    x = (int)(i - before);
+    t0 = max(c * RUN, (long long)(x >> 1));
+    t1 = min((c + 1) * RUN, r_tiles);
+    return true;
+  }
+};
 
 // Pair (a, b) with sum s into a's list of k slots L (see the design note).
 __device__ __forceinline__ void pair_insert(unsigned long long* L, int k, float s, int b) {
@@ -2749,105 +2776,149 @@ __device__ __forceinline__ void pair_insert(unsigned long long* L, int k, float 
 }
 
 // Stage 1 on the FMA route (f32): 64 queries against 128-row tiles, thread
-// (tq, tr) holding queries tq + 16 i against rows tr + 16 j.
-__global__ void __launch_bounds__(kThreads) pair_stage1_fma(const PairArgs a) {
-  constexpr int BQ = kPairBQ, MQ = 4, MR = 8, TQ = BQ / MQ, TR = kThreads / TQ;
+// (tq, tr) holding queries tq + 16 i against rows tr + 16 j. Thread 0 takes
+// the block's items from the ticket, walks them and hands each to the block
+// through shared memory, so that the walk takes none of the 64 registers a
+// thread that keep four blocks on an SM.
+__global__ void __launch_bounds__(kThreads, 4) pair_stage1_fma(const PairArgs a) {
+  constexpr int BQ = 64, MQ = 4, MR = 8, TQ = BQ / MQ, TR = kThreads / TQ;
   static_assert(TR * MR == kBR, "thread grid must cover one row tile");
+  static_assert(kBR == 2 * BQ, "the walk's row tiles are two query tiles");
   __shared__ float qs[BQ * kLD];
   __shared__ float rs[kBR * kLD];
+  __shared__ PairWalk<BQ, 32> walk;
+  __shared__ unsigned long long* ticket;
+  __shared__ long long next;                  // the block's next item
+  __shared__ int item[3];                     // its query tile (-1 past the last), t0, t1
   const int n = *a.n_live;
-  int x;
-  long long t0, t1;
-  if (!pair_block(blockIdx.x, n, a.qtiles, x, t0, t1)) return;
-  const int q0 = x * BQ, tid = threadIdx.x, tq = tid / TR, tr = tid % TR;
+  const int tid = threadIdx.x, tq = tid / TR, tr = tid % TR;
   const float* e = static_cast<const float*>(a.emb);
-  for (long long t = t0; t < t1; ++t) {
-    const long long r0 = t * kBR;
-    float acc[MQ][MR];
-    fma_tile<float, BQ, MQ, MR>(acc, qs, rs, e, e, q0, n, r0, n, a.d);
-    bool hit = false;
+  if (tid == 0) {
+    walk.init(n);
+    ticket = a.keys + a.n_rows * a.k;
+    next = (long long)atomicAdd(ticket, 1ull);
+  }
+  for (;;) {
+    // Every thread read the last item before fma_tile's first barrier.
+    if (tid == 0) {
+      int x;
+      long long t0, t1;
+      const bool more = walk.item(next, x, t0, t1);
+      next = (long long)atomicAdd(ticket, 1ull);
+      item[0] = more ? x : -1;
+      item[1] = (int)t0;
+      item[2] = (int)t1;
+    }
+    __syncthreads();
+    if (item[0] < 0) return;
+    const int q0 = item[0] * BQ, t1 = item[2];
+    for (int t = item[1]; t < t1; ++t) {
+      const long long r0 = (long long)t * kBR;
+      float acc[MQ][MR];
+      fma_tile<float, BQ, MQ, MR>(acc, qs, rs, e, e, q0, n, r0, n, a.d);
+      bool hit = false;
 #pragma unroll
-    for (int i = 0; i < MQ; ++i)
+      for (int i = 0; i < MQ; ++i)
 #pragma unroll
-      for (int j = 0; j < MR; ++j) hit |= acc[i][j] > a.thr;
-    if (!__any_sync(kFull, hit)) continue;
-    const bool diag = r0 < q0 + BQ;
+        for (int j = 0; j < MR; ++j) hit |= acc[i][j] > a.thr;
+      if (!__any_sync(kFull, hit)) continue;
+      const bool diag = r0 < q0 + BQ;
 #pragma unroll
-    for (int i = 0; i < MQ; ++i) {
-      const int qi = q0 + tq + i * TQ;
+      for (int i = 0; i < MQ; ++i) {
+        const int qi = q0 + tq + i * TQ;
 #pragma unroll
-      for (int j = 0; j < MR; ++j) {
-        const long long rj = r0 + tr + j * TR;
-        const float s = acc[i][j] + 0.0f;
-        if (s > a.thr && qi < n && rj < n && (!diag || rj > qi))
-          pair_insert(a.keys + (long long)qi * a.k, a.k, s, (int)rj);
+        for (int j = 0; j < MR; ++j) {
+          const long long rj = r0 + tr + j * TR;
+          const float s = acc[i][j] + 0.0f;
+          if (s > a.thr && qi < n && rj < n && (!diag || rj > qi))
+            pair_insert(a.keys + (long long)qi * a.k, a.k, s, (int)rj);
+        }
       }
     }
   }
 }
 
-// Stage 1 on the tensor cores (bf16): warpgroup 1's one thread produces
-// (query panel, row panel) pairs of the compact copy (wg_produce), warpgroup
-// 0 runs the product (wg_product) and filters each tile from its registers.
-template <int BN>
-__global__ void __launch_bounds__(256, 1)
+// Stage 1 on the tensor cores (bf16): warpgroup 2's one thread produces
+// (query panel, row panel) stages of the compact copy for every tile of the
+// block's items (wg_produce), warpgroups 0 and 1 run the product of 64
+// queries each (wg_product) and filter each tile from their registers.
+constexpr int kPairWgs = 2;                          // consumer warpgroups
+constexpr int kPairQT = kPairWgs * 64;               // queries of a tile
+constexpr int kPairBN = 2 * kPairQT;                 // rows of a tile
+
+__global__ void __launch_bounds__((kPairWgs + 1) * 128, 1)
 pair_stage1_wgmma(const __grid_constant__ CUtensorMap map_e,
                   const __grid_constant__ CUtensorMap map_q, const PairArgs a) {
-  constexpr int NF = BN / 2;                  // accumulator registers a thread
-  constexpr int STAGE = (64 + BN) * kRowBytes;
+  constexpr int NF = kPairBN / 2;             // accumulator registers a thread
+  constexpr int STAGE = (kPairQT + kPairBN) * kRowBytes;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* ring = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + a.ns * STAGE);
   uint64_t* empty = full + a.ns;
   const int n = *a.n_live;
-  int x;
-  long long t0, t1;
-  if (!pair_block(blockIdx.x, n, a.qtiles, x, t0, t1)) return;
-  const int q0 = x * 64, tiles = (int)(t1 - t0);
+  PairWalk<kPairQT, 8> walk;
+  walk.init(n);
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < a.ns; ++s) {
       hopper::mbar_init(full + s, 1);
-      hopper::mbar_init(empty + s, 1);
+      hopper::mbar_init(empty + s, kPairWgs);
     }
     hopper::mbar_init_fence();
   }
   __syncthreads();
-  if (threadIdx.x >= 128) {
-    if (threadIdx.x == 128)
-      wg_produce<1, BN>(&map_q, &map_e, ring, full, empty, a.ns, tiles, a.panels, q0, t0 * BN);
+  int x;
+  long long t0, t1;
+  int j0 = 0;                                 // ring items of the earlier work items
+  // The producer walks the items too, so it keeps 40 registers (the scan's
+  // producer 24); 128 x 40 + 256 x 232 fits the SM's 65,536.
+  if (threadIdx.x >= kPairWgs * 128) {
+    hopper::regs_shrink<40>();
+    if (threadIdx.x == kPairWgs * 128) {
+      for (long long item = blockIdx.x; walk.item(item, x, t0, t1); item += gridDim.x) {
+        const int tiles = (int)(t1 - t0);
+        wg_produce<kPairWgs, kPairBN>(&map_q, &map_e, ring, full, empty, a.ns, tiles,
+                                      a.panels, x * kPairQT, t0 * kPairBN, j0);
+        j0 += tiles * a.panels;
+      }
+    }
     return;
   }
+  hopper::regs_grow<232>();
 
   // Fragment element 4c + e is query ia, column 8c + 2tq + e; 4c + 2 + e
   // query ib.
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wg = threadIdx.x / 128, tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, tq = lane & 3;
-  const int ia = q0 + 16 * warp + g, ib = ia + 8;
-  unsigned long long* La = a.keys + (long long)ia * a.k;
-  unsigned long long* Lb = a.keys + (long long)ib * a.k;
   float acc[NF];
 #pragma unroll
   for (int i = 0; i < NF; ++i) acc[i] = 0.0f;
-  for (int t = 0; t < tiles; ++t) {
-    wg_product<1, BN>(acc, ring, full, empty, a.ns, t, a.panels, 0, tid);
-    bool hit = false;
+  for (long long item = blockIdx.x; walk.item(item, x, t0, t1); item += gridDim.x) {
+    const int q0 = x * kPairQT, tiles = (int)(t1 - t0);
+    const int ia = q0 + 64 * wg + 16 * warp + g, ib = ia + 8;
+    unsigned long long* La = a.keys + (long long)ia * a.k;
+    unsigned long long* Lb = a.keys + (long long)ib * a.k;
+    for (int t = 0; t < tiles; ++t) {
+      wg_product<kPairWgs, kPairBN>(acc, ring, full, empty, a.ns, t, a.panels, wg, tid, j0);
+      bool hit = false;
 #pragma unroll
-    for (int i = 0; i < NF; ++i) hit |= acc[i] > a.thr;
-    if (!__any_sync(kFull, hit)) continue;
-    const long long r0 = (t0 + t) * BN;
-    const bool diag = r0 < q0 + 64;
+      for (int i = 0; i < NF; ++i) hit |= acc[i] > a.thr;
+      if (!__any_sync(kFull, hit)) continue;
+      const long long r0 = (t0 + t) * kPairBN;
+      const bool diag = r0 < q0 + kPairQT;
 #pragma unroll
-    for (int c = 0; c < BN / 8; ++c) {
+      for (int c = 0; c < kPairBN / 8; ++c) {
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const long long j = r0 + 8 * c + 2 * tq + e;
-        const float sa = acc[4 * c + e] + 0.0f, sb = acc[4 * c + 2 + e] + 0.0f;
-        if (sa > a.thr && ia < n && j < n && (!diag || j > ia)) pair_insert(La, a.k, sa, (int)j);
-        if (sb > a.thr && ib < n && j < n && (!diag || j > ib)) pair_insert(Lb, a.k, sb, (int)j);
+        for (int e = 0; e < 2; ++e) {
+          const long long j = r0 + 8 * c + 2 * tq + e;
+          const float sa = acc[4 * c + e] + 0.0f, sb = acc[4 * c + 2 + e] + 0.0f;
+          if (sa > a.thr && ia < n && j < n && (!diag || j > ia)) pair_insert(La, a.k, sa, (int)j);
+          if (sb > a.thr && ib < n && j < n && (!diag || j > ib)) pair_insert(Lb, a.k, sb, (int)j);
+        }
       }
     }
+    j0 += tiles * a.panels;
   }
 }
 
@@ -2871,39 +2942,56 @@ pair_decode(const unsigned long long* __restrict__ keys, const uint8_t* __restri
 // Shared memory of the tensor-core pairwise stage 1 with ns ring stages: 1 KB
 // of alignment slack and the ring with its barriers.
 inline size_t pair_wg_smem(int ns) {
-  return 1024 + ns * ((size_t)(64 + kBR) * kRowBytes + 16);
+  return 1024 + ns * ((size_t)(kPairQT + kPairBN) * kRowBytes + 16);
+}
+
+// Multiprocessors of the current device, read once a device.
+inline cudaError_t pair_sms(int& sms) {
+  constexpr int kMaxDevices = 64;
+  static int cache[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess && dev >= kMaxDevices) err = cudaErrorInvalidDevice;
+  if (err == cudaSuccess && cache[dev] == 0)
+    err = cudaDeviceGetAttribute(&cache[dev], cudaDevAttrMultiProcessorCount, dev);
+  sms = err == cudaSuccess ? cache[dev] : 0;
+  return err;
 }
 
 // The lists zeroed, stage 1 on `route` (the tensor cores for bf16, FMA for
-// f32), the decode: each kernel the card takes adds one to *launched. A
-// launch the card refuses returns its error.
+// f32) over a persistent grid sized from the SM count, the decode: each
+// kernel the card takes adds one to *launched. A launch the card refuses
+// returns its error.
 inline int run_pairwise(PairArgs a, int is_bf16, int route, const uint8_t* mask, const int* pos,
                         const int* comp, float* out_s, int* out_r, int* launched,
                         cudaStream_t st) {
   if (a.d % 8 != 0 || a.k < 1 || a.k > kPairMaxK || a.n_rows < 1 ||
       !(route == kRouteWgmma ? is_bf16 : route == kRouteFma && !is_bf16))
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaMemsetAsync(a.keys, 0, sizeof(unsigned long long) * a.n_rows * a.k, st);
+  int sms = 0;
+  cudaError_t err = pair_sms(sms);
   if (err != cudaSuccess) return (int)err;
-  a.qtiles = (a.n_rows + kPairBQ - 1) / kPairBQ;
+  err = cudaMemsetAsync(a.keys, 0, sizeof(unsigned long long) * (a.n_rows * a.k + 1), st);
+  if (err != cudaSuccess) return (int)err;
   a.panels = (a.d + 63) / 64;
-  const long long blocks = pair_blocks(a.n_rows);
-  if (blocks > INT32_MAX) return (int)cudaErrorInvalidValue;
   if (route == kRouteWgmma) {
     a.ns = kMaxStages;
     while (a.ns >= 2 && pair_wg_smem(a.ns) > (size_t)kSmemMax) --a.ns;
     const size_t smem = pair_wg_smem(a.ns);
-    auto kernel = pair_stage1_wgmma<kBR>;
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    err = cudaFuncSetAttribute(pair_stage1_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
     if (err != cudaSuccess) return (int)err;
     // Rows past n_rows and columns past d arrive as zeros.
     CUtensorMap map_e, map_q;
-    if (!hopper::encode_rows_map(&map_e, a.emb, a.d, a.n_rows, 1, 1, a.d, 0, 0, kBR) ||
-        !hopper::encode_rows_map(&map_q, a.emb, a.d, a.n_rows, 1, 1, a.d, 0, 0, 64))
+    if (!hopper::encode_rows_map(&map_e, a.emb, a.d, a.n_rows, 1, 1, a.d, 0, 0, kPairBN) ||
+        !hopper::encode_rows_map(&map_q, a.emb, a.d, a.n_rows, 1, 1, a.d, 0, 0, kPairQT))
       return (int)cudaErrorNotSupported;
-    kernel<<<(unsigned)blocks, 256, smem, st>>>(map_e, map_q, a);
+    pair_stage1_wgmma<<<(unsigned)sms, (kPairWgs + 1) * 128, smem, st>>>(map_e, map_q, a);
   } else {
-    pair_stage1_fma<<<(unsigned)blocks, kThreads, 0, st>>>(a);
+    int per_sm = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, pair_stage1_fma, kThreads, 0);
+    if (err != cudaSuccess) return (int)err;
+    pair_stage1_fma<<<(unsigned)(sms * (per_sm > 0 ? per_sm : 1)), kThreads, 0, st>>>(a);
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;

@@ -15,9 +15,11 @@ other slots. Its kernel is the pairwise mode of the templated scan in
 ``csrc/topk_scan.cuh`` (exported by ``csrc/pairwise_topk.cu``, CUDA C++ for
 ``sm_90a``, built with ``nvcc`` on first use and bound through ``ctypes``):
 the mask's rows are gathered in ascending order on the device (no host
-wait), the kernel scores only the tiles above the diagonal of that copy and
-keeps each row's list in device memory, and a decode maps the lists back to
-arena rows. A bf16 arena takes the tensor-core stage 1, an f32 one the FMA
+wait), a persistent grid sized from the card's SM count walks the tiles
+above the diagonal of that copy's live rows (their count stays on the
+device) and keeps each row's list in device memory, and a decode maps the
+lists back to arena rows. A bf16 arena takes the tensor-core stage 1 (128
+queries x 256-row tiles, two consumer warpgroups), an f32 one the FMA
 stage 1 (:func:`route_for`). :func:`pairwise_merge_candidates` launches it
 for a CUDA arena and runs :func:`pairwise_merge_candidates_reference` only
 for a CPU arena. ``launches`` counts the launches made through it,
@@ -122,7 +124,7 @@ def _launch(emb, mask, threshold, k, route=None):
     comp = comp[:n].contiguous()
     emb_c = emb.index_select(0, comp.long()).contiguous()
     flags = m.to(torch.uint8).contiguous()
-    keys = torch.empty((n, k), dtype=torch.int64, device=dev)
+    keys = torch.empty((n * k + 1,), dtype=torch.int64, device=dev)   # lists, ticket
     out_s = torch.empty((n, k), dtype=torch.float32, device=dev)
     out_r = torch.empty((n, k), dtype=torch.int32, device=dev)
     route = route or route_for(emb.dtype)

@@ -1807,7 +1807,7 @@ def pairwise_arena(gen, n, d, dtype, device):
     planted near-duplicates of unit norm: three identical rows (exact ties),
     groups of a base and up to six rows that each move one entry of it (a
     full list of 4), and copies at every offset across the diagonal of a
-    64 x 128 tile (pairs (i, i + delta) for delta 1 .. 130)."""
+    128 x 256 tile (pairs (i, i + delta) for delta 1 .. 258)."""
     emb = grid(gen, (n, d), dtype, device)
     ten = torch.randint(0, 2, (n,), generator=gen, device=device).int()
     alive = torch.rand(n, generator=gen, device=device) < 0.9
@@ -1834,7 +1834,7 @@ def pairwise_arena(gen, n, d, dtype, device):
         for r in rows[take:take + 3].tolist():
             plant(r, tri)
         take += 3
-    for delta in range(1, 131):
+    for delta in range(1, 259):
         i = (delta * 37) % max(1, n - delta)
         if i + delta < n:
             v = torch.zeros(d, device=device)
@@ -1909,6 +1909,88 @@ def test_pairwise_kernel_corners(cuda, dtype):
     emb[7], emb[n - 1] = v.to(dtype), v.to(dtype)
     s, r = pairwise_both(emb, torch.ones(n, dtype=torch.bool, device=cuda))
     assert r[7].tolist() == [n - 1, -1, -1, -1]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [127, 128, 129, 255, 256, 257, 383, 385])
+def test_pairwise_kernel_at_tile_edges(cuda, dtype, n):
+    """Live counts at the edges of the tiles (128 queries x 256 rows on the
+    tensor cores, 64 x 128 on the FMA route): n live rows of n + 40, the 40
+    dead ones spread over the arena, d = 72 (a second panel mostly past
+    d). The planted pairs at 0.95, then a threshold every pair beats with
+    lists of 8 (exact ties of grid values)."""
+    gen = torch.Generator(device=cuda).manual_seed(1000 + n)
+    emb, _ = pairwise_arena(gen, n + 40, 72, dtype, cuda)
+    mask = torch.ones(n + 40, dtype=torch.bool, device=cuda)
+    mask[torch.randperm(n + 40, generator=gen, device=cuda)[:40]] = False
+    assert int(mask.sum()) == n
+    before = (gops.launches, gops.launches_wgmma)
+    pairwise_both(emb, mask)
+    s, r = pairwise_both(emb, mask, thr=-10.0, k=8)
+    wg = int(dtype == torch.bfloat16)
+    assert (gops.launches - before[0], gops.launches_wgmma - before[1]) == (2, 2 * wg)
+    live = mask.nonzero().view(-1)
+    assert (r[live[:-8]] >= 0).all()
+    assert (r[live[-8:]] >= 0).sum(dim=1).tolist() == list(range(7, -1, -1))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pairwise_pairs_across_the_diagonal_at_every_offset(cuda, dtype):
+    """An identical unit pair (i, i + delta) for every delta 1 .. 258 (a
+    256-row tile's reach), each pair its own direction and i = 300 delta, so
+    the pairs never share a row and i falls at every offset of its query
+    tile: each row lists its partner first, at score 1, and nothing else
+    beats 0.95 (the other rows are grid values of norm ~1.1)."""
+    n, d = 78_000, 320
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    emb = grid(gen, (n, d), dtype, cuda)
+    deltas = torch.arange(1, 259, device=cuda)
+    first = 300 * deltas
+    for delta, i in zip(deltas.tolist(), first.tolist()):
+        v = torch.zeros(d, device=cuda)
+        v[delta] = 1.0
+        emb[i] = emb[i + delta] = v.to(dtype)
+    mask = torch.ones(n, dtype=torch.bool, device=cuda)
+    s, r = pairwise_both(emb, mask)
+    assert torch.equal(r[first, 0], (first + deltas).int())
+    assert (s[first, 0] == 1.0).all()
+    assert int((r >= 0).sum()) == 258
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pairwise_kernel_on_a_sparse_arena(cuda, dtype):
+    """131,072 rows of which ~1% are live, spread over the arena: the grid
+    walks only the live rows' triangle. The planted pairs that stay live at
+    0.95, then a threshold every pair beats (every live row with four later
+    live rows keeps a full list)."""
+    n = 131_072
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    emb, mask = pairwise_arena(gen, n, 64, dtype, cuda)
+    mask &= torch.rand(n, generator=gen, device=cuda) < 0.022
+    assert 900 < int(mask.sum()) < 1700
+    before = gops.launches
+    pairwise_both(emb, mask)
+    s, r = pairwise_both(emb, mask, thr=-10.0)
+    assert gops.launches - before == 2
+    live = mask.nonzero().view(-1)
+    assert (r[live[:-4]] >= 0).all()
+    assert not mask[r[r >= 0].long()].logical_not().any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [200, 256, 384])
+def test_pairwise_k8_lists_under_contention_on_diagonal_tiles(cuda, dtype, n):
+    """Lists of 8 under a threshold every pair beats, on arenas of one or
+    two 256-row tiles (so most work is on a diagonal tile): the second half
+    copies the first, so each row has exact ties to choose among, and many
+    warps of one tile insert into the same lists at once."""
+    gen = torch.Generator(device=cuda).manual_seed(9 + n)
+    emb = grid(gen, (n, 64), dtype, cuda)
+    emb[n // 2:] = emb[: n - n // 2]
+    emb[n // 4: n // 2] = emb[: n // 2 - n // 4]
+    mask = torch.ones(n, dtype=torch.bool, device=cuda)
+    s, r = pairwise_both(emb, mask, thr=-10.0, k=8)
+    assert (r[: n - 8] >= 0).all()
 
 
 def test_pairwise_wrapper_refuses_what_the_kernel_does_not_take(cuda):
