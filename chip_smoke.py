@@ -925,7 +925,25 @@ def ivf_tables(alive, sup, device):
     extras = torch.full((IVF_E,), -1, dtype=torch.int32, device=device)
     fill = torch.cat([members[:4, :16].flatten(), sup_rows, rest])[:IVF_E]
     extras[:len(fill)] = fill
-    return members, extras
+    return members, extras, len(fill)
+
+
+def ivf_sparse(members, alive, device):
+    """The build geometry's tables with the occupancy a live index drifts
+    to: every fourth cluster empty, every fourth full (``IVF_M`` rows), the
+    rest as built; returns the members and their occupancy."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(11)
+    live = torch.nonzero(alive).flatten()
+    out = members.clone()
+    kind = torch.arange(IVF_C, device=device) % 4
+    out[kind == 0] = -1
+    full = torch.nonzero(kind == 1).flatten()
+    pick = torch.randint(0, len(live), (len(full), IVF_M), generator=gen,
+                         device=device)
+    out[full] = live[pick].int()
+    return out, (out >= 0).sum(dim=1).int()
 
 
 def ivf_valid(members, extras, cids, ok_rows, npq):
@@ -1021,17 +1039,24 @@ def phase_ivf_kernel(device):
     form over the arena's shadow (g = 1 + 8); the classic form at a
     search's Q = 1 and a batch's Q = 64 (k = 10 + 8). The queries are
     Gaussian, so the f32 sums round and the two agree only because both
-    sum in one order (``ivf_topk.lane_dot``). Each row's bound counts the
-    rows this case's queries load."""
+    sum in one order (``ivf_topk.lane_dot``). Every case passes the tables'
+    occupancy (``occ``, ``n_extras``), as the index does; two more cases
+    take a table of empty, full and built clusters (a fleet), and a tenant
+    with two rows, whose lists fill through the slots the walk skips (a
+    chat turn). Each row's bound counts the rows this case's queries load;
+    stage 1 (``gv_stage1``) and stage 2 (``gv_select``) are timed apart."""
     import torch
 
     from lazzaro_tpu_torch.ops import ivf_topk as k5
     from lazzaro_tpu_torch.ops.quant import quantize_rows
 
     (emb16, alive, tenant, sup), _ = fused_cases(device)
-    members, extras = ivf_tables(alive, sup, device)
+    members, extras, n_extras = ivf_tables(alive, sup, device)
+    occ = (members >= 0).sum(dim=1).int()
+    sparse, sparse_occ = ivf_sparse(members, alive, device)
     gen = torch.Generator(device=device).manual_seed(10)
     cols = (alive, tenant, sup)
+
 
     def batch(nq):
         cids = torch.argsort(torch.rand((nq, IVF_C), generator=gen,
@@ -1045,6 +1070,14 @@ def phase_ivf_kernel(device):
         return cids, q, q_ten, npq
 
     chat, fleet = batch(1), batch(64)
+    # On the sparse tables, a chat query whose first cluster is empty and
+    # whose second holds the two rows of its tenant: its lists fill with
+    # the empty cluster's slots, which the walk skips.
+    few_cids = chat[0].clone()
+    few_cids[0, :2] = torch.tensor([0, 2], device=device)   # empty, as built
+    few_tenant = tenant.clone()
+    few_tenant[sparse[2, :2].long()] = 9
+    few = (few_cids, chat[1], torch.full_like(chat[2], 9), chat[3])
     shadow = quantize_rows(emb16)
     classic_mask = alive & (tenant == 0)
     slots = IVF_P * IVF_M + IVF_E
@@ -1052,52 +1085,68 @@ def phase_ivf_kernel(device):
     for dtype in (torch.bfloat16, torch.float32):
         emb = emb16 if dtype == torch.bfloat16 else emb16.float()
         tag = "bf16" if dtype == torch.bfloat16 else "f32"
-        cases = [(f"chat_q1_np8_{tag}", "exact", emb, chat, IVF_K, 1),
-                 (f"fleet_q64_np1-4-8_{tag}", "exact", emb, fleet, IVF_K, 1)]
+        built = (members, occ, tenant)
+        cases = [(f"chat_q1_np8_{tag}", "exact", emb, chat, IVF_K, 1, built),
+                 (f"fleet_q64_np1-4-8_{tag}", "exact", emb, fleet, IVF_K, 1,
+                  built)]
         if dtype == torch.bfloat16:
-            cases += [("chat_int8_q1_np8", "int8", shadow, chat, IVF_K, IVF_G),
+            cases += [("chat_int8_q1_np8", "int8", shadow, chat, IVF_K, IVF_G,
+                       built),
                       ("fleet_int8_q64_np1-4-8", "int8", shadow, fleet, IVF_K,
-                       IVF_G),
-                      ("search_classic_q1_k18_bf16", "classic", emb, chat, 18, 0),
+                       IVF_G, built),
+                      ("search_classic_q1_k18_bf16", "classic", emb, chat, 18, 0,
+                       built),
                       ("batch_classic_q64_k18_bf16", "classic", emb, fleet, 18,
-                       0)]
-        for label, form, rows, (cids, q, q_ten, npq), k, g in cases:
+                       0, built),
+                      ("fleet_sparse_q64_np1-4-8_bf16", "exact", emb, fleet,
+                       IVF_K, 1, (sparse, sparse_occ, tenant)),
+                      ("chat_fill_q1_np8_bf16", "exact", emb, few, IVF_K, 1,
+                       (sparse, sparse_occ, few_tenant))]
+        for label, form, rows, (cids, q, q_ten, npq), k, g, tabs in cases:
             nq = q.shape[0]
+            mem, occ_t, ten = tabs
             if form == "classic":
                 kw = dict(mask=classic_mask)
                 qv = q
-                n_valid = ivf_valid(members, extras, cids,
+                n_valid = ivf_valid(mem, extras, cids,
                                     lambda c: classic_mask[c.clamp(min=0).long()],
                                     torch.full_like(npq, IVF_P))
             else:
-                kw = dict(g=g, cols=cols, q_tenant=q_ten, nprobe_q=npq)
+                kw = dict(g=g, cols=(alive, ten, sup), q_tenant=q_ten,
+                          nprobe_q=npq)
                 qv = (q / q.norm(dim=1, keepdim=True) if form == "int8"
                       else q.to(dtype).float())
                 n_valid = ivf_valid(
-                    members, extras, cids,
-                    lambda c, q_ten=q_ten: (alive[c.clamp(min=0).long()]
-                                            & (tenant[c.clamp(min=0).long()]
-                                               == q_ten[:, None])), npq)
+                    mem, extras, cids,
+                    lambda c, q_ten=q_ten, ten=ten: (
+                        alive[c.clamp(min=0).long()]
+                        & (ten[c.clamp(min=0).long()] == q_ten[:, None])), npq)
+            kw.update(occ=occ_t, n_extras=n_extras)
 
-            def run(rows=rows, cids=cids, qv=qv, k=k, kw=kw):
-                return k5.ivf_topk(rows, members, extras, cids, qv, k, **kw)
+            def run(rows=rows, mem=mem, cids=cids, qv=qv, k=k, kw=kw):
+                return k5.ivf_topk(rows, mem, extras, cids, qv, k, **kw)
 
-            def plain(rows=rows, cids=cids, qv=qv, k=k, kw=kw):
-                return k5.ivf_topk_reference(rows, members, extras, cids, qv,
+            def plain(rows=rows, mem=mem, cids=cids, qv=qv, k=k, kw=kw):
+                return k5.ivf_topk_reference(rows, mem, extras, cids, qv,
                                              k, **kw)
 
             got = run()
             err = _check_equal(label, [t for t in got if t is not None],
                                [t for t in plain() if t is not None])
+            fill = got[0][0] <= -1e29
+            if label.startswith("chat_fill") and not (
+                    int(fill.sum()) >= k // 2 and bool((got[2][0][fill] == -1).any())):
+                raise AssertionError(f"{label}: the list did not fill "
+                                     "through the skipped slots")
             item = 1 if form == "int8" else emb.element_size()
             b = ivf_bound(int(n_valid.sum()), DIM, item, nq, slots, k, g,
                           10 if form == "int8" else 6)
-            lib = ivf_library(rows, members, extras, cids, qv, k, g, cols,
-                              q_ten, npq,
+            lib = ivf_library(rows, mem, extras, cids, qv, k, g,
+                              (alive, ten, sup), q_ten, npq,
                               classic_mask if form == "classic" else None)
             row = _case_row("ivf_topk", form, label, k5.route_for(form),
                             emb.shape[0], nq, k, run, plain, lib, b, err, 20,
-                            2, stage1="gv_stage1", merge="i8_select")
+                            2, stage1="gv_stage1", merge="gv_select")
             row["live_rows_loaded"] = int(n_valid.sum())
             row["candidates_per_query"] = slots
             rows_out.append(row)

@@ -35,7 +35,8 @@ from lazzaro_tpu_torch.core import state as S
 from lazzaro_tpu_torch.ops import graphops
 from lazzaro_tpu_torch.ops.int8_topk import int8_topk
 from lazzaro_tpu_torch.ops.ivf import (assignment_staleness, build_ivf,
-                                       ivf_search, online_counts, pack_extras)
+                                       ivf_search, online_counts, pack_extras,
+                                       packed_len)
 from lazzaro_tpu_torch.ops.quant import quantize_rows
 from lazzaro_tpu_torch.ops.sharded_merge import sharded_merge
 from lazzaro_tpu_torch.reliability.errors import ArenaPoisoned
@@ -386,6 +387,7 @@ class MemoryIndex:
         self._ivf_stale = 0
         self._ivf_res_cache = None
         self._ivf_serve_cache = None
+        self._ivf_occ_cache = None         # (sealed members, their occupancy)
         self._ivf_res_host = None          # (residual tensor, its host copy)
         # Rows added or deleted while a build runs outside the state lock
         # (ivf_maintenance); None when no build is running.
@@ -507,6 +509,7 @@ class MemoryIndex:
         (``lazzaro_tpu/core/index.py:_ivf``)."""
         self._ivf_res_cache = None
         self._ivf_serve_cache = None
+        self._ivf_occ_cache = None
         self._ivf_stale = 0
         if v is None:
             self._ivf_routed = self._ivf_in_residual = None
@@ -755,47 +758,56 @@ class MemoryIndex:
         self.telemetry.gauge("ivf.assignment_staleness", frac)
         return frac
 
-    def _ivf_residual_dev(self, ivf, fresh) -> torch.Tensor:
+    def _ivf_residual_dev(self, ivf, fresh) -> Tuple[torch.Tensor, int]:
         """The sealed residual and the fresh rows as one padded device array
-        (the classic search's extras), uploaded again only when the build,
-        the fresh tuple or the residual buffer changed (identity keys,
+        (the classic search's extras) and its packed length (K5's
+        ``n_extras``), uploaded again only when the build, the fresh tuple
+        or the residual buffer changed (identity keys,
         ``lazzaro_tpu/core/index.py:_ivf_residual_dev``)."""
         cache = self._ivf_res_cache
         if (cache is not None and cache[0] is ivf and cache[1] is fresh
                 and cache[2] is ivf.residual):
             return cache[3]
-        dev, = HostStage(self.device).upload([pack_extras(
-            self._residual_host(ivf), fresh, ())])
-        self._ivf_res_cache = (ivf, fresh, ivf.residual, dev)
-        return dev
+        host = pack_extras(self._residual_host(ivf), fresh, ())
+        dev, = HostStage(self.device).upload([host])
+        self._ivf_res_cache = (ivf, fresh, ivf.residual, (dev, packed_len(host)))
+        return self._ivf_res_cache[3]
 
-    def _ivf_extras_dev(self, ivf, fresh) -> torch.Tensor:
+    def _ivf_extras_dev(self, ivf, fresh) -> Tuple[torch.Tensor, int]:
         """Fused serving's exact-scan extras: the sealed residual, the fresh
-        rows and every super row (``ops.ivf.pack_extras``), cached on the
-        same identities plus the super tuple's."""
+        rows and every super row (``ops.ivf.pack_extras``), and their packed
+        length, cached on the same identities plus the super tuple's."""
         supers = self._super_rows_frozen
         cache = self._ivf_serve_cache
         if (cache is not None and cache[0] is ivf and cache[1] is fresh
                 and cache[2] is ivf.residual and cache[3] is supers):
             return cache[4]
         n = self.state.salience.shape[0]
-        dev, = HostStage(self.device).upload([pack_extras(
-            self._residual_host(ivf), fresh, [r for r in supers if r < n])])
-        self._ivf_serve_cache = (ivf, fresh, ivf.residual, supers, dev)
-        return dev
+        host = pack_extras(self._residual_host(ivf), fresh,
+                           [r for r in supers if r < n])
+        dev, = HostStage(self.device).upload([host])
+        self._ivf_serve_cache = (ivf, fresh, ivf.residual, supers,
+                                 (dev, packed_len(host)))
+        return self._ivf_serve_cache[4]
 
     def _ivf_live_tables(self, ivf):
-        """``(centroids, members)`` the scans read: the live online tables,
-        else the sealed build's."""
+        """``(centroids, members, occ)`` the scans read: the live online
+        tables with their append cursors, else the sealed build's with its
+        ``online_counts``, computed once per member table (K5's occupancy:
+        both tables are dense prefixes, -1 from ``occ`` on)."""
         dev = self._ivf_dev
         if self.ivf_online and dev is not None:
-            return dev[0], dev[1]
-        return ivf.centroids, ivf.members
+            return dev
+        cache = self._ivf_occ_cache
+        if cache is None or cache[0] is not ivf.members:
+            cache = (ivf.members, online_counts(ivf.members))
+            self._ivf_occ_cache = cache
+        return ivf.centroids, ivf.members, cache[1]
 
     def _ivf_fused_pack(self, k_kernel: int):
-        """``(centroids, members, extras, nprobe)`` for fused IVF serving, or
-        None to serve the dense fused path: IVF off, no build published,
-        or fewer candidates than the kernel's k
+        """``(centroids, members, extras, nprobe, occ, n_extras)`` for fused
+        IVF serving, or None to serve the dense fused path: IVF off, no
+        build published, or fewer candidates than the kernel's k
         (``lazzaro_tpu/core/index.py:_ivf_fused_pack``)."""
         if not self.ivf_nprobe or self.mesh is not None:
             return None
@@ -803,12 +815,12 @@ class MemoryIndex:
         if pack is None:
             return None
         ivf, fresh = pack
-        extras = self._ivf_extras_dev(ivf, fresh)
-        cent, members = self._ivf_live_tables(ivf)
+        extras, n_extras = self._ivf_extras_dev(ivf, fresh)
+        cent, members, occ = self._ivf_live_tables(ivf)
         nprobe = min(self.ivf_nprobe, int(cent.shape[0]))
         if nprobe * members.shape[1] + extras.shape[0] < k_kernel:
             return None
-        return cent, members, extras, nprobe
+        return cent, members, extras, nprobe, occ, n_extras
 
     def _ivf_search(self, q_pad: torch.Tensor, tid: int, k_eff: int,
                     super_filter: int):
@@ -824,8 +836,8 @@ class MemoryIndex:
             return None
         ivf, fresh = pack
         st = self.state
-        residual = self._ivf_residual_dev(ivf, fresh)
-        cent, members = self._ivf_live_tables(ivf)
+        residual, n_res = self._ivf_residual_dev(ivf, fresh)
+        cent, members, occ = self._ivf_live_tables(ivf)
         n_cand = (min(self.ivf_nprobe, ivf.n_clusters) * members.shape[1]
                   + residual.shape[0])
         if n_cand < k_eff:
@@ -834,7 +846,8 @@ class MemoryIndex:
         scores, rows = ivf_search(cent, members, residual, st.emb,
                                   S.arena_mask(st, tid, super_filter),
                                   S.normalize(q_pad.float()), k_fetch,
-                                  nprobe=self.ivf_nprobe)
+                                  nprobe=self.ivf_nprobe, occ=occ,
+                                  n_extras=n_res)
         host = torch.cat([scores, rows.contiguous().view(torch.float32)],
                          dim=1).cpu().numpy()
         return host[:, :k_fetch], host[:, k_fetch:].view(np.int32)
@@ -2387,12 +2400,13 @@ class MemoryIndex:
         index.py:_search_fused_once``): ``state.search_fused_ivf*`` over the
         live tables and the extras, with the int8 ``shadow`` when int8
         serving is on; the ragged forms take the per-query ``nprobe_q``."""
-        cent, members, extras, nprobe = ivf_tabs
+        cent, members, extras, nprobe, occ, n_extras = ivf_tabs
         ragged = self.serve_ragged
         pre = (shadow, cent, members, extras, indptr, nbr, up["q"],
                up["valid"], up["tenant"], up["gate"])
         statics = dict(k=k_bucket, nprobe=nprobe, slack=self.coarse_slack,
-                       cap_take=cap_take, max_nbr=max_nbr)
+                       cap_take=cap_take, max_nbr=max_nbr, occ=occ,
+                       n_extras=n_extras)
         if boost:
             now_rel = (now if now is not None else time.time()) - self.epoch
             scalars = (now_rel, super_gate, acc_boost, nbr_boost)

@@ -1443,11 +1443,12 @@ def _dedup_topk(scores: torch.Tensor, rows: torch.Tensor, sentinel: int,
 def _ivf_two_tier(state: ArenaState, shadow, centroids: torch.Tensor,
                   members: torch.Tensor, extras: torch.Tensor, q: torch.Tensor,
                   tenant: torch.Tensor, k: int, nprobe: int, slack: int,
-                  nprobe_q=None):
+                  nprobe_q=None, occ=None, n_extras=None):
     """The IVF two-tier core (``state.py:_ivf_two_tier``): the coarse stage
     (each query's ``nprobe`` nearest clusters), then one K5 launch over the
     L = nprobe * M + E candidates, with the tenant mask and, where
-    ``nprobe_q`` is given, each query's own probe width: exact (the query in
+    ``nprobe_q`` is given, each query's own probe width (``occ`` and
+    ``n_extras`` bound the tables' occupied slots): exact (the query in
     the arena dtype) for the top-(k + slack) non-super and top-1 super
     candidates, or with the int8 ``shadow`` a coarse top-(k + slack) and
     top-(1 + slack) rescored exactly from the master. Then the first
@@ -1465,12 +1466,12 @@ def _ivf_two_tier(state: ArenaState, shadow, centroids: torch.Tensor,
     if shadow is None:
         ann_ex, _, ann_rows, g_s, _, g_r = ivf_topk(
             state.emb, members, extras, cids, qd, k_fetch, g=1, cols=cols,
-            q_tenant=tenant, nprobe_q=nprobe_q)
+            q_tenant=tenant, nprobe_q=nprobe_q, occ=occ, n_extras=n_extras)
         gate_s, gate_r0 = g_s[:, 0], g_r[:, 0]
     else:
         a_s0, _, a_r0, g_s0, _, g_r0 = ivf_topk(
             shadow, members, extras, cids, qn, k_fetch, g=g_fetch, cols=cols,
-            q_tenant=tenant, nprobe_q=nprobe_q)
+            q_tenant=tenant, nprobe_q=nprobe_q, occ=occ, n_extras=n_extras)
         ann_rows = torch.where(a_s0 > NEG_INF / 2, a_r0, cap)
         ann_ex = _rescore(state, qd, ann_rows, a_s0)
         g_rows = torch.where(g_s0 > NEG_INF / 2, g_r0, cap)
@@ -1486,7 +1487,8 @@ def _search_fused_ivf_scan(state: ArenaState, shadow, centroids, members,
                            extras, csr_indptr, csr_nbr, q, q_valid, tenant,
                            gate_on, boost_on, super_gate, k: int, nprobe: int,
                            slack: int, cap_take: int, max_nbr: int, k_q=None,
-                           cap_q=None, nprobe_q=None, read_only: bool = False):
+                           cap_q=None, nprobe_q=None, read_only: bool = False,
+                           occ=None, n_extras=None):
     """The IVF compute phase (``state.py:_search_fused_ivf_scan``,
     ``sem=None``): the two-tier core, the ragged tail (``k_q`` / ``cap_q``
     / ``nprobe_q`` make ``k``, ``cap_take`` and ``nprobe`` ceilings), then
@@ -1494,7 +1496,7 @@ def _search_fused_ivf_scan(state: ArenaState, shadow, centroids, members,
     dedup count last. The read twin stops after the verdict."""
     gate_s, gate_r, ann_s, ann_r, n_dup = _ivf_two_tier(
         state, shadow, centroids, members, extras, q, tenant, k, nprobe,
-        slack, nprobe_q=nprobe_q)
+        slack, nprobe_q=nprobe_q, occ=occ, n_extras=n_extras)
     if k_q is not None:
         ann_s, ann_r = ragged_mask(ann_s, ann_r, k_q, state.capacity)
     if read_only:
@@ -1508,33 +1510,36 @@ def _search_fused_ivf_scan(state: ArenaState, shadow, centroids, members,
 def search_fused_ivf(state: ArenaState, shadow, centroids, members, extras,
                      csr_indptr, csr_nbr, q, q_valid, tenant, gate_on,
                      boost_on, now, super_gate, acc_boost, nbr_boost, k: int,
-                     nprobe: int, slack: int, cap_take: int, max_nbr: int):
+                     nprobe: int, slack: int, cap_take: int, max_nbr: int,
+                     occ=None, n_extras=None):
     """:func:`search_fused` with the IVF coarse stage and candidate scan
     (``state.py:search_fused_ivf``): ``shadow`` None or the int8 shadow's
     ``(codes, scales)``, ``centroids [C, d]`` f32, ``members [C, M]`` and
     ``extras [E]`` i32 (the tables are read, never written; the boosts
-    write salience, access counts and freshness). One dispatch, one packed
-    readback whose ``dedup`` counter is the IVF dedup's. Returns ``(state,
-    packed)``."""
+    write salience, access counts and freshness), and the tables'
+    occupancy ``occ [C]`` and ``n_extras`` (K5's contract; None walks every
+    slot). One dispatch, one packed readback whose ``dedup`` counter is the
+    IVF dedup's. Returns ``(state, packed)``."""
     sg = _scalar(super_gate, state.emb.device)
     res, n_dup = _search_fused_ivf_scan(
         state, shadow, centroids, members, extras, csr_indptr, csr_nbr, q,
         q_valid, tenant, gate_on, boost_on, sg, k, nprobe, slack, cap_take,
-        max_nbr)
+        max_nbr, occ=occ, n_extras=n_extras)
     return _sem_finish(state, res, now, acc_boost, nbr_boost, dup=n_dup)
 
 
 def search_fused_ivf_read(state: ArenaState, shadow, centroids, members,
                           extras, csr_indptr, csr_nbr, q, q_valid, tenant,
                           gate_on, super_gate, k: int, nprobe: int, slack: int,
-                          cap_take: int, max_nbr: int) -> torch.Tensor:
+                          cap_take: int, max_nbr: int, occ=None,
+                          n_extras=None) -> torch.Tensor:
     """Read-only twin of :func:`search_fused_ivf`
     (``state.py:search_fused_ivf_read``). Returns the packed array."""
     sg = _scalar(super_gate, state.emb.device)
     res, n_dup = _search_fused_ivf_scan(
         state, shadow, centroids, members, extras, csr_indptr, csr_nbr, q,
         q_valid, tenant, gate_on, None, sg, k, nprobe, slack, cap_take,
-        max_nbr, read_only=True)
+        max_nbr, read_only=True, occ=occ, n_extras=n_extras)
     return _sem_finish_read(res, dup=n_dup)
 
 
@@ -1543,7 +1548,7 @@ def search_fused_ivf_ragged(state: ArenaState, shadow, centroids, members,
                             gate_on, boost_on, k_q, cap_q, nprobe_q, now,
                             super_gate, acc_boost, nbr_boost, k: int,
                             nprobe: int, slack: int, cap_take: int,
-                            max_nbr: int):
+                            max_nbr: int, occ=None, n_extras=None):
     """:func:`search_fused_ivf` with the per-query ``k_q`` / ``cap_q`` /
     ``nprobe_q`` sidecars (``state.py:search_fused_ivf_ragged``): the scan
     visits the ceiling ``nprobe`` clusters and each query masks the members
@@ -1553,7 +1558,8 @@ def search_fused_ivf_ragged(state: ArenaState, shadow, centroids, members,
     res, n_dup = _search_fused_ivf_scan(
         state, shadow, centroids, members, extras, csr_indptr, csr_nbr, q,
         q_valid, tenant, gate_on, boost_on, sg, k, nprobe, slack, cap_take,
-        max_nbr, k_q=k_q, cap_q=cap_q, nprobe_q=nprobe_q)
+        max_nbr, k_q=k_q, cap_q=cap_q, nprobe_q=nprobe_q, occ=occ,
+        n_extras=n_extras)
     return _sem_finish(state, res, now, acc_boost, nbr_boost, dup=n_dup)
 
 
@@ -1561,13 +1567,15 @@ def search_fused_ivf_ragged_read(state: ArenaState, shadow, centroids,
                                  members, extras, csr_indptr, csr_nbr, q,
                                  q_valid, tenant, gate_on, k_q, nprobe_q,
                                  super_gate, k: int, nprobe: int, slack: int,
-                                 cap_take: int, max_nbr: int) -> torch.Tensor:
+                                 cap_take: int, max_nbr: int, occ=None,
+                                 n_extras=None) -> torch.Tensor:
     """Read-only ragged twin (``state.py:search_fused_ivf_ragged_read``)."""
     sg = _scalar(super_gate, state.emb.device)
     res, n_dup = _search_fused_ivf_scan(
         state, shadow, centroids, members, extras, csr_indptr, csr_nbr, q,
         q_valid, tenant, gate_on, None, sg, k, nprobe, slack, cap_take,
-        max_nbr, k_q=k_q, nprobe_q=nprobe_q, read_only=True)
+        max_nbr, k_q=k_q, nprobe_q=nprobe_q, read_only=True, occ=occ,
+        n_extras=n_extras)
     return _sem_finish_read(res, dup=n_dup)
 
 

@@ -204,6 +204,13 @@ def gather_candidates(centroids: torch.Tensor, members: torch.Tensor,
     return cand, safe, (cand >= 0) & mask[safe.long()]
 
 
+def packed_len(extras: np.ndarray) -> int:
+    """The occupied prefix of a host extras array: every entry from it on
+    is -1 (``ops.ivf_topk``'s ``n_extras``)."""
+    rows = np.flatnonzero(np.asarray(extras) >= 0)
+    return int(rows[-1]) + 1 if len(rows) else 0
+
+
 def pack_extras(residual: np.ndarray, fresh_rows, super_rows) -> np.ndarray:
     """The exact-scan row set of fused serving (``ops/ivf.py:pack_extras``):
     the sealed residual, the fresh rows and every super row, -1-padded to
@@ -221,19 +228,21 @@ def pack_extras(residual: np.ndarray, fresh_rows, super_rows) -> np.ndarray:
 
 def ivf_search(centroids: torch.Tensor, members: torch.Tensor,
                residual: torch.Tensor, emb: torch.Tensor, mask: torch.Tensor,
-               queries: torch.Tensor, k: int, nprobe: int = 8
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
+               queries: torch.Tensor, k: int, nprobe: int = 8, occ=None,
+               n_extras=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Coarse (centroid) to fine (member scan) masked top-k
     (``ops/ivf.py:ivf_search``): the queries normalized in f32, their
     ``nprobe`` nearest clusters, then K5's classic form over the members
     and the residual with the ``[N]`` mask, the f32 query against the rows
-    widened to f32. Returns ``(scores [Q, k] f32, rows [Q, k] i32)``; a
-    position past the valid candidates carries its slot's row at
+    widened to f32; ``occ`` and ``n_extras`` bound the tables' occupied
+    slots (``ops.ivf_topk``). Returns ``(scores [Q, k] f32, rows [Q, k]
+    i32)``; a position past the valid candidates carries its slot's row at
     ``NEG_INF``."""
     q = queries.float()
     q = q / torch.clamp(torch.linalg.vector_norm(q, dim=-1, keepdim=True),
                         min=1e-9)
     nprobe = min(nprobe, centroids.shape[0])
     cids = coarse_clusters(centroids, q, nprobe)
-    s, _, rows, *_ = ivf_topk(emb, members, residual, cids, q, k, mask=mask)
+    s, _, rows, *_ = ivf_topk(emb, members, residual, cids, q, k, mask=mask,
+                              occ=occ, n_extras=n_extras)
     return s, rows

@@ -27,14 +27,23 @@ with fewer valid candidates than its length fills with the lowest other
 positions, carrying whatever the candidate slot holds (-1 padding or
 another tenant's row). Every form returns the positions and the rows.
 
-The kernel is the gather mode of the templated scan (``csrc/ivf_topk.cu``
-in ``csrc/topk_scan.cuh``; CUDA C++ for ``sm_90a``, built with ``nvcc`` on
-first use and bound through ``ctypes``): a block of 8 warps per (split of
-L, query) reads the member table through the query's cluster ids, loads a
-row only for a valid slot, and keeps its split's lists; the int8 mode's
-stage 2 selects each list across the splits. No ``[Q, L]`` or ``[Q, L,
-d]`` tensor is written. A CUDA tensor launches the kernel; only a CPU
-tensor runs :func:`ivf_topk_reference`. ``launches`` counts the kernel's
+Occupancy: ``occ [C]`` (i32) and ``n_extras`` say where the tables' rows
+end: every member slot at or past ``occ[c]`` and every extra at or past
+``n_extras`` holds -1 (:func:`check_occupancy`). The callers pass the live
+tables' append cursor or the build's ``online_counts`` and the extras'
+packed length; without them the whole table is walked. The result does
+not depend on them.
+
+The kernel (``csrc/ivf_topk.cu``; CUDA C++ for ``sm_90a``, built with
+``nvcc`` on first use and bound through ``ctypes``) walks only the occupied
+slots of each query's probed clusters and the occupied extras: stage 1, a
+block of 8 warps per (split of those positions, query), reads the member
+table through the query's cluster ids, loads a row only for a valid slot
+into a ``cp.async`` ring and keeps its split's lists; stage 2 merges each
+list across the splits, adds the fill positions and writes scores,
+positions and rows (2 launches a pass). No ``[Q, L]`` or ``[Q, L, d]``
+tensor is written. A CUDA tensor launches the kernel; only a CPU tensor
+runs :func:`ivf_topk_reference`. ``launches`` counts the kernel's
 launches (``launches_int8`` and ``launches_classic`` those of two forms),
 ``stage_launches`` the CUDA kernels as the C entry point reports them.
 """
@@ -76,10 +85,10 @@ def _library():
     if _lib is None:
         lib = cuda_build.load("ivf_topk")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.ivf_topk_plan.argtypes = [i32, i32, i32, ptr]
-        lib.ivf_topk_plan.restype = None
-        lib.ivf_topk.argtypes = ([i32, ptr, i32] + [ptr] * 13 + [i32] * 11
-                                 + [ptr] * 10)
+        lib.ivf_topk_plan.argtypes = [ctypes.c_longlong, i32, i32, i32]
+        lib.ivf_topk_plan.restype = i32
+        lib.ivf_topk.argtypes = ([i32, ptr, i32] + [ptr] * 14 + [i32] * 12
+                                 + [ptr] * 12)
         lib.ivf_topk.restype = i32
         _lib = lib
     return _lib
@@ -117,7 +126,7 @@ def ivf_candidates(members: torch.Tensor, extras: torch.Tensor,
 
 def lane_dot(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """``(x * q).sum(-1)`` in f32, summed in the kernel's order
-    (``csrc/topk_scan.cuh:gv_dots``), so that the two agree to the bit on
+    (``csrc/ivf_topk.cu:gv_stage1``), so that the two agree to the bit on
     any data: lane ``l`` of a warp adds the products of its 8-element chunks
     ``l, l + 32, ...`` one after another in column order, each product
     rounded to f32 before it is added; then a butterfly halves the 32 lane
@@ -137,15 +146,37 @@ def lane_dot(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return acc[..., 0]
 
 
+def check_occupancy(members: torch.Tensor, extras: torch.Tensor, occ=None,
+                    n_extras=None) -> None:
+    """Raise ``ValueError`` unless every member slot at or past its
+    cluster's ``occ`` and every extra at or past ``n_extras`` holds -1 (the
+    contract of :func:`ivf_topk`'s occupancy; None checks nothing)."""
+    if occ is not None:
+        if tuple(occ.shape) != (members.shape[0],):
+            raise ValueError("ivf_topk: occ must be [C]")
+        slot = torch.arange(members.shape[1], device=members.device)
+        past = slot[None, :] >= occ.to(members.device).long()[:, None]
+        if bool((past & (members >= 0)).any()):
+            raise ValueError("ivf_topk: a member slot at or past its cluster's "
+                             "occupancy holds a row")
+    if n_extras is not None:
+        if not 0 <= n_extras <= extras.shape[0]:
+            raise ValueError("ivf_topk: n_extras must be in [0, E]")
+        if bool((extras[n_extras:] >= 0).any()):
+            raise ValueError("ivf_topk: an extra at or past n_extras holds a row")
+
+
 def ivf_topk_reference(rows, members: torch.Tensor, extras: torch.Tensor,
                        cids: torch.Tensor, queries: torch.Tensor, k: int, *,
                        g: int = 0, cols=None, q_tenant=None, mask=None,
-                       nprobe_q=None):
+                       nprobe_q=None, occ=None, n_extras=None):
     """Plain version of :func:`ivf_topk`, ``IVF_SERVE_CHUNK`` queries at a
     time: the candidates gathered, scored (f32 sums in the kernel's order,
     :func:`lane_dot`; the int8 form's int32 dot exact), masked per list and
-    cut by :func:`stable_topk`."""
+    cut by :func:`stable_topk`. It reads every slot; ``occ`` and
+    ``n_extras`` are only checked (:func:`check_occupancy`)."""
     form = form_of(rows, cols, mask)
+    check_occupancy(members, extras, occ, n_extras)
     nq = cids.shape[0]
     m_w = members.shape[1]
     pm = cids.shape[1] * m_w
@@ -193,7 +224,7 @@ def ivf_topk_reference(rows, members: torch.Tensor, extras: torch.Tensor,
 
 
 def _launch(form, rows, members, extras, cids, queries, k, g, cols, q_tenant,
-            mask, nprobe_q):
+            mask, nprobe_q, occ, n_extras):
     global launches, launches_int8, launches_classic, stage_launches
     dev = members.device
     if form == "int8":
@@ -218,9 +249,16 @@ def _launch(form, rows, members, extras, cids, queries, k, g, cols, q_tenant,
     extras = extras.to(device=dev, dtype=torch.int32).contiguous()
     cids = cids.to(device=dev, dtype=torch.int32).contiguous()
     nq, p = cids.shape
-    _, m_w = members.shape
+    n_c, m_w = members.shape
     e = extras.shape[0]
     length = p * m_w + e
+    e_live = e if n_extras is None else int(n_extras)
+    if not 0 <= e_live <= e:
+        raise ValueError("ivf_topk: n_extras must be in [0, E]")
+    if occ is not None:
+        occ = occ.to(device=dev, dtype=torch.int32).contiguous()
+        if occ.shape != (n_c,):
+            raise ValueError("ivf_topk: occ must be [C]")
     if queries.shape != (nq, d):
         raise ValueError("ivf_topk: queries [Q, d] must match cids and rows")
     if not (1 <= k <= length and 0 <= g <= length):
@@ -243,12 +281,16 @@ def _launch(form, rows, members, extras, cids, queries, k, g, cols, q_tenant,
         if msk.shape != (n,):
             raise ValueError("ivf_topk: mask must be [N]")
     lib = _library()
-    plan = (ctypes.c_int * 2)()
-    lib.ivf_topk_plan(length, nq, _sms(dev), plan)
-    splits, span = plan[0], plan[1]
     kc, gc = min(k, PASS_K), min(g, PASS_K)
+    # The splits are planned from the tables' shape (a build fills a
+    # cluster's slots to about a quarter); the blocks share the occupied
+    # positions the card counts, so any plan is correct.
+    work = (p * m_w if occ is None else p * m_w // 4) + e_live
+    splits = lib.ivf_topk_plan(work, nq, _sms(dev), max(kc, gc))
     cand = torch.empty((splits, nq, kc), dtype=torch.int64, device=dev)
+    candr = torch.empty((splits, nq, kc), dtype=torch.int32, device=dev)
     gcand = torch.empty((splits, nq, max(gc, 1)), dtype=torch.int64, device=dev)
+    gcandr = torch.empty((splits, nq, max(gc, 1)), dtype=torch.int32, device=dev)
     out_s = torch.empty((nq, k), dtype=torch.float32, device=dev)
     out_p = torch.empty((nq, k), dtype=torch.int32, device=dev)
     out_r = torch.empty((nq, k), dtype=torch.int32, device=dev)
@@ -262,10 +304,11 @@ def _launch(form, rows, members, extras, cids, queries, k, g, cols, q_tenant,
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.ivf_topk(
             FORMS[form], arena.data_ptr(), bf16, ptr(scale), members.data_ptr(),
-            extras.data_ptr(), cids.data_ptr(), ptr(alive), ptr(row_tenant),
-            ptr(is_super), ptr(msk), ptr(qry), ptr(qq), ptr(qs), ptr(q_ten),
-            ptr(npq), d, nq, m_w, p, e, k, g, splits, span, kc, gc,
-            cand.data_ptr(), gcand.data_ptr(), out_s.data_ptr(), out_p.data_ptr(),
+            extras.data_ptr(), cids.data_ptr(), ptr(occ), ptr(alive),
+            ptr(row_tenant), ptr(is_super), ptr(msk), ptr(qry), ptr(qq), ptr(qs),
+            ptr(q_ten), ptr(npq), d, nq, n_c, m_w, p, e, e_live, k, g, splits,
+            kc, gc, cand.data_ptr(), candr.data_ptr(), gcand.data_ptr(),
+            gcandr.data_ptr(), out_s.data_ptr(), out_p.data_ptr(),
             out_r.data_ptr(), gout_s.data_ptr(), gout_p.data_ptr(),
             gout_r.data_ptr(), ctypes.byref(launched), stream)
     stage_launches += launched.value
@@ -282,8 +325,8 @@ def _launch(form, rows, members, extras, cids, queries, k, g, cols, q_tenant,
 
 def ivf_topk(rows, members: torch.Tensor, extras: torch.Tensor,
              cids: torch.Tensor, queries: torch.Tensor, k: int, *, g: int = 0,
-             cols=None, q_tenant=None, mask=None, nprobe_q=None
-             ) -> Tuple[torch.Tensor, ...]:
+             cols=None, q_tenant=None, mask=None, nprobe_q=None, occ=None,
+             n_extras=None) -> Tuple[torch.Tensor, ...]:
     """The IVF candidate scan. ``rows``: the arena ``[N, d]`` (f32 or bf16),
     or ``(codes [N, d] i8, scale [N] f32)`` for the int8 form; ``members
     [C, M]``, ``extras [E]`` and ``cids [Q, P]`` (i32, -1 padded; ``cids``
@@ -291,16 +334,18 @@ def ivf_topk(rows, members: torch.Tensor, extras: torch.Tensor,
     exact forms) or the normalized queries to quantize (int8). Keyed forms
     take ``cols = (alive, tenant_id, is_super)``, ``q_tenant [Q]``, ``g``
     (the gate list's length) and optionally ``nprobe_q [Q]``; the classic
-    form takes ``mask [N]`` bool. Returns ``(ann_s, ann_pos, ann_rows,
+    form takes ``mask [N]`` bool. ``occ [C]`` (i32, on the tables' device)
+    and ``n_extras`` (an int) bound the occupied slots (see the module's
+    note; None walks them all). Returns ``(ann_s, ann_pos, ann_rows,
     gate_s, gate_pos, gate_rows)``, ``[Q, k]`` and ``[Q, g]`` (scores f32,
     positions and rows i32; the gate three None in the classic form)."""
     form = form_of(rows, cols, mask)
     if members.device.type == "cuda":
         return _launch(form, rows, members, extras, cids, queries, k, g, cols,
-                       q_tenant, mask, nprobe_q)
+                       q_tenant, mask, nprobe_q, occ, n_extras)
     if members.device.type == "cpu":
         return ivf_topk_reference(rows, members, extras, cids, queries, k, g=g,
                                   cols=cols, q_tenant=q_tenant, mask=mask,
-                                  nprobe_q=nprobe_q)
+                                  nprobe_q=nprobe_q, occ=occ, n_extras=n_extras)
     raise ValueError(f"ivf_topk: unsupported device {members.device}")
 

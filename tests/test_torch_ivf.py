@@ -368,21 +368,23 @@ def test_ivf_duplicate_rows_do_not_shorten_results():
 def test_residual_cache_keyed_on_residual_buffer_identity():
     idx, emb = _built_index(seed=23)
     ivf, fresh = idx._ivf_pack
-    dev0 = idx._ivf_residual_dev(ivf, fresh)
-    assert idx._ivf_residual_dev(ivf, fresh) is dev0
+    dev0, _ = idx._ivf_residual_dev(ivf, fresh)
+    assert idx._ivf_residual_dev(ivf, fresh)[0] is dev0
     new_res = np.full(tuple(ivf.residual.shape), -1, np.int32)
     new_res[0] = idx.id_to_row["m3"]
     ivf.residual = torch.from_numpy(new_res.copy())
-    dev1 = idx._ivf_residual_dev(ivf, fresh)
+    dev1, n1 = idx._ivf_residual_dev(ivf, fresh)
     assert dev1 is not dev0
     assert idx.id_to_row["m3"] in dev1.tolist()
-    dev2 = idx._ivf_extras_dev(ivf, fresh)
-    assert idx._ivf_extras_dev(ivf, fresh) is dev2
+    assert n1 == TI.packed_len(dev1.numpy())
+    dev2, _ = idx._ivf_extras_dev(ivf, fresh)
+    assert idx._ivf_extras_dev(ivf, fresh)[0] is dev2
     new_res[1] = idx.id_to_row["m4"]
     ivf.residual = torch.from_numpy(new_res.copy())
-    dev3 = idx._ivf_extras_dev(ivf, fresh)
+    dev3, n3 = idx._ivf_extras_dev(ivf, fresh)
     assert dev3 is not dev2
     assert idx.id_to_row["m4"] in dev3.tolist()
+    assert n3 == TI.packed_len(dev3.numpy())
 
 
 # ------------------------------------------------------------ parity traps
@@ -425,10 +427,11 @@ def _grid(rng, shape):
 
 
 def _jax_candidate_lists(emb, alive, tenant, sup, members, extras, cids,
-                         qd, q_ten, kf, g):
+                         qd, q_ten, kf, g, npq=None):
     """The exact form of ``_ivf_two_tier``'s candidate stage in JAX:
-    ``gather_rows`` from given cluster ids, the tenant mask, the einsum,
-    and the two ``lax.top_k`` calls with their positions and rows."""
+    ``gather_rows`` from given cluster ids, the tenant mask (and the ranks
+    ``npq`` probes), the einsum, and the two ``lax.top_k`` calls with their
+    positions and rows."""
     import jax
 
     nq = cids.shape[0]
@@ -438,6 +441,11 @@ def _jax_candidate_lists(emb, alive, tenant, sup, members, extras, cids,
     safe = jnp.maximum(cand, 0)
     valid = ((cand >= 0) & jnp.asarray(alive)[safe]
              & (jnp.asarray(tenant)[safe] == jnp.asarray(q_ten)[:, None]))
+    if npq is not None:
+        pos = jnp.arange(cand.shape[1])
+        valid = valid & ((pos >= cids.shape[1] * members.shape[1])[None, :]
+                         | ((pos // members.shape[1])[None, :]
+                            < jnp.asarray(npq)[:, None]))
     s = jnp.asarray(sup)[safe]
     sc = jnp.einsum("cd,cld->cl", jnp.asarray(qd), jnp.asarray(emb)[safe],
                     preferred_element_type=jnp.float32)
@@ -492,8 +500,119 @@ def test_candidate_ties_and_fill_follow_position_not_row():
     assert fill[2:].any() and (want[2][fill] == -1).any()
 
 
+def _sparse_tables(cols, seed):
+    """Eight clusters of 64 slots as K5's callers hold them: dense
+    prefixes of 0 (cluster 3) to 64 live rows, -1 after; the occupancy; the
+    extras a packed prefix of rows and every super row; unit centroids."""
+    rng = np.random.default_rng(seed)
+    live = rng.permutation(np.nonzero(cols["alive"])[0])
+    occ = np.array([40, 9, 64, 0, 23, 1, 50, 12], np.int32)
+    members = np.full((8, 64), -1, np.int32)
+    at = 0
+    for c, o in enumerate(occ):
+        members[c, :o] = live[at:at + o]
+        at += o
+    supers = np.nonzero(cols["is_super"] & cols["alive"])[0]
+    extras = TI.pack_extras(np.full((8,), -1, np.int32),
+                            live[at:at + 20].tolist() + [100, 700],
+                            supers.tolist())
+    cent = rng.standard_normal((8, cols["emb"].shape[1])).astype(np.float32)
+    cent /= np.linalg.norm(cent, axis=1, keepdims=True)
+    return cent, members, occ, extras
+
+
+def test_occupancy_contract_raises_in_the_plain_version():
+    """A table whose rows run past its occupancy (a row in an empty
+    cluster, a row past the extras' packed length) is refused; the same
+    table with its true occupancy gives the same lists as with none."""
+    from tests.test_torch_fused_serving import arena
+
+    cols = arena(3)
+    cent, members, occ, extras = _sparse_tables(cols, 3)
+    n_ex = TI.packed_len(extras)
+    emb = torch.from_numpy(cols["emb"])
+    args = (emb, torch.from_numpy(members), torch.from_numpy(extras),
+            torch.tensor([[3, 0, 2]], dtype=torch.int32), emb[:1], 10)
+    mask = torch.from_numpy(cols["alive"])
+    full = K5.ivf_topk_reference(*args, mask=mask)
+    bounded = K5.ivf_topk_reference(*args, mask=mask,
+                                    occ=torch.from_numpy(occ), n_extras=n_ex)
+    for a, b in zip(full[:3], bounded[:3]):
+        assert torch.equal(a, b)
+    bad = members.copy()
+    bad[3, 0] = 5
+    with pytest.raises(ValueError):
+        K5.ivf_topk_reference(emb, torch.from_numpy(bad), *args[2:], mask=mask,
+                              occ=torch.from_numpy(occ))
+    with pytest.raises(ValueError):
+        K5.ivf_topk(*args, mask=mask, occ=torch.from_numpy(occ),
+                    n_extras=n_ex - 1)
+
+
+def test_two_tier_fill_over_skipped_slots_matches_jax():
+    """The port's ``_ivf_two_tier`` with the tables' occupancy against JAX's
+    (``lazzaro_tpu/core/state.py:_ivf_two_tier``) where the kernel skips
+    slots: every cluster probed, one of them empty, sparse prefixes,
+    per-query ``nprobe_q`` leaving ranks unprobed, and tenant 3 holding
+    fewer valid candidates than k + slack, so its lists fill by position
+    through the skipped slots. Rows, gate verdicts and ``n_dup`` equal,
+    scores within 1e-6; K5's positions equal JAX's ``lax.top_k``'s."""
+    from lazzaro_tpu.core import state as JS
+    from lazzaro_tpu_torch.core import state as TS
+    from tests.test_torch_fused_serving import arena
+
+    cols = arena(5)
+    cent, members, occ, extras = _sparse_tables(cols, 5)
+    n = len(cols["alive"])
+    rng = np.random.default_rng(6)
+    q = cols["emb"][rng.integers(0, n, 8)] + 0.1 * rng.standard_normal(
+        (8, cols["emb"].shape[1])).astype(np.float32)
+    q = q.astype(np.float32)
+    tenant = np.array([3, 3, 0, 1, 3, 2, 0, 1], np.int32)
+    npq = np.array([8, 2, 8, 3, 1, 8, 5, 8], np.int32)
+    k, slack, nprobe = 32, 8, 8
+    jstate = JS.ArenaState(**{c: jnp.asarray(v) for c, v in cols.items()})
+    tstate = TS.arena_from_numpy(cols, "cpu")
+    want = JS._ivf_two_tier(jstate, None, jnp.asarray(cent),
+                            jnp.asarray(members), jnp.asarray(extras),
+                            jnp.asarray(q), jnp.asarray(tenant), k, nprobe,
+                            slack, nprobe_c=jnp.asarray(npq))
+    got = TS._ivf_two_tier(tstate, None, torch.from_numpy(cent),
+                           torch.from_numpy(members), torch.from_numpy(extras),
+                           torch.from_numpy(q), torch.from_numpy(tenant), k,
+                           nprobe, slack, nprobe_q=torch.from_numpy(npq),
+                           occ=torch.from_numpy(occ),
+                           n_extras=TI.packed_len(extras))
+    (jg_s, jg_r, ja_s, ja_r, jdup) = (np.asarray(x) for x in want)
+    (tg_s, tg_r, ta_s, ta_r, tdup) = (x.numpy() for x in got)
+    np.testing.assert_array_equal(ta_r, ja_r)
+    np.testing.assert_array_equal(tg_r, jg_r)
+    np.testing.assert_array_equal(tdup, jdup)
+    np.testing.assert_array_equal(tg_s > 0.4, jg_s > 0.4)
+    np.testing.assert_allclose(ta_s, ja_s, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(tg_s, jg_s, rtol=0, atol=1e-6)
+    assert (ja_s[tenant == 3] <= -1e29).any(axis=1).all()   # they fill
+    # K5's positions: the candidate stage of the same call
+    qn = q / np.linalg.norm(q, axis=1, keepdims=True)
+    cids = TI.coarse_clusters(torch.from_numpy(cent), torch.from_numpy(qn),
+                              nprobe)
+    assert int(occ[3]) == 0 and (cids.numpy() == 3).any(axis=1).all()
+    jl = _jax_candidate_lists(cols["emb"], cols["alive"], cols["tenant_id"],
+                              cols["is_super"], members, extras, cids.numpy(),
+                              qn, tenant, k + slack, 1, npq)
+    tl = K5.ivf_topk(torch.from_numpy(cols["emb"]), torch.from_numpy(members),
+                     torch.from_numpy(extras), cids, torch.from_numpy(qn),
+                     k + slack, g=1,
+                     cols=(tstate.alive, tstate.tenant_id, tstate.is_super),
+                     q_tenant=torch.from_numpy(tenant),
+                     nprobe_q=torch.from_numpy(npq), occ=torch.from_numpy(occ),
+                     n_extras=TI.packed_len(extras))
+    for i in (1, 2, 4, 5):                              # positions and rows
+        np.testing.assert_array_equal(tl[i].numpy(), jl[i])
+
+
 def _kernel_order_dot(x, q):
-    """K5's sum of one pair (``csrc/topk_scan.cuh:gv_dots``), scalar by
+    """K5's sum of one pair (``csrc/ivf_topk.cu:gv_stage1``), scalar by
     scalar in f32: lane ``c % 32`` adds chunk ``c``'s 8 products, each
     rounded before it is added, in column order; then the butterfly."""
     acc = np.zeros(32, np.float32)

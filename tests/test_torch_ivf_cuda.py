@@ -170,6 +170,153 @@ def test_a_tenant_with_few_candidates_fills_by_position(cuda):
     assert (got[0][0, 2:] == -1e30).all()
 
 
+def sparse_fixture(cuda, dtype, nq, d, seed, values=gauss):
+    """Tables as K5's callers pass them, with their occupancy: of 64
+    clusters of 256 slots, every fourth empty (occ 0), every fourth full
+    (occ = M), the rest a sparse prefix of 1 to 64 rows; each query probes 8
+    of them, every kind among them, and ``nprobe_q`` leaves ranks unprobed;
+    the extras a packed prefix (``n_extras``) of member rows again and every
+    super row."""
+    emb, cols, members, extras, cids, q, q_ten, npq = fixture(
+        cuda, dtype, 20_000, d, 64, 256, 64, 8, nq, seed, values=values)
+    gen = torch.Generator(device=cuda).manual_seed(seed + 1)
+    c, m = members.shape
+    kind = torch.arange(c, device=cuda) % 4
+    occ = torch.where(kind == 0, 0, torch.where(
+        kind == 1, m, torch.randint(1, 65, (c,), generator=gen, device=cuda)))
+    perm = torch.randperm(20_000, generator=gen, device=cuda).int()
+    slots = torch.arange(m, device=cuda)[None, :]
+    members = torch.where(slots < occ[:, None],
+                          perm[:c * m].reshape(c, m), -1).int().contiguous()
+    occ = occ.int()
+    n_extras = int((extras >= 0).sum())
+    cids = torch.stack([torch.cat([torch.tensor([4 * i % c, 4 * i % c + 1],
+                                                device=cuda),
+                                   torch.randperm(c, generator=gen,
+                                                  device=cuda)[:6]])
+                        for i in range(nq)]).int()
+    # (a cluster may come twice in a query's list: the scan takes it twice)
+    return emb, cols, members, extras, cids, q, q_ten, npq, occ, n_extras
+
+
+def run_both(rows, members, extras, cids, qv, k, **kw):
+    """The kernel and the plain version on one input; the launches and the
+    card's kernels a call."""
+    before = (K5.launches, K5.stage_launches)
+    got = K5.ivf_topk(rows, members, extras, cids, qv, k, **kw)
+    want = K5.ivf_topk_reference(rows, members, extras, cids, qv, k, **kw)
+    torch.cuda.synchronize()
+    equal(got, want)
+    return K5.launches - before[0], K5.stage_launches - before[1], got
+
+
+@pytest.mark.parametrize("nq", [1, 8, 64])
+@pytest.mark.parametrize("form,dtype", [("exact", torch.bfloat16),
+                                        ("exact", torch.float32),
+                                        ("int8", torch.float32),
+                                        ("classic", torch.bfloat16),
+                                        ("classic", torch.float32)])
+def test_occupied_walk_matches_plain_version(cuda, form, dtype, nq):
+    """The walk over the occupied slots only (sparse, full and empty
+    clusters among the probed, unprobed ranks, packed extras) gives the
+    plain version's scores, positions and rows to the bit, in one pass of
+    two card launches."""
+    emb, cols, members, extras, cids, q, q_ten, npq, occ, n_ex = \
+        sparse_fixture(cuda, dtype, nq, 768, 31 * nq + len(form))
+    occ_kw = dict(occ=occ, n_extras=n_ex)
+    if form == "classic":
+        launched, stages, _ = run_both(emb, members, extras, cids, q.float(),
+                                       18, mask=cols[0] & (cols[1] == 1),
+                                       **occ_kw)
+    elif form == "int8":
+        qn = q / torch.linalg.vector_norm(q, dim=1, keepdim=True)
+        launched, stages, _ = run_both(quantize_rows(emb), members, extras,
+                                       cids, qn, 136, g=9, cols=cols,
+                                       q_tenant=q_ten, nprobe_q=npq, **occ_kw)
+    else:
+        launched, stages, _ = run_both(emb, members, extras, cids, q.float(),
+                                       136, g=1, cols=cols, q_tenant=q_ten,
+                                       nprobe_q=npq, **occ_kw)
+    assert (launched, stages) == (1, 2)
+
+
+@pytest.mark.parametrize("d", [64, 100])
+def test_int8_occupied_walk_at_narrow_widths(cuda, d):
+    """The int8 form's ring at a width of 16-byte chunks (64) and one whose
+    last chunk is partial (100, 4-byte copies with the tail zero-filled)."""
+    emb, cols, members, extras, cids, q, q_ten, npq, occ, n_ex = \
+        sparse_fixture(cuda, torch.float32, 8, d, d)
+    qn = q / torch.linalg.vector_norm(q, dim=1, keepdim=True)
+    run_both(quantize_rows(emb), members, extras, cids, qn, 136, g=9,
+             cols=cols, q_tenant=q_ten, nprobe_q=npq, occ=occ, n_extras=n_ex)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fill_runs_past_the_occupied_prefix(cuda, dtype):
+    """Every query probes a cluster of 5 occupied slots first, two of them
+    its tenant's rows, and k = 40, g = 3: the fill is the lowest other
+    positions, which run through that cluster's other occupied slots
+    (other tenants' rows, never scored) into the tail the walk skips
+    (rows -1): positions and rows from the positions alone."""
+    emb, cols, members, extras, cids, q, q_ten, npq, occ, n_ex = \
+        sparse_fixture(cuda, dtype, 4, 64, 5)
+    alive, tenant, sup = cols
+    used = torch.zeros(emb.shape[0], dtype=torch.bool, device=cuda)
+    used[members[members >= 0].long()] = True
+    used[extras[extras >= 0].long()] = True
+    members[2] = -1
+    members[2, :5] = torch.nonzero(~used).flatten()[:5].int()
+    occ[2] = 5
+    cids[:, 0] = 2
+    tenant = torch.full_like(tenant, 2)
+    mine = members[2, :2].long()
+    tenant[mine] = 7
+    alive = alive.clone()
+    alive[mine] = True
+    q_ten = torch.full_like(q_ten, 7)
+    kw = dict(g=3, cols=(alive, tenant, torch.zeros_like(sup)), q_tenant=q_ten,
+              occ=occ, n_extras=n_ex)
+    _, _, got = run_both(emb, members, extras, cids, q.float(), 40, **kw)
+    ann_s, ann_p, ann_r, _, gate_p, gate_r = got
+    assert (ann_s[:, 2:] == -1e30).all()
+    assert (ann_p[:, 2:] == torch.arange(2, 40, device=cuda)).all()
+    assert (ann_r[:, 2:5] == members[2, 2:5]).all()
+    assert (ann_r[:, 5:] == -1).all()
+    assert (gate_p == torch.arange(3, device=cuda)).all()
+    assert (gate_r == members[2, :3]).all()
+
+
+@pytest.mark.parametrize("form", ["exact", "classic"])
+@pytest.mark.parametrize("k", [300, 700])
+def test_lists_past_a_pass_with_the_walk(cuda, form, k):
+    """Lists longer than a pass (256) run in passes of two card launches
+    each; a later pass admits only keys after the last one, the fill's
+    positions too, with the skipped tails and unprobed ranks among them."""
+    emb, cols, members, extras, cids, q, q_ten, npq, occ, n_ex = \
+        sparse_fixture(cuda, torch.bfloat16, 5, 64, k)
+    if form == "classic":
+        kw = dict(mask=cols[0] & (cols[1] == 1))
+    else:
+        kw = dict(g=260, cols=cols, q_tenant=q_ten, nprobe_q=npq)
+    launched, stages, got = run_both(emb, members, extras, cids, q.float(), k,
+                                     occ=occ, n_extras=n_ex, **kw)
+    assert (launched, stages) == (1, 2 * -(-k // 256))
+    assert (got[0][:, -1] == -1e30).any()        # lists that run into the fill
+
+
+def test_occupancy_contract_is_checked_by_the_plain_version(cuda):
+    """A row past its cluster's occupancy breaks the contract the kernel
+    relies on: the plain version refuses it."""
+    emb, cols, members, extras, cids, q, q_ten, npq, occ, n_ex = \
+        sparse_fixture(cuda, torch.float32, 2, 64, 9)
+    bad = members.clone()
+    c = int(torch.nonzero(occ == 0)[0, 0])
+    bad[c, 3] = 5
+    with pytest.raises(ValueError):
+        K5.ivf_topk_reference(emb, bad, extras, cids, q.float(), 10,
+                              mask=cols[0], occ=occ, n_extras=n_ex)
+
+
 def test_refusals_raise(cuda):
     """The wrapper raises where the kernel takes no such scan: a width that
     is no multiple of 8 (exact) or 4 (int8), k past L."""

@@ -2,7 +2,10 @@
 programs with the live coarse tables (member appends, overflow, the
 mini-batch centroid step and the six readback leaves), and the seven
 single-device cases of ``tests/test_online_ivf.py``. The pod, mesh and
-tiering cases of that file wait for ROADMAP Queue 1 items 21 and 17.
+tiering cases of that file wait for ROADMAP Queue 1 items 21 and 17. Then
+the occupancy K5 is given (``ops.ivf_topk``'s contract) through a fresh
+build, overflowing appends, a repack and a rebuild, against JAX's
+``online_counts``.
 
 Tolerances: member tables, counts, assignments, member slots, overflow
 flags and the integer counters are equal (the drift counter, a rounded
@@ -21,7 +24,10 @@ from lazzaro_tpu.core import state as JS
 from lazzaro_tpu.ops import ivf as JI
 from lazzaro_tpu_torch.core import state as TS
 from lazzaro_tpu_torch.core.index import MemoryIndex
+from lazzaro_tpu_torch.ops import ivf as TI
+from lazzaro_tpu_torch.ops import ivf_topk as K5
 from lazzaro_tpu_torch.ops.ivf import assignment_staleness, build_ivf
+from lazzaro_tpu_torch.serve import RetrievalRequest
 from lazzaro_tpu_torch.utils.telemetry import Telemetry
 from tests.test_torch_fused_ingest import (CAP, ECAP, GATE, assert_columns,
                                            batch_arrays, both_states, pad)
@@ -289,3 +295,83 @@ def test_offline_mode_keeps_classic_rebuild_semantics():
     batch, _ = _clustered(40, centers=centers, seed=13)
     _ingest(idx, batch)
     assert len(idx._ivf_fresh) == 40
+
+
+def _scan_args(idx, monkeypatch):
+    """The occupancy every K5 call of the index's two IVF paths passes:
+    a classic search (``ops.ivf.ivf_search``) and a fused read batch
+    (``state._ivf_two_tier``), each run through the plain version, which
+    checks the contract."""
+    import lazzaro_tpu_torch.ops.ivf as ivf_mod
+
+    seen = []
+    for mod in (TS, ivf_mod):
+        real = mod.ivf_topk
+
+        def rec(*a, __real=real, **kw):
+            seen.append((a[1], kw["occ"], kw["n_extras"], a[2]))
+            return __real(*a, **kw)
+
+        monkeypatch.setattr(mod, "ivf_topk", rec)
+    q = idx.state.emb[:4].numpy()
+    idx.search_batch(q, "t0", k=5)
+    idx.search_fused_requests(
+        [RetrievalRequest(query=v, tenant="t0", k=5, nprobe=1 + i)
+         for i, v in enumerate(q)], cap_take=2, max_nbr=4, super_gate=0.4,
+        acc_boost=0.0, nbr_boost=0.0)
+    monkeypatch.undo()
+    assert len(seen) == 2
+    return seen
+
+
+def _assert_occupancy(idx, monkeypatch):
+    """K5's occupancy as the index passes it keeps the contract (every slot
+    at or past ``occ`` holds -1, every extra past ``n_extras`` too) and
+    equals JAX's ``online_counts`` of the member table it goes with."""
+    for members, occ, n_ex, extras in _scan_args(idx, monkeypatch):
+        K5.check_occupancy(members, extras, occ, n_ex)
+        want = np.asarray(JI.online_counts(jnp.asarray(members.numpy())))
+        np.testing.assert_array_equal(occ.numpy(), want)
+        assert n_ex == TI.packed_len(extras.numpy())
+    return members, occ
+
+
+@pytest.mark.parametrize("online", [True, False], ids=["online", "sealed"])
+def test_occupancy_of_a_fresh_build_matches_jax_counts(online, monkeypatch):
+    """A fresh build: the live tables' cursor (online) or the sealed
+    members' counts, computed once per build (the same tensor on every
+    call), as JAX's ``online_counts`` gives them."""
+    idx, _, _ = _seeded_index(online=online)
+    _, occ = _assert_occupancy(idx, monkeypatch)
+    assert idx._ivf_live_tables(idx._ivf)[2] is occ
+    assert int(occ.min()) < idx._ivf.members.shape[1]      # sparse clusters
+
+
+def test_occupancy_after_overflowing_appends_matches_jax_counts(monkeypatch):
+    """Online appends that overflow a cluster: the cursor stops at the
+    cluster's width, the spilled rows sit in the extras' packed prefix."""
+    idx, _, centers = _seeded_index(member_cap_factor=1)
+    batch = (np.tile(centers[0], (96, 1))
+             + 0.05 * np.random.default_rng(3).standard_normal((96, D))
+             ).astype(np.float32)
+    _, pending = _ingest(idx, batch)
+    assert (np.asarray(pending["ivf_host"][1]) < 0).any()     # spilled
+    _, occ = _assert_occupancy(idx, monkeypatch)
+    assert int(occ.max()) == idx._ivf_dev[1].shape[1]          # a full cluster
+
+
+def test_occupancy_after_repack_and_rebuild_matches_jax_counts(monkeypatch):
+    """After deletes and ``ivf_member_repack`` (holes moved behind the live
+    rows, cursors reset), then after a rebuild that the churn triggers."""
+    idx, _, centers = _seeded_index()
+    batch, _ = _clustered(64, centers=centers, seed=21)
+    _ingest(idx, batch)
+    idx.delete([f"n{i}" for i in range(0, SEED_N, 3)])
+    assert idx.ivf_member_repack(hole_frac=0.0)
+    _, occ = _assert_occupancy(idx, monkeypatch)
+    assert int(occ.sum()) == len(idx.id_to_row) - len(idx._ivf_fresh)
+    built = idx._ivf
+    idx._IVF_MIN_ROWS = 1
+    idx.delete([f"n{i}" for i in range(1, SEED_N, 3)])
+    assert idx.ivf_maintenance() and idx._ivf is not built
+    _assert_occupancy(idx, monkeypatch)
